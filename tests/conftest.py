@@ -12,3 +12,9 @@ except ImportError:  # property tests skip themselves via tests/_hyp.py
 if settings is not None:
     settings.register_profile("repro", deadline=None, max_examples=15)
     settings.load_profile("repro")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips itself on a host without one)"
+    )
