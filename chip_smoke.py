@@ -11,11 +11,13 @@ Phases (any failure exits non-zero and prints no result):
              off for the f32 checks;
 2. build   — compile the kernel library from ``src/repro_torch/kernels/csrc``
              with nvcc (``kernels/_build.py``);
-3. kernels — every kernel of the served path against its plain PyTorch
+3. kernels — every kernel of the served paths against its plain PyTorch
              version at the main path's shapes, bf16 (atol/rtol 2e-2) and f32
              (atol 2e-5, rtol 2e-4), plus edge cases (fully masked rows,
-             windows, MQA, D=128); CUDA-event times of kernel, plain version
-             and a PyTorch library call, beside the card's bound;
+             windows, MQA, D=128; int8 GEMMs at M = 1 and ragged shapes);
+             CUDA-event times of kernel, plain version and a PyTorch library
+             call, beside the card's bound; the int8 GEMMs' device time at
+             every served linear shape;
 4. serve   — full-width llama3.2-1b in bf16 (random weights from a seeded
              generator) serves 16 requests through the continuous-batching
              scheduler, then through ``policy="fixed"``: every request gets
@@ -26,7 +28,16 @@ Phases (any failure exits non-zero and prints no result):
              the plain versions on the same weights, and their first served
              tokens against greedy generation on the plain path;
 6. profile — torch.profiler over served decode steps: device busy share
-             and device time by kind (ported kernels, matmuls, other ops).
+             and device time by kind (ported kernels, matmuls, other ops);
+7. quant   — AutoQuant (``core/quantization.py``) of the same bf16 params,
+             calibrated for decode (8 tokens/step: every linear weight-only
+             int8) and for prefill (256 tokens/step: every linear dynamic
+             int8), each arm served as in phase 4 with exact launch counts
+             (its int8 kernel 7 x n_layers per forward, the other 0), its
+             kernel path held against its plain path as in phase 5, and
+             profiled as in phase 6; printed for the record: tok/s, TTFT,
+             TPOT, int8 vs bf16 weight bytes, logit drift against the bf16
+             params, and the counts of ``calibrate="measure"``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` summary. Imports nothing of JAX or the JAX package.
@@ -44,8 +55,10 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 2e-4)}  # (atol, rtol)
 ARCH = "llama3.2-1b"
+D_FF = 8192  # llama3.2-1b's FFN width (the kernels phase's int8 shapes)
 N_REQUESTS, SLOTS, MAX_NEW, SEED = 16, 8, 64, 0
 
 
@@ -121,6 +134,35 @@ def device_ms(fn, calls: int = 20):
     return sum(e.time_range.elapsed_us() for e in kern) / calls / 1e3
 
 
+def device_ms_each(fns, per_call, calls: int = 20):
+    """Device time per call of each of ``fns``, where fn i launches exactly
+    ``per_call[i]`` device kernels: one profiler session runs every fn
+    ``calls`` times in turn, and the kernels, in launch order, are split
+    back by fn. None for all when the profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for fn in fns:
+            for _ in range(calls):
+                fn()
+        torch.cuda.synchronize()
+    kern = sorted(device_kernels(prof), key=lambda e: e.time_range.start)
+    if not kern:
+        return [None] * len(fns)
+    check(len(kern) == calls * sum(per_call),
+          f"profiler saw {len(kern)} device kernels, expected {calls * sum(per_call)}")
+    out, at = [], 0
+    for n in per_call:
+        out.append(sum(e.time_range.elapsed_us() for e in kern[at:at + calls * n])
+                   / calls / 1e3)
+        at += calls * n
+    return out
+
+
 def max_err(got, want, dtype_name: str) -> float:
     """max |got - want| in f32; raises if any element is outside
     atol + rtol * |want| (the assert_allclose rule) or not finite."""
@@ -182,6 +224,8 @@ def phase_kernels(pad_to: int, max_len: int):
 
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rn
 
     dev = torch.device("cuda")
@@ -258,10 +302,34 @@ def phase_kernels(pad_to: int, max_len: int):
         check(bool((got[0] == 0).all()), "decode: a row of length 0 is not exactly zero")
         got, want = decode_case(2, 50, 8, 2, 128, dt, [1, 50])
         errs["decode_attention"][f"{name} D=128"] = max_err(got, want, name)
+
+    # ---- int8 GEMMs: every served linear [M, K] x [K, N] at decode (M = slots)
+    # and prefill (M = pad_to), plus M = 1 and ragged edges
+    errs["int8_matmul_weight_only"], errs["int8_matmul_dynamic"] = {}, {}
+    linears = [(d_model, hq * dh), (d_model, hkv * dh), (d_model, D_FF), (D_FF, d_model)]
+    served = [(m, k, n) for m in (SLOTS, pad_to) for k, n in linears]
+    exact = 0
+    int8_cases = served + [(1, d_model, d_model), (37, 100, 53), (128, 256, 64), (8, 300, 100)]
+    for mi, ki, ni in int8_cases:
+        xi, wi_q, wi_scale = _int8_operands(gen, mi, ki, ni)
+        label = f"[{mi},{ki}]x[{ki},{ni}]"
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[-1]
+            xt = xi.to(dt)
+            errs["int8_matmul_weight_only"][f"{name} {label}"] = max_err(
+                im.int8_matmul_weight_only_cuda(xt, wi_q, wi_scale),
+                im.int8_matmul_weight_only_plain(xt, wi_q, wi_scale), name)
+        xi_q, xi_scale = ops.quantize_rows(xi)
+        got = im.int8_matmul_dynamic_cuda(xi_q, wi_q, wi_scale, xi_scale)
+        want = im.int8_matmul_dynamic_plain(xi_q, wi_q, wi_scale, xi_scale)
+        errs["int8_matmul_dynamic"][f"float32 {label}"] = max_err(got, want, "float32")
+        exact += bool(torch.equal(got, want))
     torch.cuda.synchronize()
     for kname, e in errs.items():
         for case, v in e.items():
-            print(f"[kernels] {kname:16s} {case:28s} max|err| {v:.3e}", flush=True)
+            print(f"[kernels] {kname:23s} {case:32s} max|err| {v:.3e}", flush=True)
+    print(f"[kernels] int8_matmul_dynamic equals its plain version bit for bit in {exact} "
+          f"of {len(int8_cases)} shapes", flush=True)
 
     # ---- timings at the main path's shapes, bf16
     bf = torch.bfloat16
@@ -331,65 +399,190 @@ def phase_kernels(pad_to: int, max_len: int):
         bytes=(2 * qd.numel() + 2 * n_rows * hkv * dh) * 2 + SLOTS * 4,
         flops=n_rows * hq * 4 * dh,
     ))
+
+    # weight-only at the decode step's widest linear (w1/w3), bf16
+    mw, kw, nw = SLOTS, d_model, D_FF
+    xw, ww_q, ww_scale = _int8_operands(gen, mw, kw, nw)
+    xw = xw.to(bf)
+    records.append(dict(
+        name="int8_matmul_weight_only", route="cuda",
+        source="src/repro_torch/kernels/csrc/int8_matmul.cu",
+        replaces="src/repro/kernels/int8_matmul.py:66",
+        shape=f"x[{mw},{kw}] bf16 @ w_q[{kw},{nw}] int8 (decode step, w1/w3)",
+        max_abs_err=errs["int8_matmul_weight_only"][f"bfloat16 [{mw},{kw}]x[{kw},{nw}]"],
+        call=lambda: im.int8_matmul_weight_only_cuda(xw, ww_q, ww_scale),
+        ms=cuda_ms(lambda: im.int8_matmul_weight_only_cuda(xw, ww_q, ww_scale)),
+        plain_ms=cuda_ms(lambda: im.int8_matmul_weight_only_plain(xw, ww_q, ww_scale)),
+        library_ms=cuda_ms(lambda: torch.matmul(xw, ww_q.to(xw.dtype)) * ww_scale),
+        **_int8_work(mw, kw, nw, dynamic=False),
+    ))
+
+    # dynamic at a prefill's widest linear (torch._int_mm refuses M <= 16)
+    md = pad_to
+    xd, wd_q, wd_scale = _int8_operands(gen, md, kw, nw)
+    xd_q, xd_scale = ops.quantize_rows(xd)
+    records.append(dict(
+        name="int8_matmul_dynamic", route="cuda",
+        source="src/repro_torch/kernels/csrc/int8_matmul.cu",
+        replaces="src/repro/kernels/int8_matmul.py:104",
+        shape=f"x_q[{md},{kw}] int8 @ w_q[{kw},{nw}] int8, f32 out (prefill, w1/w3)",
+        max_abs_err=errs["int8_matmul_dynamic"][f"float32 [{md},{kw}]x[{kw},{nw}]"],
+        call=lambda: im.int8_matmul_dynamic_cuda(xd_q, wd_q, wd_scale, xd_scale),
+        ms=cuda_ms(lambda: im.int8_matmul_dynamic_cuda(xd_q, wd_q, wd_scale, xd_scale)),
+        plain_ms=cuda_ms(lambda: im.int8_matmul_dynamic_plain(xd_q, wd_q, wd_scale,
+                                                              xd_scale)),
+        library_ms=_int_mm_ms(xd_q, wd_q, wd_scale, xd_scale),
+        **_int8_work(md, kw, nw, dynamic=True),
+    ))
     for r in records:
-        t_bytes = r.pop("bytes") / HBM_BYTES_PER_S * 1e3
-        t_ops = r.pop("flops") / BF16_FLOPS_PER_S * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"),
+                                             r.pop("peak", BF16_FLOPS_PER_S))
         r["kernel_ms"] = r["ms"]
         r["device_ms"] = device_ms(r.pop("call"))
         dev_txt = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
-        print(f"[kernels] {r['name']:16s} kernel {r['ms']:.4f} ms (device {dev_txt}) | plain "
-              f"{r['plain_ms']:.4f} ms | library {r['library_ms']:.4f} ms | bound "
+        lib_txt = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"[kernels] {r['name']:23s} kernel {r['ms']:.4f} ms (device {dev_txt}) | plain "
+              f"{r['plain_ms']:.4f} ms | library {lib_txt} | bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}) | {r['shape']}", flush=True)
+    int8_served_times(gen, served)
     return records
 
 
+def bound(n_bytes: float, ops: float, peak: float):
+    """(least ms, "bytes" or "operations"): the bytes over the card's memory
+    rate against the operations over its peak rate for their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _int8_work(m: int, k: int, n: int, dynamic: bool):
+    """What an int8 GEMM [m, k] x [k, n] must move and do: x (bf16, or int8
+    with its f32 row scales), the int8 weights and their f32 scales read
+    once, the output (bf16, or f32) written once; 2mkn operations at the
+    bf16 (weight-only) or int8 (dynamic) tensor-core peak."""
+    if dynamic:
+        return dict(bytes=m * k + 4 * m + k * n + 4 * n + 4 * m * n, flops=2 * m * k * n,
+                    peak=INT8_OPS_PER_S)
+    return dict(bytes=2 * m * k + k * n + 4 * n + 2 * m * n, flops=2 * m * k * n,
+                peak=BF16_FLOPS_PER_S)
+
+
+def _int8_operands(gen, m: int, k: int, n: int):
+    """x [m, k] f32 ~ N(0, 1) and a quantized fan-in-scaled weight, so the
+    product is O(1) as in the served layers."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    x = _rand(gen, (m, k), torch.float32, dev)
+    w = _rand(gen, (k, n), torch.float32, dev) * k ** -0.5
+    return (x, *ops.quantize_int8(w, axis=0))
+
+
+def _int_mm_ms(x_q, w_q, w_scale, x_scale):
+    """CUDA-event time of torch._int_mm plus the f32 epilogue, the dynamic
+    kernel's library yardstick; None where _int_mm refuses the shape."""
+    import torch
+
+    def call():
+        return torch._int_mm(x_q, w_q).float() * x_scale * w_scale
+
+    try:
+        call()
+    except RuntimeError as e:
+        print(f"[kernels] torch._int_mm refused [{x_q.shape[0]},{x_q.shape[1]}]x"
+              f"[{w_q.shape[0]},{w_q.shape[1]}]: {str(e).splitlines()[0]}", flush=True)
+        return None
+    return cuda_ms(call)
+
+
+def int8_served_times(gen, served):
+    """Device time of both int8 kernels at every served linear shape (bf16
+    x for weight-only; the split-K sum included), beside the bound and the
+    library call."""
+    import torch
+
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import ops
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in sorted({s[0] for s in served}):
+        shapes = [s for s in served if s[0] == m]
+        ops_in = [_int8_operands(gen, *s) for s in shapes]
+        wo_in = [(x.to(torch.bfloat16), w_q, w_scale) for x, w_q, w_scale in ops_in]
+        dyn_in = [(*ops.quantize_rows(x), w_q, w_scale) for x, w_q, w_scale in ops_in]
+        # the GEMM, plus the split-K sum where K is split
+        per_call = [1 + (im.split_k(m, n, k, n_sms)[0] > 1) for _, k, n in shapes]
+        wo_dev = device_ms_each(
+            [lambda a=a: im.int8_matmul_weight_only_cuda(*a) for a in wo_in], per_call)
+        dyn_dev = device_ms_each(
+            [lambda a=a: im.int8_matmul_dynamic_cuda(a[0], a[2], a[3], a[1])
+             for a in dyn_in], per_call)
+        for i, (_, k, n) in enumerate(shapes):
+            x, w_q, w_scale = wo_in[i]
+            wo_bound = bound(*_int8_work(m, k, n, dynamic=False).values())[0]
+            wo_lib = cuda_ms(lambda: torch.matmul(x, w_q.to(x.dtype)) * w_scale)
+            x_q, x_scale, wq, ws = dyn_in[i]
+            dyn_bound = bound(*_int8_work(m, k, n, dynamic=True).values())[0]
+            dyn_lib = _int_mm_ms(x_q, wq, ws, x_scale) if m > 16 else None
+
+            def fmt(v):
+                return "not measured" if v is None else f"{v:.4f}"
+
+            print(f"[kernels] int8 [{m},{k}]x[{k},{n}]: weight-only device {fmt(wo_dev[i])} "
+                  f"ms (bound {wo_bound:.5f}, library {wo_lib:.4f}) | dynamic device "
+                  f"{fmt(dyn_dev[i])} ms (bound {dyn_bound:.5f}, library "
+                  f"{fmt(dyn_lib)})", flush=True)
+
+
 def _counters():
+    """Kernel name -> (module, attribute) of its launch counter."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import rmsnorm as rn
 
-    return {"rmsnorm": rn, "flash_attention": fa, "decode_attention": da}
+    return {"rmsnorm": (rn, "LAUNCHES"), "flash_attention": (fa, "LAUNCHES"),
+            "decode_attention": (da, "LAUNCHES"),
+            "int8_matmul_weight_only": (im, "LAUNCHES_WO"),
+            "int8_matmul_dynamic": (im, "LAUNCHES_DYN")}
 
 
 def _reset_counts():
-    for mod in _counters().values():
-        mod.LAUNCHES = 0
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
 
 
 def _read_counts():
-    return {name: mod.LAUNCHES for name, mod in _counters().items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
 
 
-def phase_serve(pad_to: int):
-    """Full-width llama3.2-1b, bf16, 16 requests, continuous then fixed."""
-    import torch
-
-    from repro_torch.core import engine
-    from repro_torch.core.kv_cache import leaves
+def _trace(cfg, pad_to):
     from repro_torch.launch import serve
     from repro_torch.training import data as data_mod
 
+    return serve.poisson_trace(data_mod.PAPER_PROFILES["llama_humaneval"], N_REQUESTS,
+                               pad_to=pad_to, max_new_cap=MAX_NEW,
+                               vocab_size=cfg.vocab_size, arrival_rate=0.0, seed=SEED)
+
+
+def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag):
+    """One scheduler run of the trace, launch counters set to 0 just before
+    it and read just after. Checks that every request got its max_new
+    tokens, that every logits tensor the scheduler sampled from was finite
+    (one device flag, read once per run: no per-step host sync is added),
+    and that each kernel launched exactly its per-forward count; the int8
+    kernel of ``int8_mode`` ("wo"/"dyn"/None) 7 x n_layers per forward."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.launch import serve
+
     dev = torch.device("cuda")
-    cfg, model, params = serve.build_model(ARCH, smoke=False, seed=SEED, device=dev)
-    check(cfg.dtype == "bfloat16" and cfg.d_model == 2048 and cfg.n_layers == 16,
-          f"unexpected config {cfg}")
-    prof = data_mod.PAPER_PROFILES["llama_humaneval"]
-
-    def trace():
-        return serve.poisson_trace(prof, N_REQUESTS, pad_to=pad_to, max_new_cap=MAX_NEW,
-                                   vocab_size=cfg.vocab_size, arrival_rate=0.0, seed=SEED)
-
-    t0 = time.perf_counter()
-    serve.warmup(model, params, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
-                 device=dev)
-    print(f"[serve] params {sum(p.numel() for p in leaves(params)) / 1e9:.3f}G "
-          f"elements | pad_to {pad_to} | warm-up {time.perf_counter() - t0:.1f}s",
-          flush=True)
-
-    # every logits tensor the scheduler samples from is checked on the device
-    # (one flag, read once per run): no per-step host sync is added
+    reqs = _trace(cfg, pad_to)
+    want_new = {r.rid: r.max_new for r in reqs}
     finite = {"ok": torch.ones((), dtype=torch.bool, device=dev)}
     real_prefill, real_decode = engine.prefill, engine.decode_step
 
@@ -404,43 +597,62 @@ def phase_serve(pad_to: int):
         return logits, cache
 
     engine.prefill, engine.decode_step = prefill, decode_step
-    runs = {}
     try:
-        for policy in ("continuous", "fixed"):
-            reqs = trace()
-            want_new = {r.rid: r.max_new for r in reqs}
-            _reset_counts()
-            m, done = serve.run_scheduler(
-                model, params, reqs, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
-                device=dev, policy=policy, return_requests=True,
-            )
-            counts = _read_counts()
-            check(len(done) == N_REQUESTS, f"{policy}: {len(done)} of {N_REQUESTS} done")
-            for r in done:
-                check(len(r.tokens) == want_new[r.rid],
-                      f"{policy}: request {r.rid} got {len(r.tokens)} of "
-                      f"{want_new[r.rid]} tokens")
-            n_fwd = m["prefills"] + m["decode_steps"]
-            want_counts = {
-                "rmsnorm": (2 * cfg.n_layers + 1) * n_fwd,
-                "flash_attention": cfg.n_layers * m["prefills"],
-                "decode_attention": cfg.n_layers * m["decode_steps"],
-            }
-            check(counts == want_counts,
-                  f"{policy}: kernel launches {counts}, expected {want_counts}")
-            print(f"[serve/{policy}] {m['n_requests']} requests | "
-                  f"{m['tokens_per_s']:.1f} tok/s | ttft p50 {m['ttft_p50_ms']:.2f} ms | "
-                  f"tpot p50 {m['tpot_p50_ms']:.3f} ms | decode steps "
-                  f"{m['decode_steps']} | prefills {m['prefills']} | occupancy "
-                  f"{m['mean_slot_occupancy']:.3f} | wall {m['wall_s']:.2f} s | "
-                  f"launches {counts}", flush=True)
-            runs[policy] = (m, {r.rid: list(r.tokens) for r in done}, counts)
+        _reset_counts()
+        m, done = serve.run_scheduler(
+            model, params, reqs, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
+            device=dev, policy=policy, return_requests=True,
+        )
+        counts = _read_counts()
     finally:
         engine.prefill, engine.decode_step = real_prefill, real_decode
-    check(bool(finite["ok"]), "non-finite logits during serving")
+    check(bool(finite["ok"]), f"{tag}: non-finite logits during serving")
+    check(len(done) == N_REQUESTS, f"{tag}: {len(done)} of {N_REQUESTS} done")
+    for r in done:
+        check(len(r.tokens) == want_new[r.rid],
+              f"{tag}: request {r.rid} got {len(r.tokens)} of {want_new[r.rid]} tokens")
+    n_fwd = m["prefills"] + m["decode_steps"]
+    per_int8 = 7 * cfg.n_layers * n_fwd
+    want_counts = {
+        "rmsnorm": (2 * cfg.n_layers + 1) * n_fwd,
+        "flash_attention": cfg.n_layers * m["prefills"],
+        "decode_attention": cfg.n_layers * m["decode_steps"],
+        "int8_matmul_weight_only": per_int8 if int8_mode == "wo" else 0,
+        "int8_matmul_dynamic": per_int8 if int8_mode == "dyn" else 0,
+    }
+    check(counts == want_counts, f"{tag}: kernel launches {counts}, expected {want_counts}")
+    print(f"[{tag}] {m['n_requests']} requests | "
+          f"{m['tokens_per_s']:.1f} tok/s | ttft p50 {m['ttft_p50_ms']:.2f} ms | "
+          f"tpot p50 {m['tpot_p50_ms']:.3f} ms | decode steps "
+          f"{m['decode_steps']} | prefills {m['prefills']} | occupancy "
+          f"{m['mean_slot_occupancy']:.3f} | wall {m['wall_s']:.2f} s | "
+          f"launches {counts}", flush=True)
+    return m, {r.rid: list(r.tokens) for r in done}, counts
+
+
+def phase_serve(pad_to: int):
+    """Full-width llama3.2-1b, bf16, 16 requests, continuous then fixed."""
+    import torch
+
+    from repro_torch.core.kv_cache import leaves
+    from repro_torch.launch import serve
+
+    dev = torch.device("cuda")
+    cfg, model, params = serve.build_model(ARCH, smoke=False, seed=SEED, device=dev)
+    check(cfg.dtype == "bfloat16" and cfg.d_model == 2048 and cfg.n_layers == 16,
+          f"unexpected config {cfg}")
+    t0 = time.perf_counter()
+    serve.warmup(model, params, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
+                 device=dev)
+    print(f"[serve] params {sum(p.numel() for p in leaves(params)) / 1e9:.3f}G "
+          f"elements | pad_to {pad_to} | warm-up {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    runs = {policy: serve_once(model, params, cfg, pad_to, policy=policy, int8_mode=None,
+                               tag=f"serve/{policy}")
+            for policy in ("continuous", "fixed")}
     check(runs["continuous"][1] == runs["fixed"][1],
           "continuous and fixed policies gave different tokens")
-    return model, params, trace(), runs
+    return cfg, model, params, _trace(cfg, pad_to), runs
 
 
 def _prefill_last(model, params, seq, impl):
@@ -456,7 +668,7 @@ def _prefill_last(model, params, seq, impl):
     return logits[0]
 
 
-def phase_parity(model, params, pad_to, reqs, served):
+def phase_parity(model, params, pad_to, reqs, served, tag="parity"):
     """Prefill logits through the kernels vs through the plain versions, and
     the first served tokens vs greedy generation on the plain path. A
     token may differ only at a near tie: where the plain path's top-1/top-2
@@ -477,11 +689,11 @@ def phase_parity(model, params, pad_to, reqs, served):
         top2 = torch.topk(lp, 2).values
         gap = float(top2[0] - top2[1])
         same = int(lc.argmax()) == int(lp.argmax())
-        print(f"[parity] request {r.rid}: prefill max|dlogit| {delta:.4f} = "
+        print(f"[{tag}] request {r.rid}: prefill max|dlogit| {delta:.4f} = "
               f"{delta / span:.2e} of the logit range {span:.1f} | top1-top2 gap "
               f"{gap:.4f} | greedy token {'agrees' if same else 'differs'}", flush=True)
         check(same or gap < delta,
-              f"request {r.rid}: greedy first token differs with gap {gap} >= {delta}")
+              f"{tag} request {r.rid}: greedy first token differs with gap {gap} >= {delta}")
 
         buf = np.zeros((1, pad_to), np.int32)
         buf[0, : len(r.prompt)] = r.prompt
@@ -493,7 +705,7 @@ def phase_parity(model, params, pad_to, reqs, served):
         got = served[r.rid][:n_tok]
         first = next((i for i, (a, b) in enumerate(zip(got, plain)) if a != b), None)
         if first is None:
-            print(f"[parity] request {r.rid}: first {n_tok} served tokens equal the "
+            print(f"[{tag}] request {r.rid}: first {n_tok} served tokens equal the "
                   f"plain path's", flush=True)
             continue
         seq = list(r.prompt) + plain[:first]
@@ -501,12 +713,16 @@ def phase_parity(model, params, pad_to, reqs, served):
         d = float((_prefill_last(model, params, seq, "cuda") - lp).abs().max())
         top2 = torch.topk(lp, 2).values
         g = float(top2[0] - top2[1])
-        print(f"[parity] request {r.rid}: served token {first} differs from the plain "
+        print(f"[{tag}] request {r.rid}: served token {first} differs from the plain "
               f"path (gap {g:.4f}, max|dlogit| {d:.4f})", flush=True)
-        check(g < d, f"request {r.rid}: token {first} differs away from a near tie")
+        check(g < d, f"{tag} request {r.rid}: token {first} differs away from a near tie")
 
 
-def phase_profile(model, params, pad_to, reqs):
+PORTED_KERNEL_NAMES = ("rmsnorm_kernel", "flash_attention_kernel", "decode_attention_kernel",
+                       "int8_gemm_kernel")
+
+
+def phase_profile(model, params, pad_to, reqs, tag="profile"):
     """Where the time of one served decode step goes: torch.profiler over
     a few pool-wide decode steps with every slot live, each ending in the
     scheduler's greedy argmax and host copy."""
@@ -553,7 +769,7 @@ def phase_profile(model, params, pad_to, reqs):
     bare_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     kern = device_kernels(prof)
     if not kern:
-        print(f"[profile] decode step {bare_ms:.3f} ms wall; the profiler saw no device "
+        print(f"[{tag}] decode step {bare_ms:.3f} ms wall; the profiler saw no device "
               f"activity: device busy share not measured", flush=True)
         return
     cats = {"ported kernels": 0.0, "matmuls (cuBLAS)": 0.0, "other torch ops": 0.0}
@@ -562,24 +778,77 @@ def phase_profile(model, params, pad_to, reqs):
         us = e.time_range.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         low = e.name.lower()
-        if any(k in e.name for k in ("rmsnorm_kernel", "flash_attention_kernel",
-                                     "decode_attention_kernel")):
+        if any(k in e.name for k in PORTED_KERNEL_NAMES):
             cats["ported kernels"] += us
         elif any(k in low for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
             cats["matmuls (cuBLAS)"] += us
         else:
             cats["other torch ops"] += us
     busy_ms = sum(cats.values()) / n_steps / 1e3
-    print(f"[profile] decode step (B={SLOTS}, bf16): wall {bare_ms:.3f} ms unprofiled, "
+    print(f"[{tag}] decode step (B={SLOTS}): wall {bare_ms:.3f} ms unprofiled, "
           f"{wall_ms:.3f} ms profiled | device busy {busy_ms:.3f} ms = "
           f"{busy_ms / bare_ms:.1%} of the unprofiled step ({busy_ms / wall_ms:.1%} of "
           f"the profiled one) | {len(kern) / n_steps:.0f} device kernels per step",
           flush=True)
     for c, us in cats.items():
-        print(f"[profile]   {c:18s} {us / n_steps / 1e3:.4f} ms/step "
+        print(f"[{tag}]   {c:18s} {us / n_steps / 1e3:.4f} ms/step "
               f"({us / max(sum(cats.values()), 1e-9):.1%} of device time)", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"[profile]   top: {us / n_steps / 1e3:.4f} ms/step  {name[:110]}", flush=True)
+        print(f"[{tag}]   top: {us / n_steps / 1e3:.4f} ms/step  {name[:110]}", flush=True)
+
+
+def phase_quant(cfg, model, params, pad_to, reqs):
+    """AutoQuant the bf16 params for decode (tokens_per_step = slots) and
+    for prefill (tokens_per_step = pad_to); serve, check and profile each
+    arm. Returns {mode: launch counts of its served run}."""
+    import torch
+
+    from repro_torch.core import quantization as Q
+    from repro_torch.core.kv_cache import leaves
+    from repro_torch.launch import serve
+
+    dev = torch.device("cuda")
+    n_lin = 7 * cfg.n_layers
+    bf16_bytes = sum(t.numel() * t.element_size() for t in leaves(params["layers"])
+                     if t.ndim == 2)
+    full = [_prefill_last(model, params, r.prompt, "cuda") for r in reqs[:2]]
+    arms = {}
+    for tokens, mode in ((SLOTS, "wo"), (pad_to, "dyn")):
+        tag = f"quant/{mode}"
+        check(Q.roofline_mode(tokens) == mode,
+              f"roofline_mode({tokens}) is {Q.roofline_mode(tokens)}, expected {mode}")
+        t0 = time.perf_counter()
+        qparams, counts = Q.autoquant(params, tokens_per_step=tokens)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(counts == {"wo": n_lin if mode == "wo" else 0,
+                         "dyn": n_lin if mode == "dyn" else 0},
+              f"{tag}: autoquant counts {counts}")
+        q_bytes = sum(t.numel() for t in leaves(qparams["layers"]) if t.dtype == torch.int8)
+        print(f"[{tag}] autoquant(tokens_per_step={tokens}) -> {counts} in {secs:.2f} s | "
+              f"int8 weight bytes {q_bytes} vs bf16 {bf16_bytes} "
+              f"({q_bytes / bf16_bytes:.4f}x)", flush=True)
+        serve.warmup(model, qparams, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
+                     device=dev)
+        _, served, arms[mode] = serve_once(model, qparams, cfg, pad_to, policy="continuous",
+                                           int8_mode=mode, tag=tag)
+        phase_parity(model, qparams, pad_to, reqs[:2], served, tag=f"{tag} parity")
+        drift = []
+        for r, lf in zip(reqs[:2], full):
+            lq = _prefill_last(model, qparams, r.prompt, "cuda")
+            drift.append(float((lq - lf).abs().max() / lf.abs().max()))
+        print(f"[{tag}] max relative logit drift vs the bf16 params (prefill, requests "
+              f"{[r.rid for r in reqs[:2]]}): {max(drift):.4f} ({drift})", flush=True)
+        phase_profile(model, qparams, pad_to, reqs, tag=f"{tag} profile")
+        del qparams
+        torch.cuda.empty_cache()
+    for tokens in (SLOTS, pad_to):
+        t0 = time.perf_counter()
+        _, counts = Q.autoquant(params, tokens_per_step=tokens, calibrate="measure")
+        torch.cuda.synchronize()
+        print(f"[quant] autoquant(tokens_per_step={tokens}, calibrate='measure') -> "
+              f"{counts} in {time.perf_counter() - t0:.1f} s", flush=True)
+    return arms
 
 
 def main() -> None:
@@ -603,11 +872,16 @@ def main() -> None:
         pad_to = serve.trace_pad_to(data_mod.PAPER_PROFILES["llama_humaneval"],
                                     N_REQUESTS, SEED)
         records = phase_kernels(pad_to, pad_to + MAX_NEW + 1)
-        model, params, trace, runs = phase_serve(pad_to)
-        for r in records:
-            r["launches"] = runs["continuous"][2][r["name"]]
+        cfg, model, params, trace, runs = phase_serve(pad_to)
         phase_parity(model, params, pad_to, trace[:2], runs["continuous"][1])
         phase_profile(model, params, pad_to, trace)
+        arms = phase_quant(cfg, model, params, pad_to, trace)
+        # each kernel's launches come from the served run of the path it is on
+        path_counts = {"int8_matmul_weight_only": arms["wo"],
+                       "int8_matmul_dynamic": arms["dyn"]}
+        for r in records:
+            r["launches"] = path_counts.get(r["name"], runs["continuous"][2])[r["name"]]
+            check(r["launches"] > 0, f"{r['name']} was not launched on its served path")
         torch.cuda.synchronize()
     except Exception:  # any phase failure: report and exit non-zero
         traceback.print_exc()

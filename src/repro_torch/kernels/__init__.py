@@ -4,6 +4,8 @@ PyTorch versions, one module per kernel:
 - flash_attention   — replaces ``flash_attention_pallas`` (prefill)
 - decode_attention  — replaces ``decode_attention_pallas`` (every decode step)
 - rmsnorm           — replaces ``rmsnorm_pallas`` (three norms per layer)
+- int8_matmul       — replaces ``int8_matmul_pallas`` (weight-only) and
+                      ``int8_matmul_dynamic_pallas`` (AutoQuant's linears)
 
 ``ops`` dispatches between them, ``ref`` holds the naive oracles and
 ``_build`` compiles the sources with ``nvcc`` at first use. Importing this

@@ -45,6 +45,10 @@ SIGNATURES: Dict[str, List] = {
     # dtype, q, k, v, lengths, out, B, S, Hq, Hkv, D, scale, stream
     "decode_attention_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 ctypes.c_float, _P],
+    # dtype, x, w_q, w_scale, out, partial, M, N, K, splits, k_chunk, stream
+    "int8_matmul_wo_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x_q, w_q, w_scale, x_scale, out, partial, M, N, K, splits, k_chunk, stream
+    "int8_matmul_dyn_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 def _digest() -> str:

@@ -1,0 +1,141 @@
+"""Int8 GEMMs of AutoQuant (paper §4.2): the CUDA kernels
+``csrc/int8_matmul.cu`` and their plain versions.
+
+Replaces ``repro/kernels/int8_matmul.py``:
+
+- ``int8_matmul_weight_only_*`` — ``int8_matmul_pallas`` (``_wo_kernel``):
+  ``x[..., K]`` (bf16/f32) @ ``w_q[K, N]`` int8, f32 accumulation,
+  ``* w_scale[N]`` in the epilogue, out ``x.dtype``. On the H100 it is
+  bound by bytes at decode (M = 8 rows): the int8 weights are half the
+  bf16 bytes.
+- ``int8_matmul_dynamic_*`` — ``int8_matmul_dynamic_pallas``
+  (``_dyn_kernel``): ``x_q[..., K]`` int8 @ ``w_q[K, N]`` int8 with an
+  exact int32 accumulator, then ``acc * x_scale[m] * w_scale[n]`` in f32,
+  out f32. The per-row activation quantization stays outside, in
+  ``ops.int8_matmul_dynamic``.
+
+Both kernels predicate their edges instead of padding M, N and K up to
+tile multiples as the Pallas kernels do, and split K over blocks where the
+output tiles alone cannot fill the card (see the source's note).
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import int_matmul_exact
+
+#: launches of each CUDA kernel in this process (chip_smoke resets and reads them)
+LAUNCHES_WO = 0
+LAUNCHES_DYN = 0
+
+# the kernels' tile (csrc/int8_matmul.cu): 8 rows x 128 columns, K in 128-row steps
+_BM, _BN, _BK = 8, 128, 128
+
+
+def split_k(m: int, n: int, k: int, n_sms: int) -> Tuple[int, int]:
+    """(splits, k_chunk) of K over blocks: enough splits for the M x N
+    tiles to reach two blocks per SM, each chunk a whole number of
+    128-row steps, no split empty."""
+    tiles = math.ceil(n / _BN) * math.ceil(m / _BM)
+    splits = max(1, min(math.ceil(2 * n_sms / max(tiles, 1)), math.ceil(k / _BK)))
+    k_chunk = max(1, math.ceil(math.ceil(k / splits) / _BK)) * _BK
+    return max(1, math.ceil(k / k_chunk)), k_chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _workspace(m: int, n: int, k: int, dtype, device) -> Tuple[int, int, Optional[torch.Tensor]]:
+    """The split of K for this call and, when it splits, the partial-tile
+    workspace [splits, M, N] the kernel sums in its second pass."""
+    splits, k_chunk = split_k(m, n, k, _n_sms(device.index or 0))
+    part = torch.empty((splits, m, n), dtype=dtype, device=device) if splits > 1 else None
+    return splits, k_chunk, part
+
+
+def int8_matmul_weight_only_plain(x: torch.Tensor, w_q: torch.Tensor,
+                                  w_scale: torch.Tensor) -> torch.Tensor:
+    """``_wo_kernel`` in plain torch: x and w as f32, an f32 dot, then
+    ``* w_scale`` in the epilogue, then the cast to ``x.dtype``."""
+    acc = x.float() @ w_q.float()
+    return (acc * w_scale.float()).to(x.dtype)
+
+
+def int8_matmul_dynamic_plain(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                              x_scale: torch.Tensor) -> torch.Tensor:
+    """``_dyn_kernel`` in plain torch: an exact int32 accumulator, then
+    ``acc * x_scale * w_scale`` in f32 (in that order), out f32."""
+    k, n = w_q.shape
+    acc = int_matmul_exact(x_q.reshape(-1, k), w_q).reshape(*x_q.shape[:-1], n)
+    return acc.float() * x_scale.float() * w_scale.float()
+
+
+def _check_weights(name: str, k: int, w_q: torch.Tensor, w_scale: torch.Tensor) -> int:
+    if w_q.dtype != torch.int8 or w_q.ndim != 2 or w_q.shape[0] != k:
+        raise ValueError(f"{name}: w_q must be int8 [K={k}, N], got {w_q.dtype} "
+                         f"{tuple(w_q.shape)}")
+    n = w_q.shape[1]
+    if w_scale.dtype != torch.float32 or w_scale.shape != (n,):
+        raise ValueError(f"{name}: w_scale must be float32 [{n}], got {w_scale.dtype} "
+                         f"{tuple(w_scale.shape)}")
+    return n
+
+
+def int8_matmul_weight_only_cuda(x: torch.Tensor, w_q: torch.Tensor,
+                                 w_scale: torch.Tensor) -> torch.Tensor:
+    """Launch the weight-only kernel on PyTorch's current stream. Raises
+    for anything the kernel does not take (CPU or non-contiguous tensors,
+    an x that is not f32/bf16, int8 weights of the wrong shape, scales
+    that are not f32 [N])."""
+    global LAUNCHES_WO
+    name = "int8_matmul_weight_only"
+    _build.require_cuda(name, x, w_q, w_scale)
+    code = _build.dtype_code(x)
+    k = x.shape[-1]
+    n = _check_weights(name, k, w_q, w_scale)
+    out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    m = math.prod(x.shape[:-1])
+    splits, k_chunk, part = _workspace(m, n, k, torch.float32, x.device)
+    lib = _build.library()
+    rc = lib.int8_matmul_wo_launch(code, x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+                                   out.data_ptr(), None if part is None else part.data_ptr(),
+                                   m, n, k, splits, k_chunk, _build.stream_of(x))
+    _build.check(rc, name)
+    LAUNCHES_WO += 1
+    return out
+
+
+def int8_matmul_dynamic_cuda(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                             x_scale: torch.Tensor) -> torch.Tensor:
+    """Launch the dynamic int8 x int8 kernel on PyTorch's current stream.
+    Raises for anything the kernel does not take (CPU or non-contiguous
+    tensors, activations that are not int8, weights or scales of the wrong
+    type or shape)."""
+    global LAUNCHES_DYN
+    name = "int8_matmul_dynamic"
+    _build.require_cuda(name, x_q, w_q, w_scale, x_scale)
+    if x_q.dtype != torch.int8:
+        raise ValueError(f"{name}: x_q must be int8, got {x_q.dtype}")
+    k = x_q.shape[-1]
+    n = _check_weights(name, k, w_q, w_scale)
+    m = math.prod(x_q.shape[:-1])
+    if x_scale.dtype != torch.float32 or x_scale.numel() != m:
+        raise ValueError(f"{name}: x_scale must be float32 with {m} rows, got "
+                         f"{x_scale.dtype} {tuple(x_scale.shape)}")
+    out = torch.empty((*x_q.shape[:-1], n), dtype=torch.float32, device=x_q.device)
+    splits, k_chunk, part = _workspace(m, n, k, torch.int32, x_q.device)
+    lib = _build.library()
+    rc = lib.int8_matmul_dyn_launch(x_q.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+                                    x_scale.data_ptr(), out.data_ptr(),
+                                    None if part is None else part.data_ptr(),
+                                    m, n, k, splits, k_chunk, _build.stream_of(x_q))
+    _build.check(rc, name)
+    LAUNCHES_DYN += 1
+    return out

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import int8_matmul as _im
 from repro_torch.kernels import rmsnorm as _rn
 
 NEG_INF = -1e30  # finite sentinel: keeps online softmax NaN-free
@@ -86,3 +87,50 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
     impl = _resolve(impl, x)
     fn = _rn.rmsnorm_cuda if impl == "cuda" else _rn.rmsnorm_plain
     return fn(x.contiguous(), weight.contiguous(), eps)
+
+
+# --------------------------------------------------------------------------
+# Int8 matmul (AutoQuant substrate)
+# --------------------------------------------------------------------------
+
+def quantize_int8(w: torch.Tensor, axis: int = 0):
+    """Symmetric per-channel int8 quantization along ``axis`` (the
+    contraction axis): returns (w_q int8, scale f32 over remaining dims).
+    ``max(amax, 1e-8) / 127`` and then ``w / scale``, rounded half to even,
+    in that order, so the int8 weights are bit-identical to the reference's."""
+    wf = w.float()
+    amax = wf.abs().amax(dim=axis, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    w_q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return w_q, scale.squeeze(axis)
+
+
+def int8_matmul_weight_only(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                            impl: str = "auto") -> torch.Tensor:
+    """x @ dequant(w_q), out ``x.dtype``: the memory-bound lever (paper
+    §4.2 weight-only); the per-output-channel scale is applied after the
+    dot."""
+    impl = _resolve(impl, x)
+    fn = (_im.int8_matmul_weight_only_cuda if impl == "cuda"
+          else _im.int8_matmul_weight_only_plain)
+    return fn(x.contiguous(), w_q.contiguous(), w_scale.float().contiguous())
+
+
+def quantize_rows(x: torch.Tensor):
+    """Dynamic activation quantization, per row of ``x [..., K]``: returns
+    (x_q int8 [..., K], x_scale f32 [..., 1]), by the same formula and in
+    the same order as ``quantize_int8``."""
+    x_q, x_scale = quantize_int8(x, axis=-1)
+    return x_q, x_scale.unsqueeze(-1)
+
+
+def int8_matmul_dynamic(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                        impl: str = "auto") -> torch.Tensor:
+    """Dynamic per-row activation quantization + int8 x int8 GEMM, out f32:
+    the compute-bound lever (paper §4.2 dynamic). The activation scales
+    (amax, scale, round, clip) are plain torch outside the kernel, as the
+    reference computes them outside its Pallas kernel."""
+    impl = _resolve(impl, x)
+    x_q, x_scale = quantize_rows(x)
+    fn = _im.int8_matmul_dynamic_cuda if impl == "cuda" else _im.int8_matmul_dynamic_plain
+    return fn(x_q, w_q.contiguous(), w_scale.float().contiguous(), x_scale)

@@ -97,3 +97,29 @@ def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> tor
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def int_matmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of int8 operands with an exact int32 result. The CPU has
+    integer matmuls; CUDA has none in torch, so there the product runs in
+    float64, which is exact: |int8 * int8| <= 16129 and a sum of up to
+    2**37 such terms stays below 2**53."""
+    if a.is_cuda:
+        return (a.double() @ b.double()).to(torch.int32)
+    return a.to(torch.int32) @ b.to(torch.int32)
+
+
+def int8_matmul_ref(
+    x: torch.Tensor,  # [..., K] activations (bf16/f32), or int8 when x_scale is given
+    w_q: torch.Tensor,  # [K, N] int8 weights
+    w_scale: torch.Tensor,  # [N] per-output-channel scales (f32)
+    x_scale: Optional[torch.Tensor] = None,  # [..., 1] per-row scales (dynamic quant)
+) -> torch.Tensor:
+    """Weight-only (x_scale=None: dequantize first in f32, out ``x.dtype``)
+    or dynamic (x pre-quantized int8: int32 accumulator, then
+    ``acc * x_scale * w_scale`` in f32) oracle."""
+    if x_scale is None:
+        w = w_q.float() * w_scale[None, :].float()
+        return (x.float() @ w).to(x.dtype)
+    acc = int_matmul_exact(x, w_q)
+    return acc.float() * x_scale.float() * w_scale[None, :].float()

@@ -119,9 +119,9 @@ def attention(
     if cache is not None and window is not None:
         raise NotImplementedError("ring/window KV caches wait for a later slice of the port")
 
-    q = L.dense(p["wq"], x).reshape(b, t, hq, dh)
-    k = L.dense(p["wk"], x).reshape(b, t, hkv, dh)
-    v = L.dense(p["wv"], x).reshape(b, t, hkv, dh)
+    q = L.dense(p["wq"], x, impl).reshape(b, t, hq, dh)
+    k = L.dense(p["wk"], x, impl).reshape(b, t, hkv, dh)
+    v = L.dense(p["wv"], x, impl).reshape(b, t, hkv, dh)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
 
@@ -142,4 +142,4 @@ def attention(
         out = ops.decode_attention(
             q[:, 0], new_cache["k"], new_cache["v"], n_valid, impl=impl
         )[:, None]
-    return L.dense(p["wo"], out.reshape(b, t, hq * dh)), new_cache
+    return L.dense(p["wo"], out.reshape(b, t, hq * dh), impl), new_cache

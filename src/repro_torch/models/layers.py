@@ -3,8 +3,9 @@ counterparts of ``repro/models/layers.py``.
 
 Params are nested dicts of tensors with the JAX tree paths as names, and
 the JAX layout: ``dense`` weights are ``[d_in, d_out]`` applied as
-``x @ w``. Param dtype follows ``cfg.dtype``; norms and RoPE run in f32,
-the tied unembed in f32.
+``x @ w``, or an AutoQuant'd int8 linear (``core/quantization.py``).
+Param dtype follows ``cfg.dtype``; norms and RoPE run in f32, the tied
+unembed in f32.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quantization import qdense
 from repro_torch.kernels import ops
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -31,8 +33,15 @@ def dense_init(gen, d_in: int, d_out: int, dtype, device):
     return {"w": (_normal(gen, (d_in, d_out), device) * d_in ** -0.5).to(dtype)}
 
 
-def dense(p, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"]
+def dense(p, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """``x @ w (+ b)``; an AutoQuant'd linear (no ``"w"``) goes through
+    ``core.quantization.qdense``, whose int8 GEMMs dispatch on ``impl``."""
+    if "w" not in p:
+        return qdense(p, x, impl=impl)
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
 
 
 def embedding_init(gen, vocab: int, d: int, dtype, device):
@@ -95,5 +104,5 @@ def ffn_init(gen, d: int, d_ff: int, dtype, device):
     }
 
 
-def ffn(p, x: torch.Tensor) -> torch.Tensor:
-    return dense(p["w2"], F.silu(dense(p["w1"], x)) * dense(p["w3"], x))
+def ffn(p, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    return dense(p["w2"], F.silu(dense(p["w1"], x, impl)) * dense(p["w3"], x, impl), impl)

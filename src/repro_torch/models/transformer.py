@@ -57,7 +57,7 @@ def layer_forward(
     )
     x = x + attn_out
     h = L.rmsnorm(p["ffn_norm"], x, cfg.rmsnorm_eps, impl=impl)
-    return x + L.ffn(p["ffn"], h), new_cache
+    return x + L.ffn(p["ffn"], h, impl), new_cache
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, device):
@@ -129,7 +129,7 @@ def forward(
     if cfg.tie_embeddings:
         logits = L.unembed(params["embed"], x)
     else:
-        logits = L.dense(params["lm_head"], x).float()
+        logits = L.dense(params["lm_head"], x, impl).float()
 
     new_cache = None
     if cache is not None:

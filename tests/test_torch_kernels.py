@@ -15,6 +15,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import int8_matmul as im
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rn
 
@@ -42,12 +43,16 @@ def assert_close(got, want, name):
     np.testing.assert_allclose(f32(got), f32(want), **tol(name))
 
 
+def _counts():
+    return (rn.LAUNCHES, fa.LAUNCHES, da.LAUNCHES, im.LAUNCHES_WO, im.LAUNCHES_DYN)
+
+
 @pytest.fixture(autouse=True)
 def no_launches():
     """CPU tensors take the plain versions: no kernel launch is counted."""
-    before = (rn.LAUNCHES, fa.LAUNCHES, da.LAUNCHES)
+    before = _counts()
     yield
-    assert (rn.LAUNCHES, fa.LAUNCHES, da.LAUNCHES) == before == (0, 0, 0)
+    assert _counts() == before == (0, 0, 0, 0, 0)
 
 
 # ---------------------------------------------------------------- flash attn
