@@ -13,8 +13,11 @@ Phases (any failure exits non-zero and prints no result):
              with nvcc (``kernels/_build.py``);
 3. kernels — every kernel of the served paths against its plain PyTorch
              version at the main path's shapes, bf16 (atol/rtol 2e-2) and f32
-             (atol 2e-5, rtol 2e-4), plus edge cases (fully masked rows,
-             windows, MQA, D=128; int8 GEMMs at M = 1 and ragged shapes);
+             (atol 2e-5, rtol 2e-4; the SSD scan's f32 at the reference's
+             SSD tolerance, atol 2e-4, rtol 2e-3), plus edge cases (fully
+             masked rows, windows, MQA, D=128; int8 GEMMs at M = 1 and ragged
+             shapes; HSTU's band, empty rows and clipped bias; SSD's ragged
+             chunks, G = 2 and initial state);
              CUDA-event times of kernel, plain version and a PyTorch library
              call, beside the card's bound; the int8 GEMMs' device time at
              every served linear shape;
@@ -37,7 +40,20 @@ Phases (any failure exits non-zero and prints no result):
              kernel path held against its plain path as in phase 5, and
              profiled as in phase 6; printed for the record: tok/s, TTFT,
              TPOT, int8 vs bf16 weight bytes, logit drift against the bf16
-             params, and the counts of ``calibrate="measure"``.
+             params, and the counts of ``calibrate="measure"``;
+8. hstu    — full-width HSTU (14 layers, d 512, 8 heads, band 1024 from
+             layer 3, bf16, seeded weights) scores 8 user histories from
+             ``hstu_user_histories(seed=0)``, right-padded with ``lengths``:
+             exact launches per forward (hstu_attention 14, rmsnorm 29, the
+             rest 0), finite logits, and the kernel path's retrieval and
+             ranking logits against the plain path's on 2 histories (bf16
+             and an f32 copy of the params); forward wall / device ms and
+             histories per second;
+9. ssm     — full-width mamba2-130m (24 layers, d 768, N 128, bf16, seeded
+             weights) serves the same 16 requests as phase 4 (continuous):
+             exact launches (ssd_scan 24 per prefill and 0 per decode step,
+             rmsnorm 49 per forward, the rest 0), parity as in phase 5 and a
+             decode-step profile as in phase 6.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` summary. Imports nothing of JAX or the JAX package.
@@ -57,6 +73,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 2e-4)}  # (atol, rtol)
+# the SSD scan in f32: the kernel's cumulative decay sums in another order
+# than torch.cumsum (the reference's own SSD tolerance, tests/test_kernels.py)
+SSD_F32_TOL = (2e-4, 2e-3)
 ARCH = "llama3.2-1b"
 D_FF = 8192  # llama3.2-1b's FFN width (the kernels phase's int8 shapes)
 N_REQUESTS, SLOTS, MAX_NEW, SEED = 16, 8, 64, 0
@@ -163,13 +182,14 @@ def device_ms_each(fns, per_call, calls: int = 20):
     return out
 
 
-def max_err(got, want, dtype_name: str) -> float:
+def max_err(got, want, dtype_name: str, tol=None) -> float:
     """max |got - want| in f32; raises if any element is outside
-    atol + rtol * |want| (the assert_allclose rule) or not finite."""
+    atol + rtol * |want| (the assert_allclose rule; ``tol`` overrides the
+    type's) or not finite."""
     import torch
 
     g, w = got.float(), want.float()
-    atol, rtol = TOL[dtype_name]
+    atol, rtol = tol if tol is not None else TOL[dtype_name]
     check(bool(torch.isfinite(g).all()), "kernel output is not finite")
     diff = (g - w).abs()
     bad = diff > atol + rtol * w.abs()
@@ -434,11 +454,12 @@ def phase_kernels(pad_to: int, max_len: int):
         library_ms=_int_mm_ms(xd_q, wd_q, wd_scale, xd_scale),
         **_int8_work(md, kw, nw, dynamic=True),
     ))
+    records += hstu_kernel_records(gen) + ssd_kernel_records(gen)
     for r in records:
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"),
                                              r.pop("peak", BF16_FLOPS_PER_S))
         r["kernel_ms"] = r["ms"]
-        r["device_ms"] = device_ms(r.pop("call"))
+        r["device_ms"] = device_ms(r.pop("call"), calls=r.pop("device_calls", 20))
         dev_txt = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
         lib_txt = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[kernels] {r['name']:23s} kernel {r['ms']:.4f} ms (device {dev_txt}) | plain "
@@ -537,17 +558,177 @@ def int8_served_times(gen, served):
                   f"{fmt(dyn_lib)})", flush=True)
 
 
+def hstu_in_band_pairs(t: int, lengths, band) -> int:
+    """(query, key) pairs the HSTU mask keeps over a batch: j <= i,
+    i - j < band (when given) and j < length; the work these inputs need."""
+    import numpy as np
+
+    i = np.arange(t)
+    lo = np.maximum(0, i - band + 1) if band is not None else np.zeros_like(i)
+    return sum(int(np.clip(np.minimum(i, ln - 1) - lo + 1, 0, None).sum()) for ln in lengths)
+
+
+HSTU_T, HSTU_LENGTHS, HSTU_BAND = 5121, [4507, 5121], 1024
+
+
+def hstu_kernel_records(gen):
+    """HSTU attention against its plain version (edge cases in both types,
+    the full width in bf16: q/k/v [2, 5121, 8, 64], lengths 4507 / 5121, no
+    band and the 1024 band), then times at the full width. Returns the
+    record of the banded call (11 of the 14 layers' launch)."""
+    import torch
+
+    from repro_torch.kernels import hstu_attention as ha
+
+    dev = torch.device("cuda")
+    errs = {}
+
+    def inputs(b, t, h, d, dt, n_bias, band, lens):
+        q, k, v = (_rand(gen, (b, t, h, d), dt, dev) for _ in range(3))
+        rb = _rand(gen, (n_bias,), torch.float32, dev) * 0.1
+        return (q, k, v, rb), dict(max_attn_len=band,
+                                   lengths=torch.tensor(lens, dtype=torch.int32, device=dev))
+
+    cases = [("T=133 band 24, lengths 0/133", (2, 133, 4, 64, 4095, 24, [0, 133])),
+             ("D=32 T=70 clipped table 127", (2, 70, 4, 32, 127, None, [40, 70])),
+             ("T=1100 band 1024", (2, 1100, 8, 64, 4095, 1024, [900, 1100]))]
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        for label, (b, t, h, d, n_bias, band, lens) in cases:
+            args, kw = inputs(b, t, h, d, dt, n_bias, band, lens)
+            got = ha.hstu_attention_cuda(*args, **kw)
+            errs[f"{name} {label}"] = max_err(got, ha.hstu_attention_plain(*args, **kw), name)
+            if lens[0] == 0:
+                check(bool((got[0] == 0).all()), "hstu: a row of length 0 is not exactly zero")
+    full = {}
+    for band in (None, HSTU_BAND):
+        args, kw = inputs(2, HSTU_T, 8, 64, torch.bfloat16, 4095, band, HSTU_LENGTHS)
+        errs[f"bfloat16 full width band {band}"] = max_err(
+            ha.hstu_attention_cuda(*args, **kw), ha.hstu_attention_plain(*args, **kw),
+            "bfloat16")
+        full[band] = (args, kw)
+    torch.cuda.synchronize()
+    for case, v in errs.items():
+        print(f"[kernels] {'hstu_attention':23s} {case:32s} max|err| {v:.3e}", flush=True)
+
+    records = []
+    for band, (args, kw) in full.items():
+        q = args[0]
+        pairs = hstu_in_band_pairs(HSTU_T, HSTU_LENGTHS, band)
+        rec = dict(
+            name="hstu_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/hstu_attention.cu",
+            replaces="src/repro/kernels/hstu_attention.py:87",
+            shape=f"q/k/v[2,{HSTU_T},8,64] bf16 lengths {HSTU_LENGTHS} band {band}",
+            max_abs_err=errs[f"bfloat16 full width band {band}"],
+            call=lambda a=args, k=kw: ha.hstu_attention_cuda(*a, **k),
+            ms=cuda_ms(lambda a=args, k=kw: ha.hstu_attention_cuda(*a, **k),
+                       samples=5, inner=2, warmup=1),
+            plain_ms=cuda_ms(lambda a=args, k=kw: ha.hstu_attention_plain(*a, **k),
+                             samples=3, inner=1, warmup=1),
+            library_ms=None,  # no single PyTorch call computes SiLU attention with this bias
+            bytes=4 * q.numel() * 2 + args[3].numel() * 4 + 2 * 4,
+            flops=pairs * q.shape[2] * 4 * q.shape[3], device_calls=3,
+        )
+        if band is None:  # printed for the record; the JSON line keeps the banded call
+            b_ms, b_by = bound(rec["bytes"], rec["flops"], BF16_FLOPS_PER_S)
+            dev = device_ms(rec["call"], calls=3)
+            dev_txt = "not measured" if dev is None else f"{dev:.4f} ms"
+            print(f"[kernels] hstu_attention (no band, layers 0-2) kernel {rec['ms']:.4f} ms "
+                  f"(device {dev_txt}) | plain "
+                  f"{rec['plain_ms']:.4f} ms | bound {b_ms:.5f} ms ({b_by}) | "
+                  f"{pairs} in-band pairs", flush=True)
+            continue
+        records.append(rec)
+    return records
+
+
+def _ssd_inputs(gen, b, t, h, p, g, n, dt, init):
+    """x, B, C ~ N(0, 1) in ``dt``; dt = 0.1 softplus(N(0, 1)); A = -(1..16)
+    as the model's A_log init; D = 1; an N(0, 1) initial state or None."""
+    import torch
+
+    dev = torch.device("cuda")
+    step = torch.nn.functional.softplus(_rand(gen, (b, t, h), torch.float32, dev)) * 0.1
+    return dict(x=_rand(gen, (b, t, h, p), dt, dev), dt=step,
+                A=-torch.linspace(1.0, 16.0, h, device=dev),
+                B_=_rand(gen, (b, t, g, n), dt, dev), C=_rand(gen, (b, t, g, n), dt, dev),
+                D=torch.ones((h,), device=dev),
+                initial_state=_rand(gen, (b, h, p, n), torch.float32, dev) if init else None)
+
+
+def ssd_work(b, t, h, p, g, n, chunk, init, elt=2):
+    """Bytes the scan must move (inputs once, y and the final state once)
+    and the operations of the chunked algorithm on them: per (b, h) and
+    chunk of L positions, the causal pairs' C.B and score.x products,
+    the inter-chunk C.h and the state update."""
+    n_bytes = (2 * b * t * h * p * elt + b * t * h * 4 + 2 * h * 4 + 2 * b * t * g * n * elt
+               + b * h * p * n * 4 * (2 if init else 1))
+    ops_ = 0
+    for t0 in range(0, t, chunk):
+        length = min(chunk, t - t0)
+        ops_ += length * (length + 1) // 2 * (2 * n + 2 * p) + 4 * length * n * p
+    return n_bytes, b * h * ops_
+
+
+SSM_WIDTH = (1, 256, 24, 64, 1, 128, 256)  # B, T (= pad_to), H, P, G, N, chunk
+
+
+def ssd_kernel_records(gen):
+    """The SSD scan against its plain version: the served prefill width
+    [1, 256, 24, 64] / N 128 / one 256-chunk, four 128-chunks with a ragged
+    last one, G = 2 and an initial state, and a T below the chunk; in bf16
+    and f32 (SSD tolerance). Then the served width's times."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as ss
+
+    errs = {}
+    cases = [("served prefill [1,256,24,64] N128", SSM_WIDTH + (False,)),
+             ("4 chunks T=461 G=2 init", (2, 461, 8, 64, 2, 128, 128, True)),
+             ("T=5 < chunk, init", (1, 5, 2, 16, 1, 8, 256, True))]
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        tol = SSD_F32_TOL if dt == torch.float32 else None
+        for label, (b, t, h, p, g, n, chunk, init) in cases:
+            kw = _ssd_inputs(gen, b, t, h, p, g, n, dt, init)
+            y, s = ss.ssd_scan_cuda(chunk=chunk, **kw)
+            wy, ws = ss.ssd_scan_plain(chunk=chunk, **kw)
+            errs[f"{name} {label}"] = max_err(y, wy, name, tol)
+            max_err(s, ws, "float32", SSD_F32_TOL)
+    torch.cuda.synchronize()
+    for case, v in errs.items():
+        print(f"[kernels] {'ssd_scan':23s} {case:32s} max|err| {v:.3e}", flush=True)
+    b, t, h, p, g, n, chunk = SSM_WIDTH
+    kw = _ssd_inputs(gen, b, t, h, p, g, n, torch.bfloat16, False)
+    n_bytes, n_ops = ssd_work(b, t, h, p, g, n, chunk, False)
+    return [dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:90",
+        shape=f"x[{b},{t},{h},{p}] bf16, B/C[{b},{t},{g},{n}], chunk {chunk} (prefill)",
+        max_abs_err=errs["bfloat16 served prefill [1,256,24,64] N128"],
+        call=lambda: ss.ssd_scan_cuda(chunk=chunk, **kw),
+        ms=cuda_ms(lambda: ss.ssd_scan_cuda(chunk=chunk, **kw)),
+        plain_ms=cuda_ms(lambda: ss.ssd_scan_plain(chunk=chunk, **kw)),
+        library_ms=None,  # no single PyTorch call computes the SSD scan
+        bytes=n_bytes, flops=n_ops,
+    )]
+
+
 def _counters():
     """Kernel name -> (module, attribute) of its launch counter."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hstu_attention as ha
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
 
     return {"rmsnorm": (rn, "LAUNCHES"), "flash_attention": (fa, "LAUNCHES"),
             "decode_attention": (da, "LAUNCHES"),
             "int8_matmul_weight_only": (im, "LAUNCHES_WO"),
-            "int8_matmul_dynamic": (im, "LAUNCHES_DYN")}
+            "int8_matmul_dynamic": (im, "LAUNCHES_DYN"),
+            "hstu_attention": (ha, "LAUNCHES"), "ssd_scan": (ss, "LAUNCHES")}
 
 
 def _reset_counts():
@@ -573,8 +754,11 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag):
     it and read just after. Checks that every request got its max_new
     tokens, that every logits tensor the scheduler sampled from was finite
     (one device flag, read once per run: no per-step host sync is added),
-    and that each kernel launched exactly its per-forward count; the int8
-    kernel of ``int8_mode`` ("wo"/"dyn"/None) 7 x n_layers per forward."""
+    and that each kernel launched exactly its per-forward count: rmsnorm
+    2 x n_layers + 1; for a dense model flash attention per prefill layer,
+    decode attention per decode layer and the int8 kernel of ``int8_mode``
+    ("wo"/"dyn"/None) 7 x n_layers per forward; for an SSM the scan per
+    prefill layer; every other kernel 0."""
     import torch
 
     from repro_torch.core import engine
@@ -612,14 +796,16 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag):
         check(len(r.tokens) == want_new[r.rid],
               f"{tag}: request {r.rid} got {len(r.tokens)} of {want_new[r.rid]} tokens")
     n_fwd = m["prefills"] + m["decode_steps"]
-    per_int8 = 7 * cfg.n_layers * n_fwd
-    want_counts = {
-        "rmsnorm": (2 * cfg.n_layers + 1) * n_fwd,
-        "flash_attention": cfg.n_layers * m["prefills"],
-        "decode_attention": cfg.n_layers * m["decode_steps"],
-        "int8_matmul_weight_only": per_int8 if int8_mode == "wo" else 0,
-        "int8_matmul_dynamic": per_int8 if int8_mode == "dyn" else 0,
-    }
+    want_counts = dict.fromkeys(_counters(), 0)
+    want_counts["rmsnorm"] = (2 * cfg.n_layers + 1) * n_fwd
+    if cfg.family == "ssm":  # the scan at every prefill; decode is plain torch
+        want_counts["ssd_scan"] = cfg.n_layers * m["prefills"]
+    else:
+        want_counts["flash_attention"] = cfg.n_layers * m["prefills"]
+        want_counts["decode_attention"] = cfg.n_layers * m["decode_steps"]
+        if int8_mode is not None:
+            want_counts[f"int8_matmul_{'weight_only' if int8_mode == 'wo' else 'dynamic'}"] = (
+                7 * cfg.n_layers * n_fwd)
     check(counts == want_counts, f"{tag}: kernel launches {counts}, expected {want_counts}")
     print(f"[{tag}] {m['n_requests']} requests | "
           f"{m['tokens_per_s']:.1f} tok/s | ttft p50 {m['ttft_p50_ms']:.2f} ms | "
@@ -719,7 +905,7 @@ def phase_parity(model, params, pad_to, reqs, served, tag="parity"):
 
 
 PORTED_KERNEL_NAMES = ("rmsnorm_kernel", "flash_attention_kernel", "decode_attention_kernel",
-                       "int8_gemm_kernel")
+                       "int8_gemm_kernel", "hstu_attention_kernel", "ssd_scan_kernel")
 
 
 def phase_profile(model, params, pad_to, reqs, tag="profile"):
@@ -772,6 +958,19 @@ def phase_profile(model, params, pad_to, reqs, tag="profile"):
         print(f"[{tag}] decode step {bare_ms:.3f} ms wall; the profiler saw no device "
               f"activity: device busy share not measured", flush=True)
         return
+    cats, by_name = device_split(kern)
+    busy_ms = sum(cats.values()) / n_steps / 1e3
+    print(f"[{tag}] decode step (B={SLOTS}): wall {bare_ms:.3f} ms unprofiled, "
+          f"{wall_ms:.3f} ms profiled | device busy {busy_ms:.3f} ms = "
+          f"{busy_ms / bare_ms:.1%} of the unprofiled step ({busy_ms / wall_ms:.1%} of "
+          f"the profiled one) | {len(kern) / n_steps:.0f} device kernels per step",
+          flush=True)
+    print_split(tag, cats, by_name, n_steps, "step")
+
+
+def device_split(kern):
+    """Device microseconds of profiler kernel events by kind (ported
+    kernels, cuBLAS matmuls, other torch ops) and by kernel name."""
     cats = {"ported kernels": 0.0, "matmuls (cuBLAS)": 0.0, "other torch ops": 0.0}
     by_name = {}
     for e in kern:
@@ -784,17 +983,16 @@ def phase_profile(model, params, pad_to, reqs, tag="profile"):
             cats["matmuls (cuBLAS)"] += us
         else:
             cats["other torch ops"] += us
-    busy_ms = sum(cats.values()) / n_steps / 1e3
-    print(f"[{tag}] decode step (B={SLOTS}): wall {bare_ms:.3f} ms unprofiled, "
-          f"{wall_ms:.3f} ms profiled | device busy {busy_ms:.3f} ms = "
-          f"{busy_ms / bare_ms:.1%} of the unprofiled step ({busy_ms / wall_ms:.1%} of "
-          f"the profiled one) | {len(kern) / n_steps:.0f} device kernels per step",
-          flush=True)
+    return cats, by_name
+
+
+def print_split(tag, cats, by_name, n, unit):
+    total = max(sum(cats.values()), 1e-9)
     for c, us in cats.items():
-        print(f"[{tag}]   {c:18s} {us / n_steps / 1e3:.4f} ms/step "
-              f"({us / max(sum(cats.values()), 1e-9):.1%} of device time)", flush=True)
+        print(f"[{tag}]   {c:18s} {us / n / 1e3:.4f} ms/{unit} ({us / total:.1%} of device "
+              f"time)", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"[{tag}]   top: {us / n_steps / 1e3:.4f} ms/step  {name[:110]}", flush=True)
+        print(f"[{tag}]   top: {us / n / 1e3:.4f} ms/{unit}  {name[:110]}", flush=True)
 
 
 def phase_quant(cfg, model, params, pad_to, reqs):
@@ -851,6 +1049,139 @@ def phase_quant(cfg, model, params, pad_to, reqs):
     return arms
 
 
+def _tree_float(tree):
+    """An f32 copy of a params tree (the same model in f32, for parity
+    without bf16 rounding)."""
+    if isinstance(tree, dict):
+        return {k: _tree_float(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_float(v) for v in tree]
+    return tree.float()
+
+
+N_HISTORIES = 8
+# kernel path vs plain path, max |logit difference| over the plain logits'
+# range: bf16 rounds each layer's output (one bf16 ulp is 2^-8 of a value),
+# f32 differs only in summation order
+HSTU_PARITY = {"bfloat16": 5e-2, "float32": 1e-3}
+
+
+def phase_hstu():
+    """Full-width HSTU scores 8 user histories; returns the kernels' launch
+    counts of one forward."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.training import data as data_mod
+
+    dev = torch.device("cuda")
+    cfg = get_config("hstu")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.vocab_size, cfg.hstu_max_attn_len,
+           cfg.dtype) == (14, 512, 8, 6000, 1024, "bfloat16"), f"unexpected config {cfg}")
+    model = get_model(cfg)
+    with torch.inference_mode():
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    hist = list(data_mod.hstu_user_histories(N_HISTORIES, seed=0))
+    lens = [len(h) for h in hist]
+
+    def batch_of(rows):
+        toks = np.zeros((len(rows), max(lens[i] for i in rows)), np.int32)
+        for j, i in enumerate(rows):
+            toks[j, : lens[i]] = hist[i]
+        return {"tokens": torch.from_numpy(toks).to(dev),
+                "lengths": torch.tensor([lens[i] for i in rows], dtype=torch.int32,
+                                        device=dev)}
+
+    batch = batch_of(range(N_HISTORIES))
+
+    def fwd(b=batch, p=params, impl="auto"):
+        with torch.inference_mode():
+            return model.forward(p, b, mode="prefill", impl=impl)
+
+    fwd()
+    torch.cuda.synchronize()
+    _reset_counts()
+    retrieval, _, aux = fwd()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    want = dict.fromkeys(_counters(), 0)
+    want.update(hstu_attention=cfg.n_layers, rmsnorm=2 * cfg.n_layers + 1)
+    check(counts == want, f"hstu: kernel launches {counts}, expected {want}")
+    t_max = batch["tokens"].shape[1]
+    check(tuple(retrieval.shape) == (N_HISTORIES, t_max, cfg.vocab_size)
+          and tuple(aux["ranking_logits"].shape) == (N_HISTORIES, t_max, 8),
+          "hstu: unexpected output shapes")
+    check(bool(torch.isfinite(retrieval).all()) and bool(torch.isfinite(aux["ranking_logits"]).all()),
+          "hstu: non-finite logits")
+    del retrieval, aux
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fwd()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        fwd()
+        torch.cuda.synchronize()
+    kern = device_kernels(prof)
+    split = device_split(kern) if kern else None
+    dev_txt = ("not measured" if split is None else
+               f"{sum(split[0].values()) / 1e3:.3f} ms ({len(kern)} device kernels)")
+    print(f"[hstu] {N_HISTORIES} histories, lengths {lens} (padded to {t_max}) | forward "
+          f"wall {wall:.3f} ms, device {dev_txt} | {N_HISTORIES / wall * 1e3:.2f} "
+          f"histories/s | launches per forward {counts}", flush=True)
+    if split is not None:
+        print_split("hstu", *split, 1, "forward")
+
+    two = batch_of([0, 1])
+    for name, p in (("bfloat16", params), ("float32", _tree_float(params))):
+        got_r, _, got_a = fwd(two, p, "auto")
+        want_r, _, want_a = fwd(two, p, "torch")
+        for what, g_, w_ in (("retrieval", got_r, want_r),
+                             ("ranking", got_a["ranking_logits"], want_a["ranking_logits"])):
+            check(bool(torch.isfinite(g_).all()), f"hstu {name}: non-finite {what} logits")
+            delta = float((g_ - w_).abs().max())
+            span = float(w_.max() - w_.min())
+            print(f"[hstu parity] {name} {what} logits, histories 0-1: max|d| {delta:.4e} = "
+                  f"{delta / span:.2e} of the range {span:.2f} (limit {HSTU_PARITY[name]:.0e})",
+                  flush=True)
+            check(delta <= HSTU_PARITY[name] * span,
+                  f"hstu {name} {what}: kernel path off the plain path by {delta}")
+        del got_r, got_a, want_r, want_a
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_ssm(pad_to: int):
+    """Full-width mamba2-130m served through the scheduler; returns the
+    launch counts of the served run."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    dev = torch.device("cuda")
+    cfg, model, params = serve.build_model("mamba2-130m", smoke=False, seed=SEED, device=dev)
+    s = cfg.ssm
+    check((cfg.n_layers, cfg.d_model, s.d_state, cfg.vocab_size, s.chunk_size, cfg.dtype)
+          == (24, 768, 128, 50280, 256, "bfloat16"), f"unexpected config {cfg}")
+    t0 = time.perf_counter()
+    serve.warmup(model, params, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW, device=dev)
+    print(f"[ssm] mamba2-130m | pad_to {pad_to} | warm-up {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    _, served, counts = serve_once(model, params, cfg, pad_to, policy="continuous",
+                                   int8_mode=None, tag="ssm/continuous")
+    reqs = _trace(cfg, pad_to)
+    phase_parity(model, params, pad_to, reqs[:2], served, tag="ssm parity")
+    phase_profile(model, params, pad_to, reqs, tag="ssm profile")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -876,9 +1207,14 @@ def main() -> None:
         phase_parity(model, params, pad_to, trace[:2], runs["continuous"][1])
         phase_profile(model, params, pad_to, trace)
         arms = phase_quant(cfg, model, params, pad_to, trace)
-        # each kernel's launches come from the served run of the path it is on
+        del model, params
+        torch.cuda.empty_cache()
+        hstu_counts = phase_hstu()
+        ssm_counts = phase_ssm(pad_to)
+        # each kernel's launches come from the run of the path it is on
         path_counts = {"int8_matmul_weight_only": arms["wo"],
-                       "int8_matmul_dynamic": arms["dyn"]}
+                       "int8_matmul_dynamic": arms["dyn"],
+                       "hstu_attention": hstu_counts, "ssd_scan": ssm_counts}
         for r in records:
             r["launches"] = path_counts.get(r["name"], runs["continuous"][2])[r["name"]]
             check(r["launches"] > 0, f"{r['name']} was not launched on its served path")

@@ -5,10 +5,12 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig  # noqa: F401
-from repro_torch.configs import llama3_2_1b
+from repro_torch.configs import hstu, llama3_2_1b, mamba2_130m
 
 _MODULES = {
     "llama3.2-1b": llama3_2_1b,
+    "mamba2-130m": mamba2_130m,
+    "hstu": hstu,
 }
 
 CONFIGS: Dict[str, ModelConfig] = {k: m.CONFIG for k, m in _MODULES.items()}

@@ -1,10 +1,12 @@
 """KV-cache slot-pool row ops — the contiguous-pool part of
 ``repro/core/kv_cache.py``, as in-place index updates.
 
-Every cache leaf's axis 0 is the sequence-slot axis. Where the reference
-donates the pool to a jitted program so XLA updates its buffers in place,
-the port writes into the pool's tensors directly: refilling or evicting a
-slot never reallocates the pool.
+Every cache leaf's axis 0 is the sequence-slot axis: a transformer's K/V
+buffers, or an SSM's conv tail and f32 state (``models/ssm.py``), beside
+the ``lengths`` counter. Where the reference donates the pool to a jitted
+program so XLA updates its buffers in place, the port writes into the
+pool's tensors directly: refilling or evicting a slot never reallocates
+the pool.
 """
 from __future__ import annotations
 
@@ -34,8 +36,10 @@ def cache_bytes(cache: Any) -> int:
 @torch.inference_mode()
 def write_slot(pool: Any, row: Any, slot: int) -> Any:
     """Copy a single-sequence cache (leaves [1, ...]) into sequence slot
-    ``slot`` of a pooled cache (leaves [B, ...]), in place: K/V buffers and
-    the length counter of that slot only."""
+    ``slot`` of a pooled cache (leaves [B, ...]), in place: that slot's
+    buffers (K/V, or conv tail and state) and length counter only. Both
+    trees are built by the same model code, so their leaves pair up in
+    insertion order."""
     for p, r in zip(leaves(pool), leaves(row)):
         A.write_slot_row(p, r, slot)
     return pool

@@ -6,6 +6,8 @@ PyTorch versions, one module per kernel:
 - rmsnorm           — replaces ``rmsnorm_pallas`` (three norms per layer)
 - int8_matmul       — replaces ``int8_matmul_pallas`` (weight-only) and
                       ``int8_matmul_dynamic_pallas`` (AutoQuant's linears)
+- hstu_attention    — replaces ``hstu_attention_pallas`` (every HSTU layer)
+- ssd_scan          — replaces ``ssd_scan_pallas`` (every Mamba-2 prefill)
 
 ``ops`` dispatches between them, ``ref`` holds the naive oracles and
 ``_build`` compiles the sources with ``nvcc`` at first use. Importing this

@@ -49,6 +49,13 @@ SIGNATURES: Dict[str, List] = {
     "int8_matmul_wo_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x_q, w_q, w_scale, x_scale, out, partial, M, N, K, splits, k_chunk, stream
     "int8_matmul_dyn_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dtype, q, k, v, rel_bias, lengths, out, B, T, H, D, n_bias, max_attn_len,
+    # scale, stream
+    "hstu_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              ctypes.c_float, _P],
+    # dtype, x, dt, A, B, C, D, h0, y, hT, B, T, H, P, G, N, chunk, stream
+    "ssd_scan_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
 }
 
 def _digest() -> str:

@@ -20,8 +20,10 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import hstu_attention as _ha
 from repro_torch.kernels import int8_matmul as _im
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ss
 
 NEG_INF = -1e30  # finite sentinel: keeps online softmax NaN-free
 IMPLS = ("auto", "torch", "cuda")
@@ -134,3 +136,84 @@ def int8_matmul_dynamic(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tenso
     x_q, x_scale = quantize_rows(x)
     fn = _im.int8_matmul_dynamic_cuda if impl == "cuda" else _im.int8_matmul_dynamic_plain
     return fn(x_q, w_q.contiguous(), w_scale.float().contiguous(), x_scale)
+
+
+# --------------------------------------------------------------------------
+# Mamba-2 SSD (chunked state-space duality)
+# --------------------------------------------------------------------------
+
+def ssd_scan(
+    x: torch.Tensor,  # [B, T, H, P]
+    dt: torch.Tensor,  # [B, T, H] (already softplus'd, >0)
+    A: torch.Tensor,  # [H] (negative)
+    B_: torch.Tensor,  # [B, T, G, N]
+    C: torch.Tensor,  # [B, T, G, N]
+    D: torch.Tensor,  # [H]
+    *,
+    chunk: int = 256,
+    initial_state: Optional[torch.Tensor] = None,
+    impl: str = "auto",
+):
+    """(y [B, T, H, P] in ``x``'s type, final state [B, H, P, N] f32). The
+    chunk is ``min(chunk, T)``, as the TPU kernel's wrapper takes it; the
+    chunked result equals the sequential recurrence up to rounding."""
+    impl = _resolve(impl, x)
+    chunk = max(1, min(chunk, x.shape[1]))
+    if initial_state is not None:
+        initial_state = initial_state.float().contiguous()
+    fn = _ss.ssd_scan_cuda if impl == "cuda" else _ss.ssd_scan_plain
+    return fn(x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
+              B_.to(x.dtype).contiguous(), C.to(x.dtype).contiguous(),
+              D.float().contiguous(), chunk=chunk, initial_state=initial_state)
+
+
+def ssd_decode_step(
+    x: torch.Tensor,  # [B, H, P] one token
+    dt: torch.Tensor,  # [B, H]
+    A: torch.Tensor,  # [H]
+    B_: torch.Tensor,  # [B, G, N]
+    C: torch.Tensor,  # [B, G, N]
+    D: torch.Tensor,  # [H]
+    state: torch.Tensor,  # [B, H, P, N]
+):
+    """Single-token SSD recurrence (decode): O(H.P.N) per token, plain
+    torch on every device (the reference computes it in XLA; it has no
+    Pallas kernel). Returns (y [B, H, P] in ``x``'s type, new state f32)."""
+    h = x.shape[1]
+    rep = h // B_.shape[1]
+    xf, dtf = x.float(), dt.float()
+    Bf = torch.repeat_interleave(B_.float(), rep, dim=1)
+    Cf = torch.repeat_interleave(C.float(), rep, dim=1)
+    decay = torch.exp(dtf * A.float()[None])
+    upd = torch.einsum("bh,bhp,bhn->bhpn", dtf, xf, Bf)
+    new_state = decay[:, :, None, None] * state.float() + upd
+    y = torch.einsum("bhn,bhpn->bhp", Cf, new_state)
+    y = y + D.float()[None, :, None] * xf
+    return y.to(x.dtype), new_state
+
+
+# --------------------------------------------------------------------------
+# HSTU pointwise attention
+# --------------------------------------------------------------------------
+
+def hstu_attention(
+    q: torch.Tensor,  # [B, T, H, D]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rel_bias: torch.Tensor,  # [2 * max_rel - 1]
+    *,
+    max_attn_len: Optional[int] = None,
+    lengths: Optional[torch.Tensor] = None,  # [B]
+    impl: str = "auto",
+) -> torch.Tensor:
+    """``SiLU(q.k^T * D^-1/2 + rel_bias[clip(i - j)]) / T`` times V under the
+    causal, ``max_attn_len`` and key-length masks; ``lengths`` None means
+    every row is ``T`` long."""
+    impl = _resolve(impl, q)
+    b, t = q.shape[:2]
+    if lengths is None:
+        lengths = torch.full((b,), t, dtype=torch.int32, device=q.device)
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    fn = _ha.hstu_attention_cuda if impl == "cuda" else _ha.hstu_attention_plain
+    return fn(q.contiguous(), k.contiguous(), v.contiguous(), rel_bias.float().contiguous(),
+              max_attn_len=max_attn_len, lengths=lengths)

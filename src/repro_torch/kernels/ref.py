@@ -123,3 +123,66 @@ def int8_matmul_ref(
         return (x.float() @ w).to(x.dtype)
     acc = int_matmul_exact(x, w_q)
     return acc.float() * x_scale.float() * w_scale[None, :].float()
+
+
+def ssd_ref(
+    x: torch.Tensor,  # [B, T, H, P] inputs (P = head_dim)
+    dt: torch.Tensor,  # [B, T, H] softplus'd step sizes
+    A: torch.Tensor,  # [H] negative reals
+    B_: torch.Tensor,  # [B, T, G, N] input matrices (G groups, N = d_state)
+    C: torch.Tensor,  # [B, T, G, N] output matrices
+    D: torch.Tensor,  # [H] skip connection
+    *,
+    initial_state: Optional[torch.Tensor] = None,  # [B, H, P, N]
+):
+    """Sequential Mamba-2 SSD recurrence oracle.
+
+    h_t = exp(dt_t * A) * h_{t-1} + dt_t * x_t B_t^T ;  y_t = C_t h_t + D x_t
+    Returns (y [B,T,H,P], final_state [B,H,P,N])."""
+    b, t, h, p = x.shape
+    g, n = B_.shape[2], B_.shape[3]
+    rep = h // g
+    xf = x.float()
+    dtf = dt.float()
+    Bf = torch.repeat_interleave(B_.float(), rep, dim=2)  # [B,T,H,N]
+    Cf = torch.repeat_interleave(C.float(), rep, dim=2)
+    Af = A.float()
+    state = (initial_state.float() if initial_state is not None
+             else torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device))
+    ys = []
+    for i in range(t):
+        decay = torch.exp(dtf[:, i] * Af[None, :])  # [B, H]
+        upd = torch.einsum("bh,bhp,bhn->bhpn", dtf[:, i], xf[:, i], Bf[:, i])
+        state = decay[:, :, None, None] * state + upd
+        ys.append(torch.einsum("bhn,bhpn->bhp", Cf[:, i], state))
+    y = torch.stack(ys, dim=1) + D.float()[None, None, :, None] * xf
+    return y.to(x.dtype), state
+
+
+def hstu_attention_ref(
+    q: torch.Tensor,  # [B, T, H, D]
+    k: torch.Tensor,  # [B, T, H, D]
+    v: torch.Tensor,  # [B, T, H, D]
+    rel_bias: torch.Tensor,  # [2*max_rel-1] learned relative position bias table
+    *,
+    max_attn_len: Optional[int] = None,
+    lengths: Optional[torch.Tensor] = None,  # [B]
+) -> torch.Tensor:
+    """HSTU pointwise-normalized attention oracle (§4.1.1 of the paper):
+    A = silu(QK^T + rab) / T ; out = A @ V   (no softmax)."""
+    b, t, h, d = q.shape
+    max_rel = (rel_bias.shape[0] + 1) // 2
+    qp = torch.arange(t, device=q.device)
+    delta = torch.clamp(qp[:, None] - qp[None, :], -(max_rel - 1), max_rel - 1)
+    rab = rel_bias.float()[delta + (max_rel - 1)]  # [T, T]
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    scores = scores * (d ** -0.5) + rab[None, None]
+    mask = qp[None, :, None] >= qp[None, None, :]  # causal
+    if max_attn_len is not None:
+        mask = mask & (qp[None, :, None] - qp[None, None, :] < max_attn_len)
+    if lengths is not None:
+        mask = mask & (qp[None, None, :] < lengths.to(q.device)[:, None, None])
+    a = torch.nn.functional.silu(scores) / t
+    a = torch.where(mask[:, None, :, :], a, torch.zeros_like(a))
+    out = torch.einsum("bhts,bshd->bthd", a, v.float())
+    return out.to(q.dtype)

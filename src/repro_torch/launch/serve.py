@@ -5,10 +5,12 @@ ONE batch-1 prefill admits requests into free slots, ONE pool-wide decode
 step runs every step, and the scheduler recycles a slot the moment its
 request finishes. ``--policy fixed`` degrades the same machinery to
 run-to-completion batches for A/B comparison. Weights are random, drawn
-from a ``torch.Generator`` seeded with ``--seed``; attention and RMSNorm
-run through the hand-written CUDA kernels on the card.
+from a ``torch.Generator`` seeded with ``--seed``; on the card the model's
+kernels (attention and RMSNorm for ``llama3.2-1b``, the SSD scan and
+RMSNorm for ``mamba2-130m``) are the hand-written CUDA ones.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --n-requests 8 --batch-slots 4 --max-new 16
 

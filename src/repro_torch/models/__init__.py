@@ -1,2 +1,2 @@
-"""Dense decoder-only model of the port (family ``dense``)."""
+"""Model families of the port: ``dense`` (transformer), ``hstu`` and ``ssm``."""
 from repro_torch.models.registry import Model, get_model  # noqa: F401

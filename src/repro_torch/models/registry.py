@@ -1,6 +1,7 @@
 """Model registry: resolves a ModelConfig to its family module and wraps it
 in a uniform ``Model`` handle used by the engine, launcher and tests (the
-counterpart of ``repro/models/registry.py``; dense family only)."""
+counterpart of ``repro/models/registry.py``; the dense, HSTU and SSM
+families so far)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -9,9 +10,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hstu, ssm, transformer
 
-_FAMILIES = {"dense": transformer}
+_FAMILIES = {"dense": transformer, "hstu": hstu, "ssm": ssm}
 
 
 @dataclass(frozen=True)

@@ -1,11 +1,12 @@
-"""Request-length profiles of the paper's workloads (Table 2): a copy of
-``LengthProfile``, ``PAPER_PROFILES``, ``_sample_lognormal`` and
-``sample_lengths`` from ``repro/training/data.py``, so that the port's
-traces draw the same lengths as the JAX launcher for the same seed."""
+"""Request-length profiles of the paper's workloads (Table 2) and HSTU's
+user histories: a copy of ``LengthProfile``, ``PAPER_PROFILES``,
+``_sample_lognormal``, ``sample_lengths`` and ``hstu_user_histories`` from
+``repro/training/data.py``, so that the port draws the same lengths and
+items as the JAX package for the same seed."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -51,3 +52,14 @@ def sample_lengths(
     ins = _sample_lognormal(rng, profile.in_min, profile.in_max, profile.in_mean, n)
     outs = _sample_lognormal(rng, profile.out_min, profile.out_max, profile.out_mean, n)
     return ins, outs
+
+
+def hstu_user_histories(
+    n_samples: int, *, max_len: int = 5121, n_items: int = 6000, seed: int = 0
+) -> Iterator[np.ndarray]:
+    """Paper §3.1: synthetic user-history sequences with random item ids in
+    [0, 6000), lengths matching the production-like distribution."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(4507, max_len + 1, size=n_samples)
+    for n in lengths:
+        yield rng.integers(0, n_items, size=int(n)).astype(np.int32)
