@@ -10,17 +10,19 @@ Phases (any failure exits non-zero and prints no result):
 1. device  — require CUDA, print the card's name and power limit, turn TF32
              off for the f32 checks;
 2. build   — compile the kernel library from ``src/repro_torch/kernels/csrc``
-             with nvcc (``kernels/_build.py``);
+             with nvcc (``kernels/_build.py``); ptxas' registers and spills,
+             summarised for the two tensor-core kernels;
 3. kernels — every kernel of the served paths against its plain PyTorch
              version at the main path's shapes, bf16 (atol/rtol 2e-2) and f32
              (atol 2e-5, rtol 2e-4; the SSD scan's f32 at the reference's
              SSD tolerance, atol 2e-4, rtol 2e-3), plus edge cases (fully
-             masked rows, windows, MQA, D=128; int8 GEMMs at M = 1 and ragged
-             shapes; HSTU's band, empty rows and clipped bias; SSD's ragged
+             masked rows, windows, MQA up to G = 64, D=128, T=1; int8 GEMMs at
+             M = 1 and ragged shapes, the dynamic one bit for bit in every
+             shape; HSTU's band, empty rows and clipped bias; SSD's ragged
              chunks, G = 2 and initial state);
              CUDA-event times of kernel, plain version and a PyTorch library
-             call, beside the card's bound; the int8 GEMMs' device time at
-             every served linear shape;
+             call (with its device time), beside the card's bound; the int8
+             GEMMs' device time at every served linear shape;
 4. serve   — full-width llama3.2-1b in bf16 (random weights from a seeded
              generator) serves 16 requests through the continuous-batching
              scheduler, then through ``policy="fixed"``: every request gets
@@ -30,8 +32,9 @@ Phases (any failure exits non-zero and prints no result):
 5. parity  — prefill logits of two requests through the kernels and through
              the plain versions on the same weights, and their first served
              tokens against greedy generation on the plain path;
-6. profile — torch.profiler over served decode steps: device busy share
-             and device time by kind (ported kernels, matmuls, other ops);
+6. profile — torch.profiler over one prefill and over served decode steps:
+             device busy share and device time by kind (ported kernels,
+             matmuls, other ops);
 7. quant   — AutoQuant (``core/quantization.py``) of the same bf16 params,
              calibrated for decode (8 tokens/step: every linear weight-only
              int8) and for prefill (256 tokens/step: every linear dynamic
@@ -62,6 +65,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -224,10 +228,44 @@ def phase_build():
     print(f"[build] {path.name} in {secs:.1f}s", flush=True)
     log = _build.BUILD_DIR / "build.log"
     if log.exists():
-        for ln in log.read_text().splitlines():
+        text = log.read_text()
+        for ln in text.splitlines():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 print(f"[build]   {ln.strip()}", flush=True)
+        for name, regs, stores, loads in ptxas_report(text, REDESIGNED):
+            print(f"[build] ptxas {name}: {regs} registers, spill stores {stores} bytes, "
+                  f"spill loads {loads} bytes", flush=True)
     return secs
+
+
+#: the tensor-core kernels whose ptxas report is summarised
+REDESIGNED = ("flash_attention_mma_kernel", "int8_mma_kernel")
+
+
+def ptxas_report(text: str, names):
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    entry function in an ``nvcc -Xptxas -v`` log whose name holds one of
+    ``names`` (a template's int argument shown as ``<D>``)."""
+    out, cur, spill = [], None, (0, 0)
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = next((n for n in names if n in m.group(1)), None)
+            if cur is not None:
+                arg = re.search(r"ILi(\d+)E", m.group(1))
+                cur += f"<{arg.group(1)}>" if arg else ""
+            spill = (0, 0)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append((cur, int(m.group(1)), *spill))
+            cur = None
+    return out
 
 
 def _rand(gen, shape, dtype, device):
@@ -289,7 +327,9 @@ def phase_kernels(pad_to: int, max_len: int):
             ("gqa ragged", (2, 67, 67, 8, 2, 64), {}),
             ("window 16", (2, 67, 67, 8, 2, 64), {"window": 16}),
             ("mqa", (1, 128, 128, 4, 1, 64), {}),
+            ("mqa G=64", (1, 67, 67, 64, 1, 64), {}),
             ("mha D=128", (1, 80, 80, 4, 4, 128), {}),
+            ("T=1", (1, 1, 1, hq, hkv, dh), {}),
         ):
             got, want = flash_case(*args, dt, **kw)
             errs["flash_attention"][f"{name} {label}"] = max_err(got, want, name)
@@ -329,7 +369,8 @@ def phase_kernels(pad_to: int, max_len: int):
     linears = [(d_model, hq * dh), (d_model, hkv * dh), (d_model, D_FF), (D_FF, d_model)]
     served = [(m, k, n) for m in (SLOTS, pad_to) for k, n in linears]
     exact = 0
-    int8_cases = served + [(1, d_model, d_model), (37, 100, 53), (128, 256, 64), (8, 300, 100)]
+    int8_cases = served + [(1, d_model, d_model), (37, 100, 53), (128, 256, 64), (8, 300, 100),
+                           (48, 200, 96)]  # K % 16 != 0: the tensor-core kernel's byte path
     for mi, ki, ni in int8_cases:
         xi, wi_q, wi_scale = _int8_operands(gen, mi, ki, ni)
         label = f"[{mi},{ki}]x[{ki},{ni}]"
@@ -350,6 +391,8 @@ def phase_kernels(pad_to: int, max_len: int):
             print(f"[kernels] {kname:23s} {case:32s} max|err| {v:.3e}", flush=True)
     print(f"[kernels] int8_matmul_dynamic equals its plain version bit for bit in {exact} "
           f"of {len(int8_cases)} shapes", flush=True)
+    check(exact == len(int8_cases), "int8_matmul_dynamic is not bit-identical to its plain "
+          "version")
 
     # ---- timings at the main path's shapes, bf16
     bf = torch.bfloat16
@@ -368,7 +411,7 @@ def phase_kernels(pad_to: int, max_len: int):
         call=lambda: rn.rmsnorm_cuda(x, w, 1e-5),
         ms=cuda_ms(lambda: rn.rmsnorm_cuda(x, w, 1e-5)),
         plain_ms=cuda_ms(lambda: rn.rmsnorm_plain(x, w, 1e-5)),
-        library_ms=cuda_ms(lambda: F.rms_norm(x, (d_model,), w, 1e-5)),
+        library=lambda: F.rms_norm(x, (d_model,), w, 1e-5),
         bytes=rms_bytes, flops=4 * n,
     ))
 
@@ -390,8 +433,7 @@ def phase_kernels(pad_to: int, max_len: int):
         call=lambda: fa.flash_attention_cuda(q, k, v, **fkw),
         ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **fkw)),
         plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **fkw)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q_t, k_exp, v_exp, is_causal=True)),
+        library=lambda: F.scaled_dot_product_attention(q_t, k_exp, v_exp, is_causal=True),
         bytes=(q.numel() * 2 + k.numel() + v.numel()) * 2 + 2 * pad_to * 4,
         flops=pairs * hq * 4 * dh,
     ))
@@ -414,8 +456,8 @@ def phase_kernels(pad_to: int, max_len: int):
         call=lambda: da.decode_attention_cuda(qd, kc, vc, ln),
         ms=cuda_ms(lambda: da.decode_attention_cuda(qd, kc, vc, ln)),
         plain_ms=cuda_ms(lambda: da.decode_attention_plain(qd, kc, vc, ln)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qd[:, :, None], kc_exp, vc_exp, attn_mask=amask)),
+        library=lambda: F.scaled_dot_product_attention(qd[:, :, None], kc_exp, vc_exp,
+                                                       attn_mask=amask),
         bytes=(2 * qd.numel() + 2 * n_rows * hkv * dh) * 2 + SLOTS * 4,
         flops=n_rows * hq * 4 * dh,
     ))
@@ -433,7 +475,7 @@ def phase_kernels(pad_to: int, max_len: int):
         call=lambda: im.int8_matmul_weight_only_cuda(xw, ww_q, ww_scale),
         ms=cuda_ms(lambda: im.int8_matmul_weight_only_cuda(xw, ww_q, ww_scale)),
         plain_ms=cuda_ms(lambda: im.int8_matmul_weight_only_plain(xw, ww_q, ww_scale)),
-        library_ms=cuda_ms(lambda: torch.matmul(xw, ww_q.to(xw.dtype)) * ww_scale),
+        library=lambda: torch.matmul(xw, ww_q.to(xw.dtype)) * ww_scale,
         **_int8_work(mw, kw, nw, dynamic=False),
     ))
 
@@ -451,7 +493,7 @@ def phase_kernels(pad_to: int, max_len: int):
         ms=cuda_ms(lambda: im.int8_matmul_dynamic_cuda(xd_q, wd_q, wd_scale, xd_scale)),
         plain_ms=cuda_ms(lambda: im.int8_matmul_dynamic_plain(xd_q, wd_q, wd_scale,
                                                               xd_scale)),
-        library_ms=_int_mm_ms(xd_q, wd_q, wd_scale, xd_scale),
+        library=_int_mm_call(xd_q, wd_q, wd_scale, xd_scale),
         **_int8_work(md, kw, nw, dynamic=True),
     ))
     records += hstu_kernel_records(gen) + ssd_kernel_records(gen)
@@ -459,12 +501,20 @@ def phase_kernels(pad_to: int, max_len: int):
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"),
                                              r.pop("peak", BF16_FLOPS_PER_S))
         r["kernel_ms"] = r["ms"]
-        r["device_ms"] = device_ms(r.pop("call"), calls=r.pop("device_calls", 20))
-        dev_txt = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
-        lib_txt = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"[kernels] {r['name']:23s} kernel {r['ms']:.4f} ms (device {dev_txt}) | plain "
-              f"{r['plain_ms']:.4f} ms | library {lib_txt} | bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']}) | {r['shape']}", flush=True)
+        calls = r.pop("device_calls", 20)
+        r["device_ms"] = device_ms(r.pop("call"), calls=calls)
+        lib = r.pop("library")
+        r["library_ms"] = None if lib is None else cuda_ms(lib)
+        r["library_device_ms"] = None if lib is None else device_ms(lib, calls=calls)
+
+        def fmt(v):
+            return "not measured" if v is None else f"{v:.4f} ms"
+
+        lib_txt = ("none" if lib is None else
+                   f"{r['library_ms']:.4f} ms (device {fmt(r['library_device_ms'])})")
+        print(f"[kernels] {r['name']:23s} kernel {r['ms']:.4f} ms (device "
+              f"{fmt(r['device_ms'])}) | plain {r['plain_ms']:.4f} ms | library {lib_txt} | "
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}) | {r['shape']}", flush=True)
     int8_served_times(gen, served)
     return records
 
@@ -502,9 +552,9 @@ def _int8_operands(gen, m: int, k: int, n: int):
     return (x, *ops.quantize_int8(w, axis=0))
 
 
-def _int_mm_ms(x_q, w_q, w_scale, x_scale):
-    """CUDA-event time of torch._int_mm plus the f32 epilogue, the dynamic
-    kernel's library yardstick; None where _int_mm refuses the shape."""
+def _int_mm_call(x_q, w_q, w_scale, x_scale):
+    """torch._int_mm plus the f32 epilogue, the dynamic kernel's library
+    yardstick, as a call; None where _int_mm refuses the shape."""
     import torch
 
     def call():
@@ -516,46 +566,53 @@ def _int_mm_ms(x_q, w_q, w_scale, x_scale):
         print(f"[kernels] torch._int_mm refused [{x_q.shape[0]},{x_q.shape[1]}]x"
               f"[{w_q.shape[0]},{w_q.shape[1]}]: {str(e).splitlines()[0]}", flush=True)
         return None
-    return cuda_ms(call)
+    return call
 
 
 def int8_served_times(gen, served):
     """Device time of both int8 kernels at every served linear shape (bf16
     x for weight-only; the split-K sum included), beside the bound and the
-    library call."""
+    library call (with its own device time). At decode the weight-only
+    kernel is the CUDA-core template, so the same line holds that
+    template's time beside the dynamic tensor-core kernel's."""
     import torch
 
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import ops
 
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def fmt(v):
+        return "not measured" if v is None else f"{v:.4f}"
+
     for m in sorted({s[0] for s in served}):
         shapes = [s for s in served if s[0] == m]
         ops_in = [_int8_operands(gen, *s) for s in shapes]
         wo_in = [(x.to(torch.bfloat16), w_q, w_scale) for x, w_q, w_scale in ops_in]
         dyn_in = [(*ops.quantize_rows(x), w_q, w_scale) for x, w_q, w_scale in ops_in]
         # the GEMM, plus the split-K sum where K is split
-        per_call = [1 + (im.split_k(m, n, k, n_sms)[0] > 1) for _, k, n in shapes]
+        wo_splits = [im.split_k(m, n, k, n_sms)[0] for _, k, n in shapes]
+        dyn_splits = [im.split_k_dynamic(m, n, k, n_sms)[0] for _, k, n in shapes]
         wo_dev = device_ms_each(
-            [lambda a=a: im.int8_matmul_weight_only_cuda(*a) for a in wo_in], per_call)
+            [lambda a=a: im.int8_matmul_weight_only_cuda(*a) for a in wo_in],
+            [1 + (z > 1) for z in wo_splits])
         dyn_dev = device_ms_each(
-            [lambda a=a: im.int8_matmul_dynamic_cuda(a[0], a[2], a[3], a[1])
-             for a in dyn_in], per_call)
+            [lambda a=a: im.int8_matmul_dynamic_cuda(a[0], a[2], a[3], a[1]) for a in dyn_in],
+            [1 + (z > 1) for z in dyn_splits])
         for i, (_, k, n) in enumerate(shapes):
             x, w_q, w_scale = wo_in[i]
             wo_bound = bound(*_int8_work(m, k, n, dynamic=False).values())[0]
-            wo_lib = cuda_ms(lambda: torch.matmul(x, w_q.to(x.dtype)) * w_scale)
+            wo_lib = lambda: torch.matmul(x, w_q.to(x.dtype)) * w_scale  # noqa: E731
             x_q, x_scale, wq, ws = dyn_in[i]
             dyn_bound = bound(*_int8_work(m, k, n, dynamic=True).values())[0]
-            dyn_lib = _int_mm_ms(x_q, wq, ws, x_scale) if m > 16 else None
-
-            def fmt(v):
-                return "not measured" if v is None else f"{v:.4f}"
-
-            print(f"[kernels] int8 [{m},{k}]x[{k},{n}]: weight-only device {fmt(wo_dev[i])} "
-                  f"ms (bound {wo_bound:.5f}, library {wo_lib:.4f}) | dynamic device "
-                  f"{fmt(dyn_dev[i])} ms (bound {dyn_bound:.5f}, library "
-                  f"{fmt(dyn_lib)})", flush=True)
+            dyn_lib = _int_mm_call(x_q, wq, ws, x_scale) if m > 16 else None
+            lib_txt = ("none" if dyn_lib is None else
+                       f"{cuda_ms(dyn_lib):.4f}, device {fmt(device_ms(dyn_lib))}")
+            print(f"[kernels] int8 [{m},{k}]x[{k},{n}]: weight-only ({wo_splits[i]} splits) "
+                  f"device {fmt(wo_dev[i])} ms (bound {wo_bound:.5f}, library "
+                  f"{cuda_ms(wo_lib):.4f}, device {fmt(device_ms(wo_lib))}) | dynamic "
+                  f"({dyn_splits[i]} splits) device {fmt(dyn_dev[i])} ms (bound "
+                  f"{dyn_bound:.5f}, library {lib_txt})", flush=True)
 
 
 def hstu_in_band_pairs(t: int, lengths, band) -> int:
@@ -626,7 +683,7 @@ def hstu_kernel_records(gen):
                        samples=5, inner=2, warmup=1),
             plain_ms=cuda_ms(lambda a=args, k=kw: ha.hstu_attention_plain(*a, **k),
                              samples=3, inner=1, warmup=1),
-            library_ms=None,  # no single PyTorch call computes SiLU attention with this bias
+            library=None,  # no single PyTorch call computes SiLU attention with this bias
             bytes=4 * q.numel() * 2 + args[3].numel() * 4 + 2 * 4,
             flops=pairs * q.shape[2] * 4 * q.shape[3], device_calls=3,
         )
@@ -710,7 +767,7 @@ def ssd_kernel_records(gen):
         call=lambda: ss.ssd_scan_cuda(chunk=chunk, **kw),
         ms=cuda_ms(lambda: ss.ssd_scan_cuda(chunk=chunk, **kw)),
         plain_ms=cuda_ms(lambda: ss.ssd_scan_plain(chunk=chunk, **kw)),
-        library_ms=None,  # no single PyTorch call computes the SSD scan
+        library=None,  # no single PyTorch call computes the SSD scan
         bytes=n_bytes, flops=n_ops,
     )]
 
@@ -904,8 +961,9 @@ def phase_parity(model, params, pad_to, reqs, served, tag="parity"):
         check(g < d, f"{tag} request {r.rid}: token {first} differs away from a near tie")
 
 
-PORTED_KERNEL_NAMES = ("rmsnorm_kernel", "flash_attention_kernel", "decode_attention_kernel",
-                       "int8_gemm_kernel", "hstu_attention_kernel", "ssd_scan_kernel")
+PORTED_KERNEL_NAMES = ("rmsnorm_kernel", "flash_attention_kernel", "flash_attention_mma_kernel",
+                       "decode_attention_kernel", "int8_gemm_kernel", "int8_mma_kernel",
+                       "int8_splitk_reduce", "hstu_attention_kernel", "ssd_scan_kernel")
 
 
 def phase_profile(model, params, pad_to, reqs, tag="profile"):
@@ -930,6 +988,21 @@ def phase_profile(model, params, pad_to, reqs, tag="profile"):
         pool.assign(slot, row)
         first.append(int(sampling.greedy(logits)[0]))
     token = torch.tensor(first, dtype=torch.int32, device=dev)
+    # one more prefill of the first request, profiled: where a prefill's time goes
+    r = reqs[0]
+    toks = torch.zeros((1, pad_to), dtype=torch.int32, device=dev)
+    toks[0, : len(r.prompt)] = torch.as_tensor(r.prompt, dtype=torch.int32)
+    plen = torch.tensor([len(r.prompt)], dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as pprof:
+        engine.prefill(model, params, toks, plen, pool.max_len)
+        torch.cuda.synchronize()
+    pk = device_kernels(pprof)
+    if pk:
+        pcats, pnames = device_split(pk)
+        print(f"[{tag}] one prefill (T={pad_to}): device {sum(pcats.values()) / 1e3:.3f} ms in "
+              f"{len(pk)} device kernels", flush=True)
+        print_split(f"{tag} prefill", pcats, pnames, 1, "prefill")
 
     def step():
         nonlocal token
@@ -960,6 +1033,12 @@ def phase_profile(model, params, pad_to, reqs, tag="profile"):
         return
     cats, by_name = device_split(kern)
     busy_ms = sum(cats.values()) / n_steps / 1e3
+    int8_all = sum(us for name, us in by_name.items() if "int8_" in name) / n_steps / 1e3
+    int8_gemm = sum(us for name, us in by_name.items()
+                    if "int8_gemm_kernel" in name or "int8_mma_kernel" in name) / n_steps / 1e3
+    if int8_all:
+        print(f"[{tag}] int8 GEMM device time per decode step: {int8_gemm:.4f} ms, "
+              f"{int8_all:.4f} ms with the split-K sums", flush=True)
     print(f"[{tag}] decode step (B={SLOTS}): wall {bare_ms:.3f} ms unprofiled, "
           f"{wall_ms:.3f} ms profiled | device busy {busy_ms:.3f} ms = "
           f"{busy_ms / bare_ms:.1%} of the unprofiled step ({busy_ms / wall_ms:.1%} of "

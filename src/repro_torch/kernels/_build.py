@@ -137,18 +137,24 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+#: the C interface's element-type codes (common.cuh)
+F32, BF16 = 0, 1
+_CODES = {torch.float32: F32, torch.bfloat16: BF16}
+
+
 def dtype_code(t) -> int:
-    """The C interface's element-type code of tensor ``t`` (common.cuh);
-    raises for a type no kernel is instantiated for."""
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if t.dtype not in codes:
+    """The C interface's element-type code of tensor ``t``; raises for a
+    type no kernel is instantiated for."""
+    code = _CODES.get(t.dtype)
+    if code is None:
         raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
-    return codes[t.dtype]
+    return code
 
 
 def stream_of(t) -> int:
-    """Raw handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Raw handle of PyTorch's current stream on ``t``'s device (the raw
+    query: no Stream object is built on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require_cuda(name: str, *tensors) -> None:

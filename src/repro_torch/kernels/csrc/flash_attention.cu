@@ -9,20 +9,62 @@
 // max(l, 1e-30) clamp, so a fully masked query row gives exact zeros.
 // Bound on the H100: at the served prefill shapes (B = 1, T = prompt pad
 // <= 256, Hq = 32, Hkv = 8, D = 64, causal) the work is ~T^2/2 * Hq * 4D
-// flops over ~T * (Hq + 2 Hkv) * D * 2 bytes: about 30 flop/byte, below the
-// bf16 ridge, so bytes bound it in principle; in practice a kernel this
-// small is bound by its own f32 FMA loops and launch latency.
-// Design: one 256-thread block per (query tile, batch row x KV head). The
-// block holds the G query heads of its KV head for kMaxRows / G positions
-// (64 query rows), and walks the keys in tiles of kTileK: it first loads
-// the tile's positions and validity and skips the tile when no (query, key)
-// pair of it is unmasked (causal tile skipping, as the Pallas kernel's
-// pl.when), else loads K and V once into shared memory, computes scores and
-// the P.V update with f32 FMA loops, and keeps the running max/sum per row.
-// mma.sync / wgmma, TMA and warp specialisation are later work.
+// flops (0.54 GFLOP at T = 256) over ~T * (Hq + 2 Hkv) * D * 2 bytes:
+// about 30 flop/byte, below the bf16 ridge, so bytes bound it in principle
+// (0.8 us); in practice a call this small is bound by latency: the chain of
+// loads, products and softmax steps of one block over its few key tiles.
+//
+// Both types share the block shape: one block per (query tile, batch row x
+// KV head) holds the G query heads of its KV head for 64 / G positions (64
+// query rows; row r is position t_lo + r / G, q head h * G + r % G), walks
+// the keys in tiles of 64, first loads a tile's positions and validity and
+// skips the tile when no (query, key) pair of it is unmasked (causal tile
+// skipping, as the Pallas kernel's pl.when), and keeps a running max and sum
+// per row.
+//
+// Dispatch by type, not a fallback: a bf16 call runs the tensor-core kernel
+// and an f32 call the CUDA-core kernel, each held against the plain version.
+// f32 on the tensor cores would be TF32 (~1e-3 relative), which cannot meet
+// the f32 tolerance (atol 2e-5, rtol 2e-4), so f32 keeps exact f32 FMAs.
+//
+// bf16 (flash_attention_mma_kernel): 4 warps of 16 query rows each; heavy
+// (late) query tiles are launched first.
+// S = Q.K^T runs as mma.sync m16n8k16 bf16 -> f32 with Q's fragments held in
+// registers for the block's life and K's read by ldmatrix; `scale` (times
+// log2 e, for exp2) is applied to the f32 S accumulator, never to a bf16 Q,
+// as the reference scales in f32. Mask, row max and row sum stay in the
+// accumulator's fragment layout (row max by two quad shuffles; the sum is
+// kept per thread and reduced once at the end). P is rounded to bf16 and
+// reused from S's registers as the A fragment of P.V (FlashAttention-2's
+// register reuse); V's fragments come by ldmatrix.trans. That bf16 P is the
+// one rounding the f32 reference does not have: it stays inside the bf16
+// tolerance (a CPU test emulates it against the JAX reference). K/V tiles
+// are double-buffered in shared memory by cp.async (zero-filled past Tk),
+// so the next live tile loads while this one computes; rows are padded to
+// D + 8 elements, which keeps every ldmatrix free of bank conflicts. No
+// score tile goes through shared memory. The output is staged through the
+// warp's own Q rows for 16-byte stores. A masked score is -inf, so its p is
+// exactly 0 while the running max starts at the -1e30 sentinel: a fully
+// masked row keeps l = 0 and gives exact zeros through the clamp.
+//
+// f32 (flash_attention_kernel, 256 threads, the first design): Q scaled in
+// f32, K and V tiles in shared memory, scores and the P.V update by f32 FMA
+// loops. wgmma, TMA and warp specialisation are later work.
+#include <cstdint>
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+__device__ __forceinline__ bool allowed(int qp, int kp, int kv, int causal, int window) {
+  return kv && (!causal || kp <= qp) && (window < 0 || kp > qp - window);
+}
+
+}  // namespace
+
+namespace f32 {
 
 constexpr int kThreads = 256;
 constexpr int kTileK = 64;
@@ -36,10 +78,6 @@ constexpr size_t smem_bytes() {
                           + kMaxRows * kTileK                 // scores / probabilities
                           + 3 * kMaxRows)                     // m, l, alpha
          + sizeof(int) * (kMaxRows + 2 * kTileK);             // q_pos, k_pos, k_valid
-}
-
-__device__ __forceinline__ bool allowed(int qp, int kp, int kv, int causal, int window) {
-  return kv && (!causal || kp <= qp) && (window < 0 || kp > qp - window);
 }
 
 template <typename T, int D>
@@ -191,23 +229,300 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+}  // namespace f32
+
+namespace mma {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 64;   // query rows per block, 16 per warp
+constexpr int kTileK = 64;  // keys per tile
+
+// shared memory row stride in elements: 16 bytes of padding make the 8 rows
+// of every ldmatrix land in 8 different 16-byte bank groups
+template <int D>
+constexpr int kStride = D + 8;
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(__nv_bfloat16) * static_cast<size_t>(kStride<D>) * (kRows + 4 * kTileK)
+         + sizeof(int) * (kRows + 4 * kTileK);  // q_pos, 2 x (k_pos, k_valid)
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+                           const unsigned char* __restrict__ k_valid,
+                           __nv_bfloat16* __restrict__ out, int Tq, int Tk, int Hq, int Hkv,
+                           int causal, int window, float scale_log2) {
+  constexpr int S = kStride<D>;
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kRows][S]
+  __nv_bfloat16* ks = qs + kRows * S;                                // [2][kTileK][S]
+  __nv_bfloat16* vs = ks + 2 * kTileK * S;                           // [2][kTileK][S]
+  int* qp_s = reinterpret_cast<int*>(vs + 2 * kTileK * S);           // [kRows]
+  int* kp_s = qp_s + kRows;                                          // [2][kTileK]
+  int* kv_s = kp_s + 2 * kTileK;                                     // [2][kTileK]
+
+  const int G = Hq / Hkv;
+  const int bq = kRows / G;  // query positions per block
+  const int rows = bq * G;   // live rows per block (<= kRows)
+  const int b = blockIdx.y / Hkv;
+  const int h = blockIdx.y % Hkv;
+  const int t_lo = (gridDim.x - 1 - blockIdx.x) * bq;  // heavy tiles first
+  const int nq = min(bq, Tq - t_lo);
+  const int n_tiles = (Tk + kTileK - 1) / kTileK;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const long long q_row = static_cast<long long>(Hq) * D;
+  const long long kv_row = static_cast<long long>(Hkv) * D;
+  const __nv_bfloat16* kb = k + static_cast<long long>(b) * Tk * kv_row + h * D;
+  const __nv_bfloat16* vb = v + static_cast<long long>(b) * Tk * kv_row + h * D;
+
+  // Q tile: the G heads of one position are G * D contiguous elements
+  const __nv_bfloat16* qb =
+      q + (static_cast<long long>(b) * Tq + t_lo) * q_row + static_cast<long long>(h) * G * D;
+  for (int i = tid; i < kRows * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const int t = r / G;
+    const bool live = r < rows && t < nq;
+    cp_async16(qs + r * S + c * 8, live ? qb + t * q_row + (r % G) * D + c * 8 : q,
+               live ? 16 : 0);
+  }
+  cp_async_commit();
+  for (int t = tid; t < bq; t += kThreads)
+    qp_s[t] = t < nq ? q_pos[static_cast<long long>(b) * Tq + t_lo + t] : 0;
+
+  // the two fragment rows of this thread: gid and gid + 8 of its warp's 16
+  int qp[2];
+  bool qlive[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + gid + 8 * i, t = r / G;
+    qlive[i] = r < rows && t < nq;
+    qp[i] = qlive[i] ? q_pos[static_cast<long long>(b) * Tq + t_lo + t] : 0;
+  }
+
+  // positions and validity of key tile kt into buffer sb; true (uniform over
+  // the block) when some (query, key) pair of the tile is unmasked
+  auto stage = [&](int kt, int sb) {
+    const int k0 = kt * kTileK, nk = min(kTileK, Tk - k0);
+    for (int j = tid; j < kTileK; j += kThreads) {
+      const long long gj = static_cast<long long>(b) * Tk + k0 + j;
+      kp_s[sb * kTileK + j] = j < nk ? k_pos[gj] : 0;
+      kv_s[sb * kTileK + j] = j < nk && (k_valid == nullptr || k_valid[gj]);
+    }
+    __syncthreads();
+    int any = 0;
+    for (int i = tid; i < bq * kTileK; i += kThreads) {
+      const int t = i / kTileK, j = sb * kTileK + i % kTileK;
+      if (t < nq && allowed(qp_s[t], kp_s[j], kv_s[j], causal, window)) any = 1;
+    }
+    return __syncthreads_or(any) != 0;
+  };
+  auto next_live = [&](int kt, int sb) {
+    while (kt < n_tiles && !stage(kt, sb)) ++kt;
+    return kt;
+  };
+  auto load_kv = [&](int kt, int sb) {
+    const int k0 = kt * kTileK, nk = min(kTileK, Tk - k0);
+    for (int i = tid; i < kTileK * kChunks; i += kThreads) {
+      const int j = i / kChunks, c = i % kChunks;
+      const long long off = static_cast<long long>(k0 + j) * kv_row + c * 8;
+      const int bytes = j < nk ? 16 : 0;
+      cp_async16(ks + (sb * kTileK + j) * S + c * 8, j < nk ? kb + off : k, bytes);
+      cp_async16(vs + (sb * kTileK + j) * S + c * 8, j < nk ? vb + off : v, bytes);
+    }
+    cp_async_commit();
+  };
+
+  int kt = next_live(0, 0);
+  if (kt < n_tiles) load_kv(kt, 0);
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[D / 16][4];  // this warp's 16 x D Q fragments
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(qf[kk], qs + (warp * 16 + lane % 16) * S + kk * 16 + (lane / 16) * 8);
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF};  // running max, in log2 units
+  float l[2] = {0.f, 0.f};                      // this thread's part of the row sum
+  int sb = 0;
+  while (kt < n_tiles) {
+    const int nxt = next_live(kt + 1, sb ^ 1);
+    if (nxt < n_tiles) {
+      load_kv(nxt, sb ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* kt_s = ks + sb * kTileK * S;
+    const __nv_bfloat16* vt_s = vs + sb * kTileK * S;
+    const int* kp = kp_s + sb * kTileK;
+    const int* kv = kv_s + sb * kTileK;
+
+    float s[kTileK / 8][4];  // S: 8 key columns per n-tile
+#pragma unroll
+    for (int n = 0; n < kTileK / 8; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; kk += 2) {
+        uint32_t bf[4];  // keys n*8.., d in [kk*16, kk*16 + 32)
+        ldmatrix_x4(bf, kt_s + (n * 8 + lane % 8) * S + kk * 16 + (lane / 8) * 8);
+        mma_bf16_16816(s[n], qf[kk], bf[0], bf[1]);
+        mma_bf16_16816(s[n], qf[kk + 1], bf[2], bf[3]);
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < kTileK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e / 2, j = n * 8 + 2 * tig + (e & 1);
+        const bool ok = qlive[i] && allowed(qp[i], kp[j], kv[j], causal, window);
+        s[n][e] = ok ? s[n][e] * scale_log2 : -INFINITY;
+        mx[i] = fmaxf(mx[i], s[n][e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // the 4 lanes of a quad hold one row
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = exp2f(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int n = 0; n < kTileK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - m[e / 2]);  // a masked -inf gives exactly 0
+        l[e / 2] += s[n][e];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTileK / 16; ++kk) {  // keys kk*16 .. kk*16 + 15
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n = 0; n < D / 8; n += 2) {
+        uint32_t bf[4];  // V rows kk*16.., d columns n*8 .. n*8 + 15
+        ldmatrix_x4_trans(bf, vt_s + (kk * 16 + lane % 16) * S + n * 8 + (lane / 16) * 8);
+        mma_bf16_16816(o[n], pa, bf[0], bf[1]);
+        mma_bf16_16816(o[n + 1], pa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // buffer sb is free for the tile after next
+    kt = nxt;
+    sb ^= 1;
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    inv[i] = 1.f / fmaxf(l[i], REPRO_L_MIN);
+  }
+  // stage the warp's 16 output rows in its own Q rows, then 16-byte stores
+  __nv_bfloat16* os = qs + warp * 16 * S;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(os + gid * S + n * 8 + 2 * tig) =
+        pack_bf16(o[n][0] * inv[0], o[n][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(os + (gid + 8) * S + n * 8 + 2 * tig) =
+        pack_bf16(o[n][2] * inv[1], o[n][3] * inv[1]);
+  }
+  __syncwarp();
+  __nv_bfloat16* ob =
+      out + (static_cast<long long>(b) * Tq + t_lo) * q_row + static_cast<long long>(h) * G * D;
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int rr = i / kChunks, c = i % kChunks;
+    const int r = warp * 16 + rr, t = r / G;
+    if (r < rows && t < nq) {
+      *reinterpret_cast<uint4*>(ob + t * q_row + (r % G) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(os + rr * S + c * 8);
+    }
+  }
+}
+
+}  // namespace mma
+
+namespace {
+
+constexpr int kMaxDevices = 64;
+
+// Allows `kern` its dynamic shared memory once per device: `done` is the
+// caller's own flag array, one per kernel instantiation (the attribute is
+// per kernel and device; the call is not repeated on every launch).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, size_t bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* q_pos, const int* k_pos,
            const unsigned char* k_valid, void* out, int B, int Tq, int Tk, int Hq,
            int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int kRows = kMma ? mma::kRows : f32::kMaxRows;
   const int G = Hq / Hkv;
-  if (G < 1 || G > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (G < 1 || G > kRows) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Tq == 0) return 0;
-  const int bq = kMaxRows / G;
-  const size_t bytes = smem_bytes<D>();
-  auto kern = flash_attention_kernel<T, D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const int bq = kRows / G;
   dim3 grid((Tq + bq - 1) / bq, B * Hkv);
-  kern<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_pos,
-      k_pos, k_valid, static_cast<T*>(out), Tq, Tk, Hq, Hkv, causal, window, scale);
+  static bool smem_allowed[kMaxDevices] = {};  // this launch<T, D>'s kernel only
+  if constexpr (kMma) {
+    const size_t bytes = mma::smem_bytes<D>();
+    auto kern = mma::flash_attention_mma_kernel<D>;
+    const cudaError_t e = allow_smem(kern, bytes, smem_allowed);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid, mma::kThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_pos,
+        k_pos, k_valid, static_cast<T*>(out), Tq, Tk, Hq, Hkv, causal, window,
+        scale * 1.4426950408889634f);  // log2(e): the kernel exponentiates with exp2
+  } else {
+    const size_t bytes = f32::smem_bytes<D>();
+    auto kern = f32::flash_attention_kernel<T, D>;
+    const cudaError_t e = allow_smem(kern, bytes, smem_allowed);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid, f32::kThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_pos,
+        k_pos, k_valid, static_cast<T*>(out), Tq, Tk, Hq, Hkv, causal, window, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

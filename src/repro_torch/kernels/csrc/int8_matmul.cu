@@ -10,31 +10,54 @@
 // moves ~17 MB (>= 5.1 us at 3.35 TB/s) for 0.27 GFLOP. At prefill
 // (M = 256) the [256, 2048] x [2048, 8192] call moves ~26 MB (>= 7.7 us)
 // for 8.6 G int8 ops (>= 4.3 us at 1979 TOP/s): still bytes, by a little.
-// Design (no tensor cores yet): a 256-thread block owns an 8-row by
-// 128-column output tile and one chunk of K. Sixteen column-threads each
-// own 8 adjacent columns and read them as one 64-bit load (w_q is
-// N-contiguous, so a warp reads two 128-byte row segments); sixteen
-// k-groups take every 16th K row, and each thread keeps 8 weight rows in
-// flight before it multiplies: a decode GEMM is bound by the bytes the
-// card has in flight, not by arithmetic. The x tile is staged k-major in
-// shared memory (the 8 rows of one k are two 16-byte broadcast reads).
+//
+// Weight-only (int8_gemm_kernel, CUDA cores): a 256-thread block owns an
+// 8-row by 128-column output tile and one chunk of K. Sixteen
+// column-threads each own 8 adjacent columns and read them as one 64-bit
+// load (w_q is N-contiguous, so a warp reads two 128-byte row segments);
+// sixteen k-groups take every 16th K row, and each thread keeps 8 weight
+// rows in flight before it multiplies: a decode GEMM is bound by the bytes
+// the card has in flight, not by arithmetic. The x tile is staged k-major
+// in shared memory (the 8 rows of one k are two 16-byte broadcast reads).
 // Weight bytes become f32 by a magic-number trick (byte into the mantissa
 // of 2^23, one permute and one add, exact) instead of the slow int-to-float
-// conversion; the dynamic path sign-extends them to int32. Accumulators are
-// f32 (weight-only) or exact int32 (dynamic), 8 x 8 per thread. The two
-// k-groups of a warp are summed by a shuffle, the eight warps' partials in
-// a fixed order through shared memory. When the M x N tiles alone cannot
-// fill the card (decode), K is split over blockIdx.z: each split writes
-// its partial tile to a workspace and a second kernel sums the splits in a
-// fixed order and applies the epilogue (deterministic; exact for int32).
-// Otherwise the epilogue runs in place. Edges are predicated (rows past M
-// and K-tail elements stage as 0, columns past N load as 0 and are not
-// written): nothing is padded, where the Pallas kernels pad M, N and K.
-// The dynamic epilogue is (float)acc * x_scale[m] * w_scale[n] in that
-// order, so it matches its plain version bit for bit.
+// conversion; f32 accumulators, 8 x 8 per thread. The two k-groups of a
+// warp are summed by a shuffle, the eight warps' partials in a fixed order
+// through shared memory. Columns past N load as 0 and are not written.
+//
+// Dynamic (int8_mma_kernel, tensor cores, every M): mma.sync m16n8k32
+// s8 x s8 -> s32. A 128-thread block owns a 64 x 128 output tile, each
+// warp 64 rows x 32 columns (4 x 4 fragments of exact int32 sums), and
+// walks its chunk of K in 64-byte stages, double-buffered in shared memory
+// by cp.async. x_q [M, K] is K-contiguous, so ldmatrix gives the A
+// fragments directly. The B operand must be K-packed (four k of one column
+// in a register) but w_q [K, N] is N-contiguous, and ldmatrix.trans moves
+// 16-bit elements, not bytes: a lane reads four 32-bit words (four K rows,
+// four adjacent columns) and transposes them with byte permutes. Mma
+// column g of n-tile t stands for the warp's column 4 g + t, so those four
+// words are exactly the lane's B fragments of all four n-tiles, and each
+// lane's accumulators cover 8 adjacent output columns (two 16-byte
+// stores). The 16-byte chunks of every shared-memory row are XOR-swizzled
+// so that the ldmatrix reads and the 32-bit reads are free of bank
+// conflicts. The epilogue runs in registers. Rows past M, columns past N
+// and K past the chunk stage as zeros; when K or N is not a multiple of 16
+// or a pointer is not 16-byte aligned, stages are copied byte by byte.
+// The small-M rule: none. At the four decode shapes (M = 8) the
+// tensor-core kernel measured faster than the CUDA-core template at three
+// and 5 % slower at one, 18 % less over a decode step (PERF.md), so every
+// M runs here and the CUDA-core template serves weight-only alone.
+//
+// Both: when the M x N tiles alone cannot fill the card, K is split over
+// blockIdx.z: each split writes its partial tile to a workspace and a
+// second kernel sums the splits in a fixed order and applies the epilogue
+// (deterministic; exact for int32). Otherwise the epilogue runs in place.
+// Nothing is padded, where the Pallas kernels pad M, N and K. The dynamic
+// epilogue is (float)acc * x_scale[m] * w_scale[n] in that order, so it
+// matches its plain version bit for bit.
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -50,10 +73,8 @@ constexpr int kBK = kKGroups * kUnroll;                    // 128 K rows per x t
 
 __device__ __forceinline__ float to_acc(float v) { return v; }
 __device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ int to_acc(int8_t v) { return static_cast<int>(v); }
 
 __device__ __forceinline__ float from_bits(uint32_t u, float) { return __uint_as_float(u); }
-__device__ __forceinline__ int from_bits(uint32_t u, int) { return static_cast<int>(u); }
 
 // Eight int8 weights (two little-endian words) as f32: each byte, biased
 // to unsigned, is placed in the mantissa of 2^23; subtracting 2^23 + 128
@@ -64,14 +85,6 @@ __device__ __forceinline__ void unpack8(uint2 w, float (&out)[kColsPerThread]) {
   for (int j = 0; j < 4; ++j) {
     out[j] = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7650u | j)) - 8388736.f;
     out[j + 4] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7650u | j)) - 8388736.f;
-  }
-}
-
-__device__ __forceinline__ void unpack8(uint2 w, int (&out)[kColsPerThread]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    out[j] = static_cast<int>(static_cast<signed char>(w.x >> (8 * j)));
-    out[j + 4] = static_cast<int>(static_cast<signed char>(w.y >> (8 * j)));
   }
 }
 
@@ -207,13 +220,197 @@ int8_splitk_reduce(const Acc* __restrict__ partial, const float* __restrict__ w_
                                   static_cast<int>(i % N));
 }
 
+}  // namespace
+
+namespace mma {
+
+constexpr int kThreads = 128;  // 4 warps side by side along N
+constexpr int kBM = 64;        // rows per block (all 4 warps)
+constexpr int kBN = 128;       // columns per block, 32 per warp
+constexpr int kBK = 64;        // K bytes per pipeline stage
+
+// 4 x 4 byte transpose: w[i] holds the bytes of K row k + i at columns
+// n .. n + 3; on return w[t] holds K rows k .. k + 3 of column n + t, the
+// K-packed word an s8 mma B fragment takes.
+__device__ __forceinline__ void transpose4x4(uint32_t (&w)[4]) {
+  const uint32_t a0 = __byte_perm(w[0], w[1], 0x5140), a1 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t a2 = __byte_perm(w[2], w[3], 0x5140), a3 = __byte_perm(w[2], w[3], 0x7362);
+  w[0] = __byte_perm(a0, a2, 0x5410);
+  w[1] = __byte_perm(a0, a2, 0x7632);
+  w[2] = __byte_perm(a1, a3, 0x5410);
+  w[3] = __byte_perm(a1, a3, 0x7632);
+}
+
+// XOR swizzles of the 16-byte chunks of a shared-memory row, chosen so that
+// every ldmatrix of x and every 32-bit read of w is free of bank conflicts
+__device__ __forceinline__ int x_chunk(int r, int c) { return c ^ ((r >> 1) & 3); }
+__device__ __forceinline__ int w_chunk(int r, int c) { return c ^ (((r >> 2) & 3) << 1); }
+
+__global__ void __launch_bounds__(kThreads)
+int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                const float* __restrict__ w_scale, const float* __restrict__ x_scale,
+                float* __restrict__ y, int* __restrict__ partial, int M, int N, int K,
+                int k_chunk, bool vec) {
+  __shared__ __align__(128) int8_t xs[2][kBM][kBK];
+  __shared__ __align__(128) int8_t ws[2][kBK][kBN];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(K, k_begin + k_chunk);
+
+  // x rows m0.. and w rows k0.. of one stage into buffer `buf`, zero past
+  // M, N and k_end: cp.async when every chunk is whole and aligned (vec),
+  // else byte by byte
+  auto stage = [&](int k0, int buf) {
+    const int kt = min(kBK, k_end - k0);
+    for (int i = tid; i < kBM * kBK / 16; i += kThreads) {
+      const int r = i / (kBK / 16), c = i % (kBK / 16);
+      int8_t* dst = &xs[buf][r][x_chunk(r, c) * 16];
+      const int row = m0 + r, kc = c * 16;
+      const int8_t* src = x + static_cast<long long>(row) * K + k0 + kc;
+      if (vec) {
+        const bool live = row < M && kc < kt;
+        cp_async16(dst, live ? src : x, live ? 16 : 0);
+      } else {
+        for (int e = 0; e < 16; ++e) dst[e] = row < M && kc + e < kt ? src[e] : 0;
+      }
+    }
+    for (int i = tid; i < kBK * kBN / 16; i += kThreads) {
+      const int r = i / (kBN / 16), c = i % (kBN / 16);
+      int8_t* dst = &ws[buf][r][w_chunk(r, c) * 16];
+      const int col = n0 + c * 16;
+      const int8_t* src = w + static_cast<long long>(k0 + r) * N + col;
+      if (vec) {
+        const bool live = r < kt && col < N;
+        cp_async16(dst, live ? src : w, live ? 16 : 0);
+      } else {
+        for (int e = 0; e < 16; ++e) dst[e] = r < kt && col + e < N ? src[e] : 0;
+      }
+    }
+    cp_async_commit();
+  };
+
+  int acc[4][4][4];  // [m-tile][n-tile][fragment]
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc[mt][t][0] = acc[mt][t][1] = acc[mt][t][2] = acc[mt][t][3] = 0;
+  }
+  const int n_steps = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+  if (n_steps > 0) stage(k_begin, 0);
+  for (int s = 0; s < n_steps; ++s) {
+    const int buf = s & 1;
+    if (s + 1 < n_steps) {
+      stage(k_begin + (s + 1) * kBK, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kh = 0; kh < kBK / 32; ++kh) {
+      uint32_t a[4][4];  // 64 rows x 32 k: ldmatrix gives the s8 A fragments directly
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const int r = mt * 16 + lane % 16, c = kh * 2 + lane / 16;
+        ldmatrix_x4(a[mt], &xs[buf][r][x_chunk(r, c) * 16]);
+      }
+      // B: mma column gid of n-tile t is the warp's column 4 * gid + t, so
+      // the four words a lane reads (K rows k..k+3, 4 adjacent columns)
+      // transpose into its K-packed words of all four n-tiles
+      uint32_t b[2][4];  // [k half][n-tile]
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = kh * 32 + hh * 16 + 4 * tig + i;
+          b[hh][i] = *reinterpret_cast<const uint32_t*>(
+              &ws[buf][r][w_chunk(r, 2 * warp + gid / 4) * 16 + 4 * (gid % 4)]);
+        }
+        transpose4x4(b[hh]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) mma_s8_16832(acc[mt][t], a[mt], b[0][t], b[1][t]);
+      }
+    }
+    __syncthreads();  // buffer `buf` is free for the stage after next
+  }
+
+  // fragment (mt, t, e) is row m0 + mt*16 + gid + 8 (e / 2) and column
+  // 32 warp + 8 tig + 4 (e % 2) + t: each thread owns 8 adjacent columns
+  const int col = n0 + 32 * warp + 8 * tig;
+  const bool whole = vec && col + 8 <= N;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = m0 + mt * 16 + gid + 8 * hr;
+      if (row >= M) continue;
+      int v[8];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        v[t] = acc[mt][t][2 * hr];
+        v[4 + t] = acc[mt][t][2 * hr + 1];
+      }
+      const long long o = static_cast<long long>(row) * N + col;
+      if (partial != nullptr) {
+        int* dst = partial + static_cast<long long>(blockIdx.z) * M * N + o;
+        if (whole) {
+          reinterpret_cast<int4*>(dst)[0] = make_int4(v[0], v[1], v[2], v[3]);
+          reinterpret_cast<int4*>(dst)[1] = make_int4(v[4], v[5], v[6], v[7]);
+        } else {
+          for (int j = 0; j < 8; ++j)
+            if (col + j < N) dst[j] = v[j];
+        }
+      } else {
+        float f[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          f[j] = col + j < N ? epilogue<int, float, true>(v[j], w_scale, x_scale, row, col + j)
+                             : 0.f;
+        }
+        if (whole) {
+          reinterpret_cast<float4*>(y + o)[0] = make_float4(f[0], f[1], f[2], f[3]);
+          reinterpret_cast<float4*>(y + o)[1] = make_float4(f[4], f[5], f[6], f[7]);
+        } else {
+          for (int j = 0; j < 8; ++j)
+            if (col + j < N) y[o + j] = f[j];
+        }
+      }
+    }
+  }
+}
+
+}  // namespace mma
+
+namespace {
+
+// The K splits' partial tiles summed in split order, then the epilogue.
+template <typename Acc, typename Out, bool kDyn>
+int reduce_splits(const Acc* part, const void* w_scale, const void* x_scale, void* y, int M,
+                  int N, int splits, cudaStream_t stream) {
+  const long long mn = static_cast<long long>(M) * N;
+  int8_splitk_reduce<Acc, Out, kDyn><<<static_cast<unsigned>((mn + kThreads - 1) / kThreads),
+                                       kThreads, 0, stream>>>(
+      part, static_cast<const float*>(w_scale), static_cast<const float*>(x_scale),
+      static_cast<Out*>(y), M, N, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_split(int K, int splits, int k_chunk, const void* partial) {
+  return splits < 1 || splits > 65535 || (splits > 1 && partial == nullptr) ||
+         (K > 0 && (k_chunk < 1 || static_cast<long long>(k_chunk) * splits < K));
+}
+
 template <typename XIn, typename Acc, typename Out, bool kDyn>
 int launch(const void* x, const void* w, const void* w_scale, const void* x_scale, void* y,
            void* partial, int M, int N, int K, int splits, int k_chunk, cudaStream_t stream) {
   if (M == 0 || N == 0) return 0;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  if (grid.y > 65535u || splits < 1 || splits > 65535 || (splits > 1 && partial == nullptr) ||
-      (K > 0 && (k_chunk < 1 || static_cast<long long>(k_chunk) * splits < K))) {
+  if (grid.y > 65535u || bad_split(K, splits, k_chunk, partial)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool vec = N % kColsPerThread == 0 &&
@@ -225,12 +422,30 @@ int launch(const void* x, const void* w, const void* w_scale, const void* x_scal
       static_cast<Out*>(y), part, M, N, K, k_chunk, vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return static_cast<int>(err);
-  const long long mn = static_cast<long long>(M) * N;
-  int8_splitk_reduce<Acc, Out, kDyn><<<static_cast<unsigned>((mn + kThreads - 1) / kThreads),
-                                       kThreads, 0, stream>>>(
-      part, static_cast<const float*>(w_scale), static_cast<const float*>(x_scale),
-      static_cast<Out*>(y), M, N, splits);
-  return static_cast<int>(cudaGetLastError());
+  return reduce_splits<Acc, Out, kDyn>(part, w_scale, x_scale, y, M, N, splits, stream);
+}
+
+// The dynamic GEMM on the tensor cores; the K chunk is a whole number of
+// stages, so only the last split can end inside one.
+int launch_mma(const void* x_q, const void* w_q, const void* w_scale, const void* x_scale,
+               void* y, void* partial, int M, int N, int K, int splits, int k_chunk,
+               cudaStream_t stream) {
+  if (M == 0 || N == 0) return 0;
+  const dim3 grid((N + mma::kBN - 1) / mma::kBN, (M + mma::kBM - 1) / mma::kBM, splits);
+  if (grid.y > 65535u || bad_split(K, splits, k_chunk, partial) || k_chunk % mma::kBK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = K % 16 == 0 && N % 16 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(x_q) % 16 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(w_q) % 16 == 0;
+  int* part = splits > 1 ? static_cast<int*>(partial) : nullptr;
+  mma::int8_mma_kernel<<<grid, mma::kThreads, 0, stream>>>(
+      static_cast<const int8_t*>(x_q), static_cast<const int8_t*>(w_q),
+      static_cast<const float*>(w_scale), static_cast<const float*>(x_scale),
+      static_cast<float*>(y), part, M, N, K, k_chunk, vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || part == nullptr) return static_cast<int>(err);
+  return reduce_splits<int, float, true>(part, w_scale, x_scale, y, M, N, splits, stream);
 }
 
 }  // namespace
@@ -253,6 +468,6 @@ extern "C" int int8_matmul_wo_launch(int dtype, const void* x, const void* w_q,
 extern "C" int int8_matmul_dyn_launch(const void* x_q, const void* w_q, const void* w_scale,
                                       const void* x_scale, void* y, void* partial, int m,
                                       int n, int k, int splits, int k_chunk, void* stream) {
-  return launch<int8_t, int, float, true>(x_q, w_q, w_scale, x_scale, y, partial, m, n, k,
-                                          splits, k_chunk, static_cast<cudaStream_t>(stream));
+  return launch_mma(x_q, w_q, w_scale, x_scale, y, partial, m, n, k, splits, k_chunk,
+                    static_cast<cudaStream_t>(stream));
 }

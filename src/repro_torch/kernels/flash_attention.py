@@ -6,9 +6,11 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``
 the whole q-head group of one KV head), masks built from explicit query/key
 positions (causal, sliding ``window``) and ``k_valid``, f32 online softmax
 with the ``-1e30`` sentinel and the ``max(l, 1e-30)`` clamp, fully masked
-key tiles skipped. At the served prefill shapes (B=1, T<=256, 32/8 heads,
-D=64) the H100 bound is bytes; the first version's f32 FMA loops and
-launch latency dominate (see the source's note).
+key tiles skipped. bf16 runs on the tensor cores (mma.sync, P rounded to
+bf16 for P.V, the one rounding the f32 reference lacks); f32 keeps exact
+f32 FMAs on the CUDA cores, since TF32 could not meet the f32 tolerance. At
+the served prefill shapes (B=1, T<=256, 32/8 heads, D=64) the H100 bound
+is bytes, and latency dominates (see the source's note).
 """
 from __future__ import annotations
 
@@ -84,22 +86,25 @@ def flash_attention_cuda(
     k_valid: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream. Positions must be
-    contiguous int32 [B, T] and ``k_valid`` contiguous bool [B, Tk] (or
-    None); raises for anything the kernel does not take."""
+    """Launch the CUDA kernel on PyTorch's current stream: the tensor-core
+    kernel for bf16, the CUDA-core kernel for f32 (a dispatch by type; see
+    the source's note). Positions must be contiguous int32 [B, T] and
+    ``k_valid`` contiguous bool [B, Tk] (or None); bf16 q, k and v must be
+    16-byte aligned (cp.async). Raises for anything the kernels do not
+    take."""
     global LAUNCHES
-    tensors = [q, k, v, q_positions, k_positions]
-    if k_valid is not None:
-        tensors.append(k_valid)
-    _build.require_cuda("flash_attention", *tensors)
+    if k_valid is None:
+        _build.require_cuda("flash_attention", q, k, v, q_positions, k_positions)
+    else:
+        _build.require_cuda("flash_attention", q, k, v, q_positions, k_positions, k_valid)
     b, tq, hq, d = q.shape
-    tk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
-    if k.shape != (b, tk, hkv, d) or v.shape[:3] != (b, tk, hkv):
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} do not agree")
-    if dv != d or d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes D == Dv in {HEAD_DIMS}, "
-                         f"got D={d}, Dv={dv}")
+    tk, hkv = k.shape[1], k.shape[2]
+    if k.shape != (b, tk, hkv, d) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: the kernel takes k and v [B, Tk, Hkv, D] with "
+                         f"D == Dv in {HEAD_DIMS}; got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernel takes D == Dv in {HEAD_DIMS}, got {d}")
     if hq % hkv or hq // hkv > MAX_GROUP:
         raise ValueError(f"flash_attention: {hq} q heads over {hkv} KV heads")
     if b * hkv > 65535:  # the grid's y extent
@@ -112,15 +117,17 @@ def flash_attention_cuda(
         raise TypeError("flash_attention: positions must be int32")
     if k_valid is not None and (k_valid.dtype != torch.bool or k_valid.shape != (b, tk)):
         raise ValueError("flash_attention: k_valid must be bool [B, Tk]")
-    scale = scale if scale is not None else d ** -0.5
     code = _build.dtype_code(q)
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    if code == _build.BF16 and (qp | kp | vp) % 16:
+        raise ValueError("flash_attention: the bf16 kernel needs 16-byte aligned q, k and v")
+    scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
-    lib = _build.library()
-    rc = lib.flash_attention_launch(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
-        k_positions.data_ptr(), None if k_valid is None else k_valid.data_ptr(),
-        out.data_ptr(), b, tq, tk, hq, hkv, d, int(causal),
-        -1 if window is None else int(window), float(scale), _build.stream_of(q),
+    rc = _build.library().flash_attention_launch(
+        code, qp, kp, vp, q_positions.data_ptr(), k_positions.data_ptr(),
+        None if k_valid is None else k_valid.data_ptr(), out.data_ptr(), b, tq, tk, hq, hkv,
+        d, int(causal), -1 if window is None else int(window), float(scale),
+        _build.stream_of(q),
     )
     _build.check(rc, "flash_attention")
     LAUNCHES += 1

@@ -11,12 +11,18 @@ Replaces ``repro/kernels/int8_matmul.py``:
 - ``int8_matmul_dynamic_*`` — ``int8_matmul_dynamic_pallas``
   (``_dyn_kernel``): ``x_q[..., K]`` int8 @ ``w_q[K, N]`` int8 with an
   exact int32 accumulator, then ``acc * x_scale[m] * w_scale[n]`` in f32,
-  out f32. The per-row activation quantization stays outside, in
-  ``ops.int8_matmul_dynamic``.
+  out f32, bit for bit as its plain version, on the tensor cores
+  (``mma.sync`` s8). The per-row activation quantization stays outside,
+  in ``ops.int8_matmul_dynamic``.
 
 Both kernels predicate their edges instead of padding M, N and K up to
 tile multiples as the Pallas kernels do, and split K over blocks where the
 output tiles alone cannot fill the card (see the source's note).
+
+The dynamic kernel has no small-M rule: every M, decode (M = 8) and
+prefill (M = 256) alike, runs the ``mma.sync`` s8 tensor-core kernel, which
+measured faster than the CUDA-core template at decode too (the source's
+note); :func:`split_k_dynamic` is its K split.
 """
 from __future__ import annotations
 
@@ -33,17 +39,33 @@ from repro_torch.kernels.ref import int_matmul_exact
 LAUNCHES_WO = 0
 LAUNCHES_DYN = 0
 
-# the kernels' tile (csrc/int8_matmul.cu): 8 rows x 128 columns, K in 128-row steps
+# the CUDA-core template's tile (csrc/int8_matmul.cu): 8 rows x 128
+# columns, K in 128-row steps
 _BM, _BN, _BK = 8, 128, 128
+# the tensor-core kernel's tile: 64 rows x 128 columns, K in 64-byte stages
+_TC_BM, _TC_BN, _TC_BK = 64, 128, 64
+#: least K bytes per split of the tensor-core kernel (4 pipeline stages)
+_TC_MIN_CHUNK = 4 * _TC_BK
 
 
 def split_k(m: int, n: int, k: int, n_sms: int) -> Tuple[int, int]:
-    """(splits, k_chunk) of K over blocks: enough splits for the M x N
-    tiles to reach two blocks per SM, each chunk a whole number of
-    128-row steps, no split empty."""
+    """(splits, k_chunk) of K over blocks for the CUDA-core template
+    (weight-only): enough splits for the M x N tiles to reach two blocks per SM, each
+    chunk a whole number of 128-row steps, no split empty."""
     tiles = math.ceil(n / _BN) * math.ceil(m / _BM)
     splits = max(1, min(math.ceil(2 * n_sms / max(tiles, 1)), math.ceil(k / _BK)))
     k_chunk = max(1, math.ceil(math.ceil(k / splits) / _BK)) * _BK
+    return max(1, math.ceil(k / k_chunk)), k_chunk
+
+
+def split_k_dynamic(m: int, n: int, k: int, n_sms: int) -> Tuple[int, int]:
+    """(splits, k_chunk) of K over blocks for the tensor-core kernel: split
+    only while the 64 x 128 output tiles are fewer than the SMs, each split
+    at least ``_TC_MIN_CHUNK`` bytes of K and a whole number of 64-byte
+    stages, no split empty."""
+    tiles = math.ceil(n / _TC_BN) * math.ceil(m / _TC_BM)
+    splits = max(1, min(math.ceil(n_sms / max(tiles, 1)), k // _TC_MIN_CHUNK))
+    k_chunk = max(1, math.ceil(math.ceil(k / splits) / _TC_BK)) * _TC_BK
     return max(1, math.ceil(k / k_chunk)), k_chunk
 
 
@@ -52,12 +74,10 @@ def _n_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _workspace(m: int, n: int, k: int, dtype, device) -> Tuple[int, int, Optional[torch.Tensor]]:
-    """The split of K for this call and, when it splits, the partial-tile
-    workspace [splits, M, N] the kernel sums in its second pass."""
-    splits, k_chunk = split_k(m, n, k, _n_sms(device.index or 0))
-    part = torch.empty((splits, m, n), dtype=dtype, device=device) if splits > 1 else None
-    return splits, k_chunk, part
+def _workspace(splits: int, m: int, n: int, dtype, device) -> Optional[torch.Tensor]:
+    """When K is split, the partial-tile workspace [splits, M, N] the
+    kernel sums in its second pass."""
+    return torch.empty((splits, m, n), dtype=dtype, device=device) if splits > 1 else None
 
 
 def int8_matmul_weight_only_plain(x: torch.Tensor, w_q: torch.Tensor,
@@ -102,7 +122,8 @@ def int8_matmul_weight_only_cuda(x: torch.Tensor, w_q: torch.Tensor,
     n = _check_weights(name, k, w_q, w_scale)
     out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
     m = math.prod(x.shape[:-1])
-    splits, k_chunk, part = _workspace(m, n, k, torch.float32, x.device)
+    splits, k_chunk = split_k(m, n, k, _n_sms(x.device.index))
+    part = _workspace(splits, m, n, torch.float32, x.device)
     lib = _build.library()
     rc = lib.int8_matmul_wo_launch(code, x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
                                    out.data_ptr(), None if part is None else part.data_ptr(),
@@ -114,10 +135,10 @@ def int8_matmul_weight_only_cuda(x: torch.Tensor, w_q: torch.Tensor,
 
 def int8_matmul_dynamic_cuda(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                              x_scale: torch.Tensor) -> torch.Tensor:
-    """Launch the dynamic int8 x int8 kernel on PyTorch's current stream.
-    Raises for anything the kernel does not take (CPU or non-contiguous
-    tensors, activations that are not int8, weights or scales of the wrong
-    type or shape)."""
+    """Launch the dynamic int8 x int8 tensor-core kernel on PyTorch's
+    current stream. Raises for anything the kernel does not take (CPU or
+    non-contiguous tensors, activations that are not int8, weights or
+    scales of the wrong type or shape)."""
     global LAUNCHES_DYN
     name = "int8_matmul_dynamic"
     _build.require_cuda(name, x_q, w_q, w_scale, x_scale)
@@ -130,12 +151,12 @@ def int8_matmul_dynamic_cuda(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torc
         raise ValueError(f"{name}: x_scale must be float32 with {m} rows, got "
                          f"{x_scale.dtype} {tuple(x_scale.shape)}")
     out = torch.empty((*x_q.shape[:-1], n), dtype=torch.float32, device=x_q.device)
-    splits, k_chunk, part = _workspace(m, n, k, torch.int32, x_q.device)
-    lib = _build.library()
-    rc = lib.int8_matmul_dyn_launch(x_q.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-                                    x_scale.data_ptr(), out.data_ptr(),
-                                    None if part is None else part.data_ptr(),
-                                    m, n, k, splits, k_chunk, _build.stream_of(x_q))
+    splits, k_chunk = split_k_dynamic(m, n, k, _n_sms(x_q.device.index))
+    part = _workspace(splits, m, n, torch.int32, x_q.device)
+    rc = _build.library().int8_matmul_dyn_launch(
+        x_q.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), x_scale.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(), m, n, k, splits, k_chunk,
+        _build.stream_of(x_q))
     _build.check(rc, name)
     LAUNCHES_DYN += 1
     return out

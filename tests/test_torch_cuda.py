@@ -141,3 +141,79 @@ def test_ssd_kernel_matches_plain_on_card(dtype):
                                    **dict(atol=2e-4, rtol=2e-3))
     torch.cuda.synchronize()
     assert ss.LAUNCHES == before + len(cases)
+
+
+# label -> (B, Tq, Tk, Hq, Hkv, D, window)
+FLASH_CASES = {
+    "served T=256 32/8": (1, 256, 256, 32, 8, 64, None),
+    "ragged T=67": (2, 67, 67, 8, 2, 64, None),
+    "T=1": (1, 1, 1, 32, 8, 64, None),
+    "D=128": (1, 80, 80, 4, 4, 128, None),
+    "MQA G=64": (1, 67, 67, 64, 1, 64, None),
+    "window 16": (2, 67, 67, 8, 2, 64, 16),
+    "positions+k_valid": (2, 5, 40, 8, 2, 64, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_paths_on_card(case, dtype):
+    """The flash kernel's type dispatch against its plain version: bf16 on
+    the tensor-core kernel, f32 on the CUDA-core kernel, at the served
+    prefill shape and the edge cases; a row with no valid key is exactly
+    zero; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    b, t, s, hq, hkv, d, window = FLASH_CASES[case]
+    q = torch.randn((b, t, hq, d), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device=dev).to(dtype) for _ in range(2))
+    qp = (torch.arange(t, device=dev) + (s - t)).expand(b, t)
+    kp = torch.arange(s, device=dev).expand(b, s)
+    kval = None
+    if case == "positions+k_valid":
+        qp = torch.tensor([[10, 11, 12, 13, 14], [3, 4, 5, 6, 7]], device=dev)
+        kval = (kp < torch.tensor([[15], [0]], device=dev)).contiguous()
+    kw = dict(q_positions=qp.to(torch.int32).contiguous(),
+              k_positions=kp.to(torch.int32).contiguous(), causal=True, window=window,
+              k_valid=kval)
+    before = fa.LAUNCHES
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    close(got, fa.flash_attention_plain(q, k, v, **kw), dtype)
+    if kval is not None:
+        assert torch.equal(got[1], torch.zeros_like(got[1]))
+
+
+LLAMA_LINEARS = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]  # (K, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (8, 256) for k, n in LLAMA_LINEARS]
+                         + [(1, 2048, 2048), (37, 100, 53), (8, 300, 100), (128, 256, 64),
+                            (48, 200, 96)])
+def test_int8_dynamic_bit_identical_on_card(m, k, n):
+    """The dynamic int8 tensor-core GEMM equals its plain version bit for
+    bit (exact int32 sums, the same epilogue order) at every served
+    llama3.2-1b linear (decode M = 8, prefill M = 256), whether or not K is
+    split, and at the edge shapes (M = 1, ragged M/N/K, a K that is not a
+    multiple of 16: the byte-by-byte staging); one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((k, n), generator=g, device=dev) * k ** -0.5
+    w_q, w_scale = ops.quantize_int8(w, axis=0)
+    x_q, x_scale = ops.quantize_rows(x)
+    before = im.LAUNCHES_DYN
+    got = im.int8_matmul_dynamic_cuda(x_q, w_q, w_scale, x_scale)
+    torch.cuda.synchronize()
+    assert im.LAUNCHES_DYN == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert torch.equal(got, im.int8_matmul_dynamic_plain(x_q, w_q, w_scale, x_scale))

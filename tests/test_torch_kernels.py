@@ -117,6 +117,81 @@ def test_flash_attention_positions_k_valid_and_masked_row(impl):
     assert torch.equal(got[1], torch.zeros_like(got[1]))
 
 
+def _mma_flash_emulation(q, k, v, q_pos, k_pos, window=None, k_valid=None, tile=64):
+    """The bf16 tensor-core flash kernel's rounding in plain torch: S in f32
+    from the bf16 q and k, the scale applied to S, an online softmax over
+    64-key tiles with f32 running max and sum (a masked score is -inf, the
+    max starts at the -1e30 sentinel), P rounded to bf16 before P.V, f32
+    accumulators, and the max(l, 1e-30) clamp."""
+    b, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.float().reshape(b, tq, hkv, g, d)
+    ok = fa._mask(q_pos, k_pos, True, window, k_valid)[:, None, None]  # [B,1,1,Tq,Tk]
+    m = torch.full((b, hkv, g, tq), -1e30)
+    l = torch.zeros((b, hkv, g, tq))
+    acc = torch.zeros((b, hkv, g, tq, d))
+    for k0 in range(0, tk, tile):
+        s = torch.einsum("bthgd,bshd->bhgts", qf, k[:, k0:k0 + tile].float()) * d ** -0.5
+        s = torch.where(ok[..., k0:k0 + tile], s, torch.full_like(s, -torch.inf))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bhgts,bshd->bhgtd", p.to(torch.bfloat16).float(),
+                          v[:, k0:k0 + tile].float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, tq, hq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize(
+    "b,t,hq,hkv,window",
+    [
+        (1, 256, 32, 8, None),   # the served llama3.2-1b prefill
+        (2, 67, 8, 2, 16),       # ragged T, sliding window
+        (1, 67, 64, 1, None),    # MQA, G = 64
+    ],
+)
+def test_bf16_p_rounding_fits_the_tolerance(b, t, hq, hkv, window):
+    """The one rounding the bf16 tensor-core kernel adds (P to bf16 before
+    P.V, the scale on the f32 S) stays within the bf16 tolerance of the JAX
+    reference (its XLA flash path and its oracle) and of the port's plain
+    version, at the served prefill shape and two edge shapes."""
+    rng = np.random.default_rng(t + hq)
+    d = 64
+    qj, qt = both(rng.standard_normal((b, t, hq, d), np.float32), "bfloat16")
+    kj, kt = both(rng.standard_normal((b, t, hkv, d), np.float32), "bfloat16")
+    vj, vt = both(rng.standard_normal((b, t, hkv, d), np.float32), "bfloat16")
+    pos = torch.arange(t)[None].expand(b, t).to(torch.int32).contiguous()
+    got = _mma_flash_emulation(qt, kt, vt, pos, pos, window=window)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    for want in (jops.flash_attention(qj, kj, vj, causal=True, window=window, impl="xla"),
+                 jref.attention_ref(qj, kj, vj, causal=True, window=window),
+                 fa.flash_attention_plain(qt, kt, vt, q_positions=pos, k_positions=pos,
+                                          causal=True, window=window)):
+        assert_close(got, want, "bfloat16")
+
+
+def test_bf16_emulation_masked_row_is_zero():
+    """Explicit positions with k_valid: the emulated kernel gives exact zeros
+    for a row with no valid key and agrees with the plain version
+    elsewhere."""
+    rng = np.random.default_rng(11)
+    b, t, s, hq, hkv, d = 2, 5, 40, 8, 2, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, np.float32)).to(torch.bfloat16)
+               for sh in ((b, t, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    qpos = torch.tensor([[10, 11, 12, 13, 14], [3, 4, 5, 6, 7]], dtype=torch.int32)
+    kpos = torch.arange(s, dtype=torch.int32).expand(b, s).contiguous()
+    kval = (kpos < torch.tensor([[15], [0]])).contiguous()
+    got = _mma_flash_emulation(q, k, v, qpos, kpos, k_valid=kval)
+    want = fa.flash_attention_plain(q, k, v, q_positions=qpos, k_positions=kpos,
+                                    k_valid=kval)
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    assert_close(got, want, "bfloat16")
+
+
 # ------------------------------------------------------------- decode attn
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
 @pytest.mark.parametrize(

@@ -209,6 +209,34 @@ def test_split_k_plan_covers_k(m, k, n):
     assert im.split_k(8, 2048, 2048, 132) == (16, 128)
 
 
+LLAMA_LINEARS = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]  # (K, N)
+
+
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (8, 256) for k, n in LLAMA_LINEARS]
+                         + [(1, 2048, 2048), (37, 100, 53), (8, 300, 100), (128, 256, 64),
+                            (48, 200, 96), (17, 64, 4096), (300, 0, 64)])
+def test_dynamic_split_covers_k(m, k, n):
+    """The dynamic (tensor-core) kernel's K split, at the served decode
+    (M = 8) and prefill (M = 256) linears and edge shapes: chunks of whole
+    64-byte stages that cover every K row exactly once, none empty, at
+    least 4 stages each, and no split once the 64 x 128 tiles fill the
+    SMs."""
+    splits, chunk = im.split_k_dynamic(m, n, k, 132)
+    assert splits >= 1 and chunk % 64 == 0 and chunk > 0
+    covered = np.zeros(k, np.int64)
+    for z in range(splits):
+        lo = z * chunk
+        assert lo < k or k == 0  # no empty split
+        covered[lo:min(k, lo + chunk)] += 1
+    assert (covered == 1).all()
+    if -(-n // 128) * -(-m // 64) >= 132:
+        assert splits == 1
+    if k:
+        assert chunk >= min(256, -(-k // 64) * 64)
+    assert im.split_k_dynamic(256, 8192, 2048, 132) == (1, 2048)
+    assert im.split_k_dynamic(8, 8192, 2048, 132) == (3, 704)
+
+
 # -------------------------------------------------------- mode selection
 def test_roofline_mode_uses_the_h100_ridge():
     assert Q.RIDGE_TOKENS == pytest.approx(989e12 / 3.35e12 / 2)
