@@ -11,15 +11,17 @@ Phases (any failure exits non-zero and prints no result):
              off for the f32 checks;
 2. build   — compile the kernel library from ``src/repro_torch/kernels/csrc``
              with nvcc (``kernels/_build.py``); ptxas' registers and spills,
-             summarised for the two tensor-core kernels;
+             summarised for the redesigned kernels;
 3. kernels — every kernel of the served paths against its plain PyTorch
              version at the main path's shapes, bf16 (atol/rtol 2e-2) and f32
              (atol 2e-5, rtol 2e-4; the SSD scan's f32 at the reference's
              SSD tolerance, atol 2e-4, rtol 2e-3), plus edge cases (fully
-             masked rows, windows, MQA up to G = 64, D=128, T=1; int8 GEMMs at
-             M = 1 and ragged shapes, the dynamic one bit for bit in every
-             shape; HSTU's band, empty rows and clipped bias; SSD's ragged
-             chunks, G = 2 and initial state);
+             masked rows, windows, MQA up to G = 64, D=128, T=1; decode at
+             the edges of its sequence split, S = 321 and 4096, a repeat
+             call bit-identical; int8 GEMMs at M = 1 and ragged shapes, a
+             repeat call bit-identical, the dynamic one bit for bit in every
+             shape; HSTU's band, empty rows and clipped bias;
+             SSD's ragged chunks, G = 2 and initial state);
              CUDA-event times of kernel, plain version and a PyTorch library
              call (with its device time), beside the card's bound; the int8
              GEMMs' device time at every served linear shape;
@@ -131,6 +133,21 @@ def cuda_ms(fn, samples: int = 20, inner: int = 10, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, calls: int = 200) -> float:
+    """Host time per call of ``fn`` (its enqueue rate), from an idle card:
+    ``calls`` calls with no synchronisation between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
 def device_kernels(prof):
     """The CUDA kernel (and memcpy/memset) events of a torch.profiler run."""
     from torch.autograd import DeviceType
@@ -176,6 +193,11 @@ def device_ms_each(fns, per_call, calls: int = 20):
     kern = sorted(device_kernels(prof), key=lambda e: e.time_range.start)
     if not kern:
         return [None] * len(fns)
+    if len(kern) != calls * sum(per_call):
+        names = {}
+        for e in kern:
+            names[e.name[:60]] = names.get(e.name[:60], 0) + 1
+        print(f"[kernels] profiler kernel counts by name: {names}", flush=True)
     check(len(kern) == calls * sum(per_call),
           f"profiler saw {len(kern)} device kernels, expected {calls * sum(per_call)}")
     out, at = [], 0
@@ -238,22 +260,28 @@ def phase_build():
     return secs
 
 
-#: the tensor-core kernels whose ptxas report is summarised
-REDESIGNED = ("flash_attention_mma_kernel", "int8_mma_kernel")
+#: the redesigned kernels whose ptxas report is summarised
+REDESIGNED = ("flash_attention_mma_kernel", "int8_mma_kernel", "int8_wo_mma_kernel",
+              "decode_attention_kernel", "decode_attention_combine_kernel")
 
 
 def ptxas_report(text: str, names):
     """(kernel, registers, spill store bytes, spill load bytes) of every
     entry function in an ``nvcc -Xptxas -v`` log whose name holds one of
-    ``names`` (a template's int argument shown as ``<D>``)."""
+    ``names`` (a template's element type and int argument shown as
+    ``<bf16,64>``)."""
     out, cur, spill = [], None, (0, 0)
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             cur = next((n for n in names if n in m.group(1)), None)
             if cur is not None:
-                arg = re.search(r"ILi(\d+)E", m.group(1))
-                cur += f"<{arg.group(1)}>" if arg else ""
+                rest = m.group(1)[m.group(1).index(cur) + len(cur):]  # template args
+                args = [t for t, code in (("bf16", "I13__nv_bfloat16"), ("f32", "If"))
+                        if rest.startswith(code)]
+                arg = re.search(r"Li(\d+)E", rest)
+                args += [arg.group(1)] if arg else []
+                cur += f"<{','.join(args)}>" if args else ""
             spill = (0, 0)
             continue
         if cur is None:
@@ -353,10 +381,26 @@ def phase_kernels(pad_to: int, max_len: int):
                 da.decode_attention_plain(q, k, v, ln))
 
     serve_lengths = [1, max_len, pad_to, pad_to + 1, 44, 100, 200, max_len - 1]
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt).split(".")[-1]
         got, want = decode_case(SLOTS, max_len, hq, hkv, dh, dt, serve_lengths)
         errs["decode_attention"][f"{name} decode S={max_len}"] = max_err(got, want, name)
+        # lengths at the edges of the sequence split (0, 1, split - 1, split,
+        # split + 1, two splits, S - 1, S); a repeat call is bit-identical
+        for s in (max_len, 4096):
+            split_len = da.split_plan(SLOTS, hkv, s, n_sms)[1]
+            edges = [min(s, n) for n in (0, 1, split_len - 1, split_len, split_len + 1,
+                                         2 * split_len, s - 1, s)]
+            q = _rand(gen, (SLOTS, hq, dh), dt, dev)
+            k, v = (_rand(gen, (SLOTS, s, hkv, dh), dt, dev) for _ in range(2))
+            ln = torch.tensor(edges, dtype=torch.int32, device=dev)
+            got = da.decode_attention_cuda(q, k, v, ln)
+            errs["decode_attention"][f"{name} split edges S={s}"] = max_err(
+                got, da.decode_attention_plain(q, k, v, ln), name)
+            check(bool((got[0] == 0).all()), "decode: a row of length 0 is not exactly zero")
+            check(torch.equal(got, da.decode_attention_cuda(q, k, v, ln)),
+                  f"decode: a repeat call differs (S={s})")
         got, want = decode_case(3, 129, 8, 1, 64, dt, [0, 64, 129])
         errs["decode_attention"][f"{name} mqa len 0/64/129"] = max_err(got, want, name)
         check(bool((got[0] == 0).all()), "decode: a row of length 0 is not exactly zero")
@@ -377,9 +421,11 @@ def phase_kernels(pad_to: int, max_len: int):
         for dt in (torch.bfloat16, torch.float32):
             name = str(dt).split(".")[-1]
             xt = xi.to(dt)
-            errs["int8_matmul_weight_only"][f"{name} {label}"] = max_err(
-                im.int8_matmul_weight_only_cuda(xt, wi_q, wi_scale),
-                im.int8_matmul_weight_only_plain(xt, wi_q, wi_scale), name)
+            want = im.int8_matmul_weight_only_plain(xt, wi_q, wi_scale)
+            got = im.int8_matmul_weight_only_cuda(xt, wi_q, wi_scale)
+            errs["int8_matmul_weight_only"][f"{name} {label}"] = max_err(got, want, name)
+            check(torch.equal(got, im.int8_matmul_weight_only_cuda(xt, wi_q, wi_scale)),
+                  f"int8_matmul_weight_only: a repeat call differs ({name} {label})")
         xi_q, xi_scale = ops.quantize_rows(xi)
         got = im.int8_matmul_dynamic_cuda(xi_q, wi_q, wi_scale, xi_scale)
         want = im.int8_matmul_dynamic_plain(xi_q, wi_q, wi_scale, xi_scale)
@@ -479,6 +525,21 @@ def phase_kernels(pad_to: int, max_len: int):
         **_int8_work(mw, kw, nw, dynamic=False),
     ))
 
+    # weight-only at a prefill's widest linear (w1/w3), bf16
+    xp = _int8_operands(gen, pad_to, kw, nw)[0].to(bf)
+    records.append(dict(
+        name="int8_matmul_weight_only", route="cuda",
+        source="src/repro_torch/kernels/csrc/int8_matmul.cu",
+        replaces="src/repro/kernels/int8_matmul.py:66",
+        shape=f"x[{pad_to},{kw}] bf16 @ w_q[{kw},{nw}] int8 (prefill, w1/w3)",
+        max_abs_err=errs["int8_matmul_weight_only"][f"bfloat16 [{pad_to},{kw}]x[{kw},{nw}]"],
+        call=lambda: im.int8_matmul_weight_only_cuda(xp, ww_q, ww_scale),
+        ms=cuda_ms(lambda: im.int8_matmul_weight_only_cuda(xp, ww_q, ww_scale)),
+        plain_ms=cuda_ms(lambda: im.int8_matmul_weight_only_plain(xp, ww_q, ww_scale)),
+        library=lambda: torch.matmul(xp, ww_q.to(xp.dtype)) * ww_scale,
+        **_int8_work(pad_to, kw, nw, dynamic=False),
+    ))
+
     # dynamic at a prefill's widest linear (torch._int_mm refuses M <= 16)
     md = pad_to
     xd, wd_q, wd_scale = _int8_operands(gen, md, kw, nw)
@@ -572,9 +633,8 @@ def _int_mm_call(x_q, w_q, w_scale, x_scale):
 def int8_served_times(gen, served):
     """Device time of both int8 kernels at every served linear shape (bf16
     x for weight-only; the split-K sum included), beside the bound and the
-    library call (with its own device time). At decode the weight-only
-    kernel is the CUDA-core template, so the same line holds that
-    template's time beside the dynamic tensor-core kernel's."""
+    library call (with its own device time), and the weight-only call's
+    ``ms`` and host time (``host_ms``) on the route the wrapper takes."""
     import torch
 
     from repro_torch.kernels import int8_matmul as im
@@ -590,15 +650,16 @@ def int8_served_times(gen, served):
         ops_in = [_int8_operands(gen, *s) for s in shapes]
         wo_in = [(x.to(torch.bfloat16), w_q, w_scale) for x, w_q, w_scale in ops_in]
         dyn_in = [(*ops.quantize_rows(x), w_q, w_scale) for x, w_q, w_scale in ops_in]
-        # the GEMM, plus the split-K sum where K is split
-        wo_splits = [im.split_k(m, n, k, n_sms)[0] for _, k, n in shapes]
+        # the GEMM, plus the split-K sum where K is split, with the plan the
+        # wrapper takes; both kernels in one profiler session
+        wo_plans = [im.plan_weight_only(m, n, k, torch.bfloat16, n_sms) for _, k, n in shapes]
         dyn_splits = [im.split_k_dynamic(m, n, k, n_sms)[0] for _, k, n in shapes]
-        wo_dev = device_ms_each(
-            [lambda a=a: im.int8_matmul_weight_only_cuda(*a) for a in wo_in],
-            [1 + (z > 1) for z in wo_splits])
-        dyn_dev = device_ms_each(
-            [lambda a=a: im.int8_matmul_dynamic_cuda(a[0], a[2], a[3], a[1]) for a in dyn_in],
-            [1 + (z > 1) for z in dyn_splits])
+        fns = [lambda a=a: im.int8_matmul_weight_only_cuda(*a) for a in wo_in]
+        fns += [lambda a=a: im.int8_matmul_dynamic_cuda(a[0], a[2], a[3], a[1])
+                for a in dyn_in]
+        dev_ms = device_ms_each(fns, [1 + (p[1] > 1) for p in wo_plans]
+                                + [1 + (z > 1) for z in dyn_splits])
+        wo_dev, dyn_dev = dev_ms[:len(shapes)], dev_ms[len(shapes):]
         for i, (_, k, n) in enumerate(shapes):
             x, w_q, w_scale = wo_in[i]
             wo_bound = bound(*_int8_work(m, k, n, dynamic=False).values())[0]
@@ -608,8 +669,12 @@ def int8_served_times(gen, served):
             dyn_lib = _int_mm_call(x_q, wq, ws, x_scale) if m > 16 else None
             lib_txt = ("none" if dyn_lib is None else
                        f"{cuda_ms(dyn_lib):.4f}, device {fmt(device_ms(dyn_lib))}")
-            print(f"[kernels] int8 [{m},{k}]x[{k},{n}]: weight-only ({wo_splits[i]} splits) "
-                  f"device {fmt(wo_dev[i])} ms (bound {wo_bound:.5f}, library "
+            call = lambda: im.int8_matmul_weight_only_cuda(x, w_q, w_scale)  # noqa: E731
+            tile_m, splits = wo_plans[i][:2]
+            wo_txt = (f"{tile_m}-row tiles ({splits} splits) {fmt(wo_dev[i])} (ms "
+                      f"{cuda_ms(call):.4f}, host {host_ms(call):.4f})")
+            print(f"[kernels] int8 [{m},{k}]x[{k},{n}]: weight-only device ms {wo_txt} "
+                  f"(bound {wo_bound:.5f}, library "
                   f"{cuda_ms(wo_lib):.4f}, device {fmt(device_ms(wo_lib))}) | dynamic "
                   f"({dyn_splits[i]} splits) device {fmt(dyn_dev[i])} ms (bound "
                   f"{dyn_bound:.5f}, library {lib_txt})", flush=True)
@@ -962,8 +1027,11 @@ def phase_parity(model, params, pad_to, reqs, served, tag="parity"):
 
 
 PORTED_KERNEL_NAMES = ("rmsnorm_kernel", "flash_attention_kernel", "flash_attention_mma_kernel",
-                       "decode_attention_kernel", "int8_gemm_kernel", "int8_mma_kernel",
+                       "decode_attention_kernel", "decode_attention_combine_kernel",
+                       "int8_gemm_kernel", "int8_mma_kernel", "int8_wo_mma_kernel",
                        "int8_splitk_reduce", "hstu_attention_kernel", "ssd_scan_kernel")
+#: the int8 GEMM kernels proper (their split-K sums excluded)
+INT8_GEMM_NAMES = ("int8_gemm_kernel", "int8_mma_kernel", "int8_wo_mma_kernel")
 
 
 def phase_profile(model, params, pad_to, reqs, tag="profile"):
@@ -1035,7 +1103,10 @@ def phase_profile(model, params, pad_to, reqs, tag="profile"):
     busy_ms = sum(cats.values()) / n_steps / 1e3
     int8_all = sum(us for name, us in by_name.items() if "int8_" in name) / n_steps / 1e3
     int8_gemm = sum(us for name, us in by_name.items()
-                    if "int8_gemm_kernel" in name or "int8_mma_kernel" in name) / n_steps / 1e3
+                    if any(k in name for k in INT8_GEMM_NAMES)) / n_steps / 1e3
+    attn = sum(us for name, us in by_name.items() if "decode_attention" in name) / n_steps / 1e3
+    print(f"[{tag}] decode attention device time per decode step: {attn:.4f} ms (kernel and "
+          f"split combine)", flush=True)
     if int8_all:
         print(f"[{tag}] int8 GEMM device time per decode step: {int8_gemm:.4f} ms, "
               f"{int8_all:.4f} ms with the split-K sums", flush=True)

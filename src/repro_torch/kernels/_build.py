@@ -42,8 +42,9 @@ SIGNATURES: Dict[str, List] = {
     # causal, window, scale, stream
     "flash_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, ctypes.c_float, _P],
-    # dtype, q, k, v, lengths, out, B, S, Hq, Hkv, D, scale, stream
-    "decode_attention_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # dtype, q, k, v, lengths, out, partial, B, S, Hq, Hkv, D, splits, split_len,
+    # scale, stream
+    "decode_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 ctypes.c_float, _P],
     # dtype, x, w_q, w_scale, out, partial, M, N, K, splits, k_chunk, stream
     "int8_matmul_wo_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -155,6 +156,13 @@ def stream_of(t) -> int:
     """Raw handle of PyTorch's current stream on ``t``'s device (the raw
     query: no Stream object is built on every launch)."""
     return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def n_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the kernels'
+    grid plans fill them)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def require_cuda(name: str, *tensors) -> None:

@@ -1,6 +1,7 @@
 // Shared helpers of the port's kernels: element conversion for the two
 // element types every kernel is instantiated for, the dtype codes of the C
-// interface, warp reductions, and the finite softmax sentinel.
+// interface, the once-per-device shared-memory attribute, warp reductions,
+// and the finite softmax sentinel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,6 +27,26 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+constexpr int kMaxDevices = 64;
+
+// Allows `kern` its dynamic shared memory once per device: `done` is the
+// caller's own flag array, one per kernel instantiation (the attribute is
+// per kernel and device; the call is not repeated on every launch).
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kern, size_t bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
+    done[dev] = true;
+  }
+  return cudaSuccess;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -1,5 +1,6 @@
 // Flash-decode: one query token per batch row against a static KV cache,
-// valid below the per-row length.
+// valid below the per-row length, the sequence split over blocks and the
+// splits' partials combined by their log-sum-exp.
 //
 // Replaces: repro/kernels/decode_attention.py::decode_attention_pallas
 // (_decode_kernel).
@@ -9,52 +10,122 @@
 // Bound on the H100: bytes. Every valid cache row is read once (2 * len *
 // Hkv * D * sizeof(T) bytes per batch row) for 4 * G * D flops per row,
 // about G = 4 flops per byte in bf16 at llama3.2-1b's shapes: far below the
-// card's ~295 flop/byte ridge.
-// Design: one block per (batch row, KV head). The block holds the whole
-// q-head group of its KV head (GQA) and walks the cache in tiles of kTileK
-// rows up to lengths[b]: tiles past the length are never read, and each
-// K/V tile is loaded once, coalesced, into shared memory and applied to all
-// G query heads. Scores and the P.V update are plain f32 FMA loops; the
-// per-head max/sum run one warp per head with shuffles. B * Hkv blocks
-// (64 at 8 slots x 8 KV heads) fill under half of the 132 SMs; a split of
-// the sequence with an LSE combine is the next step when decode attention
-// shows up in the step time.
+// card's ~295 flop/byte ridge. A served call reads ~2.5 MB, under a
+// microsecond of HBM time, so what bounds it in practice is latency: how
+// many blocks are in flight and how long each waits on its loads.
+//
+// Design (decode_attention_kernel): the grid is (split, batch row x KV
+// head). Each (row, KV head) cuts the static S into `splits` runs of
+// `split_len` keys (whole 64-key tiles; kernels/decode_attention.py
+// split_plan sizes them from S, B and Hkv alone, so no host ever reads
+// `lengths`), enough for two blocks per SM at the served shape (8 rows x 8
+// KV heads x 6 splits of one tile = 384 blocks on 132 SMs, where one block
+// per (row, KV head) gave 64). A block whose run starts at or past
+// lengths[b] exits at once and writes nothing. The others hold the whole
+// q-head group of their KV head (GQA): q scaled in f32, then the run's K/V
+// tiles in the cache's own type in shared memory, double-buffered by 16-byte
+// cp.async (K rows padded by 16 bytes so the score loop's 16-byte reads are
+// free of bank conflicts), each tile applied to all G heads: scores by f32
+// FMAs, the per-head max and sum by one warp per head with shuffles, P.V by
+// f32 FMAs into registers. With one split the block writes the normalised
+// output itself; with more, it writes its unnormalised f32 partial (acc,
+// m, l) to a workspace, and decode_attention_combine_kernel merges the
+// ceil(len / split_len) splits that hold keys, in split order (so repeat
+// calls are bit-identical), with the maths of the JAX package's
+// combine_partial_attention: m = max m_s, alpha_s = exp(m_s - m), out =
+// sum alpha_s acc_s / max(sum alpha_s l_s, 1e-30). A row of length 0 has no
+// live split and gets exact zeros.
+#include <cstdint>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTileK = 64;
 constexpr int kMaxAcc = 8;  // per-thread outputs: G * D <= kThreads * kMaxAcc
+constexpr int kCombineWarps = 4;
 
-template <int D>
-constexpr size_t smem_floats(int g) {
-  return static_cast<size_t>(g) * D        // q (scaled, f32)
-         + kTileK * (D + 1)                 // K tile, rows padded against bank conflicts
-         + kTileK * D                       // V tile
-         + static_cast<size_t>(g) * kTileK  // scores / probabilities
-         + 3 * static_cast<size_t>(g);      // m, l, alpha
+template <typename T, int D>
+struct Tile {
+  static constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte chunk
+  static constexpr int kChunks = D / kVec;      // chunks per cache row
+  static constexpr int kKStride = D + kVec;     // K rows padded by 16 bytes
+  static size_t smem_bytes(int g) {
+    return sizeof(T) * 2 * kTileK * static_cast<size_t>(kKStride + D)  // K, V (x2)
+           + sizeof(float) * static_cast<size_t>(g) * (D + kTileK + 3);  // q, p, m/l/alpha
+  }
+};
+
+// Sixteen bytes of cache row as f32.
+__device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // a bf16 is the top half of its f32
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// K/V cache rows t0 .. t0 + n - 1 into one buffer of the tile ring by
+// 16-byte cp.async (rows past n are never read).
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(const T* kb, const T* vb, long long row_stride,
+                                          int t0, int n, T* ks, T* vs) {
+  using L = Tile<T, D>;
+  for (int i = threadIdx.x; i < n * L::kChunks; i += kThreads) {
+    const int j = i / L::kChunks, c = i % L::kChunks;
+    const long long off = (t0 + j) * row_stride + c * L::kVec;
+    cp_async16(ks + j * L::kKStride + c * L::kVec, kb + off, 16);
+    cp_async16(vs + j * D + c * L::kVec, vb + off, 16);
+  }
+  cp_async_commit();
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ lengths,
-                        T* __restrict__ out, int S, int Hq, int Hkv, float scale) {
-  extern __shared__ float smem[];
+                        T* __restrict__ out, float* __restrict__ partial, int B, int S,
+                        int Hq, int Hkv, int split_len, float scale) {
+  using L = Tile<T, D>;
+  constexpr int kVec = L::kVec, kChunks = L::kChunks, kKStride = L::kKStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = Hq / Hkv;
-  const int b = blockIdx.x / Hkv;
-  const int h = blockIdx.x % Hkv;
-  float* qs = smem;
-  float* ks = qs + G * D;
-  float* vs = ks + kTileK * (D + 1);
-  float* ss = vs + kTileK * D;
+  const int b = blockIdx.y / Hkv;
+  const int h = blockIdx.y % Hkv;
+  const int len = min(max(lengths[b], 0), S);
+  const int t_begin = blockIdx.x * split_len;
+  const int t_end = min(len, t_begin + split_len);
+  // a split with no key writes nothing: the combine never reads it
+  if (partial != nullptr && t_begin >= len) return;
+
+  T* ks = reinterpret_cast<T*>(smem_raw);          // [2][kTileK][kKStride]
+  T* vs = ks + 2 * kTileK * kKStride;              // [2][kTileK][D]
+  float* qs = reinterpret_cast<float*>(vs + 2 * kTileK * D);  // [G][D]
+  float* ss = qs + G * D;                          // [G][kTileK]
   float* m_s = ss + G * kTileK;
   float* l_s = m_s + G;
   float* a_s = l_s + G;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, n_warps = kThreads / 32;
+  const long long row_stride = static_cast<long long>(Hkv) * D;  // between cache rows
+  const T* kb = k + static_cast<long long>(b) * S * row_stride + h * D;
+  const T* vb = v + static_cast<long long>(b) * S * row_stride + h * D;
+
+  if (t_begin < t_end) load_tile<T, D>(kb, vb, row_stride, t_begin,
+                                       min(kTileK, t_end - t_begin), ks, vs);
+
   // q[b, h*G + g, :] for g < G is one contiguous run of G * D elements
   const T* qb = q + (static_cast<long long>(b) * Hq + h * G) * D;
   for (int i = tid; i < G * D; i += kThreads) qs[i] = to_f32(qb[i]) * scale;
@@ -65,36 +136,36 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[kMaxAcc];
 #pragma unroll
   for (int i = 0; i < kMaxAcc; ++i) acc[i] = 0.f;
-
-  const int len = min(max(lengths[b], 0), S);
-  const long long row_stride = static_cast<long long>(Hkv) * D;  // between cache rows
-  const T* kb = k + static_cast<long long>(b) * S * row_stride + h * D;
-  const T* vb = v + static_cast<long long>(b) * S * row_stride + h * D;
   __syncthreads();
 
-  for (int t0 = 0; t0 < len; t0 += kTileK) {
-    const int n = min(kTileK, len - t0);
-    for (int i = tid; i < kTileK * D; i += kThreads) {
-      const int j = i / D, dd = i % D;
-      float kv = 0.f, vv = 0.f;
-      if (j < n) {
-        const long long off = (t0 + j) * row_stride + dd;
-        kv = to_f32(kb[off]);
-        vv = to_f32(vb[off]);
-      }
-      ks[j * (D + 1) + dd] = kv;
-      vs[j * D + dd] = vv;
+  int buf = 0;
+  for (int t0 = t_begin; t0 < t_end; t0 += kTileK, buf ^= 1) {
+    const int n = min(kTileK, t_end - t0);
+    if (t0 + kTileK < t_end) {  // the next tile loads while this one computes
+      const int t1 = t0 + kTileK, nb = buf ^ 1;
+      load_tile<T, D>(kb, vb, row_stride, t1, min(kTileK, t_end - t1),
+                      ks + nb * kTileK * kKStride, vs + nb * kTileK * D);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const T* kt = ks + buf * kTileK * kKStride;
+    const T* vt = vs + buf * kTileK * D;
     for (int i = tid; i < G * kTileK; i += kThreads) {
       const int g = i / kTileK, j = i % kTileK;
       float s = REPRO_NEG_INF;
       if (j < n) {
         s = 0.f;
         const float* qr = qs + g * D;
-        const float* kr = ks + j * (D + 1);
-#pragma unroll 16
-        for (int dd = 0; dd < D; ++dd) s = fmaf(qr[dd], kr[dd], s);
+        const T* kr = kt + j * kKStride;
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          float kf[kVec];
+          load16(kr + c * kVec, kf);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) s = fmaf(qr[c * kVec + e], kf[e], s);
+        }
       }
       ss[i] = s;
     }
@@ -128,46 +199,111 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int g = idx / D, dd = idx % D;
         const float* p = ss + g * kTileK;
         float pv = 0.f;
-        for (int j = 0; j < n; ++j) pv = fmaf(p[j], vs[j * D + dd], pv);
+        for (int j = 0; j < n; ++j) pv = fmaf(p[j], to_f32(vt[j * D + dd]), pv);
         acc[i] = acc[i] * a_s[g] + pv;
       }
     }
-    __syncthreads();
+    __syncthreads();  // buffer `buf` and the scores are free for the next tile
   }
 
-  T* ob = out + (static_cast<long long>(b) * Hq + h * G) * D;
+  const long long head0 = static_cast<long long>(b) * Hq + h * G;  // [B, Hq] row of head 0
+  if (partial == nullptr) {
+    T* ob = out + head0 * D;
+#pragma unroll
+    for (int i = 0; i < kMaxAcc; ++i) {
+      const int idx = tid + i * kThreads;
+      if (idx < G * D) ob[idx] = from_f32<T>(acc[i] / fmaxf(l_s[idx / D], REPRO_L_MIN));
+    }
+    return;
+  }
+  // partial: acc [splits][B][Hq][D], then (m, l) [splits][B][Hq][2]
+  const long long split_rows = static_cast<long long>(blockIdx.x) * B * Hq + head0;
+  float* pa = partial + split_rows * D;
 #pragma unroll
   for (int i = 0; i < kMaxAcc; ++i) {
     const int idx = tid + i * kThreads;
-    if (idx < G * D) {
-      const int g = idx / D;
-      ob[idx] = from_f32<T>(acc[i] / fmaxf(l_s[g], REPRO_L_MIN));
-    }
+    if (idx < G * D) pa[idx] = acc[i];
   }
+  float* pml = partial + static_cast<long long>(gridDim.x) * B * Hq * D + split_rows * 2;
+  for (int g = tid; g < G; g += kThreads) {
+    pml[2 * g] = m_s[g];
+    pml[2 * g + 1] = l_s[g];
+  }
+}
+
+// One warp per (row, q head): the live splits' partials merged in split
+// order (the JAX package's combine_partial_attention).
+template <typename T, int D>
+__global__ void __launch_bounds__(kCombineWarps * 32)
+decode_attention_combine_kernel(const float* __restrict__ partial,
+                                const int* __restrict__ lengths, T* __restrict__ out, int B,
+                                int S, int Hq, int splits, int split_len) {
+  const int row = blockIdx.x * kCombineWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long rows = static_cast<long long>(B) * Hq;
+  if (row >= rows) return;
+  const int len = min(max(lengths[row / Hq], 0), S);
+  const int live = (len + split_len - 1) / split_len;
+  const float* pml = partial + static_cast<long long>(splits) * rows * D;
+  float m = REPRO_NEG_INF;
+  for (int s = 0; s < live; ++s) m = fmaxf(m, pml[(s * rows + row) * 2]);
+  float l = 0.f, acc[D / 32];
+#pragma unroll
+  for (int e = 0; e < D / 32; ++e) acc[e] = 0.f;
+  for (int s = 0; s < live; ++s) {
+    const float alpha = expf(pml[(s * rows + row) * 2] - m);
+    l += pml[(s * rows + row) * 2 + 1] * alpha;
+    const float* pa = partial + (s * rows + row) * D;
+#pragma unroll
+    for (int e = 0; e < D / 32; ++e) acc[e] += pa[lane + 32 * e] * alpha;
+  }
+  T* ob = out + static_cast<long long>(row) * D;
+#pragma unroll
+  for (int e = 0; e < D / 32; ++e) ob[lane + 32 * e] = from_f32<T>(acc[e] / fmaxf(l, REPRO_L_MIN));
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* lengths, void* out,
-           int B, int S, int Hq, int Hkv, float scale, cudaStream_t stream) {
+           void* partial, int B, int S, int Hq, int Hkv, int splits, int split_len,
+           float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
-  if (G * D > kThreads * kMaxAcc) return static_cast<int>(cudaErrorInvalidValue);
+  if (G * D > kThreads * kMaxAcc || splits < 1 || splits > 65535 || split_len < kTileK ||
+      split_len % kTileK || static_cast<long long>(splits) * split_len < S ||
+      (splits > 1 && partial == nullptr) ||
+      reinterpret_cast<std::uintptr_t>(k) % 16 || reinterpret_cast<std::uintptr_t>(v) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (B == 0) return 0;
-  const size_t bytes = smem_floats<D>(G) * sizeof(float);
+  const size_t bytes = Tile<T, D>::smem_bytes(G);
   auto kern = decode_attention_kernel<T, D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  // the attribute once per device for this launch<T, D>'s kernel, at its
+  // widest group, so every G of the instantiation fits under it
+  static bool smem_allowed[kMaxDevices] = {};
+  cudaError_t e =
+      allow_smem(kern, Tile<T, D>::smem_bytes(kThreads * kMaxAcc / D), smem_allowed);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<dim3(B * Hkv), kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      lengths, static_cast<T*>(out), S, Hq, Hkv, scale);
+  float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
+  kern<<<dim3(splits, B * Hkv), kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
+      static_cast<T*>(out), part, B, S, Hq, Hkv, split_len, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || part == nullptr) return static_cast<int>(e);
+  const int rows = B * Hq;
+  decode_attention_combine_kernel<T, D>
+      <<<(rows + kCombineWarps - 1) / kCombineWarps, kCombineWarps * 32, 0, stream>>>(
+          part, lengths, static_cast<T*>(out), B, S, Hq, splits, split_len);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const int* lengths, void* out,
-               int B, int S, int Hq, int Hkv, int D, float scale, cudaStream_t s) {
-  if (D == 64) return launch<T, 64>(q, k, v, lengths, out, B, S, Hq, Hkv, scale, s);
-  if (D == 128) return launch<T, 128>(q, k, v, lengths, out, B, S, Hq, Hkv, scale, s);
+               void* partial, int B, int S, int Hq, int Hkv, int D, int splits, int split_len,
+               float scale, cudaStream_t s) {
+  if (D == 64)
+    return launch<T, 64>(q, k, v, lengths, out, partial, B, S, Hq, Hkv, splits, split_len,
+                         scale, s);
+  if (D == 128)
+    return launch<T, 128>(q, k, v, lengths, out, partial, B, S, Hq, Hkv, splits, split_len,
+                          scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -175,13 +311,15 @@ int dispatch_d(const void* q, const void* k, const void* v, const int* lengths, 
 
 extern "C" int decode_attention_launch(int dtype, const void* q, const void* k,
                                        const void* v, const void* lengths, void* out,
-                                       int B, int S, int Hq, int Hkv, int D, float scale,
-                                       void* stream) {
+                                       void* partial, int B, int S, int Hq, int Hkv, int D,
+                                       int splits, int split_len, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   if (dtype == REPRO_DTYPE_F32)
-    return dispatch_d<float>(q, k, v, len, out, B, S, Hq, Hkv, D, scale, s);
+    return dispatch_d<float>(q, k, v, len, out, partial, B, S, Hq, Hkv, D, splits, split_len,
+                             scale, s);
   if (dtype == REPRO_DTYPE_BF16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, len, out, B, S, Hq, Hkv, D, scale, s);
+    return dispatch_d<__nv_bfloat16>(q, k, v, len, out, partial, B, S, Hq, Hkv, D, splits,
+                                     split_len, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -473,26 +473,6 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 namespace {
 
-constexpr int kMaxDevices = 64;
-
-// Allows `kern` its dynamic shared memory once per device: `done` is the
-// caller's own flag array, one per kernel instantiation (the attribute is
-// per kernel and device; the call is not repeated on every launch).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kern, size_t bytes, bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-    if (e != cudaSuccess) return e;
-    done[dev] = true;
-  }
-  return cudaSuccess;
-}
-
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* q_pos, const int* k_pos,
            const unsigned char* k_valid, void* out, int B, int Tq, int Tk, int Hq,

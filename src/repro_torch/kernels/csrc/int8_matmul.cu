@@ -8,10 +8,45 @@
 // Bound on the H100: at decode (M = 8 rows) both are bound by bytes, the
 // int8 weights being nearly all of them: one [8, 2048] x [2048, 8192] call
 // moves ~17 MB (>= 5.1 us at 3.35 TB/s) for 0.27 GFLOP. At prefill
-// (M = 256) the [256, 2048] x [2048, 8192] call moves ~26 MB (>= 7.7 us)
-// for 8.6 G int8 ops (>= 4.3 us at 1979 TOP/s): still bytes, by a little.
+// (M = 256) the dynamic [256, 2048] x [2048, 8192] call moves ~26 MB
+// (>= 7.7 us) for 8.6 G int8 ops (>= 4.3 us at 1979 TOP/s): still bytes, by
+// a little; the weight-only one moves ~22 MB (>= 6.6 us) for 8.6 GFLOP of
+// bf16 (>= 8.7 us at 989 TFLOP/s): operations, by a little.
 //
-// Weight-only (int8_gemm_kernel, CUDA cores): a 256-thread block owns an
+// Weight-only, bf16 x (int8_wo_mma_kernel, tensor cores): mma.sync m16n8k16
+// bf16 x bf16 -> f32. Above 16 rows a 256-thread block owns a 64 x 128
+// output tile, 2 x 4 warps of 32 rows x 32 columns; at or below 16 rows a
+// 128-thread block owns 16 x 128, 4 warps of 16 x 32. It walks its chunk of
+// K in stages of 64: x [64 or 16, 64] bf16 and w_q [64, 128] int8 are
+// double-buffered in shared memory by cp.async (48 KB with 64-row tiles).
+// Once a stage has landed, the block dequantizes its int8 tile into one
+// bf16 tile [64, 128] (the magic-number trick below, then
+// cvt.rn.bf16x2.f32: every int8 value is a bf16, so this is exact, a bf16 x
+// bf16 product is exact in f32, and the result differs from the f32 dot of
+// _wo_kernel only in the order of the sum). Then ldmatrix gives x's A
+// fragments (K-contiguous) and ldmatrix.trans the weights' B fragments
+// (N-contiguous), as V in the flash kernel: once the operand is 16-bit, the
+// dynamic kernel's byte transpose is not needed. The 16-byte chunks of the
+// bf16 rows are XOR-swizzled by the row so ldmatrix is free of bank
+// conflicts; each thread alternates which half of its dequantized chunk it
+// stores first, so the stores are too. The scale is applied in the f32
+// epilogue, then the cast to bf16. Rows past M, columns past N and K past
+// the chunk stage as zeros; when K is not a multiple of 8, N not a multiple
+// of 16 or a pointer is not 16-byte aligned, stages are copied element by
+// element. The K split is kernels/int8_matmul.py split_k_weight_only.
+// A ring of four stages, a second bf16 tile (converting stage s + 1 while
+// multiplying stage s, one barrier per stage) and 128-row tiles each moved
+// the M = 256 times by under 10 % (PERF.md), so the simplest design stays.
+// The small-M rule (kWoSmallM): at M <= 16 bf16 x runs the 16-row tile,
+// which splits K down to two stages per block until the tiles reach two
+// blocks per SM (bound by the weight bytes in flight). At the four decode
+// shapes (M = 8) it measured faster than the CUDA-core template at all four,
+// and the 64-row tile slower than both (PERF.md), so the CUDA-core template
+// serves f32 x alone: TF32 would miss the f32 tolerance. The C entry takes
+// the route from x's type and M; kernels/int8_matmul.py wo_tile_m plans the
+// K split for the same route.
+//
+// Weight-only, f32 x (int8_gemm_kernel, CUDA cores): a 256-thread block owns an
 // 8-row by 128-column output tile and one chunk of K. Sixteen
 // column-threads each own 8 adjacent columns and read them as one 64-bit
 // load (w_q is N-contiguous, so a warp reads two 128-byte row segments);
@@ -45,7 +80,7 @@
 // The small-M rule: none. At the four decode shapes (M = 8) the
 // tensor-core kernel measured faster than the CUDA-core template at three
 // and 5 % slower at one, 18 % less over a decode step (PERF.md), so every
-// M runs here and the CUDA-core template serves weight-only alone.
+// M runs here and the CUDA-core template serves weight-only f32 x alone.
 //
 // Both: when the M x N tiles alone cannot fill the card, K is split over
 // blockIdx.z: each split writes its partial tile to a workspace and a
@@ -70,9 +105,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBM = 8;                                     // rows per block
 constexpr int kUnroll = 8;                                 // weight rows in flight per thread
 constexpr int kBK = kKGroups * kUnroll;                    // 128 K rows per x tile
-
-__device__ __forceinline__ float to_acc(float v) { return v; }
-__device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float from_bits(uint32_t u, float) { return __uint_as_float(u); }
 
@@ -112,9 +144,9 @@ __device__ __forceinline__ Out epilogue(Acc s, const float* __restrict__ w_scale
   }
 }
 
-template <typename XIn, typename Acc, typename Out, bool kDyn>
+template <typename Acc, typename Out, bool kDyn>
 __global__ void __launch_bounds__(kThreads, 2)
-int8_gemm_kernel(const XIn* __restrict__ x, const int8_t* __restrict__ w,
+int8_gemm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
                  const float* __restrict__ w_scale, const float* __restrict__ x_scale,
                  Out* __restrict__ y, Acc* __restrict__ partial, int M, int N, int K,
                  int k_chunk, bool vec) {
@@ -142,7 +174,7 @@ int8_gemm_kernel(const XIn* __restrict__ x, const int8_t* __restrict__ w,
     for (int i = tid; i < kBM * kBK; i += kThreads) {
       const int m = i / kBK, k = i % kBK;  // neighbouring threads read neighbouring k
       Acc v = Acc(0);
-      if (m0 + m < M && k < kt) v = to_acc(x[static_cast<long long>(m0 + m) * K + k0 + k]);
+      if (m0 + m < M && k < kt) v = x[static_cast<long long>(m0 + m) * K + k0 + k];
       xs[k][m] = v;
     }
     __syncthreads();
@@ -386,6 +418,178 @@ int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
 }  // namespace mma
 
+namespace wo {
+
+constexpr int kWarpsN = 4;  // warps side by side along N
+constexpr int kBN = 128;    // columns per block, 32 per warp
+constexpr int kBK = 64;     // K elements per pipeline stage
+
+// XOR swizzle of the 16-byte chunks of a bf16 shared-memory row (8 of x's,
+// 16 of the dequantized weights'): the 8 rows an ldmatrix phase reads at
+// one logical chunk land in 8 different bank groups
+__device__ __forceinline__ int swz(int r, int c) { return c ^ (r & 7); }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Bytes j and j + 1 of a sign-flipped word (u = w ^ 0x80808080) as two
+// bf16 in one register: the byte in the mantissa of 2^23, minus 2^23 + 128,
+// is the signed value exactly in f32, and every int8 value is a bf16.
+__device__ __forceinline__ uint32_t dequant2(uint32_t u, int j) {
+  const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u | j)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u | (j + 1))) - 8388736.f;
+  return pack_bf16(lo, hi);
+}
+
+// Sixteen int8 weights as sixteen bf16: half h of the result (8 values).
+__device__ __forceinline__ uint4 dequant8(uint4 w, int h) {
+  const uint32_t a = (h ? w.z : w.x) ^ 0x80808080u, b = (h ? w.w : w.y) ^ 0x80808080u;
+  return make_uint4(dequant2(a, 0), dequant2(a, 2), dequant2(b, 0), dequant2(b, 2));
+}
+
+// y = (x @ w_q) * w_scale for bf16 x on the tensor cores: mma.sync m16n8k16
+// bf16 -> f32 over (16 MT WM) x 128 output tiles, WM x 4 warps; warp (wm,
+// wn) owns rows 16 MT wm .. + 16 MT - 1 and columns 32 wn .. 32 wn + 31.
+// Each K stage of 64 stages x [16 MT WM, 64] bf16 and w_q [64, 128] int8 by
+// cp.async (double-buffered); after it lands the int8 tile is dequantized
+// once into a bf16 tile [64, 128], and ldmatrix (x, K-contiguous) and
+// ldmatrix.trans (the bf16 weights, N-contiguous) give the A and B fragments
+// directly.
+template <int MT, int WM>
+__global__ void __launch_bounds__(32 * kWarpsN * WM)
+int8_wo_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+                   const float* __restrict__ w_scale, __nv_bfloat16* __restrict__ y,
+                   float* __restrict__ partial, int M, int N, int K, int k_chunk, bool vec) {
+  constexpr int kThreads = 32 * kWarpsN * WM;
+  constexpr int kBM = 16 * MT * WM;
+  __shared__ __align__(128) __nv_bfloat16 xs[2][kBM][kBK];
+  __shared__ __align__(128) int8_t w8[2][kBK][kBN];
+  __shared__ __align__(128) __nv_bfloat16 wb[kBK][kBN];
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wm = tid / 32 / kWarpsN, wn = tid / 32 % kWarpsN;
+  const int gid = lane / 4, tig = lane % 4;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(K, k_begin + k_chunk);
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+
+  // x rows m0.. and w rows k0.. of one stage into buffer `buf`, zero past
+  // M, N and k_end: cp.async when every chunk is whole and aligned (vec),
+  // else element by element
+  auto stage = [&](int k0, int buf) {
+    const int kt = min(kBK, k_end - k0);
+    for (int i = tid; i < kBM * kBK / 8; i += kThreads) {
+      const int r = i / (kBK / 8), c = i % (kBK / 8);
+      __nv_bfloat16* dst = &xs[buf][r][swz(r, c) * 8];
+      const int row = m0 + r, kc = c * 8;
+      const __nv_bfloat16* src = x + static_cast<long long>(row) * K + k0 + kc;
+      if (vec) {
+        const bool live = row < M && kc < kt;
+        cp_async16(dst, live ? src : x, live ? 16 : 0);
+      } else {
+        for (int e = 0; e < 8; ++e) dst[e] = row < M && kc + e < kt ? src[e] : zero;
+      }
+    }
+    for (int i = tid; i < kBK * kBN / 16; i += kThreads) {
+      const int r = i / (kBN / 16), c = i % (kBN / 16);
+      int8_t* dst = &w8[buf][r][c * 16];
+      const int col = n0 + c * 16;
+      const int8_t* src = w + static_cast<long long>(k0 + r) * N + col;
+      if (vec) {
+        const bool live = r < kt && col < N;
+        cp_async16(dst, live ? src : w, live ? 16 : 0);
+      } else {
+        for (int e = 0; e < 16; ++e) dst[e] = r < kt && col + e < N ? src[e] : 0;
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[MT][4][4];  // [m-tile][n-tile][fragment]
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc[mt][t][0] = acc[mt][t][1] = acc[mt][t][2] = acc[mt][t][3] = 0.f;
+  }
+  const int n_steps = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+  if (n_steps > 0) stage(k_begin, 0);
+  for (int s = 0; s < n_steps; ++s) {
+    const int buf = s & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // stage s has landed; every read of step s - 1 is done
+    if (s + 1 < n_steps) stage(k_begin + (s + 1) * kBK, buf ^ 1);  // overlaps what follows
+    // dequantize: thread i turns 16 bytes of row i / 8 into two bf16 chunks;
+    // the half it stores first alternates so a store phase is conflict-free
+    for (int i = tid; i < kBK * kBN / 16; i += kThreads) {
+      const int r = i / (kBN / 16), c8 = i % (kBN / 16);
+      const uint4 v = *reinterpret_cast<const uint4*>(&w8[buf][r][c8 * 16]);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int h = hh ^ ((c8 >> 2) & 1);
+        *reinterpret_cast<uint4*>(&wb[r][swz(r, 2 * c8 + h) * 8]) = dequant8(v, h);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r = (wm * MT + mt) * 16 + lane % 16, c = kk * 2 + lane / 16;
+        ldmatrix_x4(a[mt], &xs[buf][r][swz(r, c) * 8]);
+      }
+      uint32_t b[2][4];  // n-tiles 2p and 2p + 1: {b0, b1} of each
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int r = kk * 16 + lane % 16, c = wn * 4 + 2 * p + lane / 16;
+        ldmatrix_x4_trans(b[p], &wb[r][swz(r, c) * 8]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          mma_bf16_16816(acc[mt][t], a[mt], b[t / 2][2 * (t % 2)], b[t / 2][2 * (t % 2) + 1]);
+      }
+    }
+  }
+
+  // fragment (mt, t, e) is row m0 + 16 (MT wm + mt) + gid + 8 (e / 2) and
+  // column n0 + 32 wn + 8 t + 2 tig + (e % 2)
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = m0 + (wm * MT + mt) * 16 + gid + 8 * hr;
+      if (row >= M) continue;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int col = n0 + 32 * wn + 8 * t + 2 * tig;
+        if (col >= N) continue;
+        const float v0 = acc[mt][t][2 * hr], v1 = acc[mt][t][2 * hr + 1];
+        const long long o = static_cast<long long>(row) * N + col;
+        if (partial != nullptr) {
+          float* dst = partial + static_cast<long long>(blockIdx.z) * M * N + o;
+          if (vec) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            dst[0] = v0;
+            if (col + 1 < N) dst[1] = v1;
+          }
+        } else if (vec) {
+          *reinterpret_cast<uint32_t*>(y + o) = pack_bf16(v0 * w_scale[col], v1 * w_scale[col + 1]);
+        } else {
+          y[o] = __float2bfloat16(v0 * w_scale[col]);
+          if (col + 1 < N) y[o + 1] = __float2bfloat16(v1 * w_scale[col + 1]);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace wo
+
 namespace {
 
 // The K splits' partial tiles summed in split order, then the epilogue.
@@ -405,7 +609,7 @@ bool bad_split(int K, int splits, int k_chunk, const void* partial) {
          (K > 0 && (k_chunk < 1 || static_cast<long long>(k_chunk) * splits < K));
 }
 
-template <typename XIn, typename Acc, typename Out, bool kDyn>
+template <typename Acc, typename Out, bool kDyn>
 int launch(const void* x, const void* w, const void* w_scale, const void* x_scale, void* y,
            void* partial, int M, int N, int K, int splits, int k_chunk, cudaStream_t stream) {
   if (M == 0 || N == 0) return 0;
@@ -416,8 +620,8 @@ int launch(const void* x, const void* w, const void* w_scale, const void* x_scal
   const bool vec = N % kColsPerThread == 0 &&
                    reinterpret_cast<std::uintptr_t>(w) % kColsPerThread == 0;
   Acc* part = splits > 1 ? static_cast<Acc*>(partial) : nullptr;
-  int8_gemm_kernel<XIn, Acc, Out, kDyn><<<grid, kThreads, 0, stream>>>(
-      static_cast<const XIn*>(x), static_cast<const int8_t*>(w),
+  int8_gemm_kernel<Acc, Out, kDyn><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(w_scale), static_cast<const float*>(x_scale),
       static_cast<Out*>(y), part, M, N, K, k_chunk, vec);
   cudaError_t err = cudaGetLastError();
@@ -448,21 +652,53 @@ int launch_mma(const void* x_q, const void* w_q, const void* w_scale, const void
   return reduce_splits<int, float, true>(part, w_scale, x_scale, y, M, N, splits, stream);
 }
 
+// The weight-only GEMM of bf16 x on the tensor cores, 16 MT WM-row tiles;
+// the K chunk is a whole number of stages, so only the last split can end
+// inside one.
+template <int MT, int WM>
+int launch_wo_mma(const void* x, const void* w_q, const void* w_scale, void* y, void* partial,
+                  int M, int N, int K, int splits, int k_chunk, cudaStream_t stream) {
+  if (M == 0 || N == 0) return 0;
+  constexpr int kBM = 16 * MT * WM;
+  const dim3 grid((N + wo::kBN - 1) / wo::kBN, (M + kBM - 1) / kBM, splits);
+  if (grid.y > 65535u || bad_split(K, splits, k_chunk, partial) || k_chunk % wo::kBK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = K % 8 == 0 && N % 16 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(w_q) % 16 == 0;
+  float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
+  wo::int8_wo_mma_kernel<MT, WM><<<grid, 32 * wo::kWarpsN * WM, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w_q),
+      static_cast<const float*>(w_scale), static_cast<__nv_bfloat16*>(y), part, M, N, K,
+      k_chunk, vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || part == nullptr) return static_cast<int>(err);
+  return reduce_splits<float, __nv_bfloat16, false>(part, w_scale, nullptr, y, M, N, splits,
+                                                     stream);
+}
+
 }  // namespace
+
+// The weight-only route from x's type and M: f32 x on the CUDA-core template,
+// bf16 x on the tensor cores, 16-row tiles up to kWoSmallM rows and 64-row
+// tiles above (kernels/int8_matmul.py wo_tile_m and WO_SMALL_M, whose K
+// split the caller passes).
+constexpr int kWoSmallM = 16;
 
 extern "C" int int8_matmul_wo_launch(int dtype, const void* x, const void* w_q,
                                      const void* w_scale, void* y, void* partial, int m,
                                      int n, int k, int splits, int k_chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_DTYPE_F32) {
-    return launch<float, float, float, false>(x, w_q, w_scale, nullptr, y, partial, m, n, k,
-                                              splits, k_chunk, s);
+    return launch<float, float, false>(x, w_q, w_scale, nullptr, y, partial, m, n, k, splits,
+                                       k_chunk, s);
   }
-  if (dtype == REPRO_DTYPE_BF16) {
-    return launch<__nv_bfloat16, float, __nv_bfloat16, false>(
-        x, w_q, w_scale, nullptr, y, partial, m, n, k, splits, k_chunk, s);
+  if (dtype != REPRO_DTYPE_BF16) return static_cast<int>(cudaErrorInvalidValue);
+  if (m <= kWoSmallM) {
+    return launch_wo_mma<1, 1>(x, w_q, w_scale, y, partial, m, n, k, splits, k_chunk, s);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_wo_mma<2, 2>(x, w_q, w_scale, y, partial, m, n, k, splits, k_chunk, s);
 }
 
 extern "C" int int8_matmul_dyn_launch(const void* x_q, const void* w_q, const void* w_scale,

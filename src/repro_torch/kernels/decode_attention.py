@@ -5,13 +5,18 @@ Replaces ``repro/kernels/decode_attention.py::decode_attention_pallas``
 (``_decode_kernel``): one query token per batch row against a static
 ``[B, S, Hkv, D]`` cache, valid below per-row ``lengths``; tiles past the
 length are never read and each KV tile serves the whole q-head group. On
-the H100 it is bound by bytes (about G flops per cached byte); the kernel
-runs one block per (batch row, KV head) without a split of the sequence
-(see the source's note).
+the H100 it is bound by bytes (about G flops per cached byte), and in
+practice by latency. The kernel splits each (batch row, KV head) over
+blocks along the sequence (:func:`split_plan`, from the static S alone:
+``lengths`` is never read on the host) and a second small kernel merges
+the splits that hold keys by their log-sum-exp, in split order, with the
+maths of ``combine_partial_attention`` (see the source's note).
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,6 +29,23 @@ LAUNCHES = 0
 HEAD_DIMS = (64, 128)
 #: per-thread output registers x threads of one block: bounds G * D
 MAX_GROUP_WIDTH = 8 * 256
+#: keys per tile of the kernel; a split is a whole number of tiles
+TILE_K = 64
+#: blocks per SM the split plan aims for
+BLOCKS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(b: int, hkv: int, s: int, n_sms: int) -> Tuple[int, int]:
+    """(splits, split_len): each (row, KV head) cut into ``splits`` runs of
+    ``split_len`` keys, whole 64-key tiles, from the static shape alone.
+    Enough splits for ``BLOCKS_PER_SM`` blocks per SM where S has the tiles
+    for it; none starts at or past S (a run past a row's length is skipped
+    by the kernel, and the combine reads only the runs below it)."""
+    tiles = max(1, math.ceil(s / TILE_K))
+    want = math.ceil(BLOCKS_PER_SM * n_sms / max(b * hkv, 1))
+    per = max(1, tiles // want)
+    return math.ceil(tiles / per), per * TILE_K
 
 
 def decode_attention_plain(
@@ -60,8 +82,9 @@ def decode_attention_cuda(
     *,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream. ``lengths`` must
-    be contiguous int32 [B]; raises for anything the kernel does not take."""
+    """Launch the CUDA kernel (and, when the sequence is split, its
+    combine) on PyTorch's current stream. ``lengths`` must be contiguous
+    int32 [B]; raises for anything the kernel does not take."""
     global LAUNCHES
     _build.require_cuda("decode_attention", q, k, v, lengths)
     b, hq, d = q.shape
@@ -81,10 +104,15 @@ def decode_attention_cuda(
     scale = scale if scale is not None else d ** -0.5
     code = _build.dtype_code(q)
     out = torch.empty_like(q)
+    splits, split_len = split_plan(b, hkv, s, _build.n_sms(q.device.index))
+    # the splits' partials: acc [splits, B, Hq, D], then (m, l) [splits, B, Hq, 2]
+    part = (torch.empty(splits * b * hq * (d + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     lib = _build.library()
     rc = lib.decode_attention_launch(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, s, hq, hkv, d, float(scale), _build.stream_of(q),
+        out.data_ptr(), None if part is None else part.data_ptr(), b, s, hq, hkv, d,
+        splits, split_len, float(scale), _build.stream_of(q),
     )
     _build.check(rc, "decode_attention")
     LAUNCHES += 1

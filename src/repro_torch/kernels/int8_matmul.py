@@ -7,7 +7,11 @@ Replaces ``repro/kernels/int8_matmul.py``:
   ``x[..., K]`` (bf16/f32) @ ``w_q[K, N]`` int8, f32 accumulation,
   ``* w_scale[N]`` in the epilogue, out ``x.dtype``. On the H100 it is
   bound by bytes at decode (M = 8 rows): the int8 weights are half the
-  bf16 bytes.
+  bf16 bytes. bf16 x runs on the tensor cores (``mma.sync`` bf16, the int8
+  tile dequantized exactly to bf16 in shared memory), with 64-row tiles
+  above ``WO_SMALL_M`` rows and 16-row tiles at or below; f32 x runs the
+  CUDA-core template (:func:`wo_tile_m`, :func:`plan_weight_only`). The C
+  entry takes the same route from x's type and M.
 - ``int8_matmul_dynamic_*`` — ``int8_matmul_dynamic_pallas``
   (``_dyn_kernel``): ``x_q[..., K]`` int8 @ ``w_q[K, N]`` int8 with an
   exact int32 accumulator, then ``acc * x_scale[m] * w_scale[n]`` in f32,
@@ -22,7 +26,8 @@ output tiles alone cannot fill the card (see the source's note).
 The dynamic kernel has no small-M rule: every M, decode (M = 8) and
 prefill (M = 256) alike, runs the ``mma.sync`` s8 tensor-core kernel, which
 measured faster than the CUDA-core template at decode too (the source's
-note); :func:`split_k_dynamic` is its K split.
+note); :func:`split_k_dynamic` is its K split, and
+:func:`split_k_weight_only` the weight-only kernel's.
 """
 from __future__ import annotations
 
@@ -42,10 +47,15 @@ LAUNCHES_DYN = 0
 # the CUDA-core template's tile (csrc/int8_matmul.cu): 8 rows x 128
 # columns, K in 128-row steps
 _BM, _BN, _BK = 8, 128, 128
-# the tensor-core kernel's tile: 64 rows x 128 columns, K in 64-byte stages
+# the tensor-core kernels' tiles: 64 (or, weight-only at small M, 16) rows
+# x 128 columns, K in stages of 64 (bytes for the dynamic kernel, bf16
+# elements for the weight-only one)
 _TC_BM, _TC_BN, _TC_BK = 64, 128, 64
-#: least K bytes per split of the tensor-core kernel (4 pipeline stages)
+#: least K per split of the tensor-core kernels (4 pipeline stages)
 _TC_MIN_CHUNK = 4 * _TC_BK
+#: bf16 x with at most this many rows runs the 16-row tensor-core tile
+#: (``kWoSmallM`` of csrc/int8_matmul.cu, which routes the launch)
+WO_SMALL_M = 16
 
 
 def split_k(m: int, n: int, k: int, n_sms: int) -> Tuple[int, int]:
@@ -58,20 +68,57 @@ def split_k(m: int, n: int, k: int, n_sms: int) -> Tuple[int, int]:
     return max(1, math.ceil(k / k_chunk)), k_chunk
 
 
-def split_k_dynamic(m: int, n: int, k: int, n_sms: int) -> Tuple[int, int]:
-    """(splits, k_chunk) of K over blocks for the tensor-core kernel: split
-    only while the 64 x 128 output tiles are fewer than the SMs, each split
-    at least ``_TC_MIN_CHUNK`` bytes of K and a whole number of 64-byte
-    stages, no split empty."""
-    tiles = math.ceil(n / _TC_BN) * math.ceil(m / _TC_BM)
-    splits = max(1, min(math.ceil(n_sms / max(tiles, 1)), k // _TC_MIN_CHUNK))
+def _split_k_tc(m: int, n: int, k: int, blocks: int, tile_m: int,
+                min_chunk: int = _TC_MIN_CHUNK) -> Tuple[int, int]:
+    """(splits, k_chunk) of K over blocks for a tensor-core kernel with
+    ``tile_m`` x 128 output tiles: split only while the tiles are fewer
+    than ``blocks``, each split at least ``min_chunk`` of K and a whole
+    number of 64-deep stages, no split empty."""
+    tiles = math.ceil(n / _TC_BN) * math.ceil(m / tile_m)
+    splits = max(1, min(math.ceil(blocks / max(tiles, 1)), k // min_chunk))
     k_chunk = max(1, math.ceil(math.ceil(k / splits) / _TC_BK)) * _TC_BK
     return max(1, math.ceil(k / k_chunk)), k_chunk
 
 
+def split_k_dynamic(m: int, n: int, k: int, n_sms: int) -> Tuple[int, int]:
+    """(splits, k_chunk) of K over blocks for the dynamic tensor-core
+    kernel (64 x 128 tiles, 64-byte stages)."""
+    return _split_k_tc(m, n, k, n_sms, _TC_BM)
+
+
+def wo_tile_m(m: int, dtype: torch.dtype) -> int:
+    """The weight-only route by M and x's type: f32 x runs the CUDA-core
+    template (8-row tiles; TF32 would miss the f32 tolerance), bf16 x the
+    tensor-core kernel, with 16-row tiles up to ``WO_SMALL_M`` rows (faster
+    than the CUDA-core template at all four decode shapes on the H100,
+    ``PERF.md``) and 64-row tiles above."""
+    if dtype != torch.bfloat16:
+        return 8
+    return 16 if m <= WO_SMALL_M else 64
+
+
+def split_k_weight_only(m: int, n: int, k: int, n_sms: int,
+                        tile_m: int) -> Tuple[int, int]:
+    """(splits, k_chunk) of K over blocks for the weight-only kernel of
+    ``tile_m`` rows: the CUDA-core template's plan (:func:`split_k`) for 8;
+    for 64, split while the 64 x 128 tiles are fewer than the SMs, as the
+    dynamic kernel; for 16 (small M, bound by the weight bytes in flight),
+    split while the tiles are fewer than two blocks per SM, down to chunks
+    of two 64-element stages."""
+    if tile_m == 8:
+        return split_k(m, n, k, n_sms)
+    if tile_m == 16:
+        return _split_k_tc(m, n, k, 2 * n_sms, tile_m, 2 * _TC_BK)
+    return _split_k_tc(m, n, k, n_sms, tile_m)
+
+
 @functools.lru_cache(maxsize=None)
-def _n_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def plan_weight_only(m: int, n: int, k: int, dtype: torch.dtype,
+                     n_sms: int) -> Tuple[int, int, int]:
+    """(tile_m, splits, k_chunk) the weight-only wrapper launches with: the
+    route of :func:`wo_tile_m` and its K split."""
+    tile_m = wo_tile_m(m, dtype)
+    return (tile_m, *split_k_weight_only(m, n, k, n_sms, tile_m))
 
 
 def _workspace(splits: int, m: int, n: int, dtype, device) -> Optional[torch.Tensor]:
@@ -110,10 +157,11 @@ def _check_weights(name: str, k: int, w_q: torch.Tensor, w_scale: torch.Tensor) 
 
 def int8_matmul_weight_only_cuda(x: torch.Tensor, w_q: torch.Tensor,
                                  w_scale: torch.Tensor) -> torch.Tensor:
-    """Launch the weight-only kernel on PyTorch's current stream. Raises
-    for anything the kernel does not take (CPU or non-contiguous tensors,
-    an x that is not f32/bf16, int8 weights of the wrong shape, scales
-    that are not f32 [N])."""
+    """Launch the weight-only kernel on PyTorch's current stream: bf16 x on
+    the tensor cores, f32 x on the CUDA-core template (:func:`wo_tile_m`).
+    Raises for anything the kernel does not take (CPU or non-contiguous
+    tensors, an x that is not f32/bf16, int8 weights of the wrong shape,
+    scales that are not f32 [N])."""
     global LAUNCHES_WO
     name = "int8_matmul_weight_only"
     _build.require_cuda(name, x, w_q, w_scale)
@@ -122,7 +170,7 @@ def int8_matmul_weight_only_cuda(x: torch.Tensor, w_q: torch.Tensor,
     n = _check_weights(name, k, w_q, w_scale)
     out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
     m = math.prod(x.shape[:-1])
-    splits, k_chunk = split_k(m, n, k, _n_sms(x.device.index))
+    _, splits, k_chunk = plan_weight_only(m, n, k, x.dtype, _build.n_sms(x.device.index))
     part = _workspace(splits, m, n, torch.float32, x.device)
     lib = _build.library()
     rc = lib.int8_matmul_wo_launch(code, x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
@@ -151,7 +199,7 @@ def int8_matmul_dynamic_cuda(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torc
         raise ValueError(f"{name}: x_scale must be float32 with {m} rows, got "
                          f"{x_scale.dtype} {tuple(x_scale.shape)}")
     out = torch.empty((*x_q.shape[:-1], n), dtype=torch.float32, device=x_q.device)
-    splits, k_chunk = split_k_dynamic(m, n, k, _n_sms(x_q.device.index))
+    splits, k_chunk = split_k_dynamic(m, n, k, _build.n_sms(x_q.device.index))
     part = _workspace(splits, m, n, torch.int32, x_q.device)
     rc = _build.library().int8_matmul_dyn_launch(
         x_q.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), x_scale.data_ptr(),

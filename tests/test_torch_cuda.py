@@ -217,3 +217,71 @@ def test_int8_dynamic_bit_identical_on_card(m, k, n):
     assert im.LAUNCHES_DYN == before + 1
     assert got.dtype == torch.float32 and got.shape == (m, n)
     assert torch.equal(got, im.int8_matmul_dynamic_plain(x_q, w_q, w_scale, x_scale))
+
+
+WO_SHAPES = ([(256, k, n) for k, n in LLAMA_LINEARS]
+             + [(1, 2048, 2048), (8, 2048, 8192), (37, 2048, 512), (256, 2048, 520),
+                (37, 100, 53), (8, 300, 100), (48, 200, 96)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", WO_SHAPES)
+def test_int8_weight_only_routes_on_card(m, k, n, dtype):
+    """The weight-only kernel against its plain version at the served
+    prefill linears (M = 256), at M = 1, 8 and 37, and where K or N is not
+    a multiple of 16 (element-by-element staging): bf16 x on the tensor
+    cores (16-row tiles up to 16 rows, 64-row tiles above), f32 x on the
+    CUDA-core template; a repeat call is bit-identical; one launch per
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    w = torch.randn((k, n), generator=g, device=dev) * k ** -0.5
+    w_q, w_scale = ops.quantize_int8(w, axis=0)
+    want = im.int8_matmul_weight_only_plain(x, w_q, w_scale)
+    before = im.LAUNCHES_WO
+    got = im.int8_matmul_weight_only_cuda(x, w_q, w_scale)
+    again = im.int8_matmul_weight_only_cuda(x, w_q, w_scale)
+    torch.cuda.synchronize()
+    assert im.LAUNCHES_WO == before + 2
+    assert got.dtype == dtype and got.shape == (m, n)
+    close(got, want, dtype)
+    assert torch.equal(got, again), "repeat call differs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,hq,d", [(67, 32, 64), (321, 32, 64), (4096, 32, 64),
+                                    (321, 16, 128)])
+def test_decode_attention_split_on_card(s, hq, d, dtype):
+    """The split decode kernel and its combine against the plain version
+    at 8 rows x 8 KV heads, S = 67, 321 (served) and 4096, with lengths at
+    the split edges (0, 1, split - 1, split, split + 1, 2 splits, S - 1,
+    S); a row of length 0 is exactly 0; a repeat call is bit-identical;
+    one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, hkv = 8, 8
+    splits, split_len = da.split_plan(b, hkv, s, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert splits > 1
+    lengths = [min(s, n) for n in (0, 1, split_len - 1, split_len, split_len + 1,
+                                   2 * split_len, s - 1, s)]
+    q = torch.randn((b, hq, d), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device=dev).to(dtype) for _ in range(2))
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = da.LAUNCHES
+    got = da.decode_attention_cuda(q, k, v, ln)
+    again = da.decode_attention_cuda(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    close(got, da.decode_attention_plain(q, k, v, ln), dtype)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(got, again)

@@ -232,6 +232,103 @@ def test_decode_attention_empty_row_is_zero():
     assert torch.equal(out[0], torch.zeros_like(out[0]))
 
 
+@pytest.mark.parametrize("n_shards", [1, 3])
+def test_decode_partial_and_combine_match_jax(n_shards):
+    """The port's plain flash-decode partial and LSE combine against the JAX
+    package's, shard by shard, on the same numpy inputs (f32); shard 0 of
+    row 0 holds no valid key."""
+    rng = np.random.default_rng(20 + n_shards)
+    b, s, hq, hkv, d = 2, 48, 8, 2, 32
+    q = rng.standard_normal((b, hq, d), np.float32)
+    k = rng.standard_normal((b, s, hkv, d), np.float32)
+    v = rng.standard_normal((b, s, hkv, d), np.float32)
+    valid = np.arange(s)[None] < np.array([[30], [48]])
+    valid[0, : s // n_shards] &= n_shards == 1
+    parts_j, parts_t = [], []
+    for z in range(n_shards):
+        sl = slice(z * s // n_shards, (z + 1) * s // n_shards)
+        parts_j.append(jops.decode_attention_partial(
+            jnp.asarray(q), jnp.asarray(k[:, sl]), jnp.asarray(v[:, sl]),
+            jnp.asarray(valid[:, sl])))
+        parts_t.append(ops.decode_attention_partial(
+            torch.from_numpy(q), torch.from_numpy(k[:, sl].copy()),
+            torch.from_numpy(v[:, sl].copy()), torch.from_numpy(valid[:, sl].copy())))
+        for got, want in zip(parts_t[-1], parts_j[-1]):
+            assert got.dtype == torch.float32
+            assert_close(got, want, "float32")
+    want = jops.combine_partial_attention(*(jnp.stack(t) for t in zip(*parts_j)))
+    got = ops.combine_partial_attention(*(torch.stack(t) for t in zip(*parts_t)))
+    assert_close(got, want, "float32")
+
+
+def _split_emulation(q, k, v, lengths, splits, split_len):
+    """The split decode kernel in plain torch: row b's sequence in runs of
+    ``split_len`` keys, a partial for each of the ceil(len / split_len)
+    runs that hold keys (the kernel skips the others), merged in run order
+    by the LSE combine; a row of length 0 has no run and stays 0."""
+    b, s = k.shape[:2]
+    out = torch.zeros(q.shape, dtype=torch.float32)
+    for row in range(b):
+        ln = min(max(int(lengths[row]), 0), s)
+        parts = []
+        for z in range(-(-ln // split_len)):
+            lo, hi = z * split_len, min(s, (z + 1) * split_len)
+            ok = (torch.arange(lo, hi) < ln)[None]
+            parts.append(ops.decode_attention_partial(
+                q[row:row + 1], k[row:row + 1, lo:hi], v[row:row + 1, lo:hi], ok))
+        assert len(parts) <= splits
+        if parts:
+            out[row] = ops.combine_partial_attention(
+                *(torch.stack(t) for t in zip(*parts)))[0]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize(
+    "b,s,hq,hkv,n_sms",
+    [
+        (6, 321, 8, 2, 132),   # the served S: six one-tile runs
+        (6, 1000, 8, 8, 40),   # runs of three tiles, a ragged last run
+    ],
+)
+def test_decode_split_plan_emulation_matches_plain_and_pallas(b, s, hq, hkv, n_sms):
+    """The split plan, emulated through the ported partial and combine,
+    equals the plain version and the JAX package's Pallas kernel
+    (interpret mode) at lengths 0, 1, split - 1, split, split + 1 and S."""
+    splits, split_len = da.split_plan(b, hkv, s, n_sms)
+    assert splits > 1
+    lengths = [0, 1, split_len - 1, split_len, split_len + 1, s]
+    rng = np.random.default_rng(s)
+    d = 32
+    qj, qt = both(rng.standard_normal((b, hq, d), np.float32), "float32")
+    kj, kt = both(rng.standard_normal((b, s, hkv, d), np.float32), "float32")
+    vj, vt = both(rng.standard_normal((b, s, hkv, d), np.float32), "float32")
+    ln = np.asarray(lengths, np.int32)
+    got = _split_emulation(qt, kt, vt, ln, splits, split_len)
+    pallas = jops.decode_attention(qj, kj, vj, jnp.asarray(ln), impl="pallas", block_k=64)
+    assert_close(got, da.decode_attention_plain(qt, kt, vt, torch.from_numpy(ln)), "float32")
+    assert_close(got, pallas, "float32")
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("b,hkv,s,n_sms", [(8, 8, 321, 132), (8, 8, 4096, 132),
+                                           (1, 8, 4096, 132), (8, 8, 67, 132),
+                                           (3, 1, 129, 132), (64, 8, 321, 132),
+                                           (2, 2, 50, 132), (1, 1, 0, 132), (5, 3, 1, 7)])
+def test_decode_split_plan_covers_s(b, hkv, s, n_sms):
+    """Runs of whole 64-key tiles cover S, none starts at or past S (so
+    only runs past a row's length are empty, and the kernel skips those),
+    and the grid reaches two blocks per SM where S has the tiles for it."""
+    splits, split_len = da.split_plan(b, hkv, s, n_sms)
+    assert splits >= 1 and split_len >= 64 and split_len % 64 == 0
+    assert splits * split_len >= s and (splits - 1) * split_len < max(s, 1)
+    tiles = -(-s // 64)
+    if tiles * b * hkv >= 2 * n_sms:
+        assert splits * b * hkv >= 2 * n_sms
+    if b * hkv >= 2 * n_sms:
+        assert splits == 1
+    assert da.split_plan(8, 8, 321, 132) == (6, 64)
+
+
 # ------------------------------------------------------------------ rmsnorm
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(3, 5, 256), (7, 2048)])
@@ -265,3 +362,13 @@ def test_cuda_impl_on_cpu_tensor_raises(kernel):
 def test_unknown_impl_raises():
     with pytest.raises(ValueError, match="impl"):
         ops.rmsnorm(torch.zeros(2, 8), torch.ones(8), impl="pallas")
+
+
+def test_wrapper_times_needs_a_card(monkeypatch):
+    """The wrappers' timing script exits with a message, and times
+    nothing, where no CUDA card is present."""
+    from repro_torch.launch import wrapper_times
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        wrapper_times.main([])

@@ -12,6 +12,9 @@ test_torch_model.py (atol 1e-4 / rtol 1e-3); tokens exact up to a
 reference near tie (top-1/top-2 gap < 1e-4), as in test_torch_serve.py.
 On the CPU no kernel launches: every wrapper takes its plain version, and
 ``impl="cuda"`` raises."""
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -235,6 +238,111 @@ def test_dynamic_split_covers_k(m, k, n):
         assert chunk >= min(256, -(-k // 64) * 64)
     assert im.split_k_dynamic(256, 8192, 2048, 132) == (1, 2048)
     assert im.split_k_dynamic(8, 8192, 2048, 132) == (3, 704)
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (8, 256) for k, n in LLAMA_LINEARS]
+                         + [(1, 2048, 2048), (37, 100, 53), (8, 300, 100), (128, 256, 64),
+                            (16, 200, 96), (17, 64, 4096), (300, 0, 64)])
+def test_weight_only_plan_covers_k(m, k, n, name):
+    """The weight-only route and K split: f32 x on the CUDA-core template
+    (8-row tiles, whole 128-row chunks), bf16 x on the tensor cores
+    (16-row tiles up to 16 rows, 64-row tiles above; chunks of whole
+    64-element stages, at least 2 each for 16-row tiles and 4 for 64-row
+    tiles, no split once the tiles reach two blocks per SM or one);
+    every K row covered exactly once, no split empty."""
+    dtype = torch.float32 if name == "float32" else torch.bfloat16
+    tile_m, splits, chunk = im.plan_weight_only(m, n, k, dtype, 132)
+    want_tile = 8 if name == "float32" else (16 if m <= 16 else 64)
+    assert tile_m == want_tile and (tile_m, splits, chunk) == (
+        tile_m, *im.split_k_weight_only(m, n, k, 132, tile_m))
+    step = 128 if tile_m == 8 else 64
+    assert splits >= 1 and chunk % step == 0 and chunk > 0
+    covered = np.zeros(k, np.int64)
+    for z in range(splits):
+        lo = z * chunk
+        assert lo < k or k == 0  # no empty split
+        covered[lo:min(k, lo + chunk)] += 1
+    assert (covered == 1).all()
+    if tile_m != 8:
+        per_sm, stages = (2, 2) if tile_m == 16 else (1, 4)
+        if -(-n // 128) * -(-m // tile_m) >= per_sm * 132:
+            assert splits == 1
+        if k:
+            assert chunk >= min(64 * stages, -(-k // 64) * 64)
+    assert im.plan_weight_only(256, 8192, 2048, torch.bfloat16, 132) == (64, 1, 2048)
+    assert im.plan_weight_only(256, 2048, 8192, torch.bfloat16, 132) == (64, 3, 2752)
+    assert im.plan_weight_only(8, 2048, 2048, torch.float32, 132) == (8, 16, 128)
+    assert im.plan_weight_only(8, 8192, 2048, torch.bfloat16, 132) == (16, 5, 448)
+
+
+def test_weight_only_route_matches_the_c_entry():
+    """The wrapper plans its K split for the route the C entry launches:
+    both take it from x's type and M, with one small-M bound
+    (``WO_SMALL_M`` here, ``kWoSmallM`` in the source)."""
+    src = (Path(im.__file__).parent / "csrc" / "int8_matmul.cu").read_text()
+    bound = re.search(r"constexpr int kWoSmallM = (\d+);", src)
+    assert bound is not None and int(bound.group(1)) == im.WO_SMALL_M
+    small = im.WO_SMALL_M
+    assert [im.wo_tile_m(m, torch.bfloat16) for m in (1, small, small + 1, 256)] == [
+        16, 16, 64, 64]
+    assert {im.wo_tile_m(m, torch.float32) for m in (1, small, small + 1, 256)} == {8}
+
+
+def _dequant8(chunk: np.ndarray) -> np.ndarray:
+    """The tensor-core weight-only kernel's int8 -> bf16 step in numpy, on
+    16 int8 weights: each little-endian word is sign-flipped (^ 0x80808080),
+    byte j is placed in the mantissa of 2^23 (0x4B0000jj), 2^23 + 128 is
+    subtracted in f32, and each pair is rounded to bf16 (to nearest even),
+    the lower column in the lower half. Returns the 16 bf16 bit patterns in
+    column order."""
+    words = chunk.view(np.uint32) ^ np.uint32(0x80808080)
+    out = []
+    for wd in words:
+        for j in range(4):
+            f = ((wd >> np.uint32(8 * j)) & np.uint32(0xFF)) | np.uint32(0x4B000000)
+            val = np.array([f], np.uint32).view(np.float32)[0] - np.float32(8388736.0)
+            out.append(torch.tensor([float(val)], dtype=torch.float32).to(torch.bfloat16))
+    return torch.cat(out).view(torch.int16).numpy()
+
+
+def test_int8_to_bf16_conversion_is_exact():
+    """Every one of the 256 byte values comes out of the kernel's
+    conversion as exactly its own value in bf16 (and so in f32), in column
+    order: a bf16 x bf16 product is then exact in f32, and the tensor-core
+    result differs from the f32 dot only in the order of its sum."""
+    values = np.arange(-128, 128, dtype=np.int8)
+    got = np.concatenate([_dequant8(values[i:i + 16].copy()) for i in range(0, 256, 16)])
+    got_f = torch.from_numpy(got).view(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(got_f, values.astype(np.float32))
+    want = torch.from_numpy(values.astype(np.float32)).to(torch.bfloat16).view(torch.int16)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 512, 192), (8, 300, 100)])
+def test_weight_only_tensor_core_order_fits_the_tolerance(m, k, n):
+    """The bf16 tensor-core kernel's arithmetic in plain torch (bf16 x,
+    weights dequantized exactly to bf16, f32 sums per 64-deep stage and per
+    K split of its plan, the split sums added in split order, the scale in
+    the f32 epilogue, then bf16) against the JAX package's Pallas kernel
+    (interpret) and oracle at the bf16 tolerance."""
+    x, wq, ws = _operands(m, k, n)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    xt = t(x).to(torch.bfloat16)
+    tile_m, splits, chunk = im.plan_weight_only(m, n, k, torch.bfloat16, 132)
+    wb = t(wq).to(torch.bfloat16).float()
+    total = torch.zeros((m, n))
+    for z in range(splits):
+        part = torch.zeros((m, n))
+        for k0 in range(z * chunk, min(k, (z + 1) * chunk), 64):
+            part = part + xt[:, k0:k0 + 64].float() @ wb[k0:k0 + 64]
+        total = total + part
+    got = (total * t(ws)).to(torch.bfloat16)
+    for want in (jops.int8_matmul_weight_only(xj, jnp.asarray(wq), jnp.asarray(ws),
+                                              impl="pallas"),
+                 jref.int8_matmul_ref(xj, jnp.asarray(wq), jnp.asarray(ws)),
+                 im.int8_matmul_weight_only_plain(xt, t(wq), t(ws))):
+        close(got, want, BF16)
 
 
 # -------------------------------------------------------- mode selection
