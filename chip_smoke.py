@@ -20,11 +20,15 @@ Phases (any failure exits non-zero and prints no result):
              the edges of its sequence split, S = 321 and 4096, a repeat
              call bit-identical; int8 GEMMs at M = 1 and ragged shapes, a
              repeat call bit-identical, the dynamic one bit for bit in every
-             shape; HSTU's band, empty rows and clipped bias;
-             SSD's ragged chunks, G = 2 and initial state);
+             shape; HSTU's band, empty rows, lengths inside a tile and
+             clipped bias, bf16 also normwise (max |err| <= 1e-2 max
+             |want|); SSD's ragged chunks, G = 2, initial state or none;
+             HSTU and SSD repeat calls bit-identical);
              CUDA-event times of kernel, plain version and a PyTorch library
-             call (with its device time), beside the card's bound; the int8
-             GEMMs' device time at every served linear shape;
+             call (with its device time), beside the card's bound, HSTU and
+             SSD on both routes (bf16 tensor cores, f32 CUDA cores), the
+             SSD's device kernels per call from ``ssd_scan.launch_plan``;
+             the int8 GEMMs' device time at every served linear shape;
 4. serve   — full-width llama3.2-1b in bf16 (random weights from a seeded
              generator) serves 16 requests through the continuous-batching
              scheduler, then through ``policy="fixed"``: every request gets
@@ -52,13 +56,17 @@ Phases (any failure exits non-zero and prints no result):
              exact launches per forward (hstu_attention 14, rmsnorm 29, the
              rest 0), finite logits, and the kernel path's retrieval and
              ranking logits against the plain path's on 2 histories (bf16
-             and an f32 copy of the params); forward wall / device ms and
-             histories per second;
+             and an f32 copy of the params, each profiled: every layer on
+             the tensor-core kernel in bf16, on the CUDA-core one in f32);
+             forward wall / device ms and histories per second;
 9. ssm     — full-width mamba2-130m (24 layers, d 768, N 128, bf16, seeded
              weights) serves the same 16 requests as phase 4 (continuous):
              exact launches (ssd_scan 24 per prefill and 0 per decode step,
              rmsnorm 49 per forward, the rest 0), parity as in phase 5 and a
-             decode-step profile as in phase 6.
+             decode-step profile as in phase 6; then one bf16 and one f32
+             prefill (an f32 copy of the params), profiled: every layer's
+             scan on its type's kernels, the f32 logits against the plain
+             path's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` summary. Imports nothing of JAX or the JAX package.
@@ -78,6 +86,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+F32_FLOPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 2e-4)}  # (atol, rtol)
 # the SSD scan in f32: the kernel's cumulative decay sums in another order
 # than torch.cumsum (the reference's own SSD tolerance, tests/test_kernels.py)
@@ -262,7 +271,9 @@ def phase_build():
 
 #: the redesigned kernels whose ptxas report is summarised
 REDESIGNED = ("flash_attention_mma_kernel", "int8_mma_kernel", "int8_wo_mma_kernel",
-              "decode_attention_kernel", "decode_attention_combine_kernel")
+              "decode_attention_kernel", "decode_attention_combine_kernel",
+              "hstu_attention_mma_kernel", "ssd_chunk_state_kernel",
+              "ssd_state_passing_kernel", "ssd_chunk_scan_kernel")
 
 
 def ptxas_report(text: str, names):
@@ -563,7 +574,9 @@ def phase_kernels(pad_to: int, max_len: int):
                                              r.pop("peak", BF16_FLOPS_PER_S))
         r["kernel_ms"] = r["ms"]
         calls = r.pop("device_calls", 20)
-        r["device_ms"] = device_ms(r.pop("call"), calls=calls)
+        per_call = r.pop("per_call", None)  # device kernels per call, from the wrapper's plan
+        r["device_ms"] = (device_ms(r.pop("call"), calls=calls) if per_call is None else
+                          device_ms_each([r.pop("call")], [per_call], calls=calls)[0])
         lib = r.pop("library")
         r["library_ms"] = None if lib is None else cuda_ms(lib)
         r["library_device_ms"] = None if lib is None else device_ms(lib, calls=calls)
@@ -691,19 +704,35 @@ def hstu_in_band_pairs(t: int, lengths, band) -> int:
 
 
 HSTU_T, HSTU_LENGTHS, HSTU_BAND = 5121, [4507, 5121], 1024
+# bf16 HSTU beside the elementwise tolerance: its outputs are divided by T,
+# so with the band every full-width output lies below the bf16 atol and
+# zeros would pass that alone; max |err| must stay within this share of
+# max |want| per call
+HSTU_NORMWISE = 1e-2
+
+
+def hstu_normwise(got, want) -> float:
+    """max |got - want| / max |want| of one call; raises above HSTU_NORMWISE."""
+    err = float((got.float() - want.float()).abs().max())
+    rel = err / max(float(want.float().abs().max()), 1e-30)
+    check(rel <= HSTU_NORMWISE,
+          f"hstu: max |err| {err:.3e} is {rel:.3e} of max |want| (limit {HSTU_NORMWISE})")
+    return rel
 
 
 def hstu_kernel_records(gen):
     """HSTU attention against its plain version (edge cases in both types,
-    the full width in bf16: q/k/v [2, 5121, 8, 64], lengths 4507 / 5121, no
-    band and the 1024 band), then times at the full width. Returns the
-    record of the banded call (11 of the 14 layers' launch)."""
+    the full width q/k/v [2, 5121, 8, 64], lengths 4507 / 5121, no band and
+    the 1024 band in bf16; bf16 also normwise), a repeat call bit-identical
+    and a row of length 0 exactly zero; then times at the full width with
+    the band (11 of the 14 layers' launch) on both routes: bf16 on the
+    tensor-core kernel, f32 on the CUDA-core kernel. Returns their records."""
     import torch
 
     from repro_torch.kernels import hstu_attention as ha
 
     dev = torch.device("cuda")
-    errs = {}
+    errs, norms = {}, {}
 
     def inputs(b, t, h, d, dt, n_bias, band, lens):
         q, k, v = (_rand(gen, (b, t, h, d), dt, dev) for _ in range(3))
@@ -711,50 +740,64 @@ def hstu_kernel_records(gen):
         return (q, k, v, rb), dict(max_attn_len=band,
                                    lengths=torch.tensor(lens, dtype=torch.int32, device=dev))
 
+    def held(label, name, args, kw):
+        got = ha.hstu_attention_cuda(*args, **kw)
+        want = ha.hstu_attention_plain(*args, **kw)
+        errs[f"{name} {label}"] = max_err(got, want, name)
+        if name == "bfloat16":
+            norms[f"{name} {label}"] = hstu_normwise(got, want)
+        check(torch.equal(got, ha.hstu_attention_cuda(*args, **kw)),
+              f"hstu: a repeat call differs ({name} {label})")
+        return got
+
     cases = [("T=133 band 24, lengths 0/133", (2, 133, 4, 64, 4095, 24, [0, 133])),
              ("D=32 T=70 clipped table 127", (2, 70, 4, 32, 127, None, [40, 70])),
-             ("T=1100 band 1024", (2, 1100, 8, 64, 4095, 1024, [900, 1100]))]
+             ("T=1100 band 1024", (2, 1100, 8, 64, 4095, 1024, [900, 1100])),
+             ("T=300 band 100, lengths 211/300", (2, 300, 2, 64, 4095, 100, [211, 300]))]
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt).split(".")[-1]
         for label, (b, t, h, d, n_bias, band, lens) in cases:
             args, kw = inputs(b, t, h, d, dt, n_bias, band, lens)
-            got = ha.hstu_attention_cuda(*args, **kw)
-            errs[f"{name} {label}"] = max_err(got, ha.hstu_attention_plain(*args, **kw), name)
+            got = held(label, name, args, kw)
             if lens[0] == 0:
                 check(bool((got[0] == 0).all()), "hstu: a row of length 0 is not exactly zero")
     full = {}
-    for band in (None, HSTU_BAND):
-        args, kw = inputs(2, HSTU_T, 8, 64, torch.bfloat16, 4095, band, HSTU_LENGTHS)
-        errs[f"bfloat16 full width band {band}"] = max_err(
-            ha.hstu_attention_cuda(*args, **kw), ha.hstu_attention_plain(*args, **kw),
-            "bfloat16")
-        full[band] = (args, kw)
+    for dt, band in ((torch.bfloat16, None), (torch.bfloat16, HSTU_BAND),
+                     (torch.float32, HSTU_BAND)):
+        name = str(dt).split(".")[-1]
+        args, kw = inputs(2, HSTU_T, 8, 64, dt, 4095, band, HSTU_LENGTHS)
+        held(f"full width band {band}", name, args, kw)
+        full[name, band] = (args, kw)
     torch.cuda.synchronize()
     for case, v in errs.items():
-        print(f"[kernels] {'hstu_attention':23s} {case:32s} max|err| {v:.3e}", flush=True)
+        extra = f" | {norms[case]:.3e} of max|want|" if case in norms else ""
+        print(f"[kernels] {'hstu_attention':23s} {case:32s} max|err| {v:.3e}{extra}",
+              flush=True)
 
     records = []
-    for band, (args, kw) in full.items():
+    for (name, band), (args, kw) in full.items():
         q = args[0]
         pairs = hstu_in_band_pairs(HSTU_T, HSTU_LENGTHS, band)
         rec = dict(
-            name="hstu_attention", route="cuda",
+            name="hstu_attention", route="cuda", dtype=name,
             source="src/repro_torch/kernels/csrc/hstu_attention.cu",
             replaces="src/repro/kernels/hstu_attention.py:87",
-            shape=f"q/k/v[2,{HSTU_T},8,64] bf16 lengths {HSTU_LENGTHS} band {band}",
-            max_abs_err=errs[f"bfloat16 full width band {band}"],
+            shape=f"q/k/v[2,{HSTU_T},8,64] {name} lengths {HSTU_LENGTHS} band {band}",
+            max_abs_err=errs[f"{name} full width band {band}"],
             call=lambda a=args, k=kw: ha.hstu_attention_cuda(*a, **k),
             ms=cuda_ms(lambda a=args, k=kw: ha.hstu_attention_cuda(*a, **k),
                        samples=5, inner=2, warmup=1),
             plain_ms=cuda_ms(lambda a=args, k=kw: ha.hstu_attention_plain(*a, **k),
                              samples=3, inner=1, warmup=1),
             library=None,  # no single PyTorch call computes SiLU attention with this bias
-            bytes=4 * q.numel() * 2 + args[3].numel() * 4 + 2 * 4,
-            flops=pairs * q.shape[2] * 4 * q.shape[3], device_calls=3,
+            bytes=4 * q.numel() * q.element_size() + args[3].numel() * 4 + 2 * 4,
+            flops=pairs * q.shape[2] * 4 * q.shape[3], device_calls=3, per_call=1,
         )
+        if name == "float32":  # f32 operations at the CUDA cores' peak
+            rec["peak"] = F32_FLOPS_PER_S
         if band is None:  # printed for the record; the JSON line keeps the banded call
             b_ms, b_by = bound(rec["bytes"], rec["flops"], BF16_FLOPS_PER_S)
-            dev = device_ms(rec["call"], calls=3)
+            dev = device_ms_each([rec["call"]], [1], calls=3)[0]
             dev_txt = "not measured" if dev is None else f"{dev:.4f} ms"
             print(f"[kernels] hstu_attention (no band, layers 0-2) kernel {rec['ms']:.4f} ms "
                   f"(device {dev_txt}) | plain "
@@ -799,8 +842,12 @@ SSM_WIDTH = (1, 256, 24, 64, 1, 128, 256)  # B, T (= pad_to), H, P, G, N, chunk
 def ssd_kernel_records(gen):
     """The SSD scan against its plain version: the served prefill width
     [1, 256, 24, 64] / N 128 / one 256-chunk, four 128-chunks with a ragged
-    last one, G = 2 and an initial state, and a T below the chunk; in bf16
-    and f32 (SSD tolerance). Then the served width's times."""
+    last one, G = 2 and an initial state, a T below the chunk, and five
+    64-chunks with no initial state; in bf16 (the chunk-parallel
+    tensor-core route) and f32 (the single-block walk, at the SSD
+    tolerance), the state at the SSD tolerance in both; a repeat call
+    bit-identical. Then the served width's times on both routes, the
+    profiler's kernels per call from ``launch_plan``."""
     import torch
 
     from repro_torch.kernels import ssd_scan as ss
@@ -808,7 +855,8 @@ def ssd_kernel_records(gen):
     errs = {}
     cases = [("served prefill [1,256,24,64] N128", SSM_WIDTH + (False,)),
              ("4 chunks T=461 G=2 init", (2, 461, 8, 64, 2, 128, 128, True)),
-             ("T=5 < chunk, init", (1, 5, 2, 16, 1, 8, 256, True))]
+             ("T=5 < chunk, init", (1, 5, 2, 16, 1, 8, 256, True)),
+             ("5 chunks T=300, no init", (1, 300, 4, 64, 1, 128, 64, False))]
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt).split(".")[-1]
         tol = SSD_F32_TOL if dt == torch.float32 else None
@@ -817,24 +865,37 @@ def ssd_kernel_records(gen):
             y, s = ss.ssd_scan_cuda(chunk=chunk, **kw)
             wy, ws = ss.ssd_scan_plain(chunk=chunk, **kw)
             errs[f"{name} {label}"] = max_err(y, wy, name, tol)
-            max_err(s, ws, "float32", SSD_F32_TOL)
+            errs[f"{name} {label} state"] = max_err(s, ws, "float32", SSD_F32_TOL)
+            y2, s2 = ss.ssd_scan_cuda(chunk=chunk, **kw)
+            check(torch.equal(y, y2) and torch.equal(s, s2),
+                  f"ssd_scan: a repeat call differs ({name} {label})")
     torch.cuda.synchronize()
     for case, v in errs.items():
         print(f"[kernels] {'ssd_scan':23s} {case:32s} max|err| {v:.3e}", flush=True)
     b, t, h, p, g, n, chunk = SSM_WIDTH
-    kw = _ssd_inputs(gen, b, t, h, p, g, n, torch.bfloat16, False)
-    n_bytes, n_ops = ssd_work(b, t, h, p, g, n, chunk, False)
-    return [dict(
-        name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
-        replaces="src/repro/kernels/ssd_scan.py:90",
-        shape=f"x[{b},{t},{h},{p}] bf16, B/C[{b},{t},{g},{n}], chunk {chunk} (prefill)",
-        max_abs_err=errs["bfloat16 served prefill [1,256,24,64] N128"],
-        call=lambda: ss.ssd_scan_cuda(chunk=chunk, **kw),
-        ms=cuda_ms(lambda: ss.ssd_scan_cuda(chunk=chunk, **kw)),
-        plain_ms=cuda_ms(lambda: ss.ssd_scan_plain(chunk=chunk, **kw)),
-        library=None,  # no single PyTorch call computes the SSD scan
-        bytes=n_bytes, flops=n_ops,
-    )]
+    records = []
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        kw = _ssd_inputs(gen, b, t, h, p, g, n, dt, False)
+        elt = torch.finfo(dt).bits // 8
+        n_bytes, n_ops = ssd_work(b, t, h, p, g, n, chunk, False, elt=elt)
+        plan = ss.launch_plan(b, t, h, p, g, n, chunk, dt)
+        print(f"[kernels] ssd_scan {name} at the served width launches {list(plan)}",
+              flush=True)
+        records.append(dict(
+            name="ssd_scan", route="cuda", dtype=name,
+            source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:90",
+            shape=f"x[{b},{t},{h},{p}] {name}, B/C[{b},{t},{g},{n}], chunk {chunk} (prefill)",
+            max_abs_err=errs[f"{name} served prefill [1,256,24,64] N128"],
+            call=lambda kw=kw: ss.ssd_scan_cuda(chunk=chunk, **kw),
+            ms=cuda_ms(lambda kw=kw: ss.ssd_scan_cuda(chunk=chunk, **kw)),
+            plain_ms=cuda_ms(lambda kw=kw: ss.ssd_scan_plain(chunk=chunk, **kw)),
+            library=None,  # no single PyTorch call computes the SSD scan
+            bytes=n_bytes, flops=n_ops, per_call=len(plan),
+            **({"peak": F32_FLOPS_PER_S} if dt == torch.float32 else {}),
+        ))
+    return records
 
 
 def _counters():
@@ -1029,7 +1090,9 @@ def phase_parity(model, params, pad_to, reqs, served, tag="parity"):
 PORTED_KERNEL_NAMES = ("rmsnorm_kernel", "flash_attention_kernel", "flash_attention_mma_kernel",
                        "decode_attention_kernel", "decode_attention_combine_kernel",
                        "int8_gemm_kernel", "int8_mma_kernel", "int8_wo_mma_kernel",
-                       "int8_splitk_reduce", "hstu_attention_kernel", "ssd_scan_kernel")
+                       "int8_splitk_reduce", "hstu_attention_kernel", "hstu_attention_mma_kernel",
+                       "ssd_scan_kernel", "ssd_chunk_state_kernel", "ssd_state_passing_kernel",
+                       "ssd_chunk_scan_kernel")
 #: the int8 GEMM kernels proper (their split-K sums excluded)
 INT8_GEMM_NAMES = ("int8_gemm_kernel", "int8_mma_kernel", "int8_wo_mma_kernel")
 
@@ -1136,6 +1199,15 @@ def device_split(kern):
     return cats, by_name
 
 
+def check_kernel_names(kern, want, tag):
+    """Device kernels of a profiler run whose name holds each key of
+    ``want`` (no kernel name holds another's); raises unless every count
+    equals its value."""
+    got = {k: sum(1 for e in kern if k in e.name) for k in want}
+    check(got == want, f"{tag}: profiled kernels {got}, expected {want}")
+    print(f"[{tag}] profiled kernels {got}", flush=True)
+
+
 def print_split(tag, cats, by_name, n, unit):
     total = max(sum(cats.values()), 1e-9)
     for c, us in cats.items():
@@ -1218,7 +1290,8 @@ HSTU_PARITY = {"bfloat16": 5e-2, "float32": 1e-3}
 
 def phase_hstu():
     """Full-width HSTU scores 8 user histories; returns the kernels' launch
-    counts of one forward."""
+    counts of one forward (bf16) and of the f32 forward of the parity check
+    (two histories, an f32 copy of the params: the CUDA-core route)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1278,6 +1351,9 @@ def phase_hstu():
         fwd()
         torch.cuda.synchronize()
     kern = device_kernels(prof)
+    if kern:  # bf16: every layer on the tensor-core kernel
+        check_kernel_names(kern, {"hstu_attention_mma_kernel": cfg.n_layers,
+                                  "hstu_attention_kernel": 0}, "hstu")
     split = device_split(kern) if kern else None
     dev_txt = ("not measured" if split is None else
                f"{sum(split[0].values()) / 1e3:.3f} ms ({len(kern)} device kernels)")
@@ -1288,8 +1364,20 @@ def phase_hstu():
         print_split("hstu", *split, 1, "forward")
 
     two = batch_of([0, 1])
+    f32_counts = None
     for name, p in (("bfloat16", params), ("float32", _tree_float(params))):
-        got_r, _, got_a = fwd(two, p, "auto")
+        _reset_counts()
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            got_r, _, got_a = fwd(two, p, "auto")
+            torch.cuda.synchronize()
+        counts_p = _read_counts()
+        check(counts_p == want, f"hstu {name}: kernel launches {counts_p}, expected {want}")
+        kern = device_kernels(prof)
+        if kern and name == "float32":  # f32: every layer on the CUDA-core kernel
+            check_kernel_names(kern, {"hstu_attention_kernel": cfg.n_layers,
+                                      "hstu_attention_mma_kernel": 0}, "hstu float32")
+        if name == "float32":
+            f32_counts = counts_p
         want_r, _, want_a = fwd(two, p, "torch")
         for what, g_, w_ in (("retrieval", got_r, want_r),
                              ("ranking", got_a["ranking_logits"], want_a["ranking_logits"])):
@@ -1303,15 +1391,19 @@ def phase_hstu():
                   f"hstu {name} {what}: kernel path off the plain path by {delta}")
         del got_r, got_a, want_r, want_a
     torch.cuda.empty_cache()
-    return counts
+    return counts, f32_counts
 
 
 def phase_ssm(pad_to: int):
     """Full-width mamba2-130m served through the scheduler; returns the
-    launch counts of the served run."""
+    launch counts of the served run and of one f32 prefill (an f32 copy of
+    the params: the scan's f32 route)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch import serve
+    from repro_torch.models import get_model
 
     dev = torch.device("cuda")
     cfg, model, params = serve.build_model("mamba2-130m", smoke=False, seed=SEED, device=dev)
@@ -1327,9 +1419,46 @@ def phase_ssm(pad_to: int):
     reqs = _trace(cfg, pad_to)
     phase_parity(model, params, pad_to, reqs[:2], served, tag="ssm parity")
     phase_profile(model, params, pad_to, reqs, tag="ssm profile")
+    plan = ss.launch_plan(1, pad_to, s.n_heads(cfg.d_model), s.head_dim, s.n_groups,
+                          s.d_state, s.chunk_size)
+    f32_counts = None
+    for name, mdl, p in (("bfloat16", model, params),
+                         ("float32", get_model(cfg.replace(dtype="float32")),
+                          _tree_float(params))):
+        # one prefill through the kernels, profiled: every layer's scan on
+        # the route of its type; f32 parity with the plain path as HSTU's
+        r = reqs[0]
+        _reset_counts()
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            lc = _prefill_last(mdl, p, r.prompt, "cuda")
+            torch.cuda.synchronize()
+        counts_p = _read_counts()
+        want = dict.fromkeys(_counters(), 0)
+        want.update(ssd_scan=cfg.n_layers, rmsnorm=2 * cfg.n_layers + 1)
+        check(counts_p == want, f"ssm {name} prefill: kernel launches {counts_p}, "
+                                f"expected {want}")
+        kern = device_kernels(prof)
+        if kern:
+            routes = ({k: cfg.n_layers for k in plan} if name == "bfloat16" else
+                      {"ssd_scan_kernel": cfg.n_layers})
+            for k in ("ssd_scan_kernel", "ssd_chunk_state_kernel", "ssd_state_passing_kernel",
+                      "ssd_chunk_scan_kernel"):
+                routes.setdefault(k, 0)
+            check_kernel_names(kern, routes, f"ssm {name} prefill")
+        if name == "float32":
+            f32_counts = counts_p
+            lp = _prefill_last(mdl, p, r.prompt, "torch")
+            delta = float((lc - lp).abs().max())
+            span = float(lp.max() - lp.min())
+            print(f"[ssm parity] float32 prefill logits, request {r.rid}: max|d| "
+                  f"{delta:.4e} = {delta / span:.2e} of the range {span:.2f} (limit "
+                  f"{HSTU_PARITY[name]:.0e})", flush=True)
+            check(delta <= HSTU_PARITY[name] * span,
+                  f"ssm float32: kernel path off the plain path by {delta}")
+            del mdl, p
     del params
     torch.cuda.empty_cache()
-    return counts
+    return counts, f32_counts
 
 
 def main() -> None:
@@ -1359,14 +1488,17 @@ def main() -> None:
         arms = phase_quant(cfg, model, params, pad_to, trace)
         del model, params
         torch.cuda.empty_cache()
-        hstu_counts = phase_hstu()
-        ssm_counts = phase_ssm(pad_to)
-        # each kernel's launches come from the run of the path it is on
+        hstu_counts, hstu_f32_counts = phase_hstu()
+        ssm_counts, ssm_f32_counts = phase_ssm(pad_to)
+        # each kernel's launches come from the run of the path it is on; an
+        # f32 route's from the f32 run of its path
         path_counts = {"int8_matmul_weight_only": arms["wo"],
                        "int8_matmul_dynamic": arms["dyn"],
                        "hstu_attention": hstu_counts, "ssd_scan": ssm_counts}
+        f32_counts = {"hstu_attention": hstu_f32_counts, "ssd_scan": ssm_f32_counts}
         for r in records:
-            r["launches"] = path_counts.get(r["name"], runs["continuous"][2])[r["name"]]
+            counts = f32_counts if r.get("dtype") == "float32" else path_counts
+            r["launches"] = counts.get(r["name"], runs["continuous"][2])[r["name"]]
             check(r["launches"] > 0, f"{r['name']} was not launched on its served path")
         torch.cuda.synchronize()
     except Exception:  # any phase failure: report and exit non-zero

@@ -54,9 +54,10 @@ SIGNATURES: Dict[str, List] = {
     # scale, stream
     "hstu_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               ctypes.c_float, _P],
-    # dtype, x, dt, A, B, C, D, h0, y, hT, B, T, H, P, G, N, chunk, stream
-    "ssd_scan_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _P],
+    # dtype, x, dt, A, B, C, D, h0, y, hT, cum_ws, states, B, T, H, P, G, N,
+    # chunk, stream
+    "ssd_scan_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _P],
 }
 
 def _digest() -> str:

@@ -249,11 +249,6 @@ constexpr size_t smem_bytes() {
          + sizeof(int) * (kRows + 4 * kTileK);  // q_pos, 2 x (k_pos, k_valid)
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,

@@ -429,11 +429,6 @@ constexpr int kBK = 64;     // K elements per pipeline stage
 // one logical chunk land in 8 different bank groups
 __device__ __forceinline__ int swz(int r, int c) { return c ^ (r & 7); }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Bytes j and j + 1 of a sign-flipped word (u = w ^ 0x80808080) as two
 // bf16 in one register: the byte in the mantissa of 2^23, minus 2^23 + 128,
 // is the signed value exactly in f32, and every int8 value is a bf16.

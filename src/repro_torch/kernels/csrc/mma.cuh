@@ -1,7 +1,8 @@
 // Warp-level tensor-core and async-copy primitives (PTX, sm_80 and later),
 // shared by the mma.sync kernels: cp.async 16-byte copies with zero fill,
-// ldmatrix (plain and transposed), and the two mma.sync shapes the port
-// uses, bf16 m16n8k16 -> f32 and s8 m16n8k32 -> s32.
+// ldmatrix (plain and transposed), the two mma.sync shapes the port uses,
+// bf16 m16n8k16 -> f32 and s8 m16n8k32 -> s32, and the bf16 packing of f32
+// pairs into one A-fragment register.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16/k32"), with
 // lane = 4 * gid + tig (gid = lane / 4, tig = lane % 4):
@@ -14,6 +15,8 @@
 //   C/D 16x8:     d0, d1 (row gid, cols 2tig, 2tig+1), d2, d3 (row gid+8).
 // The lower k (or column) sits in the lower bits of a packed register.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include <cstdint>
 
@@ -73,4 +76,11 @@ __device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4]
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 as two bf16 (round to nearest even) in one register, `lo` in the
+// lower half: the lower k (or column) of an A fragment or an output pair.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }

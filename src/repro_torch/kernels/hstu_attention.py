@@ -1,29 +1,47 @@
-"""HSTU pointwise attention: the CUDA kernel ``csrc/hstu_attention.cu`` and
-its plain version.
+"""HSTU pointwise attention: the CUDA kernels ``csrc/hstu_attention.cu`` and
+their plain version.
 
 Replaces ``repro/kernels/hstu_attention.py::hstu_attention_pallas``
 (``_hstu_kernel``): ``SiLU(q.k^T * D^-1/2 + rel_bias[clip(i - j)]) / T``
 times V, causal, within ``max_attn_len`` when given, keys below
 ``lengths[b]``; no softmax, so tiles accumulate additively. At the served
-shapes (T = 4507..5121, 8 heads, D = 64) the H100 bound is operations; the
-first version's f32 FMA loops on the CUDA cores set its time (see the
-source's note). The kernel skips key tiles outside the causal band, the
-``max_attn_len`` band and ``lengths[b]``, and predicates ragged edges
-instead of padding.
+shapes (T = 4507..5121, 8 heads, D = 64) the H100 bound is operations.
+bf16 runs both products on the tensor cores (``mma.sync``) with the SiLU in
+registers (``tanh.approx``) and P in bf16; f32 runs the first design's f32
+FMA loops, whose exact SiLU and f32 P its tolerance needs (see the source's
+note). Both walk only the key tiles :func:`key_tiles` lists for a query
+tile and predicate ragged edges instead of padding; the bf16 kernel
+evaluates the masks only on the tiles it does not call interior.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-#: launches of the CUDA kernel in this process (chip_smoke resets and reads it)
+#: launches of the CUDA kernels in this process (chip_smoke resets and reads it)
 LAUNCHES = 0
 #: head widths the kernel is instantiated for
 HEAD_DIMS = (32, 64)
+#: query rows and keys of one tile of both kernels
+TILE = 64
+
+
+def key_tiles(q0: int, t: int, band: Optional[int], length: int) -> List[Tuple[int, bool]]:
+    """The key tiles the kernels walk for the query tile at row ``q0``, as
+    (first key, interior): from the first tile the band reaches to the last
+    one that is causal and below ``min(length, t)``; interior when every
+    (query, key) pair of the 64 x 64 tile is causal, in the band and below
+    the length, so the bf16 kernel evaluates no mask there."""
+    length = min(length, t)
+    k_end = min(q0 + TILE, length)
+    k_start = 0 if band is None else max(0, q0 - band + 1) // TILE * TILE
+    return [(k0, k0 + TILE <= length and k0 + TILE - 1 <= q0
+             and (band is None or q0 + TILE - 1 - k0 < band))
+            for k0 in range(k_start, k_end, TILE)]
 
 
 def hstu_attention_plain(
@@ -65,9 +83,10 @@ def hstu_attention_cuda(
     max_attn_len: Optional[int],
     lengths: torch.Tensor,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream. ``rel_bias`` must
-    be contiguous f32 and ``lengths`` contiguous int32 [B]; raises for
-    anything the kernel does not take."""
+    """Launch the CUDA kernel of ``q``'s type (bf16: tensor cores; f32: CUDA
+    cores) on PyTorch's current stream. ``rel_bias`` must be contiguous f32
+    and ``lengths`` contiguous int32 [B]; raises for anything the kernels do
+    not take."""
     global LAUNCHES
     _build.require_cuda("hstu_attention", q, k, v, rel_bias, lengths)
     b, t, h, d = q.shape

@@ -24,6 +24,7 @@ from repro.training import data as jdata
 from repro_torch import bridge
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import hstu_attention as ha
 from repro_torch.models import get_model
 from repro_torch.models import hstu
 from repro_torch.training import data
@@ -96,6 +97,98 @@ def test_hstu_attention_cuda_impl_refuses_cpu_tensors():
     q, k, v, rb = (t(a) for a in _qkvb(2, 1, 8, 2, 32, 7))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.hstu_attention(q, k, v, rb, impl="cuda")
+
+
+# ------------------------------------------- the bf16 kernel's tile walk
+
+
+def _tile_mask(q0, t, band, length):
+    """[64, T] validity of the query tile at ``q0`` against every key: the
+    masks the kernels stand for (query rows are never masked)."""
+    i = torch.arange(q0, q0 + ha.TILE)[:, None]
+    j = torch.arange(t)[None, :]
+    ok = (j <= i) & (j < min(length, t))
+    if band is not None:
+        ok &= i - j < band
+    return ok
+
+
+@pytest.mark.parametrize("t,band,length", [(5121, 1024, 5121), (5121, 1024, 4507),
+                                           (5121, None, 4507), (133, 24, 0), (133, 24, 133),
+                                           (300, 100, 211), (70, None, 40), (1100, 1024, 900),
+                                           (200, 1, 150)])
+def test_key_tiles_match_masks(t, band, length):
+    """For every query tile: each valid (query, key) pair lies in a listed
+    key tile; a tile is interior exactly when all its 64 x 64 pairs are
+    valid (the bf16 kernel evaluates no mask there); the listed tiles are
+    consecutive."""
+    for q0 in range(0, t, ha.TILE):
+        ok = _tile_mask(q0, t, band, length)
+        tiles = ha.key_tiles(q0, t, band, length)
+        listed = {k0 for k0, _ in tiles}
+        assert [k0 for k0, _ in tiles] == list(range(min(listed, default=0),
+                                                     max(listed, default=-1) + 1, ha.TILE))
+        for k0 in range(0, t, ha.TILE):
+            block = ok[:, k0:k0 + ha.TILE]
+            if k0 not in listed:
+                assert not bool(block.any()), (q0, k0)
+        for k0, interior in tiles:
+            block = ok[:, k0:k0 + ha.TILE]
+            assert interior == (block.shape[1] == ha.TILE and bool(block.all())), (q0, k0)
+
+
+def test_key_tiles_at_the_served_band():
+    """A late query tile of a full-width banded layer walks 17 key tiles,
+    15 of them interior: the masks run on 2."""
+    tiles = ha.key_tiles(4096, 5121, 1024, 5121)
+    assert len(tiles) == 17 and sum(interior for _, interior in tiles) == 15
+
+
+def _mma_hstu_emulation(q, k, v, rb, band, lengths):
+    """The bf16 tensor-core kernel's arithmetic in plain torch: f32 S from
+    the bf16 q and k, the scale on S, the f32 bias, SiLU through
+    tanh with the relative error of tanh.approx.f32 (about 2^-11, PTX ISA)
+    applied in one direction everywhere (the worst case for a sum), P
+    rounded to bf16 before P.V, f32 sums, 1 / T once at the end."""
+    b, t, h, d = q.shape
+    max_rel = (rb.shape[0] + 1) // 2
+    pos = torch.arange(t)
+    delta = pos[:, None] - pos[None, :]
+    bias = rb[torch.clamp(delta, -(max_rel - 1), max_rel - 1) + max_rel - 1]
+    ok = delta >= 0
+    if band is not None:
+        ok &= delta < band
+    out = torch.empty_like(q)
+    for r in range(b):
+        x = torch.einsum("thd,shd->hts", q[r].float(), k[r].float()) * d ** -0.5 + bias
+        tanh = torch.tanh(0.5 * x) * (1 + 2.0 ** -11)
+        p = torch.where(ok & (pos[None, :] < lengths[r]), x * (0.5 + 0.5 * tanh),
+                        torch.zeros(()))
+        o = torch.einsum("hts,shd->thd", p.to(torch.bfloat16).float(), v[r].float())
+        out[r] = (o * (1.0 / t)).to(q.dtype)
+    return out
+
+
+def test_mma_emulation_holds_the_normwise_criterion():
+    """bf16 P and the approximate SiLU against the JAX reference at T =
+    1100, band 1024, lengths 900 / 1100: max |err| <= 1e-2 max |want| (the
+    card's criterion beside the bf16 tolerance, which the full-width
+    outputs, divided by T = 5121, would meet as zeros), and the elementwise
+    bf16 tolerance."""
+    rng = np.random.default_rng(1100)
+    b, tt, h, d = 2, 1100, 8, 64
+    q, k, v = (rng.standard_normal((b, tt, h, d)).astype(np.float32) for _ in range(3))
+    rb = rng.standard_normal((4095,)).astype(np.float32) * 0.1
+    lens = np.asarray([900, 1100], np.int32)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = _mma_hstu_emulation(tq, tk, tv, torch.from_numpy(rb), 1024, torch.from_numpy(lens))
+    want = jref.hstu_attention_ref(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                                   jnp.asarray(rb), max_attn_len=1024,
+                                   lengths=jnp.asarray(lens))
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    err = float(np.abs(got.float().numpy() - want).max())
+    assert err <= 1e-2 * float(np.abs(want).max()), err
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2, rtol=2e-2)
 
 
 # ------------------------------------------------------------------ model

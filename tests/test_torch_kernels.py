@@ -372,3 +372,13 @@ def test_wrapper_times_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         wrapper_times.main([])
+
+
+def test_kernel_times_needs_a_card(monkeypatch):
+    """The SSD and HSTU kernels' timing script exits with a message, and
+    times nothing, where no CUDA card is present."""
+    from repro_torch.launch import kernel_times
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        kernel_times.main([])

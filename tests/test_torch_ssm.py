@@ -33,6 +33,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import engine
 from repro_torch.core.scheduler import Scheduler, ServeRequest
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.launch import serve
 from repro_torch.models import get_model
 
@@ -128,6 +129,121 @@ def test_ssd_decode_step_chain_equals_scan():
                                         jnp.asarray(a) for a in (x, dt, A, B_, C, D)),
                                       jnp.zeros((2, 4, 8, 4)))
     close(ys[0], jy, dict(atol=1e-5, rtol=1e-5))
+
+
+# ------------------------------------------------- the bf16 kernel's stages
+
+
+def _card_inputs(seed, b, tt, h, p, g, n, init):
+    """The card tests' input law: x, B, C ~ N(0, 1) rounded to bf16,
+    dt = 0.1 softplus(N(0, 1)), A = -(1..16), D = 1, an N(0, 1) state."""
+    rng = np.random.default_rng(seed)
+
+    def bf(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, tt, h)).astype(np.float32))) * 0.1
+    init = (torch.from_numpy(rng.standard_normal((b, h, p, n)).astype(np.float32))
+            if init else None)
+    return bf(b, tt, h, p), dt, -torch.linspace(1.0, 16.0, h), bf(b, tt, g, n), \
+        bf(b, tt, g, n), torch.ones(h), init
+
+
+def _stages(x, dt, A, B_, C, D, chunk, init, operand=None):
+    """y and the final state through the three plain stages, as the bf16
+    kernels compose them; ``operand`` emulates the tensor cores' view of
+    the f32 operands."""
+    cum = ss.chunk_cumsum_plain(dt, A, chunk)
+    states = ss.chunk_state_plain(x, dt, B_, cum, chunk, operand=operand)
+    h_prev, h_t = ss.state_passing_plain(states, cum, init)
+    return ss.chunk_scan_plain(x, dt, B_, C, D, cum, h_prev, chunk, operand=operand), h_t
+
+
+def _hi_lo(v):
+    return sum(half.float() for half in ss.split_bf16(v))
+
+
+def _bf16_once(v):
+    return v.to(torch.bfloat16).float()
+
+
+STAGE_CASES = {  # (B, T, H, P, G, N, chunk, initial state)
+    "4 ragged chunks G=2 init": (2, 461, 8, 64, 2, 128, 128, True),
+    "served width": (1, 256, 24, 64, 1, 128, 256, False),
+    "T < chunk": (1, 5, 2, 16, 1, 8, 256, True),
+}
+
+
+@pytest.mark.parametrize("case", list(STAGE_CASES))
+def test_ssd_stages_compose_to_plain_and_jax(case):
+    """Chunk state, state passing and chunk scan compose to the one-piece
+    plain version (f32, the same sums) and to the JAX package's Pallas
+    kernel (interpret mode) at the SSD tolerance, on the card tests' input
+    law in f32."""
+    b, tt, h, p, g, n, chunk, init = STAGE_CASES[case]
+    args = [a.float() for a in _card_inputs(b * 1000 + tt, b, tt, h, p, g, n, init)[:6]]
+    h0 = _card_inputs(7, b, 1, h, p, g, n, init)[-1]
+    y, h_t = _stages(*args, chunk, h0)
+    wy, ws = ss.ssd_scan_plain(*args, chunk=chunk, initial_state=h0)
+    close(y, wy, dict(atol=1e-5, rtol=1e-5))
+    close(h_t, ws, dict(atol=1e-5, rtol=1e-5))
+    jy, js = jops.ssd_scan(*(jnp.asarray(a.numpy()) for a in args), chunk=chunk,
+                           initial_state=None if h0 is None else jnp.asarray(h0.numpy()),
+                           impl="pallas")
+    close(y, jy, SSD)
+    close(h_t, js, SSD)
+
+
+@pytest.mark.parametrize("case", ["4 ragged chunks G=2 init", "served width",
+                                  "one 128-chunk, 8 heads"])
+def test_ssd_hi_lo_split_holds_the_state(case):
+    """Every f32 operand of the bf16 kernels' products (x sw, W and h_prev)
+    split in two bf16 halves: the final state stays within the SSD
+    tolerance of the plain version on the same bf16 inputs, and y within
+    the bf16 tolerance."""
+    b, tt, h, p, g, n, chunk, init = STAGE_CASES.get(case, (1, 128, 8, 64, 1, 128, 128, False))
+    x, dt, A, B_, C, D, h0 = _card_inputs(tt, b, tt, h, p, g, n, init)
+    y, h_t = _stages(x, dt, A, B_, C, D, chunk, h0, operand=_hi_lo)
+    wy, ws = ss.ssd_scan_plain(x, dt, A, B_, C, D, chunk=chunk, initial_state=h0)
+    close(h_t, ws, SSD)
+    close(y, wy.float(), dict(atol=2e-2, rtol=2e-2))
+
+
+def test_ssd_single_bf16_rounding_misses_the_state():
+    """Why the operands are split: rounded once to bf16, the f32 factor
+    x sw of the state update puts thousands of state elements outside the
+    SSD tolerance (one 128-chunk, P 64, N 128, 8 heads)."""
+    x, dt, A, B_, C, D, _ = _card_inputs(128, 1, 128, 8, 64, 1, 128, False)
+    _, h_t = _stages(x, dt, A, B_, C, D, 128, None, operand=_bf16_once)
+    _, ws = ss.ssd_scan_plain(x, dt, A, B_, C, D, chunk=128)
+    bad = int(((h_t - ws).abs() > SSD["atol"] + SSD["rtol"] * ws.abs()).sum())
+    assert bad > 1000, bad
+
+
+@pytest.mark.parametrize("b,tt,h,chunk,dtype,want", [
+    (1, 256, 24, 256, torch.bfloat16, ("ssd_chunk_state_kernel", "ssd_chunk_scan_kernel")),
+    (2, 461, 8, 128, torch.bfloat16, ("ssd_chunk_state_kernel", "ssd_state_passing_kernel",
+                                      "ssd_chunk_scan_kernel")),
+    (1, 5, 2, 256, torch.bfloat16, ("ssd_chunk_state_kernel", "ssd_chunk_scan_kernel")),
+    (1, 0, 2, 256, torch.bfloat16, ("ssd_state_passing_kernel",)),
+    (0, 256, 24, 256, torch.bfloat16, ()),
+    (1, 256, 24, 256, torch.float32, ("ssd_scan_kernel",)),
+    (2, 461, 8, 128, torch.float32, ("ssd_scan_kernel",)),
+])
+def test_ssd_launch_plan(b, tt, h, chunk, dtype, want):
+    """The kernels one call launches: the walk for f32; for bf16 the chunk
+    state and the chunk scan around the state passing, which one chunk
+    folds into the chunk state and no chunk reduces to (the final state is
+    the initial one)."""
+    assert ss.launch_plan(b, tt, h, 64, 1, 128, chunk, dtype) == want
+
+
+def test_ssd_state_passing_without_chunks_returns_the_initial_state():
+    h0 = torch.randn((1, 2, 4, 8))
+    before, h_t = ss.state_passing_plain(torch.zeros((1, 2, 0, 4, 8)),
+                                         torch.zeros((1, 2, 0, 16)), h0)
+    assert torch.equal(h_t, h0) and before.shape == (1, 2, 0, 4, 8)
 
 
 # ------------------------------------------------------------------ model
