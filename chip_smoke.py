@@ -15,7 +15,12 @@ Phases (any failure exits non-zero and prints no result):
 3. kernels — every kernel of the served paths against its plain PyTorch
              version at the main path's shapes, bf16 (atol/rtol 2e-2) and f32
              (atol 2e-5, rtol 2e-4; the SSD scan's f32 at the reference's
-             SSD tolerance, atol 2e-4, rtol 2e-3), plus edge cases (fully
+             SSD tolerance, atol 2e-4, rtol 2e-3), plus edge cases (RMSNorm's
+             four prologues at every served shape, the second operand a
+             slice of its projection as the models pass it, add's sum equal
+             to x + r and add's and mul's output equal to the none kernel
+             on the unfused result bit for bit, the route each width
+             takes in the profiler; fully
              masked rows, windows, MQA up to G = 64, D=128, T=1; decode at
              the edges of its sequence split, S = 321 and 4096, a repeat
              call bit-identical; int8 GEMMs at M = 1 and ragged shapes, a
@@ -29,18 +34,22 @@ Phases (any failure exits non-zero and prints no result):
              SSD on both routes (bf16 tensor cores, f32 CUDA cores), the
              SSD's device kernels per call from ``ssd_scan.launch_plan``;
              the int8 GEMMs' device time at every served linear shape;
+             RMSNorm at llama's decode and prefill, Mamba-2's gated norm and
+             HSTU's three norms;
 4. serve   — full-width llama3.2-1b in bf16 (random weights from a seeded
              generator) serves 16 requests through the continuous-batching
              scheduler, then through ``policy="fixed"``: every request gets
              its own max_new tokens, all logits are finite, every kernel's
-             launch counter rose by exactly its per-forward count, and both
+             launch counter rose by exactly its per-forward count (RMSNorm's
+             also by prologue: none 1 and add 2 x n_layers), and both
              policies give identical tokens;
 5. parity  — prefill logits of two requests through the kernels and through
              the plain versions on the same weights, and their first served
              tokens against greedy generation on the plain path;
 6. profile — torch.profiler over one prefill and over served decode steps:
              device busy share and device time by kind (ported kernels,
-             matmuls, other ops);
+             matmuls, other ops), device kernels per prefill and per step
+             beside the unfused layer loops' counts;
 7. quant   — AutoQuant (``core/quantization.py``) of the same bf16 params,
              calibrated for decode (8 tokens/step: every linear weight-only
              int8) and for prefill (256 tokens/step: every linear dynamic
@@ -53,8 +62,8 @@ Phases (any failure exits non-zero and prints no result):
 8. hstu    — full-width HSTU (14 layers, d 512, 8 heads, band 1024 from
              layer 3, bf16, seeded weights) scores 8 user histories from
              ``hstu_user_histories(seed=0)``, right-padded with ``lengths``:
-             exact launches per forward (hstu_attention 14, rmsnorm 29, the
-             rest 0), finite logits, and the kernel path's retrieval and
+             exact launches per forward (hstu_attention 14, rmsnorm 29: none
+             1, add 14, mul 14; the rest 0), finite logits, and the kernel path's retrieval and
              ranking logits against the plain path's on 2 histories (bf16
              and an f32 copy of the params, each profiled: every layer on
              the tensor-core kernel in bf16, on the CUDA-core one in f32);
@@ -62,7 +71,8 @@ Phases (any failure exits non-zero and prints no result):
 9. ssm     — full-width mamba2-130m (24 layers, d 768, N 128, bf16, seeded
              weights) serves the same 16 requests as phase 4 (continuous):
              exact launches (ssd_scan 24 per prefill and 0 per decode step,
-             rmsnorm 49 per forward, the rest 0), parity as in phase 5 and a
+             rmsnorm 49 per forward: none 1, add 24, mul_silu 24; the rest
+             0), parity as in phase 5 and a
              decode-step profile as in phase 6; then one bf16 and one f32
              prefill (an f32 copy of the params), profiled: every layer's
              scan on its type's kernels, the f32 logits against the plain
@@ -270,7 +280,8 @@ def phase_build():
 
 
 #: the redesigned kernels whose ptxas report is summarised
-REDESIGNED = ("flash_attention_mma_kernel", "int8_mma_kernel", "int8_wo_mma_kernel",
+REDESIGNED = ("rmsnorm_warp_kernel", "flash_attention_mma_kernel", "int8_mma_kernel",
+              "int8_wo_mma_kernel",
               "decode_attention_kernel", "decode_attention_combine_kernel",
               "hstu_attention_mma_kernel", "ssd_chunk_state_kernel",
               "ssd_state_passing_kernel", "ssd_chunk_scan_kernel")
@@ -290,8 +301,7 @@ def ptxas_report(text: str, names):
                 rest = m.group(1)[m.group(1).index(cur) + len(cur):]  # template args
                 args = [t for t, code in (("bf16", "I13__nv_bfloat16"), ("f32", "If"))
                         if rest.startswith(code)]
-                arg = re.search(r"Li(\d+)E", rest)
-                args += [arg.group(1)] if arg else []
+                args += re.findall(r"Li(\d+)E", rest)
                 cur += f"<{','.join(args)}>" if args else ""
             spill = (0, 0)
             continue
@@ -323,21 +333,11 @@ def phase_kernels(pad_to: int, max_len: int):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import ops
-    from repro_torch.kernels import rmsnorm as rn
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     d_model, hq, hkv, dh = 2048, 32, 8, 64
-    errs = {"rmsnorm": {}, "flash_attention": {}, "decode_attention": {}}
-
-    # ---- rmsnorm: decode rows [8, 1, d] and prefill rows [1, pad_to, d]
-    for dt in (torch.bfloat16, torch.float32):
-        name = str(dt).split(".")[-1]
-        for shape in ((SLOTS, 1, d_model), (1, pad_to, d_model)):
-            x = _rand(gen, shape, dt, dev) * 3
-            w = (1 + 0.1 * _rand(gen, (d_model,), torch.float32, dev)).to(dt)
-            e = max_err(rn.rmsnorm_cuda(x, w, 1e-5), rn.rmsnorm_plain(x, w, 1e-5), name)
-            errs["rmsnorm"][f"{name}{list(shape)}"] = e
+    errs = {"flash_attention": {}, "decode_attention": {}}
 
     # ---- flash attention: the served prefill plus edge cases
     def flash_case(b, t, s, h_q, h_kv, d, dt, *, window=None, positions=None,
@@ -453,24 +453,7 @@ def phase_kernels(pad_to: int, max_len: int):
 
     # ---- timings at the main path's shapes, bf16
     bf = torch.bfloat16
-    records = []
-
-    x = _rand(gen, (SLOTS, 1, d_model), bf, dev)
-    w = torch.ones(d_model, dtype=bf, device=dev)
-    n = x.numel()
-    rms_bytes = (2 * n + d_model) * 2
-    records.append(dict(
-        name="rmsnorm", route="cuda",
-        source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-        replaces="src/repro/kernels/rmsnorm.py:25",
-        shape=f"x[{SLOTS},1,{d_model}] bf16 (decode step)",
-        max_abs_err=errs["rmsnorm"][f"bfloat16[{SLOTS}, 1, {d_model}]"],
-        call=lambda: rn.rmsnorm_cuda(x, w, 1e-5),
-        ms=cuda_ms(lambda: rn.rmsnorm_cuda(x, w, 1e-5)),
-        plain_ms=cuda_ms(lambda: rn.rmsnorm_plain(x, w, 1e-5)),
-        library=lambda: F.rms_norm(x, (d_model,), w, 1e-5),
-        bytes=rms_bytes, flops=4 * n,
-    ))
+    records = rmsnorm_kernel_records(gen, pad_to)
 
     q = _rand(gen, (1, pad_to, hq, dh), bf, dev)
     k = _rand(gen, (1, pad_to, hkv, dh), bf, dev)
@@ -590,6 +573,7 @@ def phase_kernels(pad_to: int, max_len: int):
               f"{fmt(r['device_ms'])}) | plain {r['plain_ms']:.4f} ms | library {lib_txt} | "
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}) | {r['shape']}", flush=True)
     int8_served_times(gen, served)
+    rmsnorm_routes(gen, pad_to)
     return records
 
 
@@ -691,6 +675,158 @@ def int8_served_times(gen, served):
                   f"{cuda_ms(wo_lib):.4f}, device {fmt(device_ms(wo_lib))}) | dynamic "
                   f"({dyn_splits[i]} splits) device {fmt(dyn_dev[i])} ms (bound "
                   f"{dyn_bound:.5f}, library {lib_txt})", flush=True)
+
+
+def hstu_forward_rows() -> tuple:
+    """(histories, padded length) of the ``hstu`` phase's batch."""
+    from repro_torch.training import data as data_mod
+
+    return N_HISTORIES, max(len(h) for h in data_mod.hstu_user_histories(N_HISTORIES, seed=0))
+
+
+#: widths of the served RMSNorms and the row stride of the projection that
+#: their second operand is a slice of (HSTU's u of uvqk, Mamba-2's z of
+#: zxbcdt); llama's and the residual adds' operands are contiguous
+LLAMA_D, MAMBA_D, MAMBA_D_IN, MAMBA_ZXBCDT, HSTU_D, HSTU_UVQK = 2048, 768, 1536, 3352, 512, 2048
+
+
+def rmsnorm_cases(pad_to: int):
+    """(label, path, prologue, x shape, second operand's row stride or None)
+    of every served RMSNorm: checked in both types; those with a path are
+    also timed in bf16, their launches read from that path's run."""
+    b, t = hstu_forward_rows()
+    return [
+        ("llama decode", "serve", "none", (SLOTS, 1, LLAMA_D), None),
+        ("llama decode", "serve", "add", (SLOTS, 1, LLAMA_D), None),
+        ("llama prefill", None, "none", (1, pad_to, LLAMA_D), None),
+        ("llama prefill", "serve", "add", (1, pad_to, LLAMA_D), None),
+        ("mamba2 decode", None, "add", (SLOTS, 1, MAMBA_D), None),
+        ("mamba2 decode", None, "mul_silu", (SLOTS, 1, MAMBA_D_IN), MAMBA_ZXBCDT),
+        ("mamba2 prefill", None, "add", (1, pad_to, MAMBA_D), None),
+        ("mamba2 prefill", "ssm", "mul_silu", (1, pad_to, MAMBA_D_IN), MAMBA_ZXBCDT),
+        ("hstu forward", "hstu", "none", (b, t, HSTU_D), None),
+        ("hstu forward", "hstu", "add", (b, t, HSTU_D), None),
+        ("hstu forward", "hstu", "mul", (b, t, HSTU_D), HSTU_UVQK),
+    ]
+
+
+def rmsnorm_routes(gen, pad_to: int) -> None:
+    """The kernel each RMSNorm grid takes, from the profiler's kernel names
+    (the warp kernel's template arguments: type, prologue, elements a lane,
+    warps a row), against ``rmsnorm.route``: the served grids, a wide one,
+    one past one warp's budget and one past eight warps' (the block path)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import rmsnorm as rn
+
+    dev = torch.device("cuda")
+    for rows, d, dt in ((8, LLAMA_D, torch.bfloat16), (pad_to, LLAMA_D, torch.bfloat16),
+                        (SLOTS, MAMBA_D, torch.bfloat16), (pad_to, MAMBA_D_IN, torch.bfloat16),
+                        (4096, HSTU_D, torch.bfloat16), (4096, 4096, torch.bfloat16),
+                        (3, 20000, torch.bfloat16), (4096, HSTU_D, torch.float32),
+                        (pad_to, MAMBA_D_IN, torch.float32), (3, 9000, torch.float32)):
+        x = _rand(gen, (rows, d), dt, dev)
+        w = torch.ones((d,), dtype=dt, device=dev)
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            rn.rmsnorm_cuda(x, w)
+            torch.cuda.synchronize()
+        kern = device_kernels(prof)
+        if kern:
+            route, warps, per_lane = rn.route(rows, d, dt)
+            tname = "__nv_bfloat16" if dt == torch.bfloat16 else "float"
+            name = (f"rmsnorm_warp_kernel<{tname}, 0, {per_lane}, {warps}>" if route == "warp"
+                    else "rmsnorm_block_kernel")
+            other = "rmsnorm_block_kernel" if route == "warp" else "rmsnorm_warp_kernel"
+            check_kernel_names(kern, {name: 1, other: 0},
+                               f"kernels rmsnorm [{rows}, {d}] {str(dt).split('.')[-1]}")
+
+
+def rmsnorm_work(prologue: str, n: int, d: int, elt: int = 2):
+    """Bytes RMSNorm with ``prologue`` must move over n elements of rows of
+    width d (its inputs once, the weight once, y, and add's s, once) and
+    its operations (square-accumulate, scale and weight: 4 a element; the
+    prologue's add or mul 1 more; silu's negate, exp, add and divide 4
+    more)."""
+    tensors = {"none": 2, "add": 4, "mul": 3, "mul_silu": 3}[prologue]
+    ops_ = {"none": 4, "add": 5, "mul": 5, "mul_silu": 9}[prologue]
+    return dict(bytes=(tensors * n + d) * elt, flops=ops_ * n, peak=F32_FLOPS_PER_S)
+
+
+def rmsnorm_kernel_records(gen, pad_to: int):
+    """Every prologue at every served shape against its plain version, in
+    bf16 and f32, the second operand as the models pass it (a slice of its
+    projection); add's sum equal to x + r, and each fused output equal to
+    the none kernel on the unfused ops' result, bit for bit (the prologue
+    rounds as torch's ops round); a repeat call bit-identical. Returns the
+    bf16 records of the cases with a path."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm as rn
+
+    dev = torch.device("cuda")
+    kernel = {"none": lambda x, o, w: (None, rn.rmsnorm_cuda(x, w)),
+              "add": rn.add_rmsnorm_cuda,
+              "mul": lambda x, o, w: (None, rn.mul_rmsnorm_cuda(x, o, w)),
+              "mul_silu": lambda x, o, w: (None, rn.mul_silu_rmsnorm_cuda(x, o, w))}
+    plain = {"none": lambda x, o, w: (None, rn.rmsnorm_plain(x, w)),
+             "add": rn.add_rmsnorm_plain,
+             "mul": lambda x, o, w: (None, rn.mul_rmsnorm_plain(x, o, w)),
+             "mul_silu": lambda x, o, w: (None, rn.mul_silu_rmsnorm_plain(x, o, w))}
+    unfused = {"add": lambda x, o: x + o, "mul": lambda x, o: x * o,
+               "mul_silu": lambda x, o: x * F.silu(o)}
+
+    def operands(shape, stride, dt):
+        x = _rand(gen, shape, dt, dev) * 3
+        d = shape[-1]
+        wide = _rand(gen, (*shape[:-1], stride or d), dt, dev)
+        other = wide[..., :d] if stride else wide
+        w = (1 + 0.1 * _rand(gen, (d,), torch.float32, dev)).to(dt)
+        return x, other, w
+
+    errs, timed = {}, []
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        for label, path, prologue, shape, stride in rmsnorm_cases(pad_to):
+            x, other, w = operands(shape, stride, dt)
+            s, y = kernel[prologue](x, other, w)
+            ws, wy = plain[prologue](x, other, w)
+            case = f"{name} {prologue} {label} {list(shape)}"
+            errs[case] = max_err(y, wy, name)
+            check(torch.equal(y, kernel[prologue](x, other, w)[1]),
+                  f"rmsnorm: a repeat call differs ({case})")
+            if prologue == "add":
+                check(torch.equal(s, ws), f"rmsnorm: add's sum is not x + r bit for bit ({case})")
+            if prologue != "none":
+                check(torch.equal(y, rn.rmsnorm_cuda(unfused[prologue](x, other), w)),
+                      f"rmsnorm: the fused output differs from the none kernel on the "
+                      f"unfused result ({case})")
+            if path is not None and dt == torch.bfloat16:
+                timed.append((label, path, prologue, shape, stride, (x, other, w), case))
+    torch.cuda.synchronize()
+    for case, v in errs.items():
+        print(f"[kernels] {'rmsnorm':23s} {case:44s} max|err| {v:.3e}", flush=True)
+
+    records = []
+    for label, path, prologue, shape, stride, (x, other, w), case in timed:
+        n, d = x.numel(), shape[-1]
+        call = lambda p=prologue, a=(x, other, w): kernel[p](*a)  # noqa: E731
+        rec = dict(
+            name="rmsnorm", prologue=prologue, route="cuda",
+            source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm.py:25",
+            shape=f"{prologue} x{list(shape)} bf16"
+                  + (f", second operand row stride {stride}" if stride else "") + f" ({label})",
+            max_abs_err=errs[case], call=call, ms=cuda_ms(call),
+            plain_ms=cuda_ms(lambda p=prologue, a=(x, other, w): plain[p](*a)),
+            library=(lambda a=(x, w, d): F.rms_norm(a[0], (a[2],), a[1], 1e-5))
+            if prologue == "none" else None,
+            path=path, counter=f"rmsnorm/{prologue}", per_call=1,
+            **rmsnorm_work(prologue, n, d),
+        )
+        records.append(rec)
+    return records
 
 
 def hstu_in_band_pairs(t: int, lengths, band) -> int:
@@ -899,7 +1035,9 @@ def ssd_kernel_records(gen):
 
 
 def _counters():
-    """Kernel name -> (module, attribute) of its launch counter."""
+    """Kernel name -> (holder, key) of its launch counter: a module and its
+    attribute, or RMSNorm's per-prologue dict and a prologue
+    (``rmsnorm/<prologue>``; ``rmsnorm`` counts every launch)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hstu_attention as ha
@@ -907,7 +1045,9 @@ def _counters():
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ss
 
-    return {"rmsnorm": (rn, "LAUNCHES"), "flash_attention": (fa, "LAUNCHES"),
+    return {"rmsnorm": (rn, "LAUNCHES"),
+            **{f"rmsnorm/{p}": (rn.LAUNCHES_BY_PROLOGUE, p) for p in rn.PROLOGUES},
+            "flash_attention": (fa, "LAUNCHES"),
             "decode_attention": (da, "LAUNCHES"),
             "int8_matmul_weight_only": (im, "LAUNCHES_WO"),
             "int8_matmul_dynamic": (im, "LAUNCHES_DYN"),
@@ -915,12 +1055,35 @@ def _counters():
 
 
 def _reset_counts():
-    for mod, attr in _counters().values():
-        setattr(mod, attr, 0)
+    for holder, key in _counters().values():
+        if isinstance(holder, dict):
+            holder[key] = 0
+        else:
+            setattr(holder, key, 0)
 
 
 def _read_counts():
-    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
+    return {name: holder[key] if isinstance(holder, dict) else getattr(holder, key)
+            for name, (holder, key) in _counters().items()}
+
+
+def _want_counts(cfg, n_fwd: int, **kernels):
+    """Every counter 0 but ``kernels`` and RMSNorm's over ``n_fwd``
+    forwards of ``cfg``: 2 x n_layers + 1 launches a forward, the first
+    layer's norm alone (none) and every residual add fused into the norm
+    after it (add: 2 a layer in a dense model, 1 in HSTU and Mamba-2, whose
+    gate products take the other: mul and mul_silu)."""
+    n_layers = cfg.n_layers
+    want = dict.fromkeys(_counters(), 0)
+    want.update(kernels)
+    want["rmsnorm"] = (2 * n_layers + 1) * n_fwd
+    want["rmsnorm/none"] = n_fwd
+    if cfg.family == "dense":
+        want["rmsnorm/add"] = 2 * n_layers * n_fwd
+    else:
+        want["rmsnorm/add"] = n_layers * n_fwd
+        want[f"rmsnorm/{'mul' if cfg.family == 'hstu' else 'mul_silu'}"] = n_layers * n_fwd
+    return want
 
 
 def _trace(cfg, pad_to):
@@ -938,7 +1101,8 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag):
     tokens, that every logits tensor the scheduler sampled from was finite
     (one device flag, read once per run: no per-step host sync is added),
     and that each kernel launched exactly its per-forward count: rmsnorm
-    2 x n_layers + 1; for a dense model flash attention per prefill layer,
+    2 x n_layers + 1 (by prologue as ``_want_counts``); for a dense model
+    flash attention per prefill layer,
     decode attention per decode layer and the int8 kernel of ``int8_mode``
     ("wo"/"dyn"/None) 7 x n_layers per forward; for an SSM the scan per
     prefill layer; every other kernel 0."""
@@ -979,8 +1143,7 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag):
         check(len(r.tokens) == want_new[r.rid],
               f"{tag}: request {r.rid} got {len(r.tokens)} of {want_new[r.rid]} tokens")
     n_fwd = m["prefills"] + m["decode_steps"]
-    want_counts = dict.fromkeys(_counters(), 0)
-    want_counts["rmsnorm"] = (2 * cfg.n_layers + 1) * n_fwd
+    want_counts = _want_counts(cfg, n_fwd)
     if cfg.family == "ssm":  # the scan at every prefill; decode is plain torch
         want_counts["ssd_scan"] = cfg.n_layers * m["prefills"]
     else:
@@ -1087,17 +1250,41 @@ def phase_parity(model, params, pad_to, reqs, served, tag="parity"):
         check(g < d, f"{tag} request {r.rid}: token {first} differs away from a near tie")
 
 
-PORTED_KERNEL_NAMES = ("rmsnorm_kernel", "flash_attention_kernel", "flash_attention_mma_kernel",
-                       "decode_attention_kernel", "decode_attention_combine_kernel",
+PORTED_KERNEL_NAMES = ("rmsnorm_warp_kernel", "rmsnorm_block_kernel", "flash_attention_kernel",
+                       "flash_attention_mma_kernel", "decode_attention_kernel",
+                       "decode_attention_combine_kernel",
                        "int8_gemm_kernel", "int8_mma_kernel", "int8_wo_mma_kernel",
                        "int8_splitk_reduce", "hstu_attention_kernel", "hstu_attention_mma_kernel",
                        "ssd_scan_kernel", "ssd_chunk_state_kernel", "ssd_state_passing_kernel",
                        "ssd_chunk_scan_kernel")
 #: the int8 GEMM kernels proper (their split-K sums excluded)
 INT8_GEMM_NAMES = ("int8_gemm_kernel", "int8_mma_kernel", "int8_wo_mma_kernel")
+#: device kernels of one prefill and of one decode step, by profile tag, and
+#: of one HSTU forward, with every residual add and gate product a launch of
+#: its own (the unfused layer loops; NVIDIA H100 80GB HBM3, 700 W)
+UNFUSED_KERNELS = {"profile": (942, 1024), "quant/wo profile": (1021, 1120),
+                   "quant/dyn profile": (2141, 2240), "ssm profile": (754, 925)}
+UNFUSED_HSTU_KERNELS = 189
 
 
-def phase_profile(model, params, pad_to, reqs, tag="profile"):
+def fused_per_forward(cfg) -> int:
+    """Elementwise launches a forward that the fused RMSNorms take over:
+    every residual add (2 a layer in a dense model, 1 in HSTU and Mamba-2),
+    HSTU's gate product, and Mamba-2's silu and gate product."""
+    return cfg.n_layers * {"dense": 2, "hstu": 2, "ssm": 3}[cfg.family]
+
+
+def kernels_beside_unfused(tag: str, unit: str, n: float, fused: int) -> str:
+    """``n`` device kernels a prefill or step beside the unfused loops'
+    count less the fused launches."""
+    if tag not in UNFUSED_KERNELS:
+        return ""
+    old = UNFUSED_KERNELS[tag][unit == "step"]
+    return (f" (unfused: {old}; less the {fused} fused launches: {old - fused}; change "
+            f"{n - old:+.0f})")
+
+
+def phase_profile(model, params, pad_to, reqs, tag="profile", fused=0):
     """Where the time of one served decode step goes: torch.profiler over
     a few pool-wide decode steps with every slot live, each ending in the
     scheduler's greedy argmax and host copy."""
@@ -1132,7 +1319,8 @@ def phase_profile(model, params, pad_to, reqs, tag="profile"):
     if pk:
         pcats, pnames = device_split(pk)
         print(f"[{tag}] one prefill (T={pad_to}): device {sum(pcats.values()) / 1e3:.3f} ms in "
-              f"{len(pk)} device kernels", flush=True)
+              f"{len(pk)} device kernels{kernels_beside_unfused(tag, 'prefill', len(pk), fused)}",
+              flush=True)
         print_split(f"{tag} prefill", pcats, pnames, 1, "prefill")
 
     def step():
@@ -1170,14 +1358,16 @@ def phase_profile(model, params, pad_to, reqs, tag="profile"):
     attn = sum(us for name, us in by_name.items() if "decode_attention" in name) / n_steps / 1e3
     print(f"[{tag}] decode attention device time per decode step: {attn:.4f} ms (kernel and "
           f"split combine)", flush=True)
+    norm = sum(us for name, us in by_name.items() if "rmsnorm_" in name) / n_steps / 1e3
+    print(f"[{tag}] rmsnorm device time per decode step: {norm:.4f} ms", flush=True)
     if int8_all:
         print(f"[{tag}] int8 GEMM device time per decode step: {int8_gemm:.4f} ms, "
               f"{int8_all:.4f} ms with the split-K sums", flush=True)
     print(f"[{tag}] decode step (B={SLOTS}): wall {bare_ms:.3f} ms unprofiled, "
           f"{wall_ms:.3f} ms profiled | device busy {busy_ms:.3f} ms = "
           f"{busy_ms / bare_ms:.1%} of the unprofiled step ({busy_ms / wall_ms:.1%} of "
-          f"the profiled one) | {len(kern) / n_steps:.0f} device kernels per step",
-          flush=True)
+          f"the profiled one) | {len(kern) / n_steps:.0f} device kernels per step"
+          f"{kernels_beside_unfused(tag, 'step', len(kern) / n_steps, fused)}", flush=True)
     print_split(tag, cats, by_name, n_steps, "step")
 
 
@@ -1259,7 +1449,8 @@ def phase_quant(cfg, model, params, pad_to, reqs):
             drift.append(float((lq - lf).abs().max() / lf.abs().max()))
         print(f"[{tag}] max relative logit drift vs the bf16 params (prefill, requests "
               f"{[r.rid for r in reqs[:2]]}): {max(drift):.4f} ({drift})", flush=True)
-        phase_profile(model, qparams, pad_to, reqs, tag=f"{tag} profile")
+        phase_profile(model, qparams, pad_to, reqs, tag=f"{tag} profile",
+                      fused=fused_per_forward(cfg))
         del qparams
         torch.cuda.empty_cache()
     for tokens in (SLOTS, pad_to):
@@ -1330,8 +1521,7 @@ def phase_hstu():
     retrieval, _, aux = fwd()
     torch.cuda.synchronize()
     counts = _read_counts()
-    want = dict.fromkeys(_counters(), 0)
-    want.update(hstu_attention=cfg.n_layers, rmsnorm=2 * cfg.n_layers + 1)
+    want = _want_counts(cfg, 1, hstu_attention=cfg.n_layers)
     check(counts == want, f"hstu: kernel launches {counts}, expected {want}")
     t_max = batch["tokens"].shape[1]
     check(tuple(retrieval.shape) == (N_HISTORIES, t_max, cfg.vocab_size)
@@ -1356,7 +1546,9 @@ def phase_hstu():
                                   "hstu_attention_kernel": 0}, "hstu")
     split = device_split(kern) if kern else None
     dev_txt = ("not measured" if split is None else
-               f"{sum(split[0].values()) / 1e3:.3f} ms ({len(kern)} device kernels)")
+               f"{sum(split[0].values()) / 1e3:.3f} ms ({len(kern)} device kernels; unfused: "
+               f"{UNFUSED_HSTU_KERNELS}, less the {fused_per_forward(cfg)} fused launches: "
+               f"{UNFUSED_HSTU_KERNELS - fused_per_forward(cfg)})")
     print(f"[hstu] {N_HISTORIES} histories, lengths {lens} (padded to {t_max}) | forward "
           f"wall {wall:.3f} ms, device {dev_txt} | {N_HISTORIES / wall * 1e3:.2f} "
           f"histories/s | launches per forward {counts}", flush=True)
@@ -1418,7 +1610,7 @@ def phase_ssm(pad_to: int):
                                    int8_mode=None, tag="ssm/continuous")
     reqs = _trace(cfg, pad_to)
     phase_parity(model, params, pad_to, reqs[:2], served, tag="ssm parity")
-    phase_profile(model, params, pad_to, reqs, tag="ssm profile")
+    phase_profile(model, params, pad_to, reqs, tag="ssm profile", fused=fused_per_forward(cfg))
     plan = ss.launch_plan(1, pad_to, s.n_heads(cfg.d_model), s.head_dim, s.n_groups,
                           s.d_state, s.chunk_size)
     f32_counts = None
@@ -1433,8 +1625,7 @@ def phase_ssm(pad_to: int):
             lc = _prefill_last(mdl, p, r.prompt, "cuda")
             torch.cuda.synchronize()
         counts_p = _read_counts()
-        want = dict.fromkeys(_counters(), 0)
-        want.update(ssd_scan=cfg.n_layers, rmsnorm=2 * cfg.n_layers + 1)
+        want = _want_counts(cfg, 1, ssd_scan=cfg.n_layers)
         check(counts_p == want, f"ssm {name} prefill: kernel launches {counts_p}, "
                                 f"expected {want}")
         kern = device_kernels(prof)
@@ -1484,7 +1675,7 @@ def main() -> None:
         records = phase_kernels(pad_to, pad_to + MAX_NEW + 1)
         cfg, model, params, trace, runs = phase_serve(pad_to)
         phase_parity(model, params, pad_to, trace[:2], runs["continuous"][1])
-        phase_profile(model, params, pad_to, trace)
+        phase_profile(model, params, pad_to, trace, fused=fused_per_forward(cfg))
         arms = phase_quant(cfg, model, params, pad_to, trace)
         del model, params
         torch.cuda.empty_cache()
@@ -1496,9 +1687,13 @@ def main() -> None:
                        "int8_matmul_dynamic": arms["dyn"],
                        "hstu_attention": hstu_counts, "ssd_scan": ssm_counts}
         f32_counts = {"hstu_attention": hstu_f32_counts, "ssd_scan": ssm_f32_counts}
+        paths = {"serve": runs["continuous"][2], "hstu": hstu_counts, "ssm": ssm_counts}
         for r in records:
-            counts = f32_counts if r.get("dtype") == "float32" else path_counts
-            r["launches"] = counts.get(r["name"], runs["continuous"][2])[r["name"]]
+            if "path" in r:  # RMSNorm: its prologue's count on its path
+                r["launches"] = paths[r.pop("path")][r.pop("counter")]
+            else:
+                counts = f32_counts if r.get("dtype") == "float32" else path_counts
+                r["launches"] = counts.get(r["name"], runs["continuous"][2])[r["name"]]
             check(r["launches"] > 0, f"{r['name']} was not launched on its served path")
         torch.cuda.synchronize()
     except Exception:  # any phase failure: report and exit non-zero

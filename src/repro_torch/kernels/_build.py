@@ -36,8 +36,10 @@ _I = ctypes.c_int
 #: argtypes of every C entry point (pointers and the stream as c_void_p,
 #: or ctypes would pass a 32-bit int and cut them).
 SIGNATURES: Dict[str, List] = {
-    # dtype, x, weight, out, n_rows, d, eps, stream
-    "rmsnorm_launch": [_I, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _P],
+    # dtype, prologue, warps, per_lane, x, r, r_stride, weight, s, y, n_rows, d, eps,
+    # stream
+    "rmsnorm_launch": [_I, _I, _I, _I, _P, _P, ctypes.c_longlong, _P, _P, _P,
+                       ctypes.c_longlong, _I, ctypes.c_float, _P],
     # dtype, q, k, v, q_pos, k_pos, k_valid, out, B, Tq, Tk, Hq, Hkv, D,
     # causal, window, scale, stream
     "flash_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -177,6 +179,33 @@ def require_cuda(name: str, *tensors) -> None:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors only")
+
+
+def require_rows(name: str, t, like):
+    """The row-strided gate, for a kernel's second operand only: ``t`` must
+    be a CUDA tensor of ``like``'s shape, type and device whose rows share
+    one stride with a unit last stride (a slice of a wider tensor's last
+    axis passes, a transpose does not). Returns ``t`` viewed as
+    ``[rows, d]`` (None when it is empty); raises otherwise (never copies)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got {t.device}")
+    if t.device != like.device:
+        raise ValueError(f"{name}: tensors on {like.device} and {t.device}")
+    if t.shape != like.shape:
+        raise ValueError(f"{name}: operands of shapes {tuple(like.shape)} and {tuple(t.shape)}")
+    if t.dtype != like.dtype:
+        raise TypeError(f"{name}: operands of types {like.dtype} and {t.dtype}")
+    if t.numel() == 0:
+        return None
+    d = t.shape[-1]
+    try:
+        rows = t.view(-1, d)
+    except RuntimeError:
+        rows = None
+    if rows is None or (d > 1 and rows.stride(1) != 1):
+        raise ValueError(f"{name}: the second operand must be rows of one stride with a unit "
+                         f"last stride, got strides {t.stride()}")
+    return rows
 
 
 def check(code: int, what: str) -> None:

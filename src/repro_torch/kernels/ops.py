@@ -10,7 +10,9 @@
               silent fallback: a CUDA tensor launches the kernel or raises.
 
 Inputs are made contiguous here (a no-op for the served path's tensors),
-so the kernel wrappers only ever see the layout they take.
+so the kernel wrappers only ever see the layout they take. The fused
+RMSNorms' second operand is the one exception: a view whose rows share one
+stride (a slice of a wider projection) reaches the kernel as it is.
 """
 from __future__ import annotations
 
@@ -126,6 +128,51 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
     impl = _resolve(impl, x)
     fn = _rn.rmsnorm_cuda if impl == "cuda" else _rn.rmsnorm_plain
     return fn(x.contiguous(), weight.contiguous(), eps)
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the fused RMSNorms' second operand: itself when its rows
+    share one stride with a unit last stride (the kernel reads it in place),
+    else a contiguous copy."""
+    if t.numel() and t.stride(-1) == 1:
+        try:
+            t.view(-1, t.shape[-1])
+            return t
+        except RuntimeError:
+            pass
+    return t.contiguous()
+
+
+def _fused(kernel, plain, impl: str, x: torch.Tensor, other: torch.Tensor,
+           weight: torch.Tensor, eps: float):
+    impl = _resolve(impl, x)
+    if other.shape != x.shape or other.dtype != x.dtype:
+        raise ValueError(f"fused rmsnorm: operands {tuple(x.shape)} {x.dtype} and "
+                         f"{tuple(other.shape)} {other.dtype} differ")
+    fn = kernel if impl == "cuda" else plain
+    return fn(x.contiguous(), _rows(other), weight.contiguous(), eps)
+
+
+def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
+                impl: str = "auto"):
+    """``(s, rmsnorm(s))`` with ``s = x + r`` (a residual add and the norm
+    after it, one kernel on the card); ``s`` equals ``x + r`` bit for bit."""
+    return _fused(_rn.add_rmsnorm_cuda, _rn.add_rmsnorm_plain, impl, x, r, weight, eps)
+
+
+def mul_rmsnorm(a: torch.Tensor, u: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
+                impl: str = "auto") -> torch.Tensor:
+    """``rmsnorm(a * u)`` (HSTU's gate and output norm, one kernel on the
+    card)."""
+    return _fused(_rn.mul_rmsnorm_cuda, _rn.mul_rmsnorm_plain, impl, a, u, weight, eps)
+
+
+def mul_silu_rmsnorm(y: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
+                     eps: float = 1e-5, impl: str = "auto") -> torch.Tensor:
+    """``rmsnorm(y * silu(z))`` (Mamba-2's gated norm, one kernel on the
+    card)."""
+    return _fused(_rn.mul_silu_rmsnorm_cuda, _rn.mul_silu_rmsnorm_plain, impl, y, z, weight,
+                  eps)
 
 
 # --------------------------------------------------------------------------

@@ -41,19 +41,27 @@ def init_layer(gen, cfg: ModelConfig, device):
     }
 
 
-def layer_forward(cfg: ModelConfig, p, x: torch.Tensor, *, layer: int, lengths=None,
-                  impl: str = "auto") -> torch.Tensor:
-    b, t, d = x.shape
+def _layer_delta(cfg: ModelConfig, p, hx: torch.Tensor, *, layer: int, lengths,
+                 impl: str) -> torch.Tensor:
+    """One layer's residual delta from ``hx = norm(x)``. The gate product
+    ``attn * u`` runs in the out_norm's kernel, which reads ``u`` in place
+    (a slice of the U,V,Q,K projection)."""
+    b, t, _ = hx.shape
     h, dh = cfg.n_heads, cfg.head_dim
-    hx = L.rmsnorm(p["norm"], x, cfg.rmsnorm_eps, impl=impl)
     uvqk = F.silu(L.dense(p["uvqk"], hx, impl)).reshape(b, t, 4, h, dh)
     u, v, q, k = (uvqk[:, :, i] for i in range(4))  # this order, as the reference
     max_len = cfg.hstu_max_attn_len if layer >= FULL_ATTN_LAYERS else None
     attn = ops.hstu_attention(q, k, v, p["rel_bias"], max_attn_len=max_len,
                               lengths=lengths, impl=impl)
-    gated = L.rmsnorm(p["out_norm"], (attn * u).reshape(b, t, h * dh), cfg.rmsnorm_eps,
-                      impl=impl)
-    return x + L.dense(p["out"], gated, impl)
+    gated = L.mul_rmsnorm(p["out_norm"], attn.reshape(b, t, h * dh),
+                          u.reshape(b, t, h * dh), cfg.rmsnorm_eps, impl=impl)
+    return L.dense(p["out"], gated, impl)
+
+
+def layer_forward(cfg: ModelConfig, p, x: torch.Tensor, *, layer: int, lengths=None,
+                  impl: str = "auto") -> torch.Tensor:
+    hx = L.rmsnorm(p["norm"], x, cfg.rmsnorm_eps, impl=impl)
+    return x + _layer_delta(cfg, p, hx, layer=layer, lengths=lengths, impl=impl)
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, device):
@@ -86,10 +94,14 @@ def forward(cfg: ModelConfig, params, batch: dict, *, cache=None, mode: str = "t
     tokens = batch["tokens"]
     lengths = batch.get("lengths")
     x = L.embed(params["embed"], tokens)
+    # each layer's residual add runs in the next norm's kernel: the next
+    # layer's norm, or the final norm after the last layer
+    norms = [lp["norm"] for lp in params["layers"]] + [params["final_norm"]]
+    h = L.rmsnorm(norms[0], x, cfg.rmsnorm_eps, impl=impl)
     for i, lp in enumerate(params["layers"]):
-        x = layer_forward(cfg, lp, x, layer=i, lengths=lengths, impl=impl)
-    x = L.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps, impl=impl)
-    retrieval = L.unembed(params["embed"], x)
-    ranking = L.dense(params["ranking_head"], x, impl).float()
-    return retrieval, None, {"aux_loss": torch.zeros((), device=x.device),
+        delta = _layer_delta(cfg, lp, h, layer=i, lengths=lengths, impl=impl)
+        x, h = L.add_rmsnorm(norms[i + 1], x, delta, cfg.rmsnorm_eps, impl=impl)
+    retrieval = L.unembed(params["embed"], h)
+    ranking = L.dense(params["ranking_head"], h, impl).float()
+    return retrieval, None, {"aux_loss": torch.zeros((), device=h.device),
                              "ranking_logits": ranking}

@@ -74,6 +74,21 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5, impl: str = "auto") -> torch.
     return ops.rmsnorm(x, p["scale"], eps=eps, impl=impl)
 
 
+def add_rmsnorm(p, x: torch.Tensor, r: torch.Tensor, eps: float = 1e-5, impl: str = "auto"):
+    """``(x + r, rmsnorm(x + r))``: a residual add and the norm after it."""
+    return ops.add_rmsnorm(x, r, p["scale"], eps=eps, impl=impl)
+
+
+def mul_rmsnorm(p, a: torch.Tensor, u: torch.Tensor, eps: float = 1e-5,
+                impl: str = "auto") -> torch.Tensor:
+    return ops.mul_rmsnorm(a, u, p["scale"], eps=eps, impl=impl)
+
+
+def mul_silu_rmsnorm(p, y: torch.Tensor, z: torch.Tensor, eps: float = 1e-5,
+                     impl: str = "auto") -> torch.Tensor:
+    return ops.mul_silu_rmsnorm(y, z, p["scale"], eps=eps, impl=impl)
+
+
 # ---- RoPE -----------------------------------------------------------------
 
 def rope_frequencies(dim: int, theta: float, device=None) -> torch.Tensor:

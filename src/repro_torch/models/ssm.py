@@ -125,8 +125,10 @@ def block_forward(
         init_state = cache["state"] if mode == "extend" else None
         y, new_state = ops.ssd_scan(xs, dt, A, B_, C, p["D"], chunk=s.chunk_size,
                                     initial_state=init_state, impl=impl)
-    y = y.reshape(b, t, d_in)
-    y = L.rmsnorm(p["gate_norm"], y * F.silu(z), cfg.rmsnorm_eps, impl=impl)
+    # the gate y * silu(z) runs in the gate_norm's kernel, which reads z in
+    # place (a slice of the input projection)
+    y = L.mul_silu_rmsnorm(p["gate_norm"], y.reshape(b, t, d_in), z, cfg.rmsnorm_eps,
+                           impl=impl)
     out = L.dense(p["out_proj"], y, impl)
 
     new_cache = None
@@ -170,15 +172,17 @@ def forward(cfg: ModelConfig, params, batch: dict, *, cache: Optional[dict] = No
     tokens = batch["tokens"]
     b, t = tokens.shape
     x = L.embed(params["embed"], tokens)
+    # each block's residual add runs in the next norm's kernel: the next
+    # layer's norm, or the final norm after the last layer
+    norms = [lp["norm"] for lp in params["layers"]] + [params["final_norm"]]
+    h = L.rmsnorm(norms[0], x, cfg.rmsnorm_eps, impl=impl)
     new_layers = []
     for i, lp in enumerate(params["layers"]):
         lc = cache["layers"][i] if cache is not None else None
-        h = L.rmsnorm(lp["norm"], x, cfg.rmsnorm_eps, impl=impl)
         out, nlc = block_forward(cfg, lp["mixer"], h, cache=lc, mode=mode, impl=impl)
-        x = x + out
+        x, h = L.add_rmsnorm(norms[i + 1], x, out, cfg.rmsnorm_eps, impl=impl)
         new_layers.append(nlc)
-    x = L.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps, impl=impl)
-    logits = L.unembed(params["embed"], x)
+    logits = L.unembed(params["embed"], h)
     new_cache = None
     if cache is not None:
         if mode == "prefill":
@@ -189,4 +193,4 @@ def forward(cfg: ModelConfig, params, batch: dict, *, cache: Optional[dict] = No
         else:
             new_len = cache["lengths"] + t
         new_cache = {"lengths": new_len, "layers": new_layers}
-    return logits, new_cache, {"aux_loss": torch.zeros((), device=x.device)}
+    return logits, new_cache, {"aux_loss": torch.zeros((), device=h.device)}

@@ -39,6 +39,20 @@ def init_layer(gen, cfg: ModelConfig, device):
     }
 
 
+def _layer_body(cfg: ModelConfig, p, x: torch.Tensor, h: torch.Tensor, *,
+                positions: torch.Tensor, lengths: Optional[torch.Tensor],
+                cache: Optional[dict], mode: str, impl: str):
+    """One layer from ``x`` and ``h = attn_norm(x)``: returns (x plus the
+    attention's output, the FFN's residual delta, the new cache). The
+    attention's residual add runs in the ffn_norm's kernel."""
+    attn_out, new_cache = A.attention(
+        cfg, p["attn"], h, positions=positions, lengths=lengths, cache=cache,
+        mode=mode, window=cfg.sliding_window, impl=impl,
+    )
+    x, h = L.add_rmsnorm(p["ffn_norm"], x, attn_out, cfg.rmsnorm_eps, impl=impl)
+    return x, L.ffn(p["ffn"], h, impl), new_cache
+
+
 def layer_forward(
     cfg: ModelConfig,
     p,
@@ -51,13 +65,9 @@ def layer_forward(
     impl: str = "auto",
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     h = L.rmsnorm(p["attn_norm"], x, cfg.rmsnorm_eps, impl=impl)
-    attn_out, new_cache = A.attention(
-        cfg, p["attn"], h, positions=positions, lengths=lengths, cache=cache,
-        mode=mode, window=cfg.sliding_window, impl=impl,
-    )
-    x = x + attn_out
-    h = L.rmsnorm(p["ffn_norm"], x, cfg.rmsnorm_eps, impl=impl)
-    return x + L.ffn(p["ffn"], h, impl), new_cache
+    x, delta, new_cache = _layer_body(cfg, p, x, h, positions=positions, lengths=lengths,
+                                      cache=cache, mode=mode, impl=impl)
+    return x + delta, new_cache
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, device):
@@ -118,18 +128,22 @@ def forward(
         positions = lengths[:, None] + steps
 
     x = L.embed(params["embed"], tokens)
+    # each layer's FFN residual add runs in the next norm's kernel: the next
+    # layer's attn_norm, or the final norm after the last layer
+    norms = [lp["attn_norm"] for lp in params["layers"]] + [params["final_norm"]]
+    h = L.rmsnorm(norms[0], x, cfg.rmsnorm_eps, impl=impl)
     new_layers = []
     for i, lp in enumerate(params["layers"]):
         lc = cache["layers"][i] if cache is not None else None
-        x, nlc = layer_forward(cfg, lp, x, positions=positions, lengths=lengths,
-                               cache=lc, mode=mode, impl=impl)
+        x, delta, nlc = _layer_body(cfg, lp, x, h, positions=positions, lengths=lengths,
+                                    cache=lc, mode=mode, impl=impl)
+        x, h = L.add_rmsnorm(norms[i + 1], x, delta, cfg.rmsnorm_eps, impl=impl)
         new_layers.append(nlc)
 
-    x = L.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps, impl=impl)
     if cfg.tie_embeddings:
-        logits = L.unembed(params["embed"], x)
+        logits = L.unembed(params["embed"], h)
     else:
-        logits = L.dense(params["lm_head"], x, impl).float()
+        logits = L.dense(params["lm_head"], h, impl).float()
 
     new_cache = None
     if cache is not None:

@@ -301,3 +301,95 @@ def test_decode_attention_split_on_card(s, hq, d, dtype):
     close(got, da.decode_attention_plain(q, k, v, ln), dtype)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     assert torch.equal(got, again)
+
+
+# widths: the served ones (HSTU 512, Mamba-2 768 / 1536, llama 2048), a
+# ragged one (1000: 125 bf16 vectors over 32 lanes), one whose rows are not
+# 16-byte aligned (1001), one past one warp's register budget (4096: two
+# warps a row at least), and one past eight warps' (20000: the block path)
+RMS_WIDTHS = [512, 768, 1536, 2048, 1000, 1001, 4096, 20000]
+RMS_FUSED = {"add": (rn.add_rmsnorm_cuda, rn.add_rmsnorm_plain),
+             "mul": (rn.mul_rmsnorm_cuda, rn.mul_rmsnorm_plain),
+             "mul_silu": (rn.mul_silu_rmsnorm_cuda, rn.mul_silu_rmsnorm_plain)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", RMS_WIDTHS)
+@pytest.mark.parametrize("prologue", ["none", *RMS_FUSED])
+def test_rmsnorm_prologues_match_plain_on_card(prologue, d, dtype):
+    """Each prologue against its plain version at N = 0, 1, 37 and 1100 rows
+    (few rows take more warps a row, ``rmsnorm.route``), with the second
+    operand contiguous, a slice of a wider row (strided, as
+    HSTU's u and Mamba-2's z) and a slice one element in (no 16-byte
+    alignment): add's sum equals x + r bit for bit; every fused output
+    equals the none kernel on the unfused ops' result bit for bit;
+    a repeat call is bit-identical; one launch per call with rows, none
+    without."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(d)
+    w = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dtype)
+    for n in (0, 1, 37, 1100):
+        x = (torch.randn((n, d), generator=g, device=dev) * 3).to(dtype)
+        wide = torch.randn((n, d + 24), generator=g, device=dev).to(dtype)
+        layouts = {"contiguous": wide[:, :d].contiguous(), "strided": wide[:, 8:8 + d],
+                   "misaligned": wide[:, 1:1 + d]}
+        for layout, other in layouts.items():
+            if prologue == "none" and layout != "contiguous":
+                continue
+            before = (rn.LAUNCHES, rn.LAUNCHES_BY_PROLOGUE[prologue])
+            if prologue == "none":
+                s, got = None, rn.rmsnorm_cuda(x, w)
+                again = rn.rmsnorm_cuda(x, w)
+                want = rn.rmsnorm_plain(x, w)
+            else:
+                kernel, plain = RMS_FUSED[prologue]
+                out, again = kernel(x, other, w), kernel(x, other, w)
+                s, got = out if prologue == "add" else (None, out)
+                again = again[1] if prologue == "add" else again
+                want = plain(x, other, w)
+                want = want[1] if prologue == "add" else want
+            torch.cuda.synchronize()
+            assert rn.LAUNCHES - before[0] == (2 if n else 0)
+            assert rn.LAUNCHES_BY_PROLOGUE[prologue] - before[1] == (2 if n else 0)
+            assert got.dtype == dtype and got.shape == x.shape
+            close(got, want, dtype)
+            assert torch.equal(got, again), (layout, n)
+            if prologue == "add":
+                assert torch.equal(s, x + other), (layout, n)
+            if prologue != "none" and n:
+                mid = {"add": lambda: x + other, "mul": lambda: x * other,
+                       "mul_silu": lambda: x * torch.nn.functional.silu(other)}[prologue]()
+                assert torch.equal(got, rn.rmsnorm_cuda(mid, w)), (layout, n)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_fused_ops_dispatch_and_refuse_on_card():
+    """``ops``' fused RMSNorms launch the kernel on CUDA tensors (the
+    strided second operand read in place), and raise for a CPU tensor
+    with ``impl="cuda"`` and for a second operand on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2, 7, 512), generator=g, device=dev).to(torch.bfloat16)
+    wide = torch.randn((2, 7, 2048), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.ones((512,), device=dev, dtype=torch.bfloat16)
+    before = dict(rn.LAUNCHES_BY_PROLOGUE)
+    s, y = ops.add_rmsnorm(x, wide[..., :512], w)
+    assert torch.equal(s, x + wide[..., :512])
+    close(ops.mul_rmsnorm(x, wide[..., 512:1024], w),
+          ops.mul_rmsnorm(x, wide[..., 512:1024], w, impl="torch"), torch.bfloat16)
+    close(ops.mul_silu_rmsnorm(x, wide[..., 3:515], w),
+          ops.mul_silu_rmsnorm(x, wide[..., 3:515], w, impl="torch"), torch.bfloat16)
+    torch.cuda.synchronize()
+    for p in ("add", "mul", "mul_silu"):
+        assert rn.LAUNCHES_BY_PROLOGUE[p] == before[p] + 1
+    cpu = x.cpu()
+    for fn in (ops.add_rmsnorm, ops.mul_rmsnorm, ops.mul_silu_rmsnorm):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(cpu, cpu, w.cpu(), impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        rn.add_rmsnorm_cuda(x, cpu, w)
