@@ -5,12 +5,16 @@ counterpart of ``repro/core/engine.py`` for the contiguous cache.
                     batch=1 this is the scheduler's single-slot refill.
 - ``decode_step`` — one decode step for every sequence slot; the cache is
                     updated in place (the reference donates it).
+- ``mixed_step``  — one token-budget mixed prefill/decode step over a paged
+                    pool (chunked prefill): every slot advances by its own
+                    ``t_new`` tokens in the same forward.
 - ``generate``    — prefill + a direct decode loop with
                     ``SamplingProfile``'s greedy semantics (``eos_id``,
                     ``live``, output always [B, max_new], ``n_steps``).
 
-Everything runs eagerly under ``torch.inference_mode()``; the mixed and
-verify steps (paged pools, speculation) are later slices.
+Everything runs eagerly under ``torch.inference_mode()``; the verify step
+(speculation) and the profile-driven loop (beam, contrastive) are later
+slices.
 """
 from __future__ import annotations
 
@@ -46,6 +50,23 @@ def decode_step(model: Model, params, cache, token: torch.Tensor, impl: str = "a
     the cache's buffers written in place."""
     logits, cache, _ = model.forward(params, {"tokens": token[:, None]}, cache=cache,
                                      mode="decode", impl=impl)
+    return logits[:, 0], cache
+
+
+@torch.inference_mode()
+def mixed_step(model: Model, params, cache, tokens: torch.Tensor, t_new: torch.Tensor,
+               lengths: torch.Tensor):
+    """One mixed prefill/decode step over a paged pool: tokens [B, C] holds
+    each slot's lanes (a decoding slot's last token in lane 0 with t_new 1,
+    a prefilling slot's next prompt chunk in lanes 0..t_new-1, idle rows
+    t_new 0). ``lengths`` [B] is the host's authoritative write position of
+    every slot: the device counters, which plain decode steps drift on free
+    and mid-prefill rows, are pinned to it in place before any write.
+    Returns (logits [B, V] at each slot's last valid lane, cache), the
+    cache's ``lengths`` advanced by ``t_new``."""
+    cache["lengths"].copy_(lengths)
+    logits, cache, _ = model.forward(params, {"tokens": tokens, "t_new": t_new},
+                                     cache=cache, mode="mixed")
     return logits[:, 0], cache
 
 

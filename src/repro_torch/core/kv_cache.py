@@ -1,4 +1,4 @@
-"""KV-cache slot-pool row ops — the contiguous-pool part of
+"""KV-cache pool ops — the slot-pool row ops and the paged block ops of
 ``repro/core/kv_cache.py``, as in-place index updates.
 
 Every cache leaf's axis 0 is the sequence-slot axis: a transformer's K/V
@@ -7,6 +7,14 @@ the ``lengths`` counter. Where the reference donates the pool to a jitted
 program so XLA updates its buffers in place, the port writes into the
 pool's tensors directly: refilling or evicting a slot never reallocates
 the pool.
+
+Paged pools (``core/slot_pool.BlockPool``) keep K/V as physical blocks
+``[num_blocks, block_size, ...]`` addressed through a per-slot block table
+(host numpy, shipped to the device by ``BlockPool.sync``); physical block 0
+is the garbage sink that freed slots' table rows point at. The block ops
+below copy prefilled rows into blocks (``append_block``) and set or zero
+per-slot counters (``set_slot_length``, ``free_blocks``); the block table
+itself is never touched here.
 """
 from __future__ import annotations
 
@@ -53,4 +61,40 @@ def reset_slots(pool: Any, mask: torch.Tensor) -> Any:
     so a freed slot's counter drifts until it is re-assigned — liveness
     belongs to the SlotPool's host free-list, not this counter."""
     pool["lengths"].masked_fill_(mask.to(pool["lengths"].device), 0)
+    return pool
+
+
+# --------------------------------------------------------------------------
+# paged block-pool ops
+# --------------------------------------------------------------------------
+
+@torch.inference_mode()
+def append_block(pool_layers: Any, row_layers: Any, block: int, start: int) -> Any:
+    """Copy one block of a prefilled dense row into physical block ``block``
+    of a paged pool, in place: ``pool_layers`` leaves are [num_blocks,
+    block_size, ...], ``row_layers`` leaves [1, S_row, ...], and the block
+    is ``row[0, start : start + block_size]``. The row counts as zero-padded
+    to a block multiple: a block past the row's end gets its tail zeroed,
+    never a clamped slice that would shift its tokens."""
+    for p, r in zip(leaves(pool_layers), leaves(row_layers)):
+        chunk = r[0, start : start + p.shape[1]]
+        n = chunk.shape[0]
+        p[block, :n] = chunk.to(p.dtype)
+        p[block, n:] = 0
+    return pool_layers
+
+
+def free_blocks(pool: Any, mask: torch.Tensor) -> Any:
+    """Paged eviction: zero the freed slots' ``lengths``. The block table
+    and free-lists are host state (BlockPool), and freed blocks need no
+    clearing: stale K/V is unreachable until a new owner's validity mask
+    covers the positions it rewrote."""
+    return reset_slots(pool, mask)
+
+
+@torch.inference_mode()
+def set_slot_length(pool: Any, slot: int, length: int) -> Any:
+    """Install one slot's token counter in place (paged admission: the K/V
+    rows arrive by ``append_block``)."""
+    pool["lengths"][slot] = length
     return pool

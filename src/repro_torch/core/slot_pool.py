@@ -1,17 +1,27 @@
 """Unified KV slot-pool: the static cache as a pool of sequence slots —
-``_PoolBase`` and ``SlotPool`` of ``repro/core/slot_pool.py``.
+``_PoolBase``, ``SlotPool`` and ``BlockPool`` of ``repro/core/slot_pool.py``.
 
-ONE cache of shape [slots, max_len, ...] is allocated on the pool's device
-and never reallocated; each slot carries its own request and ``lengths``
-counter and is evicted and refilled without touching its neighbours
-(``kv_cache.write_slot`` / ``reset_slots`` update the pool in place). The
-paged ``BlockPool`` waits for the next slice of the port.
+``SlotPool``: ONE cache of shape [slots, max_len, ...] is allocated on the
+pool's device and never reallocated; each slot carries its own request and
+``lengths`` counter and is evicted and refilled without touching its
+neighbours (``kv_cache.write_slot`` / ``reset_slots`` update the pool in
+place).
+
+``BlockPool`` is the paged variant: the same slot free-list, but K/V lives
+in a shared pool of fixed-size physical blocks addressed through per-slot
+block tables, so a slot holds only the blocks its tokens occupy (see
+``core/kv_cache.py``). Its host state (free-lists, tables, refcounts) is
+numpy, as in the reference; the device side is in-place writes into the
+pool's preallocated tensors. No block has two owners yet: block sharing
+(slot groups, the prefix cache), copy-on-write and the speculative
+``truncate`` come with the port's slices that call them.
 """
 from __future__ import annotations
 
 import heapq
 from typing import Any, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import kv_cache
@@ -92,3 +102,166 @@ class SlotPool(_PoolBase):
             self.cache, torch.ones((self.slots,), dtype=torch.bool)
         )
         self._free = list(range(self.slots))
+
+
+class BlockPool(_PoolBase):
+    """Paged KV pool: ``slots`` sequence slots over ``num_blocks`` shared
+    physical blocks of ``block_size`` tokens each, on ``device``.
+
+    Storage is ONE ``[num_blocks, block_size, ...]`` K/V allocation per
+    layer; a slot's logical positions map to physical blocks through its
+    row of the host block table, shipped to the device by ``sync``.
+    Invariants (as the reference's, less the prefix cache's third state):
+
+    - physical block 0 is the garbage sink: never on the free-list, never
+      in a live slot's table; freed slots' zeroed table rows route their
+      pool-wide decode writes into it;
+    - every block in 1..num_blocks-1 is either free (on the free-list,
+      refcount 0) or owned, its refcount the number of owning slots;
+    - both free-lists are min-heaps: acquire order stays lowest-first;
+    - ``num_blocks - 1 >= max_blocks``: one worst-case request always
+      fits, so the scheduler's preemption ladder terminates.
+    """
+
+    def __init__(self, model: Model, slots: int, max_len: int, device, *,
+                 block_size: int = 16, num_blocks: Optional[int] = None):
+        super().__init__(slots)
+        if block_size < 1 or block_size > max_len:
+            raise ValueError("need 1 <= block_size <= max_len")
+        cfg = model.config
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r}: the paged pool holds attention K/V only"
+            )
+        if getattr(cfg, "sliding_window", None):
+            raise NotImplementedError("paged pool unsupported on ring/window caches")
+        if getattr(cfg, "scan_layers", False):
+            raise NotImplementedError("paged pool unsupported with scan_layers")
+        if getattr(cfg, "encdec", None) is not None:
+            raise NotImplementedError(
+                "paged pool unsupported for enc-dec cross-attention caches"
+            )
+        self.model = model
+        self.max_len = max_len
+        self.device = torch.device(device)
+        self.block_size = block_size
+        self.max_blocks = -(-max_len // block_size)  # ceil: worst case / slot
+        if num_blocks is None:
+            # parity default: every slot can hold a worst-case request
+            num_blocks = slots * self.max_blocks + 1
+        if num_blocks - 1 < self.max_blocks:
+            raise ValueError(
+                f"num_blocks={num_blocks} cannot fit one worst-case request "
+                f"({self.max_blocks} blocks + sink block 0)"
+            )
+        self.num_blocks = num_blocks
+
+        cache = model.init_cache(num_blocks, block_size, self.device)
+        cache["lengths"] = torch.zeros((slots,), dtype=torch.int32,
+                                       device=self.device)  # per SLOT, not block
+        self.block_tables = np.zeros((slots, self.max_blocks), np.int32)
+        cache["block_tables"] = torch.zeros((slots, self.max_blocks), dtype=torch.int32,
+                                            device=self.device)
+        self.cache: Any = cache
+
+        self._free_blocks: List[int] = list(range(1, num_blocks))  # heap; 0 = sink
+        self._owned: List[List[int]] = [[] for _ in range(slots)]
+        self._ref = np.zeros((num_blocks,), np.int32)  # owners per block
+        self._bt_dirty = False
+
+    # ---- block accounting ------------------------------------------------
+    @property
+    def n_free_blocks(self) -> int:
+        return len(self._free_blocks)
+
+    @property
+    def n_used_blocks(self) -> int:
+        return (self.num_blocks - 1) - len(self._free_blocks)
+
+    @property
+    def block_occupancy(self) -> float:
+        """Fraction of allocatable blocks currently owned by a slot."""
+        return self.n_used_blocks / max(self.num_blocks - 1, 1)
+
+    def blocks_for(self, n_tokens: int) -> int:
+        """Blocks needed to hold ``n_tokens`` cached tokens."""
+        return max(1, -(-n_tokens // self.block_size))
+
+    def owned_blocks(self, slot: int) -> List[int]:
+        return list(self._owned[slot])
+
+    def _take_block(self, slot: int) -> int:
+        """Pop the lowest free block into ``slot``'s next table entry."""
+        phys = heapq.heappop(self._free_blocks)
+        self._ref[phys] = 1
+        self.block_tables[slot, len(self._owned[slot])] = phys
+        self._owned[slot].append(phys)
+        self._bt_dirty = True
+        return phys
+
+    def _drop_ref(self, phys: int) -> None:
+        self._ref[phys] -= 1
+        if self._ref[phys] == 0:
+            heapq.heappush(self._free_blocks, phys)
+
+    # ---- slot lifecycle --------------------------------------------------
+    def assign(self, slot: int, row_cache: Any, length: int) -> None:
+        """Admit a prefilled dense row (leaves [1, S_row, ...]) into
+        ``slot``: take blocks for its ``length`` prompt tokens and copy them
+        block by block (``kv_cache.append_block``), then set its counter."""
+        need = self.blocks_for(length)
+        if need > self.max_blocks:
+            raise ValueError(f"prompt of {length} tokens exceeds max_len")
+        if need > len(self._free_blocks):
+            raise RuntimeError("out of KV blocks (admission must gate on n_free_blocks)")
+        assert not self._owned[slot], "assign into a slot that still owns blocks"
+        for j in range(need):
+            kv_cache.append_block(self.cache["layers"], row_cache["layers"],
+                                  self._take_block(slot), j * self.block_size)
+        kv_cache.set_slot_length(self.cache, slot, length)
+
+    def ensure(self, slot: int, kv_len: int) -> bool:
+        """Grow ``slot`` until it owns the block its next write (logical
+        position ``kv_len``) lands in. Host-only: a growth block becomes
+        readable one position at a time as the validity mask advances.
+        Returns False when the pool is out of blocks."""
+        needed = kv_len // self.block_size + 1
+        while len(self._owned[slot]) < needed:
+            if not self._free_blocks:
+                return False
+            self._take_block(slot)
+        return True
+
+    def evict(self, slot: int) -> None:
+        """Finish (or preempt) a slot: one reference dropped per owned
+        block, the table row zeroed (its later garbage writes hit the sink
+        block), the slot back on the free-list, its device counter zeroed."""
+        for phys in self._owned[slot]:
+            self._drop_ref(phys)
+        self._owned[slot] = []
+        self.block_tables[slot, :] = 0
+        self._bt_dirty = True
+        heapq.heappush(self._free, slot)
+        mask = torch.zeros((self.slots,), dtype=torch.bool)
+        mask[slot] = True
+        kv_cache.free_blocks(self.cache, mask)
+
+    @torch.inference_mode()
+    def sync(self) -> None:
+        """Copy the host block table into the device table in place, if it
+        changed since the last step. The copy is synchronous, so the host
+        may edit its table as soon as this returns."""
+        if self._bt_dirty:
+            self.cache["block_tables"].copy_(torch.from_numpy(self.block_tables))
+            self._bt_dirty = False
+
+    def reset(self) -> None:
+        for slot in range(self.slots):
+            self._owned[slot] = []
+        self.block_tables[:, :] = 0
+        self._free = list(range(self.slots))
+        self._free_blocks = list(range(1, self.num_blocks))
+        self._ref[:] = 0
+        self._bt_dirty = True
+        kv_cache.free_blocks(self.cache, torch.ones((self.slots,), dtype=torch.bool))
+        self.sync()

@@ -2,7 +2,11 @@
 PyTorch versions, one module per kernel:
 
 - flash_attention   — replaces ``flash_attention_pallas`` (prefill)
-- decode_attention  — replaces ``decode_attention_pallas`` (every decode step)
+- decode_attention  — replaces ``decode_attention_pallas`` (every contiguous
+                      decode step)
+- paged_decode_attention — replaces the XLA ``paged_decode_attention`` (every
+                      paged decode step; its kernel lives in
+                      ``csrc/decode_attention.cu``)
 - rmsnorm           — replaces ``rmsnorm_pallas`` (three norms per layer)
 - int8_matmul       — replaces ``int8_matmul_pallas`` (weight-only) and
                       ``int8_matmul_dynamic_pallas`` (AutoQuant's linears)

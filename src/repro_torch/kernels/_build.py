@@ -48,6 +48,10 @@ SIGNATURES: Dict[str, List] = {
     # scale, stream
     "decode_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 ctypes.c_float, _P],
+    # dtype, q, kbuf, vbuf, bt, n_valid, out, partial, B, NB, bs, MB, Hq, Hkv, D,
+    # splits, split_len, scale, stream
+    "paged_decode_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _I, ctypes.c_float, _P],
     # dtype, x, w_q, w_scale, out, partial, M, N, K, splits, k_chunk, stream
     "int8_matmul_wo_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x_q, w_q, w_scale, x_scale, out, partial, M, N, K, splits, k_chunk, stream

@@ -3,7 +3,8 @@
 // splits' partials combined by their log-sum-exp.
 //
 // Replaces: repro/kernels/decode_attention.py::decode_attention_pallas
-// (_decode_kernel).
+// (_decode_kernel); the paged kernel below, repro/models/attention.py::
+// paged_decode_attention.
 // Computes: out[b, hq] = softmax(q[b, hq] . K[b, :len, hq // G] * scale) V
 // with an f32 online softmax (finite -1e30 sentinel, l clamped at 1e-30, so
 // len = 0 gives exact zeros).
@@ -35,6 +36,22 @@
 // combine_partial_attention: m = max m_s, alpha_s = exp(m_s - m), out =
 // sum alpha_s acc_s / max(sum alpha_s l_s, 1e-30). A row of length 0 has no
 // live split and gets exact zeros.
+//
+// Paged flash-decode (decode_attention_paged_kernel) replaces the JAX
+// package's XLA paged_decode_attention (repro/models/attention.py, which has
+// no Pallas kernel): the same split decode over a block pool K/V [NB, bs,
+// Hkv, D] addressed through a per-row block table bt [B, MB]. Logical key t
+// of batch row b lives at physical row bt[b, t / bs] * bs + t % bs; the
+// cp.async tile loader resolves that per row, so no gathered copy of the
+// row's keys ever exists. The splits are planned from the static MB * bs
+// (whole 64-key tiles: whole blocks wherever bs divides 64), never from the
+// table or n_valid, so repeat calls are bit-identical; the combine kernel is
+// shared.
+// A freed slot's row has an all-zero table (the sink block 0) and a
+// drifting n_valid: it reads block 0 and its output is discarded. Table
+// entries outside [0, NB) are clamped, as the reference's gather clamps.
+// Bound: bytes, as the contiguous kernel (the live rows read once, and
+// the table).
 #include <cstdint>
 
 #include "common.cuh"
@@ -76,34 +93,51 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&f)[8]) {
   }
 }
 
+// Element offset of logical cache row t from a (row, KV head)'s base:
+// contiguous rows t * row_stride apart, or paged rows through the batch
+// row's block table.
+struct ContigRows {
+  long long row_stride;
+  __device__ __forceinline__ long long operator()(int t) const { return t * row_stride; }
+};
+struct PagedRows {
+  const int* bt;  // this batch row's table [MB]
+  int bs, nb;
+  long long row_stride;
+  __device__ __forceinline__ long long operator()(int t) const {
+    const int phys = min(max(bt[t / bs], 0), nb - 1);
+    return (static_cast<long long>(phys) * bs + t % bs) * row_stride;
+  }
+};
+
 // K/V cache rows t0 .. t0 + n - 1 into one buffer of the tile ring by
 // 16-byte cp.async (rows past n are never read).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* kb, const T* vb, long long row_stride,
-                                          int t0, int n, T* ks, T* vs) {
+template <typename T, int D, typename Rows>
+__device__ __forceinline__ void load_tile(const T* kb, const T* vb, const Rows& rows, int t0,
+                                          int n, T* ks, T* vs) {
   using L = Tile<T, D>;
   for (int i = threadIdx.x; i < n * L::kChunks; i += kThreads) {
     const int j = i / L::kChunks, c = i % L::kChunks;
-    const long long off = (t0 + j) * row_stride + c * L::kVec;
+    const long long off = rows(t0 + j) + c * L::kVec;
     cp_async16(ks + j * L::kKStride + c * L::kVec, kb + off, 16);
     cp_async16(vs + j * D + c * L::kVec, vb + off, 16);
   }
   cp_async_commit();
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ lengths,
-                        T* __restrict__ out, float* __restrict__ partial, int B, int S,
-                        int Hq, int Hkv, int split_len, float scale) {
+// One block's split of one (batch row b, KV head h): kb / vb point at the
+// row's key 0 of head h, `rows` maps a logical key to its offset from there,
+// and `len` is the row's clamped count of valid keys.
+template <typename T, int D, typename Rows>
+__device__ __forceinline__ void decode_split(unsigned char* smem_raw, const T* __restrict__ q,
+                                             const T* kb, const T* vb, const Rows& rows,
+                                             int len, T* __restrict__ out,
+                                             float* __restrict__ partial, int B, int Hq,
+                                             int Hkv, int split_len, float scale, int b,
+                                             int h) {
   using L = Tile<T, D>;
   constexpr int kVec = L::kVec, kChunks = L::kChunks, kKStride = L::kKStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = Hq / Hkv;
-  const int b = blockIdx.y / Hkv;
-  const int h = blockIdx.y % Hkv;
-  const int len = min(max(lengths[b], 0), S);
   const int t_begin = blockIdx.x * split_len;
   const int t_end = min(len, t_begin + split_len);
   // a split with no key writes nothing: the combine never reads it
@@ -119,12 +153,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, n_warps = kThreads / 32;
-  const long long row_stride = static_cast<long long>(Hkv) * D;  // between cache rows
-  const T* kb = k + static_cast<long long>(b) * S * row_stride + h * D;
-  const T* vb = v + static_cast<long long>(b) * S * row_stride + h * D;
 
-  if (t_begin < t_end) load_tile<T, D>(kb, vb, row_stride, t_begin,
-                                       min(kTileK, t_end - t_begin), ks, vs);
+  if (t_begin < t_end) load_tile<T, D>(kb, vb, rows, t_begin, min(kTileK, t_end - t_begin),
+                                       ks, vs);
 
   // q[b, h*G + g, :] for g < G is one contiguous run of G * D elements
   const T* qb = q + (static_cast<long long>(b) * Hq + h * G) * D;
@@ -143,8 +174,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int n = min(kTileK, t_end - t0);
     if (t0 + kTileK < t_end) {  // the next tile loads while this one computes
       const int t1 = t0 + kTileK, nb = buf ^ 1;
-      load_tile<T, D>(kb, vb, row_stride, t1, min(kTileK, t_end - t1),
-                      ks + nb * kTileK * kKStride, vs + nb * kTileK * D);
+      load_tile<T, D>(kb, vb, rows, t1, min(kTileK, t_end - t1), ks + nb * kTileK * kKStride,
+                      vs + nb * kTileK * D);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -231,6 +262,41 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ lengths,
+                        T* __restrict__ out, float* __restrict__ partial, int B, int S,
+                        int Hq, int Hkv, int split_len, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.y / Hkv;
+  const int h = blockIdx.y % Hkv;
+  const long long row_stride = static_cast<long long>(Hkv) * D;  // between cache rows
+  const long long base = static_cast<long long>(b) * S * row_stride + h * D;
+  decode_split<T, D>(smem_raw, q, k + base, v + base, ContigRows{row_stride},
+                     min(max(lengths[b], 0), S), out, partial, B, Hq, Hkv, split_len, scale, b,
+                     h);
+}
+
+// The same split decode over a block pool kbuf/vbuf [NB, bs, Hkv, D] through
+// the block table bt [B, MB]; n_valid [B] counts each row's valid keys.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_paged_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
+                              const T* __restrict__ vbuf, const int* __restrict__ bt,
+                              const int* __restrict__ n_valid, T* __restrict__ out,
+                              float* __restrict__ partial, int B, int NB, int bs, int MB,
+                              int Hq, int Hkv, int split_len, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.y / Hkv;
+  const int h = blockIdx.y % Hkv;
+  const PagedRows rows{bt + static_cast<long long>(b) * MB, bs, NB,
+                       static_cast<long long>(Hkv) * D};
+  decode_split<T, D>(smem_raw, q, kbuf + h * D, vbuf + h * D, rows,
+                     min(max(n_valid[b], 0), MB * bs), out, partial, B, Hq, Hkv, split_len,
+                     scale, b, h);
+}
+
 // One warp per (row, q head): the live splits' partials merged in split
 // order (the JAX package's combine_partial_attention).
 template <typename T, int D>
@@ -261,30 +327,45 @@ decode_attention_combine_kernel(const float* __restrict__ partial,
   for (int e = 0; e < D / 32; ++e) ob[lane + 32 * e] = from_f32<T>(acc[e] / fmaxf(l, REPRO_L_MIN));
 }
 
+// The contiguous kernel when bt is null; else the paged one, over S = MB * bs
+// logical keys of an NB-block pool.
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const int* lengths, void* out,
-           void* partial, int B, int S, int Hq, int Hkv, int splits, int split_len,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const int* lengths, const int* bt,
+           int NB, int bs, void* out, void* partial, int B, int S, int Hq, int Hkv,
+           int splits, int split_len, float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
   if (G * D > kThreads * kMaxAcc || splits < 1 || splits > 65535 || split_len < kTileK ||
       split_len % kTileK || static_cast<long long>(splits) * split_len < S ||
       (splits > 1 && partial == nullptr) ||
+      (bt != nullptr && (bs < 1 || NB < 1 || S % bs)) ||
       reinterpret_cast<std::uintptr_t>(k) % 16 || reinterpret_cast<std::uintptr_t>(v) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
   const size_t bytes = Tile<T, D>::smem_bytes(G);
-  auto kern = decode_attention_kernel<T, D>;
-  // the attribute once per device for this launch<T, D>'s kernel, at its
-  // widest group, so every G of the instantiation fits under it
-  static bool smem_allowed[kMaxDevices] = {};
-  cudaError_t e =
-      allow_smem(kern, Tile<T, D>::smem_bytes(kThreads * kMaxAcc / D), smem_allowed);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  // the attribute once per device for each kernel of this launch<T, D>, at
+  // its widest group, so every G of the instantiation fits under it
+  const size_t widest = Tile<T, D>::smem_bytes(kThreads * kMaxAcc / D);
   float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
-  kern<<<dim3(splits, B * Hkv), kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      static_cast<T*>(out), part, B, S, Hq, Hkv, split_len, scale);
+  const dim3 grid(splits, B * Hkv);
+  cudaError_t e;
+  if (bt == nullptr) {
+    auto kern = decode_attention_kernel<T, D>;
+    static bool smem_allowed[kMaxDevices] = {};
+    e = allow_smem(kern, widest, smem_allowed);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid, kThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
+        static_cast<T*>(out), part, B, S, Hq, Hkv, split_len, scale);
+  } else {
+    auto kern = decode_attention_paged_kernel<T, D>;
+    static bool smem_allowed[kMaxDevices] = {};
+    e = allow_smem(kern, widest, smem_allowed);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid, kThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bt,
+        lengths, static_cast<T*>(out), part, B, NB, bs, S / bs, Hq, Hkv, split_len, scale);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess || part == nullptr) return static_cast<int>(e);
   const int rows = B * Hq;
@@ -295,15 +376,30 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, void
 }
 
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, const int* lengths, void* out,
-               void* partial, int B, int S, int Hq, int Hkv, int D, int splits, int split_len,
-               float scale, cudaStream_t s) {
+int dispatch_d(const void* q, const void* k, const void* v, const int* lengths, const int* bt,
+               int NB, int bs, void* out, void* partial, int B, int S, int Hq, int Hkv, int D,
+               int splits, int split_len, float scale, cudaStream_t s) {
   if (D == 64)
-    return launch<T, 64>(q, k, v, lengths, out, partial, B, S, Hq, Hkv, splits, split_len,
-                         scale, s);
+    return launch<T, 64>(q, k, v, lengths, bt, NB, bs, out, partial, B, S, Hq, Hkv, splits,
+                         split_len, scale, s);
   if (D == 128)
-    return launch<T, 128>(q, k, v, lengths, out, partial, B, S, Hq, Hkv, splits, split_len,
-                          scale, s);
+    return launch<T, 128>(q, k, v, lengths, bt, NB, bs, out, partial, B, S, Hq, Hkv, splits,
+                          split_len, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch(int dtype, const void* q, const void* k, const void* v, const void* lengths,
+             const void* bt, int NB, int bs, void* out, void* partial, int B, int S, int Hq,
+             int Hkv, int D, int splits, int split_len, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  const int* tab = static_cast<const int*>(bt);
+  if (dtype == REPRO_DTYPE_F32)
+    return dispatch_d<float>(q, k, v, len, tab, NB, bs, out, partial, B, S, Hq, Hkv, D,
+                             splits, split_len, scale, s);
+  if (dtype == REPRO_DTYPE_BF16)
+    return dispatch_d<__nv_bfloat16>(q, k, v, len, tab, NB, bs, out, partial, B, S, Hq, Hkv,
+                                     D, splits, split_len, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -313,13 +409,18 @@ extern "C" int decode_attention_launch(int dtype, const void* q, const void* k,
                                        const void* v, const void* lengths, void* out,
                                        void* partial, int B, int S, int Hq, int Hkv, int D,
                                        int splits, int split_len, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* len = static_cast<const int*>(lengths);
-  if (dtype == REPRO_DTYPE_F32)
-    return dispatch_d<float>(q, k, v, len, out, partial, B, S, Hq, Hkv, D, splits, split_len,
-                             scale, s);
-  if (dtype == REPRO_DTYPE_BF16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, len, out, partial, B, S, Hq, Hkv, D, splits,
-                                     split_len, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(dtype, q, k, v, lengths, nullptr, 0, 0, out, partial, B, S, Hq, Hkv, D,
+                  splits, split_len, scale, stream);
+}
+
+// q [B, Hq, D]; kbuf, vbuf [NB, bs, Hkv, D]; bt [B, MB] and n_valid [B] int32.
+extern "C" int paged_decode_attention_launch(int dtype, const void* q, const void* kbuf,
+                                             const void* vbuf, const void* bt,
+                                             const void* n_valid, void* out, void* partial,
+                                             int B, int NB, int bs, int MB, int Hq, int Hkv,
+                                             int D, int splits, int split_len, float scale,
+                                             void* stream) {
+  if (bt == nullptr || MB < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(dtype, q, kbuf, vbuf, n_valid, bt, NB, bs, out, partial, B, MB * bs, Hq,
+                  Hkv, D, splits, split_len, scale, stream);
 }

@@ -74,6 +74,43 @@ def decode_attention_plain(
     return (acc / torch.clamp(l, min=1e-30)).reshape(b, hq, dv).to(q.dtype)
 
 
+def decode_attention_partial(
+    q: torch.Tensor,  # [B, Hq, D]
+    k: torch.Tensor,  # [B, S_shard, Hkv, D]: a shard of the cache
+    v: torch.Tensor,
+    k_valid: torch.Tensor,  # [B, S_shard]
+    *,
+    scale: Optional[float] = None,
+):
+    """Flash-decode partial over one shard of the cache: (acc [B, Hq, Dv],
+    m [B, Hq], l [B, Hq]) in f32, unnormalised, for
+    :func:`combine_partial_attention` (the split the decode kernel runs per
+    block)."""
+    b, _, hkv, d = k.shape
+    hq = q.shape[1]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qf = (q.float() * scale).reshape(b, hkv, g, d)
+    scores = torch.einsum("bhgd,bshd->bhgs", qf, k.float())
+    ok = k_valid[:, None, None, :]
+    scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1)
+    p = torch.where(ok, torch.exp(scores - m[..., None]), torch.zeros_like(scores))
+    acc = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return acc.reshape(b, hq, v.shape[-1]), m.reshape(b, hq), p.sum(dim=-1).reshape(b, hq)
+
+
+def combine_partial_attention(accs: torch.Tensor, ms: torch.Tensor,
+                              ls: torch.Tensor) -> torch.Tensor:
+    """LSE-combine flash-decode partials stacked on a leading shard axis:
+    ``sum_s exp(m_s - m) acc_s / max(sum_s exp(m_s - m) l_s, 1e-30)``."""
+    m = ms.amax(dim=0)
+    alpha = torch.exp(ms - m[None])
+    l = (ls * alpha).sum(dim=0)
+    acc = (accs * alpha[..., None]).sum(dim=0)
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
 def decode_attention_cuda(
     q: torch.Tensor,
     k: torch.Tensor,

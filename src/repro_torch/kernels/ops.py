@@ -24,6 +24,7 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hstu_attention as _ha
 from repro_torch.kernels import int8_matmul as _im
+from repro_torch.kernels import paged_decode_attention as _pda
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ss
 
@@ -86,41 +87,31 @@ def decode_attention(
     return fn(q.contiguous(), k.contiguous(), v.contiguous(), lengths, scale=scale)
 
 
-def decode_attention_partial(
+#: the split decode's maths (decode_attention.py): one shard's unnormalised
+#: f32 partial (acc, m, l), and the LSE combine of partials stacked on a
+#: leading shard axis
+decode_attention_partial = _da.decode_attention_partial
+combine_partial_attention = _da.combine_partial_attention
+
+
+def paged_decode_attention(
     q: torch.Tensor,  # [B, Hq, D]
-    k: torch.Tensor,  # [B, S_shard, Hkv, D]: a shard of the cache
-    v: torch.Tensor,
-    k_valid: torch.Tensor,  # [B, S_shard]
+    kbuf: torch.Tensor,  # [NB, bs, Hkv, D] block pool
+    vbuf: torch.Tensor,  # [NB, bs, Hkv, D]
+    bt: torch.Tensor,  # [B, MB] block table
+    n_valid: torch.Tensor,  # [B] valid cached tokens per row
     *,
     scale: Optional[float] = None,
-):
-    """Flash-decode partial over one shard of the cache: (acc [B, Hq, Dv],
-    m [B, Hq], l [B, Hq]) in f32, unnormalised, for
-    :func:`combine_partial_attention` (the split the decode kernel runs per
-    block)."""
-    b, _, hkv, d = k.shape
-    hq = q.shape[1]
-    g = hq // hkv
-    scale = scale if scale is not None else d ** -0.5
-    qf = (q.float() * scale).reshape(b, hkv, g, d)
-    scores = torch.einsum("bhgd,bshd->bhgs", qf, k.float())
-    ok = k_valid[:, None, None, :]
-    scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
-    m = scores.amax(dim=-1)
-    p = torch.where(ok, torch.exp(scores - m[..., None]), torch.zeros_like(scores))
-    acc = torch.einsum("bhgs,bshd->bhgd", p, v.float())
-    return acc.reshape(b, hq, v.shape[-1]), m.reshape(b, hq), p.sum(dim=-1).reshape(b, hq)
-
-
-def combine_partial_attention(accs: torch.Tensor, ms: torch.Tensor,
-                              ls: torch.Tensor) -> torch.Tensor:
-    """LSE-combine flash-decode partials stacked on a leading shard axis:
-    ``sum_s exp(m_s - m) acc_s / max(sum_s exp(m_s - m) l_s, 1e-30)``."""
-    m = ms.amax(dim=0)
-    alpha = torch.exp(ms - m[None])
-    l = (ls * alpha).sum(dim=0)
-    acc = (accs * alpha[..., None]).sum(dim=0)
-    return acc / torch.clamp(l, min=1e-30)[..., None]
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Flash-decode straight off a block pool through the block table (the
+    reference's XLA ``paged_decode_attention``); out in q's type."""
+    impl = _resolve(impl, q)
+    bt = bt.to(torch.int32).contiguous()
+    n_valid = n_valid.to(torch.int32).contiguous()
+    fn = (_pda.paged_decode_attention_cuda if impl == "cuda"
+          else _pda.paged_decode_attention_plain)
+    return fn(q.contiguous(), kbuf.contiguous(), vbuf.contiguous(), bt, n_valid, scale=scale)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,

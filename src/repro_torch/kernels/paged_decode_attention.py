@@ -1,0 +1,106 @@
+"""Paged flash-decode: the CUDA kernel ``decode_attention_paged_kernel`` of
+``csrc/decode_attention.cu`` and its plain version.
+
+Replaces the JAX package's XLA ``repro/models/attention.py::
+paged_decode_attention`` (no Pallas kernel there): one query token per
+batch row against a block pool ``[NB, bs, Hkv, D]`` read through the row's
+block table ``bt [B, MB]``, valid below ``n_valid``. The kernel is the
+contiguous flash-decode's split over the sequence with each row's address
+resolved through the table inside the tile loader, so no gathered copy of
+a row's keys is made; the splits come from the static ``MB * bs``
+(``decode_attention.split_plan``) and the splits' partials are merged by
+the contiguous kernel's combine. Same contract: D == Dv in {64, 128} and
+G * D <= 2048. Bound: bytes (the live K/V rows once).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import decode_attention as _da
+
+#: launches of the CUDA kernel in this process (chip_smoke resets and reads it)
+LAUNCHES = 0
+
+
+def paged_decode_attention_plain(
+    q: torch.Tensor,  # [B, Hq, D]
+    kbuf: torch.Tensor,  # [NB, bs, Hkv, D]
+    vbuf: torch.Tensor,  # [NB, bs, Hkv, Dv]
+    bt: torch.Tensor,  # [B, MB] int
+    n_valid: torch.Tensor,  # [B]
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The reference's algorithm: an unnormalised f32 partial per logical
+    block (``decode_attention_partial`` over the block's ``bs`` keys, those
+    below ``n_valid`` valid), then the LSE combine over the blocks in order.
+    Table entries are clamped into the pool, as the reference's gather
+    clamps them."""
+    b, mb = bt.shape
+    bs = kbuf.shape[1]
+    phys = bt.long().clamp(0, kbuf.shape[0] - 1)  # [B, MB]
+    kj = kbuf[phys].reshape((b * mb,) + kbuf.shape[1:])  # one block per (row, j)
+    vj = vbuf[phys].reshape((b * mb,) + vbuf.shape[1:])
+    pos = torch.arange(mb * bs, device=kbuf.device).reshape(1, mb, bs)
+    k_valid = (pos < n_valid.reshape(b, 1, 1)).reshape(b * mb, bs)
+    qj = q.repeat_interleave(mb, dim=0)  # row-major (row, j) like kj
+    acc, m, l = _da.decode_attention_partial(qj, kj, vj, k_valid, scale=scale)
+    hq = q.shape[1]
+
+    def blocks_first(t):  # [B * MB, ...] -> [MB, B, ...]
+        return t.reshape((b, mb) + t.shape[1:]).transpose(0, 1)
+
+    out = _da.combine_partial_attention(blocks_first(acc), blocks_first(m), blocks_first(l))
+    return out.reshape(b, hq, vbuf.shape[-1]).to(q.dtype)
+
+
+def paged_decode_attention_cuda(
+    q: torch.Tensor,
+    kbuf: torch.Tensor,
+    vbuf: torch.Tensor,
+    bt: torch.Tensor,
+    n_valid: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Launch the paged kernel (and, when the sequence is split, the
+    combine) on PyTorch's current stream. ``bt`` and ``n_valid`` must be
+    contiguous int32; raises for anything the kernel does not take."""
+    global LAUNCHES
+    _build.require_cuda("paged_decode_attention", q, kbuf, vbuf, bt, n_valid)
+    b, hq, d = q.shape
+    nb, bs, hkv = kbuf.shape[:3]
+    mb = bt.shape[1] if bt.dim() == 2 else -1
+    if kbuf.shape != (nb, bs, hkv, d) or vbuf.shape[:3] != (nb, bs, hkv) or bt.shape != (b, mb):
+        raise ValueError(f"paged_decode_attention: q {tuple(q.shape)}, kbuf "
+                         f"{tuple(kbuf.shape)}, vbuf {tuple(vbuf.shape)}, bt "
+                         f"{tuple(bt.shape)} do not agree")
+    if vbuf.shape[-1] != d or d not in _da.HEAD_DIMS:
+        raise ValueError(f"paged_decode_attention: the kernel takes D == Dv in "
+                         f"{_da.HEAD_DIMS}, got D={d}, Dv={vbuf.shape[-1]}")
+    if hq % hkv or (hq // hkv) * d > _da.MAX_GROUP_WIDTH:
+        raise ValueError(f"paged_decode_attention: {hq} q heads over {hkv} KV heads at D={d}")
+    if kbuf.dtype != q.dtype or vbuf.dtype != q.dtype:
+        raise TypeError("paged_decode_attention: q, kbuf and vbuf must share one type")
+    if bt.dtype != torch.int32 or n_valid.dtype != torch.int32 or n_valid.shape != (b,):
+        raise ValueError("paged_decode_attention: bt must be int32 [B, MB] and n_valid "
+                         "int32 [B]")
+    if mb < 1 or b * hkv > 65535:  # the grid's y extent
+        raise ValueError(f"paged_decode_attention: MB = {mb}, B * Hkv = {b * hkv}")
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.empty_like(q)
+    splits, split_len = _da.split_plan(b, hkv, mb * bs, _build.n_sms(q.device.index))
+    # the splits' partials: acc [splits, B, Hq, D], then (m, l) [splits, B, Hq, 2]
+    part = (torch.empty(splits * b * hq * (d + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    rc = _build.library().paged_decode_attention_launch(
+        _build.dtype_code(q), q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(), bt.data_ptr(),
+        n_valid.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(), b, nb,
+        bs, mb, hq, hkv, d, splits, split_len, float(scale), _build.stream_of(q),
+    )
+    _build.check(rc, "paged_decode_attention")
+    LAUNCHES += 1
+    return out

@@ -1,23 +1,32 @@
 """Serving launcher of the port: continuous-batching request serving over
-the contiguous KV slot-pool (``core/slot_pool.py`` + ``core/scheduler.py``).
+the KV pools (``core/slot_pool.py`` + ``core/scheduler.py``).
 
 ONE batch-1 prefill admits requests into free slots, ONE pool-wide decode
 step runs every step, and the scheduler recycles a slot the moment its
 request finishes. ``--policy fixed`` degrades the same machinery to
-run-to-completion batches for A/B comparison. Weights are random, drawn
-from a ``torch.Generator`` seeded with ``--seed``; on the card the model's
-kernels (attention and RMSNorm for ``llama3.2-1b``, the SSD scan and
-RMSNorm for ``mamba2-130m``) are the hand-written CUDA ones.
+run-to-completion batches for A/B comparison. ``--paged`` serves from the
+paged block pool (``--block-size``, ``--num-blocks``; back-pressure by
+preemption), and ``--chunked`` (with ``--paged``) streams each admitted
+prompt into its blocks ``--prefill-budget`` tokens per mixed step instead
+of a prefill. Weights are random, drawn from a ``torch.Generator`` seeded
+with ``--seed``; on the card the model's kernels (attention and RMSNorm for
+``llama3.2-1b``, the SSD scan and RMSNorm for ``mamba2-130m``) are the
+hand-written CUDA ones.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --n-requests 8 --batch-slots 4 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --smoke --device cpu --paged --chunked --block-size 16 --num-blocks 14 \
+      --prefill-budget 4
 
 Reported per request: TTFT (arrival -> first token), TPOT (mean inter-
 token), e2e latency; aggregate: tokens/s, mean slot-occupancy and the
 decode-stall-per-admission metric (the inter-step gap an admission's
-prefill sat inside).
+prefill sat inside). Paged runs add block occupancy, preemptions and the
+KV bytes reserved against the peak bytes used; chunked runs the mixed
+steps and chunk counts.
 """
 from __future__ import annotations
 
@@ -97,13 +106,20 @@ def run_scheduler(
     model, params, requests: List[ServeRequest], *,
     slots: int, pad_to: int, max_new_cap: int, device,
     eos_id: Optional[int] = None, policy: str = "continuous",
+    paged: bool = False, block_size: int = 16, num_blocks: Optional[int] = None,
+    chunked: bool = False, prefill_budget: Optional[int] = None,
     return_requests: bool = False,
 ):
-    """Serve one trace; returns metrics (plus the scheduler's counters)."""
+    """Serve one trace; returns metrics (plus the scheduler's counters).
+    Paged runs report the bytes the pool keeps reserved against the bytes
+    its peak block working set used, and the blocks still owned at the end
+    (``leaked_blocks``: 0 once every request finished)."""
     device = torch.device(device)
     sched = Scheduler(
         model, params, slots=slots, pad_to=pad_to, max_new_cap=max_new_cap,
-        device=device, eos_id=eos_id, policy=policy,
+        device=device, eos_id=eos_id, policy=policy, paged=paged,
+        block_size=block_size, num_blocks=num_blocks, chunked=chunked,
+        prefill_budget=prefill_budget,
     )
     _sync(device)
     t0 = time.perf_counter()
@@ -125,17 +141,38 @@ def run_scheduler(
         admission_stall_max_ms=float(stalls.max()) * 1e3 if len(stalls) else 0.0,
         device=str(device),
     )
+    if paged:
+        pool = sched.pool
+        token_bytes = pool.reserved_bytes / max(pool.num_blocks * pool.block_size, 1)
+        m.update(
+            n_preemptions=sched.n_preemptions,
+            mean_block_occupancy=sched.mean_block_occupancy,
+            peak_used_blocks=sched.peak_used_blocks,
+            kv_used_peak_bytes=int(sched.peak_used_blocks * pool.block_size * token_bytes),
+            leaked_blocks=pool.n_used_blocks,
+        )
+    if chunked:
+        m.update(
+            mixed_steps=sched.n_mixed_steps,
+            prefill_chunks=sched.n_chunks,
+            prefill_chunk_tokens=sched.n_chunk_tokens,
+            full_prefills=sched.n_prefills,  # 0 under chunking
+        )
     if return_requests:
         return m, done
     return m
 
 
-def warmup(model, params, *, slots: int, pad_to: int, max_new_cap: int, device) -> None:
-    """Run two tiny requests through a throwaway scheduler before any timed
-    run: builds and loads the kernel library on the card, and brings up
-    the matmul libraries, at the serving shapes."""
+def warmup(model, params, *, slots: int, pad_to: int, max_new_cap: int, device,
+           paged: bool = False, block_size: int = 16, num_blocks: Optional[int] = None,
+           chunked: bool = False, prefill_budget: Optional[int] = None) -> None:
+    """Run two tiny requests through a throwaway scheduler of the serving
+    geometry before any timed run: builds and loads the kernel library on
+    the card, and brings up the matmul libraries, at the serving shapes."""
     sched = Scheduler(model, params, slots=slots, pad_to=pad_to,
-                      max_new_cap=max_new_cap, device=device)
+                      max_new_cap=max_new_cap, device=device, paged=paged,
+                      block_size=block_size, num_blocks=num_blocks, chunked=chunked,
+                      prefill_budget=prefill_budget)
     rng = np.random.default_rng(0)
     sched.run([
         ServeRequest(rid=0, prompt=rng.integers(0, 8, size=pad_to), max_new=2),
@@ -173,6 +210,18 @@ def main(argv=None):
     ap.add_argument("--batch-slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--policy", choices=["continuous", "fixed"], default="continuous")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV block-pool instead of per-slot rows")
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="physical KV blocks incl. the sink block; default "
+                         "= full per-slot parity (no memory saving)")
+    ap.add_argument("--chunked", action="store_true",
+                    help="chunked prefill (requires --paged): admission "
+                         "streams prompts into KV blocks inside the "
+                         "pool-wide mixed step instead of stalling it")
+    ap.add_argument("--prefill-budget", type=int, default=None,
+                    help="prefill tokens per mixed step; default = --block-size")
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="Poisson arrivals per second; 0 = all at t=0")
     ap.add_argument("--eos-id", type=int, default=None)
@@ -193,14 +242,17 @@ def main(argv=None):
         prof, args.n_requests, pad_to=pad_to, max_new_cap=args.max_new,
         vocab_size=cfg.vocab_size, arrival_rate=args.arrival_rate, seed=args.seed,
     )
+    geometry = dict(paged=args.paged, block_size=args.block_size,
+                    num_blocks=args.num_blocks, chunked=args.chunked,
+                    prefill_budget=args.prefill_budget)
     warmup(model, params, slots=args.batch_slots, pad_to=pad_to,
-           max_new_cap=args.max_new, device=device)
+           max_new_cap=args.max_new, device=device, **geometry)
     m = run_scheduler(
         model, params, reqs, slots=args.batch_slots, pad_to=pad_to,
         max_new_cap=args.max_new, device=device, eos_id=args.eos_id,
-        policy=args.policy,
+        policy=args.policy, **geometry,
     )
-    mode = args.policy
+    mode = args.policy + ("+chunked" if args.chunked else "+paged" if args.paged else "")
     print(f"[serve/{mode}] {m['n_requests']} requests in "
           f"{m['wall_s']:.2f}s | {m['tokens_per_s']:.1f} tok/s | "
           f"occupancy={m['mean_slot_occupancy']:.2f} | "
@@ -210,6 +262,16 @@ def main(argv=None):
           f"stall p50={m['admission_stall_p50_ms']:.1f}ms "
           f"max={m['admission_stall_max_ms']:.1f}ms | "
           f"kv reserved={m['kv_reserved_bytes'] / 1e6:.1f}MB")
+    if args.paged:
+        print(f"[serve/{mode}] block occupancy={m['mean_block_occupancy']:.2f} | "
+              f"preemptions={m['n_preemptions']} | kv used peak="
+              f"{m['kv_used_peak_bytes'] / 1e6:.1f}MB of "
+              f"{m['kv_reserved_bytes'] / 1e6:.1f}MB reserved | "
+              f"leaked blocks={m['leaked_blocks']}")
+    if args.chunked:
+        print(f"[serve/{mode}] mixed steps={m['mixed_steps']} of {m['decode_steps']} | "
+              f"chunks={m['prefill_chunks']} ({m['prefill_chunk_tokens']} tokens) | "
+              f"full prefills={m['full_prefills']}")
     return m
 
 

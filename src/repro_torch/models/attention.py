@@ -17,10 +17,23 @@ Modes:
                flash-decode over the cache with ``n_valid = min(lengths + 1,
                cache_len)``.
 
-Not ported yet (each raises ``NotImplementedError``): the paged block-table
-cache with the ``mixed``/``verify`` modes (next slice: paged + chunked
-serving), ``extend``, ring/sliding-window caches, the sequence-parallel
-decode (``SP_MESH``) and MLA.
+Paged caches (a layer cache holding ``bt``, the pool's block table [B, MB]
+over K/V blocks [NB, bs, Hkv, D]; see ``core/kv_cache.py``):
+
+- ``decode``:  one token per slot written through the table
+               (``paged_token_rows``), then the paged flash-decode kernel,
+               which reads the table itself, with ``n_valid = min(lengths +
+               1, MB * bs)``;
+- ``mixed``:   each slot's chunk of ``t_new`` tokens (a decode slot's one
+               token, a prefilling slot's prompt chunk, 0 for idle rows)
+               written through the table (``paged_chunk_rows``), then
+               flash attention over the slots' gathered logical K/V
+               (``paged_gather``) with explicit key positions and ``k_valid
+               = arange(MB * bs) < lengths + t_new``.
+
+Not ported yet (each raises ``NotImplementedError``): the ``verify`` mode
+(speculation), ``extend``, ring/sliding-window caches, the
+sequence-parallel decode (``SP_MESH``) and MLA with its latent cache.
 """
 from __future__ import annotations
 
@@ -32,7 +45,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
-_NEXT_SLICE = "the paged + chunked serving slice of the port"
 
 
 # --------------------------------------------------------------------------
@@ -73,6 +85,85 @@ def valid_counts(lengths: torch.Tensor, cache_len: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# paged (block-table) cache helpers, in place
+# --------------------------------------------------------------------------
+
+def paged_token_rows(bt: torch.Tensor, lengths: torch.Tensor, bs: int) -> torch.Tensor:
+    """Flat pool row ``phys * bs + offset`` of each slot's next token, at
+    logical position ``lengths[b]`` through the table bt [B, MB]: [B]."""
+    lengths = lengths.long()
+    blk = torch.clamp(lengths // bs, 0, bt.shape[1] - 1)
+    phys = torch.gather(bt.long(), 1, blk[:, None])[:, 0]
+    return phys * bs + lengths % bs
+
+
+def paged_chunk_rows(bt: torch.Tensor, lengths: torch.Tensor, t_new: torch.Tensor, bs: int,
+                     c: int) -> torch.Tensor:
+    """Flat pool rows [B, C] of each slot's chunk: lane ``j`` of slot ``b``
+    at logical position ``lengths[b] + j`` iff ``j < t_new[b]``; every other
+    lane (a partial chunk's padding, decode rows past lane 0, idle rows)
+    maps into the sink block 0."""
+    lanes = torch.arange(c, device=bt.device)
+    pos = lengths.long()[:, None] + lanes[None]  # [B, C] logical positions
+    blk = torch.clamp(pos // bs, 0, bt.shape[1] - 1)
+    phys = torch.gather(bt.long(), 1, blk)  # [B, C]
+    valid = lanes[None] < t_new.long()[:, None]
+    return torch.where(valid, phys, torch.zeros_like(phys)) * bs + pos % bs
+
+
+def paged_addresses(bt: torch.Tensor, lengths: torch.Tensor, bs: int, mode: str,
+                    t_new: Optional[torch.Tensor] = None, c: int = 1) -> dict:
+    """What every layer of one paged step shares, computed once a forward:
+    the flat pool rows its K/V writes go to (``rows``) and, for ``decode``,
+    the kernel's ``n_valid = min(lengths + 1, MB * bs)``; for ``mixed``, the
+    gathered keys' positions ``kpos`` [B, MB * bs] and ``k_valid = kpos <
+    lengths + t_new``."""
+    s_log = bt.shape[1] * bs
+    if mode == "decode":
+        return {"rows": paged_token_rows(bt, lengths, bs),
+                "n_valid": valid_counts(lengths + 1, s_log)}
+    if mode != "mixed":
+        raise ValueError(f"a paged cache serves decode and mixed steps, not {mode!r}")
+    kpos = torch.arange(s_log, device=bt.device, dtype=torch.int32)[None].expand(
+        bt.shape[0], s_log).contiguous()  # as the flash kernel reads it, once
+    return {"rows": paged_chunk_rows(bt, lengths, t_new, bs, c), "kpos": kpos,
+            "k_valid": kpos < (lengths + t_new)[:, None]}
+
+
+def paged_write_rows(buf: torch.Tensor, new: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Write ``new`` [*rows.shape, ...] into a block pool buf [NB, bs, ...]
+    at its flat rows. Live slots' rows never collide; freed slots' and
+    padding lanes' rows lie in the sink block 0, where duplicate targets
+    may land in any order."""
+    buf.view((-1,) + tuple(buf.shape[2:]))[rows] = new.to(buf.dtype)
+    return buf
+
+
+def paged_write_token(buf: torch.Tensor, new: torch.Tensor, bt: torch.Tensor,
+                      lengths: torch.Tensor) -> torch.Tensor:
+    """Write one token per slot into a block pool: buf [NB, bs, ...], new
+    [B, ...], at (bt[b, lengths[b] // bs], lengths[b] % bs)."""
+    return paged_write_rows(buf, new, paged_token_rows(bt, lengths, buf.shape[1]))
+
+
+def paged_gather(buf: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """Each slot's logical K/V view: buf [NB, bs, ...] gathered through bt
+    [B, MB] into a fresh [B, MB * bs, ...] tensor (the mixed step's one
+    transient per layer, amortised over a chunk of queries)."""
+    b, mb = bt.shape
+    g = buf[bt.long()]  # [B, MB, bs, ...]
+    return g.reshape((b, mb * buf.shape[1]) + tuple(buf.shape[2:]))
+
+
+def paged_write_chunk(buf: torch.Tensor, new: torch.Tensor, bt: torch.Tensor,
+                      lengths: torch.Tensor, t_new: torch.Tensor) -> torch.Tensor:
+    """Write one chunk per slot into a block pool (chunked prefill): buf
+    [NB, bs, ...], new [B, C, ...], at ``paged_chunk_rows``."""
+    rows = paged_chunk_rows(bt, lengths, t_new, buf.shape[1], new.shape[1])
+    return paged_write_rows(buf, new, rows)
+
+
+# --------------------------------------------------------------------------
 # standard GQA attention
 # --------------------------------------------------------------------------
 
@@ -107,14 +198,17 @@ def attention(
     mode: str,
     window: Optional[int] = None,
     impl: str = "auto",
+    t_new: Optional[torch.Tensor] = None,  # [B] chunk widths (mixed mode)
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     b, t, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if mode in ("mixed", "verify") or (cache is not None and "bt" in cache):
-        raise NotImplementedError(f"{mode} mode / paged caches wait for {_NEXT_SLICE}")
+    if mode == "verify":
+        raise NotImplementedError("verify mode waits for the port's speculative slice")
+    if mode == "mixed" and (cache is None or "bt" not in cache):
+        raise ValueError("mixed mode requires a paged (block-table) cache")
     if mode == "extend":
         raise NotImplementedError("extend mode waits for the port's speculative slice")
-    if mode not in ("train", "prefill", "decode"):
+    if mode not in ("train", "prefill", "decode", "mixed"):
         raise ValueError(f"unknown mode {mode!r}")
     if cache is not None and window is not None:
         raise NotImplementedError("ring/window KV caches wait for a later slice of the port")
@@ -133,6 +227,10 @@ def attention(
             q, k, v, q_positions=positions, k_positions=positions,
             causal=True, window=window, impl=impl,
         )
+    elif "bt" in cache:
+        out, new_cache = _paged_attention(q, k, v, cache, positions=positions,
+                                          lengths=lengths, mode=mode, t_new=t_new,
+                                          impl=impl)
     else:  # decode
         s = cache["k"].shape[1]
         idx = lengths % s
@@ -143,3 +241,33 @@ def attention(
             q[:, 0], new_cache["k"], new_cache["v"], n_valid, impl=impl
         )[:, None]
     return L.dense(p["wo"], out.reshape(b, t, hq * dh), impl), new_cache
+
+
+def _paged_attention(q, k, v, cache: dict, *, positions, lengths, mode: str, t_new,
+                     impl: str):
+    """The decode and mixed branches over a paged layer cache (K/V blocks,
+    the shared block table ``bt`` and, from ``transformer.forward``, the
+    step's ``paged_addresses``); writes go into the pool in place."""
+    if cache["k"].dim() != 4:
+        raise NotImplementedError("MLA's latent paged cache waits for a later slice of the port")
+    bt = cache["bt"]
+    addr = cache if "rows" in cache else paged_addresses(
+        bt, lengths, cache["k"].shape[1], mode, t_new, q.shape[1])
+    new_cache = {"k": paged_write_rows(cache["k"], k[:, 0] if mode == "decode" else k,
+                                       addr["rows"]),
+                 "v": paged_write_rows(cache["v"], v[:, 0] if mode == "decode" else v,
+                                       addr["rows"]),
+                 "bt": bt}
+    if mode == "decode":
+        out = ops.paged_decode_attention(q[:, 0], new_cache["k"], new_cache["v"], bt,
+                                         addr["n_valid"], impl=impl)[:, None]
+        return out, new_cache
+    # mixed: chunk-query flash attention over each slot's gathered logical
+    # view (prior blocks and the chunk just written), intra-chunk causality
+    # by the query positions
+    out = ops.flash_attention(
+        q, paged_gather(new_cache["k"], bt), paged_gather(new_cache["v"], bt),
+        q_positions=positions, k_positions=addr["kpos"], causal=True,
+        k_valid=addr["k_valid"], impl=impl,
+    )
+    return out, new_cache

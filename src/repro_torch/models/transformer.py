@@ -41,13 +41,14 @@ def init_layer(gen, cfg: ModelConfig, device):
 
 def _layer_body(cfg: ModelConfig, p, x: torch.Tensor, h: torch.Tensor, *,
                 positions: torch.Tensor, lengths: Optional[torch.Tensor],
-                cache: Optional[dict], mode: str, impl: str):
+                cache: Optional[dict], mode: str, impl: str,
+                t_new: Optional[torch.Tensor] = None):
     """One layer from ``x`` and ``h = attn_norm(x)``: returns (x plus the
     attention's output, the FFN's residual delta, the new cache). The
     attention's residual add runs in the ffn_norm's kernel."""
     attn_out, new_cache = A.attention(
         cfg, p["attn"], h, positions=positions, lengths=lengths, cache=cache,
-        mode=mode, window=cfg.sliding_window, impl=impl,
+        mode=mode, window=cfg.sliding_window, impl=impl, t_new=t_new,
     )
     x, h = L.add_rmsnorm(p["ffn_norm"], x, attn_out, cfg.rmsnorm_eps, impl=impl)
     return x, L.ffn(p["ffn"], h, impl), new_cache
@@ -110,11 +111,19 @@ def forward(
 ) -> Tuple[torch.Tensor, Optional[dict], dict]:
     """Returns (logits [B,T,V] f32, new_cache, aux dict). Cache buffers are
     updated in place; ``new_cache`` carries the same layer tensors and a
-    new ``lengths``."""
+    new ``lengths``.
+
+    A paged cache keeps ONE block table at its top level
+    (``block_tables``); each layer sees it as ``bt`` in its own cache view,
+    with the step's write rows and key validity computed once here
+    (``attention.paged_addresses``), stripped again on return. ``mixed`` mode (paged only) advances each
+    slot by its own ``batch["t_new"]`` tokens and returns logits [B, 1, V]
+    at each slot's last valid lane, gathered before the final norm."""
     check_supported(cfg)
-    if mode not in ("train", "prefill", "decode"):
+    if mode not in ("train", "prefill", "decode", "mixed"):
         raise NotImplementedError(
-            f"mode {mode!r} waits for a later slice of the port (train/prefill/decode only)"
+            f"mode {mode!r} waits for a later slice of the port "
+            "(train/prefill/decode/mixed only)"
         )
     tokens = batch["tokens"]
     b, t = tokens.shape
@@ -126,6 +135,13 @@ def forward(
     else:
         lengths = cache["lengths"]
         positions = lengths[:, None] + steps
+    # lanes past t_new[b] are padding: their writes hit the sink block and
+    # their outputs are never read
+    t_new = batch["t_new"].to(torch.int32) if mode == "mixed" else None
+    bt = cache.get("block_tables") if cache is not None else None
+    # a paged step's write rows and key validity are the same in every layer
+    paged = (A.paged_addresses(bt, lengths, cache["layers"][0]["k"].shape[1], mode, t_new, t)
+             if bt is not None else {})
 
     x = L.embed(params["embed"], tokens)
     # each layer's FFN residual add runs in the next norm's kernel: the next
@@ -133,10 +149,23 @@ def forward(
     norms = [lp["attn_norm"] for lp in params["layers"]] + [params["final_norm"]]
     h = L.rmsnorm(norms[0], x, cfg.rmsnorm_eps, impl=impl)
     new_layers = []
+    n_layers = len(params["layers"])
     for i, lp in enumerate(params["layers"]):
         lc = cache["layers"][i] if cache is not None else None
+        if bt is not None and lc is not None:
+            lc = dict(lc, bt=bt, **paged)
         x, delta, nlc = _layer_body(cfg, lp, x, h, positions=positions, lengths=lengths,
-                                    cache=lc, mode=mode, impl=impl)
+                                    cache=lc, mode=mode, impl=impl, t_new=t_new)
+        if bt is not None and nlc is not None:
+            nlc = {k: v for k, v in nlc.items() if k != "bt"}
+        if mode == "mixed" and i == n_layers - 1:
+            # only each slot's last valid lane is read (a decode slot's next
+            # token, a finishing prefill's first): take it from both halves
+            # of the pending residual before the final norm, so the norm and
+            # the unembed run on one lane per slot
+            lane = torch.clamp(t_new.long() - 1, min=0)
+            rows = torch.arange(b, device=dev)
+            x, delta = x[rows, lane][:, None], delta[rows, lane][:, None]
         x, h = L.add_rmsnorm(norms[i + 1], x, delta, cfg.rmsnorm_eps, impl=impl)
         new_layers.append(nlc)
 
@@ -152,7 +181,11 @@ def forward(
             if new_len is None:
                 new_len = torch.full((b,), t, dtype=torch.int32, device=dev)
             new_len = new_len.to(torch.int32)
+        elif mode == "mixed":  # per-slot widths (0 = idle row)
+            new_len = cache["lengths"] + t_new
         else:  # decode
             new_len = cache["lengths"] + t
         new_cache = {"lengths": new_len, "layers": new_layers}
+        if bt is not None:
+            new_cache["block_tables"] = bt
     return logits, new_cache, {"aux_loss": torch.zeros((), device=dev)}

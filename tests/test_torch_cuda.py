@@ -12,6 +12,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import int8_matmul as im
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import rmsnorm as rn
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -393,3 +394,143 @@ def test_rmsnorm_fused_ops_dispatch_and_refuse_on_card():
             fn(cpu, cpu, w.cpu(), impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         rn.add_rmsnorm_cuda(x, cpu, w)
+
+
+def _paged_inputs(g, dev, dtype, b, hq, hkv, d, bs, mb, nb):
+    """q, a block pool and its table: row 0 a freed slot (all-zero table),
+    row 1 a permuted, non-monotone table, the rest distinct blocks."""
+    q = torch.randn((b, hq, d), generator=g, device=dev).to(dtype)
+    kbuf, vbuf = (torch.randn((nb, bs, hkv, d), generator=g, device=dev).to(dtype)
+                  for _ in range(2))
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(b + mb)) + 1
+    bt = torch.stack([perm[(i * mb) % (nb - mb):][:mb] for i in range(b)]).to(torch.int32)
+    bt[0] = 0
+    bt[1] = bt[1].flip(0)
+    return q, kbuf, vbuf, bt.to(dev).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hq,hkv,d,bs,mb", [(8, 32, 8, 64, 16, 21), (3, 8, 2, 64, 4, 9),
+                                              (4, 16, 8, 128, 16, 5), (2, 8, 1, 64, 32, 3)])
+def test_paged_decode_attention_on_card(b, hq, hkv, d, bs, mb, dtype):
+    """The paged kernel (it reads the block table itself) against its plain
+    version: the served shape (8 slots, block 16, 21 blocks a slot) and
+    others, n_valid of 1, a block edge, a split edge and MB * bs, a freed
+    slot with a drifted count, a permuted table; one launch per call, a
+    repeat call bit-identical, and the contiguous kernel on the gathered
+    rows within the type's tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    nb = 48 if b * mb < 48 else b * mb + 1
+    q, kbuf, vbuf, bt = _paged_inputs(g, dev, dtype, b, hq, hkv, d, bs, mb, nb)
+    s_log = mb * bs
+    n_valid = [s_log - 3, s_log, 1, bs, bs + 1, 64, 65, s_log - 1][:b]
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+    before = pda.LAUNCHES
+    got = ops.paged_decode_attention(q, kbuf, vbuf, bt, nv)
+    again = pda.paged_decode_attention_cuda(q, kbuf, vbuf, bt, nv)
+    torch.cuda.synchronize()
+    assert pda.LAUNCHES == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    close(got, pda.paged_decode_attention_plain(q, kbuf, vbuf, bt, nv), dtype)
+    assert torch.equal(got, again)
+    gk = kbuf[bt.long()].reshape(b, s_log, hkv, d)
+    gv = vbuf[bt.long()].reshape(b, s_log, hkv, d)
+    close(got, da.decode_attention_cuda(q, gk.contiguous(), gv.contiguous(), nv), dtype)
+
+
+@pytest.mark.cuda
+def test_paged_decode_attention_refuses_on_card():
+    """CPU tensors with impl="cuda", a head width the kernel lacks and a
+    table of another type raise; nothing falls back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, kbuf, vbuf, bt = _paged_inputs(g, dev, torch.bfloat16, 2, 8, 2, 64, 16, 3, 8)
+    nv = torch.tensor([5, 40], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_decode_attention(q.cpu(), kbuf.cpu(), vbuf.cpu(), bt.cpu(), nv.cpu(),
+                                   impl="cuda")
+    with pytest.raises(ValueError):
+        pda.paged_decode_attention_cuda(q[..., :32].contiguous(), kbuf[..., :32].contiguous(),
+                                        vbuf[..., :32].contiguous(), bt, nv)
+    with pytest.raises(ValueError):
+        pda.paged_decode_attention_cuda(q, kbuf, vbuf, bt.long(), nv)
+
+
+def _served(model, params, device, traffic, **kw):
+    from repro_torch.core.scheduler import Scheduler, ServeRequest
+
+    sched = Scheduler(model, params, slots=3, pad_to=24, max_new_cap=12, device=device, **kw)
+    done = sched.run([ServeRequest(rid=i, prompt=p, max_new=m) for i, p, m in traffic])
+    return sched, {r.rid: r.tokens for r in done}
+
+
+@pytest.mark.cuda
+def test_paged_and_chunked_serving_on_card():
+    """A small f32 llama (head 64, so the attention kernels take it) served
+    on the card by the paged and the chunked scheduler over a pool that
+    preempts: exact launch counts (paged decode per plain step, flash per
+    prefill and per mixed step, the contiguous decode never), no leaked
+    block, and the CPU plain path's tokens and counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("llama3.2-1b").replace(d_model=512, n_heads=8, n_kv_heads=2,
+                                                  dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    dev = torch.device("cuda")
+    params_dev = _to(params, dev)
+    rng = np.random.default_rng(1)
+    traffic = [(i, rng.integers(0, cfg.vocab_size, size=int(rng.integers(5, 25))), 12)
+               for i in range(7)]
+    for kw in (dict(paged=True, block_size=8, num_blocks=10),
+               dict(paged=True, block_size=8, num_blocks=10, chunked=True, prefill_budget=8)):
+        cpu, want = _served(model, params, "cpu", traffic, **kw)
+        counts = (pda.LAUNCHES, da.LAUNCHES, fa.LAUNCHES)
+        card, got = _served(model, params_dev, dev, traffic, **kw)
+        torch.cuda.synchronize()
+        assert card.n_preemptions >= 1
+        for name in ("n_preemptions", "n_decode_steps", "n_prefills", "n_mixed_steps",
+                     "n_chunks", "peak_used_blocks"):
+            assert getattr(card, name) == getattr(cpu, name), name
+        plain = card.n_decode_steps - card.n_mixed_steps
+        assert (pda.LAUNCHES - counts[0], da.LAUNCHES - counts[1], fa.LAUNCHES - counts[2]) == (
+            cfg.n_layers * plain, 0, cfg.n_layers * (card.n_prefills + card.n_mixed_steps))
+        assert card.pool.n_used_blocks == 0
+        for i, prompt, _ in traffic:
+            _match_near_tie(model, params, prompt, got[i], want[i])
+
+
+def _match_near_tie(model, params, prompt, got, want, tie=1e-3):
+    """Tokens equal up to the first divergence, which passes only where the
+    CPU plain path's top-1/top-2 logit gap is below ``tie`` (f32)."""
+    from repro_torch.core import engine
+
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            seq = list(prompt) + list(want[:i])
+            logits, _ = engine.prefill(model, params, torch.tensor([seq], dtype=torch.int32),
+                                       torch.tensor([len(seq)], dtype=torch.int32),
+                                       len(seq) + 1)
+            top2 = torch.topk(logits[0], 2).values
+            assert float(top2[0] - top2[1]) < tie, f"token {i}: {a} vs {b}"
+            return
+    assert len(got) == len(want)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

@@ -106,9 +106,11 @@ def test_gqa_attention_prefill_then_decode_matches_jax(pair):
 
 @pytest.mark.parametrize("mode", ["mixed", "verify", "extend"])
 def test_unported_attention_modes_raise(pair, mode):
+    """verify and extend are not ported; mixed is, over a paged cache only,
+    and refuses a contiguous one as the reference does (ValueError)."""
     _, _, _, tcfg, _, tparams = pair
     x = torch.zeros(1, 1, tcfg.d_model)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError if mode == "mixed" else NotImplementedError):
         A.attention(tcfg, tparams["layers"][0]["attn"], x,
                     positions=torch.zeros(1, 1, dtype=torch.int32),
                     lengths=torch.zeros(1, dtype=torch.int32),

@@ -217,7 +217,7 @@ def test_unported_scheduler_features_raise(pair):
     _, _, model, params = pair
     with pytest.raises(NotImplementedError):
         Scheduler(model, params, slots=2, pad_to=PAD_TO, max_new_cap=4, device="cpu",
-                  paged=True)
+                  paged=True, chunked=True, prefix_cache=True)
     sched = Scheduler(model, params, slots=2, pad_to=PAD_TO, max_new_cap=4, device="cpu")
     with pytest.raises(NotImplementedError):
         sched.submit([ServeRequest(rid=0, prompt=np.arange(3), max_new=2, temperature=0.8)])
