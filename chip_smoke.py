@@ -100,7 +100,37 @@ Phases (any failure exits non-zero and prints no result):
              decode-step profile as in phase 6; then one bf16 and one f32
              prefill (an f32 copy of the params), profiled: every layer's
              scan on its type's kernels, the f32 logits against the plain
-             path's.
+             path's;
+10. seamless — full-width whisper-base (6 + 6 layers, d 512, 8 heads of
+             64, 1500 frames, bf16, seeded weights): S-T of 4 utterances
+             (``seamless_s2t`` frame lengths at seed 2) x 4 beams, BOS 1,
+             EOS 2, 48 tokens through ``engine.generate_beam``, the reorder
+             in place and then into fresh tensors (equal tokens; each arm's
+             reorder time a step by CUDA events); exact launches (flash:
+             the encoder's layers, the decoder's self-attention at the
+             prefill and its cross-attention every step; decode: the
+             self-attention every decode step; RMSNorm by prologue); the
+             kernel path's beam choices against the plain path's at every
+             step with the plain path's beams forced on both (each step's
+             logits within 2e-2 of the plain logit span, a differing choice
+             only at a near tie);
+             the encoder's device time, one beam step profiled, the reorder
+             alone and the cache's bytes; then seamless-m4t's S-S of 2
+             utterances (beam text, one T2U forward, one vocoder forward:
+             the waveform 32 samples a text token);
+11. chameleon — chameleon-34b at full width (d 8192, 64/8 heads of 128,
+             d_ff 22016, vocab 65536, qk-norm, bf16), 4 of its 48 layers:
+             I-T (1024 stub image tokens + 6 text tokens, 30 greedy tokens)
+             and T-I (``generate_contrastive`` on a 14-token prompt, 1024
+             image tokens, guidance 3: every token in the image range),
+             exact launches (qk-norm's RMSNorms too) and tokens against the
+             plain path's up to a near tie; one T-I step (two streams)
+             profiled. The kernels phase also holds flash attention at the
+             whisper encoder's, the cross-attention's, the decoder's BOS
+             prefill (Tq = Tk = 1) and Chameleon's prefill shapes,
+             flash-decode at the decoder's self cache (every length of the
+             S-T and S-S runs) and Chameleon's T-I cache, and RMSNorm at its
+             qk-norm rows against their plain versions, timed.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` summary. Imports nothing of JAX or the JAX package.
@@ -128,6 +158,14 @@ SSD_F32_TOL = (2e-4, 2e-3)
 ARCH = "llama3.2-1b"
 D_FF = 8192  # llama3.2-1b's FFN width (the kernels phase's int8 shapes)
 N_REQUESTS, SLOTS, MAX_NEW, SEED = 16, 8, 64, 0
+# the seamless phase: S-T utterances x beams over whisper-base's frames, BOS,
+# EOS, new tokens; S-S utterances
+N_UTTER, N_BEAMS, N_FRAMES, BOS, EOS, ST_MAX_NEW, N_SS = 4, 4, 1500, 1, 2, 48, 2
+# the chameleon phase: chameleon-34b's depth cut (4 of 48 layers), the I-T
+# prompt (1024 image tokens + 6 text tokens) and new tokens, the T-I prompt,
+# image tokens and guidance
+CHAMELEON_LAYERS, N_IMAGE, IT_TEXT, IT_NEW, TI_PROMPT, GUIDANCE = 4, 1024, 6, 30, 14, 3.0
+IT_LEN = N_IMAGE + IT_TEXT
 
 
 class PhaseError(RuntimeError):
@@ -711,7 +749,7 @@ def phase_kernels(pad_to: int, max_len: int):
         library=_int_mm_call(xd_q, wd_q, wd_scale, xd_scale),
         **_int8_work(md, kw, nw, dynamic=True),
     ))
-    records += hstu_kernel_records(gen) + ssd_kernel_records(gen)
+    records += hstu_kernel_records(gen) + ssd_kernel_records(gen) + multimodal_kernel_records(gen)
     for r in records:
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"),
                                              r.pop("peak", BF16_FLOPS_PER_S))
@@ -739,6 +777,181 @@ def phase_kernels(pad_to: int, max_len: int):
                   f"{fmt(r['contiguous_device_ms'])})", flush=True)
     int8_served_times(gen, served)
     rmsnorm_routes(gen, pad_to)
+    return records
+
+
+def st_frame_lengths(n: int, n_frames: int = N_FRAMES):
+    """The S-T batch's frame lengths: ``seamless_s2t``'s input lengths at
+    seed 2, clipped to the encoder's frames (as
+    ``examples/speech_translation.py`` makes them)."""
+    import numpy as np
+
+    from repro_torch.training import data as data_mod
+
+    ins, _ = data_mod.sample_lengths(data_mod.PAPER_PROFILES["seamless_s2t"], n, seed=2)
+    return np.minimum(ins, n_frames).astype(np.int32)
+
+
+def multimodal_kernel_records(gen):
+    """The flash and decode kernels at the shapes the seamless and
+    chameleon phases give them, against their plain versions in bf16 and
+    f32: the encoder's bidirectional attention over 1500 frames (a key
+    count that is no multiple of the 64-key tile), the decoder's
+    cross-attention (Tq = 1 against the frames, ``k_valid`` from the S-T
+    frame lengths), the decoder's self-attention at the prefill of the BOS
+    prompt (Tq = Tk = 1) and at every decode step of the S-T and S-S runs
+    (G = 1 at D = 64 over the ``1 + ST_MAX_NEW + 1`` cache rows, the
+    lengths of each step), Chameleon's prefill (64/8 heads of 128, G = 8)
+    and its T-I decode over a 2-stream cache; a repeat call bit-identical.
+    Returns the bf16 records, launches read from their phase's run."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    wh, wd = 8, WHISPER_D // 8  # whisper-base: 8 heads of 64
+    hq, hkv, dh = CHAMELEON_HEADS, 8, CHAMELEON_DH
+    streams = N_UTTER * N_BEAMS
+    fl = torch.tensor(st_frame_lengths(N_UTTER), device=dev).repeat_interleave(N_BEAMS)
+    s_ti = TI_PROMPT + N_IMAGE + 1  # the T-I cache rows
+    ti_len = torch.full((2,), s_ti - 1, dtype=torch.int32, device=dev)  # its last step
+    s_self = 1 + ST_MAX_NEW + 1  # the decoder's self cache: BOS + new tokens + 1
+    # the S-T and S-S streams; decode step i (1 .. ST_MAX_NEW - 1) reads i + 1 rows
+    self_streams = {"S-T": streams, "S-S": N_SS * N_BEAMS}
+    self_lengths = range(2, ST_MAX_NEW + 1)
+
+    def positions(b, t):
+        return torch.arange(t, device=dev, dtype=torch.int32)[None].expand(b, t).contiguous()
+
+    # label -> (q, k, v shapes, flash keyword arguments)
+    flash = {
+        "bidirectional": ((N_UTTER, N_FRAMES, wh, wd), (N_UTTER, N_FRAMES, wh, wd),
+                          dict(q_positions=positions(N_UTTER, N_FRAMES),
+                               k_positions=positions(N_UTTER, N_FRAMES), causal=False)),
+        "cross": ((streams, 1, wh, wd), (streams, N_FRAMES, wh, wd),
+                  dict(q_positions=torch.zeros((streams, 1), dtype=torch.int32, device=dev),
+                       k_positions=torch.zeros((streams, N_FRAMES), dtype=torch.int32,
+                                               device=dev),
+                       causal=False,
+                       k_valid=(torch.arange(N_FRAMES, device=dev)[None]
+                                < fl[:, None]).contiguous())),
+        "chameleon prefill": ((1, IT_LEN, hq, dh), (1, IT_LEN, hkv, dh),
+                              dict(q_positions=positions(1, IT_LEN),
+                                   k_positions=positions(1, IT_LEN), causal=True)),
+    }
+    for run, b in self_streams.items():  # the decoder's self-attention at the prefill
+        flash[f"self prefill {run}"] = ((b, 1, wh, wd), (b, 1, wh, wd),
+                                        dict(q_positions=positions(b, 1),
+                                             k_positions=positions(b, 1), causal=True))
+    errs, inputs = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        for label, (qs, ks, kw) in flash.items():
+            q, k, v = _rand(gen, qs, dt, dev), _rand(gen, ks, dt, dev), _rand(gen, ks, dt, dev)
+            got = fa.flash_attention_cuda(q, k, v, **kw)
+            errs[f"flash {name} {label}"] = max_err(got, fa.flash_attention_plain(q, k, v, **kw),
+                                                    name)
+            check(torch.equal(got, fa.flash_attention_cuda(q, k, v, **kw)),
+                  f"flash: a repeat call differs ({name} {label})")
+            inputs[(label, name)] = (q, k, v, kw)
+        q = _rand(gen, (2, hq, dh), dt, dev)
+        k, v = (_rand(gen, (2, s_ti, hkv, dh), dt, dev) for _ in range(2))
+        got = da.decode_attention_cuda(q, k, v, ti_len)
+        errs[f"decode {name} chameleon T-I"] = max_err(
+            got, da.decode_attention_plain(q, k, v, ti_len), name)
+        check(torch.equal(got, da.decode_attention_cuda(q, k, v, ti_len)),
+              f"decode: a repeat call differs ({name} chameleon T-I)")
+        inputs[("decode", name)] = (q, k, v, ti_len)
+        for run, b in self_streams.items():  # every decode step's lengths of the run
+            q = _rand(gen, (b, wh, wd), dt, dev)
+            k, v = (_rand(gen, (b, s_self, wh, wd), dt, dev) for _ in range(2))
+            worst = 0.0
+            for n in self_lengths:
+                ln = torch.full((b,), n, dtype=torch.int32, device=dev)
+                got = da.decode_attention_cuda(q, k, v, ln)
+                worst = max(worst, max_err(got, da.decode_attention_plain(q, k, v, ln), name))
+                check(torch.equal(got, da.decode_attention_cuda(q, k, v, ln)),
+                      f"decode: a repeat call differs ({name} self {run}, length {n})")
+            errs[f"decode {name} self {run} lengths 2..{ST_MAX_NEW}"] = worst
+            inputs[("decode self", run, name)] = (q, k, v, ln)
+    torch.cuda.synchronize()
+    for case, e in errs.items():
+        print(f"[kernels] multimodal {case:40s} max|err| {e:.3e}", flush=True)
+
+    def expand(x, g):  # GQA K/V repeated per q head, [B, H, T, D], for SDPA
+        return x.repeat_interleave(g, dim=2).transpose(1, 2)
+
+    records = []
+    for label, shape_txt, path in (
+            ("bidirectional", f"q/k/v[{N_UTTER},{N_FRAMES},{wh},{wd}] bf16 non-causal "
+                              "(whisper encoder)", "seamless"),
+            ("cross", f"q[{streams},1,{wh},{wd}] kv[{streams},{N_FRAMES},{wh},{wd}] bf16 "
+                      f"k_valid frame lengths {fl[::N_BEAMS].tolist()} (cross-attention, "
+                      "decode step)", "seamless"),
+            ("self prefill S-T", f"q/k/v[{streams},1,{wh},{wd}] bf16 causal (decoder "
+                                 "self-attention, prefill of the BOS prompt)", "seamless"),
+            ("chameleon prefill", f"q[1,{IT_LEN},{hq},{dh}] kv[1,{IT_LEN},{hkv},{dh}] bf16 "
+                                  "causal (chameleon I-T prefill)", "chameleon")):
+        q, k, v, kw = inputs[(label, "bfloat16")]
+        g = q.shape[2] // k.shape[2]
+        ke, ve, qt = expand(k, g), expand(v, g), q.transpose(1, 2)
+        kval = kw.get("k_valid")
+        if kval is not None:  # keys this input needs read, every pair kept
+            keys = int(kval.sum())
+            pairs = keys * q.shape[1]
+            lib = (lambda qt=qt, ke=ke, ve=ve, m=kval[:, None, None, :]:
+                   F.scaled_dot_product_attention(qt, ke, ve, attn_mask=m))
+        else:
+            keys = k.shape[0] * k.shape[1]
+            t = q.shape[1]
+            pairs = q.shape[0] * (t * (t + 1) // 2 if kw["causal"] else t * t)
+            lib = (lambda qt=qt, ke=ke, ve=ve, c=kw["causal"]:
+                   F.scaled_dot_product_attention(qt, ke, ve, is_causal=c))
+        records.append(dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:88", shape=shape_txt,
+            max_abs_err=errs[f"flash bfloat16 {label}"],
+            call=lambda a=(q, k, v), kw=kw: fa.flash_attention_cuda(*a, **kw),
+            ms=cuda_ms(lambda a=(q, k, v), kw=kw: fa.flash_attention_cuda(*a, **kw)),
+            plain_ms=cuda_ms(lambda a=(q, k, v), kw=kw: fa.flash_attention_plain(*a, **kw)),
+            library=lib, path=path, counter="flash_attention",
+            bytes=(2 * q.numel() + 2 * keys * k.shape[2] * k.shape[3]) * 2
+            + (kw["q_positions"].numel() + kw["k_positions"].numel()) * 4
+            + (0 if kval is None else kval.numel()),
+            flops=pairs * q.shape[2] * 4 * q.shape[3],
+        ))
+    for key, err, shape_txt, path in (
+            (("decode", "bfloat16"), "decode bfloat16 chameleon T-I",
+             "(chameleon T-I decode, G*D = 1024)", "chameleon"),
+            (("decode self", "S-T", "bfloat16"),
+             f"decode bfloat16 self S-T lengths 2..{ST_MAX_NEW}",
+             f"(decoder self-attention, G = 1; max |err| over lengths 2..{ST_MAX_NEW})",
+             "seamless")):
+        q, k, v, ln = inputs[key]
+        b, h, d = q.shape
+        s_rows, h_kv = k.shape[1], k.shape[2]
+        n_rows = int(ln.sum())
+        amask = (torch.arange(s_rows, device=dev)[None] < ln[:, None])[:, None, None, :]
+        ke, ve = expand(k, h // h_kv), expand(v, h // h_kv)
+        records.append(dict(
+            name="decode_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:80",
+            shape=f"q[{b},{h},{d}] cache[{b},{s_rows},{h_kv},{d}] bf16 lengths "
+                  f"{sorted(set(ln.tolist()))} {shape_txt}",
+            max_abs_err=errs[err],
+            call=lambda a=(q, k, v, ln): da.decode_attention_cuda(*a),
+            ms=cuda_ms(lambda a=(q, k, v, ln): da.decode_attention_cuda(*a)),
+            plain_ms=cuda_ms(lambda a=(q, k, v, ln): da.decode_attention_plain(*a)),
+            library=(lambda q=q, ke=ke, ve=ve, m=amask:
+                     F.scaled_dot_product_attention(q[:, :, None], ke, ve, attn_mask=m)),
+            path=path, counter="decode_attention",
+            bytes=(2 * q.numel() + 2 * n_rows * h_kv * d) * 2 + b * 4,
+            flops=n_rows * h * 4 * d,
+        ))
     return records
 
 
@@ -853,6 +1066,8 @@ def hstu_forward_rows() -> tuple:
 #: their second operand is a slice of (HSTU's u of uvqk, Mamba-2's z of
 #: zxbcdt); llama's and the residual adds' operands are contiguous
 LLAMA_D, MAMBA_D, MAMBA_D_IN, MAMBA_ZXBCDT, HSTU_D, HSTU_UVQK = 2048, 768, 1536, 3352, 512, 2048
+#: whisper-base's width, and chameleon-34b's width and head (its qk-norm rows)
+WHISPER_D, CHAMELEON_D, CHAMELEON_HEADS, CHAMELEON_DH = 512, 8192, 64, 128
 
 
 def rmsnorm_cases(pad_to: int):
@@ -874,6 +1089,12 @@ def rmsnorm_cases(pad_to: int):
         ("hstu forward", "hstu", "none", (b, t, HSTU_D), None),
         ("hstu forward", "hstu", "add", (b, t, HSTU_D), None),
         ("hstu forward", "hstu", "mul", (b, t, HSTU_D), HSTU_UVQK),
+        ("whisper encoder", None, "add", (N_UTTER * N_BEAMS, N_FRAMES, WHISPER_D), None),
+        ("whisper decode", None, "add", (N_UTTER * N_BEAMS, 1, WHISPER_D), None),
+        ("chameleon qk-norm prefill", "chameleon", "none",
+         (IT_LEN * CHAMELEON_HEADS, CHAMELEON_DH), None),
+        ("chameleon qk-norm decode", None, "none", (2 * CHAMELEON_HEADS, CHAMELEON_DH), None),
+        ("chameleon prefill", None, "add", (1, IT_LEN, CHAMELEON_D), None),
     ]
 
 
@@ -893,7 +1114,9 @@ def rmsnorm_routes(gen, pad_to: int) -> None:
                         (SLOTS, MAMBA_D, torch.bfloat16), (pad_to, MAMBA_D_IN, torch.bfloat16),
                         (4096, HSTU_D, torch.bfloat16), (4096, 4096, torch.bfloat16),
                         (3, 20000, torch.bfloat16), (4096, HSTU_D, torch.float32),
-                        (pad_to, MAMBA_D_IN, torch.float32), (3, 9000, torch.float32)):
+                        (pad_to, MAMBA_D_IN, torch.float32), (3, 9000, torch.float32),
+                        (IT_LEN * CHAMELEON_HEADS, CHAMELEON_DH, torch.bfloat16),
+                        (N_UTTER * N_BEAMS * N_FRAMES, WHISPER_D, torch.bfloat16)):
         x = _rand(gen, (rows, d), dt, dev)
         w = torch.ones((d,), dtype=dt, device=dev)
         with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
@@ -1242,18 +1465,19 @@ def _want_counts(cfg, n_fwd: int, **kernels):
     """Every counter 0 but ``kernels`` and RMSNorm's over ``n_fwd``
     forwards of ``cfg``: 2 x n_layers + 1 launches a forward, the first
     layer's norm alone (none) and every residual add fused into the norm
-    after it (add: 2 a layer in a dense model, 1 in HSTU and Mamba-2, whose
-    gate products take the other: mul and mul_silu)."""
+    after it (add: 2 a layer in a dense or VLM model, 1 in HSTU and
+    Mamba-2, whose gate products take the other: mul and mul_silu); under
+    qk-norm 2 x n_layers more (none: q and k per head)."""
     n_layers = cfg.n_layers
     want = dict.fromkeys(_counters(), 0)
     want.update(kernels)
-    want["rmsnorm"] = (2 * n_layers + 1) * n_fwd
-    want["rmsnorm/none"] = n_fwd
-    if cfg.family == "dense":
+    want["rmsnorm/none"] = n_fwd * (1 + (2 * n_layers if cfg.qk_norm else 0))
+    if cfg.family in ("dense", "vlm"):
         want["rmsnorm/add"] = 2 * n_layers * n_fwd
     else:
         want["rmsnorm/add"] = n_layers * n_fwd
         want[f"rmsnorm/{'mul' if cfg.family == 'hstu' else 'mul_silu'}"] = n_layers * n_fwd
+    want["rmsnorm"] = sum(want[f"rmsnorm/{p}"] for p in ("none", "add", "mul", "mul_silu"))
     return want
 
 
@@ -2006,6 +2230,441 @@ def phase_ssm(pad_to: int):
     return counts, f32_counts
 
 
+# --------------------------------------------------------------------------
+# the multimodal phases: Seamless (beam search with a KV reorder a step) and
+# Chameleon (I-T greedy, T-I contrastive: two forwards a step)
+# --------------------------------------------------------------------------
+
+def _encdec_counts(cfg, n_steps: int, t2u_layers: int = 0):
+    """Launches of one batch-at-a-time run of an encoder-decoder over
+    ``n_steps`` decoder forwards (one prefill, then decode steps): the
+    encoder once (flash n_enc; RMSNorm none 1, add 2 a layer), the decoder's
+    self-attention on flash at the prefill and on decode after it, its
+    cross-attention on flash every forward (RMSNorm none 1, add 3 a layer,
+    a forward), and a T2U forward's ``t2u_layers`` bidirectional layers."""
+    ne, nd = cfg.encdec.n_encoder_layers, cfg.n_layers
+    want = dict.fromkeys(_counters(), 0)
+    want["flash_attention"] = ne + nd + nd * n_steps + t2u_layers
+    want["decode_attention"] = nd * (n_steps - 1)
+    want["rmsnorm/none"] = 1 + n_steps + (1 if t2u_layers else 0)
+    want["rmsnorm/add"] = 2 * ne + 3 * nd * n_steps + 2 * t2u_layers
+    want["rmsnorm"] = want["rmsnorm/none"] + want["rmsnorm/add"]
+    return want
+
+
+def _event_timed(fn, events):
+    """``fn`` with a CUDA event pair recorded around each call (no sync)."""
+    import torch
+
+    def run(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+    return run
+
+
+# a step's logits of the kernel path may leave the plain path's by this
+# share of the plain logits' span (max - min of a row): the bf16 kernels'
+# own relative tolerance (TOL), over the whole range of a row
+LOGIT_DRIFT = TOL["bfloat16"][1]
+
+
+def beam_parity(model, params, extra, n_groups, max_new, got, tag):
+    """The kernel path's beam search against the plain path's on the card,
+    every step with the plain path's beams forced on both: the plain run
+    records each step's logits; the kernel run is fed the plain path's
+    tokens and reorders its cache by the plain path's permutation, and at
+    every step its own choice (``beam_step`` on its own logits) is compared
+    with the plain path's. Each step's logits must stay within LOGIT_DRIFT
+    of each row's plain logit span, so the two paths cannot drift apart. A
+    step whose choice differs passes only as a near tie of the groups that
+    differ: for each, the plain path's score of the first beam slot that
+    differs minus its score of the candidate the kernel path put there is
+    below the two paths' max |candidate difference| over those two
+    candidates, twice. With no differing step the kernel path's own run
+    (``got``, its tokens) must equal the plain path's."""
+    import torch
+
+    from repro_torch.core import engine, profiles, sampling
+
+    dev = torch.device("cuda")
+    bos = torch.full((n_groups, 1), BOS, dtype=torch.int32, device=dev)
+
+    class Plain(profiles.BeamProfile):
+        def step(self, state, logits, key=None):
+            kept.append(logits.float().clone())
+            return super().step(state, logits, key)
+
+    class Forced(profiles.BeamProfile):
+        def step(self, state, logits, key=None):
+            lp = kept[len(rows)]
+            want = super().step(state, lp, key)
+            own = super().step(state, logits, key)
+            lk = logits.float()
+            drift = float(((lk - lp).abs().amax(1) / (lp.amax(1) - lp.amin(1))).max())
+            ties = []
+            tok = (own.feed != want.feed) | (own.perm != want.perm)
+            for g in torch.nonzero(tok.reshape(n_groups, N_BEAMS).any(1)).flatten().tolist():
+                ck = sampling.beam_candidates(state, logits, N_BEAMS, EOS)[g]
+                cp = sampling.beam_candidates(state, lp, N_BEAMS, EOS)[g]
+                j = int(torch.nonzero(tok[g * N_BEAMS:(g + 1) * N_BEAMS])[0])
+                r, v = g * N_BEAMS + j, logits.shape[1]  # candidate = parent * V + token
+                cw = int(want.perm[r] - g * N_BEAMS) * v + int(want.feed[r])
+                co = int(own.perm[r] - g * N_BEAMS) * v + int(own.feed[r])
+                gap = float(cp[cw] - cp[co])
+                delta = max(float((ck[cw] - cp[cw]).abs()), float((ck[co] - cp[co]).abs()))
+                ties.append((g, j, gap, delta))
+            rows.append((drift, ties))
+            return want
+
+    kept, rows = [], []
+    plain = engine.run_profile(model, params, Plain(n_beams=N_BEAMS, eos_id=EOS), bos,
+                               max_new_tokens=max_new, extra_inputs=extra, impl="torch")
+    forced = engine.run_profile(model, params, Forced(n_beams=N_BEAMS, eos_id=EOS), bos,
+                                max_new_tokens=max_new, extra_inputs=extra, impl="cuda")
+    check(len(rows) == len(kept) == plain["n_steps"] == forced["n_steps"]
+          and torch.equal(forced["tokens"], plain["tokens"]),
+          f"{tag}: the forced run left the plain path's beams")
+    drift = max(d for d, _ in rows)
+    print(f"[{tag}] {len(rows)} steps with the plain path's beams forced: kernel-path logits "
+          f"within {drift:.3e} of the plain logit span a row at worst (bound {LOGIT_DRIFT})",
+          flush=True)
+    check(drift <= LOGIT_DRIFT, f"{tag}: the kernel path's logits drift {drift} of the plain "
+          f"span, above {LOGIT_DRIFT}")
+    n_ties = 0
+    for i, (_, ties) in enumerate(rows):
+        for g, j, gap, delta in ties:
+            n_ties += 1
+            print(f"[{tag}] step {i}, group {g}: the kernel path's beam {j} differs (plain "
+                  f"score gap {gap:.4f}, max|d| of the two candidates {delta:.4f})", flush=True)
+            check(gap <= 2 * delta, f"{tag}: step {i} group {g} differs away from a near tie")
+    if n_ties == 0:
+        check(torch.equal(got, plain["tokens"]),
+              f"{tag}: no step differs but the kernel path's tokens do")
+        print(f"[{tag}] beam tokens of the kernel path equal the plain path's over "
+              f"{len(rows)} steps", flush=True)
+    else:
+        print(f"[{tag}] {n_ties} near ties in {len(rows)} steps; the kernel path's own tokens "
+              f"{'equal' if torch.equal(got, plain['tokens']) else 'differ from'} the plain "
+              f"path's", flush=True)
+
+
+def greedy_parity(model, params, prompt, got, want, tag, mix=None):
+    """Greedy tokens of the kernel path (``got``) against the plain path's
+    (``want``) for one prompt: equal up to the first divergence, which
+    passes only at a near tie: where the plain path's top-1/top-2 gap is
+    below the two paths' max |logit difference| at that step (prefills of
+    the prompt and the plain tokens before it). ``mix`` (the T-I guidance,
+    the null token and the image offset) compares the contrastive mix of a
+    conditional and an unconditional prefill, masked to the image range."""
+    import torch
+
+    from repro_torch.models import vlm
+
+    first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if first is None:
+        print(f"[{tag}] {len(got)} tokens of the kernel path equal the plain path's",
+              flush=True)
+        return
+
+    def logits(impl):
+        cond = _prefill_last(model, params, list(prompt) + want[:first], impl)
+        if mix is None:
+            return cond
+        guidance, uncond_token, offset = mix
+        uncond = _prefill_last(model, params, [uncond_token] * len(prompt) + want[:first], impl)
+        return vlm.image_token_mask(offset, vlm.contrastive_logits(
+            cond[None], uncond[None], guidance))[0, offset:]
+
+    lk, lp = logits("cuda"), logits("torch")
+    delta = float((lk - lp).abs().max())
+    top2 = torch.topk(lp, 2).values
+    gap = float(top2[0] - top2[1])
+    print(f"[{tag}] token {first} of {len(got)} differs from the plain path (gap {gap:.4f}, "
+          f"max|dlogit| {delta:.4f})", flush=True)
+    check(gap < delta, f"{tag}: token {first} differs away from a near tie")
+
+
+def step_profile(tag, step, n_steps: int = 5):
+    """Wall ms (unprofiled, host clock to a synchronise), device busy ms and
+    device kernels of one call of ``step``, over ``n_steps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    kern = device_kernels(prof)
+    if not kern:
+        print(f"[{tag}] wall {wall:.3f} ms; the profiler saw no device activity: device time "
+              f"not measured", flush=True)
+        return
+    cats, by_name = device_split(kern)
+    busy = sum(cats.values()) / n_steps / 1e3
+    print(f"[{tag}] wall {wall:.3f} ms unprofiled | device busy {busy:.3f} ms = "
+          f"{busy / wall:.1%} | {len(kern) / n_steps:.0f} device kernels", flush=True)
+    print_split(tag, cats, by_name, n_steps, "step")
+
+
+def _peak_run(fn):
+    """(fn's result, device bytes allocated at its peak above the
+    allocation before it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def phase_seamless(st_cfg=None, ss_cfg=None):
+    """S-T on whisper-base (4 utterances x 4 beams, the reorder in place and
+    then into fresh tensors: equal tokens), then S-S on seamless-m4t (2
+    utterances: beam text, one T2U and one vocoder forward). Exact launches,
+    finite scores, the kernel path's beams against the plain path's, the
+    encoder's device time, one beam step profiled, the reorder's time per
+    step in each arm. Returns the launch counts of the S-T run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine, kv_cache, profiles
+    from repro_torch.models import encdec, get_model, seamless
+
+    dev = torch.device("cuda")
+    cfg = st_cfg or get_config("whisper-base")
+    if st_cfg is None:
+        check((cfg.encdec.n_encoder_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+               cfg.head_dim, cfg.encdec.n_frames, cfg.vocab_size, cfg.dtype)
+              == (6, 6, 512, 8, 64, N_FRAMES, 51865, "bfloat16"), f"unexpected config {cfg}")
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.inference_mode():
+        params = model.init(gen, dev)
+        frames = torch.randn((N_UTTER, cfg.encdec.n_frames, cfg.d_model), generator=gen,
+                             device=dev).to(params["embed"]["table"].dtype)
+    fl = torch.tensor(st_frame_lengths(N_UTTER, cfg.encdec.n_frames), device=dev)
+    extra = {"frames": frames, "frame_lengths": fl}
+    kw = dict(batch=N_UTTER, n_beams=N_BEAMS, bos_id=BOS, eos_id=EOS,
+              max_new_tokens=ST_MAX_NEW, extra_inputs=extra)
+    print(f"[seamless] {cfg.name}: {cfg.encdec.n_encoder_layers} + {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, {cfg.encdec.n_frames} "
+          f"frames | S-T {N_UTTER} utterances x {N_BEAMS} beams, frame lengths {fl.tolist()}",
+          flush=True)
+    engine.generate_beam(model, params, **dict(kw, max_new_tokens=2))  # warm-up
+    runs, counts = {}, None
+    for arm, donate in (("donated", True), ("realloc", False)):
+        events = []
+        name = "reorder_donated" if donate else "reorder_realloc"
+        real = getattr(kv_cache, name)
+        setattr(kv_cache, name, _event_timed(real, events))
+        try:
+            _reset_counts()
+            t0 = time.perf_counter()
+            out, peak = _peak_run(lambda: engine.generate_beam(model, params,
+                                                               donate_reorder=donate, **kw))
+            wall = time.perf_counter() - t0
+            got = _read_counts()
+        finally:
+            setattr(kv_cache, name, real)
+        want = _encdec_counts(cfg, out["n_steps"])
+        check(got == want, f"seamless S-T {arm}: kernel launches {got}, expected {want}")
+        check(tuple(out["tokens"].shape) == (N_UTTER, ST_MAX_NEW)
+              and bool(torch.isfinite(out["scores"]).all()), f"seamless S-T {arm}: bad output")
+        reorder_ms = [a.elapsed_time(b) for a, b in events]
+        runs[arm] = out
+        counts = counts or got
+        print(f"[seamless S-T/{arm}] {out['n_steps']} steps in {wall * 1e3:.1f} ms wall | "
+              f"reorder {statistics.median(reorder_ms):.4f} ms a step (median of "
+              f"{len(reorder_ms)}, sum {sum(reorder_ms):.2f} ms) | peak {peak} B above the "
+              f"allocation before the run | launches {got}", flush=True)
+    check(torch.equal(runs["donated"]["tokens"], runs["realloc"]["tokens"]),
+          "seamless S-T: the two reorder arms gave different tokens")
+    for b in range(N_UTTER):
+        print(f"[seamless S-T] hyp {b}: score {float(runs['donated']['scores'][b]):.4f} "
+              f"tokens {runs['donated']['tokens'][b].tolist()}", flush=True)
+    beam_parity(model, params, extra, N_UTTER, ST_MAX_NEW, runs["donated"]["tokens"],
+                "seamless parity")
+
+    # the encoder's device time, one beam step, and the reorder alone on
+    # the step's cache (16 streams)
+    prof = profiles.BeamProfile(n_beams=N_BEAMS, eos_id=EOS)
+    toks, lens, ext = prof.expand_prompts(
+        torch.full((N_UTTER, 1), BOS, dtype=torch.int32, device=dev),
+        torch.ones((N_UTTER,), dtype=torch.int32, device=dev), extra)
+    with torch.inference_mode():
+        enc_ms = device_ms(lambda: encdec.encode(cfg, params, ext["frames"]), calls=3)
+    print(f"[seamless] encoder over [{N_UTTER * N_BEAMS}, {cfg.encdec.n_frames}, "
+          f"{cfg.d_model}]: device "
+          f"{'not measured' if enc_ms is None else f'{enc_ms:.3f} ms'}", flush=True)
+    logits, cache = engine.prefill(model, params, toks, lens, ST_MAX_NEW + 2, extra=ext)
+    state = {"s": prof.init(N_UTTER, ST_MAX_NEW, dev), "logits": logits, "cache": cache}
+
+    def beam_step():
+        out = prof.step(state["s"], state["logits"])
+        state["cache"] = kv_cache.reorder_donated(state["cache"], out.perm)
+        state["logits"], state["cache"] = engine.decode_step(model, params, state["cache"],
+                                                             out.feed)
+        state["s"] = out.state
+        bool(out.done.all().item())  # the loop's one host sync
+
+    step_profile("seamless beam step", beam_step)
+    n_bytes = kv_cache.cache_bytes(state["cache"])
+    perm = torch.arange(N_UTTER * N_BEAMS, device=dev).flip(0)
+    donated = cuda_ms(lambda: kv_cache.reorder_donated(state["cache"], perm), samples=5)
+    realloc = cuda_ms(lambda: kv_cache.reorder_realloc(state["cache"], perm), samples=5)
+    print(f"[seamless reorder] cache {n_bytes} B ({N_UTTER * N_BEAMS} streams; cross K/V "
+          f"{kv_cache.cache_bytes([lc['cross_k'] for lc in state['cache']['layers']]) * 2} B) | "
+          f"donated (index_select, then copy_: 4x the bytes) {donated:.4f} ms | realloc "
+          f"(index_select: 2x) {realloc:.4f} ms | bound of a gather (2x the bytes) "
+          f"{2 * n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+    del state, cache, logits
+
+    # S-S on seamless-m4t: beam text, one T2U forward, one vocoder forward
+    scfg = ss_cfg or get_config("seamless-m4t")
+    smodel = get_model(scfg)
+    with torch.inference_mode():
+        sparams = smodel.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    ss, peak = _peak_run(lambda: seamless.speech_to_speech(
+        smodel, sparams, frames=frames[:N_SS], bos_id=BOS, eos_id=EOS, n_beams=N_BEAMS,
+        max_text_len=ST_MAX_NEW))
+    wall = time.perf_counter() - t0
+    got = _read_counts()
+    want = _encdec_counts(scfg, ss["n_decode_steps"], t2u_layers=len(sparams["t2u"]["layers"]))
+    check(got == want, f"seamless S-S: kernel launches {got}, expected {want}")
+    n_units = ss["text"].shape[1] * seamless.UPSAMPLE_T2U
+    check(tuple(ss["units"].shape) == (N_SS, n_units)
+          and tuple(ss["waveform"].shape) == (N_SS, n_units * int(np.prod(
+              seamless.UPSAMPLE_VOCODER))) and bool(torch.isfinite(ss["waveform"]).all()),
+          f"seamless S-S: units {tuple(ss['units'].shape)}, waveform "
+          f"{tuple(ss['waveform'].shape)}")
+    print(f"[seamless S-S] {scfg.name}: {N_SS} utterances, {ss['n_decode_steps']} decode steps, "
+          f"units {tuple(ss['units'].shape)}, waveform {tuple(ss['waveform'].shape)} in "
+          f"{wall * 1e3:.1f} ms wall | peak {peak} B | launches {got}", flush=True)
+    del model, params, smodel, sparams, ss, runs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_chameleon(cfg=None):
+    """chameleon-34b at full width, 4 of 48 layers: I-T (1024 stub image
+    tokens + 6 text tokens, 30 greedy tokens) and T-I (a 14-token prompt,
+    1024 image tokens under guidance 3, greedy), each with exact launches
+    and against the plain path; every T-I token in the image range; one T-I
+    step profiled. Returns the launch counts of both runs together."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine, profiles
+    from repro_torch.core.kv_cache import leaves
+    from repro_torch.models import get_model, vlm
+
+    dev = torch.device("cuda")
+    if cfg is None:
+        cfg = get_config("chameleon-34b").replace(n_layers=CHAMELEON_LAYERS)
+        check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+               cfg.vocab_size, cfg.qk_norm, cfg.vlm.n_image_tokens, cfg.dtype)
+              == (CHAMELEON_D, CHAMELEON_HEADS, 8, CHAMELEON_DH, 22016, 65536, True, N_IMAGE,
+                  "bfloat16"), f"unexpected config {cfg}")
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = model.init(gen, dev)
+    print(f"[chameleon] {cfg.name}: {cfg.n_layers} layers (depth cut), d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, qk-norm | params "
+          f"{sum(p.numel() for p in leaves(params)) / 1e9:.3f}G elements | init "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    offset = vlm.image_token_offset(cfg)
+    n_image = cfg.vlm.n_image_tokens
+    image = vlm.encode_image_stub(cfg, gen, 1, dev)
+    text = torch.randint(0, offset, (1, IT_TEXT), generator=gen, device=dev, dtype=torch.int32)
+    it_prompt = vlm.build_it_input(cfg, image, text)
+    ti_prompt = torch.randint(0, offset, (1, TI_PROMPT), generator=gen, device=dev,
+                              dtype=torch.int32)
+    engine.generate(model, params, it_prompt, max_new_tokens=2)  # warm-up
+    total = dict.fromkeys(_counters(), 0)
+    L = cfg.n_layers
+
+    # I-T: greedy captioning of the image
+    _reset_counts()
+    t0 = time.perf_counter()
+    it, peak = _peak_run(lambda: engine.generate(model, params, it_prompt,
+                                                 max_new_tokens=IT_NEW))
+    wall = time.perf_counter() - t0
+    got = _read_counts()
+    want = _want_counts(cfg, IT_NEW, flash_attention=L, decode_attention=L * (IT_NEW - 1))
+    check(got == want, f"chameleon I-T: kernel launches {got}, expected {want}")
+    check(it["n_steps"] == IT_NEW and bool(((it["tokens"] >= 0)
+                                             & (it["tokens"] < cfg.vocab_size)).all()),
+          "chameleon I-T: bad output")
+    total = {k: total[k] + got[k] for k in total}
+    print(f"[chameleon I-T] prompt {it_prompt.shape[1]} tokens ({n_image} image), {IT_NEW} "
+          f"tokens in {wall * 1e3:.1f} ms wall | peak {peak} B | tokens "
+          f"{it['tokens'][0].tolist()} | launches {got}", flush=True)
+    plain = engine.generate(model, params, it_prompt, max_new_tokens=IT_NEW, impl="torch")
+    greedy_parity(model, params, it_prompt[0].tolist(), it["tokens"][0].tolist(),
+                  plain["tokens"][0].tolist(), "chameleon I-T parity")
+
+    # T-I: contrastive image generation, two streams a step
+    kw = dict(uncond_token=0, n_image_tokens=n_image, guidance=GUIDANCE)
+    _reset_counts()
+    t0 = time.perf_counter()
+    ti, peak = _peak_run(lambda: engine.generate_contrastive(model, params, ti_prompt, **kw))
+    wall = time.perf_counter() - t0
+    got = _read_counts()
+    want = _want_counts(cfg, n_image, flash_attention=L, decode_attention=L * (n_image - 1))
+    check(got == want, f"chameleon T-I: kernel launches {got}, expected {want}")
+    check(ti["n_steps"] == n_image and bool((ti["tokens"] >= offset).all())
+          and bool((ti["tokens"] < cfg.vocab_size).all()),
+          "chameleon T-I: a token outside the image range")
+    total = {k: total[k] + got[k] for k in total}
+    print(f"[chameleon T-I] prompt {TI_PROMPT} tokens, {n_image} image tokens (2 streams, "
+          f"guidance {GUIDANCE}) in {wall * 1e3:.1f} ms wall = {wall * 1e3 / n_image:.3f} ms a "
+          f"step | peak {peak} B | first tokens {ti['tokens'][0, :16].tolist()} | launches "
+          f"{got}", flush=True)
+    plain = engine.generate_contrastive(model, params, ti_prompt, impl="torch", **kw)
+    greedy_parity(model, params, ti_prompt[0].tolist(), ti["tokens"][0].tolist(),
+                  plain["tokens"][0].tolist(), "chameleon T-I parity",
+                  mix=(GUIDANCE, 0, offset))
+
+    # one T-I step: the decode forward of both streams and the mix
+    prof = profiles.ContrastiveProfile(uncond_token=0, guidance=GUIDANCE, mask_offset=offset)
+    toks, lens, _ = prof.expand_prompts(
+        ti_prompt, torch.full((1,), TI_PROMPT, dtype=torch.int32, device=dev), None)
+    logits, cache = engine.prefill(model, params, toks, lens, TI_PROMPT + n_image + 1)
+    state = {"s": prof.init(1, n_image, dev), "logits": logits, "cache": cache}
+
+    def ti_step():
+        out = prof.step(state["s"], state["logits"])
+        state["logits"], state["cache"] = engine.decode_step(model, params, state["cache"],
+                                                             out.feed)
+        state["s"] = out.state
+        int(out.feed[0].item())  # the host reads the token
+
+    step_profile("chameleon T-I step", ti_step)
+    del model, params, cache, state, logits
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     try:
         import torch
@@ -2036,6 +2695,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         hstu_counts, hstu_f32_counts = phase_hstu()
         ssm_counts, ssm_f32_counts = phase_ssm(pad_to)
+        seamless_counts = phase_seamless()
+        chameleon_counts = phase_chameleon()
         # each kernel's launches come from the run of the path it is on; an
         # f32 route's from the f32 run of its path
         path_counts = {"paged_decode_attention": paged_counts["paged"],
@@ -2044,9 +2705,11 @@ def main() -> None:
                        "hstu_attention": hstu_counts, "ssd_scan": ssm_counts}
         f32_counts = {"hstu_attention": hstu_f32_counts, "ssd_scan": ssm_f32_counts}
         paths = {"serve": runs["continuous"][2], "chunked": paged_counts["chunked"],
-                 "hstu": hstu_counts, "ssm": ssm_counts}
+                 "hstu": hstu_counts, "ssm": ssm_counts, "seamless": seamless_counts,
+                 "chameleon": chameleon_counts}
         for r in records:
-            if "path" in r:  # RMSNorm by prologue, flash's mixed step: the count on its path
+            if "path" in r:  # RMSNorm by prologue, flash's mixed step, the multimodal
+                # shapes: the count on their path
                 r["launches"] = paths[r.pop("path")][r.pop("counter")]
             else:
                 counts = f32_counts if r.get("dtype") == "float32" else path_counts

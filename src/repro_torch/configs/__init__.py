@@ -5,12 +5,16 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig  # noqa: F401
-from repro_torch.configs import hstu, llama3_2_1b, mamba2_130m
+from repro_torch.configs import (chameleon_34b, hstu, llama3_2_1b, mamba2_130m, seamless_m4t,
+                                 whisper_base)
 
 _MODULES = {
     "llama3.2-1b": llama3_2_1b,
     "mamba2-130m": mamba2_130m,
     "hstu": hstu,
+    "whisper-base": whisper_base,
+    "seamless-m4t": seamless_m4t,
+    "chameleon-34b": chameleon_34b,
 }
 
 CONFIGS: Dict[str, ModelConfig] = {k: m.CONFIG for k, m in _MODULES.items()}

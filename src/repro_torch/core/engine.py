@@ -1,28 +1,42 @@
-"""Generation engine: the step primitives and greedy ``generate`` — the
-counterpart of ``repro/core/engine.py`` for the contiguous cache.
+"""Generation engine: the step primitives and ONE profile-driven decode
+loop — the counterpart of ``repro/core/engine.py`` for the contiguous cache.
 
-- ``prefill``     — prompt -> fresh cache + last-position logits. With
-                    batch=1 this is the scheduler's single-slot refill.
+Step primitives (shared with the continuous-batching scheduler):
+
+- ``prefill``     — prompt (and ``extra`` inputs such as encoder frames) ->
+                    fresh cache + last-position logits. With batch=1 this is
+                    the scheduler's single-slot refill.
 - ``decode_step`` — one decode step for every sequence slot; the cache is
                     updated in place (the reference donates it).
 - ``mixed_step``  — one token-budget mixed prefill/decode step over a paged
                     pool (chunked prefill): every slot advances by its own
                     ``t_new`` tokens in the same forward.
-- ``generate``    — prefill + a direct decode loop with
-                    ``SamplingProfile``'s greedy semantics (``eos_id``,
-                    ``live``, output always [B, max_new], ``n_steps``).
+
+Decoding strategies are ``DecodingProfile`` specs (core/profiles.py) driven
+by one loop, :func:`run_profile`: prefill the profile's expanded streams
+once, then replay ``decode_step``, with the profile choosing each stream's
+next token, an optional cache permutation (beam's Obs #4 KV reorder) and
+the finish condition. The public engines build the profile:
+
+- ``generate``             — ``SamplingProfile`` (Llama / Chameleon I-T);
+                             ``tokens`` is always [B, max_new_tokens],
+                             padded with the fill token after an early exit.
+- ``generate_beam``        — ``BeamProfile`` (Seamless, Obs #4), the
+                             reorder in place (``donate_reorder``) or into
+                             fresh tensors.
+- ``generate_contrastive`` — ``ContrastiveProfile`` (Chameleon T-I): two
+                             streams, two forwards a step (§2.1.2).
 
 Everything runs eagerly under ``torch.inference_mode()``; the verify step
-(speculation) and the profile-driven loop (beam, contrastive) are later
-slices.
+(speculation) is a later slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.core import sampling
+from repro_torch.core import kv_cache, profiles
 from repro_torch.models.registry import Model
 
 
@@ -34,11 +48,14 @@ def _last_logits(logits: torch.Tensor, prompt_lengths: torch.Tensor) -> torch.Te
 
 @torch.inference_mode()
 def prefill(model: Model, params, tokens: torch.Tensor, prompt_lengths: torch.Tensor,
-            max_len: int, impl: str = "auto"):
+            max_len: int, impl: str = "auto", extra: Optional[Dict[str, torch.Tensor]] = None):
     """Prompt -> (last-position logits [B, V], fresh cache on the tokens'
-    device)."""
+    device). ``extra`` joins the forward's batch (an encoder-decoder's
+    ``frames`` and ``frame_lengths``)."""
     cache = model.init_cache(tokens.shape[0], max_len, tokens.device)
     batch = {"tokens": tokens, "prompt_lengths": prompt_lengths}
+    if extra:
+        batch.update(extra)
     logits, cache, _ = model.forward(params, batch, cache=cache, mode="prefill",
                                      impl=impl)
     return _last_logits(logits, prompt_lengths), cache
@@ -70,7 +87,65 @@ def mixed_step(model: Model, params, cache, tokens: torch.Tensor, t_new: torch.T
     return logits[:, 0], cache
 
 
+# --------------------------------------------------------------------------
+# the ONE profile-driven decode loop
+# --------------------------------------------------------------------------
+
 @torch.inference_mode()
+def run_profile(
+    model: Model,
+    params,
+    profile: profiles.DecodingProfile,
+    prompt_tokens: torch.Tensor,  # [G, Tp] per-group prompts (right-padded)
+    *,
+    prompt_lengths: Optional[torch.Tensor] = None,
+    max_new_tokens: int = 32,
+    max_len: Optional[int] = None,
+    extra_inputs: Optional[Dict[str, torch.Tensor]] = None,
+    reorder: Optional[Callable[[Any, torch.Tensor], Any]] = None,
+    impl: str = "auto",
+) -> Dict[str, Any]:
+    """Drive one decoding profile batch-at-a-time: expand the G group
+    prompts to the [G * n_streams] stream layout, prefill once, then replay
+    ``decode_step``, with the profile choosing each stream's next token,
+    the optional cache permutation (applied by ``reorder``, by default
+    ``kv_cache.reorder_donated``) and the finish condition. One host sync a
+    step, for ``done``. Returns the profile's ``finalize`` output plus
+    ``cache`` and ``n_steps`` (decode-loop iterations actually run)."""
+    g, tp = prompt_tokens.shape
+    dev = prompt_tokens.device
+    if prompt_lengths is None:
+        prompt_lengths = torch.full((g,), tp, dtype=torch.int32, device=dev)
+    if max_len is None:
+        max_len = tp + max_new_tokens + 1
+    reorder = reorder if reorder is not None else kv_cache.reorder_donated
+
+    toks_s, lens_s, extra_s = profile.expand_prompts(prompt_tokens, prompt_lengths,
+                                                     extra_inputs)
+    logits, cache = prefill(model, params, toks_s, lens_s, max_len, impl, extra_s)
+    state = profile.init(g, max_new_tokens, dev)
+    n_steps, halt, feed = 0, False, None
+    for i in range(max_new_tokens):
+        if i > 0:
+            if halt:
+                break
+            logits, cache = decode_step(model, params, cache, feed, impl)
+        out = profile.step(state, logits)
+        state, feed = out.state, out.feed
+        if out.perm is not None:  # Obs #4: the KV_Cache_Reorder op
+            cache = reorder(cache, out.perm)
+        n_steps += 1
+        # the loop's one host sync per step: a single scalar transfer
+        halt = out.done is not None and bool(out.done.all().item())
+    result = profile.finalize(state)
+    result.update(cache=cache, n_steps=n_steps)
+    return result
+
+
+# --------------------------------------------------------------------------
+# the engines, each a profile over run_profile
+# --------------------------------------------------------------------------
+
 def generate(
     model: Model,
     params,
@@ -82,38 +157,80 @@ def generate(
     live: Optional[torch.Tensor] = None,
     impl: str = "auto",
 ) -> Dict[str, Any]:
-    """Greedy generation with the reference's ``SamplingProfile`` contract:
+    """Greedy generation, a ``SamplingProfile`` through :func:`run_profile`:
     ``live`` [B] marks real rows (dead rows emit only the fill token, EOS
     when set else 0, and never block the all-done exit); ``tokens`` is
     ALWAYS [B, max_new_tokens], padded with the fill token after an early
     exit; ``n_steps`` counts the steps actually run."""
-    b, tp = prompt_tokens.shape
-    dev = prompt_tokens.device
-    if prompt_lengths is None:
-        prompt_lengths = torch.full((b,), tp, dtype=torch.int32, device=dev)
-    max_len = tp + max_new_tokens + 1
-    fill = eos_id if eos_id is not None else 0
-    done = None
-    if eos_id is not None or live is not None:
-        done = (torch.zeros((b,), dtype=torch.bool, device=dev) if live is None
-                else ~live.to(device=dev, dtype=torch.bool))
-    tokens = torch.full((b, max_new_tokens), fill, dtype=torch.int32, device=dev)
+    prof = profiles.SamplingProfile(eos_id=eos_id, live=live)
+    out = run_profile(model, params, prof, prompt_tokens, prompt_lengths=prompt_lengths,
+                      max_new_tokens=max_new_tokens, impl=impl)
+    return {"tokens": out["tokens"], "cache": out["cache"], "n_steps": out["n_steps"]}
 
-    logits, cache = prefill(model, params, prompt_tokens, prompt_lengths, max_len, impl)
-    n_steps, halt, feed = 0, False, None
-    for i in range(max_new_tokens):
-        if i > 0:
-            if halt:
-                break
-            logits, cache = decode_step(model, params, cache, feed, impl)
-        token = sampling.greedy(logits)
-        if done is not None:
-            if eos_id is not None:
-                done = done | (token == eos_id)  # the 1st token may stop a row
-            token = torch.where(done, torch.full_like(token, fill), token)
-        tokens[:, i] = token
-        feed = token
-        n_steps += 1
-        # the loop's one host sync per step: a single scalar transfer
-        halt = done is not None and bool(done.all().item())
-    return {"tokens": tokens, "cache": cache, "n_steps": n_steps}
+
+def generate_beam(
+    model: Model,
+    params,
+    *,
+    batch: Optional[int] = None,
+    n_beams: int,
+    bos_id: Optional[int] = None,
+    eos_id: int,
+    max_new_tokens: int,
+    prompt_tokens: Optional[torch.Tensor] = None,  # [B, Tp]; default [bos]
+    prompt_lengths: Optional[torch.Tensor] = None,
+    extra_inputs: Optional[Dict[str, torch.Tensor]] = None,
+    donate_reorder: bool = True,
+    impl: str = "auto",
+) -> Dict[str, Any]:
+    """Beam search with a per-step KV reorder, as a ``BeamProfile``. Inputs
+    (e.g. encoder frames) are tiled across beams; each step gathers the
+    cache along the batch axis by the surviving-parent permutation (paper
+    Obs #4): in place by default (``reorder_donated``, the optimized
+    ``copy_`` form), or into fresh tensors when ``donate_reorder=False``
+    (``reorder_realloc``, the paper's ``index_select`` baseline). Without
+    ``prompt_tokens`` every group prefills ``[bos_id]``, on the params'
+    device."""
+    if prompt_tokens is None:
+        if batch is None or bos_id is None:
+            raise ValueError("need prompt_tokens, or batch + bos_id")
+        device = next(kv_cache.leaves(params)).device
+        prompt_tokens = torch.full((batch, 1), bos_id, dtype=torch.int32, device=device)
+    prof = profiles.BeamProfile(n_beams=n_beams, eos_id=eos_id)
+    out = run_profile(
+        model, params, prof, prompt_tokens, prompt_lengths=prompt_lengths,
+        max_new_tokens=max_new_tokens, extra_inputs=extra_inputs,
+        reorder=kv_cache.reorder_donated if donate_reorder else kv_cache.reorder_realloc,
+        impl=impl,
+    )
+    return {"tokens": out["tokens"], "scores": out["scores"], "n_steps": out["n_steps"]}
+
+
+def generate_contrastive(
+    model: Model,
+    params,
+    prompt_tokens: torch.Tensor,  # [B, Tp] conditional (text) prompt
+    *,
+    uncond_token: int,
+    n_image_tokens: int,
+    guidance: float = 3.0,
+    impl: str = "auto",
+) -> Dict[str, Any]:
+    """Chameleon T-I as a ``ContrastiveProfile``: the conditional stream
+    sees the prompt, the unconditional stream a null prompt; each step runs
+    both (the paper's "decodes twice at each time step"), mixes their logits
+    and feeds the same greedy image token to both. On VLM configs the token
+    is restricted to the image-token range; other families run plain
+    classifier-free guidance."""
+    cfg = model.config
+    mask_offset = None
+    if cfg.vlm is not None:
+        from repro_torch.models import vlm
+
+        mask_offset = vlm.image_token_offset(cfg)
+    prof = profiles.ContrastiveProfile(uncond_token=uncond_token, guidance=guidance,
+                                       mask_offset=mask_offset)
+    tp = prompt_tokens.shape[1]
+    out = run_profile(model, params, prof, prompt_tokens, max_new_tokens=n_image_tokens,
+                      max_len=tp + n_image_tokens + 1, impl=impl)
+    return {"tokens": out["tokens"], "n_steps": out["n_steps"]}

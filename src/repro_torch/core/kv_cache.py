@@ -1,5 +1,5 @@
-"""KV-cache pool ops — the slot-pool row ops and the paged block ops of
-``repro/core/kv_cache.py``, as in-place index updates.
+"""KV-cache ops — the beam reorders, the slot-pool row ops and the paged
+block ops of ``repro/core/kv_cache.py``, as in-place index updates.
 
 Every cache leaf's axis 0 is the sequence-slot axis: a transformer's K/V
 buffers, or an SSM's conv tail and f32 state (``models/ssm.py``), beside
@@ -39,6 +39,39 @@ def leaves(tree: Any):
 
 def cache_bytes(cache: Any) -> int:
     return sum(t.numel() * t.element_size() for t in leaves(cache))
+
+
+def _map(fn, tree: Any) -> Any:
+    """``tree`` rebuilt with ``fn`` applied to every tensor leaf."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+# --------------------------------------------------------------------------
+# beam reorder (paper Obs #4's KV_Cache_Reorder)
+# --------------------------------------------------------------------------
+
+@torch.inference_mode()
+def reorder_realloc(cache: Any, beam_idx: torch.Tensor) -> Any:
+    """The paper's ``index_select`` baseline: gather every cache leaf along
+    the batch axis, ``cache[b] <- cache[beam_idx[b]]`` (the K/V buffers,
+    the cross K/V, ``lengths`` and ``frame_lengths``) into fresh tensors."""
+    idx = beam_idx.to(torch.long)
+    return _map(lambda x: x.index_select(0, idx.to(x.device)), cache)
+
+
+@torch.inference_mode()
+def reorder_donated(cache: Any, beam_idx: torch.Tensor) -> Any:
+    """The reorder that keeps each cache tensor (the paper's "keep the
+    memory pointer of each cache", the reference's donated jit): every
+    leaf's gathered rows are copied back into it. Returns ``cache``."""
+    idx = beam_idx.to(torch.long)
+    for x in leaves(cache):
+        x.copy_(x.index_select(0, idx.to(x.device)))
+    return cache
 
 
 @torch.inference_mode()

@@ -32,7 +32,8 @@ decode step. A half-prefilled request is preempted like any other
 resident and replays from chunk zero.
 
 Not ported yet (``NotImplementedError``): the prefix cache, slot groups
-(beam / contrastive), speculative windows, ``temperature > 0`` sampling
+(beam / contrastive), encoder-decoder requests (their frames at admission),
+speculative windows, ``temperature > 0`` sampling
 (it needs the per-(rid, token-index) keys of a later slice), priority
 aging, replicas and TP.
 """
@@ -145,6 +146,11 @@ class Scheduler:
         if prefix_cache:
             raise NotImplementedError(
                 "the cross-request prefix cache waits for a later slice of the port"
+            )
+        if model.config.encdec is not None:
+            raise NotImplementedError(
+                "serving an encoder-decoder needs per-request extra inputs at admission: a "
+                "later slice; run it batch-at-a-time (engine.generate_beam)"
             )
         self.model = model
         self.params = params

@@ -1,2 +1,3 @@
-"""Model families of the port: ``dense`` (transformer), ``hstu`` and ``ssm``."""
+"""Model families of the port: ``dense`` (transformer), ``vlm``, ``encdec``,
+``seamless``, ``hstu`` and ``ssm``."""
 from repro_torch.models.registry import Model, get_model  # noqa: F401

@@ -168,14 +168,22 @@ def paged_write_chunk(buf: torch.Tensor, new: torch.Tensor, bt: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def init_attention(gen, cfg: ModelConfig, device):
+    """q/k/v/o projections, plus per-head ``q_norm`` / ``k_norm`` scales
+    under ``cfg.qk_norm``. ``qkv_bias`` is refused (a later slice)."""
+    if cfg.qkv_bias:
+        raise NotImplementedError("qkv bias attention waits for a later slice of the port")
     dt = L.param_dtype(cfg)
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    p = {
         "wq": L.dense_init(gen, d, hq * dh, dt, device),
         "wk": L.dense_init(gen, d, hkv * dh, dt, device),
         "wv": L.dense_init(gen, d, hkv * dh, dt, device),
         "wo": L.dense_init(gen, hq * dh, d, dt, device),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = L.rmsnorm_init(dh, dt, device)
+        p["k_norm"] = L.rmsnorm_init(dh, dt, device)
+    return p
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, device, window=None):
@@ -198,8 +206,12 @@ def attention(
     mode: str,
     window: Optional[int] = None,
     impl: str = "auto",
+    bidirectional: bool = False,
     t_new: Optional[torch.Tensor] = None,  # [B] chunk widths (mixed mode)
 ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """``bidirectional`` (encoder stacks): no RoPE, and non-causal flash
+    attention in train and prefill. Under ``cfg.qk_norm`` q and k are
+    RMS-normalised per head (rows of ``head_dim``) before RoPE."""
     b, t, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if mode == "verify":
@@ -216,8 +228,12 @@ def attention(
     q = L.dense(p["wq"], x, impl).reshape(b, t, hq, dh)
     k = L.dense(p["wk"], x, impl).reshape(b, t, hkv, dh)
     v = L.dense(p["wv"], x, impl).reshape(b, t, hkv, dh)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.qk_norm:
+        q = L.rmsnorm(p["q_norm"], q, cfg.rmsnorm_eps, impl=impl)
+        k = L.rmsnorm(p["k_norm"], k, cfg.rmsnorm_eps, impl=impl)
+    if not bidirectional:  # encoder stacks skip RoPE (whisper uses sinusoid)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if mode in ("train", "prefill"):
@@ -225,7 +241,7 @@ def attention(
             new_cache = {"k": write_prefill(cache["k"], k), "v": write_prefill(cache["v"], v)}
         out = ops.flash_attention(
             q, k, v, q_positions=positions, k_positions=positions,
-            causal=True, window=window, impl=impl,
+            causal=not bidirectional, window=window, impl=impl,
         )
     elif "bt" in cache:
         out, new_cache = _paged_attention(q, k, v, cache, positions=positions,

@@ -1,5 +1,5 @@
-"""Shared model primitives: inits, RMSNorm, RoPE, SwiGLU, embeddings —
-counterparts of ``repro/models/layers.py``.
+"""Shared model primitives: inits, RMSNorm, RoPE, sinusoid positions,
+SwiGLU, embeddings — counterparts of ``repro/models/layers.py``.
 
 Params are nested dicts of tensors with the JAX tree paths as names, and
 the JAX layout: ``dense`` weights are ``[d_in, d_out]`` applied as
@@ -107,6 +107,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings [n, d] in f32: ``[sin,
+    cos]`` of ``pos * exp(-ln(10000) i / (d/2 - 1))``; the caller casts them
+    to its input's type."""
+    half = d // 2
+    i = torch.arange(half, dtype=torch.float32, device=device)
+    freq = torch.exp(-torch.log(torch.tensor(10_000.0, device=device)) * i / (half - 1))
+    args = torch.arange(n, dtype=torch.float32, device=device)[:, None] * freq[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
 # ---- SwiGLU FFN -----------------------------------------------------------

@@ -1,7 +1,7 @@
 """Model registry: resolves a ModelConfig to its family module and wraps it
 in a uniform ``Model`` handle used by the engine, launcher and tests (the
-counterpart of ``repro/models/registry.py``; the dense, HSTU and SSM
-families so far)."""
+counterpart of ``repro/models/registry.py``; the dense, VLM, encoder-decoder,
+Seamless, HSTU and SSM families so far)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -10,9 +10,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hstu, ssm, transformer
+from repro_torch.models import encdec, hstu, seamless, ssm, transformer, vlm
 
-_FAMILIES = {"dense": transformer, "hstu": hstu, "ssm": ssm}
+_FAMILIES = {"dense": transformer, "vlm": vlm, "encdec": encdec, "seamless": seamless,
+             "hstu": hstu, "ssm": ssm}
 
 
 @dataclass(frozen=True)

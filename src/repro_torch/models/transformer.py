@@ -1,5 +1,6 @@
-"""Decoder-only transformer stack, dense family — the counterpart of
-``repro/models/transformer.py`` for llama-style models.
+"""Decoder-only transformer stack, dense and early-fusion VLM (chameleon,
+with qk-norm) families — the counterpart of ``repro/models/transformer.py``
+for llama-style models.
 
 MoE, MLA and the stacked ``scan_layers`` layout are not ported
 (``NotImplementedError``); a JAX ``scanned`` param block is unstacked by
@@ -17,12 +18,13 @@ from repro_torch.models import layers as L
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r}: the port serves dense models only")
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(
+            f"family {cfg.family!r}: this stack serves dense and vlm models only")
     if cfg.moe is not None or cfg.mla is not None:
         raise NotImplementedError("MoE / MLA blocks wait for a later slice of the port")
-    if cfg.qkv_bias or cfg.qk_norm:
-        raise NotImplementedError("qkv bias / qk-norm attention waits for a later slice")
+    if cfg.qkv_bias:
+        raise NotImplementedError("qkv bias attention waits for a later slice")
     if cfg.scan_layers:
         raise NotImplementedError(
             "scan_layers: the port runs unrolled layers (bridge unstacks 'scanned')"

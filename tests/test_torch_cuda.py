@@ -534,3 +534,247 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# label -> (q shape, k/v shape, causal, k_valid lengths or None)
+MULTIMODAL_FLASH = {
+    "bidirectional over 1500 frames": ((2, 1500, 8, 64), (2, 1500, 8, 64), False, None),
+    "cross Tq=1 k_valid": ((6, 1, 8, 64), (6, 1500, 8, 64), False, [552, 360, 1, 1500, 179,
+                                                                     1499]),
+    "cross prefill Tq=Tk=1": ((2, 1, 8, 64), (2, 1, 8, 64), True, None),
+    "G=8 D=128 prefill": ((1, 203, 64, 128), (1, 203, 8, 128), True, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(MULTIMODAL_FLASH))
+def test_flash_attention_multimodal_shapes_on_card(case, dtype):
+    """The flash kernel at the encoder-decoder's and Chameleon's shapes
+    against its plain version: non-causal over a key count that is no
+    multiple of the key tile, Tq = 1 against 1500 keys with ``k_valid``,
+    Tq = Tk = 1, and a q-head group of 8 at D = 128; a repeat call is
+    bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    qs, ks, causal, lens = MULTIMODAL_FLASH[case]
+    q = torch.randn(qs, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(ks, generator=g, device=dev).to(dtype) for _ in range(2))
+    b, t, s = qs[0], qs[1], ks[1]
+    kw = dict(q_positions=(torch.arange(t, device=dev) + s - t).expand(b, t)
+              .to(torch.int32).contiguous(),
+              k_positions=torch.arange(s, device=dev).expand(b, s).to(torch.int32)
+              .contiguous(), causal=causal, k_valid=None)
+    if lens is not None:
+        kw["k_valid"] = (torch.arange(s, device=dev)[None]
+                         < torch.tensor(lens, device=dev)[:, None]).contiguous()
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    close(got, fa.flash_attention_plain(q, k, v, **kw), dtype)
+    assert torch.equal(got, fa.flash_attention_cuda(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_and_qk_norm_at_chameleon_shapes_on_card(dtype):
+    """Flash-decode at Chameleon's group (G * D = 64 / 8 x 128 = 1024) over
+    a T-I cache, and RMSNorm over qk-norm rows of 128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn((2, 64, 128), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, 1039, 8, 128), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    ln = torch.tensor([15, 1038], dtype=torch.int32, device=dev)
+    close(da.decode_attention_cuda(q, k, v, ln), da.decode_attention_plain(q, k, v, ln), dtype)
+    x = torch.randn((203 * 64, 128), generator=g, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn((128,), generator=g, device=dev)).to(dtype)
+    close(rn.rmsnorm_cuda(x, w), rn.rmsnorm_plain(x, w), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [16, 8])
+def test_decode_attention_at_encdec_self_cache_on_card(b, dtype):
+    """Flash-decode at the encoder-decoder's self-attention (G = 1 at D =
+    64: 8 heads over 8 KV heads) over a 50-row cache (BOS + 48 tokens + 1),
+    at every length a 48-token beam search reads (2..48), for the S-T (16
+    streams) and S-S (8) batches; a repeat call is bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn((b, 8, 64), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, 50, 8, 64), generator=g, device=dev).to(dtype) for _ in range(2))
+    for n in range(2, 49):
+        ln = torch.full((b,), n, dtype=torch.int32, device=dev)
+        got = da.decode_attention_cuda(q, k, v, ln)
+        close(got, da.decode_attention_plain(q, k, v, ln), dtype)
+        assert torch.equal(got, da.decode_attention_cuda(q, k, v, ln)), f"length {n}"
+
+
+def _beam_trace(model, params, n_groups, extra, max_new, keep_at=None):
+    """Each step's fed tokens and permutation of a beam search (4 beams,
+    BOS 1, EOS 2), and the candidate scores at step ``keep_at``."""
+    from repro_torch.core import engine, profiles, sampling
+
+    class Rec(profiles.BeamProfile):
+        def step(self, state, logits, key=None):
+            if len(trace) == keep_at:
+                kept.append(sampling.beam_candidates(state, logits, 4, 2).cpu())
+            out = super().step(state, logits, key)
+            trace.append((out.feed.tolist(), out.perm.tolist()))
+            return out
+
+    trace, kept = [], []
+    dev = next(iter(extra.values())).device
+    out = engine.run_profile(model, params, Rec(n_beams=4, eos_id=2),
+                             torch.ones((n_groups, 1), dtype=torch.int32, device=dev),
+                             max_new_tokens=max_new, extra_inputs=extra)
+    return trace, kept, out
+
+
+@pytest.mark.cuda
+def test_encdec_beam_search_on_card():
+    """A small f32 whisper (head 64, 100 frames: no multiple of the key
+    tile) beam-searched on the card in both reorder arms: equal tokens,
+    exact launches (flash: encoder layers + the decoder's self-attention at
+    the prefill + its cross-attention every step; decode: self-attention
+    every decode step), and the CPU plain path's steps up to a near tie
+    (f32: the deciding gap below 1e-3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import EncDecConfig
+    from repro_torch.core import engine
+    from repro_torch.models import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("whisper-base").replace(
+        d_model=256, n_heads=4, n_kv_heads=4, dtype="float32",
+        encdec=EncDecConfig(n_encoder_layers=2, n_frames=100, max_target_len=64))
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    dev = torch.device("cuda")
+    params_dev = _to(params, dev)
+    frames = torch.randn((3, 100, 256), generator=torch.Generator().manual_seed(1))
+    fl = torch.tensor([100, 37, 64], dtype=torch.int32)
+    extra = {"frames": frames, "frame_lengths": fl}
+    extra_dev = {k: v.to(dev) for k, v in extra.items()}
+    kw = dict(batch=3, n_beams=4, bos_id=1, eos_id=2, max_new_tokens=12)
+    before = (fa.LAUNCHES, da.LAUNCHES, rn.LAUNCHES)
+    donated = engine.generate_beam(model, params_dev, extra_inputs=extra_dev, **kw)
+    torch.cuda.synchronize()
+    n = donated["n_steps"]
+    assert (fa.LAUNCHES - before[0], da.LAUNCHES - before[1], rn.LAUNCHES - before[2]) == (
+        2 + 2 + 2 * n, 2 * (n - 1), (1 + 2 * 2) + n * (1 + 3 * 2))
+    realloc = engine.generate_beam(model, params_dev, extra_inputs=extra_dev,
+                                   donate_reorder=False, **kw)
+    assert torch.equal(donated["tokens"], realloc["tokens"])
+    card, _, _ = _beam_trace(model, params_dev, 3, extra_dev, 12)
+    cpu, _, want = _beam_trace(model, params, 3, extra, 12)
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if a != b:
+            ck = _beam_trace(model, params_dev, 3, extra_dev, 12, keep_at=i)[1][0]
+            top = torch.sort(ck, dim=1, descending=True).values[:, :5]
+            assert float((top[:, :-1] - top[:, 1:]).min()) < 1e-3, f"step {i}"
+            return
+    assert donated["tokens"].cpu().tolist() == want["tokens"].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_beams", [4, 1])
+def test_encdec_beam_search_finishes_on_card(n_beams):
+    """The small f32 whisper of the test above on the card with EOS set to
+    the first step's best token: finished beams extend only by EOS (4
+    beams), and a search whose every beam has ended stops (1 beam: after
+    its first step). Tokens and steps equal the CPU plain path's, scores
+    within 1e-4; launches exact for the steps run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import EncDecConfig
+    from repro_torch.core import engine
+    from repro_torch.models import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("whisper-base").replace(
+        d_model=256, n_heads=4, n_kv_heads=4, dtype="float32",
+        encdec=EncDecConfig(n_encoder_layers=2, n_frames=100, max_target_len=64))
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    dev = torch.device("cuda")
+    params_dev = _to(params, dev)
+    frames = torch.randn((3, 100, 256), generator=torch.Generator().manual_seed(1))
+    extra = {"frames": frames, "frame_lengths": torch.tensor([100, 37, 64], dtype=torch.int32)}
+    extra_dev = {k: v.to(dev) for k, v in extra.items()}
+    kw = dict(batch=3, n_beams=n_beams, bos_id=1, max_new_tokens=12)
+    first = engine.generate_beam(model, params_dev, extra_inputs=extra_dev, eos_id=2,
+                                 **dict(kw, max_new_tokens=1))["tokens"]
+    eos = int(first[0, 0])
+    before = (fa.LAUNCHES, da.LAUNCHES)
+    got = engine.generate_beam(model, params_dev, extra_inputs=extra_dev, eos_id=eos, **kw)
+    torch.cuda.synchronize()
+    n = got["n_steps"]
+    assert (fa.LAUNCHES - before[0], da.LAUNCHES - before[1]) == (2 + 2 + 2 * n, 2 * (n - 1))
+    want = engine.generate_beam(model, params, extra_inputs=extra, eos_id=eos, **kw)
+    assert n == want["n_steps"] and (n == 1 or n_beams > 1)
+    assert got["tokens"].cpu().tolist() == want["tokens"].tolist()
+    assert int(got["tokens"][0, 0]) == eos
+    np.testing.assert_allclose(got["scores"].cpu().numpy(), want["scores"].numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_vlm_it_and_contrastive_on_card():
+    """A small f32 Chameleon (qk-norm, 8 q heads of 128 over one KV head:
+    G = 8 at D = 128) on the card: I-T greedy and T-I contrastive tokens
+    equal the CPU plain path's up to a near tie, T-I tokens in the image
+    range, exact launches (qk-norm's two RMSNorms a layer too)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import engine
+    from repro_torch.models import get_model, vlm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("chameleon-34b").replace(d_model=1024, n_heads=8, n_kv_heads=1,
+                                                    dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    dev = torch.device("cuda")
+    params_dev = _to(params, dev)
+    gen = torch.Generator().manual_seed(2)
+    prompt = vlm.build_it_input(cfg, vlm.encode_image_stub(cfg, gen, 1),
+                                torch.randint(0, 448, (1, 5), generator=gen))
+    before = (fa.LAUNCHES, da.LAUNCHES, rn.LAUNCHES)
+    got = engine.generate(model, params_dev, prompt.to(dev), max_new_tokens=8)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert (fa.LAUNCHES - before[0], da.LAUNCHES - before[1], rn.LAUNCHES - before[2]) == (
+        L, L * 7, 8 * (1 + 2 * L + 2 * L))
+    want = engine.generate(model, params, prompt, max_new_tokens=8)
+    _match_near_tie(model, params, prompt[0].tolist(), got["tokens"][0].tolist(),
+                    want["tokens"][0].tolist())
+    ti = prompt[:, -5:]
+    got = engine.generate_contrastive(model, params_dev, ti.to(dev), uncond_token=0,
+                                      n_image_tokens=16)
+    want = engine.generate_contrastive(model, params, ti, uncond_token=0, n_image_tokens=16)
+    assert bool((got["tokens"] >= vlm.image_token_offset(cfg)).all())
+    g, w = got["tokens"][0].tolist(), want["tokens"][0].tolist()
+    first = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+    if first is not None:  # a near tie of the mixed, masked logits
+        def mixed(p, device):
+            def last(seq):
+                return engine.prefill(model, p, torch.tensor([seq], dtype=torch.int32,
+                                                             device=device),
+                                      torch.tensor([len(seq)], dtype=torch.int32,
+                                                   device=device), len(seq) + 1)[0].cpu()
+            cond = last(ti[0].tolist() + w[:first])
+            uncond = last([0] * 5 + w[:first])
+            return vlm.image_token_mask(448, vlm.contrastive_logits(cond, uncond, 3.0))
+        top2 = torch.topk(mixed(params, "cpu")[0], 2).values
+        assert float(top2[0] - top2[1]) < 1e-3, f"T-I token {first}"

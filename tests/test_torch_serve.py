@@ -266,6 +266,15 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+#: modules the import lock must have walked (the multimodal slice's among them)
+_LOCKED_MODULES = {
+    "repro_torch.core.engine", "repro_torch.core.profiles", "repro_torch.core.sampling",
+    "repro_torch.core.kv_cache", "repro_torch.models.encdec", "repro_torch.models.seamless",
+    "repro_torch.models.vlm", "repro_torch.configs.whisper_base",
+    "repro_torch.configs.seamless_m4t", "repro_torch.configs.chameleon_34b",
+}
+
+
 def test_importing_the_whole_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -275,13 +284,15 @@ def test_importing_the_whole_port_loads_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    names = set(out.stdout.split())
+    assert len(names) >= 15
+    assert _LOCKED_MODULES <= names, sorted(_LOCKED_MODULES - names)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
