@@ -31,7 +31,10 @@ Phases (any failure exits non-zero and prints no result):
              mixed step's shapes (8 slots of 64 lanes against 336 gathered
              keys, slots prefilling, decoding and idle, positions and
              k_valid as the paged layer builds them), a repeat call
-             bit-identical; int8 GEMMs at M = 1 and ragged shapes, a
+             bit-identical; flash attention at a verify step's shapes (8
+             slots of 5 lanes against the contiguous cache's 321 keys and
+             against 336 keys gathered from the pool, widths 5, 1, 3 and 0),
+             bf16 and f32, a repeat call bit-identical; int8 GEMMs at M = 1 and ragged shapes, a
              repeat call bit-identical, the dynamic one bit for bit in every
              shape; HSTU's band, empty rows, lengths inside a tile and
              clipped bias, bf16 also normwise (max |err| <= 1e-2 max
@@ -67,6 +70,23 @@ Phases (any failure exits non-zero and prints no result):
              ``max_memory_allocated`` printed for the record (every arm of
              phase 4 prints the last too); one mixed and one paged decode
              step profiled (device busy share, kernels per step);
+4c. speculative — the same 16 requests on the same weights through four
+             arms: (a) plain sampling at t = 0.8 / top-p 0.9, contiguous; (b)
+             LayerSkip speculative (exit layer 8, 4 drafts a window), greedy,
+             contiguous; (c) speculative at t = 0.8 / 0.9, contiguous; (d) as
+             (c) on phase 4b's paged + chunked pool, which preempts. (b) gives
+             phase 4's greedy tokens and (c), (d) give (a)'s, up to a near tie
+             (phase 4b's rule; for a sampled token the top-two perturbed
+             scores, nucleus-filtered logits / T plus the token's Gumbel
+             draw, against the kernel and plain paths' max |dlogit| / T);
+             exact launches (a speculative step: decode E x K, flash
+             n_layers, RMSNorm none K + 1 and add 2EK + 2 n_layers);
+             committed = accepted + slot-steps, the commit histogram sums, no
+             leaked block, at least one draft accepted; tok/s, TTFT, TPOT,
+             steps, acceptance, tokens a slot-step and preemptions printed;
+             one speculative step profiled (wall, device ms, busy share,
+             kernels a step) and the sampler's device kernels counted (keys,
+             Gumbel draw, the whole per-slot and per-window sampler);
 5. parity  — prefill logits of two requests through the kernels and through
              the plain versions on the same weights, and their first served
              tokens against greedy generation on the plain path;
@@ -571,6 +591,43 @@ def phase_kernels(pad_to: int, max_len: int):
         check(torch.equal(got, fa.flash_attention_cuda(mq, mk, mv, **mkw)),
               f"flash: a repeat call differs ({name} mixed step)")
 
+    # ---- flash attention at a verify step's shapes: 8 slots of SPEC_DRAFT + 1
+    # lanes against the contiguous cache (max_len keys, k_valid as the
+    # contiguous verify layer builds it) and against each slot's logical view
+    # gathered from the served pool (``paged_addresses`` in verify mode)
+    lanes = SPEC_DRAFT + 1
+
+    def verify_case(dt, paged):
+        ln = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device=dev)
+        tn = torch.tensor(VERIFY_T_NEW, dtype=torch.int32, device=dev)
+        q = _rand(gen, (SLOTS, lanes, hq, dh), dt, dev)
+        qp = ln[:, None] + torch.arange(lanes, device=dev, dtype=torch.int32)[None]
+        if paged:
+            _, vk, vv, vbt = paged_case(dt)
+            addr = A.paged_addresses(vbt, ln, bs, "verify", tn, lanes)
+            k, v = A.paged_gather(vk, vbt), A.paged_gather(vv, vbt)
+            kpos, kval = addr["kpos"], addr["k_valid"]
+        else:
+            k, v = (_rand(gen, (SLOTS, max_len, hkv, dh), dt, dev) for _ in range(2))
+            kpos = torch.arange(max_len, device=dev, dtype=torch.int32)[None].expand(
+                SLOTS, max_len).contiguous()
+            kval = (kpos < (ln + tn)[:, None]).contiguous()
+        return q, k, v, dict(q_positions=qp.contiguous(), k_positions=kpos, causal=True,
+                             k_valid=kval)
+
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        for paged in (False, True):
+            label = f"{name} verify {'paged' if paged else 'contiguous'}"
+            vq, vk, vv, vkw = verify_case(dt, paged)
+            got = fa.flash_attention_cuda(vq, vk, vv, **vkw)
+            errs["flash_attention"][label] = max_err(
+                got, fa.flash_attention_plain(vq, vk, vv, **vkw), name)
+            check(torch.equal(got, fa.flash_attention_cuda(vq, vk, vv, **vkw)),
+                  f"flash: a repeat call differs ({label})")
+            check(bool((got[VERIFY_T_NEW.index(0)] == 0).all()),
+                  "flash: an idle verify slot's rows are not exactly zero")
+
     # ---- int8 GEMMs: every served linear [M, K] x [K, N] at decode (M = slots)
     # and prefill (M = pad_to), plus M = 1 and ragged edges
     errs["int8_matmul_weight_only"], errs["int8_matmul_dynamic"] = {}, {}
@@ -655,6 +712,33 @@ def phase_kernels(pad_to: int, max_len: int):
         + mkw["k_valid"].numel(),
         flops=int(mmask.sum()) * hq * 4 * dh,
     ))
+
+    for paged in (False, True):
+        vq, vk, vv, vkw = verify_case(bf, paged)
+        vk_exp, vv_exp = (x.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                          for x in (vk, vv))
+        vmask = ((vkw["k_positions"][:, None, :] <= vkw["q_positions"][:, :, None])
+                 & vkw["k_valid"][:, None, :])
+        where = "paged, keys gathered from the pool" if paged else "contiguous cache"
+        records.append(dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:88",
+            shape=f"q[{SLOTS},{lanes},{hq},{dh}] kv[{SLOTS},{vk.shape[1]},{hkv},{dh}] bf16 "
+                  f"(verify step, {where}: lengths {VERIFY_LENGTHS}, t_new {VERIFY_T_NEW})",
+            max_abs_err=errs["flash_attention"][
+                f"bfloat16 verify {'paged' if paged else 'contiguous'}"],
+            call=lambda a=(vq, vk, vv), kw=vkw: fa.flash_attention_cuda(*a, **kw),
+            ms=cuda_ms(lambda a=(vq, vk, vv), kw=vkw: fa.flash_attention_cuda(*a, **kw)),
+            plain_ms=cuda_ms(lambda a=(vq, vk, vv), kw=vkw: fa.flash_attention_plain(*a, **kw)),
+            library=(lambda qt=vq.transpose(1, 2), ke=vk_exp, ve=vv_exp, m=vmask[:, None]:
+                     F.scaled_dot_product_attention(qt, ke, ve, attn_mask=m)),
+            path="spec_paged" if paged else "spec", counter="flash_attention",
+            bytes=(2 * vq.numel() + 2 * int(vkw["k_valid"].sum()) * hkv * dh) * 2
+            + (vkw["q_positions"].numel() + vkw["k_positions"].numel()) * 4
+            + vkw["k_valid"].numel(),
+            flops=int(vmask.sum()) * hq * 4 * dh,
+        ))
 
     qd = _rand(gen, (SLOTS, hq, dh), bf, dev)
     kc = _rand(gen, (SLOTS, max_len, hkv, dh), bf, dev)
@@ -1481,16 +1565,18 @@ def _want_counts(cfg, n_fwd: int, **kernels):
     return want
 
 
-def _trace(cfg, pad_to):
+def _trace(cfg, pad_to, temperature: float = 0.0, top_p: float = 1.0):
     from repro_torch.launch import serve
     from repro_torch.training import data as data_mod
 
     return serve.poisson_trace(data_mod.PAPER_PROFILES["llama_humaneval"], N_REQUESTS,
                                pad_to=pad_to, max_new_cap=MAX_NEW,
-                               vocab_size=cfg.vocab_size, arrival_rate=0.0, seed=SEED)
+                               vocab_size=cfg.vocab_size, arrival_rate=0.0, seed=SEED,
+                               temperature=temperature, top_p=top_p)
 
 
-def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, **geometry):
+def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperature=0.0,
+               top_p=1.0, speculative=False, **geometry):
     """One scheduler run of the trace, launch counters set to 0 just before
     it and read just after. Checks that every request got its max_new
     tokens, that every logits tensor the scheduler sampled from was finite
@@ -1501,19 +1587,27 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, **geometry
     attention per decode layer (the paged kernel on a paged pool) and the
     int8 kernel of ``int8_mode`` ("wo"/"dyn"/None) 7 x n_layers per
     forward; for an SSM the scan per prefill layer; every other kernel 0.
-    ``geometry`` (paged, block_size, num_blocks, chunked, prefill_budget)
-    goes to the scheduler; a paged run must end with no block owned.
-    Prints the device memory the run allocated at its peak."""
+    Every request samples at ``temperature`` / ``top_p``; ``speculative``
+    makes each a ``SpeculativeProfile`` (exit layer ``SPEC_EXIT``,
+    ``SPEC_DRAFT`` drafts), and a speculative step counts as a full forward
+    (the verify: flash n_layers) plus ``SPEC_DRAFT`` draft forwards of
+    ``SPEC_EXIT`` layers (decode attention and 2 add-norms a layer, one
+    none-norm each). ``geometry`` (paged, block_size, num_blocks, chunked,
+    prefill_budget) goes to the scheduler; a paged run must end with no
+    block owned. Prints the device memory the run allocated at its peak."""
     import torch
 
     from repro_torch.core import engine
     from repro_torch.launch import serve
 
     dev = torch.device("cuda")
-    reqs = _trace(cfg, pad_to)
+    reqs = _trace(cfg, pad_to, temperature, top_p)
+    if speculative:
+        serve.apply_profile_mix(reqs, "speculative", exit_layer=SPEC_EXIT, n_draft=SPEC_DRAFT)
     want_new = {r.rid: r.max_new for r in reqs}
     finite = {"ok": torch.ones((), dtype=torch.bool, device=dev)}
-    real = {name: getattr(engine, name) for name in ("prefill", "decode_step", "mixed_step")}
+    real = {name: getattr(engine, name)
+            for name in ("prefill", "decode_step", "mixed_step", "verify_step")}
 
     def checked(fn):
         def step(*a, **kw):
@@ -1544,15 +1638,22 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, **geometry
     for r in done:
         check(len(r.tokens) == want_new[r.rid],
               f"{tag}: request {r.rid} got {len(r.tokens)} of {want_new[r.rid]} tokens")
-    n_fwd = m["prefills"] + m["decode_steps"]  # decode steps count the mixed ones
+    n_fwd = m["prefills"] + m["decode_steps"]  # decode steps count mixed and verify ones
     mixed = m.get("mixed_steps", 0)
+    spec = m.get("spec_steps", 0)
+    check(speculative or not spec, f"{tag}: speculative steps in a plain run")
     want_counts = _want_counts(cfg, n_fwd)
+    drafts = SPEC_DRAFT * spec  # early-exit forwards of SPEC_EXIT layers
+    want_counts["rmsnorm/none"] += drafts
+    want_counts["rmsnorm/add"] += 2 * SPEC_EXIT * drafts
+    want_counts["rmsnorm"] += (1 + 2 * SPEC_EXIT) * drafts
     if cfg.family == "ssm":  # the scan at every prefill; decode is plain torch
         want_counts["ssd_scan"] = cfg.n_layers * m["prefills"]
     else:
-        want_counts["flash_attention"] = cfg.n_layers * (m["prefills"] + mixed)
+        want_counts["flash_attention"] = cfg.n_layers * (m["prefills"] + mixed + spec)
         decode = "paged_decode_attention" if geometry.get("paged") else "decode_attention"
-        want_counts[decode] = cfg.n_layers * (m["decode_steps"] - mixed)
+        want_counts[decode] = (cfg.n_layers * (m["decode_steps"] - mixed - spec)
+                               + SPEC_EXIT * drafts)
         if int8_mode is not None:
             want_counts[f"int8_matmul_{'weight_only' if int8_mode == 'wo' else 'dynamic'}"] = (
                 7 * cfg.n_layers * n_fwd)
@@ -1605,6 +1706,61 @@ MIXED_LANES = PAGED_ARMS["chunked"]["prefill_budget"]
 #: each slot's new tokens in the kernels phase's mixed step: prefilling slots
 #: (a full and a partial chunk), decoding slots (1) and an idle one (0)
 MIXED_T_NEW = [MIXED_LANES, 1, MIXED_LANES, 37, 0, 1, MIXED_LANES, 1]
+#: the speculative phase: LayerSkip's exit layer and drafts a window, and the
+#: sampled arms' temperature and top-p
+SPEC_EXIT, SPEC_DRAFT, SPEC_TEMP, SPEC_TOP_P = 8, 4, 0.8, 0.9
+#: arm -> (temperature, top_p, speculative, scheduler geometry); the paged arm
+#: runs at phase 4b's chunked geometry, which preempts
+SPEC_ARMS = {"plain t=0.8": (SPEC_TEMP, SPEC_TOP_P, False, {}),
+             "spec greedy": (0.0, 1.0, True, {}),
+             "spec t=0.8": (SPEC_TEMP, SPEC_TOP_P, True, {}),
+             "spec t=0.8 paged": (SPEC_TEMP, SPEC_TOP_P, True, PAGED_ARMS["chunked"])}
+#: the kernels phase's verify step: each slot's write position and window
+#: width (full windows, a plain lane, a window cut by max_new, an idle slot;
+#: the last slot's window ends at the contiguous cache's last row)
+VERIFY_LENGTHS = [1, 44, 100, 200, 256, 300, 0, 316]
+VERIFY_T_NEW = [SPEC_DRAFT + 1] * 3 + [1, SPEC_DRAFT + 1, 3, 0, SPEC_DRAFT + 1]
+
+
+def _deciding_gap(model, params, seq, rid, index, temperature, top_p):
+    """(gap, bound) of the token after ``seq`` under the near-tie rule: a
+    divergence passes only where the gap is below the bound. Greedy: the
+    plain path's top-1/top-2 logit gap against the kernel and plain paths'
+    max |dlogit| at that step; sampled: the top-two perturbed scores (the
+    nucleus-filtered plain logits / T plus the Gumbel draw of request
+    ``rid``'s token ``index``) against that max |dlogit| / T."""
+    import torch
+
+    from repro_torch.core import prng, sampling
+
+    lp = _prefill_last(model, params, seq, "torch")
+    d = float((_prefill_last(model, params, seq, "cuda") - lp).abs().max())
+    if temperature <= 0:
+        top2 = torch.topk(lp, 2).values
+        return float(top2[0] - top2[1]), d
+    key = sampling.slot_step_keys(prng.PRNGKey(0, device=lp.device), [rid], [index])[0]
+    scores = sampling.nucleus(lp / temperature, top_p) + prng.gumbel(key, lp.shape)
+    top2 = torch.topk(scores, 2).values
+    return float(top2[0] - top2[1]), d / temperature
+
+
+def same_tokens(model, params, cfg, pad_to, got, want, temperature, top_p, tag, what):
+    """Each request's tokens in ``got`` against ``want``: equal, or equal up
+    to a first divergence at a near tie (``_deciding_gap``)."""
+    same = 0
+    for r in _trace(cfg, pad_to):
+        g, w = got[r.rid], want[r.rid]
+        first = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if first is None:
+            check(len(g) == len(w), f"{tag} request {r.rid}: {len(g)} tokens vs {len(w)}")
+            same += 1
+            continue
+        gap, lim = _deciding_gap(model, params, list(r.prompt) + w[:first], r.rid, first,
+                                 temperature, top_p)
+        print(f"[{tag}] request {r.rid}: token {first} differs from {what} (gap {gap:.4f}, "
+              f"bound {lim:.4f})", flush=True)
+        check(gap < lim, f"{tag} request {r.rid}: token {first} differs away from a near tie")
+    print(f"[{tag}] {same} of {N_REQUESTS} requests give {what} exactly", flush=True)
 
 
 def phase_paged(cfg, model, params, pad_to, served):
@@ -1635,26 +1791,8 @@ def phase_paged(cfg, model, params, pad_to, served):
               + (f" | mixed steps {m['mixed_steps']} of {m['decode_steps']}, chunks "
                  f"{m['prefill_chunks']} ({m['prefill_chunk_tokens']} tokens)"
                  if geometry.get("chunked") else ""), flush=True)
-        same = 0
-        for r in _trace(cfg, pad_to):
-            got, want = toks[r.rid], served[r.rid]
-            first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
-            if first is None:
-                same += 1
-                continue
-            # a divergence passes only at a near tie: where the plain path's
-            # top-1/top-2 gap is below the kernel and plain paths' max
-            # |logit difference| at that step
-            seq = list(r.prompt) + want[:first]
-            lp = _prefill_last(model, params, seq, "torch")
-            d = float((_prefill_last(model, params, seq, "cuda") - lp).abs().max())
-            top2 = torch.topk(lp, 2).values
-            g = float(top2[0] - top2[1])
-            print(f"[{tag}] request {r.rid}: token {first} differs from the contiguous "
-                  f"arm's (gap {g:.4f}, max|dlogit| {d:.4f})", flush=True)
-            check(g < d, f"{tag} request {r.rid}: token {first} differs away from a near tie")
-        print(f"[{tag}] {same} of {N_REQUESTS} requests give the contiguous arm's tokens "
-              f"exactly", flush=True)
+        same_tokens(model, params, cfg, pad_to, toks, served, 0.0, 1.0, tag,
+                    "the contiguous arm's tokens")
         out[arm] = counts
     profile_paged_steps(cfg, model, params, pad_to)
     return out
@@ -1731,6 +1869,160 @@ def profile_paged_steps(cfg, model, params, pad_to, pairs: int = 3):
               flush=True)
         print_split(f"paged profile {kind}", cats, by_name, 1, "step (the last)")
     print(f"[paged profile] clocks.sm, power.draw after: {gpu_clocks()}", flush=True)
+
+
+def phase_speculative(cfg, model, params, pad_to, served):
+    """Phase 4c: LayerSkip self-speculative serving and keyed sampling on
+    the serve phase's weights and trace, four arms (``SPEC_ARMS``): every
+    arm's launches exact (``serve_once``), the speculative arms' counters
+    consistent, tokens against phase 4's greedy run and the plain sampled
+    arm up to a near tie, at least one draft accepted; then one speculative
+    step profiled. Returns each arm's launch counts."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    dev = torch.device("cuda")
+    runs = {}
+    for arm, (temp, top_p, spec, geometry) in SPEC_ARMS.items():
+        tag = f"spec/{arm}"
+        serve.warmup(model, params, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
+                     device=dev, speculative=spec, exit_layer=SPEC_EXIT, n_draft=SPEC_DRAFT,
+                     **geometry)
+        m, toks, counts = serve_once(model, params, cfg, pad_to, policy="continuous",
+                                     int8_mode=None, tag=tag, temperature=temp, top_p=top_p,
+                                     speculative=spec, **geometry)
+        line = (f"[{tag}] pool steps {m['decode_steps']} + {m['prefills']} prefills | "
+                f"preemptions {m.get('n_preemptions', 0)}")
+        if spec:
+            check(m.get("spec_steps", 0) >= 1, f"{tag}: no speculative step ran")
+            check(m["spec_committed"] == m["spec_accepted"] + m["spec_slot_steps"],
+                  f"{tag}: committed {m['spec_committed']} != accepted {m['spec_accepted']} "
+                  f"+ slot-steps {m['spec_slot_steps']}")
+            hist = {int(k): v for k, v in m["spec_commit_hist"].items()}
+            check(sum(hist.values()) == m["spec_slot_steps"]
+                  and sum(k * v for k, v in hist.items()) == m["spec_committed"],
+                  f"{tag}: the commit histogram {hist} does not sum")
+            line += (f" | spec steps {m['spec_steps']} | slot-steps {m['spec_slot_steps']} | "
+                     f"drafted {m['spec_drafted']} accepted {m['spec_accepted']} "
+                     f"(acceptance {m['spec_acceptance']:.4f}) | tokens a slot-step "
+                     f"{m['spec_tokens_per_step']:.4f} | commit hist {m['spec_commit_hist']}")
+        if geometry.get("paged"):
+            check(m["n_preemptions"] >= 1, f"{tag}: the pool never preempted")
+        print(line, flush=True)
+        runs[arm] = (m, toks, counts)
+    check(sum(r[0].get("spec_accepted", 0) for r in runs.values()) >= 1,
+          f"speculative: no draft accepted at exit layer {SPEC_EXIT}")
+    same_tokens(model, params, cfg, pad_to, runs["spec greedy"][1], served, 0.0, 1.0,
+                "spec/spec greedy", "phase 4's greedy tokens")
+    for arm in ("spec t=0.8", "spec t=0.8 paged"):
+        same_tokens(model, params, cfg, pad_to, runs[arm][1], runs["plain t=0.8"][1],
+                    SPEC_TEMP, SPEC_TOP_P, f"spec/{arm}", "the plain sampled arm's tokens")
+    profile_speculative_step(cfg, model, params, pad_to)
+    return {arm: counts for arm, (_, _, counts) in runs.items()}
+
+
+def profile_speculative_step(cfg, model, params, pad_to, n: int = 3):
+    """Speculative steps of a contiguous scheduler with 8 sampled
+    speculative residents, ``n`` unprofiled (wall) and ``n`` under
+    torch.profiler (device busy ms and device kernels a step), each step's
+    launches checked; then the sampler's device kernels a call, by part:
+    the per-lane keys, the Gumbel draw, the whole window sampler and the
+    plain step's per-slot sampler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import prng, sampling
+    from repro_torch.core.scheduler import Scheduler
+    from repro_torch.launch import serve
+
+    dev = torch.device("cuda")
+    sched = Scheduler(model, params, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
+                      device=dev)
+    reqs = _trace(cfg, pad_to, SPEC_TEMP, SPEC_TOP_P)[:SLOTS]
+    serve.apply_profile_mix(reqs, "speculative", exit_layer=SPEC_EXIT, n_draft=SPEC_DRAFT)
+    sched.submit(reqs)
+    sched._t0 = time.perf_counter()
+    sched._admit(sched._now())
+    want = {"decode_attention": SPEC_EXIT * SPEC_DRAFT, "flash_attention": cfg.n_layers,
+            "rmsnorm/none": SPEC_DRAFT + 1,
+            "rmsnorm/add": 2 * SPEC_EXIT * SPEC_DRAFT + 2 * cfg.n_layers}
+
+    def run(profiled):
+        check(sched._spec_ready(), "speculative profile: the pool left speculative stepping")
+        spec = sched.n_spec_steps
+        _reset_counts()
+        prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                        acc_events=True) if profiled else None)
+        if prof is not None:
+            prof.__enter__()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        check(sched.n_spec_steps == spec + 1, "speculative profile: the step was no spec step")
+        got = {k: _read_counts()[k] for k in want}
+        check(got == want, f"speculative profile: step launches {got}, expected {want}")
+        return wall, (device_kernels(prof) if profiled else None)
+
+    walls, busy, n_kern = [], [], []
+    for _ in range(n):
+        walls.append(run(False)[0])
+        kern = run(True)[1]
+        if kern:
+            cats, by_name = device_split(kern)
+            busy.append(sum(cats.values()) / 1e3)
+            n_kern.append(len(kern))
+    wall = statistics.median(walls)
+    head = (f"[spec profile] speculative step (B={SLOTS}, exit layer {SPEC_EXIT}, "
+            f"{SPEC_DRAFT} drafts, t={SPEC_TEMP}): wall {wall:.3f} ms unprofiled (median of "
+            f"{[round(w, 3) for w in walls]}) | launches a step {want}")
+    if not busy:
+        print(f"{head}; the profiler saw no device activity: device busy share not measured",
+              flush=True)
+    else:
+        dev_ms = statistics.median(busy)
+        print(f"{head} | device busy {dev_ms:.3f} ms = {dev_ms / wall:.1%} (median of "
+              f"{[round(b, 3) for b in busy]}) | {statistics.median(n_kern):.0f} device "
+              f"kernels a step ({n_kern})", flush=True)
+        print_split("spec profile", cats, by_name, 1, "step (the last)")
+
+    # the sampler alone, at the step's shapes: device kernels and ms a call
+    v = cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(5)
+    logits = torch.randn((SLOTS, SPEC_DRAFT + 1, v), generator=gen, device=dev)
+    window = torch.zeros((SLOTS, SPEC_DRAFT + 1), dtype=torch.int32, device=dev)
+    steps = sched._ngen[:, None] + np.arange(SPEC_DRAFT + 1)[None]
+    keys = torch.from_numpy(sampling.window_step_keys(sched.base_key, sched._rid, steps,
+                                                      sched._stream)).to(dev)
+    parts = {
+        "window keys (folded on the host)":
+            lambda: sampling.window_step_keys(sched.base_key, sched._rid, steps, sched._stream),
+        "gumbel draw [8,5,V]": lambda: prng.gumbel(keys, (v,)),
+        "window sampler (keys to tokens on the host)":
+            lambda: sched._sample_window(logits, window),
+        "slot sampler (plain step, keys to tokens on the host)":
+            lambda: sched._sample(logits[:, 0]),
+    }
+    for label, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = device_kernels(prof)
+        ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / 5
+        print(f"[spec profile] sampler part {label}: {len(kern)} device kernels, device "
+              f"{ms:.4f} ms, wall {host:.3f} ms a call", flush=True)
 
 
 def gpu_clocks() -> str:
@@ -2688,6 +2980,7 @@ def main() -> None:
         records = phase_kernels(pad_to, pad_to + MAX_NEW + 1)
         cfg, model, params, trace, runs = phase_serve(pad_to)
         paged_counts = phase_paged(cfg, model, params, pad_to, runs["continuous"][1])
+        spec_counts = phase_speculative(cfg, model, params, pad_to, runs["continuous"][1])
         phase_parity(model, params, pad_to, trace[:2], runs["continuous"][1])
         phase_profile(model, params, pad_to, trace, fused=fused_per_forward(cfg))
         arms = phase_quant(cfg, model, params, pad_to, trace)
@@ -2705,6 +2998,7 @@ def main() -> None:
                        "hstu_attention": hstu_counts, "ssd_scan": ssm_counts}
         f32_counts = {"hstu_attention": hstu_f32_counts, "ssd_scan": ssm_f32_counts}
         paths = {"serve": runs["continuous"][2], "chunked": paged_counts["chunked"],
+                 "spec": spec_counts["spec t=0.8"], "spec_paged": spec_counts["spec t=0.8 paged"],
                  "hstu": hstu_counts, "ssm": ssm_counts, "seamless": seamless_counts,
                  "chameleon": chameleon_counts}
         for r in records:

@@ -11,12 +11,17 @@ Step primitives (shared with the continuous-batching scheduler):
 - ``mixed_step``  — one token-budget mixed prefill/decode step over a paged
                     pool (chunked prefill): every slot advances by its own
                     ``t_new`` tokens in the same forward.
+- ``verify_step`` — one speculative verification step over either pool:
+                    every slot scores its drafted window in one full-model
+                    forward and gets every lane's logits back.
 
 Decoding strategies are ``DecodingProfile`` specs (core/profiles.py) driven
 by one loop, :func:`run_profile`: prefill the profile's expanded streams
 once, then replay ``decode_step``, with the profile choosing each stream's
 next token, an optional cache permutation (beam's Obs #4 KV reorder) and
-the finish condition. The public engines build the profile:
+the finish condition; the loop splits its key once a step, as the reference
+does, and hands the profile the new half. The public engines build the
+profile:
 
 - ``generate``             — ``SamplingProfile`` (Llama / Chameleon I-T);
                              ``tokens`` is always [B, max_new_tokens],
@@ -27,8 +32,8 @@ the finish condition. The public engines build the profile:
 - ``generate_contrastive`` — ``ContrastiveProfile`` (Chameleon T-I): two
                              streams, two forwards a step (§2.1.2).
 
-Everything runs eagerly under ``torch.inference_mode()``; the verify step
-(speculation) is a later slice.
+Everything runs eagerly under ``torch.inference_mode()``. LayerSkip's draft
+and batch engine live in core/layerskip.py on these primitives.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.core import kv_cache, profiles
+from repro_torch.core import kv_cache, prng, profiles, sampling
 from repro_torch.models.registry import Model
 
 
@@ -87,6 +92,23 @@ def mixed_step(model: Model, params, cache, tokens: torch.Tensor, t_new: torch.T
     return logits[:, 0], cache
 
 
+@torch.inference_mode()
+def verify_step(model: Model, params, cache, tokens: torch.Tensor, t_new: torch.Tensor,
+                lengths: torch.Tensor):
+    """One speculative verification step over the whole pool: tokens [B, C]
+    holds each slot's window (lane 0 its last committed token, lanes
+    1..t_new-1 its drafts; t_new 1 is a plain decode lane, 0 an idle row).
+    ``lengths`` [B] is the host's write position of every slot, pinned in
+    place as ``mixed_step`` pins it. Returns every lane's logits [B, C, V]
+    (lane j's sample the token at position lengths + j + 1) and the cache,
+    the whole window written and ``lengths`` advanced by ``t_new``: the
+    caller rewinds the rejected suffix on the host."""
+    cache["lengths"].copy_(lengths)
+    logits, cache, _ = model.forward(params, {"tokens": tokens, "t_new": t_new},
+                                     cache=cache, mode="verify")
+    return logits, cache
+
+
 # --------------------------------------------------------------------------
 # the ONE profile-driven decode loop
 # --------------------------------------------------------------------------
@@ -101,6 +123,7 @@ def run_profile(
     prompt_lengths: Optional[torch.Tensor] = None,
     max_new_tokens: int = 32,
     max_len: Optional[int] = None,
+    key: Optional[torch.Tensor] = None,
     extra_inputs: Optional[Dict[str, torch.Tensor]] = None,
     reorder: Optional[Callable[[Any, torch.Tensor], Any]] = None,
     impl: str = "auto",
@@ -109,15 +132,18 @@ def run_profile(
     prompts to the [G * n_streams] stream layout, prefill once, then replay
     ``decode_step``, with the profile choosing each stream's next token,
     the optional cache permutation (applied by ``reorder``, by default
-    ``kv_cache.reorder_donated``) and the finish condition. One host sync a
-    step, for ``done``. Returns the profile's ``finalize`` output plus
-    ``cache`` and ``n_steps`` (decode-loop iterations actually run)."""
+    ``kv_cache.reorder_donated``) and the finish condition. ``key`` (default
+    ``PRNGKey(0)``) is split once a step on the host, the second half going
+    to the profile. One host sync a step, for ``done``. Returns the
+    profile's ``finalize`` output plus ``cache`` and ``n_steps``
+    (decode-loop iterations actually run)."""
     g, tp = prompt_tokens.shape
     dev = prompt_tokens.device
     if prompt_lengths is None:
         prompt_lengths = torch.full((g,), tp, dtype=torch.int32, device=dev)
     if max_len is None:
         max_len = tp + max_new_tokens + 1
+    key = prng.PRNGKey(0) if key is None else key.cpu()
     reorder = reorder if reorder is not None else kv_cache.reorder_donated
 
     toks_s, lens_s, extra_s = profile.expand_prompts(prompt_tokens, prompt_lengths,
@@ -130,7 +156,8 @@ def run_profile(
             if halt:
                 break
             logits, cache = decode_step(model, params, cache, feed, impl)
-        out = profile.step(state, logits)
+        key, sub = prng.split(key)
+        out = profile.step(state, logits, sub)
         state, feed = out.state, out.feed
         if out.perm is not None:  # Obs #4: the KV_Cache_Reorder op
             cache = reorder(cache, out.perm)
@@ -153,18 +180,21 @@ def generate(
     *,
     prompt_lengths: Optional[torch.Tensor] = None,
     max_new_tokens: int = 32,
+    sampler: sampling.Sampler = sampling.greedy,
+    key: Optional[torch.Tensor] = None,
     eos_id: Optional[int] = None,
     live: Optional[torch.Tensor] = None,
     impl: str = "auto",
 ) -> Dict[str, Any]:
-    """Greedy generation, a ``SamplingProfile`` through :func:`run_profile`:
-    ``live`` [B] marks real rows (dead rows emit only the fill token, EOS
+    """Generation, a ``SamplingProfile`` through :func:`run_profile`, each
+    token drawn by ``sampler`` under the step's key: ``live`` [B] marks real
+    rows (dead rows emit only the fill token, EOS
     when set else 0, and never block the all-done exit); ``tokens`` is
     ALWAYS [B, max_new_tokens], padded with the fill token after an early
     exit; ``n_steps`` counts the steps actually run."""
-    prof = profiles.SamplingProfile(eos_id=eos_id, live=live)
+    prof = profiles.SamplingProfile(eos_id=eos_id, sampler=sampler, live=live)
     out = run_profile(model, params, prof, prompt_tokens, prompt_lengths=prompt_lengths,
-                      max_new_tokens=max_new_tokens, impl=impl)
+                      max_new_tokens=max_new_tokens, key=key, impl=impl)
     return {"tokens": out["tokens"], "cache": out["cache"], "n_steps": out["n_steps"]}
 
 
@@ -214,12 +244,14 @@ def generate_contrastive(
     uncond_token: int,
     n_image_tokens: int,
     guidance: float = 3.0,
+    sampler: sampling.Sampler = sampling.greedy,
+    key: Optional[torch.Tensor] = None,
     impl: str = "auto",
 ) -> Dict[str, Any]:
     """Chameleon T-I as a ``ContrastiveProfile``: the conditional stream
     sees the prompt, the unconditional stream a null prompt; each step runs
     both (the paper's "decodes twice at each time step"), mixes their logits
-    and feeds the same greedy image token to both. On VLM configs the token
+    and feeds the same image token, drawn by ``sampler``, to both. On VLM configs the token
     is restricted to the image-token range; other families run plain
     classifier-free guidance."""
     cfg = model.config
@@ -229,8 +261,8 @@ def generate_contrastive(
 
         mask_offset = vlm.image_token_offset(cfg)
     prof = profiles.ContrastiveProfile(uncond_token=uncond_token, guidance=guidance,
-                                       mask_offset=mask_offset)
+                                       mask_offset=mask_offset, sampler=sampler)
     tp = prompt_tokens.shape[1]
     out = run_profile(model, params, prof, prompt_tokens, max_new_tokens=n_image_tokens,
-                      max_len=tp + n_image_tokens + 1, impl=impl)
+                      max_len=tp + n_image_tokens + 1, key=key, impl=impl)
     return {"tokens": out["tokens"], "n_steps": out["n_steps"]}

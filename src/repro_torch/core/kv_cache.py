@@ -97,6 +97,16 @@ def reset_slots(pool: Any, mask: torch.Tensor) -> Any:
     return pool
 
 
+@torch.inference_mode()
+def rewind(cache: Any, new_lengths: torch.Tensor) -> Any:
+    """Roll the cache back to ``new_lengths`` [B] tokens (a speculative
+    window's rejected suffix): the new lengths are copied into the pool's
+    ``lengths`` in place. The rejected K/V stays where it was, past the
+    validity window, until the next write there replaces it."""
+    cache["lengths"].copy_(new_lengths)
+    return cache
+
+
 # --------------------------------------------------------------------------
 # paged block-pool ops
 # --------------------------------------------------------------------------

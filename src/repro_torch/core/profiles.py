@@ -23,9 +23,12 @@ Hooks are vectorized over G groups laid out group-contiguously: row
 flat row indices (``perm[i]``: the row whose cache stream ``i`` continues
 from); the caller applies it (``kv_cache.reorder_donated`` by default).
 
-Greedy only: a ``temperature > 0`` raises ``NotImplementedError`` until the
-port has keyed sampling. The speculative profile and the scheduler's slot
-groups (block sharing, ``permute_group``) are later slices.
+Sampling and contrastive profiles take greedy tokens at ``temperature <= 0``
+and nucleus samples above it, drawn under the key ``step`` is given
+(``core/prng.py``). ``SpeculativeProfile`` is a ``SamplingProfile`` that the
+serving scheduler steps through LayerSkip draft/verify windows; the batch
+engines treat it as its base. The scheduler's slot groups (block sharing,
+``permute_group``) are a later slice.
 """
 from __future__ import annotations
 
@@ -38,10 +41,15 @@ import torch
 from repro_torch.core import sampling
 
 
-def _refuse_sampling(temperature: float) -> None:
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "temperature > 0 waits for the port's keyed sampling; the profiles are greedy")
+def _sampler(custom: Optional[sampling.Sampler], temperature: float,
+             top_p: float) -> sampling.Sampler:
+    """``custom`` if given, else greedy at ``temperature <= 0`` and nucleus
+    sampling above it."""
+    if custom is not None:
+        return custom
+    if temperature <= 0.0:
+        return sampling.greedy
+    return sampling.top_p(top_p, temperature)
 
 
 @dataclass
@@ -96,21 +104,22 @@ class DecodingProfile:
 
 
 # --------------------------------------------------------------------------
-# greedy sampling — the Llama & Chameleon I-T strategy
+# plain sampling (greedy / top-p) — the Llama & Chameleon I-T strategy
 # --------------------------------------------------------------------------
 
 @dataclass
 class SamplingProfile(DecodingProfile):
-    """Single-stream greedy decoding. ``live`` [G] marks real rows: dead
+    """Single-stream token sampling: greedy at ``temperature <= 0``, else
+    nucleus sampling; ``sampler`` overrides both with any callable (the
+    ``engine.generate`` escape hatch). ``live`` [G] marks real rows: dead
     rows count as finished, emit only the fill token (``eos_id`` when set,
     else 0) and never block the all-done exit."""
 
     temperature: float = 0.0
+    top_p: float = 1.0
     eos_id: Optional[int] = None
+    sampler: Optional[sampling.Sampler] = None
     live: Optional[torch.Tensor] = None  # [G] bool
-
-    def __post_init__(self):
-        _refuse_sampling(self.temperature)
 
     @property
     def _fill(self) -> int:
@@ -130,7 +139,7 @@ class SamplingProfile(DecodingProfile):
         }
 
     def step(self, state, logits, key=None) -> StepOut:
-        token = sampling.greedy(logits)
+        token = _sampler(self.sampler, self.temperature, self.top_p)(logits, key)
         done = state["done"]
         if done is not None:
             if self.eos_id is not None:
@@ -142,6 +151,28 @@ class SamplingProfile(DecodingProfile):
 
     def finalize(self, state) -> Dict[str, torch.Tensor]:
         return {"tokens": state["tokens"]}
+
+
+# --------------------------------------------------------------------------
+# speculative (LayerSkip draft/verify) — multi-token pool steps
+# --------------------------------------------------------------------------
+
+@dataclass
+class SpeculativeProfile(SamplingProfile):
+    """Single-stream sampling whose pool steps commit a variable number of
+    tokens: each speculative step greedily drafts up to ``n_draft`` tokens
+    with the first ``exit_layer`` layers (``core/layerskip.draft_window``),
+    scores the whole window in one full-model forward
+    (``engine.verify_step``), commits the accepted prefix plus the full
+    model's correction, and rewinds the rejected suffix on the host.
+
+    Every committed token is sampled from full-model logits under the key
+    plain pool decoding uses for it, so the tokens equal a plain run's at
+    any temperature: ``exit_layer`` and ``n_draft`` move only how many
+    tokens a step commits."""
+
+    exit_layer: int = 1
+    n_draft: int = 4
 
 
 # --------------------------------------------------------------------------
@@ -185,16 +216,16 @@ class ContrastiveProfile(DecodingProfile):
     """Two streams per request — conditional (the prompt) and unconditional
     (a null prompt). Each step runs both (the paper's "decodes twice at each
     time step"), mixes their logits as ``uncond + guidance * (cond -
-    uncond)``, restricts them to ids >= ``mask_offset`` when set, takes one
-    greedy token and feeds it to both streams. No cache permutation."""
+    uncond)``, restricts them to ids >= ``mask_offset`` when set, samples
+    one token (greedy at ``temperature <= 0``) and feeds it to both streams.
+    No cache permutation."""
 
     uncond_token: int
     guidance: float = 3.0
     mask_offset: Optional[int] = None  # restrict to ids >= offset
     temperature: float = 0.0
-
-    def __post_init__(self):
-        _refuse_sampling(self.temperature)
+    top_p: float = 1.0
+    sampler: Optional[sampling.Sampler] = None
 
     @property
     def n_streams(self) -> int:
@@ -227,7 +258,7 @@ class ContrastiveProfile(DecodingProfile):
         mixed = vlm.contrastive_logits(cond, uncond, self.guidance)
         if self.mask_offset is not None:
             mixed = vlm.image_token_mask(self.mask_offset, mixed)
-        token = sampling.greedy(mixed)  # [G]
+        token = _sampler(self.sampler, self.temperature, self.top_p)(mixed, key)  # [G]
         state["tokens"][:, state["i"]] = token
         new_state = {"tokens": state["tokens"], "i": state["i"] + 1}
         # both streams advance on the same token

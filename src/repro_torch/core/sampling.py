@@ -1,20 +1,153 @@
 """Token samplers and beam search of the port — counterparts of
-``repro/core/sampling.py``. Greedy only so far: per-slot temperature /
-top-p sampling with per-(request, token-index) keys is a later slice. Beam
-search (``BeamState``, ``beam_init``, ``beam_step``, ``beam_finalize``) is
-deterministic and needs no key."""
+``repro/core/sampling.py``.
+
+Samplers share the signature ``sample(logits [B, V], key) -> [B]``:
+``greedy``, and ``temperature`` / ``top_k`` / ``top_p`` (nucleus, the Llama
+and Chameleon default), which draw through ``core/prng.py``'s copy of
+``jax.random``. Continuous batching samples per slot: ``sample_slots``
+gives each slot its own request's (temperature, top_p) and its own key, and
+``slot_step_keys`` folds (request id, stream, token index) into the serve
+key, so a request's tokens do not depend on its slot or its batch mates.
+``window_step_keys`` / ``sample_window`` do the same for every lane of a
+speculative verify window: lane ``j`` gets the key its token index would get
+under plain decoding, which keeps speculative tokens equal to plain ones at
+any temperature.
+
+The nucleus filter keeps the reference's op order (sort then reverse,
+softmax as exp(x - max) / sum, cumsum, ``cum - p < top_p``, the threshold as
+the smallest kept logit); summation order differs from XLA's, which moves
+the nucleus edge only where a cumulative sum lands within rounding of
+``top_p``. Beam search (``BeamState``, ``beam_init``, ``beam_step``,
+``beam_finalize``) is deterministic and needs no key."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
+
+from repro_torch.core import prng
+
+Sampler = Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
 
 
 def greedy(logits: torch.Tensor, key=None) -> torch.Tensor:
     """argmax over the vocabulary as int32; ties go to the first index, as
     ``jnp.argmax`` does."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _need_key(key) -> torch.Tensor:
+    if key is None:
+        raise ValueError("a sampled step needs a key (core/prng.PRNGKey)")
+    return key
+
+
+def temperature(temp: float = 1.0) -> Sampler:
+    def sample(logits, key):
+        return prng.categorical(_need_key(key), logits / max(temp, 1e-6)).to(torch.int32)
+
+    return sample
+
+
+def top_k(k: int, temp: float = 1.0) -> Sampler:
+    def sample(logits, key):
+        vals, idx = top_k_lower_index(logits, k)
+        choice = prng.categorical(_need_key(key), vals / max(temp, 1e-6))
+        return torch.gather(idx, -1, choice[..., None])[..., 0].to(torch.int32)
+
+    return sample
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax``'s ops over the last axis: exp(x - max) / sum."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def nucleus(scaled: torch.Tensor, p) -> torch.Tensor:
+    """``scaled`` with every logit outside the smallest top set of mass >=
+    ``p`` set to -inf (the top-1 always kept); ``p`` a float or a tensor that
+    broadcasts against ``scaled[..., :1]``."""
+    sorted_logits = torch.sort(scaled, dim=-1).values.flip(-1)
+    probs = softmax(sorted_logits)
+    keep = torch.cumsum(probs, dim=-1) - probs < p
+    inf = torch.tensor(float("inf"), device=scaled.device)
+    threshold = torch.where(keep, sorted_logits, inf).amin(dim=-1, keepdim=True)
+    return torch.where(scaled >= threshold, scaled, -inf)
+
+
+def top_p(p: float = 0.9, temp: float = 1.0) -> Sampler:
+    """Nucleus sampling (paper: Llama & Chameleon's strategy)."""
+
+    def sample(logits, key):
+        filtered = nucleus(logits / max(temp, 1e-6), p)
+        return prng.categorical(_need_key(key), filtered).to(torch.int32)
+
+    return sample
+
+
+# --------------------------------------------------------------------------
+# Per-slot sampling (continuous-batching scheduler)
+# --------------------------------------------------------------------------
+
+def request_key(base_key, rid, stream=0):
+    """Per-(request, stream) key: independent of slot placement and batch
+    mates; ``stream`` separates the streams of one multi-stream request."""
+    return prng.fold_in(prng.fold_in(base_key, rid), stream)
+
+
+def _as_index(x, like):
+    """``x`` as int64 indices of ``like``'s kind: a numpy array beside a
+    numpy key, else a tensor on the key's device."""
+    if isinstance(like, np.ndarray):
+        return np.asarray(x, dtype=np.int64)
+    return torch.as_tensor(x, dtype=torch.int64).to(like.device)
+
+
+def slot_step_keys(base_key, rids, steps, streams=None):
+    """Key per slot for its next token: (request id, stream index, token
+    index) folded into the serve key. [B] rids, [B] steps, optional [B]
+    streams (default 0) -> [B, 2]; a numpy ``base_key`` hashes on the host
+    and gives numpy keys."""
+    rids = _as_index(rids, base_key)
+    streams = rids * 0 if streams is None else _as_index(streams, base_key)
+    return prng.fold_in(request_key(base_key, rids, streams), _as_index(steps, base_key))
+
+
+def window_step_keys(base_key, rids, steps, streams=None):
+    """Key per (slot, window lane): lane ``j`` of slot ``b`` gets the key
+    for token index ``steps[b, j]`` of request ``rids[b]`` — the key plain
+    one-token-per-step decoding would use for that token. [B] rids, [B, C]
+    steps, optional [B] streams -> [B, C, 2] (numpy for a numpy key)."""
+    rids = _as_index(rids, base_key)
+    streams = rids * 0 if streams is None else _as_index(streams, base_key)
+    req = request_key(base_key, rids, streams)  # [B, 2]
+    return prng.fold_in(req[:, None], _as_index(steps, base_key))
+
+
+def sample_slots(logits: torch.Tensor, keys: torch.Tensor, temperature: torch.Tensor,
+                 top_p: torch.Tensor) -> torch.Tensor:
+    """Per-slot sampler: logits [..., V], keys [..., 2], temperature and
+    top_p [...]. Each slot samples its own nucleus at its own temperature
+    under its own key (its Gumbel draw is a [V] block of that key); a
+    temperature of 0 takes the greedy token. Returns int32 [...]."""
+    greedy_tok = greedy(logits)
+    temperature = temperature.to(device=logits.device, dtype=torch.float32)
+    scaled = logits / torch.clamp(temperature, min=1e-6)[..., None]
+    filtered = nucleus(scaled, top_p.to(device=logits.device, dtype=torch.float32)[..., None])
+    noise = prng.gumbel(keys, (logits.shape[-1],))
+    sampled = torch.argmax(noise + filtered, dim=-1).to(torch.int32)
+    return torch.where(temperature <= 0.0, greedy_tok, sampled)
+
+
+def sample_window(logits: torch.Tensor, keys: torch.Tensor, temperature: torch.Tensor,
+                  top_p: torch.Tensor) -> torch.Tensor:
+    """``sample_slots`` over every lane of a verify window: logits [B, C, V],
+    keys [B, C, 2], temperature and top_p [B] (every lane of a slot samples
+    with its request's). Returns int32 [B, C]."""
+    return sample_slots(logits, keys, temperature[:, None], top_p[:, None])
 
 
 # --------------------------------------------------------------------------

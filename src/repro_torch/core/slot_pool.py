@@ -12,9 +12,10 @@ in a shared pool of fixed-size physical blocks addressed through per-slot
 block tables, so a slot holds only the blocks its tokens occupy (see
 ``core/kv_cache.py``). Its host state (free-lists, tables, refcounts) is
 numpy, as in the reference; the device side is in-place writes into the
-pool's preallocated tensors. No block has two owners yet: block sharing
-(slot groups, the prefix cache), copy-on-write and the speculative
-``truncate`` come with the port's slices that call them.
+pool's preallocated tensors. ``truncate`` releases the table suffix a
+rejected speculative window leaves behind. No block has two owners yet:
+block sharing (slot groups, the prefix cache) and copy-on-write come with
+the port's slices that call them.
 """
 from __future__ import annotations
 
@@ -95,6 +96,14 @@ class SlotPool(_PoolBase):
         mask[slot] = True
         self.cache = kv_cache.reset_slots(self.cache, mask)
         heapq.heappush(self._free, slot)
+
+    def sync(self) -> None:
+        """No host-side tables to flush (BlockPool signature parity)."""
+
+    def truncate(self, slot: int, kv_len: int) -> None:
+        """Nothing to release: a contiguous slot reserves its whole row, so a
+        speculative rewind is the pool-wide ``lengths`` rewind alone
+        (BlockPool signature parity)."""
 
     def reset(self) -> None:
         """Evict everything (serve-loop restart)."""
@@ -245,6 +254,21 @@ class BlockPool(_PoolBase):
         mask = torch.zeros((self.slots,), dtype=torch.bool)
         mask[slot] = True
         kv_cache.free_blocks(self.cache, mask)
+
+    def truncate(self, slot: int, kv_len: int) -> None:
+        """Release the table suffix a rejected speculative window leaves
+        behind: keep the blocks through the one logical position ``kv_len``
+        (the slot's next write) lands in, as ``ensure`` counts them, and
+        return the rest to the free-list, their table entries pointed back
+        at the sink block. Host-only: the stale K/V in dropped and kept
+        blocks lies past the validity window until rewritten."""
+        keep = kv_len // self.block_size + 1
+        owned = self._owned[slot]
+        while len(owned) > keep:
+            phys = owned.pop()
+            self.block_tables[slot, len(owned)] = 0
+            self._drop_ref(phys)
+            self._bt_dirty = True
 
     @torch.inference_mode()
     def sync(self) -> None:

@@ -8,10 +8,13 @@ run-to-completion batches for A/B comparison. ``--paged`` serves from the
 paged block pool (``--block-size``, ``--num-blocks``; back-pressure by
 preemption), and ``--chunked`` (with ``--paged``) streams each admitted
 prompt into its blocks ``--prefill-budget`` tokens per mixed step instead
-of a prefill. Weights are random, drawn from a ``torch.Generator`` seeded
-with ``--seed``; on the card the model's kernels (attention and RMSNorm for
-``llama3.2-1b``, the SSD scan and RMSNorm for ``mamba2-130m``) are the
-hand-written CUDA ones.
+of a prefill. ``--temperature`` / ``--top-p`` sample every request under
+its own per-(request, token index) keys, and ``--profile-mix speculative``
+serves the requests through LayerSkip draft/verify windows (``--exit-layer``,
+``--n-draft``) with the same tokens. Weights are random, drawn from a
+``torch.Generator`` seeded with ``--seed``; on the card the model's kernels
+(attention and RMSNorm for ``llama3.2-1b``, the SSD scan and RMSNorm for
+``mamba2-130m``) are the hand-written CUDA ones.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
@@ -20,13 +23,17 @@ hand-written CUDA ones.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --paged --chunked --block-size 16 --num-blocks 14 \
       --prefill-budget 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --profile-mix speculative --exit-layer 8 --n-draft 4 --temperature 0.8 \
+      --top-p 0.9
 
 Reported per request: TTFT (arrival -> first token), TPOT (mean inter-
 token), e2e latency; aggregate: tokens/s, mean slot-occupancy and the
 decode-stall-per-admission metric (the inter-step gap an admission's
 prefill sat inside). Paged runs add block occupancy, preemptions and the
 KV bytes reserved against the peak bytes used; chunked runs the mixed
-steps and chunk counts.
+steps and chunk counts; speculative runs the draft/verify steps, the
+acceptance and the tokens committed a slot-step.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import profiles
 from repro_torch.core.scheduler import Scheduler, ServeRequest
 from repro_torch.models import get_model
 from repro_torch.training import data as data_mod
@@ -52,10 +60,13 @@ def poisson_trace(
     vocab_size: int,
     arrival_rate: float,
     seed: int = 0,
+    temperature: float = 0.0,
+    top_p: float = 1.0,
 ) -> List[ServeRequest]:
     """Requests with paper-profile lengths and Poisson (exponential
     inter-arrival) arrival offsets; rate <= 0 means all arrive at t=0.
-    Draws the same prompts and lengths as the JAX launcher's trace."""
+    Draws the same prompts and lengths as the JAX launcher's trace; every
+    request samples at ``temperature`` / ``top_p``."""
     rng = np.random.default_rng(seed)
     ins, outs = data_mod.sample_lengths(profile, n_requests, seed=seed + 1)
     t = 0.0
@@ -69,9 +80,39 @@ def poisson_trace(
                 prompt=rng.integers(0, vocab_size, size=min(int(ins[i]), pad_to)),
                 max_new=max(1, min(int(outs[i]), max_new_cap)),
                 t_arrival=t if arrival_rate > 0 else 0.0,
+                temperature=temperature,
+                top_p=top_p,
             )
         )
     return reqs
+
+
+def apply_profile_mix(requests: List[ServeRequest], mix: str, *, exit_layer: int = 1,
+                      n_draft: int = 4) -> List[ServeRequest]:
+    """Cycle decoding kinds over a trace, round-robin by request order (a
+    comma list, so A/B arms see identical work): ``greedy`` (temperature 0,
+    no profile), ``sampling`` (the request's own temperature and top-p, no
+    profile) and ``speculative`` (a ``SpeculativeProfile`` at the request's
+    temperature and top-p: draft/verify windows give the plain tokens, so
+    the mix changes only how many tokens a step commits). ``beam``,
+    ``contrastive`` and ``cfg`` need slot groups, a later slice."""
+    kinds = [k.strip() for k in mix.split(",") if k.strip()]
+    for i, r in enumerate(requests):
+        kind = kinds[i % len(kinds)]
+        if kind == "greedy":
+            r.profile, r.temperature, r.top_p = None, 0.0, 1.0
+        elif kind == "sampling":
+            r.profile = None
+        elif kind == "speculative":
+            r.profile = profiles.SpeculativeProfile(
+                temperature=r.temperature, top_p=r.top_p, eos_id=r.eos_id,
+                exit_layer=exit_layer, n_draft=n_draft)
+        elif kind in ("beam", "contrastive", "cfg"):
+            raise NotImplementedError(
+                f"profile kind {kind!r} needs the scheduler's slot groups: a later slice")
+        else:
+            raise ValueError(f"unknown profile kind {kind!r}")
+    return requests
 
 
 def trace_pad_to(profile: data_mod.LengthProfile, n_requests: int, seed: int) -> int:
@@ -113,7 +154,10 @@ def run_scheduler(
     """Serve one trace; returns metrics (plus the scheduler's counters).
     Paged runs report the bytes the pool keeps reserved against the bytes
     its peak block working set used, and the blocks still owned at the end
-    (``leaked_blocks``: 0 once every request finished)."""
+    (``leaked_blocks``: 0 once every request finished). Runs with
+    speculative steps report them (``spec_*``): the acceptance (accepted
+    over drafted tokens), the tokens committed a speculative slot-step and
+    the histogram of commits."""
     device = torch.device(device)
     sched = Scheduler(
         model, params, slots=slots, pad_to=pad_to, max_new_cap=max_new_cap,
@@ -141,6 +185,18 @@ def run_scheduler(
         admission_stall_max_ms=float(stalls.max()) * 1e3 if len(stalls) else 0.0,
         device=str(device),
     )
+    if sched.n_spec_steps:
+        m.update(
+            spec_steps=sched.n_spec_steps,
+            spec_slot_steps=sched.n_spec_slot_steps,
+            spec_drafted=sched.n_spec_drafted,
+            spec_accepted=sched.n_spec_accepted,
+            spec_committed=sched.n_spec_committed,
+            spec_acceptance=sched.n_spec_accepted / max(sched.n_spec_drafted, 1),
+            # > 1: the draft/verify pair beat one token a step
+            spec_tokens_per_step=sched.n_spec_committed / max(sched.n_spec_slot_steps, 1),
+            spec_commit_hist={str(k): v for k, v in sorted(sched.spec_commit_hist.items())},
+        )
     if paged:
         pool = sched.pool
         token_bytes = pool.reserved_bytes / max(pool.num_blocks * pool.block_size, 1)
@@ -165,19 +221,28 @@ def run_scheduler(
 
 def warmup(model, params, *, slots: int, pad_to: int, max_new_cap: int, device,
            paged: bool = False, block_size: int = 16, num_blocks: Optional[int] = None,
-           chunked: bool = False, prefill_budget: Optional[int] = None) -> None:
+           chunked: bool = False, prefill_budget: Optional[int] = None,
+           speculative: bool = False, exit_layer: int = 1, n_draft: int = 4) -> None:
     """Run two tiny requests through a throwaway scheduler of the serving
     geometry before any timed run: builds and loads the kernel library on
-    the card, and brings up the matmul libraries, at the serving shapes."""
+    the card, and brings up the matmul libraries, at the serving shapes.
+    ``speculative`` adds a sampled speculative request long enough for one
+    full draft/verify step at (``exit_layer``, ``n_draft``)."""
     sched = Scheduler(model, params, slots=slots, pad_to=pad_to,
                       max_new_cap=max_new_cap, device=device, paged=paged,
                       block_size=block_size, num_blocks=num_blocks, chunked=chunked,
                       prefill_budget=prefill_budget)
     rng = np.random.default_rng(0)
-    sched.run([
+    reqs = [
         ServeRequest(rid=0, prompt=rng.integers(0, 8, size=pad_to), max_new=2),
         ServeRequest(rid=1, prompt=rng.integers(0, 8, size=3), max_new=2),
-    ])
+    ]
+    if speculative:
+        reqs.append(ServeRequest(
+            rid=2, prompt=rng.integers(0, 8, size=3), max_new=min(n_draft + 2, max_new_cap),
+            profile=profiles.SpeculativeProfile(temperature=0.8, top_p=0.9,
+                                                exit_layer=exit_layer, n_draft=n_draft)))
+    sched.run(reqs)
     _sync(torch.device(device))
 
 
@@ -224,6 +289,16 @@ def main(argv=None):
                     help="prefill tokens per mixed step; default = --block-size")
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="Poisson arrivals per second; 0 = all at t=0")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="per-request sampling temperature; 0 = greedy")
+    ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--profile-mix", default=None, metavar="KINDS",
+                    help="comma list of decoding kinds cycled over the requests: greedy | "
+                         "sampling | speculative (beam / cfg wait for slot groups)")
+    ap.add_argument("--exit-layer", type=int, default=1,
+                    help="LayerSkip early-exit layer of speculative requests")
+    ap.add_argument("--n-draft", type=int, default=4,
+                    help="draft tokens a speculative window")
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the random weights and the trace")
@@ -241,12 +316,19 @@ def main(argv=None):
     reqs = poisson_trace(
         prof, args.n_requests, pad_to=pad_to, max_new_cap=args.max_new,
         vocab_size=cfg.vocab_size, arrival_rate=args.arrival_rate, seed=args.seed,
+        temperature=args.temperature, top_p=args.top_p,
     )
+    speculative = False
+    if args.profile_mix:
+        apply_profile_mix(reqs, args.profile_mix, exit_layer=args.exit_layer,
+                          n_draft=args.n_draft)
+        speculative = any(r.profile is not None for r in reqs)
     geometry = dict(paged=args.paged, block_size=args.block_size,
                     num_blocks=args.num_blocks, chunked=args.chunked,
                     prefill_budget=args.prefill_budget)
     warmup(model, params, slots=args.batch_slots, pad_to=pad_to,
-           max_new_cap=args.max_new, device=device, **geometry)
+           max_new_cap=args.max_new, device=device, speculative=speculative,
+           exit_layer=args.exit_layer, n_draft=args.n_draft, **geometry)
     m = run_scheduler(
         model, params, reqs, slots=args.batch_slots, pad_to=pad_to,
         max_new_cap=args.max_new, device=device, eos_id=args.eos_id,
@@ -272,6 +354,11 @@ def main(argv=None):
         print(f"[serve/{mode}] mixed steps={m['mixed_steps']} of {m['decode_steps']} | "
               f"chunks={m['prefill_chunks']} ({m['prefill_chunk_tokens']} tokens) | "
               f"full prefills={m['full_prefills']}")
+    if "spec_steps" in m:
+        print(f"[serve/{mode}] spec steps={m['spec_steps']} of {m['decode_steps']} | "
+              f"acceptance={m['spec_acceptance']:.2f} | "
+              f"tokens/slot-step={m['spec_tokens_per_step']:.2f} | "
+              f"commit hist={m['spec_commit_hist']}")
     return m
 
 

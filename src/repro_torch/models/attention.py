@@ -16,6 +16,11 @@ Modes:
 - ``decode``:  one token per slot; write at ``lengths % cache_len``, then
                flash-decode over the cache with ``n_valid = min(lengths + 1,
                cache_len)``.
+- ``verify``:  each slot's speculative window of ``t_new`` tokens written at
+               ``lengths`` (``write_window``: lanes past ``t_new`` dropped,
+               never clamped), then flash attention over the whole cache with
+               explicit key positions and ``k_valid = arange(S) < lengths +
+               t_new``.
 
 Paged caches (a layer cache holding ``bt``, the pool's block table [B, MB]
 over K/V blocks [NB, bs, Hkv, D]; see ``core/kv_cache.py``):
@@ -29,11 +34,13 @@ over K/V blocks [NB, bs, Hkv, D]; see ``core/kv_cache.py``):
                written through the table (``paged_chunk_rows``), then
                flash attention over the slots' gathered logical K/V
                (``paged_gather``) with explicit key positions and ``k_valid
-               = arange(MB * bs) < lengths + t_new``.
+               = arange(MB * bs) < lengths + t_new``;
+- ``verify``:  the mixed step's device program over a speculative window
+               (the caller keeps every lane's logits).
 
-Not ported yet (each raises ``NotImplementedError``): the ``verify`` mode
-(speculation), ``extend``, ring/sliding-window caches, the
-sequence-parallel decode (``SP_MESH``) and MLA with its latent cache.
+Not ported yet (each raises ``NotImplementedError``): ``extend`` (it comes
+with the prefix cache), ring/sliding-window caches, the sequence-parallel
+decode (``SP_MESH``) and MLA with its latent cache.
 """
 from __future__ import annotations
 
@@ -80,6 +87,31 @@ def write_slot_row(buf: torch.Tensor, row: torch.Tensor, slot: int) -> torch.Ten
     return buf
 
 
+def window_addresses(lengths: torch.Tensor, t_new: torch.Tensor, c: int) -> dict:
+    """The live lanes of a verify window, as index tensors shared by every
+    layer's ``write_window``: slot ``win_b``, cache position ``win_pos`` and
+    window lane ``win_lane`` of each lane ``j < t_new[b]``, at position
+    ``lengths[b] + j``. Found once a forward: selecting them is the window
+    write's one host sync."""
+    lanes = torch.arange(c, device=lengths.device)
+    live = lanes[None] < t_new.long()[:, None]  # [B, C]
+    b_idx, lane = live.nonzero(as_tuple=True)
+    return {"win_b": b_idx, "win_pos": lengths.long()[b_idx] + lane, "win_lane": lane}
+
+
+def write_window(buf: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor,
+                 t_new: torch.Tensor, addr: Optional[dict] = None) -> torch.Tensor:
+    """Masked multi-token write for verify windows on contiguous caches: new
+    [B, C, ...] lands in buf [B, S, ...] at per-slot offsets ``lengths`` [B],
+    lane ``j`` written iff ``j < t_new[b]``. Only the live lanes are indexed
+    (``window_addresses``, or ``addr`` when given): a lane past ``t_new`` is
+    dropped, never clamped onto a committed entry."""
+    if addr is None:
+        addr = window_addresses(lengths, t_new, new.shape[1])
+    buf[addr["win_b"], addr["win_pos"]] = new[addr["win_b"], addr["win_lane"]].to(buf.dtype)
+    return buf
+
+
 def valid_counts(lengths: torch.Tensor, cache_len: int) -> torch.Tensor:
     return torch.clamp(lengths, max=cache_len)
 
@@ -115,15 +147,15 @@ def paged_addresses(bt: torch.Tensor, lengths: torch.Tensor, bs: int, mode: str,
                     t_new: Optional[torch.Tensor] = None, c: int = 1) -> dict:
     """What every layer of one paged step shares, computed once a forward:
     the flat pool rows its K/V writes go to (``rows``) and, for ``decode``,
-    the kernel's ``n_valid = min(lengths + 1, MB * bs)``; for ``mixed``, the
-    gathered keys' positions ``kpos`` [B, MB * bs] and ``k_valid = kpos <
-    lengths + t_new``."""
+    the kernel's ``n_valid = min(lengths + 1, MB * bs)``; for ``mixed`` and
+    ``verify`` (one device program), the gathered keys' positions ``kpos``
+    [B, MB * bs] and ``k_valid = kpos < lengths + t_new``."""
     s_log = bt.shape[1] * bs
     if mode == "decode":
         return {"rows": paged_token_rows(bt, lengths, bs),
                 "n_valid": valid_counts(lengths + 1, s_log)}
-    if mode != "mixed":
-        raise ValueError(f"a paged cache serves decode and mixed steps, not {mode!r}")
+    if mode not in ("mixed", "verify"):
+        raise ValueError(f"a paged cache serves decode, mixed and verify steps, not {mode!r}")
     kpos = torch.arange(s_log, device=bt.device, dtype=torch.int32)[None].expand(
         bt.shape[0], s_log).contiguous()  # as the flash kernel reads it, once
     return {"rows": paged_chunk_rows(bt, lengths, t_new, bs, c), "kpos": kpos,
@@ -207,20 +239,20 @@ def attention(
     window: Optional[int] = None,
     impl: str = "auto",
     bidirectional: bool = False,
-    t_new: Optional[torch.Tensor] = None,  # [B] chunk widths (mixed mode)
+    t_new: Optional[torch.Tensor] = None,  # [B] chunk / window widths
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """``bidirectional`` (encoder stacks): no RoPE, and non-causal flash
     attention in train and prefill. Under ``cfg.qk_norm`` q and k are
     RMS-normalised per head (rows of ``head_dim``) before RoPE."""
     b, t, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if mode == "verify":
-        raise NotImplementedError("verify mode waits for the port's speculative slice")
     if mode == "mixed" and (cache is None or "bt" not in cache):
         raise ValueError("mixed mode requires a paged (block-table) cache")
+    if mode == "verify" and (cache is None or t_new is None):
+        raise ValueError("verify mode requires a cache and per-slot widths t_new")
     if mode == "extend":
-        raise NotImplementedError("extend mode waits for the port's speculative slice")
-    if mode not in ("train", "prefill", "decode", "mixed"):
+        raise NotImplementedError("extend mode waits for the port's prefix cache")
+    if mode not in ("train", "prefill", "decode", "mixed", "verify"):
         raise ValueError(f"unknown mode {mode!r}")
     if cache is not None and window is not None:
         raise NotImplementedError("ring/window KV caches wait for a later slice of the port")
@@ -247,6 +279,19 @@ def attention(
         out, new_cache = _paged_attention(q, k, v, cache, positions=positions,
                                           lengths=lengths, mode=mode, t_new=t_new,
                                           impl=impl)
+    elif mode == "verify":
+        # the window written at the slot offsets, then window-query flash over
+        # the cache: intra-window causality by the query positions, each
+        # slot's width by k_valid
+        s = cache["k"].shape[1]
+        addr = cache if "win_b" in cache else None
+        new_cache = {"k": write_window(cache["k"], k, lengths, t_new, addr),
+                     "v": write_window(cache["v"], v, lengths, t_new, addr)}
+        kpos = torch.arange(s, device=x.device, dtype=torch.int32)[None].expand(b, s)
+        out = ops.flash_attention(
+            q, new_cache["k"], new_cache["v"], q_positions=positions, k_positions=kpos,
+            causal=True, k_valid=kpos < (lengths + t_new)[:, None], impl=impl,
+        )
     else:  # decode
         s = cache["k"].shape[1]
         idx = lengths % s
@@ -261,9 +306,10 @@ def attention(
 
 def _paged_attention(q, k, v, cache: dict, *, positions, lengths, mode: str, t_new,
                      impl: str):
-    """The decode and mixed branches over a paged layer cache (K/V blocks,
-    the shared block table ``bt`` and, from ``transformer.forward``, the
-    step's ``paged_addresses``); writes go into the pool in place."""
+    """The decode and mixed (or verify) branches over a paged layer cache
+    (K/V blocks, the shared block table ``bt`` and, from
+    ``transformer.forward``, the step's ``paged_addresses``); writes go into
+    the pool in place."""
     if cache["k"].dim() != 4:
         raise NotImplementedError("MLA's latent paged cache waits for a later slice of the port")
     bt = cache["bt"]
@@ -278,9 +324,9 @@ def _paged_attention(q, k, v, cache: dict, *, positions, lengths, mode: str, t_n
         out = ops.paged_decode_attention(q[:, 0], new_cache["k"], new_cache["v"], bt,
                                          addr["n_valid"], impl=impl)[:, None]
         return out, new_cache
-    # mixed: chunk-query flash attention over each slot's gathered logical
-    # view (prior blocks and the chunk just written), intra-chunk causality
-    # by the query positions
+    # mixed and verify: chunk-query flash attention over each slot's gathered
+    # logical view (prior blocks and the chunk just written), intra-chunk
+    # causality by the query positions
     out = ops.flash_attention(
         q, paged_gather(new_cache["k"], bt), paged_gather(new_cache["v"], bt),
         q_positions=positions, k_positions=addr["kpos"], causal=True,

@@ -110,6 +110,8 @@ def forward(
     cache: Optional[dict] = None,
     mode: str = "train",
     impl: str = "auto",
+    n_layers: Optional[int] = None,
+    advance: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[dict], dict]:
     """Returns (logits [B,T,V] f32, new_cache, aux dict). Cache buffers are
     updated in place; ``new_cache`` carries the same layer tensors and a
@@ -118,14 +120,22 @@ def forward(
     A paged cache keeps ONE block table at its top level
     (``block_tables``); each layer sees it as ``bt`` in its own cache view,
     with the step's write rows and key validity computed once here
-    (``attention.paged_addresses``), stripped again on return. ``mixed`` mode (paged only) advances each
-    slot by its own ``batch["t_new"]`` tokens and returns logits [B, 1, V]
-    at each slot's last valid lane, gathered before the final norm."""
+    (``attention.paged_addresses``), stripped again on return. ``mixed`` mode
+    (paged only) advances each slot by its own ``batch["t_new"]`` tokens and
+    returns logits [B, 1, V] at each slot's last valid lane, gathered before
+    the final norm. ``verify`` mode (either cache) advances each slot by its
+    ``t_new`` too and returns every lane's logits [B, C, V].
+
+    ``n_layers`` runs only the first that many layers (LayerSkip's early
+    exit, ``core/layerskip.py``): the last run layer's residual add goes into
+    the final norm's kernel and the shared unembed follows; the other layers'
+    caches are returned untouched. ``advance`` [B] replaces each slot's
+    length bump in decode mode (a frozen draft slot advances 0)."""
     check_supported(cfg)
-    if mode not in ("train", "prefill", "decode", "mixed"):
+    if mode not in ("train", "prefill", "decode", "mixed", "verify"):
         raise NotImplementedError(
             f"mode {mode!r} waits for a later slice of the port "
-            "(train/prefill/decode/mixed only)"
+            "(train/prefill/decode/mixed/verify only)"
         )
     tokens = batch["tokens"]
     b, t = tokens.shape
@@ -137,30 +147,36 @@ def forward(
     else:
         lengths = cache["lengths"]
         positions = lengths[:, None] + steps
-    # lanes past t_new[b] are padding: their writes hit the sink block and
-    # their outputs are never read
-    t_new = batch["t_new"].to(torch.int32) if mode == "mixed" else None
+    # lanes past t_new[b] are padding: their writes are dropped (contiguous)
+    # or hit the sink block (paged), and their outputs are never read
+    t_new = batch["t_new"].to(torch.int32) if mode in ("mixed", "verify") else None
     bt = cache.get("block_tables") if cache is not None else None
-    # a paged step's write rows and key validity are the same in every layer
-    paged = (A.paged_addresses(bt, lengths, cache["layers"][0]["k"].shape[1], mode, t_new, t)
-             if bt is not None else {})
+    # a paged step's table, write rows and key validity, and a contiguous
+    # verify window's live lanes, are the same in every layer
+    if bt is not None:
+        shared = dict(bt=bt, **A.paged_addresses(bt, lengths, cache["layers"][0]["k"].shape[1],
+                                                 mode, t_new, t))
+    elif mode == "verify":
+        shared = A.window_addresses(lengths, t_new, t)
+    else:
+        shared = {}
 
+    layers = params["layers"] if n_layers is None else params["layers"][:n_layers]
     x = L.embed(params["embed"], tokens)
     # each layer's FFN residual add runs in the next norm's kernel: the next
-    # layer's attn_norm, or the final norm after the last layer
-    norms = [lp["attn_norm"] for lp in params["layers"]] + [params["final_norm"]]
+    # layer's attn_norm, or the final norm after the last layer run
+    norms = [lp["attn_norm"] for lp in layers] + [params["final_norm"]]
     h = L.rmsnorm(norms[0], x, cfg.rmsnorm_eps, impl=impl)
     new_layers = []
-    n_layers = len(params["layers"])
-    for i, lp in enumerate(params["layers"]):
+    for i, lp in enumerate(layers):
         lc = cache["layers"][i] if cache is not None else None
-        if bt is not None and lc is not None:
-            lc = dict(lc, bt=bt, **paged)
+        if lc is not None and shared:
+            lc = dict(lc, **shared)
         x, delta, nlc = _layer_body(cfg, lp, x, h, positions=positions, lengths=lengths,
                                     cache=lc, mode=mode, impl=impl, t_new=t_new)
         if bt is not None and nlc is not None:
             nlc = {k: v for k, v in nlc.items() if k != "bt"}
-        if mode == "mixed" and i == n_layers - 1:
+        if mode == "mixed" and i == len(layers) - 1:
             # only each slot's last valid lane is read (a decode slot's next
             # token, a finishing prefill's first): take it from both halves
             # of the pending residual before the final norm, so the norm and
@@ -170,6 +186,8 @@ def forward(
             x, delta = x[rows, lane][:, None], delta[rows, lane][:, None]
         x, h = L.add_rmsnorm(norms[i + 1], x, delta, cfg.rmsnorm_eps, impl=impl)
         new_layers.append(nlc)
+    if cache is not None:  # the layers an early exit skipped keep their caches
+        new_layers += cache["layers"][len(layers):]
 
     if cfg.tie_embeddings:
         logits = L.unembed(params["embed"], h)
@@ -183,8 +201,10 @@ def forward(
             if new_len is None:
                 new_len = torch.full((b,), t, dtype=torch.int32, device=dev)
             new_len = new_len.to(torch.int32)
-        elif mode == "mixed":  # per-slot widths (0 = idle row)
+        elif mode in ("mixed", "verify"):  # per-slot widths (0 = idle row)
             new_len = cache["lengths"] + t_new
+        elif advance is not None:  # a draft step: frozen slots advance 0
+            new_len = cache["lengths"] + advance.to(torch.int32)
         else:  # decode
             new_len = cache["lengths"] + t
         new_cache = {"lengths": new_len, "layers": new_layers}

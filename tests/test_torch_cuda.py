@@ -778,3 +778,170 @@ def test_vlm_it_and_contrastive_on_card():
             return vlm.image_token_mask(448, vlm.contrastive_logits(cond, uncond, 3.0))
         top2 = torch.topk(mixed(params, "cpu")[0], 2).values
         assert float(top2[0] - top2[1]) < 1e-3, f"T-I token {first}"
+
+
+@pytest.mark.cuda
+def test_prng_and_sampler_on_card_match_cpu():
+    """The port's Threefry on the card: keys, fold-ins, splits, bits and
+    uniforms bit for bit as on the CPU; Gumbel noise within 2 ulp (at a
+    magnitude of at least 1: CUDA's and the CPU's ``log`` round apart);
+    the per-slot and per-window samplers' tokens equal the CPU's except at
+    a perturbed near tie (1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import prng, sampling
+
+    dev = torch.device("cuda")
+    for seed in (0, 9, 2**31 - 1):
+        ck, gk = prng.PRNGKey(seed), prng.PRNGKey(seed, device=dev)
+        assert torch.equal(gk.cpu(), ck)
+        for d in (0, 7, 2**32 - 1):
+            assert torch.equal(prng.fold_in(gk, d).cpu(), prng.fold_in(ck, d))
+        assert torch.equal(prng.split(gk, 5).cpu(), prng.split(ck, 5))
+        for shape in ((7,), (8, 128256), (3, 5, 33)):
+            assert torch.equal(prng.bits(gk, shape).cpu(), prng.bits(ck, shape))
+            assert torch.equal(prng.uniform(gk, shape).cpu(), prng.uniform(ck, shape))
+            got, want = prng.gumbel(gk, shape).cpu().double(), prng.gumbel(ck, shape).double()
+            unit = torch.from_numpy(np.spacing(np.maximum(want.abs().numpy(), 1.0)
+                                               .astype(np.float32))).double()
+            assert float(((got - want).abs() / unit).max()) <= 2
+    rids, steps = np.array([0, 3, 7, 11]), np.array([0, 1, 9, 2])
+    temp = torch.tensor([0.0, 0.8, 1.0, 0.8])
+    top_p = torch.tensor([1.0, 0.9, 0.5, 0.95])
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn((4, 5, 128256), generator=g) * 3
+    lanes = steps[:, None] + np.arange(5)[None]
+    keys = sampling.window_step_keys(prng.PRNGKey(4), rids, lanes)
+    dkeys = sampling.window_step_keys(prng.PRNGKey(4, device=dev), rids, lanes)
+    assert torch.equal(dkeys.cpu(), keys)
+    want = sampling.sample_window(logits, keys, temp, top_p)
+    got = sampling.sample_window(logits.to(dev), dkeys, temp.to(dev), top_p.to(dev)).cpu()
+    assert torch.equal(got[:, 0], sampling.sample_slots(
+        logits[:, 0].to(dev), dkeys[:, 0], temp.to(dev), top_p.to(dev)).cpu())
+    for b, j in zip(*torch.nonzero(got != want, as_tuple=True)):
+        scaled = logits[b, j] / max(float(temp[b]), 1e-6)
+        scores = sampling.nucleus(scaled, float(top_p[b])) + prng.gumbel(keys[b, j], (128256,))
+        top2 = torch.topk(scores, 2).values
+        assert float(top2[0] - top2[1]) < 1e-5, f"lane ({b}, {j})"
+
+
+def _spec_model():
+    """A small f32 llama on both sides: head 64 (the attention kernels take
+    it), 4 layers (exit layer 2), embeddings scaled by 0.1 so drafts are
+    sometimes rejected."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+
+    cfg = get_smoke_config("llama3.2-1b").replace(d_model=512, n_heads=8, n_kv_heads=2,
+                                                  n_layers=4, dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    for k in params["embed"]:
+        params["embed"][k] = params["embed"][k] * 0.1
+    return cfg, model, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_draft_window_and_verify_step_on_card(paged):
+    """One draft window (widths 4, 2, 0) and its verify step over a
+    prefilled pool, on the kernels against the CPU plain path: equal drafts
+    (up to a greedy near tie of the early-exit logits), verify logits
+    within 1e-3, and exact launches: (paged) decode exit x drafts, flash
+    n_layers, RMSNorm none drafts + 1 and add 2 x exit x drafts +
+    2 x n_layers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import engine, layerskip
+    from repro_torch.core.slot_pool import BlockPool, SlotPool
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, model, params = _spec_model()
+    dev = torch.device("cuda")
+    exit_layer, k, max_len = 2, 4, 24
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (7, 3, 11)]
+    lengths = np.array([len(p) for p in prompts], np.int32)
+    out = {}
+    for where, p in (("cpu", params), ("cuda", _to(params, dev))):
+        device = torch.device(where)
+        pool = (BlockPool(model, 3, max_len, device, block_size=8) if paged
+                else SlotPool(model, 3, max_len, device))
+        first = []
+        for slot, prompt in enumerate(prompts):
+            toks = torch.tensor([list(prompt)], dtype=torch.int32, device=device)
+            logits, row = engine.prefill(model, p, toks,
+                                         torch.tensor([len(prompt)], dtype=torch.int32,
+                                                      device=device), max_len)
+            pool.acquire()
+            pool.assign(slot, row, len(prompt))
+            if paged:
+                pool.ensure(slot, len(prompt) + k)
+            first.append(int(logits.argmax()))
+        pool.sync()
+        counts = (da.LAUNCHES, pda.LAUNCHES, fa.LAUNCHES, rn.LAUNCHES_BY_PROLOGUE["none"],
+                  rn.LAUNCHES_BY_PROLOGUE["add"])
+        ln = torch.from_numpy(lengths).to(device)
+        window, cache = layerskip.draft_window(
+            model, exit_layer, k, p, pool.cache, torch.tensor(first, dtype=torch.int32,
+                                                              device=device),
+            torch.tensor([4, 2, 0], dtype=torch.int32, device=device), ln)
+        w = torch.tensor([5, 3, 1], dtype=torch.int32, device=device)
+        logits, cache = engine.verify_step(model, p, cache, window, w, ln)
+        torch.cuda.synchronize()
+        launched = (da.LAUNCHES - counts[0], pda.LAUNCHES - counts[1], fa.LAUNCHES - counts[2],
+                    rn.LAUNCHES_BY_PROLOGUE["none"] - counts[3],
+                    rn.LAUNCHES_BY_PROLOGUE["add"] - counts[4])
+        out[where] = (window.cpu(), logits.cpu(), cache["lengths"].cpu(), launched)
+    n = cfg.n_layers
+    assert out["cpu"][3] == (0, 0, 0, 0, 0)
+    decode = (0, exit_layer * k) if paged else (exit_layer * k, 0)
+    assert out["cuda"][3] == (*decode, n, k + 1, 2 * exit_layer * k + 2 * n)
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
+    assert torch.equal(out["cuda"][0], out["cpu"][0]), "drafts differ"
+    for b, width in enumerate([5, 3, 1]):
+        np.testing.assert_allclose(out["cuda"][1][b, :width].numpy(),
+                                   out["cpu"][1][b, :width].numpy(), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_speculative_serving_on_card():
+    """Sampled (t = 0.8, top-p 0.9) speculative serving of the small llama
+    on the card, contiguous and paged + chunked over a pool that preempts:
+    the CPU plain path's tokens and counters, exact flash launches (n_layers
+    per prefill, mixed and verify step), no leaked block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import profiles
+    from repro_torch.core.scheduler import Scheduler, ServeRequest
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, model, params = _spec_model()
+    dev = torch.device("cuda")
+    params_dev = _to(params, dev)
+    rng = np.random.default_rng(1)
+    traffic = [(i, rng.integers(0, cfg.vocab_size, size=int(rng.integers(5, 25))), 12)
+               for i in range(7)]
+
+    def run(p, device, **kw):
+        sched = Scheduler(model, p, slots=3, pad_to=24, max_new_cap=12, device=device, **kw)
+        done = sched.run([ServeRequest(rid=i, prompt=pr, max_new=m, profile=(
+            profiles.SpeculativeProfile(temperature=0.8, top_p=0.9, exit_layer=2, n_draft=4)))
+            for i, pr, m in traffic])
+        return sched, {r.rid: r.tokens for r in done}
+
+    for kw in ({}, dict(paged=True, block_size=8, num_blocks=10, chunked=True,
+                        prefill_budget=8)):
+        cpu, want = run(params, "cpu", **kw)
+        before = fa.LAUNCHES
+        card, got = run(params_dev, dev, **kw)
+        torch.cuda.synchronize()
+        assert card.n_spec_steps >= 1 and card.n_spec_accepted >= 1
+        if kw:
+            assert card.n_preemptions >= 1 and card.pool.n_used_blocks == 0
+        for name in ("n_preemptions", "n_decode_steps", "n_prefills", "n_mixed_steps",
+                     "n_spec_steps", "n_spec_accepted", "n_spec_committed", "spec_commit_hist"):
+            assert getattr(card, name) == getattr(cpu, name), name
+        assert fa.LAUNCHES - before == cfg.n_layers * (
+            card.n_prefills + card.n_mixed_steps + card.n_spec_steps)
+        assert got == want

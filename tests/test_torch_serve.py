@@ -31,7 +31,7 @@ from repro.launch import serve as jserve
 from repro.models import get_model as jget_model
 from repro_torch import bridge
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import engine
+from repro_torch.core import engine, profiles
 from repro_torch.core.kv_cache import leaves
 from repro_torch.core.scheduler import Scheduler, ServeRequest
 from repro_torch.core.slot_pool import SlotPool
@@ -219,10 +219,14 @@ def test_unported_scheduler_features_raise(pair):
         Scheduler(model, params, slots=2, pad_to=PAD_TO, max_new_cap=4, device="cpu",
                   paged=True, chunked=True, prefix_cache=True)
     sched = Scheduler(model, params, slots=2, pad_to=PAD_TO, max_new_cap=4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sched.submit([ServeRequest(rid=0, prompt=np.arange(3), max_new=2, temperature=0.8)])
+    with pytest.raises(NotImplementedError):  # slot groups: a later slice
+        sched.submit([ServeRequest(rid=0, prompt=np.arange(3), max_new=2,
+                                   profile=profiles.BeamProfile(n_beams=2, eos_id=2))])
     with pytest.raises(NotImplementedError):
         sched.submit([ServeRequest(rid=1, prompt=np.arange(3), max_new=2, profile=object())])
+    # sampled requests are served now (keyed sampling)
+    sched.submit([ServeRequest(rid=2, prompt=np.arange(3), max_new=2, temperature=0.8)])
+    assert len(sched.waiting) == 1
 
 
 # ---------------------------------------------------------------- launcher
@@ -269,6 +273,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
 #: modules the import lock must have walked (the multimodal slice's among them)
 _LOCKED_MODULES = {
     "repro_torch.core.engine", "repro_torch.core.profiles", "repro_torch.core.sampling",
+    "repro_torch.core.prng", "repro_torch.core.layerskip",
     "repro_torch.core.kv_cache", "repro_torch.models.encdec", "repro_torch.models.seamless",
     "repro_torch.models.vlm", "repro_torch.configs.whisper_base",
     "repro_torch.configs.seamless_m4t", "repro_torch.configs.chameleon_34b",

@@ -248,7 +248,11 @@ def test_image_stub_and_sampling_refusal(pair):
     assert ids.shape == (3, tcfg.vlm.n_image_tokens) and ids.dtype == torch.int32
     assert bool(((ids >= off) & (ids < tcfg.vocab_size)).all())
     assert torch.equal(ids, vlm.encode_image_stub(tcfg, torch.Generator().manual_seed(7), 3))
-    for make in (lambda: profiles.SamplingProfile(temperature=0.8),
-                 lambda: profiles.ContrastiveProfile(uncond_token=0, temperature=0.5)):
-        with pytest.raises(NotImplementedError, match="keyed sampling"):
-            make()
+    # sampled profiles are served now (keyed sampling); a sampled step
+    # without a key is refused
+    logits = torch.randn(2, tcfg.vocab_size, generator=torch.Generator().manual_seed(1))
+    for prof in (profiles.SamplingProfile(temperature=0.8),
+                 profiles.ContrastiveProfile(uncond_token=0, temperature=0.5)):
+        state = prof.init(1, 2)
+        with pytest.raises(ValueError, match="key"):
+            prof.step(state, logits[: prof.n_streams], None)
