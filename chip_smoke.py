@@ -87,6 +87,25 @@ Phases (any failure exits non-zero and prints no result):
              one speculative step profiled (wall, device ms, busy share,
              kernels a step) and the sampler's device kernels counted (keys,
              Gumbel draw, the whole per-slot and per-window sampler);
+4d. mixed — the same 16 requests under ``apply_profile_mix("greedy,beam,
+             contrastive,speculative", n_beams=2)`` through phase 4b's chunked
+             pool: 2-beam and contrastive requests served as slot groups
+             beside plain and speculative ones (a group needs up to 42 of the
+             47 usable blocks, so groups preempt and replay). Exact launches
+             (a group's prefills and steps count as everyone's), no row
+             gather, table permutations and copy-on-write copies, no block
+             and no refcount left; every request against its batch engine
+             (greedy and speculative: phase 4's tokens; beam: a recording
+             ``run_profile``, compared step by step under ``beam_parity``'s
+             rule; contrastive: ``generate_contrastive`` under
+             ``greedy_parity``'s); the per-class TTFT/TPOT rows;
+             ``kv_cache.copy_block``'s ms a copy-on-write beside its bound;
+4e. prefix — ``shared_prefix_trace`` (16 requests, 4 system prompts of 64
+             tokens, pad 128) through phase 4b's chunked pool without and
+             with the prefix cache, at t = 0 and t = 0.8: exact launches, the
+             same reserved KV bytes, at least one hit, warm tokens against
+             cold under the near-tie rule; hit rate, prompt tokens skipped,
+             TTFT printed;
 5. parity  — prefill logits of two requests through the kernels and through
              the plain versions on the same weights, and their first served
              tokens against greedy generation on the plain path;
@@ -135,7 +154,12 @@ Phases (any failure exits non-zero and prints no result):
              logits within 2e-2 of the plain logit span, a differing choice
              only at a near tie);
              the encoder's device time, one beam step profiled, the reorder
-             alone and the cache's bytes; then seamless-m4t's S-S of 2
+             alone and the cache's bytes; S-T served: each utterance one
+             4-beam request with its frames through the contiguous scheduler
+             (16 slots), held step by step against a recording batch run
+             (the same tokens) under ``beam_parity``'s rule, exact launches
+             (a prefill per admission, a decode forward per pool step), the
+             row gathers timed, one served step profiled; then seamless-m4t's S-S of 2
              utterances (beam text, one T2U forward, one vocoder forward:
              the waveform 32 samples a text token);
 11. chameleon — chameleon-34b at full width (d 8192, 64/8 heads of 128,
@@ -145,7 +169,14 @@ Phases (any failure exits non-zero and prints no result):
              image tokens, guidance 3: every token in the image range),
              exact launches (qk-norm's RMSNorms too) and tokens against the
              plain path's up to a near tie; one T-I step (two streams)
-             profiled. The kernels phase also holds flash attention at the
+             profiled; T-I served: two contrastive requests through the
+             scheduler on the paged pool (block 16) and on the contiguous
+             one, exact launches, every token an image token, against a batch
+             ``generate_contrastive`` of both prompts up to a near tie. The
+             kernels phase also holds the paged decode on slot groups'
+             tables (prefix blocks shared, and after ``permute_group``):
+             bit-identical to the contiguous kernel on the gathered rows and
+             to a repeat call. It also holds flash attention at the
              whisper encoder's, the cross-attention's, the decoder's BOS
              prefill (Tq = Tk = 1) and Chameleon's prefill shapes,
              flash-decode at the decoder's self cache (every length of the
@@ -567,6 +598,24 @@ def phase_kernels(pad_to: int, max_len: int):
         errs["paged_decode_attention"][f"{name} vs contiguous kernel"] = max_err(
             got, da.decode_attention_cuda(pq, gk, gv, nv), name)
 
+    # ---- paged decode on the tables of slot groups: streams sharing their
+    # prompt's blocks (each write cursor's block unshared copy-on-write), and
+    # the same tables after ``permute_group``; bit-identical to the contiguous
+    # kernel on the gathered rows and to a repeat call
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        sq, sk, sv, tables, snv = shared_table_case(gen, dt, max_len)
+        for label, sbt in tables.items():
+            got = pda.paged_decode_attention_cuda(sq, sk, sv, sbt, snv)
+            errs["paged_decode_attention"][f"{name} {label} tables"] = max_err(
+                got, pda.paged_decode_attention_plain(sq, sk, sv, sbt, snv), name)
+            check(torch.equal(got, pda.paged_decode_attention_cuda(sq, sk, sv, sbt, snv)),
+                  f"paged decode on {label} tables: a repeat call differs ({name})")
+            gk, gv = (A.paged_gather(x, sbt) for x in (sk, sv))
+            check(torch.equal(got, da.decode_attention_cuda(sq, gk, gv, snv)),
+                  f"paged decode on {label} tables: not the contiguous kernel's bits on the "
+                  f"gathered rows ({name})")
+
     # ---- flash attention at a mixed step's shapes: 8 slots of MIXED_LANES
     # queries against each slot's logical K/V gathered from the served pool
     # (MB * bs keys), positions and k_valid built as the paged layer builds
@@ -784,6 +833,33 @@ def phase_kernels(pad_to: int, max_len: int):
         flops=n_rows * hq * 4 * dh,
     ))
 
+    # the paged decode on the permuted group tables, on the mixed-classes path
+    sq, sk, sv, tables, snv = shared_table_case(gen, bf, max_len)
+    sbt = tables["permuted"]
+    sgk, sgv = (A.paged_gather(x, sbt) for x in (sk, sv))
+    sk_exp, sv_exp = (x.repeat_interleave(hq // hkv, dim=2).transpose(1, 2) for x in (sgk, sgv))
+    smask = (torch.arange(sgk.shape[1], device=dev)[None] < snv[:, None])[:, None, None, :]
+    # the pool rows these tables reach under n_valid, each read once
+    reach = {(int(sbt[b, t // bs]), t % bs) for b in range(SLOTS)
+             for t in range(int(snv[b]))}
+    records.append(dict(
+        name="paged_decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/models/attention.py:177",
+        shape=f"q[{SLOTS},{hq},{dh}] pool[{nb},{bs},{hkv},{dh}] bt[{SLOTS},{mb}] bf16, a "
+              f"4-beam group's tables after permute_group, a 2-stream group, 2 free slots; "
+              f"n_valid {snv.tolist()} ({len(reach)} distinct rows)",
+        max_abs_err=errs["paged_decode_attention"]["bfloat16 permuted tables"],
+        call=lambda: pda.paged_decode_attention_cuda(sq, sk, sv, sbt, snv),
+        ms=cuda_ms(lambda: pda.paged_decode_attention_cuda(sq, sk, sv, sbt, snv)),
+        plain_ms=cuda_ms(lambda: pda.paged_decode_attention_plain(sq, sk, sv, sbt, snv)),
+        library=lambda: F.scaled_dot_product_attention(sq[:, :, None], sk_exp, sv_exp,
+                                                       attn_mask=smask),
+        path="mixed", counter="paged_decode_attention",
+        bytes=(2 * sq.numel() + 2 * len(reach) * hkv * dh) * 2 + sbt.numel() * 4 + SLOTS * 4,
+        flops=int(snv.sum()) * hq * 4 * dh,
+    ))
+
     # weight-only at the decode step's widest linear (w1/w3), bf16
     mw, kw, nw = SLOTS, d_model, D_FF
     xw, ww_q, ww_scale = _int8_operands(gen, mw, kw, nw)
@@ -862,6 +938,57 @@ def phase_kernels(pad_to: int, max_len: int):
     int8_served_times(gen, served)
     rmsnorm_routes(gen, pad_to)
     return records
+
+
+def shared_table_case(gen, dt, max_len):
+    """A served pool (8 slots, block 16, 48 blocks, llama's K/V heads) after
+    slot-group admissions: a 4-beam group prefilled once (200 tokens) with
+    its other three streams sharing the blocks, a 2-stream group (100
+    tokens) likewise, each stream's write-cursor block unshared
+    copy-on-write, two free slots; K/V random. Returns q [8, 32, 64], the
+    pool's K and V, the tables {"shared", "permuted": after
+    ``permute_group`` of the 4-beam group by parents [1, 1, 3, 0]} and each
+    slot's n_valid (a decode step's: the written tokens plus the new one;
+    the free slots drifted counts over the sink block)."""
+    import types
+
+    import torch
+
+    from repro_torch.core.slot_pool import BlockPool
+
+    dev = torch.device("cuda")
+    hq, hkv, dh = 32, 8, 64
+    bs, nb = PAGED_ARMS["paged"]["block_size"], PAGED_ARMS["paged"]["num_blocks"]
+
+    class OneLayer:
+        config = types.SimpleNamespace(family="dense", sliding_window=None,
+                                       scan_layers=False, encdec=None)
+
+        def init_cache(self, batch, length, device):
+            return {"lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
+                    "layers": [{x: _rand(gen, (batch, length, hkv, dh), dt, device)
+                                for x in ("k", "v")}]}
+
+    pool = BlockPool(OneLayer(), SLOTS, max_len, dev, block_size=bs, num_blocks=nb)
+    tables = {}
+    for first, n, streams in ((0, 200, 4), (4, 100, 2)):
+        row = OneLayer().init_cache(1, max_len, dev)
+        slots = [pool.acquire() for _ in range(streams)]
+        check(slots[0] == first, "shared tables: unexpected slot order")
+        pool.assign(slots[0], row, n)
+        for s in slots[1:]:
+            pool.share(s, slots[0])
+        for s in slots:
+            check(pool.ensure_writable(s, n), "shared tables: out of blocks")
+    check(pool.n_cow_copies == 4, f"shared tables: {pool.n_cow_copies} copy-on-write copies")
+    n_valid = torch.tensor([201] * 4 + [101] * 2 + [7, 1], dtype=torch.int32, device=dev)
+    tables["shared"] = torch.from_numpy(pool.block_tables.copy()).to(dev)
+    pool.permute_group([0, 1, 2, 3], [1, 1, 3, 0])
+    tables["permuted"] = torch.from_numpy(pool.block_tables.copy()).to(dev)
+    check(len(set(pool.block_tables[:4, 200 // bs].tolist())) == 3,
+          "permuted tables: expected two streams on one write-cursor block")
+    layer = pool.cache["layers"][0]
+    return _rand(gen, (SLOTS, hq, dh), dt, dev), layer["k"], layer["v"], tables, n_valid
 
 
 def st_frame_lengths(n: int, n_frames: int = N_FRAMES):
@@ -1576,7 +1703,7 @@ def _trace(cfg, pad_to, temperature: float = 0.0, top_p: float = 1.0):
 
 
 def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperature=0.0,
-               top_p=1.0, speculative=False, **geometry):
+               top_p=1.0, speculative=False, reqs=None, mix=None, prepare=None, **geometry):
     """One scheduler run of the trace, launch counters set to 0 just before
     it and read just after. Checks that every request got its max_new
     tokens, that every logits tensor the scheduler sampled from was finite
@@ -1593,18 +1720,35 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
     (the verify: flash n_layers) plus ``SPEC_DRAFT`` draft forwards of
     ``SPEC_EXIT`` layers (decode attention and 2 add-norms a layer, one
     none-norm each). ``geometry`` (paged, block_size, num_blocks, chunked,
-    prefill_budget) goes to the scheduler; a paged run must end with no
-    block owned. Prints the device memory the run allocated at its peak."""
+    prefill_budget, prefix_cache) goes to the scheduler; a paged run must
+    end with no block owned and, without the prefix cache, every refcount
+    0. ``reqs`` replaces the trace; ``mix`` cycles ``apply_profile_mix``'s
+    kinds over it (beam groups of ``MIX_BEAMS``, speculative requests as
+    above; a group's prefills and steps count as everyone's, and a beam may
+    end early at its EOS); ``prepare`` edits the requests before the run
+    (recording profiles). Prints the device memory the run allocated at its
+    peak."""
     import torch
 
     from repro_torch.core import engine
     from repro_torch.launch import serve
 
+    from repro_torch.core import profiles
+
     dev = torch.device("cuda")
-    reqs = _trace(cfg, pad_to, temperature, top_p)
-    if speculative:
-        serve.apply_profile_mix(reqs, "speculative", exit_layer=SPEC_EXIT, n_draft=SPEC_DRAFT)
+    if reqs is None:
+        reqs = _trace(cfg, pad_to, temperature, top_p)
+    if speculative and mix is None:
+        mix = "speculative"
+    if mix is not None:
+        serve.apply_profile_mix(reqs, mix, n_beams=MIX_BEAMS, exit_layer=SPEC_EXIT,
+                                n_draft=SPEC_DRAFT)
+        speculative = "speculative" in mix
+    if prepare is not None:
+        prepare(reqs)
     want_new = {r.rid: r.max_new for r in reqs}
+    beams = {r.rid for r in reqs if isinstance(r.profile, profiles.BeamProfile)}
+    n_req = len(reqs)
     finite = {"ok": torch.ones((), dtype=torch.bool, device=dev)}
     real = {name: getattr(engine, name)
             for name in ("prefill", "decode_step", "mixed_step", "verify_step")}
@@ -1616,8 +1760,16 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
             return logits, cache
         return step
 
+    scheds, real_sched = [], serve.Scheduler
+
+    class Kept(real_sched):  # the run's scheduler, for its pool's state
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            scheds.append(self)
+
     for name, fn in real.items():
         setattr(engine, name, checked(fn))
+    serve.Scheduler = Kept
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_bytes = torch.cuda.memory_allocated()
@@ -1631,13 +1783,15 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
     finally:
         for name, fn in real.items():
             setattr(engine, name, fn)
+        serve.Scheduler = real_sched
     m["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     m["run_peak_bytes"] = m["max_memory_allocated"] - base_bytes
     check(bool(finite["ok"]), f"{tag}: non-finite logits during serving")
-    check(len(done) == N_REQUESTS, f"{tag}: {len(done)} of {N_REQUESTS} done")
+    check(len(done) == n_req, f"{tag}: {len(done)} of {n_req} done")
     for r in done:
-        check(len(r.tokens) == want_new[r.rid],
-              f"{tag}: request {r.rid} got {len(r.tokens)} of {want_new[r.rid]} tokens")
+        n_tok = len(r.tokens)
+        check(n_tok == want_new[r.rid] or (r.rid in beams and 1 <= n_tok < want_new[r.rid]),
+              f"{tag}: request {r.rid} got {n_tok} of {want_new[r.rid]} tokens")
     n_fwd = m["prefills"] + m["decode_steps"]  # decode steps count mixed and verify ones
     mixed = m.get("mixed_steps", 0)
     spec = m.get("spec_steps", 0)
@@ -1660,6 +1814,9 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
     check(counts == want_counts, f"{tag}: kernel launches {counts}, expected {want_counts}")
     if geometry.get("paged"):
         check(m["leaked_blocks"] == 0, f"{tag}: {m['leaked_blocks']} blocks still owned")
+        pool = scheds[0].pool  # the prefix cache's blocks keep its one reference
+        check((pool._ref == pool._cached).all(),
+              f"{tag}: refcounts {pool._ref.nonzero()} left after the run")
     print(f"[{tag}] {m['n_requests']} requests | "
           f"{m['tokens_per_s']:.1f} tok/s | ttft p50 {m['ttft_p50_ms']:.2f} ms p99 "
           f"{m['ttft_p99_ms']:.2f} ms | tpot p50 {m['tpot_p50_ms']:.3f} ms | decode steps "
@@ -1719,6 +1876,13 @@ SPEC_ARMS = {"plain t=0.8": (SPEC_TEMP, SPEC_TOP_P, False, {}),
 #: width (full windows, a plain lane, a window cut by max_new, an idle slot;
 #: the last slot's window ends at the contiguous cache's last row)
 VERIFY_LENGTHS = [1, 44, 100, 200, 256, 300, 0, 316]
+#: the mixed-classes arm: ``apply_profile_mix``'s kinds over the trace, beams
+#: a beam request (a 2-beam group needs up to 42 of the chunked pool's 47
+#: usable blocks at max_len 321, so groups preempt), its default guidance
+MIX_KINDS, MIX_BEAMS, MIX_GUIDANCE = "greedy,beam,contrastive,speculative", 2, 2.0
+#: the prefix-cache arm: ``shared_prefix_trace``'s system prompts and their
+#: length (pad_to twice that, as the launcher sets it)
+PFX_PREFIXES, PFX_LEN = 4, 64
 VERIFY_T_NEW = [SPEC_DRAFT + 1] * 3 + [1, SPEC_DRAFT + 1, 3, 0, SPEC_DRAFT + 1]
 
 
@@ -1744,11 +1908,14 @@ def _deciding_gap(model, params, seq, rid, index, temperature, top_p):
     return float(top2[0] - top2[1]), d / temperature
 
 
-def same_tokens(model, params, cfg, pad_to, got, want, temperature, top_p, tag, what):
-    """Each request's tokens in ``got`` against ``want``: equal, or equal up
-    to a first divergence at a near tie (``_deciding_gap``)."""
+def same_tokens(model, params, cfg, pad_to, got, want, temperature, top_p, tag, what,
+                reqs=None):
+    """Each request's tokens in ``got`` against ``want`` (of the trace, or
+    of ``reqs``): equal, or equal up to a first divergence at a near tie
+    (``_deciding_gap``)."""
     same = 0
-    for r in _trace(cfg, pad_to):
+    reqs = _trace(cfg, pad_to) if reqs is None else reqs
+    for r in reqs:
         g, w = got[r.rid], want[r.rid]
         first = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
         if first is None:
@@ -1760,7 +1927,7 @@ def same_tokens(model, params, cfg, pad_to, got, want, temperature, top_p, tag, 
         print(f"[{tag}] request {r.rid}: token {first} differs from {what} (gap {gap:.4f}, "
               f"bound {lim:.4f})", flush=True)
         check(gap < lim, f"{tag} request {r.rid}: token {first} differs away from a near tie")
-    print(f"[{tag}] {same} of {N_REQUESTS} requests give {what} exactly", flush=True)
+    print(f"[{tag}] {same} of {len(reqs)} requests give {what} exactly", flush=True)
 
 
 def phase_paged(cfg, model, params, pad_to, served):
@@ -2023,6 +2190,134 @@ def profile_speculative_step(cfg, model, params, pad_to, n: int = 3):
         host = (time.perf_counter() - t0) * 1e3 / 5
         print(f"[spec profile] sampler part {label}: {len(kern)} device kernels, device "
               f"{ms:.4f} ms, wall {host:.3f} ms a call", flush=True)
+
+
+def phase_mixed(cfg, model, params, pad_to, served):
+    """Phase 4d: the trace under ``apply_profile_mix(MIX_KINDS)`` through
+    phase 4b's chunked pool: greedy, 2-beam, contrastive and speculative
+    requests side by side. Exact launches (``serve_once``), preemptions, no
+    row gather, table permutations and copy-on-write copies, no block or
+    refcount left; every request against its batch engine (greedy and
+    speculative: phase 4's tokens; beam: a recording ``run_profile``;
+    contrastive: ``generate_contrastive``) under the near-tie rules; the
+    per-class latency rows; ``kv_cache.copy_block``'s time a copy beside
+    its bound. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine, kv_cache, profiles
+    from repro_torch.core.kv_cache import leaves
+    from repro_torch.core.slot_pool import BlockPool
+    from repro_torch.launch import serve
+
+    dev = torch.device("cuda")
+    geometry = PAGED_ARMS["chunked"]
+    tag = "mixed"
+    serve.warmup(model, params, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW, device=dev,
+                 profile_mix=True, n_beams=MIX_BEAMS, speculative=True, exit_layer=SPEC_EXIT,
+                 n_draft=SPEC_DRAFT, **geometry)
+    kept = []
+
+    def record(reqs):
+        for r in reqs:
+            if isinstance(r.profile, profiles.BeamProfile):
+                r.profile = recording_beam(r.profile.n_beams, r.profile.eos_id)
+        kept.extend(reqs)
+
+    m, toks, counts = serve_once(model, params, cfg, pad_to, policy="continuous",
+                                 int8_mode=None, tag=tag, mix=MIX_KINDS, prepare=record,
+                                 **geometry)
+    check(m["group_admissions"] >= 8 and m["cache_reorders"] == 0
+          and m["block_permutes"] >= 1 and m["cow_copies"] >= 1 and m["n_preemptions"] >= 1,
+          f"{tag}: groups {m['group_admissions']}, row gathers {m['cache_reorders']}, table "
+          f"permutations {m['block_permutes']}, copy-on-write {m['cow_copies']}, preemptions "
+          f"{m['n_preemptions']}")
+    print(f"[{tag}] groups {m['group_admissions']} | preemptions {m['n_preemptions']} | "
+          f"table permutations {m['block_permutes']} | copy-on-write copies "
+          f"{m['cow_copies']} | row gathers {m['cache_reorders']} | pool steps "
+          f"{m['decode_steps']} ({m['mixed_steps']} mixed, {m.get('spec_steps', 0)} "
+          f"speculative) | prefills {m['prefills']} | chunks {m['prefill_chunks']}", flush=True)
+    for cls, row in m["per_class"].items():
+        print(f"[{tag}]   class {cls}: {row['n_requests']} requests | ttft p50 "
+              f"{row['ttft_p50_ms']:.2f} ms p99 {row['ttft_p99_ms']:.2f} ms | tpot p50 "
+              f"{row['tpot_p50_ms']:.3f} ms p99 {row['tpot_p99_ms']:.3f} ms", flush=True)
+    plain = [r for r in kept if serve.request_class(r) in ("greedy", "speculative")]
+    same_tokens(model, params, cfg, pad_to, toks, served, 0.0, 1.0, tag,
+                "phase 4's greedy tokens", reqs=plain)
+    for r in kept:
+        prompt = torch.tensor(np.asarray(r.prompt, np.int32)[None], device=dev)
+        if isinstance(r.profile, profiles.BeamProfile):
+            rec = recording_beam(r.profile.n_beams, r.profile.eos_id)
+            want = engine.run_profile(model, params, rec, prompt, max_new_tokens=r.max_new)
+            if beam_agreement(r.profile.log, rec.log, 0, r.profile.n_beams,
+                              f"{tag} beam {r.rid}") is None:
+                check(toks[r.rid] == want["tokens"][0, :len(toks[r.rid])].tolist(),
+                      f"{tag} beam {r.rid}: no step differs but the tokens do")
+                print(f"[{tag}] beam {r.rid}: the batch run's beams at every step", flush=True)
+        elif isinstance(r.profile, profiles.ContrastiveProfile):
+            want = engine.generate_contrastive(model, params, prompt, uncond_token=0,
+                                               n_image_tokens=r.max_new, guidance=MIX_GUIDANCE)
+            greedy_parity(model, params, r.prompt.tolist(), toks[r.rid],
+                          want["tokens"][0].tolist(), f"{tag} contrastive {r.rid}",
+                          mix=(MIX_GUIDANCE, 0, 0), what="the batch run's")
+
+    # one copy-on-write copy: every layer's K and V block, in place
+    bs = geometry["block_size"]
+    pool = BlockPool(model, SLOTS, pad_to + MAX_NEW + 1, dev, block_size=bs,
+                     num_blocks=geometry["num_blocks"])
+    n_bytes = 2 * sum(x[0].numel() * x.element_size() for x in leaves(pool.cache["layers"]))
+    ms = cuda_ms(lambda: kv_cache.copy_block(pool.cache["layers"], 1, 2))
+    print(f"[{tag}] copy_block: {ms:.4f} ms a copy-on-write ({2 * cfg.n_layers} block copies, "
+          f"{n_bytes} B read and written) | bound {n_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms "
+          f"(bytes)", flush=True)
+    del pool
+    return counts
+
+
+def phase_prefix(cfg, model, params):
+    """Phase 4e: ``shared_prefix_trace`` (16 requests, PFX_PREFIXES system
+    prompts of PFX_LEN tokens) through phase 4b's chunked pool without and
+    with the prefix cache, at t = 0 and at t = 0.8: exact launches, no block
+    owned at the end, the same reserved KV bytes in both arms, at least one
+    hit, warm tokens against cold ones under the near-tie rule; hit rate,
+    tokens skipped and TTFT printed."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    dev = torch.device("cuda")
+    pad = 2 * PFX_LEN
+    geometry = PAGED_ARMS["chunked"]
+    serve.warmup(model, params, slots=SLOTS, pad_to=pad, max_new_cap=MAX_NEW, device=dev,
+                 prefix_cache=True, **geometry)
+    for temp, top_p in ((0.0, 1.0), (SPEC_TEMP, SPEC_TOP_P)):
+        def trace():
+            return serve.shared_prefix_trace(
+                N_REQUESTS, n_prefixes=PFX_PREFIXES, prefix_len=PFX_LEN, pad_to=pad,
+                max_new_cap=MAX_NEW, vocab_size=cfg.vocab_size, arrival_rate=0.0, seed=SEED,
+                temperature=temp, top_p=top_p)
+
+        arms = {}
+        for cache in (False, True):
+            tag = f"prefix/{'warm' if cache else 'cold'} t={temp}"
+            arms[cache] = serve_once(model, params, cfg, pad, policy="continuous",
+                                     int8_mode=None, tag=tag, reqs=trace(),
+                                     prefix_cache=cache, **geometry)
+        (cold, cold_toks, _), (warm, warm_toks, _) = arms[False], arms[True]
+        tag = f"prefix t={temp}"
+        check(warm["kv_reserved_bytes"] == cold["kv_reserved_bytes"] and warm["prefix_hits"] >= 1,
+              f"{tag}: reserved {warm['kv_reserved_bytes']} vs {cold['kv_reserved_bytes']} B, "
+              f"{warm['prefix_hits']} hits")
+        print(f"[{tag}] hits {warm['prefix_hits']} of {warm['prefix_lookups']} (rate "
+              f"{warm['prefix_hit_rate']:.4f}) | prompt tokens skipped "
+              f"{warm['prefill_tokens_skipped']} | reclaimed {warm['prefix_blocks_reclaimed']} | "
+              f"cached blocks a step {warm['mean_cached_blocks']:.2f} | chunk tokens "
+              f"{warm['prefill_chunk_tokens']} vs {cold['prefill_chunk_tokens']} cold | ttft p50 "
+              f"{warm['ttft_p50_ms']:.2f} vs {cold['ttft_p50_ms']:.2f} ms cold | tok/s "
+              f"{warm['tokens_per_s']:.1f} vs {cold['tokens_per_s']:.1f} | preemptions "
+              f"{warm['n_preemptions']} vs {cold['n_preemptions']}", flush=True)
+        same_tokens(model, params, cfg, pad, warm_toks, cold_toks, temp, top_p, tag,
+                    "the cold arm's tokens", reqs=trace())
 
 
 def gpu_clocks() -> str:
@@ -2644,12 +2939,13 @@ def beam_parity(model, params, extra, n_groups, max_new, got, tag):
               f"path's", flush=True)
 
 
-def greedy_parity(model, params, prompt, got, want, tag, mix=None):
+def greedy_parity(model, params, prompt, got, want, tag, mix=None, what="the plain path's"):
     """Greedy tokens of the kernel path (``got``) against the plain path's
     (``want``) for one prompt: equal up to the first divergence, which
     passes only at a near tie: where the plain path's top-1/top-2 gap is
     below the two paths' max |logit difference| at that step (prefills of
-    the prompt and the plain tokens before it). ``mix`` (the T-I guidance,
+    the prompt and the plain tokens before it; ``want`` may come from the
+    kernel path's batch engine, ``what`` names it). ``mix`` (the T-I guidance,
     the null token and the image offset) compares the contrastive mix of a
     conditional and an unconditional prefill, masked to the image range."""
     import torch
@@ -2658,8 +2954,7 @@ def greedy_parity(model, params, prompt, got, want, tag, mix=None):
 
     first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
     if first is None:
-        print(f"[{tag}] {len(got)} tokens of the kernel path equal the plain path's",
-              flush=True)
+        print(f"[{tag}] {len(got)} tokens of the kernel path equal {what}", flush=True)
         return
 
     def logits(impl):
@@ -2675,9 +2970,59 @@ def greedy_parity(model, params, prompt, got, want, tag, mix=None):
     delta = float((lk - lp).abs().max())
     top2 = torch.topk(lp, 2).values
     gap = float(top2[0] - top2[1])
-    print(f"[{tag}] token {first} of {len(got)} differs from the plain path (gap {gap:.4f}, "
+    print(f"[{tag}] token {first} of {len(got)} differs from {what} (gap {gap:.4f}, "
           f"max|dlogit| {delta:.4f})", flush=True)
     check(gap < delta, f"{tag}: token {first} differs away from a near tie")
+
+
+def recording_beam(n_beams: int, eos_id: int):
+    """A ``BeamProfile`` that keeps, every step, its candidate scores and its
+    choice (feed tokens and parents). The scheduler steps a request's own
+    profile object, so a served group's beams can be held against a batch
+    run's; a replay after a preemption starts the record anew."""
+    from repro_torch.core import profiles, sampling
+
+    class BeamProfile(profiles.BeamProfile):  # the name request_class reads
+        def step(self, state, logits, key=None):
+            if state.step == 0:
+                self.log.clear()
+            cand = sampling.beam_candidates(state, logits, self.n_beams, self.eos_id)
+            out = super().step(state, logits, key)
+            self.log.append((cand, out.feed.clone(), out.perm.clone()))
+            return out
+
+    prof = BeamProfile(n_beams=n_beams, eos_id=eos_id)
+    prof.log = []
+    return prof
+
+
+def beam_agreement(served, batch, g: int, n_beams: int, tag: str):
+    """A served group's record against group ``g`` of a batch run's, step by
+    step, under ``beam_parity``'s rule: equal choices, or, at the first step
+    that differs, a near tie: for the first beam slot that differs, the batch
+    run's score of its candidate minus its score of the served run's
+    candidate is at most twice the two runs' max |candidate difference| over
+    those two candidates. Returns that step, or None when none differs."""
+    import torch
+
+    rows = slice(g * n_beams, (g + 1) * n_beams)
+    for i, ((ck, fs, ps), (cp, fb, pb)) in enumerate(zip(served, batch)):
+        fb, pb = fb[rows], pb[rows] - g * n_beams
+        diff = (fs != fb) | (ps != pb)
+        if not bool(diff.any()):
+            continue
+        j = int(torch.nonzero(diff)[0])
+        v = ck.shape[1] // n_beams
+        cw, co = int(pb[j]) * v + int(fb[j]), int(ps[j]) * v + int(fs[j])
+        ck, cp = ck[0], cp[g]
+        gap = float(cp[cw] - cp[co])
+        delta = max(float((ck[cw] - cp[cw]).abs()), float((ck[co] - cp[co]).abs()))
+        print(f"[{tag}] step {i}: beam {j} differs from the batch run (batch score gap "
+              f"{gap:.4f}, max|d| of the two candidates {delta:.4f})", flush=True)
+        check(gap <= 2 * delta, f"{tag}: step {i} differs away from a near tie")
+        return i
+    check(len(served) <= len(batch), f"{tag}: {len(served)} served steps, {len(batch)} batch")
+    return None
 
 
 def step_profile(tag, step, n_steps: int = 5):
@@ -2791,6 +3136,7 @@ def phase_seamless(st_cfg=None, ss_cfg=None):
               f"tokens {runs['donated']['tokens'][b].tolist()}", flush=True)
     beam_parity(model, params, extra, N_UTTER, ST_MAX_NEW, runs["donated"]["tokens"],
                 "seamless parity")
+    served_counts = st_served(cfg, model, params, extra, runs["donated"]["tokens"])
 
     # the encoder's device time, one beam step, and the reorder alone on
     # the step's cache (16 streams)
@@ -2851,7 +3197,84 @@ def phase_seamless(st_cfg=None, ss_cfg=None):
           f"{wall * 1e3:.1f} ms wall | peak {peak} B | launches {got}", flush=True)
     del model, params, smodel, sparams, ss, runs
     torch.cuda.empty_cache()
-    return counts
+    return counts, served_counts
+
+
+def st_served(cfg, model, params, extra, batch_tokens):
+    """S-T served: each utterance a 4-beam request with its own frames
+    through the contiguous scheduler (16 slots; its frames written into its
+    slots' cross rows at admission), against a recording batch run (the
+    phase's ``generate_beam`` tokens) under ``beam_agreement``'s rule; exact
+    launches (``_encdec_counts``' prefill per admission and decode step per
+    pool step); the reorder (a pool-wide row gather per group a step) timed
+    by CUDA events; one served step profiled. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine, kv_cache, profiles
+    from repro_torch.core.scheduler import Scheduler, ServeRequest
+
+    dev = torch.device("cuda")
+    rec = recording_beam(N_BEAMS, EOS)
+    bos = torch.full((N_UTTER, 1), BOS, dtype=torch.int32, device=dev)
+    batch = engine.run_profile(model, params, rec, bos, max_new_tokens=ST_MAX_NEW,
+                               extra_inputs=extra)
+    check(torch.equal(batch["tokens"], batch_tokens),
+          "seamless S-T served: the recording batch run left generate_beam's tokens")
+
+    def requests(max_new, record):
+        return [ServeRequest(rid=i, prompt=np.asarray([BOS]), max_new=max_new,
+                             profile=(recording_beam(N_BEAMS, EOS) if record else
+                                      profiles.BeamProfile(n_beams=N_BEAMS, eos_id=EOS)),
+                             extra_inputs={k: v[i:i + 1] for k, v in extra.items()})
+                for i in range(N_UTTER)]
+
+    # pad_to 1: the BOS prompt, so the pool's max_len is the batch run's (50)
+    kw = dict(slots=N_UTTER * N_BEAMS, pad_to=1, max_new_cap=ST_MAX_NEW, device=dev)
+    Scheduler(model, params, **kw).run(requests(2, False))  # warm-up
+    events, real = [], kv_cache.reorder_donated
+    kv_cache.reorder_donated = _event_timed(real, events)
+    try:
+        sched = Scheduler(model, params, **kw)
+        reqs = requests(ST_MAX_NEW, True)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        done, peak = _peak_run(lambda: sched.run(reqs))
+        wall = time.perf_counter() - t0
+        got = _read_counts()
+    finally:
+        kv_cache.reorder_donated = real
+    one, two = _encdec_counts(cfg, 1), _encdec_counts(cfg, 2)
+    n_adm, n_steps = sched.n_prefills, sched.n_decode_steps
+    want = {k: n_adm * one[k] + n_steps * (two[k] - one[k]) for k in one}
+    check(got == want, f"seamless S-T served: kernel launches {got}, expected {want}")
+    check(n_adm == sched.n_group_admissions == N_UTTER and sched.n_cache_reorders >= 1
+          and len(events) == sched.n_cache_reorders,
+          f"seamless S-T served: {n_adm} prefills, {sched.n_group_admissions} groups, "
+          f"{sched.n_cache_reorders} reorders, {len(events)} timed")
+    reorder_ms = [a.elapsed_time(b) for a, b in events]
+    same = 0
+    for r in sorted(done, key=lambda r: r.rid):
+        check(1 <= len(r.tokens) <= ST_MAX_NEW and np.isfinite(r.score),
+              f"seamless S-T served {r.rid}: {len(r.tokens)} tokens, score {r.score}")
+        if beam_agreement(r.profile.log, rec.log, r.rid, N_BEAMS,
+                          f"seamless S-T served {r.rid}") is None:
+            check(r.tokens == batch["tokens"][r.rid, :len(r.tokens)].tolist(),
+                  f"seamless S-T served {r.rid}: no step differs but the tokens do")
+            same += 1
+    print(f"[seamless S-T served] {N_UTTER} requests x {N_BEAMS} beams, {n_steps} pool steps "
+          f"in {wall * 1e3:.1f} ms wall ({wall * 1e3 / n_steps:.3f} ms a step) | peak {peak} B | "
+          f"{sched.n_cache_reorders} row gathers, {statistics.median(reorder_ms):.4f} ms each "
+          f"(median), {sum(reorder_ms) / n_steps:.4f} ms a step | {same} of {N_UTTER} give the "
+          f"batch run's beams at every step | launches {got}", flush=True)
+    sched = Scheduler(model, params, **kw)
+    sched.submit(requests(ST_MAX_NEW, False))
+    sched._admit(0.0)
+    step_profile("seamless S-T served step", sched.step)
+    while sched.has_work:
+        sched.step()
+    return got
 
 
 def phase_chameleon(cfg=None):
@@ -2952,9 +3375,74 @@ def phase_chameleon(cfg=None):
         int(out.feed[0].item())  # the host reads the token
 
     step_profile("chameleon T-I step", ti_step)
-    del model, params, cache, state, logits
+    del cache, state, logits
+    ti_prompts = torch.cat([ti_prompt, torch.randint(0, offset, (1, TI_PROMPT), generator=gen,
+                                                     device=dev, dtype=torch.int32)])
+    served = ti_served(cfg, model, params, ti_prompts, offset)
+    del model, params
     torch.cuda.empty_cache()
-    return total
+    return total, served
+
+
+def ti_served(cfg, model, params, prompts, offset):
+    """T-I served: two contrastive requests (guidance 3, the image offset,
+    N_IMAGE tokens) through the scheduler on the paged pool (block 16) and
+    on the contiguous pool; exact launches (4 prefills, then one decode a
+    layer each pool step), every token in the image range, no block left,
+    and each request's tokens against a batch ``generate_contrastive`` of
+    both prompts under ``greedy_parity``'s rule. Returns each arm's launch
+    counts."""
+    import torch
+
+    from repro_torch.core import engine, profiles
+    from repro_torch.core.scheduler import Scheduler, ServeRequest
+
+    dev = torch.device("cuda")
+    n_req, n_image, L = prompts.shape[0], cfg.vlm.n_image_tokens, cfg.n_layers
+    want = engine.generate_contrastive(model, params, prompts, uncond_token=0,
+                                       n_image_tokens=n_image, guidance=GUIDANCE)
+
+    def requests(max_new):
+        return [ServeRequest(rid=i, prompt=prompts[i].cpu().numpy(), max_new=max_new,
+                             profile=profiles.ContrastiveProfile(
+                                 uncond_token=0, guidance=GUIDANCE, mask_offset=offset))
+                for i in range(n_req)]
+
+    out = {}
+    for arm, geometry in (("paged", dict(paged=True, block_size=16)), ("contiguous", {})):
+        tag = f"chameleon T-I served/{arm}"
+        kw = dict(slots=2 * n_req, pad_to=TI_PROMPT, max_new_cap=n_image, device=dev,
+                  **geometry)
+        Scheduler(model, params, **kw).run(requests(2))  # warm-up
+        sched = Scheduler(model, params, **kw)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        done, peak = _peak_run(lambda: sched.run(requests(n_image)))
+        wall = time.perf_counter() - t0
+        got = _read_counts()
+        n_pre, n_steps = sched.n_prefills, sched.n_decode_steps
+        dec = "paged_decode_attention" if geometry else "decode_attention"
+        want_c = _want_counts(cfg, n_pre + n_steps, flash_attention=L * n_pre,
+                              **{dec: L * n_steps})
+        check(got == want_c, f"{tag}: kernel launches {got}, expected {want_c}")
+        check(n_pre == 2 * n_req and n_steps == n_image - 1,
+              f"{tag}: {n_pre} prefills, {n_steps} steps")
+        if geometry:
+            check(sched.pool.n_used_blocks == 0 and not sched.pool._ref.any(),
+                  f"{tag}: blocks left after the run")
+        for r in sorted(done, key=lambda r: r.rid):
+            check(len(r.tokens) == n_image and min(r.tokens) >= offset
+                  and max(r.tokens) < cfg.vocab_size, f"{tag} {r.rid}: bad tokens")
+            greedy_parity(model, params, prompts[r.rid].tolist(), r.tokens,
+                          want["tokens"][r.rid].tolist(), f"{tag} {r.rid}",
+                          mix=(GUIDANCE, 0, offset), what="the batch run's")
+        print(f"[{tag}] {n_req} requests x 2 streams, {n_image} image tokens: {n_steps} pool "
+              f"steps in {wall * 1e3:.1f} ms wall ({wall * 1e3 / n_steps:.3f} ms a step) | peak "
+              f"{peak} B | kv reserved {sched.pool.reserved_bytes} B | launches {got}",
+              flush=True)
+        out[arm] = got
+    return out
 
 
 def main() -> None:
@@ -2981,6 +3469,8 @@ def main() -> None:
         cfg, model, params, trace, runs = phase_serve(pad_to)
         paged_counts = phase_paged(cfg, model, params, pad_to, runs["continuous"][1])
         spec_counts = phase_speculative(cfg, model, params, pad_to, runs["continuous"][1])
+        mixed_counts = phase_mixed(cfg, model, params, pad_to, runs["continuous"][1])
+        phase_prefix(cfg, model, params)
         phase_parity(model, params, pad_to, trace[:2], runs["continuous"][1])
         phase_profile(model, params, pad_to, trace, fused=fused_per_forward(cfg))
         arms = phase_quant(cfg, model, params, pad_to, trace)
@@ -2988,8 +3478,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         hstu_counts, hstu_f32_counts = phase_hstu()
         ssm_counts, ssm_f32_counts = phase_ssm(pad_to)
-        seamless_counts = phase_seamless()
-        chameleon_counts = phase_chameleon()
+        seamless_counts, _ = phase_seamless()
+        chameleon_counts, _ = phase_chameleon()
         # each kernel's launches come from the run of the path it is on; an
         # f32 route's from the f32 run of its path
         path_counts = {"paged_decode_attention": paged_counts["paged"],
@@ -3000,7 +3490,7 @@ def main() -> None:
         paths = {"serve": runs["continuous"][2], "chunked": paged_counts["chunked"],
                  "spec": spec_counts["spec t=0.8"], "spec_paged": spec_counts["spec t=0.8 paged"],
                  "hstu": hstu_counts, "ssm": ssm_counts, "seamless": seamless_counts,
-                 "chameleon": chameleon_counts}
+                 "chameleon": chameleon_counts, "mixed": mixed_counts}
         for r in records:
             if "path" in r:  # RMSNorm by prologue, flash's mixed step, the multimodal
                 # shapes: the count on their path

@@ -12,9 +12,11 @@ Paged pools (``core/slot_pool.BlockPool``) keep K/V as physical blocks
 ``[num_blocks, block_size, ...]`` addressed through a per-slot block table
 (host numpy, shipped to the device by ``BlockPool.sync``); physical block 0
 is the garbage sink that freed slots' table rows point at. The block ops
-below copy prefilled rows into blocks (``append_block``) and set or zero
-per-slot counters (``set_slot_length``, ``free_blocks``); the block table
-itself is never touched here.
+below copy prefilled rows into blocks (``append_block``), copy one block
+over another (``copy_block``: the copy-on-write unshare of a block that two
+streams of a slot group would both write) and set or zero per-slot counters
+(``set_slot_length``, ``free_blocks``); the block table itself is never
+touched here.
 """
 from __future__ import annotations
 
@@ -124,6 +126,17 @@ def append_block(pool_layers: Any, row_layers: Any, block: int, start: int) -> A
         n = chunk.shape[0]
         p[block, :n] = chunk.to(p.dtype)
         p[block, n:] = 0
+    return pool_layers
+
+
+@torch.inference_mode()
+def copy_block(pool_layers: Any, src: int, dst: int) -> Any:
+    """Copy physical block ``src`` over physical block ``dst`` in every K/V
+    leaf ([num_blocks, block_size, ...]), in place: the copy-on-write unshare
+    of a block two slot-group streams would otherwise both write. The pool's
+    tensors are written where they are; no new buffer is allocated."""
+    for p in leaves(pool_layers):
+        p[dst].copy_(p[src])
     return pool_layers
 
 

@@ -27,8 +27,10 @@ Sampling and contrastive profiles take greedy tokens at ``temperature <= 0``
 and nucleus samples above it, drawn under the key ``step`` is given
 (``core/prng.py``). ``SpeculativeProfile`` is a ``SamplingProfile`` that the
 serving scheduler steps through LayerSkip draft/verify windows; the batch
-engines treat it as its base. The scheduler's slot groups (block sharing,
-``permute_group``) are a later slice.
+engines treat it as its base. ``prefix_shared`` tells the serving
+scheduler that every stream prefills the same prompt (beam), so a group
+prefills once and, on the paged pool, its streams share the prompt's blocks
+copy-on-write instead of each holding its own (contrastive: no).
 """
 from __future__ import annotations
 
@@ -66,6 +68,10 @@ class DecodingProfile:
     """Base request-level decoding spec. Instances are immutable specs; all
     mutable decoding state lives in the object ``init`` returns (``step``
     writes its token column in place)."""
+
+    #: streams with identical prompts: the scheduler prefills the group once
+    #: and shares the prompt's blocks across it instead of copying them
+    prefix_shared: bool = True
 
     @property
     def n_streams(self) -> int:
@@ -120,6 +126,8 @@ class SamplingProfile(DecodingProfile):
     eos_id: Optional[int] = None
     sampler: Optional[sampling.Sampler] = None
     live: Optional[torch.Tensor] = None  # [G] bool
+
+    prefix_shared = True
 
     @property
     def _fill(self) -> int:
@@ -189,6 +197,8 @@ class BeamProfile(DecodingProfile):
     n_beams: int
     eos_id: int
 
+    prefix_shared = True  # every beam prefills the same prompt
+
     @property
     def n_streams(self) -> int:
         return self.n_beams
@@ -226,6 +236,8 @@ class ContrastiveProfile(DecodingProfile):
     temperature: float = 0.0
     top_p: float = 1.0
     sampler: Optional[sampling.Sampler] = None
+
+    prefix_shared = False  # cond and uncond prefill different prompts
 
     @property
     def n_streams(self) -> int:

@@ -49,9 +49,29 @@ suffix back on the host (``kv_cache.rewind``; paged adds
 ``BlockPool.truncate``). Plain slots ride the same step with width-1
 windows. The tokens equal a plain run's at any temperature.
 
-Not ported yet (``NotImplementedError``): the prefix cache, slot groups
-(beam / contrastive profiles), encoder-decoder requests (their frames at
-admission), priority aging, replicas and TP.
+A multi-stream profile (beam, contrastive; core/profiles.py) makes its
+request a *slot group* of ``n_streams`` slots, acquired, evicted and
+preempted all or nothing, and ranked as one unit for growth and victim
+choice. Group streams ride the pool-wide step like every slot; after it the
+scheduler gathers each group's logits rows and lets its profile pick the
+streams' next tokens and an optional cache permutation (beam's Obs #4 KV
+reorder): on the paged pool a host table rewrite with copy-on-write
+sharing (``BlockPool.permute_group`` / ``ensure_writable``), on the
+contiguous pool a row gather (``kv_cache.reorder_donated``). A group always
+takes the dense prefill, and so does a request with ``extra_inputs``
+(encoder frames, written into its slots' cross-attention rows): encoder-
+decoders serve on the contiguous pool. A group's step key folds (request
+id, token index) into the serve key, so its replay after a preemption is
+the same.
+
+``prefix_cache=True`` (requires ``chunked``) adds the cross-request radix
+prefix cache (core/prefix_cache.py): a chunked admission adopts every
+cached leading full block of its prompt and starts its cursor at the first
+uncached token; finished and preempted requests hand their full prompt
+blocks to the trie; blocks only the trie holds are reclaimed, least
+recently used first, before anything is preempted.
+
+Not ported yet: priority aging, the two-phase step, replicas and TP.
 """
 from __future__ import annotations
 
@@ -65,6 +85,7 @@ import torch
 
 from repro_torch.core import engine, kv_cache, layerskip, prng, profiles, sampling
 from repro_torch.core.prefill import ChunkCursor, ChunkedPrefill
+from repro_torch.core.prefix_cache import PrefixCache
 from repro_torch.core.slot_pool import BlockPool, SlotPool
 from repro_torch.models.registry import Model
 
@@ -85,12 +106,20 @@ class ServeRequest:
     priority: int = 0  # higher = more urgent
     # HOW to decode: None = per-slot sampling at (temperature, top_p); a
     # single-stream SamplingProfile collapses onto that, a
-    # SpeculativeProfile adds draft/verify windows (slot groups: later)
-    profile: Optional[Any] = None
+    # SpeculativeProfile adds draft/verify windows, a multi-stream profile
+    # (beam, contrastive) makes the request a slot group
+    profile: Optional[profiles.DecodingProfile] = None
+    # prefill inputs beyond the prompt (an encoder-decoder's frames [1, F, d]
+    # and frame_lengths [1]), written into the slot's own cross rows
+    extra_inputs: Optional[Dict[str, np.ndarray]] = None
     # ---- filled in by the scheduler ----
     tokens: List[int] = field(default_factory=list)
+    score: Optional[float] = None  # beam: the best hypothesis' score
+    t_admit: Optional[float] = None
     t_first: Optional[float] = None  # first token (TTFT reference)
     t_done: Optional[float] = None
+    # commit time of every token (t_first first)
+    t_tokens: List[float] = field(default_factory=list)
 
     @property
     def ttft(self) -> float:
@@ -129,6 +158,25 @@ class SlotState:
         )
 
 
+@dataclass
+class GroupState:
+    """Host-side view of one slot group: stream ``i`` lives in pool slot
+    ``slots[i]``. Streams advance in lockstep, so one ``kv_len`` covers the
+    group; its decoding state is ``pstate`` (the profile's, made anew on a
+    preemption replay). ``admit_seq`` ranks the group as one unit;
+    ``slot_rows`` is ``slots`` on the device, made once at admission, which
+    gathers the group's logits rows every step."""
+
+    req: ServeRequest
+    slots: List[int]
+    profile: profiles.DecodingProfile
+    pstate: Any
+    n_generated: int = 0
+    kv_len: int = 0
+    admit_seq: int = 0
+    slot_rows: Any = None
+
+
 class Scheduler:
     """Admission + decode-step loop over a ``SlotPool`` or ``BlockPool`` on
     ``device``.
@@ -165,15 +213,9 @@ class Scheduler:
             raise ValueError("chunked prefill requires the paged block-pool")
         if chunked and policy != "continuous":
             raise ValueError("chunked prefill requires policy='continuous'")
-        if prefix_cache:
-            raise NotImplementedError(
-                "the cross-request prefix cache waits for a later slice of the port"
-            )
-        if model.config.encdec is not None:
-            raise NotImplementedError(
-                "serving an encoder-decoder needs per-request extra inputs at admission: a "
-                "later slice; run it batch-at-a-time (engine.generate_beam)"
-            )
+        if prefix_cache and not chunked:
+            # only a chunk cursor starts a prompt past position 0
+            raise ValueError("prefix_cache requires chunked prefill")
         self.model = model
         self.params = params
         self.slots = slots
@@ -197,14 +239,19 @@ class Scheduler:
         if chunked:
             budget = prefill_budget if prefill_budget is not None else block_size
             self.chunk_mgr = ChunkedPrefill(slots, budget)
+        # host-only trie over the pool's blocks: no device memory of its own
+        self._pcache: Optional[PrefixCache] = (
+            PrefixCache(self.pool.block_size) if prefix_cache else None)
         self.active: Dict[int, SlotState] = {}
+        self.groups: Dict[int, GroupState] = {}  # slot groups by their first slot
         self.waiting: Deque[ServeRequest] = deque()
         self.finished: List[ServeRequest] = []
         # host mirrors of the per-slot decode state (free slots decode greedy
-        # garbage under rid 0; their tokens are discarded)
+        # garbage under rid 0, their tokens discarded; so do group streams,
+        # whose real tokens come from their profile's step)
         self._token = np.zeros((slots,), np.int32)
         self._rid = np.zeros((slots,), np.int64)
-        self._stream = np.zeros((slots,), np.int64)  # always 0 until slot groups
+        self._stream = np.zeros((slots,), np.int64)  # stream index in a group
         self._ngen = np.zeros((slots,), np.int64)
         self._temp = np.zeros((slots,), np.float32)
         self._top_p = np.ones((slots,), np.float32)
@@ -215,6 +262,17 @@ class Scheduler:
         self.n_mixed_steps = 0  # steps that carried at least one chunk
         self.n_chunks = 0
         self.n_chunk_tokens = 0
+        self.n_group_admissions = 0
+        # a beam reorder: a device row gather (contiguous pool) or a host
+        # table permutation (paged pool)
+        self.n_cache_reorders = 0
+        self.n_block_permutes = 0
+        # prefix cache: a lookup is one chunked admission's trie walk; the
+        # skipped tokens are prompt positions adopted instead of prefilled
+        self.n_prefix_lookups = 0
+        self.n_prefix_hits = 0
+        self.n_prefix_tokens_skipped = 0
+        self.cached_block_trace: List[int] = []  # per step, like occupancy
         # speculative accounting: a "spec slot-step" is one slot carrying a
         # window of 2 or more lanes through one step; the histogram keys on
         # the tokens that slot committed (1: every draft rejected)
@@ -240,18 +298,32 @@ class Scheduler:
 
     # ---- request intake --------------------------------------------------
     def normalize(self, r: ServeRequest) -> ServeRequest:
-        """Submit-time validation: caps ``max_new``, collapses a
-        single-stream ``SamplingProfile`` (a ``SpeculativeProfile`` too)
-        onto the per-slot sampling fields, checks a speculative one against
-        the model, and refuses the slot groups of multi-stream profiles."""
+        """Submit-time validation: caps ``max_new``, refuses a group that
+        could never fit (more streams than slots; paged, more than the
+        pool's usable blocks at worst), collapses a single-stream
+        ``SamplingProfile`` (a ``SpeculativeProfile`` too) onto the per-slot
+        sampling fields and checks a speculative one against the model."""
         r.max_new = min(r.max_new, self.max_new_cap)
         if r.profile is None:
             return r
-        if not isinstance(r.profile, profiles.SamplingProfile):
-            raise NotImplementedError(
-                f"request {r.rid}: multi-stream profiles (beam / contrastive slot groups) "
-                "wait for a later slice of the port"
+        if not isinstance(r.profile, profiles.DecodingProfile):
+            raise TypeError(f"request {r.rid}: profile {r.profile!r} is not a DecodingProfile")
+        s_n = r.profile.n_streams
+        if s_n > self.slots:
+            raise ValueError(
+                f"request {r.rid} needs a slot group of {s_n} streams but the pool has "
+                f"only {self.slots} slots"
             )
+        if self.paged and s_n * self.pool.max_blocks > self.pool.num_blocks - 1:
+            # the preemption ladder ends only if the oldest resident can
+            # always run alone, at its worst case
+            raise ValueError(
+                f"request {r.rid}: a {s_n}-stream group can need up to "
+                f"{s_n * self.pool.max_blocks} blocks but the pool has "
+                f"{self.pool.num_blocks - 1} usable"
+            )
+        if s_n > 1 or not isinstance(r.profile, profiles.SamplingProfile):
+            return r
         if r.profile.sampler is not None:
             raise ValueError(
                 "SamplingProfile.sampler callables are a batch-engine escape hatch; the "
@@ -306,18 +378,32 @@ class Scheduler:
         return req.eos_id if req.eos_id is not None else self.eos_id
 
     def _mark_admission_stall(self) -> None:
-        if self.active and self._last_commit_t is not None:
+        if (self.active or self.groups) and self._last_commit_t is not None:
             self._stall_marks.append(self._last_commit_t)
 
-    def _admit_one(self, req: ServeRequest) -> None:
-        self._mark_admission_stall()
+    def _request_extra(self, req: ServeRequest) -> Optional[Dict[str, torch.Tensor]]:
+        """The request's prefill extras (encoder frames) on the device."""
+        if not req.extra_inputs:
+            return None
+        return {k: torch.as_tensor(v, device=self.device) for k, v in req.extra_inputs.items()}
+
+    def _acquire(self) -> int:
         slot = self.pool.acquire()
         if slot is None:
             raise RuntimeError("admission without a free slot")
+        return slot
+
+    def _admit_one(self, req: ServeRequest, now: float) -> None:
+        self._mark_admission_stall()
+        slot = self._acquire()
         tokens, length = self._pad_prompt(req.prompt)
         n_prompt = min(len(req.prompt), self.pad_to)
         logits, row = engine.prefill(self.model, self.params, tokens, length,
-                                     self.max_len)
+                                     self.max_len, extra=self._request_extra(req))
+        if self.paged:
+            # assign pops the free-list directly: reclaim any shortfall from
+            # the prefix cache first (the gate counted those blocks as free)
+            self._reclaim_for(self.pool.blocks_for(n_prompt))
         self.pool.assign(slot, row, n_prompt)
         if self.paged:
             # claim the first decode step's block now (the gate checked a
@@ -334,8 +420,9 @@ class Scheduler:
             knobs = torch.tensor([[req.temperature], [req.top_p]]).to(self.device)
             first = int(sampling.sample_slots(logits, torch.from_numpy(keys).to(self.device),
                                               knobs[0], knobs[1])[0])
-        req.t_first = self._now()
+        req.t_admit, req.t_first = now, self._now()
         req.tokens.append(first)
+        req.t_tokens.append(req.t_first)
         state = SlotState(req=req, slot=slot, n_generated=1, kv_len=n_prompt,
                           admit_seq=self._seq)
         self._seq += 1
@@ -357,38 +444,113 @@ class Scheduler:
         self._temp[slot] = req.temperature
         self._top_p[slot] = req.top_p
 
-    def _admit_one_chunked(self, req: ServeRequest) -> None:
+    def _admit_one_chunked(self, req: ServeRequest, now: float) -> None:
         """Chunked admission: no prefill and no dense row — a slot and a
         chunk cursor; the mixed steps stream the prompt into the slot's
-        blocks ``prefill_budget`` tokens at a time."""
+        blocks ``prefill_budget`` tokens at a time. With the prefix cache
+        the cursor starts at the first uncached token: the cached leading
+        full blocks are adopted, and their tokens enter no chunk."""
         self._mark_admission_stall()
-        slot = self.pool.acquire()
-        if slot is None:
-            raise RuntimeError("admission without a free slot")
-        cursor = ChunkCursor(req=req, slot=slot, prompt=self._trim_prompt(req.prompt),
-                             admit_seq=self._seq)
+        slot = self._acquire()
+        prompt = self._trim_prompt(req.prompt)
+        pos = self._prefix_admit(slot, prompt) if self._pcache is not None else 0
+        cursor = ChunkCursor(req=req, slot=slot, prompt=prompt, admit_seq=self._seq, pos=pos)
         self._seq += 1
         self.chunk_mgr.add(cursor)
+        req.t_admit = now
         # staged now, so the step that finishes the prefill samples the first
         # token under the (rid, 0, 0) key with everyone else's decode tokens
         self._stage(slot, req, n_generated=0)
 
+    def _admit_one_group(self, req: ServeRequest, now: float) -> None:
+        """Slot-group admission: ``n_streams`` slots all or nothing, the
+        profile's stream prompts prefilled, and the profile's first step run
+        on the prefill logits. A prefix-shared group (beam) prefills once:
+        on the paged pool the other streams ``share`` its blocks, the
+        contiguous pool writes the row into every stream's slot."""
+        prof = req.profile
+        s_n = prof.n_streams
+        self._mark_admission_stall()
+        slots = [self._acquire() for _ in range(s_n)]
+        prompts = prof.stream_prompts(self._trim_prompt(req.prompt))
+        n_lens = {len(p) for p in prompts}
+        if len(n_lens) != 1:
+            raise ValueError("a group's streams must share one prompt length")
+        n_prompt = n_lens.pop()
+        if self.paged:
+            # a group's assigns pop the free-list directly
+            self._reclaim_for(self.pool.blocks_for(n_prompt)
+                              * (1 if prof.prefix_shared else s_n))
+        extra = self._request_extra(req)
+        if prof.prefix_shared:
+            tokens, length = self._pad_prompt(prompts[0])
+            logits, row = engine.prefill(self.model, self.params, tokens, length,
+                                         self.max_len, extra=extra)
+            self.n_prefills += 1
+            self.pool.assign(slots[0], row, n_prompt)
+            for s in slots[1:]:
+                if self.paged:
+                    self.pool.share(s, slots[0])
+                else:
+                    self.pool.assign(s, row, n_prompt)
+            logit_rows = logits.repeat(s_n, 1)  # identical streams
+        else:
+            rows = []
+            for s, p in zip(slots, prompts):
+                tokens, length = self._pad_prompt(p)
+                logits, row = engine.prefill(self.model, self.params, tokens, length,
+                                             self.max_len, extra=extra)
+                self.n_prefills += 1
+                self.pool.assign(s, row, n_prompt)
+                rows.append(logits)
+            logit_rows = torch.cat(rows, dim=0)
+        req.t_admit = now
+        g = GroupState(req=req, slots=slots, profile=prof,
+                       pstate=prof.init(1, req.max_new, self.device), kv_len=n_prompt,
+                       admit_seq=self._seq,
+                       slot_rows=torch.tensor(slots, dtype=torch.long, device=self.device))
+        self._seq += 1
+        self.n_group_admissions += 1
+        for i, s in enumerate(slots):
+            self._rid[s] = req.rid
+            self._stream[s] = i
+            self._ngen[s] = 0
+            self._temp[s] = 0.0  # a group samples in its profile
+        if not self._advance_group(g, logit_rows, self._now()):
+            self.groups[g.slots[0]] = g
+
     def _admissible(self, req: ServeRequest) -> bool:
-        """Pool-side admission gate: one free slot; paged, also the prompt's
-        blocks (chunked: the first chunk's block) plus a one-block
-        watermark while the pool is busy (optimistic admission: growth is
-        served on demand and backed by preemption, not reserved)."""
-        if self.pool.n_free < 1:
+        """Pool-side admission gate: ``n_streams`` free slots; paged, also
+        free blocks for the streams' prompts plus a one-block watermark
+        while the pool is busy (optimistic admission: growth is served on
+        demand and backed by preemption, not reserved). A prefix-shared
+        group needs its prompt's blocks once plus ``n_streams - 1``
+        copy-on-write spares for the write cursor's block; a chunked single
+        request only its first chunk's block. Blocks only the prefix cache
+        holds count as free: admission reclaims them before any pop."""
+        s_n = profiles.n_streams_of(req.profile)
+        if self.pool.n_free < s_n:
             return False
         if not self.paged:
             return True
         n_prompt = max(1, min(len(req.prompt), self.pad_to))
-        need = 1 if self.chunked else self.pool.blocks_for(n_prompt)
+        if s_n > 1:
+            if req.profile.prefix_shared:
+                need = self.pool.blocks_for(n_prompt) + (s_n - 1)
+            else:
+                need = self.pool.blocks_for(n_prompt) * s_n
+        elif self.chunked:
+            need = 1
+        else:
+            need = self.pool.blocks_for(n_prompt)
+        free_b = self.pool.n_free_blocks
+        if self._pcache is not None:
+            free_b += self.pool.n_reclaimable_blocks
         if self.pool.n_active == 0:
             # idle pool: every block is free and one worst-case request is
             # guaranteed to fit; gating on the watermark here could wedge
-            return self.pool.n_free_blocks >= need
-        return self.pool.n_free_blocks >= need + 1
+            return free_b >= need
+        return free_b >= need + 1
 
     def _next_candidate(self, now: float):
         """(index, request) of the highest-priority ARRIVED request; stable
@@ -403,56 +565,145 @@ class Scheduler:
         return best_i, best
 
     def _admit(self, now: float) -> None:
-        if self.policy == "fixed" and self.active:
+        if self.policy == "fixed" and (self.active or self.groups):
             return  # run-to-completion: no refill until the pool drains
         while True:
             i, cand = self._next_candidate(now)
             if cand is None or not self._admissible(cand):
                 return
             del self.waiting[i]
-            if self.chunked:
-                self._admit_one_chunked(cand)
+            if profiles.n_streams_of(cand.profile) > 1:
+                self._admit_one_group(cand, now)
+            elif self.chunked and not cand.extra_inputs:
+                # a chunk streams tokens only: extra inputs need the prefill
+                self._admit_one_chunked(cand, now)
             else:
-                self._admit_one(cand)
+                self._admit_one(cand, now)
+
+    # ---- cross-request prefix cache (core/prefix_cache.py) ----------------
+    def _prefix_admit(self, slot: int, prompt: np.ndarray) -> int:
+        """Adopt every cached leading full block of ``prompt`` into
+        ``slot``'s table (refcounted, no device K/V work) and return the
+        matched token count, where the chunk cursor starts. The match leaves
+        at least one suffix token, whose logits the mixed step computes as
+        cold serving does."""
+        self.n_prefix_lookups += 1
+        blocks = self._pcache.match(prompt)
+        if not blocks:
+            return 0
+        matched = len(blocks) * self.pool.block_size
+        self.pool.adopt(slot, blocks, matched)
+        self.n_prefix_hits += 1
+        self.n_prefix_tokens_skipped += matched
+        return matched
+
+    def _prefix_insert(self, slot: int, req: ServeRequest,
+                       n_written: Optional[int] = None) -> None:
+        """At every slot release (finish, preemption), before ``evict``
+        drops the slot's references: hand the request's fully written prompt
+        blocks to the trie, so they go from owned to cached without visiting
+        the free-list. ``n_written`` caps a half-prefilled cursor's span. A
+        span the trie holds already keeps its block (a replay inserting the
+        blocks it adopted is a no-op)."""
+        if self._pcache is None or req.extra_inputs:
+            return
+        prompt = self._trim_prompt(req.prompt)
+        n = len(prompt) if n_written is None else min(n_written, len(prompt))
+        n_full = n // self.pool.block_size
+        if n_full <= 0:
+            return
+        self._pcache.insert(prompt, self.pool.owned_blocks(slot)[:n_full], self.pool)
+
+    def _reclaim_for(self, need: int) -> None:
+        """Make ``need`` blocks really free for a path that pops the
+        free-list directly (a dense or group ``assign``): reclaim the
+        shortfall from the prefix cache's least recently used leaves."""
+        if self._pcache is not None:
+            short = need - self.pool.n_free_blocks
+            if short > 0:
+                self._pcache.reclaim(self.pool, short)
+
+    def _ensure_or_reclaim(self, slot: int, kv_len: int, writable: bool = False) -> bool:
+        """``BlockPool.ensure`` (``ensure_writable`` for a group stream)
+        with the prefix cache as the first back-pressure: while the
+        free-list is dry, reclaim one cached-only block and retry; False
+        only when the trie has nothing to give, and the caller preempts."""
+        grow = self.pool.ensure_writable if writable else self.pool.ensure
+        while not grow(slot, kv_len):
+            if self._pcache is None or not self._pcache.reclaim(self.pool, 1):
+                return False
+        return True
 
     # ---- paged back-pressure ---------------------------------------------
     def _victim(self):
         """Preemption victim: the youngest request of the lowest priority
-        among all residents, decoding slots and half-prefilled cursors."""
-        cands: list = list(self.active.values())
+        among all residents: decoding slots, half-prefilled cursors and
+        whole slot groups."""
+        cands: list = list(self.active.values()) + list(self.groups.values())
         if self.chunk_mgr is not None:
             cands += list(self.chunk_mgr.cursors.values())
         return min(cands, key=lambda s: (s.req.priority, -s.admit_seq))
 
     def _preempt(self, st) -> None:
-        """Out-of-blocks back-pressure: evict the slot, free its blocks and
-        requeue the request at the FRONT of the waiting queue for full
-        recompute. ``st`` is a SlotState (decoding) or a ChunkCursor
+        """Out-of-blocks back-pressure: evict the slot(s), free the blocks
+        and requeue the request at the FRONT of the waiting queue for full
+        recompute. ``st`` is a SlotState (decoding), a ChunkCursor
         (mid-prefill: the cursor is dropped and re-admission restarts at
-        chunk zero)."""
-        if isinstance(st, ChunkCursor):
-            self.chunk_mgr.remove(st.slot)
+        chunk zero; its written full blocks seed the prefix cache) or a
+        GroupState (every stream's slot evicted, the profile state
+        dropped)."""
+        if isinstance(st, GroupState):
+            del self.groups[st.slots[0]]
+            for s in st.slots:
+                self.pool.evict(s)
+                self._temp[s] = 0.0
         else:
-            del self.active[st.slot]
-        self.pool.evict(st.slot)
-        self._temp[st.slot] = 0.0  # free slots decode greedy garbage
+            if isinstance(st, ChunkCursor):
+                self.chunk_mgr.remove(st.slot)
+                self._prefix_insert(st.slot, st.req, n_written=st.pos)
+            else:
+                del self.active[st.slot]
+                self._prefix_insert(st.slot, st.req)
+            self.pool.evict(st.slot)
+            self._temp[st.slot] = 0.0  # free slots decode greedy garbage
         st.req.tokens = []
+        st.req.t_tokens = []
+        st.req.score = None
         self.waiting.appendleft(st.req)
         self.n_preemptions += 1
 
     def _ensure_blocks(self, extra: Optional[np.ndarray] = None) -> None:
-        """Before a paged step every active slot must own the block its next
-        token writes into; ``extra`` [slots] widens a slot's target by that
-        many positions past ``kv_len`` (a speculative window's writes reach
-        ``kv_len + w - 1``). Residents grow oldest-first; when the pool runs
-        dry the youngest lowest-priority resident is preempted (repeatedly
-        if needed). Terminates: one worst-case request always fits, so the
-        oldest resident can always run alone."""
-        for ent in sorted(self.active.values(), key=lambda st: st.admit_seq):
+        """Before a paged step every resident must own the block its next
+        token writes into, a group stream exclusively (copy-on-write via
+        ``ensure_writable``); ``extra`` [slots] widens a slot's target by
+        that many positions past ``kv_len`` (a speculative window's writes
+        reach ``kv_len + w - 1``; groups never step speculatively).
+        Residents grow oldest-first, a group as one unit; when the pool runs
+        dry (and the prefix cache has nothing to reclaim) the youngest
+        lowest-priority resident is preempted, repeatedly if needed.
+        Terminates: one worst-case request (or group, checked at submit)
+        always fits, so the oldest resident can always run alone."""
+        ents = sorted(list(self.active.values()) + list(self.groups.values()),
+                      key=lambda st: st.admit_seq)
+        for ent in ents:
+            if isinstance(ent, GroupState):
+                if ent.slots[0] not in self.groups:
+                    continue  # already preempted while growing an older one
+                gone = False
+                for s in ent.slots:
+                    while not self._ensure_or_reclaim(s, ent.kv_len, writable=True):
+                        victim = self._victim()
+                        self._preempt(victim)
+                        if victim is ent:
+                            gone = True
+                            break
+                    if gone:
+                        break
+                continue
             if ent.slot not in self.active:
                 continue  # already preempted while growing an older one
             target = ent.kv_len + (0 if extra is None else int(extra[ent.slot]))
-            while not self.pool.ensure(ent.slot, target):
+            while not self._ensure_or_reclaim(ent.slot, target):
                 victim = self._victim()
                 self._preempt(victim)
                 if victim is ent:
@@ -480,6 +731,8 @@ class Scheduler:
         if self.paged:
             self.block_occupancy_trace.append(self.pool.block_occupancy)
             self.peak_used_blocks = max(self.peak_used_blocks, self.pool.n_used_blocks)
+        if self._pcache is not None:
+            self.cached_block_trace.append(self.pool.n_cached_blocks)
 
     def _harvest_stalls(self, now: float) -> None:
         if self._stall_marks:
@@ -493,6 +746,7 @@ class Scheduler:
         for slot, st in list(self.active.items()):
             token = int(toks[slot])
             st.req.tokens.append(token)
+            st.req.t_tokens.append(now)
             st.n_generated += 1
             st.kv_len += 1  # this step wrote the slot's K/V at kv_len
             self._token[slot] = token
@@ -506,6 +760,7 @@ class Scheduler:
         st.req.t_done = now
         self.finished.append(st.req)
         del self.active[st.slot]
+        self._prefix_insert(st.slot, st.req)
         self.pool.evict(st.slot)
         self._temp[st.slot] = 0.0  # free slots decode greedy garbage
 
@@ -524,7 +779,7 @@ class Scheduler:
     def _step_decode(self) -> List[ServeRequest]:
         if self.paged:
             self._ensure_blocks()
-            if not self.active:
+            if not self.active and not self.groups:
                 return []  # everything preempted back to the queue
             self.pool.sync()
         token = torch.from_numpy(self._token).to(self.device)
@@ -532,7 +787,9 @@ class Scheduler:
                                                      self.pool.cache, token)
         toks = self._sample(logits)
         self._record_step_metrics()
-        return self._commit_decode(toks, self._now())
+        now = self._now()
+        done = self._commit_decode(toks, now)
+        return done + self._commit_groups(logits, now)
 
     def _step_mixed(self) -> List[ServeRequest]:
         """One token-budget mixed step: a decode lane for every live slot
@@ -541,17 +798,17 @@ class Scheduler:
         # pack, then back every chunk's span with blocks; a starved cursor
         # is excluded and the plan rebuilt so its budget share flows to
         # cursors whose chunks are backed (no budget hoarding)
-        decode_slots = list(self.active)
+        decode_slots = list(self.active) + [s for g in self.groups.values() for s in g.slots]
         starved: set = set()
         while True:
             plan = self.chunk_mgr.plan(self._token, decode_slots, skip=starved)
             newly = [ch.slot for ch in plan.chunks
-                     if not self.pool.ensure(ch.slot, ch.start + ch.t - 1)]
+                     if not self._ensure_or_reclaim(ch.slot, ch.start + ch.t - 1)]
             if not newly:
                 break
             starved.update(newly)
         if not plan.chunks:
-            if self.active:
+            if self.active or self.groups:
                 # every pending chunk is block-starved: run the 1-lane
                 # decode step, not a mixed step with no prefill token
                 return self._step_decode()
@@ -570,6 +827,8 @@ class Scheduler:
         base = np.zeros((self.slots,), np.int32)
         for slot, st in self.active.items():
             base[slot] = st.kv_len
+        for g in self.groups.values():
+            base[g.slots] = g.kv_len
         for slot, cur in self.chunk_mgr.cursors.items():
             base[slot] = cur.pos
         self.pool.sync()
@@ -584,6 +843,7 @@ class Scheduler:
         self.n_mixed_steps += 1
         now = self._now()
         done = self._commit_decode(toks, now)
+        done += self._commit_groups(logits, now)
         for ch in plan.chunks:
             cur = self.chunk_mgr.advance(ch)
             self.n_chunks += 1
@@ -600,11 +860,13 @@ class Scheduler:
         req = cur.req
         req.t_first = now
         req.tokens.append(first)
+        req.t_tokens.append(now)
         state = SlotState(req=req, slot=cur.slot, n_generated=1, kv_len=cur.n_prompt,
                           admit_seq=cur.admit_seq)
         if state.finished(first, self._eos(req)):
             req.t_done = now
             self.finished.append(req)
+            self._prefix_insert(cur.slot, req)
             self.pool.evict(cur.slot)
             self._temp[cur.slot] = 0.0
             return
@@ -615,7 +877,10 @@ class Scheduler:
     # ---- speculative decoding (SpeculativeProfile windows) ----------------
     def _spec_ready(self) -> bool:
         """A draft + verify step pays only when some resident slot can commit
-        two or more tokens this step."""
+        two or more tokens this step. A resident group forces plain steps
+        (beam's per-step permutation and variable strides do not compose)."""
+        if self.groups:
+            return False
         return any(isinstance(st.req.profile, profiles.SpeculativeProfile)
                    and st.req.max_new - st.n_generated >= 2
                    for st in self.active.values())
@@ -712,6 +977,7 @@ class Scheduler:
             for j in range(wi):
                 token = int(samples[slot, j])
                 st.req.tokens.append(token)
+                st.req.t_tokens.append(now)
                 st.n_generated += 1
                 commits += 1
                 fin = st.finished(token, eos)
@@ -730,6 +996,85 @@ class Scheduler:
                 self._finish(st, now)
                 done.append(st.req)
         return done
+
+    # ---- slot groups (multi-stream decoding profiles) ---------------------
+    def _advance_group(self, g: GroupState, logit_rows: torch.Tensor, now: float) -> bool:
+        """One profile step of one group: the profile takes the group's
+        [n_streams, V] logits rows and gives every stream's next feed token,
+        an optional cache permutation and the finish flags, read in one
+        device-to-host copy. The step key folds (request id, token index)
+        into the serve key, so a replay draws the same keys wherever its
+        slots lie. Returns True when the group finished (slots evicted)."""
+        key = prng.fold_in(sampling.request_key(self.base_key, g.req.rid), g.n_generated)
+        out = g.profile.step(g.pstate, logit_rows, torch.from_numpy(key))
+        g.pstate = out.state
+        s_n = len(g.slots)
+        parts = [out.feed.to(torch.int64)]
+        if out.perm is not None:
+            parts.append(out.perm.to(torch.int64))
+        if out.done is not None:
+            parts.append(out.done.to(torch.int64))
+        host = torch.cat(parts).cpu().numpy()  # the group's one sync a step
+        feed, rest = host[:s_n], host[s_n:]
+        if out.perm is not None:
+            self._apply_group_perm(g, rest[:s_n])
+            rest = rest[s_n:]
+        g.n_generated += 1
+        if g.n_generated == 1:
+            g.req.t_first = now
+        g.req.t_tokens.append(now)
+        self._token[g.slots] = feed
+        self._ngen[g.slots] = g.n_generated
+        finished = out.done is not None and bool(rest.all())
+        if finished or g.n_generated >= g.req.max_new:
+            self._finish_group(g, now)
+            return True
+        return False
+
+    def _apply_group_perm(self, g: GroupState, perm: np.ndarray) -> None:
+        """Re-bind each stream's cache to its surviving parent's (beam's
+        Obs #4 reorder). Paged: a host table permutation with refcounted
+        prefix sharing, no device K/V moved (the write cursor's block is
+        unshared by the next ``_ensure_blocks``). Contiguous: one in-place
+        pool-wide row gather (``kv_cache.reorder_donated``), identity
+        outside the group's slots."""
+        if np.array_equal(perm, np.arange(len(g.slots))):
+            return  # every stream kept its own cache
+        if self.paged:
+            self.pool.permute_group(g.slots, perm)
+            self.n_block_permutes += 1
+        else:
+            full = np.arange(self.slots)
+            sl = np.asarray(g.slots)
+            full[sl] = sl[perm]
+            kv_cache.reorder_donated(self.pool.cache, torch.from_numpy(full).to(self.device))
+            self.n_cache_reorders += 1
+
+    def _commit_groups(self, logits: torch.Tensor, now: float) -> List[ServeRequest]:
+        """Advance every resident group on the pool-wide step's logits (its
+        rows gathered by the admission-time device index). Runs after the
+        step wrote each stream's K/V at ``kv_len``, hence the increment."""
+        done: List[ServeRequest] = []
+        for g in list(self.groups.values()):
+            g.kv_len += 1
+            if self._advance_group(g, logits[g.slot_rows], now):
+                done.append(g.req)
+        return done
+
+    def _finish_group(self, g: GroupState, now: float) -> None:
+        """Collapse the profile state into the request's output (beam: the
+        best hypothesis and its score) and free every stream's slot."""
+        fin = g.profile.finalize(g.pstate)
+        toks = fin["tokens"][0].cpu().numpy()
+        g.req.tokens = [int(t) for t in toks[: g.n_generated]]
+        if "scores" in fin:
+            g.req.score = float(fin["scores"][0])
+        g.req.t_done = now
+        self.finished.append(g.req)
+        self.groups.pop(g.slots[0], None)
+        for s in g.slots:
+            self.pool.evict(s)
+            self._temp[s] = 0.0
 
     # ---- run loop --------------------------------------------------------
     @torch.inference_mode()
@@ -751,9 +1096,10 @@ class Scheduler:
 
     @property
     def has_work(self) -> bool:
-        """True while any resident (decoding slot or chunk cursor) needs a
-        step."""
-        return bool(self.active or (self.chunk_mgr is not None and len(self.chunk_mgr)))
+        """True while any resident (decoding slot, slot group or chunk
+        cursor) needs a step."""
+        return bool(self.active or self.groups
+                    or (self.chunk_mgr is not None and len(self.chunk_mgr)))
 
     @property
     def mean_occupancy(self) -> float:
@@ -766,3 +1112,20 @@ class Scheduler:
         if not self.block_occupancy_trace:
             return 0.0
         return float(np.mean(self.block_occupancy_trace))
+
+    # ---- prefix-cache metrics (launch/serve.py report) --------------------
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Share of chunked admissions that adopted at least one block."""
+        return self.n_prefix_hits / max(self.n_prefix_lookups, 1)
+
+    @property
+    def n_prefix_reclaimed(self) -> int:
+        return self._pcache.n_reclaimed_blocks if self._pcache else 0
+
+    @property
+    def mean_cached_blocks(self) -> float:
+        """Mean count of blocks the prefix cache held a step."""
+        if not self.cached_block_trace:
+            return 0.0
+        return float(np.mean(self.cached_block_trace))

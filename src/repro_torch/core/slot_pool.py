@@ -12,10 +12,14 @@ in a shared pool of fixed-size physical blocks addressed through per-slot
 block tables, so a slot holds only the blocks its tokens occupy (see
 ``core/kv_cache.py``). Its host state (free-lists, tables, refcounts) is
 numpy, as in the reference; the device side is in-place writes into the
-pool's preallocated tensors. ``truncate`` releases the table suffix a
-rejected speculative window leaves behind. No block has two owners yet:
-block sharing (slot groups, the prefix cache) and copy-on-write come with
-the port's slices that call them.
+pool's preallocated tensors. Blocks are refcounted: a slot group's streams
+share their common prefix (``share``, ``permute_group``: beam's KV reorder
+as a table rewrite) and the block a stream writes next is unshared
+copy-on-write (``ensure_writable``, one ``kv_cache.copy_block``); the
+cross-request prefix cache (``core/prefix_cache.py``) holds blocks of its
+own (``cache_ref`` / ``cache_unref``) that admissions ``adopt``.
+``truncate`` releases the table suffix a rejected speculative window leaves
+behind.
 """
 from __future__ import annotations
 
@@ -120,16 +124,22 @@ class BlockPool(_PoolBase):
     Storage is ONE ``[num_blocks, block_size, ...]`` K/V allocation per
     layer; a slot's logical positions map to physical blocks through its
     row of the host block table, shipped to the device by ``sync``.
-    Invariants (as the reference's, less the prefix cache's third state):
+    Invariants (as the reference's):
 
     - physical block 0 is the garbage sink: never on the free-list, never
       in a live slot's table; freed slots' zeroed table rows route their
       pool-wide decode writes into it;
-    - every block in 1..num_blocks-1 is either free (on the free-list,
-      refcount 0) or owned, its refcount the number of owning slots;
+    - every block in 1..num_blocks-1 is free (on the free-list, refcount 0)
+      or held, its refcount the number of owning slots plus one while the
+      prefix cache holds it (``_cached``); a cached block of refcount 1 is
+      cached-only, the overflow the prefix cache's reclaim frees;
+    - a block is written only while its refcount is 1: the block under a
+      group stream's write cursor is unshared by ``ensure_writable``, and
+      shared full prefix blocks are never written again;
     - both free-lists are min-heaps: acquire order stays lowest-first;
     - ``num_blocks - 1 >= max_blocks``: one worst-case request always
-      fits, so the scheduler's preemption ladder terminates.
+      fits, so the scheduler's preemption ladder terminates (an S-stream
+      group: the scheduler asks S x max_blocks at submit).
     """
 
     def __init__(self, model: Model, slots: int, max_len: int, device, *,
@@ -138,17 +148,19 @@ class BlockPool(_PoolBase):
         if block_size < 1 or block_size > max_len:
             raise ValueError("need 1 <= block_size <= max_len")
         cfg = model.config
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the paged pool holds attention K/V only"
-            )
         if getattr(cfg, "sliding_window", None):
             raise NotImplementedError("paged pool unsupported on ring/window caches")
         if getattr(cfg, "scan_layers", False):
             raise NotImplementedError("paged pool unsupported with scan_layers")
         if getattr(cfg, "encdec", None) is not None:
+            # per-slot cross-attention rows (encoder frames) have no block
+            # layout: enc-dec requests serve through the contiguous SlotPool
             raise NotImplementedError(
                 "paged pool unsupported for enc-dec cross-attention caches"
+            )
+        if cfg.family not in ("dense", "vlm"):
+            raise NotImplementedError(
+                f"family {cfg.family!r}: the paged pool holds attention K/V only"
             )
         self.model = model
         self.max_len = max_len
@@ -175,8 +187,12 @@ class BlockPool(_PoolBase):
 
         self._free_blocks: List[int] = list(range(1, num_blocks))  # heap; 0 = sink
         self._owned: List[List[int]] = [[] for _ in range(slots)]
-        self._ref = np.zeros((num_blocks,), np.int32)  # owners per block
+        self._ref = np.zeros((num_blocks,), np.int32)  # holders per block
+        # True while the prefix cache holds the block: one reference more
+        # than its owning slots, so evictions never free it under the trie
+        self._cached = np.zeros((num_blocks,), bool)
         self._bt_dirty = False
+        self.n_cow_copies = 0  # copy-on-write unshares (one block copy each)
 
     # ---- block accounting ------------------------------------------------
     @property
@@ -198,6 +214,18 @@ class BlockPool(_PoolBase):
 
     def owned_blocks(self, slot: int) -> List[int]:
         return list(self._owned[slot])
+
+    @property
+    def n_cached_blocks(self) -> int:
+        """Blocks the prefix cache holds (owned by slots too, or not)."""
+        return int(self._cached.sum())
+
+    @property
+    def n_reclaimable_blocks(self) -> int:
+        """Cached blocks no slot owns (refcount 1, the cache's own): what
+        the prefix cache's reclaim can return to the free-list, which the
+        admission gate counts as free."""
+        return int((self._cached & (self._ref == 1)).sum())
 
     def _take_block(self, slot: int) -> int:
         """Pop the lowest free block into ``slot``'s next table entry."""
@@ -241,6 +269,105 @@ class BlockPool(_PoolBase):
             self._take_block(slot)
         return True
 
+    def ensure_writable(self, slot: int, kv_len: int) -> bool:
+        """``ensure``, and the block the next write lands in (logical
+        position ``kv_len``) owned by ``slot`` alone: a block a sibling
+        stream shares is replaced by a fresh one holding a copy
+        (``kv_cache.copy_block``), so the pool-wide write cannot reach the
+        sibling. The shared blocks before the write cursor stay shared.
+        Returns False when the pool is out of blocks."""
+        if not self.ensure(slot, kv_len):
+            return False
+        j = kv_len // self.block_size
+        phys = int(self._owned[slot][j])
+        if self._ref[phys] <= 1:
+            return True
+        if not self._free_blocks:
+            return False
+        fresh = heapq.heappop(self._free_blocks)
+        self._ref[fresh] = 1
+        self._ref[phys] -= 1
+        self._owned[slot][j] = fresh
+        self.block_tables[slot, j] = fresh
+        self._bt_dirty = True
+        kv_cache.copy_block(self.cache["layers"], phys, fresh)
+        self.n_cow_copies += 1
+        return True
+
+    # ---- block sharing: slot groups and the prefix cache -----------------
+    def share(self, dst: int, src: int) -> None:
+        """Admit ``dst`` as a copy-free clone of ``src``: the same table, a
+        reference more on every block (a prefix-shared group's streams
+        prefill once). ``dst`` must own no block; its device counter is
+        copied from ``src``'s."""
+        assert not self._owned[dst], "share into a slot that still owns blocks"
+        self._owned[dst] = list(self._owned[src])
+        for phys in self._owned[dst]:
+            self._ref[phys] += 1
+        self.block_tables[dst, :] = self.block_tables[src, :]
+        self._bt_dirty = True
+        kv_cache.set_slot_length(self.cache, dst, self.cache["lengths"][src])
+
+    def permute_group(self, slots: List[int], parent: np.ndarray) -> None:
+        """Beam's KV reorder as a host table rewrite: stream ``i`` (slot
+        ``slots[i]``) continues from stream ``parent[i]``'s cache by sharing
+        its blocks; blocks no stream keeps return to the free-list. No
+        device K/V moves; the next write's block is unshared by
+        ``ensure_writable``."""
+        old = [self._owned[s] for s in slots]
+        # references first: a block dropped and re-taken never passes
+        # through the free-list
+        for i in range(len(slots)):
+            for phys in old[int(parent[i])]:
+                self._ref[phys] += 1
+        for blks in old:
+            for phys in blks:
+                self._drop_ref(phys)
+        for i, s in enumerate(slots):
+            src = old[int(parent[i])]
+            self._owned[s] = list(src)
+            self.block_tables[s, :] = 0
+            self.block_tables[s, : len(src)] = src
+        self._bt_dirty = True
+
+    def adopt(self, slot: int, blocks: List[int], n_tokens: int) -> None:
+        """A prefix-cache hit at admission: attach the trie's matched full
+        prompt blocks (in logical order) to empty ``slot``'s table by
+        refcounted sharing, and pin its device counter to ``n_tokens`` (=
+        ``len(blocks) * block_size``) at once, so a decode step that runs
+        before the suffix's first chunk writes past the adopted span, never
+        into a shared block. The slot never writes its adopted blocks: its
+        prefill resumes at the first uncached token."""
+        assert not self._owned[slot], "adopt into a slot that still owns blocks"
+        assert n_tokens == len(blocks) * self.block_size
+        for j, phys in enumerate(blocks):
+            assert self._cached[phys], "adopting a block the cache dropped"
+            self._ref[phys] += 1
+            self._owned[slot].append(phys)
+            self.block_tables[slot, j] = phys
+        self._bt_dirty = True
+        kv_cache.set_slot_length(self.cache, slot, n_tokens)
+
+    def cache_ref(self, phys: int) -> None:
+        """The prefix cache takes its own reference on a block a finishing
+        slot still owns, before that slot's eviction drops its own: the
+        block goes from owned to cached without visiting the free-list."""
+        assert self._ref[phys] >= 1, "cache_ref on an unowned block"
+        assert not self._cached[phys], "block already cached"
+        self._cached[phys] = True
+        self._ref[phys] += 1
+
+    def cache_unref(self, phys: int) -> None:
+        """Drop the prefix cache's reference (reclaim, reset): the block is
+        free again once no slot owns it."""
+        assert self._cached[phys], "cache_unref on an uncached block"
+        self._cached[phys] = False
+        self._drop_ref(phys)
+
+    def is_sole_cached_ref(self, phys: int) -> bool:
+        """True while the prefix cache is the block's only holder."""
+        return bool(self._cached[phys]) and self._ref[phys] == 1
+
     def evict(self, slot: int) -> None:
         """Finish (or preempt) a slot: one reference dropped per owned
         block, the table row zeroed (its later garbage writes hit the sink
@@ -261,7 +388,8 @@ class BlockPool(_PoolBase):
         (the slot's next write) lands in, as ``ensure`` counts them, and
         return the rest to the free-list, their table entries pointed back
         at the sink block. Host-only: the stale K/V in dropped and kept
-        blocks lies past the validity window until rewritten."""
+        blocks lies past the validity window until rewritten. A block a
+        sibling stream still owns only loses a reference."""
         keep = kv_len // self.block_size + 1
         owned = self._owned[slot]
         while len(owned) > keep:
@@ -286,6 +414,7 @@ class BlockPool(_PoolBase):
         self._free = list(range(self.slots))
         self._free_blocks = list(range(1, self.num_blocks))
         self._ref[:] = 0
+        self._cached[:] = False  # a PrefixCache over this pool is reset with it
         self._bt_dirty = True
         kv_cache.free_blocks(self.cache, torch.ones((self.slots,), dtype=torch.bool))
         self.sync()

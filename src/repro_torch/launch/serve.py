@@ -9,9 +9,19 @@ paged block pool (``--block-size``, ``--num-blocks``; back-pressure by
 preemption), and ``--chunked`` (with ``--paged``) streams each admitted
 prompt into its blocks ``--prefill-budget`` tokens per mixed step instead
 of a prefill. ``--temperature`` / ``--top-p`` sample every request under
-its own per-(request, token index) keys, and ``--profile-mix speculative``
-serves the requests through LayerSkip draft/verify windows (``--exit-layer``,
-``--n-draft``) with the same tokens. Weights are random, drawn from a
+its own per-(request, token index) keys. ``--profile-mix`` cycles decoding
+kinds over the trace: ``beam`` requests serve as ``--n-beams``-slot groups
+(the Obs #4 KV reorder a host table permutation on the paged pool, a row
+gather on the contiguous one), ``contrastive`` ones as cond/uncond pairs
+(``--guidance``; restricted to the image tokens on a VLM), ``speculative``
+ones through LayerSkip draft/verify windows (``--exit-layer``,
+``--n-draft``) with the plain tokens. ``--mix-classes`` draws a class per
+request instead, with bursty arrivals, and prints each class's latencies.
+``--prefix-cache`` (with ``--chunked``) adopts every cached full prompt
+block at admission and prefills only the suffix, with the cold tokens;
+``--shared-prefix N`` makes the trace for it (N system prompts of
+``--prefix-len`` tokens reused Zipf(``--zipf-a``) in bursts of up to
+``--burst-size``). Weights are random, drawn from a
 ``torch.Generator`` seeded with ``--seed``; on the card the model's kernels
 (attention and RMSNorm for ``llama3.2-1b``, the SSD scan and RMSNorm for
 ``mamba2-130m``) are the hand-written CUDA ones.
@@ -26,6 +36,10 @@ serves the requests through LayerSkip draft/verify windows (``--exit-layer``,
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --profile-mix speculative --exit-layer 8 --n-draft 4 --temperature 0.8 \
       --top-p 0.9
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --smoke --device cpu --profile-mix greedy,beam,contrastive --n-beams 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --smoke --device cpu --paged --chunked --prefix-cache --shared-prefix 2
 
 Reported per request: TTFT (arrival -> first token), TPOT (mean inter-
 token), e2e latency; aggregate: tokens/s, mean slot-occupancy and the
@@ -33,19 +47,22 @@ decode-stall-per-admission metric (the inter-step gap an admission's
 prefill sat inside). Paged runs add block occupancy, preemptions and the
 KV bytes reserved against the peak bytes used; chunked runs the mixed
 steps and chunk counts; speculative runs the draft/verify steps, the
-acceptance and the tokens committed a slot-step.
+acceptance and the tokens committed a slot-step; runs with groups the
+group admissions, row gathers, table permutations and copy-on-write
+copies; prefix-cache runs the hits, prompt tokens skipped and cached
+blocks.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core import profiles
+from repro_torch.core import prng, profiles
 from repro_torch.core.scheduler import Scheduler, ServeRequest
 from repro_torch.models import get_model
 from repro_torch.training import data as data_mod
@@ -87,32 +104,176 @@ def poisson_trace(
     return reqs
 
 
-def apply_profile_mix(requests: List[ServeRequest], mix: str, *, exit_layer: int = 1,
-                      n_draft: int = 4) -> List[ServeRequest]:
-    """Cycle decoding kinds over a trace, round-robin by request order (a
-    comma list, so A/B arms see identical work): ``greedy`` (temperature 0,
-    no profile), ``sampling`` (the request's own temperature and top-p, no
-    profile) and ``speculative`` (a ``SpeculativeProfile`` at the request's
-    temperature and top-p: draft/verify windows give the plain tokens, so
-    the mix changes only how many tokens a step commits). ``beam``,
-    ``contrastive`` and ``cfg`` need slot groups, a later slice."""
+def _bursty_arrivals(rng: np.random.Generator, arrival_rate: float, burst_size: int):
+    """Arrival offsets, one a request, drawn from ``rng`` when asked (so the
+    trace's other draws keep their order): exponential gaps between bursts
+    of 1..``burst_size`` requests 1 ms apart, the long-run rate
+    ``arrival_rate``; rate <= 0: all at t=0."""
+    t, burst_left = 0.0, 0
+    while True:
+        if arrival_rate <= 0:
+            yield 0.0
+            continue
+        if burst_left == 0:
+            t += rng.exponential(burst_size / arrival_rate)
+            burst_left = int(rng.integers(1, burst_size + 1))
+        else:
+            t += 1e-3
+        burst_left -= 1
+        yield t
+
+
+def shared_prefix_trace(
+    n_requests: int,
+    *,
+    n_prefixes: int,
+    prefix_len: int,
+    pad_to: int,
+    max_new_cap: int,
+    vocab_size: int,
+    arrival_rate: float,
+    zipf_a: float = 1.1,
+    burst_size: int = 4,
+    seed: int = 0,
+    temperature: float = 0.0,
+    top_p: float = 1.0,
+) -> List[ServeRequest]:
+    """Shared-system-prompt traffic, the prefix cache's workload (the
+    reference's trace, draw for draw): ``n_prefixes`` system prompts of
+    ``prefix_len`` tokens, prompt rank ``r`` drawn with probability
+    ``r**-zipf_a`` (normalised), each followed by a fresh random suffix of
+    1..(pad_to - prefix_len) tokens, arriving in bursts
+    (``_bursty_arrivals``)."""
+    if not 0 < prefix_len < pad_to:
+        raise ValueError("need 0 < prefix_len < pad_to")
+    if n_prefixes < 1 or n_requests < 1:
+        raise ValueError("need n_prefixes >= 1 and n_requests >= 1")
+    rng = np.random.default_rng(seed)
+    prefixes = rng.integers(0, vocab_size, size=(n_prefixes, prefix_len))
+    ranks = np.arange(1, n_prefixes + 1, dtype=np.float64)
+    pmf = ranks ** -zipf_a
+    pmf /= pmf.sum()
+    max_suffix = pad_to - prefix_len
+    arrivals = _bursty_arrivals(rng, arrival_rate, burst_size)
+    reqs: List[ServeRequest] = []
+    for i in range(n_requests):
+        t = next(arrivals)
+        j = int(rng.choice(n_prefixes, p=pmf))
+        suffix = rng.integers(0, vocab_size, size=int(rng.integers(1, max_suffix + 1)))
+        reqs.append(ServeRequest(
+            rid=i, prompt=np.concatenate([prefixes[j], suffix]),
+            max_new=int(rng.integers(1, max_new_cap + 1)), t_arrival=t,
+            temperature=temperature, top_p=top_p,
+        ))
+    return reqs
+
+
+def _group_profile(kind: str, *, n_beams: int, beam_eos_id: int, guidance: float,
+                   uncond_token: int, mask_offset: Optional[int]):
+    if kind == "beam":
+        return profiles.BeamProfile(n_beams=n_beams, eos_id=beam_eos_id)
+    return profiles.ContrastiveProfile(uncond_token=uncond_token, guidance=guidance,
+                                       mask_offset=mask_offset)
+
+
+def apply_profile_mix(
+    requests: List[ServeRequest],
+    mix: str,
+    *,
+    n_beams: int = 2,
+    beam_eos_id: int = 2,
+    guidance: float = 2.0,
+    uncond_token: int = 0,
+    mask_offset: Optional[int] = None,
+    exit_layer: int = 1,
+    n_draft: int = 4,
+) -> List[ServeRequest]:
+    """Cycle decoding profiles over a trace, round-robin by request order
+    (a comma list of kinds, so A/B arms see identical work): ``greedy``
+    leaves the request on the per-slot sampling path at its own
+    temperature; ``beam`` a ``BeamProfile`` slot group; ``contrastive`` a
+    ``ContrastiveProfile`` pair; ``speculative`` a ``SpeculativeProfile`` at
+    the request's own temperature and top-p (draft/verify windows give the
+    plain tokens, so the mix moves only how many tokens a step commits)."""
     kinds = [k.strip() for k in mix.split(",") if k.strip()]
     for i, r in enumerate(requests):
         kind = kinds[i % len(kinds)]
         if kind == "greedy":
-            r.profile, r.temperature, r.top_p = None, 0.0, 1.0
-        elif kind == "sampling":
             r.profile = None
+        elif kind in ("beam", "contrastive"):
+            r.profile = _group_profile(kind, n_beams=n_beams, beam_eos_id=beam_eos_id,
+                                       guidance=guidance, uncond_token=uncond_token,
+                                       mask_offset=mask_offset)
         elif kind == "speculative":
             r.profile = profiles.SpeculativeProfile(
                 temperature=r.temperature, top_p=r.top_p, eos_id=r.eos_id,
                 exit_layer=exit_layer, n_draft=n_draft)
-        elif kind in ("beam", "contrastive", "cfg"):
-            raise NotImplementedError(
-                f"profile kind {kind!r} needs the scheduler's slot groups: a later slice")
         else:
             raise ValueError(f"unknown profile kind {kind!r}")
     return requests
+
+
+MIX_CLASSES = ("greedy", "sampling", "beam", "cfg", "speculative")
+
+
+def mix_class_trace(
+    profile: data_mod.LengthProfile,
+    n_requests: int,
+    *,
+    pad_to: int,
+    max_new_cap: int,
+    vocab_size: int,
+    arrival_rate: float,
+    classes: Sequence[str] = MIX_CLASSES,
+    burst_size: int = 4,
+    seed: int = 0,
+    temperature: float = 0.8,
+    top_p: float = 0.9,
+    n_beams: int = 2,
+    beam_eos_id: int = 2,
+    guidance: float = 2.0,
+    uncond_token: int = 0,
+    mask_offset: Optional[int] = None,
+    exit_layer: int = 1,
+    n_draft: int = 4,
+) -> List[ServeRequest]:
+    """A heterogeneous trace (the reference's, draw for draw): every request
+    draws a class at random from ``classes``: ``greedy`` (t = 0),
+    ``sampling`` (``temperature`` / ``top_p``), ``beam``, ``cfg`` (a
+    contrastive pair; ``contrastive`` is its alias) or ``speculative``,
+    arriving in bursts (``_bursty_arrivals``). The workload of
+    ``serve_metrics``' per-class TTFT/TPOT rows."""
+    known = {"greedy", "sampling", "beam", "cfg", "contrastive", "speculative"}
+    classes = [c.strip() for c in classes if c.strip()]
+    for c in classes:
+        if c not in known:
+            raise ValueError(f"unknown request class {c!r}")
+    if not classes:
+        raise ValueError("need at least one request class")
+    rng = np.random.default_rng(seed)
+    ins, outs = data_mod.sample_lengths(profile, n_requests, seed=seed + 1)
+    arrivals = _bursty_arrivals(rng, arrival_rate, burst_size)
+    reqs: List[ServeRequest] = []
+    for i in range(n_requests):
+        t = next(arrivals)
+        cls = classes[int(rng.integers(0, len(classes)))]
+        r = ServeRequest(
+            rid=i, prompt=rng.integers(0, vocab_size, size=min(int(ins[i]), pad_to)),
+            max_new=max(1, min(int(outs[i]), max_new_cap)), t_arrival=t,
+            temperature=temperature if cls == "sampling" else 0.0,
+            top_p=top_p if cls == "sampling" else 1.0,
+        )
+        if cls in ("beam", "cfg", "contrastive"):
+            r.profile = _group_profile("beam" if cls == "beam" else "contrastive",
+                                       n_beams=n_beams, beam_eos_id=beam_eos_id,
+                                       guidance=guidance, uncond_token=uncond_token,
+                                       mask_offset=mask_offset)
+        elif cls == "speculative":
+            r.profile = profiles.SpeculativeProfile(
+                temperature=r.temperature, top_p=r.top_p, exit_layer=exit_layer,
+                n_draft=n_draft)
+        reqs.append(r)
+    return reqs
 
 
 def trace_pad_to(profile: data_mod.LengthProfile, n_requests: int, seed: int) -> int:
@@ -121,11 +282,35 @@ def trace_pad_to(profile: data_mod.LengthProfile, n_requests: int, seed: int) ->
     return int(min(max(ins), 256))
 
 
+def request_class(r: ServeRequest) -> str:
+    """A request's class for the per-class latency rows: ``beam`` /
+    ``contrastive`` (slot groups), ``speculative``, else ``greedy`` or
+    ``sampling`` by temperature."""
+    p = r.profile
+    if isinstance(p, profiles.SpeculativeProfile):
+        return "speculative"
+    if p is not None and profiles.n_streams_of(p) > 1:
+        return type(p).__name__.replace("Profile", "").lower()
+    return "greedy" if r.temperature <= 0.0 else "sampling"
+
+
+def _p(xs, q: float) -> float:
+    return float(np.percentile(xs, q)) * 1e3 if xs else 0.0
+
+
 def serve_metrics(done: List[ServeRequest], wall: float) -> Dict[str, object]:
     total_tok = sum(len(r.tokens) for r in done)
     ttft = [r.ttft for r in done]
     tpot = [r.tpot for r in done if len(r.tokens) > 1]
     e2e = [r.e2e for r in done]
+    per_class: Dict[str, Dict[str, float]] = {}
+    for cls in sorted({request_class(r) for r in done}):
+        rs = [r for r in done if request_class(r) == cls]
+        c_ttft = [r.ttft for r in rs]
+        c_tpot = [r.tpot for r in rs if len(r.tokens) > 1]
+        per_class[cls] = {"n_requests": len(rs),
+                          "ttft_p50_ms": _p(c_ttft, 50), "ttft_p99_ms": _p(c_ttft, 99),
+                          "tpot_p50_ms": _p(c_tpot, 50), "tpot_p99_ms": _p(c_tpot, 99)}
     return {
         "n_requests": len(done),
         "total_tokens": total_tok,
@@ -135,6 +320,7 @@ def serve_metrics(done: List[ServeRequest], wall: float) -> Dict[str, object]:
         "tpot_p50_ms": (float(np.percentile(tpot, 50)) * 1e3) if tpot else 0.0,
         "e2e_p50_s": float(np.percentile(e2e, 50)),
         "e2e_p99_s": float(np.percentile(e2e, 99)),
+        "per_class": per_class,
     }
 
 
@@ -149,21 +335,25 @@ def run_scheduler(
     eos_id: Optional[int] = None, policy: str = "continuous",
     paged: bool = False, block_size: int = 16, num_blocks: Optional[int] = None,
     chunked: bool = False, prefill_budget: Optional[int] = None,
-    return_requests: bool = False,
+    prefix_cache: bool = False, seed: int = 0, return_requests: bool = False,
 ):
-    """Serve one trace; returns metrics (plus the scheduler's counters).
-    Paged runs report the bytes the pool keeps reserved against the bytes
-    its peak block working set used, and the blocks still owned at the end
-    (``leaked_blocks``: 0 once every request finished). Runs with
-    speculative steps report them (``spec_*``): the acceptance (accepted
-    over drafted tokens), the tokens committed a speculative slot-step and
-    the histogram of commits."""
+    """Serve one trace under the serve key ``PRNGKey(seed)``; returns
+    metrics (plus the scheduler's counters). Paged runs report the bytes
+    the pool keeps reserved against the bytes its peak block working set
+    used, and the blocks still owned at the end (``leaked_blocks``: 0 once
+    every request finished; the prefix cache's blocks are not owned).
+    Runs with speculative steps report them (``spec_*``): the acceptance
+    (accepted over drafted tokens), the tokens committed a speculative
+    slot-step and the histogram of commits; runs with slot groups their
+    admissions, row gathers and table permutations (and, paged, the
+    copy-on-write copies); prefix-cache runs the trie's counters."""
     device = torch.device(device)
     sched = Scheduler(
         model, params, slots=slots, pad_to=pad_to, max_new_cap=max_new_cap,
         device=device, eos_id=eos_id, policy=policy, paged=paged,
         block_size=block_size, num_blocks=num_blocks, chunked=chunked,
-        prefill_budget=prefill_budget,
+        prefill_budget=prefill_budget, prefix_cache=prefix_cache,
+        base_key=prng.PRNGKey(seed),
     )
     _sync(device)
     t0 = time.perf_counter()
@@ -185,6 +375,12 @@ def run_scheduler(
         admission_stall_max_ms=float(stalls.max()) * 1e3 if len(stalls) else 0.0,
         device=str(device),
     )
+    if sched.n_group_admissions:
+        m.update(
+            group_admissions=sched.n_group_admissions,
+            cache_reorders=sched.n_cache_reorders,  # contiguous: row gathers
+            block_permutes=sched.n_block_permutes,  # paged: table permutations
+        )
     if sched.n_spec_steps:
         m.update(
             spec_steps=sched.n_spec_steps,
@@ -205,14 +401,26 @@ def run_scheduler(
             mean_block_occupancy=sched.mean_block_occupancy,
             peak_used_blocks=sched.peak_used_blocks,
             kv_used_peak_bytes=int(sched.peak_used_blocks * pool.block_size * token_bytes),
-            leaked_blocks=pool.n_used_blocks,
+            leaked_blocks=pool.n_used_blocks - pool.n_cached_blocks,
         )
+        if sched.n_group_admissions:
+            m.update(cow_copies=pool.n_cow_copies)
     if chunked:
         m.update(
             mixed_steps=sched.n_mixed_steps,
             prefill_chunks=sched.n_chunks,
             prefill_chunk_tokens=sched.n_chunk_tokens,
-            full_prefills=sched.n_prefills,  # 0 under chunking
+            # 0 under chunking, but for slot groups' (dense) prefills
+            full_prefills=sched.n_prefills,
+        )
+    if prefix_cache:
+        m.update(
+            prefix_lookups=sched.n_prefix_lookups,
+            prefix_hits=sched.n_prefix_hits,
+            prefix_hit_rate=sched.prefix_hit_rate,
+            prefill_tokens_skipped=sched.n_prefix_tokens_skipped,
+            prefix_blocks_reclaimed=sched.n_prefix_reclaimed,
+            mean_cached_blocks=sched.mean_cached_blocks,
         )
     if return_requests:
         return m, done
@@ -222,27 +430,39 @@ def run_scheduler(
 def warmup(model, params, *, slots: int, pad_to: int, max_new_cap: int, device,
            paged: bool = False, block_size: int = 16, num_blocks: Optional[int] = None,
            chunked: bool = False, prefill_budget: Optional[int] = None,
+           prefix_cache: bool = False, profile_mix: bool = False, n_beams: int = 2,
            speculative: bool = False, exit_layer: int = 1, n_draft: int = 4) -> None:
-    """Run two tiny requests through a throwaway scheduler of the serving
+    """Run tiny requests through a throwaway scheduler of the serving
     geometry before any timed run: builds and loads the kernel library on
     the card, and brings up the matmul libraries, at the serving shapes.
-    ``speculative`` adds a sampled speculative request long enough for one
-    full draft/verify step at (``exit_layer``, ``n_draft``)."""
+    ``profile_mix`` adds a beam group (the beam step, the copy-on-write copy
+    or the row gather) and a contrastive pair; ``speculative`` a sampled
+    speculative request long enough for one full draft/verify step at
+    (``exit_layer``, ``n_draft``); ``prefix_cache`` serves the first prompt
+    again, so the second run adopts its blocks."""
     sched = Scheduler(model, params, slots=slots, pad_to=pad_to,
                       max_new_cap=max_new_cap, device=device, paged=paged,
                       block_size=block_size, num_blocks=num_blocks, chunked=chunked,
-                      prefill_budget=prefill_budget)
+                      prefill_budget=prefill_budget, prefix_cache=prefix_cache)
     rng = np.random.default_rng(0)
+    full_prompt = rng.integers(0, 8, size=pad_to)
     reqs = [
-        ServeRequest(rid=0, prompt=rng.integers(0, 8, size=pad_to), max_new=2),
+        ServeRequest(rid=0, prompt=full_prompt, max_new=2),
         ServeRequest(rid=1, prompt=rng.integers(0, 8, size=3), max_new=2),
     ]
+    if profile_mix and slots >= max(n_beams, 2):
+        reqs += [ServeRequest(rid=2, prompt=rng.integers(0, 8, size=3), max_new=2,
+                              profile=profiles.BeamProfile(n_beams=n_beams, eos_id=2)),
+                 ServeRequest(rid=3, prompt=rng.integers(0, 8, size=3), max_new=2,
+                              profile=profiles.ContrastiveProfile(uncond_token=0))]
     if speculative:
         reqs.append(ServeRequest(
-            rid=2, prompt=rng.integers(0, 8, size=3), max_new=min(n_draft + 2, max_new_cap),
+            rid=4, prompt=rng.integers(0, 8, size=3), max_new=min(n_draft + 2, max_new_cap),
             profile=profiles.SpeculativeProfile(temperature=0.8, top_p=0.9,
                                                 exit_layer=exit_layer, n_draft=n_draft)))
     sched.run(reqs)
+    if prefix_cache:  # rid 0's blocks are in the trie now: its twin adopts them
+        sched.run([ServeRequest(rid=5, prompt=full_prompt, max_new=2)])
     _sync(torch.device(device))
 
 
@@ -294,47 +514,107 @@ def main(argv=None):
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--profile-mix", default=None, metavar="KINDS",
                     help="comma list of decoding kinds cycled over the requests: greedy | "
-                         "sampling | speculative (beam / cfg wait for slot groups)")
+                         "beam | contrastive | speculative; beam and contrastive requests "
+                         "serve as slot groups")
+    ap.add_argument("--n-beams", type=int, default=2,
+                    help="beams of a beam request (--profile-mix, --mix-classes)")
+    ap.add_argument("--guidance", type=float, default=2.0,
+                    help="guidance of a contrastive request (--profile-mix, --mix-classes)")
     ap.add_argument("--exit-layer", type=int, default=1,
                     help="LayerSkip early-exit layer of speculative requests")
     ap.add_argument("--n-draft", type=int, default=4,
                     help="draft tokens a speculative window")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="cross-request prefix cache over the KV blocks (requires "
+                         "--chunked): cached full prompt blocks are adopted at admission "
+                         "and only the suffix is prefilled, with the cold tokens")
+    ap.add_argument("--shared-prefix", type=int, default=None, metavar="N",
+                    help="shared-system-prompt trace: N prefixes reused Zipf(--zipf-a) "
+                         "with bursty arrivals (default: the paper-profile trace)")
+    ap.add_argument("--prefix-len", type=int, default=64,
+                    help="tokens of a shared prefix (--shared-prefix)")
+    ap.add_argument("--zipf-a", type=float, default=1.1,
+                    help="Zipf exponent of prefix reuse, p ~ rank**-a (--shared-prefix)")
+    ap.add_argument("--burst-size", type=int, default=4,
+                    help="most requests an arrival burst (--shared-prefix, --mix-classes)")
+    ap.add_argument("--mix-classes", nargs="?", metavar="CLASSES",
+                    const=",".join(MIX_CLASSES), default=None,
+                    help="heterogeneous trace: every request draws a class from this comma "
+                         "list (greedy | sampling | beam | cfg | speculative) with bursty "
+                         "arrivals; prints each class's TTFT/TPOT (default: all five)")
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0,
-                    help="seeds the random weights and the trace")
+                    help="seeds the random weights, the trace and the serve key")
     ap.add_argument("--profile", default="llama_humaneval",
                     choices=sorted(data_mod.PAPER_PROFILES))
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when there is no card) or cpu")
     args = ap.parse_args(argv)
+    if args.chunked and not args.paged:
+        ap.error("--chunked requires --paged (chunks append into KV blocks)")
+    if args.prefix_cache and not args.chunked:
+        ap.error("--prefix-cache requires --chunked (the cursor must start at the "
+                 "first uncached prompt token)")
+    if args.mix_classes and (args.profile_mix or args.shared_prefix):
+        ap.error("--mix-classes is its own trace generator; drop --profile-mix / "
+                 "--shared-prefix")
 
     device = resolve_device(args.device)
     cfg, model, params = build_model(args.arch, smoke=args.smoke, seed=args.seed,
                                      device=device)
     prof = data_mod.PAPER_PROFILES[args.profile]
-    pad_to = trace_pad_to(prof, args.n_requests, args.seed)
-    reqs = poisson_trace(
-        prof, args.n_requests, pad_to=pad_to, max_new_cap=args.max_new,
-        vocab_size=cfg.vocab_size, arrival_rate=args.arrival_rate, seed=args.seed,
-        temperature=args.temperature, top_p=args.top_p,
-    )
-    speculative = False
+    mask_offset = None
+    if cfg.vlm is not None:  # a VLM's contrastive requests draw image tokens
+        from repro_torch.models import vlm
+
+        mask_offset = vlm.image_token_offset(cfg)
+    beam_eos_id = args.eos_id if args.eos_id is not None else 2
+    group_kw = dict(n_beams=args.n_beams, beam_eos_id=beam_eos_id, guidance=args.guidance,
+                    mask_offset=mask_offset, exit_layer=args.exit_layer,
+                    n_draft=args.n_draft)
+    class_kinds = [k.strip() for k in (args.mix_classes or "").split(",") if k.strip()]
+    if args.mix_classes:
+        pad_to = trace_pad_to(prof, args.n_requests, args.seed)
+        reqs = mix_class_trace(
+            prof, args.n_requests, pad_to=pad_to, max_new_cap=args.max_new,
+            vocab_size=cfg.vocab_size, arrival_rate=args.arrival_rate, classes=class_kinds,
+            burst_size=args.burst_size, seed=args.seed,
+            temperature=args.temperature if args.temperature > 0 else 0.8,
+            top_p=args.top_p if args.top_p < 1.0 else 0.9, **group_kw)
+    elif args.shared_prefix is not None:
+        pad_to = int(min(args.prefix_len * 2, 256))
+        reqs = shared_prefix_trace(
+            args.n_requests, n_prefixes=args.shared_prefix, prefix_len=args.prefix_len,
+            pad_to=pad_to, max_new_cap=args.max_new, vocab_size=cfg.vocab_size,
+            arrival_rate=args.arrival_rate, zipf_a=args.zipf_a,
+            burst_size=args.burst_size, seed=args.seed, temperature=args.temperature,
+            top_p=args.top_p)
+    else:
+        pad_to = trace_pad_to(prof, args.n_requests, args.seed)
+        reqs = poisson_trace(
+            prof, args.n_requests, pad_to=pad_to, max_new_cap=args.max_new,
+            vocab_size=cfg.vocab_size, arrival_rate=args.arrival_rate, seed=args.seed,
+            temperature=args.temperature, top_p=args.top_p,
+        )
     if args.profile_mix:
-        apply_profile_mix(reqs, args.profile_mix, exit_layer=args.exit_layer,
-                          n_draft=args.n_draft)
-        speculative = any(r.profile is not None for r in reqs)
+        apply_profile_mix(reqs, args.profile_mix, **group_kw)
+    kinds = [k.strip() for k in (args.profile_mix or "").split(",")] + class_kinds
     geometry = dict(paged=args.paged, block_size=args.block_size,
                     num_blocks=args.num_blocks, chunked=args.chunked,
-                    prefill_budget=args.prefill_budget)
+                    prefill_budget=args.prefill_budget, prefix_cache=args.prefix_cache)
     warmup(model, params, slots=args.batch_slots, pad_to=pad_to,
-           max_new_cap=args.max_new, device=device, speculative=speculative,
+           max_new_cap=args.max_new, device=device,
+           profile_mix=bool({"beam", "contrastive", "cfg"} & set(kinds)),
+           n_beams=args.n_beams, speculative="speculative" in kinds,
            exit_layer=args.exit_layer, n_draft=args.n_draft, **geometry)
     m = run_scheduler(
         model, params, reqs, slots=args.batch_slots, pad_to=pad_to,
         max_new_cap=args.max_new, device=device, eos_id=args.eos_id,
-        policy=args.policy, **geometry,
+        policy=args.policy, seed=args.seed, **geometry,
     )
-    mode = args.policy + ("+chunked" if args.chunked else "+paged" if args.paged else "")
+    mode = args.policy + ("+chunked" if args.chunked else "+paged" if args.paged else "") + (
+        "+pfx" if args.prefix_cache else "") + ("+mix" if args.profile_mix else "") + (
+        "+classes" if args.mix_classes else "")
     print(f"[serve/{mode}] {m['n_requests']} requests in "
           f"{m['wall_s']:.2f}s | {m['tokens_per_s']:.1f} tok/s | "
           f"occupancy={m['mean_slot_occupancy']:.2f} | "
@@ -359,6 +639,20 @@ def main(argv=None):
               f"acceptance={m['spec_acceptance']:.2f} | "
               f"tokens/slot-step={m['spec_tokens_per_step']:.2f} | "
               f"commit hist={m['spec_commit_hist']}")
+    if "group_admissions" in m:
+        print(f"[serve/{mode}] slot groups={m['group_admissions']} | "
+              f"cache reorders={m['cache_reorders']} | block permutes={m['block_permutes']}"
+              + (f" | cow copies={m['cow_copies']}" if "cow_copies" in m else ""))
+    if args.prefix_cache:
+        print(f"[serve/{mode}] prefix hits={m['prefix_hits']}/{m['prefix_lookups']} "
+              f"(rate={m['prefix_hit_rate']:.2f}) | prefill tokens skipped="
+              f"{m['prefill_tokens_skipped']} | cached blocks mean="
+              f"{m['mean_cached_blocks']:.1f} | reclaimed={m['prefix_blocks_reclaimed']}")
+    if args.mix_classes or args.profile_mix:
+        for cls, row in m["per_class"].items():
+            print(f"[serve/{mode}]   class {cls}: {row['n_requests']} reqs | "
+                  f"ttft p50={row['ttft_p50_ms']:.0f}ms p99={row['ttft_p99_ms']:.0f}ms | "
+                  f"tpot p50={row['tpot_p50_ms']:.1f}ms p99={row['tpot_p99_ms']:.1f}ms")
     return m
 
 

@@ -410,11 +410,31 @@ def test_speech_to_speech_matches_jax(pair, inputs):
     close(got["waveform"], want["waveform"])
 
 
-def test_scheduler_refuses_an_encoder_decoder(pair):
-    """Serving needs each request's frames at admission (a later slice): the
-    scheduler refuses the family instead of prefilling without them."""
-    from repro_torch.core.scheduler import Scheduler
+def test_scheduler_refuses_an_encoder_decoder(pair, inputs):
+    """The contiguous scheduler serves an encoder-decoder, each request's
+    frames written into its slots' cross rows at admission: two concurrent
+    2-beam requests give the port's ``generate_beam`` tokens exactly and its
+    scores within 1e-4. The paged pool still refuses the family (per-slot
+    cross rows have no block layout)."""
+    from repro_torch.core.scheduler import Scheduler, ServeRequest
 
     _, _, _, _, tmodel, tparams = pair
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        Scheduler(tmodel, tparams, slots=2, pad_to=4, max_new_cap=4, device="cpu")
+    frames, frame_lengths, _ = inputs
+    want = engine.generate_beam(tmodel, tparams, batch=B, n_beams=2, bos_id=BOS, eos_id=EOS,
+                                max_new_tokens=5,
+                                extra_inputs={"frames": t(frames),
+                                              "frame_lengths": t(frame_lengths)})
+    sched = Scheduler(tmodel, tparams, slots=4, pad_to=4, max_new_cap=5, device="cpu")
+    done = sched.run([
+        ServeRequest(rid=i, prompt=np.asarray([BOS]), max_new=5,
+                     profile=profiles.BeamProfile(n_beams=2, eos_id=EOS),
+                     extra_inputs={"frames": frames[i:i + 1],
+                                   "frame_lengths": frame_lengths[i:i + 1]})
+        for i in range(B)])
+    for r in done:
+        assert r.tokens == want["tokens"][r.rid, :len(r.tokens)].tolist()
+        assert abs(r.score - float(want["scores"][r.rid])) <= 1e-4
+    assert sched.n_group_admissions == B
+    with pytest.raises(NotImplementedError, match="enc-dec"):
+        Scheduler(tmodel, tparams, slots=2, pad_to=4, max_new_cap=4, device="cpu",
+                  paged=True, block_size=4)

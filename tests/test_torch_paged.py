@@ -303,9 +303,14 @@ def test_block_pool_rejects_bad_shapes():
     class _Ssm(_FakeModel):
         config = _FakeConfig(family="ssm")
 
+    class _Vlm(_FakeModel):
+        config = _FakeConfig(family="vlm")
+
     for bad in (_Ring(), _Ssm()):
         with pytest.raises(NotImplementedError):
             BlockPool(bad, SLOTS, MAX_LEN, "cpu", block_size=BS)
+    # a VLM holds attention K/V like a dense model: the pool takes it
+    assert BlockPool(_Vlm(), SLOTS, MAX_LEN, "cpu", block_size=BS).max_blocks == 3
 
 
 def test_append_block_tail_not_clamped_when_max_len_unaligned():

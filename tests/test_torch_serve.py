@@ -214,19 +214,26 @@ def test_priority_admission_order(pair):
 
 
 def test_unported_scheduler_features_raise(pair):
+    """What the scheduler serves and what it still refuses: the prefix cache
+    is taken under chunked prefill (the reference's ValueError without it),
+    slot groups and sampled requests are served, and a profile that is no
+    ``DecodingProfile`` is refused."""
     _, _, model, params = pair
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="chunked"):
         Scheduler(model, params, slots=2, pad_to=PAD_TO, max_new_cap=4, device="cpu",
-                  paged=True, chunked=True, prefix_cache=True)
+                  paged=True, prefix_cache=True)
+    pfx = Scheduler(model, params, slots=2, pad_to=PAD_TO, max_new_cap=4, device="cpu",
+                    paged=True, chunked=True, block_size=4, prefix_cache=True)
+    assert pfx._pcache is not None and pfx.prefix_hit_rate == 0.0
     sched = Scheduler(model, params, slots=2, pad_to=PAD_TO, max_new_cap=4, device="cpu")
-    with pytest.raises(NotImplementedError):  # slot groups: a later slice
-        sched.submit([ServeRequest(rid=0, prompt=np.arange(3), max_new=2,
-                                   profile=profiles.BeamProfile(n_beams=2, eos_id=2))])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DecodingProfile"):
         sched.submit([ServeRequest(rid=1, prompt=np.arange(3), max_new=2, profile=object())])
-    # sampled requests are served now (keyed sampling)
-    sched.submit([ServeRequest(rid=2, prompt=np.arange(3), max_new=2, temperature=0.8)])
-    assert len(sched.waiting) == 1
+    done = sched.run([ServeRequest(rid=0, prompt=np.arange(3), max_new=2,
+                                   profile=profiles.BeamProfile(n_beams=2, eos_id=2)),
+                      ServeRequest(rid=2, prompt=np.arange(3), max_new=2, temperature=0.8)])
+    assert sorted(r.rid for r in done) == [0, 2] and sched.n_group_admissions == 1
+    assert all(len(r.tokens) == 2 for r in done)
+    assert next(r for r in done if r.rid == 0).score is not None  # the beam's best
 
 
 # ---------------------------------------------------------------- launcher
@@ -277,6 +284,8 @@ _LOCKED_MODULES = {
     "repro_torch.core.kv_cache", "repro_torch.models.encdec", "repro_torch.models.seamless",
     "repro_torch.models.vlm", "repro_torch.configs.whisper_base",
     "repro_torch.configs.seamless_m4t", "repro_torch.configs.chameleon_34b",
+    "repro_torch.core.prefix_cache", "repro_torch.core.scheduler",
+    "repro_torch.core.slot_pool", "repro_torch.launch.serve",
 }
 
 

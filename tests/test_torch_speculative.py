@@ -228,8 +228,8 @@ def test_submit_refuses_what_the_port_cannot_serve(pair):
             submit(bad)
     for group in (profiles.BeamProfile(n_beams=2, eos_id=2),
                   profiles.ContrastiveProfile(uncond_token=0)):
-        with pytest.raises(NotImplementedError, match="slot groups"):
-            submit(group)
+        submit(group)  # slot groups are admitted, their profile kept
+        assert sched.waiting[-1].profile is group
     ssm = get_model(get_smoke_config("mamba2-130m"))
     ssm_sched = Scheduler(ssm, ssm.init(torch.Generator().manual_seed(0), "cpu"), slots=1,
                           pad_to=PAD_TO, max_new_cap=4, device="cpu")
@@ -433,7 +433,8 @@ def test_run_profile_splits_its_key_as_the_reference(pair):
 # -------------------------------------------------------------- launcher
 def test_launcher_traces_mixes_and_serves_speculatively(capsys):
     """``poisson_trace``'s temperature and top-p as the reference's;
-    ``apply_profile_mix``'s kinds (slot-group kinds refused); the CLI's
+    ``apply_profile_mix`` gives the reference's profile type, fields and
+    temperature for every kind and refuses the kinds it refuses; the CLI's
     sampled speculative run prints its ``spec`` line."""
     from repro.launch import serve as jserve
     from repro_torch.launch import serve
@@ -446,15 +447,24 @@ def test_launcher_traces_mixes_and_serves_speculatively(capsys):
     for a, b in zip(mine, ref):
         assert (a.rid, a.max_new, a.temperature, a.top_p) == (b.rid, b.max_new, b.temperature,
                                                                b.top_p)
-    serve.apply_profile_mix(mine, "greedy,sampling,speculative", exit_layer=1, n_draft=3)
-    assert [r.temperature for r in mine[:3]] == [0.0, 0.8, 0.8]
-    assert [type(r.profile).__name__ for r in mine[:3]] == ["NoneType", "NoneType",
-                                                            "SpeculativeProfile"]
-    assert (mine[2].profile.temperature, mine[2].profile.top_p, mine[2].profile.n_draft) == (
-        0.8, 0.9, 3)
-    for kind in ("beam", "cfg"):
-        with pytest.raises(NotImplementedError, match="slot groups"):
-            serve.apply_profile_mix(mine, kind)
+    mix = "greedy,beam,contrastive,speculative"
+    kw = dict(n_beams=3, beam_eos_id=5, guidance=2.5, uncond_token=1, mask_offset=7,
+              exit_layer=1, n_draft=3)
+    serve.apply_profile_mix(mine, mix, **kw)
+    jserve.apply_profile_mix(ref, mix, **kw)
+    fields = ("n_beams", "eos_id", "uncond_token", "guidance", "mask_offset", "temperature",
+              "top_p", "exit_layer", "n_draft", "prefix_shared", "n_streams")
+    for a, b in zip(mine, ref):
+        assert type(a.profile).__name__ == type(b.profile).__name__
+        assert (a.temperature, a.top_p) == (b.temperature, b.top_p)
+        assert {f: getattr(a.profile, f, None) for f in fields} == {
+            f: getattr(b.profile, f, None) for f in fields}
+    assert mine[0].profile is None and mine[0].temperature == 0.8  # greedy keeps it
+    assert (mine[3].profile.temperature, mine[3].profile.top_p) == (0.8, 0.9)
+    for kind in ("sampling", "cfg"):
+        for mod in (serve, jserve):
+            with pytest.raises(ValueError, match="unknown profile kind"):
+                mod.apply_profile_mix(mine, kind)
     m = serve.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", "--n-requests", "4",
                     "--batch-slots", "2", "--max-new", "8", "--profile-mix", "speculative",
                     "--exit-layer", "1", "--n-draft", "3", "--temperature", "0.8",
