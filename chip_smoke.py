@@ -106,6 +106,22 @@ Phases (any failure exits non-zero and prints no result):
              same reserved KV bytes, at least one hit, warm tokens against
              cold under the near-tie rule; hit rate, prompt tokens skipped,
              TTFT printed;
+4f. router — the same 16 requests through ``ReplicaRouter`` fleets on the
+             one card, 8 slots a replica: 2 replicas contiguous at t = 0 and
+             t = 0.8 / top-p 0.9, 2 on phase 4b's paged pool, 3 contiguous
+             (each the single pool's tokens exactly: phase 4's, 4c's plain
+             sampled arm's, 4b's paged arm's) and 2 on the chunked pool
+             (phase 4's tokens up to a near tie); exact launches against the
+             fleet's summed steps and prefills; wall, tok/s, the aggregate
+             rate over the busiest replica's own seconds (a card a replica,
+             emulated), spills, requeues and a line a replica printed. Every
+             ``step_begin`` of a chunked and of a contiguous run (mixed and
+             decode steps, greedy and sampled) under
+             ``torch.cuda.set_sync_debug_mode("error")``, its staging
+             buffers pinned; the host ms of two replicas' ``step_begin``
+             against one replica's ``step()``; the reference's starvation
+             trace (one slot, arrivals 2 ms apart): the priority-0 request
+             last without aging, at position 4 or earlier aged every 2 ms;
 5. parity  — prefill logits of two requests through the kernels and through
              the plain versions on the same weights, and their first served
              tokens against greedy generation on the plain path;
@@ -1760,16 +1776,18 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
             return logits, cache
         return step
 
+    from repro_torch.core import router as router_mod
+
     scheds, real_sched = [], serve.Scheduler
 
-    class Kept(real_sched):  # the run's scheduler, for its pool's state
+    class Kept(real_sched):  # the run's schedulers (a router's replicas), for their pools
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             scheds.append(self)
 
     for name, fn in real.items():
         setattr(engine, name, checked(fn))
-    serve.Scheduler = Kept
+    serve.Scheduler = router_mod.Scheduler = Kept
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_bytes = torch.cuda.memory_allocated()
@@ -1783,7 +1801,7 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
     finally:
         for name, fn in real.items():
             setattr(engine, name, fn)
-        serve.Scheduler = real_sched
+        serve.Scheduler = router_mod.Scheduler = real_sched
     m["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     m["run_peak_bytes"] = m["max_memory_allocated"] - base_bytes
     check(bool(finite["ok"]), f"{tag}: non-finite logits during serving")
@@ -1814,9 +1832,10 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
     check(counts == want_counts, f"{tag}: kernel launches {counts}, expected {want_counts}")
     if geometry.get("paged"):
         check(m["leaked_blocks"] == 0, f"{tag}: {m['leaked_blocks']} blocks still owned")
-        pool = scheds[0].pool  # the prefix cache's blocks keep its one reference
-        check((pool._ref == pool._cached).all(),
-              f"{tag}: refcounts {pool._ref.nonzero()} left after the run")
+        for sched in scheds:  # the prefix cache's blocks keep its one reference
+            pool = sched.pool
+            check((pool._ref == pool._cached).all(),
+                  f"{tag}: refcounts {pool._ref.nonzero()} left after the run")
     print(f"[{tag}] {m['n_requests']} requests | "
           f"{m['tokens_per_s']:.1f} tok/s | ttft p50 {m['ttft_p50_ms']:.2f} ms p99 "
           f"{m['ttft_p99_ms']:.2f} ms | tpot p50 {m['tpot_p50_ms']:.3f} ms | decode steps "
@@ -1937,13 +1956,13 @@ def phase_paged(cfg, model, params, pad_to, served):
     per plain step, flash per prefill and per mixed step, no contiguous
     decode), and match the contiguous arm's tokens up to a near tie. Then
     one mixed step and one paged decode step, profiled. Returns each arm's
-    launch counts."""
+    launch counts and tokens."""
     import torch
 
     from repro_torch.launch import serve
 
     dev = torch.device("cuda")
-    out = {}
+    out, tokens = {}, {}
     for arm, geometry in PAGED_ARMS.items():
         tag = f"paged/{arm}"
         serve.warmup(model, params, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
@@ -1960,9 +1979,9 @@ def phase_paged(cfg, model, params, pad_to, served):
                  if geometry.get("chunked") else ""), flush=True)
         same_tokens(model, params, cfg, pad_to, toks, served, 0.0, 1.0, tag,
                     "the contiguous arm's tokens")
-        out[arm] = counts
+        out[arm], tokens[arm] = counts, toks
     profile_paged_steps(cfg, model, params, pad_to)
-    return out
+    return out, tokens
 
 
 def profile_paged_steps(cfg, model, params, pad_to, pairs: int = 3):
@@ -2044,7 +2063,8 @@ def phase_speculative(cfg, model, params, pad_to, served):
     arm's launches exact (``serve_once``), the speculative arms' counters
     consistent, tokens against phase 4's greedy run and the plain sampled
     arm up to a near tie, at least one draft accepted; then one speculative
-    step profiled. Returns each arm's launch counts."""
+    step profiled. Returns each arm's launch counts and the plain sampled
+    arm's tokens."""
     import torch
 
     from repro_torch.launch import serve
@@ -2086,7 +2106,8 @@ def phase_speculative(cfg, model, params, pad_to, served):
         same_tokens(model, params, cfg, pad_to, runs[arm][1], runs["plain t=0.8"][1],
                     SPEC_TEMP, SPEC_TOP_P, f"spec/{arm}", "the plain sampled arm's tokens")
     profile_speculative_step(cfg, model, params, pad_to)
-    return {arm: counts for arm, (_, _, counts) in runs.items()}
+    return ({arm: counts for arm, (_, _, counts) in runs.items()},
+            runs["plain t=0.8"][1])
 
 
 def profile_speculative_step(cfg, model, params, pad_to, n: int = 3):
@@ -2171,9 +2192,9 @@ def profile_speculative_step(cfg, model, params, pad_to, n: int = 3):
             lambda: sampling.window_step_keys(sched.base_key, sched._rid, steps, sched._stream),
         "gumbel draw [8,5,V]": lambda: prng.gumbel(keys, (v,)),
         "window sampler (keys to tokens on the host)":
-            lambda: sched._sample_window(logits, window),
+            lambda: sched._staging.wait(sched._sample_window(logits, window)),
         "slot sampler (plain step, keys to tokens on the host)":
-            lambda: sched._sample(logits[:, 0]),
+            lambda: sched._staging.wait(sched._sample(logits[:, 0])),
     }
     for label, fn in parts.items():
         fn()
@@ -2318,6 +2339,171 @@ def phase_prefix(cfg, model, params):
               f"{warm['n_preemptions']} vs {cold['n_preemptions']}", flush=True)
         same_tokens(model, params, cfg, pad, warm_toks, cold_toks, temp, top_p, tag,
                     "the cold arm's tokens", reqs=trace())
+
+
+#: the router phase's arms: replicas, temperature, top-p, each replica's
+#: geometry and the single-pool run its tokens must equal ("exact") or match
+#: up to a near tie ("near tie"): phase 4's greedy tokens, phase 4c's plain
+#: sampled arm's, phase 4b's paged arm's
+ROUTER_ARMS = {"x2": (2, 0.0, 1.0, {}, "serve", "exact"),
+               "x2 t=0.8": (2, SPEC_TEMP, SPEC_TOP_P, {}, "sampled", "exact"),
+               "x2 paged": (2, 0.0, 1.0, PAGED_ARMS["paged"], "paged", "exact"),
+               "x3": (3, 0.0, 1.0, {}, "serve", "exact"),
+               "x2 chunked": (2, 0.0, 1.0, PAGED_ARMS["chunked"], "serve", "near tie")}
+#: the reference's starvation trace: one slot, a priority-0 request at t = 0
+#: beside 10 priority-2 ones 2 ms apart, aged every 2 ms
+STARVE_STREAM, STARVE_GAP, STARVE_PAD, STARVE_NEW = 10, 0.002, 8, 4
+
+
+def phase_router(cfg, model, params, pad_to, single):
+    """Phase 4f: the trace through ``ReplicaRouter`` fleets on the one card
+    (``ROUTER_ARMS``), each replica 8 slots of the serve phase's geometry:
+    exact launches against the fleet's summed steps and prefills
+    (``serve_once``), every request its single-pool tokens (``single``: arm
+    name -> tokens) by the arm's rule; wall, tok/s, the emulated
+    one-card-a-replica rate over ``busy_max_s``, spills, requeues and each
+    replica's line printed. Then the two-phase step's contract
+    (``sync_contract``), the host time of two replicas' ``step_begin``
+    against one replica's ``step()`` (``begin_host_ms``), and the starvation
+    trace with and without aging (``starvation``)."""
+    for arm, (n, temp, top_p, geometry, want, rule) in ROUTER_ARMS.items():
+        tag = f"router/{arm}"
+        m, toks, _ = serve_once(model, params, cfg, pad_to, policy="continuous",
+                                int8_mode=None, tag=tag, temperature=temp, top_p=top_p,
+                                replicas=n, **geometry)
+        check(m["replicas"] == n and len(m["per_replica"]) == n, f"{tag}: not {n} replicas")
+        check(m["requeues"] == m.get("n_preemptions", 0),
+              f"{tag}: {m['requeues']} requeues for {m.get('n_preemptions', 0)} preemptions")
+        print(f"[{tag}] wall {m['wall_s']:.3f} s | {m['tokens_per_s']:.1f} tok/s | aggregate "
+              f"{m['aggregate_tokens_per_s']:.1f} tok/s over busy max {m['busy_max_s']:.3f} s "
+              f"(a card a replica, emulated) | steps {m['decode_steps']} (max {m['steps_max']}) "
+              f"| prefills {m['prefills']} | spills {m['spills']} | requeues {m['requeues']} | "
+              f"preemptions {m.get('n_preemptions', 0)}", flush=True)
+        for e in m["per_replica"]:
+            print(f"[{tag}]   replica {e['replica']} ({e['device']}): {e['n_requests']} requests "
+                  f"| steps {e['decode_steps']} | prefills {e['prefills']} | preemptions "
+                  f"{e['preemptions']} | busy {e['busy_s']:.3f} s | occupancy "
+                  f"{e['mean_slot_occupancy']:.3f} | ttft p50 {e['ttft_p50_ms']:.2f} ms | tpot "
+                  f"p50 {e['tpot_p50_ms']:.3f} ms", flush=True)
+        if rule == "exact":
+            same = sum(toks[rid] == single[want][rid] for rid in single[want])
+            print(f"[{tag}] {same} of {len(single[want])} requests give the single pool's "
+                  f"tokens exactly ({want})", flush=True)
+            check(same == len(single[want]), f"{tag}: tokens differ from the single pool's")
+        else:
+            same_tokens(model, params, cfg, pad_to, toks, single[want], temp, top_p, tag,
+                        "phase 4's single-pool tokens")
+    sync_contract(cfg, model, params, pad_to)
+    begin_host_ms(cfg, model, params, pad_to)
+    starvation(cfg, model, params)
+
+
+def sync_contract(cfg, model, params, pad_to):
+    """Every ``step_begin`` of four trace requests (two at t = 0.8) served
+    on the chunked pool (mixed, then paged decode steps) and on the
+    contiguous one runs under ``set_sync_debug_mode("error")``: no
+    device-to-host sync, no blocking host-to-device copy. Admissions run
+    outside the mode."""
+    import torch
+
+    from repro_torch.core.scheduler import Scheduler
+
+    dev = torch.device("cuda")
+    for arm, geometry in (("chunked", PAGED_ARMS["chunked"]), ("contiguous", {})):
+        reqs = _trace(cfg, pad_to)[:4]
+        for r in reqs[::2]:
+            r.temperature, r.top_p = SPEC_TEMP, SPEC_TOP_P
+        sched = Scheduler(model, params, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
+                          device=dev, **geometry)
+        sched.submit(reqs)
+        kinds = {}
+        with torch.inference_mode():
+            while sched.waiting or sched.has_work:
+                sched._admit(sched._now())
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    pending = sched.step_begin()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                kinds[pending[0]] = kinds.get(pending[0], 0) + 1
+                sched.step_finish(pending)
+        want = {"decode", "mixed"} if geometry.get("chunked") else {"decode"}
+        check(set(kinds) == want and len(sched.finished) == 4,
+              f"[router/sync {arm}] step kinds {kinds}, {len(sched.finished)} of 4 done")
+        pinned = all(b.is_pinned() for b in sched._staging._bufs.values())
+        check(pinned, f"[router/sync {arm}] a staging buffer is not pinned")
+        print(f"[router/sync {arm}] {sum(kinds.values())} step_begin calls under "
+              f"set_sync_debug_mode('error'), none synchronized: {kinds} | staging buffers "
+              f"pinned: {sorted(sched._staging._bufs)}", flush=True)
+
+
+def begin_host_ms(cfg, model, params, pad_to, rounds: int = 8):
+    """Host time of two replicas' ``step_begin`` calls back to back (both
+    full, 8 decoding slots each) against the wall of one replica's
+    ``step()`` ending in a synchronize: the share of a round the second
+    replica's launches can hide behind the first's kernels. Medians over
+    ``rounds``."""
+    import torch
+
+    from repro_torch.core.router import ReplicaRouter
+
+    dev = torch.device("cuda")
+    fleet = ReplicaRouter(model, params, replicas=2, slots=SLOTS, pad_to=pad_to,
+                          max_new_cap=MAX_NEW, devices=[dev, dev])
+    reqs = _trace(cfg, pad_to)
+    for r in reqs:
+        r.max_new = MAX_NEW
+    begins, finishes, steps = [], [], []
+    with torch.inference_mode():
+        fleet.submit(reqs)
+        fleet._place(fleet._now())
+        check(all(s.pool.n_free == 0 for s in fleet.replicas), "[router/host] fleet not full")
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pend = [(s, s.step_begin()) for s in fleet.replicas]
+            t1 = time.perf_counter()
+            for s, p in pend:
+                s.step_finish(p)
+            t2 = time.perf_counter()
+            begins.append((t1 - t0) * 1e3)
+            finishes.append((t2 - t1) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fleet.replicas[0].step()
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+    b, f, w = (statistics.median(x) for x in (begins, finishes, steps))
+    print(f"[router/host] two replicas' step_begin {b:.3f} ms host (then both finishes "
+          f"{f:.3f} ms) against one replica's step() {w:.3f} ms wall; medians of {rounds}",
+          flush=True)
+
+
+def starvation(cfg, model, params):
+    """The reference's starvation trace on the card (one slot, pad 8, 4
+    tokens a request; the wall clock): without aging the priority-0
+    request finishes last; aged every 2 ms, at position 4 or earlier."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.scheduler import Scheduler, ServeRequest
+
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, size=4) for _ in range(STARVE_STREAM + 1)]
+    orders = {}
+    for boost in (None, STARVE_GAP):
+        sched = Scheduler(model, params, slots=1, pad_to=STARVE_PAD, max_new_cap=STARVE_NEW,
+                          device=torch.device("cuda"), priority_boost_after=boost)
+        reqs = [ServeRequest(rid=i, prompt=p, max_new=STARVE_NEW, priority=0 if i == 0 else 2,
+                             t_arrival=0.0 if i == 0 else STARVE_GAP * (i - 1))
+                for i, p in enumerate(prompts)]
+        orders[boost] = ([r.rid for r in sched.run(reqs)], sched.n_priority_boosts)
+    (plain, _), (aged, boosts) = orders[None], orders[STARVE_GAP]
+    print(f"[router/aging] finish order without aging {plain}, aged every "
+          f"{STARVE_GAP * 1e3:.0f} ms {aged} ({boosts} boosts)", flush=True)
+    check(plain[-1] == 0, "[router/aging] the priority-0 request did not starve without aging")
+    check(aged.index(0) <= 4 and boosts > 0, "[router/aging] aging did not break the starvation")
 
 
 def gpu_clocks() -> str:
@@ -3467,10 +3653,16 @@ def main() -> None:
                                     N_REQUESTS, SEED)
         records = phase_kernels(pad_to, pad_to + MAX_NEW + 1)
         cfg, model, params, trace, runs = phase_serve(pad_to)
-        paged_counts = phase_paged(cfg, model, params, pad_to, runs["continuous"][1])
-        spec_counts = phase_speculative(cfg, model, params, pad_to, runs["continuous"][1])
+        paged_counts, paged_toks = phase_paged(cfg, model, params, pad_to, runs["continuous"][1])
+        spec_counts, sampled_toks = phase_speculative(cfg, model, params, pad_to,
+                                                      runs["continuous"][1])
         mixed_counts = phase_mixed(cfg, model, params, pad_to, runs["continuous"][1])
         phase_prefix(cfg, model, params)
+        t0 = time.perf_counter()
+        phase_router(cfg, model, params, pad_to, {"serve": runs["continuous"][1],
+                                                  "sampled": sampled_toks,
+                                                  "paged": paged_toks["paged"]})
+        print(f"[router] phase {time.perf_counter() - t0:.1f} s", flush=True)
         phase_parity(model, params, pad_to, trace[:2], runs["continuous"][1])
         phase_profile(model, params, pad_to, trace, fused=fused_per_forward(cfg))
         arms = phase_quant(cfg, model, params, pad_to, trace)

@@ -14,8 +14,9 @@ Paged pools (``core/slot_pool.BlockPool``) keep K/V as physical blocks
 is the garbage sink that freed slots' table rows point at. The block ops
 below copy prefilled rows into blocks (``append_block``), copy one block
 over another (``copy_block``: the copy-on-write unshare of a block that two
-streams of a slot group would both write) and set or zero per-slot counters
-(``set_slot_length``, ``free_blocks``); the block table itself is never
+streams of a slot group would both write) and set or zero a slot's counter
+(``set_slot_length``, a fill on the device: an eviction inside a step's
+launch phase copies nothing from the host); the block table itself is never
 touched here.
 """
 from __future__ import annotations
@@ -140,17 +141,11 @@ def copy_block(pool_layers: Any, src: int, dst: int) -> Any:
     return pool_layers
 
 
-def free_blocks(pool: Any, mask: torch.Tensor) -> Any:
-    """Paged eviction: zero the freed slots' ``lengths``. The block table
-    and free-lists are host state (BlockPool), and freed blocks need no
-    clearing: stale K/V is unreachable until a new owner's validity mask
-    covers the positions it rewrote."""
-    return reset_slots(pool, mask)
-
-
 @torch.inference_mode()
 def set_slot_length(pool: Any, slot: int, length: int) -> Any:
-    """Install one slot's token counter in place (paged admission: the K/V
-    rows arrive by ``append_block``)."""
-    pool["lengths"][slot] = length
+    """Install one slot's token counter in place, a fill on the device
+    (paged admission: the K/V rows arrive by ``append_block``; eviction:
+    length 0, and freed blocks need no clearing, since stale K/V is
+    unreachable until a new owner's validity mask covers what it rewrote)."""
+    pool["lengths"][slot].fill_(length)
     return pool

@@ -73,9 +73,9 @@ def nucleus(scaled: torch.Tensor, p) -> torch.Tensor:
     sorted_logits = torch.sort(scaled, dim=-1).values.flip(-1)
     probs = softmax(sorted_logits)
     keep = torch.cumsum(probs, dim=-1) - probs < p
-    inf = torch.tensor(float("inf"), device=scaled.device)
-    threshold = torch.where(keep, sorted_logits, inf).amin(dim=-1, keepdim=True)
-    return torch.where(scaled >= threshold, scaled, -inf)
+    # scalar operands: a fill in the kernel, no copy from the host
+    threshold = torch.where(keep, sorted_logits, float("inf")).amin(dim=-1, keepdim=True)
+    return torch.where(scaled >= threshold, scaled, float("-inf"))
 
 
 def top_p(p: float = 0.9, temp: float = 1.0) -> Sampler:

@@ -71,14 +71,32 @@ uncached token; finished and preempted requests hand their full prompt
 blocks to the trie; blocks only the trie holds are reclaimed, least
 recently used first, before anything is preempted.
 
-Not ported yet: priority aging, the two-phase step, replicas and TP.
+``priority_boost_after`` ages waiting requests (``age_waiting``): every
+full interval an arrived request waits raises its priority by one, so a
+steady stream of urgent traffic cannot starve it. Times come from the
+injectable ``clock``; ``busy_s`` sums the clock time of this pool's own
+admissions and steps.
+
+A step is two phases, so the replica router (core/router.py) can launch
+every replica's step before it waits for any: ``step_begin`` stages the
+step's host inputs (tokens, plan, write positions, keys, knobs, a changed
+block table) through pinned host buffers, copies them to the device without
+blocking, launches the forward and the sampler and starts the sampled
+tokens' copy back into a pinned buffer behind a CUDA event; ``step_finish``
+waits on that event (the step's one sync) and commits on the host.
+``step()`` is the two back to back. A speculative begin keeps one more
+sync: the verify window's live lanes are selected with ``nonzero``
+(``attention.window_addresses``). Admissions may copy synchronously.
+
+Not ported yet: the tensor-parallel pool (``tp_mesh``).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,6 +122,9 @@ class ServeRequest:
     top_p: float = 1.0  # 1 => no nucleus filtering
     eos_id: Optional[int] = None  # per-request EOS override
     priority: int = 0  # higher = more urgent
+    # boosts ``age_waiting`` already folded into ``priority``: a requeued or
+    # replayed request is never granted the same boost twice
+    n_boosts: int = 0
     # HOW to decode: None = per-slot sampling at (temperature, top_p); a
     # single-stream SamplingProfile collapses onto that, a
     # SpeculativeProfile adds draft/verify windows, a multi-stream profile
@@ -134,6 +155,89 @@ class ServeRequest:
     @property
     def e2e(self) -> float:
         return self.t_done - self.t_arrival
+
+    def padded_output(self, eos_id: Optional[int]) -> np.ndarray:
+        """[max_new] output padded with ``eos_id`` (0 without one), as
+        ``engine.generate`` returns its rows."""
+        out = np.full((self.max_new,), eos_id if eos_id is not None else 0, np.int32)
+        out[: len(self.tokens)] = self.tokens
+        return out
+
+
+def age_waiting(waiting, now: float, boost_after: Optional[float]) -> int:
+    """The max-waiting-time boost of ``Scheduler._admit`` and the router's
+    placement: every ARRIVED request gains one priority for each full
+    ``boost_after`` seconds it has waited. ``n_boosts`` remembers what was
+    granted, so a second call at the same ``now``, a preemption requeue or
+    a spill grants nothing twice. Returns the boosts granted."""
+    if boost_after is None or boost_after <= 0:
+        return 0
+    granted = 0
+    for r in waiting:
+        if r.t_arrival > now:
+            break  # arrived requests are a queue prefix
+        due = int((now - r.t_arrival) // boost_after)
+        if due > r.n_boosts:
+            r.priority += due - r.n_boosts
+            granted += due - r.n_boosts
+            r.n_boosts = due
+    return granted
+
+
+class _Staging:
+    """One scheduler's per-step host buffers on a CUDA device: pinned, so a
+    host-to-device copy from them returns at once, and so does the copy of
+    the sampled tokens back. The host writes a buffer only in the next
+    ``step_begin``, after this step's ``step_finish`` waited on the event
+    recorded behind the step's last copy: every earlier copy on the stream
+    has run by then. On the CPU the buffers are plain tensors and every
+    copy is a plain one."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self._bufs: Dict[str, torch.Tensor] = {}
+
+    def _buf(self, name: str, shape, dtype) -> torch.Tensor:
+        buf = self._bufs.get(name)
+        if buf is None or buf.shape != shape or buf.dtype != dtype:
+            # a normal tensor even when made inside a step's inference mode:
+            # a caller outside that mode may stage through it too
+            with torch.inference_mode(False):
+                buf = torch.empty(shape, dtype=dtype, pin_memory=self.pinned)
+            self._bufs[name] = buf
+        return buf
+
+    def host(self, name: str, arr: np.ndarray) -> torch.Tensor:
+        """``arr`` copied into the host buffer ``name``."""
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        buf = self._buf(name, src.shape, src.dtype)
+        buf.copy_(src)
+        return buf
+
+    def put(self, name: str, arr: np.ndarray) -> torch.Tensor:
+        """``arr`` on the device, copied from the buffer ``name`` without
+        blocking the host."""
+        return self.host(name, arr).to(self.device, non_blocking=True, copy=True)
+
+    def fetch(self, name: str, t: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+        """Start ``t``'s copy into the host buffer ``name``; returns the
+        buffer and the event that marks the copy done (None on the CPU)."""
+        buf = self._buf(name, t.shape, t.dtype)
+        buf.copy_(t, non_blocking=True)
+        if not self.pinned:
+            return buf, None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return buf, event
+
+    @staticmethod
+    def wait(fetched) -> np.ndarray:
+        """The fetched tensor on the host, once its copy is done."""
+        buf, event = fetched
+        if event is not None:
+            event.synchronize()
+        return buf.numpy().copy()
 
 
 @dataclass
@@ -182,11 +286,11 @@ class Scheduler:
     ``device``.
 
     The per-slot decode state (last token, request id, tokens generated,
-    temperature, top-p) lives in host numpy mirrors shipped to the device
+    temperature, top-p) lives in host numpy mirrors staged to the device
     once per step; the step's one device-to-host copy is its sampled tokens
     (``_sample`` / ``_sample_window``). ``base_key`` (default
     ``PRNGKey(0)``) seeds every request's sampling keys, which are folded
-    on the host."""
+    on the host. ``replica_id`` names the pool in a router's fleet."""
 
     def __init__(
         self,
@@ -205,7 +309,10 @@ class Scheduler:
         chunked: bool = False,
         prefill_budget: Optional[int] = None,
         prefix_cache: bool = False,
+        priority_boost_after: Optional[float] = None,
         base_key: Optional[torch.Tensor] = None,
+        clock=time.perf_counter,
+        replica_id: int = 0,
     ):
         if policy not in ("continuous", "fixed"):
             raise ValueError(f"unknown policy {policy!r}")
@@ -226,6 +333,10 @@ class Scheduler:
         self.eos_id = eos_id
         self.policy = policy
         self.paged = paged
+        self.priority_boost_after = priority_boost_after
+        self.clock = clock
+        self.replica_id = replica_id
+        self._staging = _Staging(self.device)
         # the serve key, kept on the host: per-slot keys are folded in numpy
         # and shipped with the step (no device launch for them)
         self.base_key = (prng.PRNGKey(0) if base_key is None else base_key).cpu().numpy()
@@ -290,11 +401,22 @@ class Scheduler:
         self.occupancy_trace: List[float] = []
         self.block_occupancy_trace: List[float] = []
         self.peak_used_blocks = 0
+        self.n_priority_boosts = 0  # age_waiting's grants
+        # clock seconds of this pool's own admissions and steps: a router's
+        # fleet runs as fast as its busiest replica would on a card of its own
+        self.busy_s = 0.0
         self._seq = 0  # admission order (preemption picks the youngest)
-        self._t0 = time.perf_counter()  # run() rebases; timestamps are offsets
+        self._t0 = self.clock()  # run() rebases; timestamps are offsets
 
     def _now(self) -> float:
-        return time.perf_counter() - self._t0
+        return self.clock() - self._t0
+
+    def _on_device(self):
+        """The pool's card as the current device (kernels launch on the
+        current device's stream); nothing on the CPU."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
 
     # ---- request intake --------------------------------------------------
     def normalize(self, r: ServeRequest) -> ServeRequest:
@@ -567,18 +689,65 @@ class Scheduler:
     def _admit(self, now: float) -> None:
         if self.policy == "fixed" and (self.active or self.groups):
             return  # run-to-completion: no refill until the pool drains
+        self.n_priority_boosts += age_waiting(self.waiting, now, self.priority_boost_after)
         while True:
             i, cand = self._next_candidate(now)
             if cand is None or not self._admissible(cand):
                 return
             del self.waiting[i]
-            if profiles.n_streams_of(cand.profile) > 1:
-                self._admit_one_group(cand, now)
-            elif self.chunked and not cand.extra_inputs:
-                # a chunk streams tokens only: extra inputs need the prefill
-                self._admit_one_chunked(cand, now)
-            else:
-                self._admit_one(cand, now)
+            self._admit_request(cand, now)
+
+    def _admit_request(self, req: ServeRequest, now: float) -> None:
+        if profiles.n_streams_of(req.profile) > 1:
+            self._admit_one_group(req, now)
+        elif self.chunked and not req.extra_inputs:
+            # a chunk streams tokens only: extra inputs need the prefill
+            self._admit_one_chunked(req, now)
+        else:
+            self._admit_one(req, now)
+
+    # ---- router hooks (core/router.py) -----------------------------------
+    def free_capacity(self) -> int:
+        """The router's load signal: free blocks when paged, else free
+        slots."""
+        return self.pool.n_free_blocks if self.paged else self.pool.n_free
+
+    def admissible(self, req: ServeRequest) -> bool:
+        """Would ``try_admit`` take ``req`` now?"""
+        return self._admissible(req)
+
+    @torch.inference_mode()
+    def try_admit(self, req: ServeRequest, now: float) -> bool:
+        """Admit ``req`` (already normalized by the router) if this pool has
+        room, else refuse: the router then spills it to the next replica.
+        The admission's time is this pool's work, so it goes into
+        ``busy_s``."""
+        if not self._admissible(req):
+            return False
+        t = self.clock()
+        with self._on_device():
+            self._admit_request(req, now)
+        self.busy_s += self.clock() - t
+        return True
+
+    def drain_waiting(self) -> List[ServeRequest]:
+        """Hand back the requests this pool preempted onto its own queue,
+        front first, for the router's shared queue: a replay may land on
+        any replica, and its keys give it the same tokens there."""
+        out = list(self.waiting)
+        self.waiting.clear()
+        return out
+
+    def drain_finished(self) -> List[ServeRequest]:
+        """Hand the finished requests to the router, in finish order."""
+        out = self.finished
+        self.finished = []
+        return out
+
+    def rebase(self, t0: float) -> None:
+        """Set this pool's clock origin: a router gives every replica one,
+        so their timestamps compare."""
+        self._t0 = t0
 
     # ---- cross-request prefix cache (core/prefix_cache.py) ----------------
     def _prefix_admit(self, slot: int, prompt: np.ndarray) -> int:
@@ -710,20 +879,19 @@ class Scheduler:
                     break  # this slot WAS the victim; it queues
 
     # ---- decode ----------------------------------------------------------
-    def _knobs(self) -> torch.Tensor:
-        """(temperature, top_p) [2, slots] on the device."""
-        return torch.from_numpy(np.stack([self._temp, self._top_p])).to(self.device)
-
-    def _sample(self, logits: torch.Tensor) -> np.ndarray:
-        """Per-slot sampling (an all-greedy pool takes the argmax alone) and
-        the step's ONE device-to-host copy; the keys are folded on the
-        host."""
+    def _sample(self, logits: torch.Tensor):
+        """Launch per-slot sampling (an all-greedy pool takes the argmax
+        alone; the keys are folded on the host and staged with the knobs)
+        and start the tokens' copy to the host: the fetch ``step_finish``
+        waits on, the step's one device-to-host copy."""
         if not self._temp.any():
-            return sampling.greedy(logits).cpu().numpy()
-        keys = sampling.slot_step_keys(self.base_key, self._rid, self._ngen, self._stream)
-        knobs = self._knobs()
-        return sampling.sample_slots(logits, torch.from_numpy(keys).to(self.device), knobs[0],
-                                     knobs[1]).cpu().numpy()
+            toks = sampling.greedy(logits)
+        else:
+            keys = sampling.slot_step_keys(self.base_key, self._rid, self._ngen, self._stream)
+            knobs = self._staging.put("knobs", np.stack([self._temp, self._top_p]))
+            toks = sampling.sample_slots(logits, self._staging.put("keys", keys), knobs[0],
+                                         knobs[1])
+        return self._staging.fetch("tokens", toks)
 
     def _record_step_metrics(self) -> None:
         self.n_decode_steps += 1
@@ -765,33 +933,68 @@ class Scheduler:
         self._temp[st.slot] = 0.0  # free slots decode greedy garbage
 
     def step(self) -> List[ServeRequest]:
-        """One pool-wide step; returns the requests it finished. With
-        pending chunk cursors it is the mixed step; else, with a speculative
-        resident that has two or more tokens of budget left, the draft +
-        verify step; else the plain decode step. Each step's one
-        device-to-host copy is its sampled tokens."""
-        if self.chunked and len(self.chunk_mgr):
-            return self._step_mixed()
-        if self._spec_ready():
-            return self._step_speculative()
-        return self._step_decode()
+        """One pool-wide step, both phases back to back; returns the
+        requests it finished."""
+        return self.step_finish(self.step_begin())
 
-    def _step_decode(self) -> List[ServeRequest]:
+    @torch.inference_mode()
+    def step_begin(self):
+        """Phase 1 of one pool-wide step: with pending chunk cursors the
+        mixed step; else, with a speculative resident that has two or more
+        tokens of budget left, the draft + verify step; else the plain
+        decode step. Launches its device work and the sampled tokens' copy
+        to the host without waiting for the card, and returns the handle
+        ``step_finish`` takes (None: no device work, everything was
+        preempted back to the queue)."""
+        t = self.clock()
+        try:
+            with self._on_device():
+                if self.chunked and len(self.chunk_mgr):
+                    return self._begin_mixed()
+                if self._spec_ready():
+                    return self._begin_speculative()
+                return self._begin_decode()
+        finally:
+            self.busy_s += self.clock() - t
+
+    @torch.inference_mode()
+    def step_finish(self, pending) -> List[ServeRequest]:
+        """Phase 2: wait for the step's sampled tokens (its one sync) and
+        commit them on the host; returns the requests the step finished.
+        Nothing may be admitted between a pool's begin and its finish: the
+        commit walks the residents the begin launched for."""
+        if pending is None:
+            return []
+        t = self.clock()
+        try:
+            with self._on_device():
+                kind, *args = pending
+                if kind == "mixed":
+                    return self._finish_mixed(*args)
+                if kind == "spec":
+                    return self._finish_speculative(*args)
+                return self._finish_decode(*args)
+        finally:
+            self.busy_s += self.clock() - t
+
+    def _begin_decode(self):
         if self.paged:
             self._ensure_blocks()
             if not self.active and not self.groups:
-                return []  # everything preempted back to the queue
-            self.pool.sync()
-        token = torch.from_numpy(self._token).to(self.device)
-        logits, self.pool.cache = engine.decode_step(self.model, self.params,
-                                                     self.pool.cache, token)
-        toks = self._sample(logits)
+                return None  # everything preempted back to the queue
+        self.pool.sync(self._staging)
+        logits, self.pool.cache = engine.decode_step(self.model, self.params, self.pool.cache,
+                                                     self._staging.put("token", self._token))
+        return ("decode", logits, self._sample(logits))
+
+    def _finish_decode(self, logits: torch.Tensor, fetched) -> List[ServeRequest]:
+        toks = self._staging.wait(fetched)
         self._record_step_metrics()
         now = self._now()
         done = self._commit_decode(toks, now)
         return done + self._commit_groups(logits, now)
 
-    def _step_mixed(self) -> List[ServeRequest]:
+    def _begin_mixed(self):
         """One token-budget mixed step: a decode lane for every live slot
         plus up to ``prefill_budget`` prompt-chunk tokens, one forward."""
         self._ensure_blocks()  # decode growth first (victims incl. cursors)
@@ -811,7 +1014,7 @@ class Scheduler:
             if self.active or self.groups:
                 # every pending chunk is block-starved: run the 1-lane
                 # decode step, not a mixed step with no prefill token
-                return self._step_decode()
+                return self._begin_decode()
             # nothing runnable: several cursors wedged on blocks — free the
             # youngest lowest-priority one and retry on the next loop turn
             if len(self.chunk_mgr) <= 1:
@@ -820,7 +1023,7 @@ class Scheduler:
                     "worst-case request"
                 )
             self._preempt(self._victim())
-            return []
+            return None
         # authoritative per-slot write positions from host state: plain
         # decode steps drift the device counters of free and mid-prefill
         # rows (every row increments), so the mixed step pins them
@@ -831,20 +1034,22 @@ class Scheduler:
             base[g.slots] = g.kv_len
         for slot, cur in self.chunk_mgr.cursors.items():
             base[slot] = cur.pos
-        self.pool.sync()
+        self.pool.sync(self._staging)
         logits, self.pool.cache = engine.mixed_step(
             self.model, self.params, self.pool.cache,
-            torch.from_numpy(plan.tokens).to(self.device),
-            torch.from_numpy(plan.t_new).to(self.device),
-            torch.from_numpy(base).to(self.device),
+            self._staging.put("plan_tokens", plan.tokens), self._staging.put("t_new", plan.t_new),
+            self._staging.put("base", base),
         )
-        toks = self._sample(logits)
+        return ("mixed", logits, plan.chunks, self._sample(logits))
+
+    def _finish_mixed(self, logits: torch.Tensor, chunks, fetched) -> List[ServeRequest]:
+        toks = self._staging.wait(fetched)
         self._record_step_metrics()
         self.n_mixed_steps += 1
         now = self._now()
         done = self._commit_decode(toks, now)
         done += self._commit_groups(logits, now)
-        for ch in plan.chunks:
+        for ch in chunks:
             cur = self.chunk_mgr.advance(ch)
             self.n_chunks += 1
             self.n_chunk_tokens += ch.t
@@ -899,17 +1104,19 @@ class Scheduler:
                        if isinstance(prof, profiles.SpeculativeProfile) else 1)
         return w
 
-    def _step_speculative(self) -> List[ServeRequest]:
+    def _begin_speculative(self):
         """One draft + verify step (LayerSkip, paper §4.3), at the largest
         resident (exit_layer, n_draft): narrower slots are frozen through
         per-slot draft counts ``n_live``. Paged, every slot first grows for
         its whole window (draft writes reach ``kv_len + w - 2``, verify
         ``kv_len + w - 1``), which may preempt; the widths are then rebuilt
-        for the survivors and the table synced once, before the draft."""
+        for the survivors and the table synced once, before the draft. The
+        verify window's write selects its live lanes with ``nonzero``: this
+        begin's one sync."""
         if self.paged:
             self._ensure_blocks(extra=np.maximum(self._window_widths() - 1, 0))
             if not self.active:
-                return []  # everything preempted back to the queue
+                return None  # everything preempted back to the queue
         w = self._window_widths()
         k_step, e_step = 0, 1
         for st in self.active.values():
@@ -918,22 +1125,25 @@ class Scheduler:
                 k_step = max(k_step, prof.n_draft)
                 e_step = max(e_step, prof.exit_layer)
         if k_step == 0:  # every speculative slot was preempted away
-            return self._step_decode()
+            return self._begin_decode()
         base = np.zeros((self.slots,), np.int32)
         for slot, st in self.active.items():
             base[slot] = st.kv_len
-        self.pool.sync()
+        self.pool.sync(self._staging)
         # token, drafts a slot, write position and width: one copy
         host = np.stack([self._token, np.maximum(w - 1, 0), base, w]).astype(np.int32)
-        token0, n_live, lengths, t_new = torch.from_numpy(host).to(self.device)
+        token0, n_live, lengths, t_new = self._staging.put("window_plan", host)
         window, cache = layerskip.draft_window(self.model, e_step, k_step, self.params,
                                                self.pool.cache, token0, n_live, lengths)
         logits, self.pool.cache = engine.verify_step(self.model, self.params, cache, window,
                                                      t_new, lengths)
-        samples, win = self._sample_window(logits, window)
+        return ("spec", w, self._sample_window(logits, window))
+
+    def _finish_speculative(self, w: np.ndarray, fetched) -> List[ServeRequest]:
+        both = self._staging.wait(fetched)
         self._record_step_metrics()
         self.n_spec_steps += 1
-        done = self._commit_window(samples, win, w, self._now())
+        done = self._commit_window(both[0], both[1], w, self._now())
         # the rejected suffixes rolled back on the host: one pool-wide
         # lengths rewind (paged: table truncation too), built after the
         # evictions so freed slots rewind to 0
@@ -947,18 +1157,18 @@ class Scheduler:
     def _sample_window(self, logits: torch.Tensor, window: torch.Tensor):
         """Every verify lane sampled under its own key: lane ``j`` of a slot
         holds its request's token index ``n_generated + j``, the key plain
-        decoding folds in for that token. Returns (samples, window) on the
-        host, the step's one device-to-host copy."""
+        decoding folds in for that token. Starts the copy of (samples,
+        window) to the host, the step's one device-to-host copy, and
+        returns its fetch."""
         if not self._temp.any():
             samples = sampling.greedy(logits)
         else:
             steps = self._ngen[:, None] + np.arange(logits.shape[1])[None]
             keys = sampling.window_step_keys(self.base_key, self._rid, steps, self._stream)
-            knobs = self._knobs()
-            samples = sampling.sample_window(logits, torch.from_numpy(keys).to(self.device),
+            knobs = self._staging.put("knobs", np.stack([self._temp, self._top_p]))
+            samples = sampling.sample_window(logits, self._staging.put("window_keys", keys),
                                              knobs[0], knobs[1])
-        both = torch.stack([samples, window]).cpu().numpy()
-        return both[0], both[1]
+        return self._staging.fetch("window", torch.stack([samples, window]))
 
     def _commit_window(self, samples: np.ndarray, win: np.ndarray, w: np.ndarray,
                        now: float) -> List[ServeRequest]:
@@ -1082,9 +1292,10 @@ class Scheduler:
         """Serve ``requests`` to completion; returns them in finish order.
         A request is invisible to admission until ``t0 + t_arrival``."""
         self.submit(requests)
-        self._t0 = time.perf_counter()
+        self._t0 = self.clock()
         while self.waiting or self.has_work:
-            self._admit(self._now())
+            with self._on_device():
+                self._admit(self._now())
             if not self.has_work:
                 if self.waiting:  # pool idle, next request not arrived yet
                     wait = self.waiting[0].t_arrival - self._now()

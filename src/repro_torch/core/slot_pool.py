@@ -95,13 +95,12 @@ class SlotPool(_PoolBase):
         self.cache = kv_cache.write_slot(self.cache, row_cache, slot)
 
     def evict(self, slot: int) -> None:
-        """Finish a slot: zero its length and return it to the free-list."""
-        mask = torch.zeros((self.slots,), dtype=torch.bool)
-        mask[slot] = True
-        self.cache = kv_cache.reset_slots(self.cache, mask)
+        """Finish a slot: zero its length (a fill on the device, no copy
+        from the host) and return it to the free-list."""
+        self.cache = kv_cache.set_slot_length(self.cache, slot, 0)
         heapq.heappush(self._free, slot)
 
-    def sync(self) -> None:
+    def sync(self, stage=None) -> None:
         """No host-side tables to flush (BlockPool signature parity)."""
 
     def truncate(self, slot: int, kv_len: int) -> None:
@@ -378,9 +377,7 @@ class BlockPool(_PoolBase):
         self.block_tables[slot, :] = 0
         self._bt_dirty = True
         heapq.heappush(self._free, slot)
-        mask = torch.zeros((self.slots,), dtype=torch.bool)
-        mask[slot] = True
-        kv_cache.free_blocks(self.cache, mask)
+        kv_cache.set_slot_length(self.cache, slot, 0)  # a fill, no copy from the host
 
     def truncate(self, slot: int, kv_len: int) -> None:
         """Release the table suffix a rejected speculative window leaves
@@ -399,13 +396,22 @@ class BlockPool(_PoolBase):
             self._bt_dirty = True
 
     @torch.inference_mode()
-    def sync(self) -> None:
+    def sync(self, stage=None) -> None:
         """Copy the host block table into the device table in place, if it
-        changed since the last step. The copy is synchronous, so the host
-        may edit its table as soon as this returns."""
-        if self._bt_dirty:
+        changed since the last sync. Without ``stage`` the copy is
+        synchronous. A scheduler's step passes its staging buffers
+        (``scheduler._Staging``): the table is copied into a pinned host
+        buffer at once, so the host may edit its table as soon as this
+        returns, and from there to the device without blocking the host;
+        that buffer is written again only after the step's finish."""
+        if not self._bt_dirty:
+            return
+        if stage is None:
             self.cache["block_tables"].copy_(torch.from_numpy(self.block_tables))
-            self._bt_dirty = False
+        else:
+            self.cache["block_tables"].copy_(stage.host("block_tables", self.block_tables),
+                                             non_blocking=True)
+        self._bt_dirty = False
 
     def reset(self) -> None:
         for slot in range(self.slots):
@@ -416,5 +422,5 @@ class BlockPool(_PoolBase):
         self._ref[:] = 0
         self._cached[:] = False  # a PrefixCache over this pool is reset with it
         self._bt_dirty = True
-        kv_cache.free_blocks(self.cache, torch.ones((self.slots,), dtype=torch.bool))
+        kv_cache.reset_slots(self.cache, torch.ones((self.slots,), dtype=torch.bool))
         self.sync()

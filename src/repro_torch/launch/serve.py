@@ -21,7 +21,12 @@ request instead, with bursty arrivals, and prints each class's latencies.
 block at admission and prefills only the suffix, with the cold tokens;
 ``--shared-prefix N`` makes the trace for it (N system prompts of
 ``--prefix-len`` tokens reused Zipf(``--zipf-a``) in bursts of up to
-``--burst-size``). Weights are random, drawn from a
+``--burst-size``). ``--replicas N`` serves through N replica pools of
+this geometry behind one shared queue (``core/router.py``), every replica
+on the one card (or round-robin over the cards when there are several; on
+the CPU with ``--device cpu``), and prints the fleet's spills, requeues,
+busy-time rate and one line per replica. ``--boost-after S`` ages waiting
+requests: one priority a full ``S`` seconds waited. Weights are random, drawn from a
 ``torch.Generator`` seeded with ``--seed``; on the card the model's kernels
 (attention and RMSNorm for ``llama3.2-1b``, the SSD scan and RMSNorm for
 ``mamba2-130m``) are the hand-written CUDA ones.
@@ -40,6 +45,8 @@ block at admission and prefills only the suffix, with the cold tokens;
       --smoke --device cpu --profile-mix greedy,beam,contrastive --n-beams 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --paged --chunked --prefix-cache --shared-prefix 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --smoke --device cpu --replicas 2 --boost-after 0.05
 
 Reported per request: TTFT (arrival -> first token), TPOT (mean inter-
 token), e2e latency; aggregate: tokens/s, mean slot-occupancy and the
@@ -50,22 +57,79 @@ steps and chunk counts; speculative runs the draft/verify steps, the
 acceptance and the tokens committed a slot-step; runs with groups the
 group admissions, row gathers, table permutations and copy-on-write
 copies; prefix-cache runs the hits, prompt tokens skipped and cached
-blocks.
+blocks; replica runs the fleet's spills, requeues, busy-time rate and
+each replica's line.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core import prng, profiles
+from repro_torch.core import engine, prng, profiles, sampling
+from repro_torch.core.kv_cache import leaves
 from repro_torch.core.scheduler import Scheduler, ServeRequest
 from repro_torch.models import get_model
 from repro_torch.training import data as data_mod
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    max_new: int
+    t_submit: float = field(default_factory=time.perf_counter)
+    t_done: Optional[float] = None
+    output: Optional[np.ndarray] = None
+
+
+class BatchServer:
+    """Fixed-slot batcher, the paper's unoptimized baseline: takes up to
+    ``slots`` requests, right-pads their prompts and runs prefill and decode
+    to completion through ``engine.generate``. A partial batch marks its dead
+    rows (``live``), so padding rows neither hold back the EOS exit nor
+    emit tokens. Runs on the params' device; batch ``i``'s key is
+    ``PRNGKey(requests served before it)``."""
+
+    def __init__(self, model, params, *, slots: int, sampler=None,
+                 eos_id: Optional[int] = None):
+        self.model = model
+        self.params = params
+        self.slots = slots
+        self.sampler = sampler or sampling.top_p(0.9)
+        self.eos_id = eos_id
+        self.device = next(leaves(params)).device
+
+    def serve(self, requests: List[Request], *, pad_to: int, max_new: int) -> List[Request]:
+        done: List[Request] = []
+        queue = list(requests)
+        while queue:
+            batch, queue = queue[: self.slots], queue[self.slots:]
+            prompts = np.zeros((self.slots, pad_to), np.int32)
+            lengths = np.ones((self.slots,), np.int32)
+            live = np.zeros((self.slots,), bool)
+            for i, r in enumerate(batch):
+                p = np.asarray(r.prompt, np.int32)[:pad_to]
+                prompts[i, : len(p)] = p
+                lengths[i] = len(p)
+                live[i] = True
+            out = engine.generate(
+                self.model, self.params, torch.from_numpy(prompts).to(self.device),
+                prompt_lengths=torch.from_numpy(lengths).to(self.device),
+                max_new_tokens=max_new, sampler=self.sampler, key=prng.PRNGKey(len(done)),
+                eos_id=self.eos_id, live=torch.from_numpy(live).to(self.device),
+            )
+            toks = out["tokens"].cpu().numpy()  # always [slots, max_new]
+            for i, r in enumerate(batch):
+                r.output = toks[i, : r.max_new]
+                r.t_done = time.perf_counter()
+                done.append(r)
+        return done
 
 
 def poisson_trace(
@@ -335,7 +399,9 @@ def run_scheduler(
     eos_id: Optional[int] = None, policy: str = "continuous",
     paged: bool = False, block_size: int = 16, num_blocks: Optional[int] = None,
     chunked: bool = False, prefill_budget: Optional[int] = None,
-    prefix_cache: bool = False, seed: int = 0, return_requests: bool = False,
+    prefix_cache: bool = False, priority_boost_after: Optional[float] = None,
+    seed: int = 0, replicas: Optional[int] = None, devices="auto",
+    return_requests: bool = False,
 ):
     """Serve one trace under the serve key ``PRNGKey(seed)``; returns
     metrics (plus the scheduler's counters). Paged runs report the bytes
@@ -346,14 +412,28 @@ def run_scheduler(
     (accepted over drafted tokens), the tokens committed a speculative
     slot-step and the histogram of commits; runs with slot groups their
     admissions, row gathers and table permutations (and, paged, the
-    copy-on-write copies); prefix-cache runs the trie's counters."""
+    copy-on-write copies); prefix-cache runs the trie's counters; aged runs
+    the boosts granted. ``replicas=N`` serves through a ``ReplicaRouter`` of
+    N pools of this geometry (``_run_router``; on a CPU ``device`` every
+    replica is on the CPU, else ``devices`` places them)."""
     device = torch.device(device)
+    if replicas is not None:
+        if isinstance(devices, str) and devices == "auto" and device.type != "cuda":
+            devices = [device] * replicas
+        return _run_router(
+            model, params, requests, replicas=replicas, devices=devices, slots=slots,
+            pad_to=pad_to, max_new_cap=max_new_cap, eos_id=eos_id, policy=policy,
+            paged=paged, block_size=block_size, num_blocks=num_blocks, chunked=chunked,
+            prefill_budget=prefill_budget, prefix_cache=prefix_cache,
+            priority_boost_after=priority_boost_after, seed=seed,
+            return_requests=return_requests,
+        )
     sched = Scheduler(
         model, params, slots=slots, pad_to=pad_to, max_new_cap=max_new_cap,
         device=device, eos_id=eos_id, policy=policy, paged=paged,
         block_size=block_size, num_blocks=num_blocks, chunked=chunked,
         prefill_budget=prefill_budget, prefix_cache=prefix_cache,
-        base_key=prng.PRNGKey(seed),
+        priority_boost_after=priority_boost_after, base_key=prng.PRNGKey(seed),
     )
     _sync(device)
     t0 = time.perf_counter()
@@ -422,6 +502,96 @@ def run_scheduler(
             prefix_blocks_reclaimed=sched.n_prefix_reclaimed,
             mean_cached_blocks=sched.mean_cached_blocks,
         )
+    if priority_boost_after is not None:
+        m.update(priority_boosts=sched.n_priority_boosts)
+    if return_requests:
+        return m, done
+    return m
+
+
+def _run_router(
+    model, params, requests: List[ServeRequest], *, replicas: int, devices, slots: int,
+    pad_to: int, max_new_cap: int, eos_id: Optional[int], policy: str, paged: bool,
+    block_size: int, num_blocks: Optional[int], chunked: bool,
+    prefill_budget: Optional[int], prefix_cache: bool,
+    priority_boost_after: Optional[float], seed: int, return_requests: bool = False,
+):
+    """``run_scheduler`` through a ``ReplicaRouter``: one shared queue over
+    N pools (core/router.py). ``tokens_per_s`` is the wall rate of the
+    replicas sharing this host (and, on one card, its stream);
+    ``aggregate_tokens_per_s`` is the tokens over the busiest replica's own
+    seconds (``busy_max_s``), the rate a fleet with a card a replica would
+    serve at, emulated, not measured."""
+    from repro_torch.core.router import ReplicaRouter
+
+    if policy != "continuous":
+        raise ValueError("replica routing requires policy='continuous'")
+    router = ReplicaRouter(
+        model, params, replicas=replicas, devices=devices, slots=slots, pad_to=pad_to,
+        max_new_cap=max_new_cap, eos_id=eos_id, paged=paged, block_size=block_size,
+        num_blocks=num_blocks, chunked=chunked, prefill_budget=prefill_budget,
+        prefix_cache=prefix_cache, priority_boost_after=priority_boost_after,
+        base_key=prng.PRNGKey(seed),
+    )
+    cards = {s.device for s in router.replicas}
+    for dev in cards:
+        _sync(dev)
+    t0 = time.perf_counter()
+    done = router.run(requests)
+    for dev in cards:
+        _sync(dev)
+    wall = time.perf_counter() - t0
+    m = serve_metrics(done, wall)
+    stalls = np.asarray(router.admission_stalls, np.float64)
+    m.update(
+        wall_s=wall,
+        replicas=replicas,
+        decode_steps=router.n_decode_steps,
+        steps_max=router.steps_max,
+        prefills=router.n_prefills,
+        mean_slot_occupancy=router.mean_occupancy,
+        kv_reserved_bytes=router.reserved_bytes,
+        n_admission_stalls=len(stalls),
+        admission_stall_p50_ms=float(np.percentile(stalls, 50)) * 1e3 if len(stalls) else 0.0,
+        admission_stall_max_ms=float(stalls.max()) * 1e3 if len(stalls) else 0.0,
+        spills=router.n_spills,
+        requeues=router.n_requeues,
+        busy_max_s=router.busy_max_s,
+        aggregate_tokens_per_s=m["total_tokens"] / max(router.busy_max_s, 1e-9),
+        per_replica=router.replica_report(done),
+        device=",".join(sorted(str(d) for d in cards)),
+    )
+    if paged:
+        bo = [s.mean_block_occupancy for s in router.replicas if s.block_occupancy_trace]
+        pool0 = router.replicas[0].pool
+        token_bytes = pool0.reserved_bytes / max(pool0.num_blocks * pool0.block_size, 1)
+        m.update(
+            n_preemptions=router.n_preemptions,
+            mean_block_occupancy=float(np.mean(bo)) if bo else 0.0,
+            peak_used_blocks=sum(s.peak_used_blocks for s in router.replicas),
+            kv_used_peak_bytes=int(sum(s.peak_used_blocks * s.pool.block_size * token_bytes
+                                       for s in router.replicas)),
+            leaked_blocks=sum(s.pool.n_used_blocks - s.pool.n_cached_blocks
+                              for s in router.replicas),
+        )
+    if chunked:
+        m.update(
+            mixed_steps=router.n_mixed_steps,
+            prefill_chunks=sum(s.n_chunks for s in router.replicas),
+            prefill_chunk_tokens=sum(s.n_chunk_tokens for s in router.replicas),
+            full_prefills=router.n_prefills,
+        )
+    if prefix_cache:
+        m.update(
+            prefix_lookups=router.n_prefix_lookups,
+            prefix_hits=router.n_prefix_hits,
+            prefix_hit_rate=router.prefix_hit_rate,
+            prefill_tokens_skipped=router.n_prefix_tokens_skipped,
+            prefix_blocks_reclaimed=router.n_prefix_reclaimed,
+            mean_cached_blocks=router.mean_cached_blocks,
+        )
+    if priority_boost_after is not None:
+        m.update(priority_boosts=router.n_priority_boosts)
     if return_requests:
         return m, done
     return m
@@ -542,6 +712,14 @@ def main(argv=None):
                     help="heterogeneous trace: every request draws a class from this comma "
                          "list (greedy | sampling | beam | cfg | speculative) with bursty "
                          "arrivals; prints each class's TTFT/TPOT (default: all five)")
+    ap.add_argument("--boost-after", type=float, default=None,
+                    help="priority aging: +1 priority a full this many seconds a request "
+                         "waits unadmitted (default: off)")
+    ap.add_argument("--replicas", type=int, default=None,
+                    help="data-parallel replica pools behind one shared queue "
+                         "(core/router.py), each of --batch-slots slots; on the one card "
+                         "(round-robin over several), on the CPU with --device cpu "
+                         "(default: one scheduler, no router)")
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the random weights, the trace and the serve key")
@@ -610,11 +788,13 @@ def main(argv=None):
     m = run_scheduler(
         model, params, reqs, slots=args.batch_slots, pad_to=pad_to,
         max_new_cap=args.max_new, device=device, eos_id=args.eos_id,
-        policy=args.policy, seed=args.seed, **geometry,
+        policy=args.policy, priority_boost_after=args.boost_after, seed=args.seed,
+        replicas=args.replicas, **geometry,
     )
     mode = args.policy + ("+chunked" if args.chunked else "+paged" if args.paged else "") + (
         "+pfx" if args.prefix_cache else "") + ("+mix" if args.profile_mix else "") + (
-        "+classes" if args.mix_classes else "")
+        "+classes" if args.mix_classes else "") + (
+        f"+x{args.replicas}" if args.replicas is not None else "")
     print(f"[serve/{mode}] {m['n_requests']} requests in "
           f"{m['wall_s']:.2f}s | {m['tokens_per_s']:.1f} tok/s | "
           f"occupancy={m['mean_slot_occupancy']:.2f} | "
@@ -653,6 +833,19 @@ def main(argv=None):
             print(f"[serve/{mode}]   class {cls}: {row['n_requests']} reqs | "
                   f"ttft p50={row['ttft_p50_ms']:.0f}ms p99={row['ttft_p99_ms']:.0f}ms | "
                   f"tpot p50={row['tpot_p50_ms']:.1f}ms p99={row['tpot_p99_ms']:.1f}ms")
+    if args.boost_after is not None:
+        print(f"[serve/{mode}] priority boosts={m['priority_boosts']}")
+    if args.replicas is not None:
+        print(f"[serve/{mode}] spills={m['spills']} | requeues={m['requeues']} | "
+              f"steps max={m['steps_max']} | aggregate={m['aggregate_tokens_per_s']:.1f} "
+              f"tok/s over busy max={m['busy_max_s']:.2f}s (a card a replica, emulated; "
+              f"the wall tok/s above is the replicas sharing {m['device']})")
+        for e in m["per_replica"]:
+            print(f"[serve/{mode}]   replica {e['replica']}: {e['n_requests']} reqs | "
+                  f"steps={e['decode_steps']} | prefills={e['prefills']} | "
+                  f"preempt={e['preemptions']} | busy={e['busy_s']:.2f}s | "
+                  f"occ={e['mean_slot_occupancy']:.2f} | ttft p50={e['ttft_p50_ms']:.0f}ms | "
+                  f"tpot p50={e['tpot_p50_ms']:.1f}ms")
     return m
 
 

@@ -511,6 +511,111 @@ def test_paged_and_chunked_serving_on_card():
             _match_near_tie(model, params, prompt, got[i], want[i])
 
 
+def _small_llama_on_card():
+    """An f32 llama of the smoke depth at head 64 (the attention kernels'
+    width), its params on the CPU and on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("llama3.2-1b").replace(d_model=512, n_heads=8, n_kv_heads=2,
+                                                  dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    return cfg, model, _to(params, torch.device("cuda"))
+
+
+#: the two-phase tests' pools: contiguous (plain decode steps) and paged +
+#: chunked (mixed steps, then paged decode steps)
+STAGED_POOLS = {"contiguous": {},
+                "chunked": dict(paged=True, chunked=True, block_size=8, num_blocks=16,
+                                prefill_budget=8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", list(STAGED_POOLS))
+def test_step_begin_makes_no_sync_on_card(pool):
+    """Every ``step_begin`` of a served trace (greedy and t = 0.8 requests
+    in one pool) runs under ``set_sync_debug_mode("error")`` without a
+    synchronizing call: its host inputs go through pinned buffers, copied
+    without blocking, and the sampled tokens come back the same way. The
+    admissions between rounds run outside the mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.scheduler import Scheduler, ServeRequest
+
+    cfg, model, params = _small_llama_on_card()
+    rng = np.random.default_rng(3)
+    sched = Scheduler(model, params, slots=3, pad_to=24, max_new_cap=10,
+                      device=torch.device("cuda"), **STAGED_POOLS[pool])
+    sched.submit([ServeRequest(rid=i, prompt=rng.integers(0, cfg.vocab_size, 20), max_new=10,
+                               temperature=0.8 * (i % 2), top_p=0.9) for i in range(4)])
+    kinds = set()
+    with torch.inference_mode():
+        while sched.waiting or sched.has_work:
+            sched._admit(sched._now())
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending = sched.step_begin()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            kinds.add(pending[0])
+            sched.step_finish(pending)
+    assert kinds == ({"decode", "mixed"} if pool == "chunked" else {"decode"})
+    assert len(sched.finished) == 4
+    bufs = sched._staging._bufs
+    assert {"token", "tokens", "keys", "knobs"} <= set(bufs)
+    assert all(b.is_pinned() for b in bufs.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", list(STAGED_POOLS))
+def test_interleaved_replicas_give_each_pools_tokens_on_card(pool):
+    """Two schedulers on the one card, stepped begin, begin, finish,
+    finish (their staged copies and kernels queued on one stream), give the
+    tokens and counters each gives alone through ``step()``, bit for bit;
+    a two-replica router gives the single pool's tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.router import ReplicaRouter
+    from repro_torch.core.scheduler import Scheduler, ServeRequest
+
+    cfg, model, params = _small_llama_on_card()
+    dev = torch.device("cuda")
+    geo = dict(slots=3, pad_to=24, max_new_cap=10, **STAGED_POOLS[pool])
+
+    def trace(seed):
+        rng = np.random.default_rng(seed)
+        return [ServeRequest(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(5, 24))),
+                             max_new=int(rng.integers(2, 11)), temperature=0.8 * (i % 2),
+                             top_p=0.9) for i in range(5)]
+
+    alone = []
+    for seed in (0, 1):
+        s = Scheduler(model, params, device=dev, **geo)
+        alone.append((s, {r.rid: r.tokens for r in s.run(trace(seed))}))
+    both = [Scheduler(model, params, device=dev, **geo) for _ in range(2)]
+    for s, seed in zip(both, (0, 1)):
+        s.submit(trace(seed))
+    with torch.inference_mode():
+        while any(s.waiting or s.has_work for s in both):
+            for s in both:
+                s._admit(s._now())
+            pend = [(s, s.step_begin()) for s in both if s.has_work]
+            for s, p in pend:
+                s.step_finish(p)
+    for (s1, want), s2 in zip(alone, both):
+        assert {r.rid: r.tokens for r in s2.finished} == want
+        for name in ("n_decode_steps", "n_prefills", "n_mixed_steps", "n_preemptions"):
+            assert getattr(s2, name) == getattr(s1, name), name
+    fleet = ReplicaRouter(model, params, replicas=2, **geo)
+    assert all(r.device.type == "cuda" for r in fleet.replicas)
+    assert fleet.replicas[0].params is fleet.replicas[1].params  # one card: shared weights
+    got = {r.rid: r.tokens for r in fleet.run(trace(0))}
+    assert got == alone[0][1]
+
+
 def _match_near_tie(model, params, prompt, got, want, tie=1e-3):
     """Tokens equal up to the first divergence, which passes only where the
     CPU plain path's top-1/top-2 logit gap is below ``tie`` (f32)."""

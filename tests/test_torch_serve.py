@@ -285,7 +285,7 @@ _LOCKED_MODULES = {
     "repro_torch.models.vlm", "repro_torch.configs.whisper_base",
     "repro_torch.configs.seamless_m4t", "repro_torch.configs.chameleon_34b",
     "repro_torch.core.prefix_cache", "repro_torch.core.scheduler",
-    "repro_torch.core.slot_pool", "repro_torch.launch.serve",
+    "repro_torch.core.slot_pool", "repro_torch.launch.serve", "repro_torch.core.router",
 }
 
 
