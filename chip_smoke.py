@@ -198,12 +198,51 @@ Phases (any failure exits non-zero and prints no result):
              flash-decode at the decoder's self cache (every length of the
              S-T and S-S runs) and Chameleon's T-I cache, and RMSNorm at its
              qk-norm rows against their plain versions, timed.
+12. moe   — qwen3-moe-30b-a3b at full width (d 2048, 32/4 heads of 128,
+             qk-norm, 128 experts top-8 of 768, vocab 151936, bf16, seeded
+             weights), 4 of its 48 layers, serves the 16 requests through
+             four arms: contiguous, paged (block 16, 48 blocks), paged +
+             chunked (budget 64) and speculative at t = 0.8 / top-p 0.9
+             (exit layer 2, 4 drafts). Each arm runs on the kernels (exact
+             launches, finite logits, no leaked block), then on the plain
+             path (``plain_path``: every ``auto`` dispatch to the plain
+             versions, no launch), recorded, then on the kernels again,
+             teacher-forced to the plain run's draws (``Forced``): the same
+             steps, the first MoE layer's router probabilities at every
+             live lane within FORCED_DPROB_BOUND, and the logits of every
+             committed token whose forward routed its slot as the plain
+             run's within FORCED_DLOGIT_BOUND; every routing difference and
+             every kernel pick that differs is counted with its gap. The
+             contiguous arm with the decode kernel one key short
+             (``one_key_short``) must break a bound. Under dropless
+             capacity (E / k) the paged, chunked and speculative pools,
+             forced to the contiguous pool's tokens by (request, index),
+             hold their rows' median |dlogit| within
+             CROSS_DLOGIT_MEDIAN_BOUND, and the paged pool one key short
+             breaks it (at 1.25 a token's drops depend on what shares its
+             step, so pools are compared only there). One decode step of 8
+             slots profiled, the experts' three batched products of a MoE
+             layer at decode capacity timed against their weight bytes
+             over the card's memory rate, ``max_memory_allocated``;
+13. mla   — deepseek-v2-236b at full width (d 5120, 128 heads, MLA q_lora
+             1536, kv_lora 512, rope 64, 160 experts top-6 of 1536 + 2
+             shared, vocab 102400, bf16), 3 of its 60 layers (the dense
+             layer 0 and two MoE layers), through the same arms, checks
+             and profile; then the MLA kernel shapes against their plain
+             versions at full width, timed beside their bound and SDPA:
+             flash at the prefill (D 192 / Dv 128), flash over the latent
+             (D 576, V its leading 512 columns, Hkv 1, G 128) at the
+             chunked arm's mixed step and at the verify step, the latent
+             decode and the paged latent decode (bit for bit the
+             contiguous kernel on the gathered rows). Each model's weights
+             are freed before the next phase.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` summary. Imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -233,6 +272,9 @@ N_UTTER, N_BEAMS, N_FRAMES, BOS, EOS, ST_MAX_NEW, N_SS = 4, 4, 1500, 1, 2, 48, 2
 # image tokens and guidance
 CHAMELEON_LAYERS, N_IMAGE, IT_TEXT, IT_NEW, TI_PROMPT, GUIDANCE = 4, 1024, 6, 30, 14, 3.0
 IT_LEN = N_IMAGE + IT_TEXT
+#: the speculative phase: LayerSkip's exit layer and drafts a window, and the
+#: sampled arms' temperature and top-p
+SPEC_EXIT, SPEC_DRAFT, SPEC_TEMP, SPEC_TOP_P = 8, 4, 0.8, 0.9
 
 
 class PhaseError(RuntimeError):
@@ -296,11 +338,50 @@ def host_ms(fn, calls: int = 200) -> float:
     return (t1 - t0) / calls * 1e3
 
 
+#: spin kernels that open (after the profiler starts) and close (before it
+#: stops) every profiler session (``profiler``), each run synchronised apart
+#: from the profiled work: under the card's NVIDIA stack 580.159.03 a long
+#: process's profiler sessions lost their first device records (this
+#: script's later phases, in earlier versions of it too), and the spin
+#: kernels take that loss in their place; ``device_kernels`` leaves them out
+HEAD_KERNELS, TAIL_KERNELS = 512, 64
+PAD_NAME = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
+def profiler(cpu: bool = False):
+    """A torch.profiler session over the card (and the host, with ``cpu``)
+    that runs HEAD_KERNELS spin kernels after it starts and TAIL_KERNELS
+    before it stops, synchronised apart from the profiled work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def spin(n):
+        torch.cuda.synchronize()
+        for _ in range(n):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+
+    class Padded(profile):
+        def __enter__(self):
+            out = super().__enter__()
+            spin(HEAD_KERNELS)
+            return out
+
+        def __exit__(self, *exc):
+            spin(TAIL_KERNELS)
+            return super().__exit__(*exc)
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    return Padded(activities=acts, acc_events=True)
+
+
 def device_kernels(prof):
-    """The CUDA kernel (and memcpy/memset) events of a torch.profiler run."""
+    """The CUDA kernel (and memcpy/memset) events of a torch.profiler run,
+    ``profiler``'s spin kernels left out."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and PAD_NAME not in e.name]
 
 
 def device_ms(fn, calls: int = 20):
@@ -308,11 +389,10 @@ def device_ms(fn, calls: int = 20):
     ``calls`` calls launched, from torch.profiler (CUPTI), over ``calls``;
     None when the profiler saw no device activity."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+    with profiler() as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -355,7 +435,6 @@ def device_ms_each(fns, per_call, calls: int = 20, where: str = "kernels"):
     must hold them all. None for all when neither session saw any device
     activity (a profiler that does not see the card)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     want = calls * sum(per_call)
     for fn in fns:
@@ -363,7 +442,7 @@ def device_ms_each(fns, per_call, calls: int = 20, where: str = "kernels"):
     torch.cuda.synchronize()
     short = None
     for n in range(2):
-        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        with profiler() as prof:
             for fn in fns:
                 for _ in range(calls):
                     fn()
@@ -449,7 +528,8 @@ REDESIGNED = ("rmsnorm_warp_kernel", "flash_attention_mma_kernel", "int8_mma_ker
               "int8_wo_mma_kernel",
               "decode_attention_kernel", "decode_attention_paged_kernel",
               "decode_attention_combine_kernel", "hstu_attention_mma_kernel", "ssd_chunk_state_kernel",
-              "ssd_state_passing_kernel", "ssd_chunk_scan_kernel")
+              "ssd_state_passing_kernel", "ssd_chunk_scan_kernel", "flash_latent_kernel",
+              "decode_latent_kernel")
 
 
 def ptxas_report(text: str, names):
@@ -467,6 +547,7 @@ def ptxas_report(text: str, names):
                 args = [t for t, code in (("bf16", "I13__nv_bfloat16"), ("f32", "If"))
                         if rest.startswith(code)]
                 args += re.findall(r"Li(\d+)E", rest)
+                args += [w.lower() for w in re.findall(r"Latent(Contig|Paged)", rest)]
                 cur += f"<{','.join(args)}>" if args else ""
             spill = (0, 0)
             continue
@@ -926,6 +1007,16 @@ def phase_kernels(pad_to: int, max_len: int):
         **_int8_work(md, kw, nw, dynamic=True),
     ))
     records += hstu_kernel_records(gen) + ssd_kernel_records(gen) + multimodal_kernel_records(gen)
+    finish_records(records)
+    int8_served_times(gen, served)
+    rmsnorm_routes(gen, pad_to)
+    return records
+
+
+def finish_records(records):
+    """Each kernel record's bound (from its bytes and operations), device
+    time (profiled), and library call's CUDA-event and device times; prints
+    a line a record."""
     for r in records:
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"),
                                              r.pop("peak", BF16_FLOPS_PER_S))
@@ -951,9 +1042,6 @@ def phase_kernels(pad_to: int, max_len: int):
             print(f"[kernels] {r['name']:23s} the contiguous decode kernel on the same rows "
                   f"laid out contiguously: {r['contiguous_ms']:.4f} ms (device "
                   f"{fmt(r['contiguous_device_ms'])})", flush=True)
-    int8_served_times(gen, served)
-    rmsnorm_routes(gen, pad_to)
-    return records
 
 
 def shared_table_case(gen, dt, max_len):
@@ -1331,7 +1419,6 @@ def rmsnorm_routes(gen, pad_to: int) -> None:
     warps a row), against ``rmsnorm.route``: the served grids, a wide one,
     one past one warp's budget and one past eight warps' (the block path)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import rmsnorm as rn
 
@@ -1346,7 +1433,7 @@ def rmsnorm_routes(gen, pad_to: int) -> None:
                         (N_UTTER * N_BEAMS * N_FRAMES, WHISPER_D, torch.bfloat16)):
         x = _rand(gen, (rows, d), dt, dev)
         w = torch.ones((d,), dtype=dt, device=dev)
-        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        with profiler() as prof:
             rn.rmsnorm_cuda(x, w)
             torch.cuda.synchronize()
         kern = device_kernels(prof)
@@ -1688,18 +1775,25 @@ def _read_counts():
             for name, (holder, key) in _counters().items()}
 
 
+def _none_per_layer(cfg) -> int:
+    """RMSNorms without a prologue a layer of ``cfg``: 2 under qk-norm (q and k
+    per head) and 2 in MLA (its q_down and kv latent norms), else 0."""
+    return 2 if (cfg.qk_norm or cfg.mla is not None) else 0
+
+
 def _want_counts(cfg, n_fwd: int, **kernels):
     """Every counter 0 but ``kernels`` and RMSNorm's over ``n_fwd``
     forwards of ``cfg``: 2 x n_layers + 1 launches a forward, the first
     layer's norm alone (none) and every residual add fused into the norm
-    after it (add: 2 a layer in a dense or VLM model, 1 in HSTU and
+    after it (add: 2 a layer in a dense, VLM or MoE model, 1 in HSTU and
     Mamba-2, whose gate products take the other: mul and mul_silu); under
-    qk-norm 2 x n_layers more (none: q and k per head)."""
+    qk-norm or MLA 2 x n_layers more (none: q and k per head, or MLA's q and
+    latent norms)."""
     n_layers = cfg.n_layers
     want = dict.fromkeys(_counters(), 0)
     want.update(kernels)
-    want["rmsnorm/none"] = n_fwd * (1 + (2 * n_layers if cfg.qk_norm else 0))
-    if cfg.family in ("dense", "vlm"):
+    want["rmsnorm/none"] = n_fwd * (1 + _none_per_layer(cfg) * n_layers)
+    if cfg.family in ("dense", "vlm", "moe", "mla_moe"):
         want["rmsnorm/add"] = 2 * n_layers * n_fwd
     else:
         want["rmsnorm/add"] = n_layers * n_fwd
@@ -1719,7 +1813,8 @@ def _trace(cfg, pad_to, temperature: float = 0.0, top_p: float = 1.0):
 
 
 def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperature=0.0,
-               top_p=1.0, speculative=False, reqs=None, mix=None, prepare=None, **geometry):
+               top_p=1.0, speculative=False, reqs=None, mix=None, prepare=None,
+               spec_exit=SPEC_EXIT, **geometry):
     """One scheduler run of the trace, launch counters set to 0 just before
     it and read just after. Checks that every request got its max_new
     tokens, that every logits tensor the scheduler sampled from was finite
@@ -1731,11 +1826,12 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
     int8 kernel of ``int8_mode`` ("wo"/"dyn"/None) 7 x n_layers per
     forward; for an SSM the scan per prefill layer; every other kernel 0.
     Every request samples at ``temperature`` / ``top_p``; ``speculative``
-    makes each a ``SpeculativeProfile`` (exit layer ``SPEC_EXIT``,
+    makes each a ``SpeculativeProfile`` (exit layer ``spec_exit``,
     ``SPEC_DRAFT`` drafts), and a speculative step counts as a full forward
     (the verify: flash n_layers) plus ``SPEC_DRAFT`` draft forwards of
-    ``SPEC_EXIT`` layers (decode attention and 2 add-norms a layer, one
-    none-norm each). ``geometry`` (paged, block_size, num_blocks, chunked,
+    ``spec_exit`` layers (decode attention and 2 add-norms a layer, one
+    none-norm each and the layers' qk or MLA norms). Within ``plain_path``
+    every count must stay 0. ``geometry`` (paged, block_size, num_blocks, chunked,
     prefill_budget, prefix_cache) goes to the scheduler; a paged run must
     end with no block owned and, without the prefix cache, every refcount
     0. ``reqs`` replaces the trace; ``mix`` cycles ``apply_profile_mix``'s
@@ -1757,7 +1853,7 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
     if speculative and mix is None:
         mix = "speculative"
     if mix is not None:
-        serve.apply_profile_mix(reqs, mix, n_beams=MIX_BEAMS, exit_layer=SPEC_EXIT,
+        serve.apply_profile_mix(reqs, mix, n_beams=MIX_BEAMS, exit_layer=spec_exit,
                                 n_draft=SPEC_DRAFT)
         speculative = "speculative" in mix
     if prepare is not None:
@@ -1797,7 +1893,7 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
             model, params, reqs, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
             device=dev, policy=policy, return_requests=True, **geometry,
         )
-        counts = _read_counts()
+        got_counts = _read_counts()
     finally:
         for name, fn in real.items():
             setattr(engine, name, fn)
@@ -1815,21 +1911,24 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
     spec = m.get("spec_steps", 0)
     check(speculative or not spec, f"{tag}: speculative steps in a plain run")
     want_counts = _want_counts(cfg, n_fwd)
-    drafts = SPEC_DRAFT * spec  # early-exit forwards of SPEC_EXIT layers
-    want_counts["rmsnorm/none"] += drafts
-    want_counts["rmsnorm/add"] += 2 * SPEC_EXIT * drafts
-    want_counts["rmsnorm"] += (1 + 2 * SPEC_EXIT) * drafts
+    drafts = SPEC_DRAFT * spec  # early-exit forwards of spec_exit layers
+    want_counts["rmsnorm/none"] += (1 + _none_per_layer(cfg) * spec_exit) * drafts
+    want_counts["rmsnorm/add"] += 2 * spec_exit * drafts
+    want_counts["rmsnorm"] += (1 + (2 + _none_per_layer(cfg)) * spec_exit) * drafts
     if cfg.family == "ssm":  # the scan at every prefill; decode is plain torch
         want_counts["ssd_scan"] = cfg.n_layers * m["prefills"]
     else:
         want_counts["flash_attention"] = cfg.n_layers * (m["prefills"] + mixed + spec)
         decode = "paged_decode_attention" if geometry.get("paged") else "decode_attention"
         want_counts[decode] = (cfg.n_layers * (m["decode_steps"] - mixed - spec)
-                               + SPEC_EXIT * drafts)
+                               + spec_exit * drafts)
         if int8_mode is not None:
             want_counts[f"int8_matmul_{'weight_only' if int8_mode == 'wo' else 'dynamic'}"] = (
                 7 * cfg.n_layers * n_fwd)
-    check(counts == want_counts, f"{tag}: kernel launches {counts}, expected {want_counts}")
+    if PLAIN_PATH["on"]:  # nothing may reach a kernel
+        want_counts = dict.fromkeys(_counters(), 0)
+    check(got_counts == want_counts,
+          f"{tag}: kernel launches {got_counts}, expected {want_counts}")
     if geometry.get("paged"):
         check(m["leaked_blocks"] == 0, f"{tag}: {m['leaked_blocks']} blocks still owned")
         for sched in scheds:  # the prefix cache's blocks keep its one reference
@@ -1843,8 +1942,8 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
           f"{m['mean_slot_occupancy']:.3f} | wall {m['wall_s']:.2f} s | kv reserved "
           f"{m['kv_reserved_bytes']} B | max_memory_allocated {m['max_memory_allocated']} B "
           f"({m['run_peak_bytes']} B above the allocation before the run) | launches "
-          f"{counts}", flush=True)
-    return m, {r.rid: list(r.tokens) for r in done}, counts
+          f"{got_counts}", flush=True)
+    return m, {r.rid: list(r.tokens) for r in done}, got_counts
 
 
 def phase_serve(pad_to: int):
@@ -1882,9 +1981,6 @@ MIXED_LANES = PAGED_ARMS["chunked"]["prefill_budget"]
 #: each slot's new tokens in the kernels phase's mixed step: prefilling slots
 #: (a full and a partial chunk), decoding slots (1) and an idle one (0)
 MIXED_T_NEW = [MIXED_LANES, 1, MIXED_LANES, 37, 0, 1, MIXED_LANES, 1]
-#: the speculative phase: LayerSkip's exit layer and drafts a window, and the
-#: sampled arms' temperature and top-p
-SPEC_EXIT, SPEC_DRAFT, SPEC_TEMP, SPEC_TOP_P = 8, 4, 0.8, 0.9
 #: arm -> (temperature, top_p, speculative, scheduler geometry); the paged arm
 #: runs at phase 4b's chunked geometry, which preempts
 SPEC_ARMS = {"plain t=0.8": (SPEC_TEMP, SPEC_TOP_P, False, {}),
@@ -1991,7 +2087,6 @@ def profile_paged_steps(cfg, model, params, pad_to, pairs: int = 3):
     step's own launches); medians and every reading printed, with the
     card's SM clock and power draw before and after."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.scheduler import Scheduler
 
@@ -2010,8 +2105,7 @@ def profile_paged_steps(cfg, model, params, pad_to, pairs: int = 3):
             check(sched.has_work, f"profile: the pool drained before a {kind} step")
             mixed = sched.n_mixed_steps
             _reset_counts()
-            prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                            acc_events=True) if profiled else None)
+            prof = (profiler(cpu=True) if profiled else None)
             if prof is not None:
                 prof.__enter__()
             torch.cuda.synchronize()
@@ -2119,7 +2213,6 @@ def profile_speculative_step(cfg, model, params, pad_to, n: int = 3):
     plain step's per-slot sampler."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import prng, sampling
     from repro_torch.core.scheduler import Scheduler
@@ -2141,8 +2234,7 @@ def profile_speculative_step(cfg, model, params, pad_to, n: int = 3):
         check(sched._spec_ready(), "speculative profile: the pool left speculative stepping")
         spec = sched.n_spec_steps
         _reset_counts()
-        prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                        acc_events=True) if profiled else None)
+        prof = (profiler(cpu=True) if profiled else None)
         if prof is not None:
             prof.__enter__()
         torch.cuda.synchronize()
@@ -2199,7 +2291,7 @@ def profile_speculative_step(cfg, model, params, pad_to, n: int = 3):
     for label, fn in parts.items():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        with profiler() as prof:
             fn()
             torch.cuda.synchronize()
         kern = device_kernels(prof)
@@ -2587,7 +2679,7 @@ PORTED_KERNEL_NAMES = ("rmsnorm_warp_kernel", "rmsnorm_block_kernel", "flash_att
                        "int8_gemm_kernel", "int8_mma_kernel", "int8_wo_mma_kernel",
                        "int8_splitk_reduce", "hstu_attention_kernel", "hstu_attention_mma_kernel",
                        "ssd_scan_kernel", "ssd_chunk_state_kernel", "ssd_state_passing_kernel",
-                       "ssd_chunk_scan_kernel")
+                       "ssd_chunk_scan_kernel", "flash_latent_kernel", "decode_latent_kernel")
 #: the int8 GEMM kernels proper (their split-K sums excluded)
 INT8_GEMM_NAMES = ("int8_gemm_kernel", "int8_mma_kernel", "int8_wo_mma_kernel")
 #: device kernels of one prefill and of one decode step, by profile tag, and
@@ -2620,7 +2712,6 @@ def phase_profile(model, params, pad_to, reqs, tag="profile", fused=0):
     a few pool-wide decode steps with every slot live, each ending in the
     scheduler's greedy argmax and host copy."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import engine, sampling
     from repro_torch.core.slot_pool import SlotPool
@@ -2643,7 +2734,7 @@ def phase_profile(model, params, pad_to, reqs, tag="profile", fused=0):
     toks[0, : len(r.prompt)] = torch.as_tensor(r.prompt, dtype=torch.int32)
     plen = torch.tensor([len(r.prompt)], dtype=torch.int32, device=dev)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as pprof:
+    with profiler() as pprof:
         engine.prefill(model, params, toks, plen, pool.max_len)
         torch.cuda.synchronize()
     pk = device_kernels(pprof)
@@ -2664,8 +2755,7 @@ def phase_profile(model, params, pad_to, reqs, tag="profile", fused=0):
         step()
     torch.cuda.synchronize()
     n_steps = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profiler(cpu=True) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             step()
@@ -2729,18 +2819,27 @@ def check_kernel_names(kern, want, tag, again=None):
     (``note_short_session``) and ``again`` profiled once more, which must
     hold every count."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     got = {k: sum(1 for e in kern if k in e.name) for k in want}
     if got != want and again is not None and all(got[k] <= want[k] for k in want):
         print(f"[{tag}] profiled kernels {got}, expected {want}: the profile lost events; "
               f"profiling again", flush=True)
-        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        with profiler() as prof:
             again()
             torch.cuda.synchronize()
         short, kern = kern, device_kernels(prof)
         got = {k: sum(1 for e in kern if k in e.name) for k in want}
-        check(got == want, f"{tag}: two profiles in a row gave {got}, expected {want}")
+        if got != want:
+            from collections import Counter
+
+            free, total = torch.cuda.mem_get_info()
+            print(f"[{tag}] the two short sessions' device kernels by name: "
+                  f"{dict(Counter(e.name[:50] for e in short))} / "
+                  f"{dict(Counter(e.name[:50] for e in kern))}; first kernels "
+                  f"{[e.name[:40] for e in sorted(kern, key=lambda e: e.time_range.start)[:12]]}"
+                  f"; device memory free {free} of {total} B", flush=True)
+        check(got == want, f"{tag}: two profiles in a row gave {got}, expected {want} "
+                           f"({len(short)} and {len(kern)} device kernels in all)")
         note_short_session(tag, short, kern, len(kern))
     check(got == want, f"{tag}: profiled kernels {got}, expected {want}")
     print(f"[{tag}] profiled kernels {got}", flush=True)
@@ -2833,7 +2932,6 @@ def phase_hstu():
     (two histories, an f32 copy of the params: the CUDA-core route)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
@@ -2885,7 +2983,7 @@ def phase_hstu():
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+    with profiler() as prof:
         fwd()
         torch.cuda.synchronize()
     kern = device_kernels(prof)
@@ -2907,7 +3005,7 @@ def phase_hstu():
     f32_counts = None
     for name, p in (("bfloat16", params), ("float32", _tree_float(params))):
         _reset_counts()
-        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        with profiler() as prof:
             got_r, _, got_a = fwd(two, p, "auto")
             torch.cuda.synchronize()
         counts_p = _read_counts()
@@ -2940,7 +3038,6 @@ def phase_ssm(pad_to: int):
     launch counts of the served run and of one f32 prefill (an f32 copy of
     the params: the scan's f32 route)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch import serve
@@ -2970,7 +3067,7 @@ def phase_ssm(pad_to: int):
         # the route of its type; f32 parity with the plain path as HSTU's
         r = reqs[0]
         _reset_counts()
-        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        with profiler() as prof:
             lc = _prefill_last(mdl, p, r.prompt, "cuda")
             torch.cuda.synchronize()
         counts_p = _read_counts()
@@ -3215,7 +3312,6 @@ def step_profile(tag, step, n_steps: int = 5):
     """Wall ms (unprofiled, host clock to a synchronise), device busy ms and
     device kernels of one call of ``step``, over ``n_steps`` calls."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         step()
@@ -3225,7 +3321,7 @@ def step_profile(tag, step, n_steps: int = 5):
         step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n_steps
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+    with profiler() as prof:
         for _ in range(n_steps):
             step()
         torch.cuda.synchronize()
@@ -3631,6 +3727,730 @@ def ti_served(cfg, model, params, prompts, offset):
     return out
 
 
+#: the MoE phases: each model at its published widths, cut in depth to fit
+#: one card (qwen3-moe-30b-a3b: 4 of 48 layers; deepseek-v2-236b: 3 of 60,
+#: its dense layer 0 and two MoE layers), LayerSkip's exit layer there, and
+#: the arms: arm -> (temperature, top_p, speculative, scheduler geometry)
+MOE_LAYERS = {"qwen3-moe-30b-a3b": 4, "deepseek-v2-236b": 3}
+MOE_SPEC_EXIT = 2
+MOE_ARMS = {"contiguous": (0.0, 1.0, False, {}),
+            "paged": (0.0, 1.0, False, PAGED_ARMS["paged"]),
+            "chunked": (0.0, 1.0, False, PAGED_ARMS["chunked"]),
+            "spec t=0.8": (SPEC_TEMP, SPEC_TOP_P, True, {})}
+#: the teacher-forced comparison of an arm's kernel path with its plain path
+#: (``Forced``, mode "steps"): the largest |dprob| of the first MoE layer's
+#: router at a live lane (no routing difference reaches it: every layer
+#: before it is attention or dense), and the largest |dlogit| of a committed
+#: token's row whose forward routed every lane of its slot as the plain run.
+#: Set between sound runs and ``one_key_short`` (NVIDIA H100 80GB HBM3, 700
+#: W, bf16; every arm of both models): sound at most 0.0018 and 0.0625, the
+#: control at least 0.0035 and 0.22
+FORCED_DPROB_BOUND, FORCED_DLOGIT_BOUND = 0.003, 0.125
+#: across pools under dropless capacity (mode "keys"): the median |dlogit|
+#: of the committed tokens' rows against the contiguous pool's; sound at
+#: most 0.035 (chunked), the paged control at least 0.086 (the same card)
+CROSS_DLOGIT_MEDIAN_BOUND = 0.0625
+#: gaps below this are counted as near ties by the fixed rule
+FIXED_TIE = 1e-4
+
+
+#: set within ``plain_path``: a served run there must launch no kernel
+PLAIN_PATH = {"on": False}
+
+
+class plain_path:
+    """Within it, every kernel wrapper that ``impl="auto"`` reaches takes its
+    plain PyTorch version on CUDA tensors too (``ops._resolve``): the plain
+    path that a served arm is held against. ``serve_once`` then checks that
+    every launch count stays 0."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.real = ops._resolve
+        ops._resolve = lambda impl, x: "torch" if impl == "auto" else self.real(impl, x)
+        PLAIN_PATH["on"] = True
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops._resolve = self.real
+        PLAIN_PATH["on"] = False
+
+
+def _deciding_scores(row, args, idx):
+    """(scores, temperature) a draw decides a row by: the logits when
+    greedy; sampled, the nucleus-filtered logits / T plus the row's Gumbel
+    draw (``sampling.sample_slots``)."""
+    from repro_torch.core import prng, sampling
+
+    if not args:
+        return row, 1.0
+    keys, temp, top_p = args
+    t = float(temp[idx[0]])
+    if t <= 0:
+        return row, 1.0
+    return (sampling.nucleus(row / t, float(top_p[idx[0]])) + prng.gumbel(keys[idx], row.shape),
+            t)
+
+
+class Forced:
+    """One served run's token draws, committed logit rows and routing.
+    ``mode`` "record" keeps them. "steps" forces every draw (the scheduler's
+    samples and LayerSkip's draft windows) to ``ref``'s in call order, so
+    the run takes ``ref``'s tokens and steps on the same pool, and holds its
+    routing forward by forward and its rows against ``ref``'s. "keys" forces
+    each committed token to ``ref``'s token of the same (request, index) on
+    another pool and holds its rows against ``ref``'s. A row is the logits a
+    committed token was drawn from (a verify lane's when the window before
+    it was accepted); the n-th row of a (request, index) meets ``ref``'s
+    n-th, or its last. ``forcing`` installs the hooks."""
+
+    def __init__(self, mode, ref=None):
+        self.mode, self.ref = mode, ref
+        self.sched = self.admitting = None
+        self.draws, self.windows, self.routing = [], [], []
+        self.rows, self.tokens, self.seen = {}, {}, {}
+        self.n_draw = self.n_win = 0
+        self.fwd = -1
+        self.lanes = self.t_new = self.window = self.taint = None
+        self.first_dprob, self.flips, self.row_stats = [], [], []
+
+    def begin(self, lanes, n_rows, t_new=None):
+        """A forward of ``n_rows`` rows starts; ``lanes`` [N] marks those
+        that carry a live token."""
+        self.fwd += 1
+        self.lanes, self.n_rows, self.t_new, self.layer = lanes.reshape(-1), n_rows, t_new, 0
+        self.flipped = self.lanes & False
+        if self.mode == "record":
+            self.routing.append([])
+        elif self.mode == "steps":
+            check(self.fwd < len(self.ref.routing),
+                  f"forced run: forward {self.fwd} past the recording's {len(self.ref.routing)}")
+
+    def route(self, probs, topk, kept):
+        """One MoE layer's router probabilities [N, E], top-k and kept
+        (not dropped) experts as [N, E] masks."""
+        if self.lanes is None:  # a draft forward
+            return
+        check(probs.shape[0] == self.lanes.numel(), "router lanes differ from the forward's")
+        if self.mode == "record":
+            self.routing[-1].append((probs, topk, kept))
+        elif self.mode == "steps":
+            pp, tp, kp = self.ref.routing[self.fwd][self.layer]
+            check(pp.shape == probs.shape, f"forward {self.fwd}: lanes differ from the recording's")
+            live = self.lanes
+            dprob = (probs - pp).abs().amax(-1)
+            if self.layer == 0:
+                self.first_dprob.append((dprob * live).amax())
+            differs = (kept != kp).any(-1) & live
+            new = differs & ~self.flipped
+            k = int(tp[0].sum())
+            top = pp.topk(k + 1, dim=-1).values
+            self.flips.append((dprob[new], (top[:, k - 1] - top[:, k])[new],
+                               (topk != tp).any(-1)[new]))
+            self.flipped |= differs
+        self.layer += 1
+
+    def end(self):
+        if self.mode == "steps":
+            self.taint = self.flipped.reshape(self.n_rows, -1).any(-1).cpu().numpy()
+        self.lanes = None
+
+    def draft(self, window, cache):
+        if self.mode == "record":
+            self.windows.append(window.clone())
+        elif self.mode == "steps":
+            window = self.ref.windows[self.n_win].clone()
+        self.n_win += 1
+        self.window = window
+        return window, cache
+
+    def _committed(self, logits):
+        """[(row index, (request, token index))] of the draw's rows that
+        the scheduler commits (verify lanes: those it may commit)."""
+        s = self.sched
+        if logits.dim() == 3:  # a verify window
+            w = s._window_widths()
+            return [((b, j), (int(s._rid[b]), int(s._ngen[b]) + j))
+                    for b in s.active for j in range(int(w[b]))]
+        if self.admitting is not None:
+            return [((0,), (self.admitting, 0))]
+        rows = [((b,), (int(s._rid[b]), int(s._ngen[b]))) for b in s.active]
+        if self.t_new is not None:  # a mixed step: the prompts its chunks finish
+            rows += [((b,), (int(s._rid[b]), int(s._ngen[b])))
+                     for b, cur in s.chunk_mgr.cursors.items()
+                     if cur.pos + int(self.t_new[b]) >= cur.n_prompt]
+        return rows
+
+    def draw(self, logits, out, args):
+        """One token draw of the scheduler: returns the tokens it takes."""
+        import torch
+
+        rows = self._committed(logits)
+        own = out.cpu().numpy()
+        if self.mode == "record":
+            self.draws.append(out.clone())
+            forced = out
+        elif self.mode == "steps":
+            check(self.n_draw < len(self.ref.draws), "forced run: more draws than recorded")
+            forced = self.ref.draws[self.n_draw].clone()
+        else:
+            f = own.copy()
+            for idx, key in rows:
+                f[idx] = self.ref.tokens[key]
+            forced = torch.from_numpy(f).to(out.device)
+        self.n_draw += 1
+        fh = forced.cpu().numpy()
+        if logits.dim() == 3:  # a lane counts when every draft before it was taken
+            win = self.window.cpu().numpy()
+            rows = [(idx, key) for idx, key in rows
+                    if all(fh[idx[0], i] == win[idx[0], i + 1] for i in range(idx[1]))]
+        for idx, key in rows:
+            row = logits[idx].float()
+            if self.mode == "record":
+                self.rows.setdefault(key, []).append(row.clone())
+                self.tokens[key] = int(fh[idx])
+                continue
+            n = self.seen.get(key, 0)
+            self.seen[key] = n + 1
+            refs = self.ref.rows[key]
+            ref = refs[min(n, len(refs) - 1)]
+            dl = float((row - ref).abs().amax())
+            tainted = self.taint is not None and bool(self.taint[idx[0]])
+            differs = int(own[idx]) != int(fh[idx])
+            gap, temp = float("nan"), 1.0
+            if differs:
+                scores, temp = _deciding_scores(ref, args, idx)
+                top2 = scores.topk(2).values
+                gap = float(top2[0] - top2[1])
+            self.row_stats.append((dl / temp, tainted, differs, gap))
+        return forced
+
+    def summary(self, tag):
+        """Prints the comparison with ``ref``; returns (the first MoE
+        layer's max |dprob|, max |dlogit| of rows whose slot routed alike,
+        median |dlogit| of all rows)."""
+        import statistics as st
+
+        import torch
+
+        dl = [r[0] for r in self.row_stats]
+        check(dl, f"{tag}: no committed row was compared")
+        med = st.median(dl)
+        picks = [r for r in self.row_stats if r[2]]
+        if self.mode == "keys":
+            print(f"[{tag}] {len(dl)} committed rows forced to the contiguous pool's tokens: "
+                  f"|dlogit| median {med:.6f}, max {max(dl):.6f} (median bound "
+                  f"{CROSS_DLOGIT_MEDIAN_BOUND}) | own picks that differ {len(picks)}", flush=True)
+            return float("nan"), max(dl), med
+        check(self.n_draw == len(self.ref.draws) and self.fwd + 1 == len(self.ref.routing),
+              f"{tag}: {self.n_draw} draws, {self.fwd + 1} forwards; recorded "
+              f"{len(self.ref.draws)}, {len(self.ref.routing)}")
+        first = float(torch.stack(self.first_dprob).max())
+        fd = torch.cat([f[0] for f in self.flips]).cpu()
+        fg = torch.cat([f[1] for f in self.flips]).cpu()
+        ft = torch.cat([f[2] for f in self.flips]).cpu()
+        clean = [r[0] for r in self.row_stats if not r[1]]
+        dmax = max(clean) if clean else 0.0
+        untainted = [r for r in picks if not r[1]]
+        print(f"[{tag}] {self.fwd + 1} forwards and {self.n_draw} draws as the plain run's | "
+              f"first MoE layer max|dprob| {first:.6f} (bound {FORCED_DPROB_BOUND}) | lanes "
+              f"first routed otherwise {fd.numel()} ({int(ft.sum())} by top-k, the rest by a "
+              f"drop): there max|dprob| {float(fd.max()) if fd.numel() else 0.0:.6f}, plain "
+              f"k-th/(k+1)-th gap max {float(fg[ft].max()) if ft.any() else 0.0:.6f}, "
+              f"{int((fg[ft] < FIXED_TIE).sum())} below {FIXED_TIE} | rows {len(dl)}, "
+              f"{len(dl) - len(clean)} in a forward that routed their slot otherwise; max|dlogit| "
+              f"of the rest {dmax:.6f} (bound {FORCED_DLOGIT_BOUND}), median of all {med:.6f} | "
+              f"kernel picks that differ {len(picks)}: {len(picks) - len(untainted)} after a "
+              f"routing difference, {len(untainted)} at a deciding gap "
+              + (f"<= {max(r[3] for r in untainted):.6f}, "
+                 f"{sum(r[3] < FIXED_TIE for r in untainted)} below {FIXED_TIE}"
+                 if untainted else "(none)"), flush=True)
+        return first, dmax, med
+
+
+@contextlib.contextmanager
+def forcing(rec):
+    """Installs ``rec``'s hooks for the served runs within: the scheduler's
+    token draws (``sampling.greedy``/``sample_slots``/``sample_window`` and
+    LayerSkip's ``draft_window``, through the scheduler module's own
+    names), the engine's four forwards (their live lanes and rows), the
+    scheduler (to read its slots) and ``moe.moe_ffn`` (each layer's routing,
+    recomputed from its input)."""
+    import torch
+
+    from repro_torch.core import engine, layerskip, router as router_mod, sampling
+    from repro_torch.core import scheduler as sched_mod
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as M
+
+    class Proxy:
+        def __init__(self, mod, **over):
+            self._mod, self._over = mod, over
+
+        def __getattr__(self, name):
+            return self._over[name] if name in self._over else getattr(self._mod, name)
+
+    def drawn(fn):
+        return lambda logits, *args: rec.draw(logits, fn(logits, *args), args)
+
+    def draft(*a, **kw):
+        return rec.draft(*layerskip.draft_window(*a, **kw))
+
+    def arange_lanes(tokens, n):
+        lanes = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        return lanes < torch.as_tensor(n, device=tokens.device).reshape(-1, 1)
+
+    def decode_lanes(token):
+        lanes = torch.zeros(token.shape[0], dtype=torch.bool, device=token.device)
+        lanes[sorted(rec.sched.active)] = True
+        return lanes
+
+    lanes_of = {
+        "prefill": lambda a: (arange_lanes(a[2], a[3]), a[2].shape[0], None),
+        "decode_step": lambda a: (decode_lanes(a[3]), a[3].shape[0], None),
+        "mixed_step": lambda a: (arange_lanes(a[3], a[4]), a[3].shape[0], a[4].cpu().numpy()),
+        "verify_step": lambda a: (arange_lanes(a[3], a[4]), a[3].shape[0], None),
+    }
+
+    def forward(real, name):
+        def hooked(*a, **kw):
+            rec.begin(*lanes_of[name](a))
+            try:
+                return real(*a, **kw)
+            finally:
+                rec.end()
+        return hooked
+
+    real_moe = M.moe_ffn
+
+    def moe_spy(cfg, p, x, impl="auto"):
+        out = real_moe(cfg, p, x, impl)
+        if rec.lanes is not None:
+            n = x.shape[0] * x.shape[1]
+            probs, _, ids = M.route(cfg, p, x.reshape(n, -1))
+            pos = M.position_in_expert(ids.reshape(-1), cfg.moe.n_experts, cfg.moe.dispatch_rank)
+            kept = (pos < M.expert_capacity(n, cfg)).reshape(ids.shape)
+            none = torch.zeros_like(probs, dtype=torch.bool)
+            rec.route(probs, none.scatter(1, ids, True), none.scatter(1, ids, kept))
+        return out
+
+    real_sched = serve.Scheduler
+
+    class Seen(real_sched):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rec.sched = self
+
+        def _admit_one(self, req, now):
+            rec.admitting = req.rid
+            try:
+                return super()._admit_one(req, now)
+            finally:
+                rec.admitting = None
+
+    saved = [(sched_mod, "sampling"), (sched_mod, "layerskip"), (M, "moe_ffn"),
+             (serve, "Scheduler"), (router_mod, "Scheduler")] + [(engine, n) for n in lanes_of]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    sched_mod.sampling = Proxy(sampling, **{n: drawn(getattr(sampling, n)) for n in
+                                            ("greedy", "sample_slots", "sample_window")})
+    sched_mod.layerskip = Proxy(layerskip, draft_window=draft)
+    M.moe_ffn = moe_spy
+    serve.Scheduler = router_mod.Scheduler = Seen
+    for name in lanes_of:
+        setattr(engine, name, forward(getattr(engine, name), name))
+    try:
+        yield rec
+    finally:
+        for mod, name, val in saved:
+            setattr(mod, name, val)
+
+
+@contextlib.contextmanager
+def one_key_short(module, name, at):
+    """The control: ``module.name``, a decode kernel's wrapper, run with
+    each row's length (argument ``at``) one short, so the newest key is
+    left out: the off-by-one of a wrong kernel."""
+    import torch
+
+    real = getattr(module, name)
+
+    def short(*a, **kw):
+        a = list(a)
+        a[at] = torch.clamp(a[at] - 1, min=1).to(a[at].dtype)
+        return real(*a, **kw)
+
+    setattr(module, name, short)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def moe_step_profile(tag, cfg, model, params, pad_to):
+    """One decode step of 8 slots (the pool's decode program: the model's
+    forward in decode mode, the cache at pad_to tokens) profiled as
+    ``step_profile``; then the experts' three batched products of one MoE
+    layer at the step's capacity (every expert's weights read), timed by
+    CUDA events, against the prediction: their weight bytes over the card's
+    memory rate. Prints ``max_memory_allocated``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import engine
+    from repro_torch.models import moe as M
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab_size, (SLOTS, pad_to), generator=gen, device=dev,
+                         dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    _, cache = engine.prefill(model, params, toks,
+                              torch.full((SLOTS,), pad_to, dtype=torch.int32, device=dev),
+                              pad_to + 16)
+    state = {"cache": cache, "tok": toks[:, -1].contiguous()}
+
+    def step():
+        logits, state["cache"] = engine.decode_step(model, params, state["cache"],
+                                                    state["tok"])
+        state["cache"]["lengths"].fill_(pad_to)  # every step at the same length
+        state["tok"] = logits.argmax(-1).to(torch.int32)
+
+    with torch.inference_mode():
+        step_profile(f"{tag} decode step", step)
+    m = cfg.moe
+    layer = next(lp["moe"] for lp in params["layers"] if "moe" in lp)
+    cap = M.expert_capacity(SLOTS, cfg)
+    xe = torch.randn((m.n_experts, cap, cfg.d_model), generator=gen, device=dev).to(
+        layer["w1"].dtype)
+
+    def experts():
+        h = F.silu(torch.bmm(xe, layer["w1"])) * torch.bmm(xe, layer["w3"])
+        return torch.bmm(h, layer["w2"])
+
+    ms = cuda_ms(experts)
+    n_moe = sum("moe" in lp for lp in params["layers"])
+    w_bytes = 3 * m.n_experts * cfg.d_model * m.d_ff_expert * layer["w1"].element_size()
+    predicted = w_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[{tag} decode step] experts' bmm at capacity {cap}: {ms:.4f} ms a MoE layer, "
+          f"{ms * n_moe:.4f} ms a step ({n_moe} MoE layers) | predicted >= {predicted:.4f} ms "
+          f"a layer ({w_bytes} B of expert weights at 3.35 TB/s) | max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B", flush=True)
+    del cache, state
+
+
+def _geometry(m):
+    """A run's host counts: equal in two runs of one pool that took the same
+    tokens."""
+    return {k: m.get(k, 0) for k in ("prefills", "decode_steps", "mixed_steps", "spec_steps",
+                                     "n_preemptions")}
+
+
+def phase_moe(arch, pad_to):
+    """Full-width ``arch`` (MOE_LAYERS' depth cut, bf16, seeded weights)
+    serves the 16 requests through MOE_ARMS: contiguous, paged, paged +
+    chunked and speculative at t = 0.8. Each arm runs on the kernels (exact
+    launches, no leaked block, finite logits), on the plain path (no
+    launch), recorded, and on the kernels again, teacher-forced to the plain
+    run's draws (``Forced`` "steps": the same steps on the same pool), held
+    within FORCED_DPROB_BOUND and FORCED_DLOGIT_BOUND. In the contiguous arm
+    the same forced run with the decode kernel one key short
+    (``one_key_short``) must break a bound. Then the pools under dropless
+    capacity (``dropless_pools``) and one decode step profiled. Returns
+    (config, {arm: (metrics, launch counts)}) and, for deepseek, the MLA
+    kernels' records."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.kv_cache import leaves
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import serve
+
+    tag = "mla" if arch.startswith("deepseek") else "moe"
+    dev = torch.device("cuda")
+    full = get_config(arch)
+    t0 = time.perf_counter()
+    cfg, model, params = serve.build_model(arch, smoke=False, seed=SEED, device=dev,
+                                           n_layers=MOE_LAYERS[arch])
+    check(cfg.dtype == "bfloat16" and cfg.d_model == full.d_model and cfg.moe == full.moe
+          and cfg.mla == full.mla, f"unexpected config {cfg}")
+    n_el = sum(p.numel() for p in leaves(params))
+    n_bytes = sum(p.numel() * p.element_size() for p in leaves(params))
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers (depth cut), d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.moe.n_experts} experts "
+          f"top-{cfg.moe.top_k} of {cfg.moe.d_ff_expert} + {cfg.moe.n_shared_experts} shared, "
+          f"first dense {cfg.moe.first_dense_layers}, vocab {cfg.vocab_size}"
+          + (f", MLA q_lora {cfg.mla.q_lora_rank} kv_lora {cfg.mla.kv_lora_rank} rope "
+             f"{cfg.mla.qk_rope_dim}" if cfg.mla else ", qk-norm")
+          + f" | params {n_el / 1e9:.3f}G elements, {n_bytes} B | init "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    out = {}
+    for arm, (temp, top_p, spec, geometry) in MOE_ARMS.items():
+        t_arm = time.perf_counter()
+        kw = dict(policy="continuous", int8_mode=None, temperature=temp, top_p=top_p,
+                  speculative=spec, spec_exit=MOE_SPEC_EXIT, **geometry)
+        serve.warmup(model, params, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
+                     device=dev, speculative=spec, exit_layer=MOE_SPEC_EXIT,
+                     n_draft=SPEC_DRAFT, **geometry)
+        m, toks, counts = serve_once(model, params, cfg, pad_to, tag=f"{tag}/{arm}", **kw)
+        plain = Forced("record")
+        with plain_path(), forcing(plain):
+            mp, ptoks, _ = serve_once(model, params, cfg, pad_to, tag=f"{tag}/{arm} plain",
+                                      **kw)
+        if geometry:
+            print(f"[{tag}/{arm}] preemptions {m['n_preemptions']} | mixed steps "
+                  f"{m.get('mixed_steps', 0)} | peak used blocks {m['peak_used_blocks']}",
+                  flush=True)
+        if spec:
+            check(m["spec_steps"] >= 1, f"{tag}/{arm}: no speculative step")
+        print(f"[{tag}/{arm}] {sum(toks[r] == ptoks[r] for r in ptoks)} of {len(ptoks)} "
+              f"requests served the plain path's tokens exactly", flush=True)
+        runs = {"forced": None, "control": None} if arm == "contiguous" else {"forced": None}
+        for run in runs:
+            rec = Forced("steps", plain)
+            with forcing(rec), (one_key_short(da, "decode_attention_cuda", 3)
+                                if run == "control" else contextlib.nullcontext()):
+                mf, ftoks, _ = serve_once(model, params, cfg, pad_to, tag=f"{tag}/{arm} {run}",
+                                          **kw)
+            check(ftoks == ptoks and _geometry(mf) == _geometry(mp),
+                  f"{tag}/{arm} {run}: tokens or steps differ from the plain run's "
+                  f"({_geometry(mf)} vs {_geometry(mp)})")
+            runs[run] = rec.summary(f"{tag}/{arm} {run}")[:2]
+        first, dlogit = runs["forced"]
+        check(first <= FORCED_DPROB_BOUND and dlogit <= FORCED_DLOGIT_BOUND,
+              f"{tag}/{arm}: the kernel path left the plain path's bounds (max|dprob| {first}, "
+              f"max|dlogit| {dlogit})")
+        if "control" in runs:
+            first, dlogit = runs["control"]
+            check(first > FORCED_DPROB_BOUND or dlogit > FORCED_DLOGIT_BOUND,
+                  f"{tag}/{arm} control: a decode kernel one key short stayed within the bounds")
+        print(f"[{tag}/{arm}] arm {time.perf_counter() - t_arm:.1f} s", flush=True)
+        out[arm] = (m, counts)
+        del plain, rec
+    dropless_pools(tag, cfg, params, pad_to)
+    moe_step_profile(tag, cfg, model, params, pad_to)
+    records = mla_kernel_records(cfg, out, pad_to) if cfg.mla is not None else []
+    del model, params
+    torch.cuda.empty_cache()
+    return cfg, out, records
+
+
+def dropless_pools(tag, cfg, params, pad_to):
+    """The pools under dropless capacity (capacity_factor = E / k: no
+    assignment dropped, so a token's experts do not depend on what shares
+    its step) on the kernels. The contiguous pool serves the trace greedy
+    and at t = 0.8, recorded; paged and paged + chunked (greedy) and
+    speculative (t = 0.8, every request drafting) are each forced to its
+    tokens by (request, index) (``Forced`` "keys"), their committed rows
+    held against the contiguous pool's: the median |dlogit| within
+    CROSS_DLOGIT_MEDIAN_BOUND. The paged pool with its decode kernel one key
+    short must break it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    m = cfg.moe
+    dcfg = cfg.replace(moe=dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k))
+    model = get_model(dcfg)
+    refs = {}
+    for temp, top_p in ((0.0, 1.0), (SPEC_TEMP, SPEC_TOP_P)):
+        refs[temp] = Forced("record")
+        with forcing(refs[temp]):
+            serve_once(model, params, dcfg, pad_to, policy="continuous", int8_mode=None,
+                       tag=f"{tag} dropless/contiguous t={temp}", temperature=temp, top_p=top_p)
+    for arm in ("paged", "chunked", "spec t=0.8", "paged control"):
+        temp, top_p, spec, geometry = MOE_ARMS[arm.split()[0] if "control" in arm else arm]
+        rec = Forced("keys", refs[temp])
+        with forcing(rec), (one_key_short(pda, "paged_decode_attention_cuda", 4)
+                            if "control" in arm else contextlib.nullcontext()):
+            serve_once(model, params, dcfg, pad_to, policy="continuous", int8_mode=None,
+                       tag=f"{tag} dropless/{arm}", temperature=temp, top_p=top_p,
+                       speculative=spec, spec_exit=MOE_SPEC_EXIT, **geometry)
+        med = rec.summary(f"{tag} dropless/{arm}")[2]
+        if "control" in arm:
+            check(med > CROSS_DLOGIT_MEDIAN_BOUND,
+                  f"{tag} dropless/{arm}: a paged decode kernel one key short stayed within "
+                  "the bound")
+        else:
+            check(med <= CROSS_DLOGIT_MEDIAN_BOUND,
+                  f"{tag} dropless/{arm}: median |dlogit| {med} against the contiguous pool")
+    del refs, rec
+    torch.cuda.empty_cache()
+    print(f"[{tag} dropless] {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def mla_kernel_records(cfg, arms, pad_to):
+    """The MLA kernel shapes at deepseek-v2's full width against their plain
+    versions in bf16 (atol/rtol 2e-2), a repeat call bit-identical, timed
+    beside their bound and SDPA on the same rows: flash at the prefill (D =
+    192, Dv = 128, 128 heads, causal over pad_to), flash over the latent at
+    the chunked arm's mixed step (8 slots x 64 lanes, 336 gathered keys,
+    MIXED_T_NEW) and at the speculative arm's verify step (8 slots x 5
+    lanes over the contiguous cache's 321 rows, VERIFY_LENGTHS /
+    VERIFY_T_NEW), the latent decode over the contiguous cache
+    (VERIFY_LENGTHS + 1 keys) and the paged latent decode over the paged
+    arm's pool (48 blocks of 16, 21-block tables). Launches: each shape's
+    count in its arm's run."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    ml = cfg.mla
+    h, r, d = cfg.n_heads, ml.kv_lora_rank, ml.kv_lora_rank + ml.qk_rope_dim
+    dq = ml.qk_nope_dim + ml.qk_rope_dim
+    scale = dq ** -0.5
+    s_ctg = pad_to + MAX_NEW + 1
+    bs, nb = PAGED_ARMS["paged"]["block_size"], PAGED_ARMS["paged"]["num_blocks"]
+    mb = -(-s_ctg // bs)
+    n_layers = cfg.n_layers
+
+    def ipos(b, t, start=None):
+        base = torch.arange(t, device=dev, dtype=torch.int32)[None].expand(b, t)
+        return (base + start[:, None]).contiguous() if start is not None else base.contiguous()
+
+    def allowed(qpos, kpos, k_valid):  # [B, Tq, Tk]: causal and valid
+        return (kpos[:, None, :] <= qpos[:, :, None]) & k_valid[:, None, :]
+
+    recs = []
+
+    def record(label, shape_txt, call, plain, lib, err, n_bytes, flops, launches, **extra):
+        check(torch.equal(call(), call()), f"{label}: a repeat call differs")
+        recs.append(dict(name=extra.pop("name"), route="cuda", source=extra.pop("source"),
+                         replaces=extra.pop("replaces"), shape=shape_txt, max_abs_err=err,
+                         call=call, ms=cuda_ms(call), plain_ms=cuda_ms(plain), library=lib,
+                         bytes=n_bytes, flops=flops, launches=launches, **extra))
+
+    flash_src = dict(name="flash_attention",
+                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                     replaces="src/repro/kernels/flash_attention.py:88")
+    # prefill: D = 192 against Dv = 128, one (expanded) KV head a q head
+    q = _rand(gen, (1, pad_to, h, dq), bf, dev)
+    k = _rand(gen, (1, pad_to, h, dq), bf, dev)
+    v = _rand(gen, (1, pad_to, h, ml.v_head_dim), bf, dev)
+    pos = ipos(1, pad_to)
+    kw = dict(q_positions=pos, k_positions=pos, causal=True, scale=scale)
+    err = max_err(fa.flash_attention_cuda(q, k, v, **kw),
+                  fa.flash_attention_plain(q, k, v, **kw), "bfloat16")
+    pairs = pad_to * (pad_to + 1) // 2
+    m_c = arms["contiguous"][0]
+    record("flash 192/128", f"q/k[1,{pad_to},{h},{dq}] v[1,{pad_to},{h},{ml.v_head_dim}] bf16 "
+           "causal (deepseek-v2 MLA prefill, D 192 / Dv 128)",
+           lambda: fa.flash_attention_cuda(q, k, v, **kw),
+           lambda: fa.flash_attention_plain(q, k, v, **kw),
+           lambda qt=q.transpose(1, 2), kt=k.transpose(1, 2), vt=v.transpose(1, 2):
+           F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale),
+           err, (q.numel() + k.numel() + 2 * v.numel()) * 2 + 2 * pos.numel() * 4,
+           pairs * h * 2 * (dq + ml.v_head_dim), n_layers * m_c["prefills"], **flash_src)
+
+    def latent_flash(label, b, tq, tk, lengths, t_new, launches, what):
+        qx = _rand(gen, (b, tq, h, d), bf, dev)
+        lat = _rand(gen, (b, tk, 1, d), bf, dev)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        tn = torch.tensor(t_new, dtype=torch.int32, device=dev)
+        qpos = ipos(b, tq, ln)
+        kpos = ipos(b, tk)
+        kval = (kpos < (ln + tn)[:, None]).contiguous()
+        kwx = dict(q_positions=qpos, k_positions=kpos, causal=True, k_valid=kval, scale=scale)
+        got = fa.flash_attention_cuda(qx, lat, lat[..., :r], **kwx)
+        want = fa.flash_attention_plain(qx, lat, lat[..., :r], **kwx)
+        # live lanes only: a padding lane's row is discarded by the model
+        live = (torch.arange(tq, device=dev)[None] < tn[:, None])
+        e = max_err(got[live], want[live], "bfloat16")
+        ok = allowed(qpos, kpos, kval) & live[:, :, None]
+        n_pairs = int(ok.sum())
+        keys = int(kval.sum())
+        mask = ok[:, None]
+        kexp = lat[:, :, 0][:, None].expand(b, h, tk, d)
+        record(label, f"q[{b},{tq},{h},{d}] latent[{b},{tk},1,{d}] v = latent[..., :{r}] bf16 "
+               f"lengths {lengths} t_new {t_new} ({what})",
+               lambda: fa.flash_attention_cuda(qx, lat, lat[..., :r], **kwx),
+               lambda: fa.flash_attention_plain(qx, lat, lat[..., :r], **kwx),
+               lambda qt=qx.transpose(1, 2), ke=kexp, m=mask:
+               F.scaled_dot_product_attention(qt, ke, ke[..., :r], attn_mask=m, scale=scale),
+               e, (qx.numel() + keys * d + int(live.sum()) * h * r) * 2
+               + (qpos.numel() + kpos.numel()) * 4 + kval.numel(),
+               n_pairs * h * 2 * (d + r),
+               launches, **flash_src)
+
+    m_ch = arms["chunked"][0]
+    latent_flash("flash latent mixed", SLOTS, MIXED_LANES, mb * bs,
+                 [0, 40, 64, 128, 0, 200, 192, 255], MIXED_T_NEW,
+                 n_layers * m_ch.get("mixed_steps", 0), "deepseek-v2 paged mixed step, "
+                 "absorbed latent")
+    m_s = arms["spec t=0.8"][0]
+    latent_flash("flash latent verify", SLOTS, SPEC_DRAFT + 1, s_ctg, VERIFY_LENGTHS,
+                 VERIFY_T_NEW, n_layers * m_s.get("spec_steps", 0),
+                 "deepseek-v2 verify step, absorbed latent")
+
+    # the latent decode, contiguous and paged
+    dsrc = dict(name="decode_attention",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:80")
+    qd = _rand(gen, (SLOTS, h, d), bf, dev)
+    lat = _rand(gen, (SLOTS, s_ctg, 1, d), bf, dev)
+    ln = torch.tensor([n + 1 for n in VERIFY_LENGTHS], dtype=torch.int32, device=dev)
+    err = max_err(da.decode_attention_cuda(qd, lat, lat[..., :r], ln, scale=scale),
+                  da.decode_attention_plain(qd, lat, lat[..., :r], ln, scale=scale), "bfloat16")
+    amask = (torch.arange(s_ctg, device=dev)[None] < ln[:, None])[:, None, None, :]
+    kexp = lat[:, :, 0][:, None].expand(SLOTS, h, s_ctg, d)
+    n_rows = int(ln.sum())
+    record("decode latent", f"q[{SLOTS},{h},{d}] latent[{SLOTS},{s_ctg},1,{d}] v = "
+           f"latent[..., :{r}] bf16 lengths {ln.tolist()} (deepseek-v2 decode, absorbed latent, "
+           f"G = {h})",
+           lambda: da.decode_attention_cuda(qd, lat, lat[..., :r], ln, scale=scale),
+           lambda: da.decode_attention_plain(qd, lat, lat[..., :r], ln, scale=scale),
+           lambda qq=qd[:, :, None], ke=kexp, m=amask:
+           F.scaled_dot_product_attention(qq, ke, ke[..., :r], attn_mask=m, scale=scale),
+           err, (qd.numel() + n_rows * d + SLOTS * h * r) * 2 + SLOTS * 4,
+           n_rows * h * 2 * (d + r), arms["contiguous"][1]["decode_attention"], **dsrc)
+    pool = _rand(gen, (nb, bs, d), bf, dev)
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(SEED))[: 2 * mb] + 1
+    bt = torch.stack([perm[(i % 2) * mb:(i % 2 + 1) * mb] for i in range(SLOTS)]).to(
+        torch.int32).to(dev).contiguous()
+    nv = ln.clamp(max=mb * bs)
+    err = max_err(pda.paged_decode_attention_cuda(qd, pool, None, bt, nv, scale=scale, v_dim=r),
+                  pda.paged_decode_attention_plain(qd, pool, None, bt, nv, scale=scale,
+                                                   v_dim=r), "bfloat16")
+    gathered = pool[bt.long()].reshape(SLOTS, mb * bs, 1, d)
+    check(torch.equal(pda.paged_decode_attention_cuda(qd, pool, None, bt, nv, scale=scale,
+                                                      v_dim=r),
+                      da.decode_attention_cuda(qd, gathered, gathered[..., :r], nv,
+                                               scale=scale)),
+          "paged latent decode: differs from the contiguous kernel on the gathered rows")
+    n_rows = int(nv.sum())
+    record("paged decode latent", f"q[{SLOTS},{h},{d}] pool[{nb},{bs},{d}] bt[{SLOTS},{mb}] "
+           f"v = pool[..., :{r}] bf16 n_valid {nv.tolist()} (deepseek-v2 paged decode, "
+           "absorbed latent)",
+           lambda: pda.paged_decode_attention_cuda(qd, pool, None, bt, nv, scale=scale, v_dim=r),
+           lambda: pda.paged_decode_attention_plain(qd, pool, None, bt, nv, scale=scale,
+                                                    v_dim=r),
+           None, err, (qd.numel() + n_rows * d + SLOTS * h * r) * 2 + bt.numel() * 4
+           + SLOTS * 4, n_rows * h * 2 * (d + r), arms["paged"][1]["paged_decode_attention"],
+           name="paged_decode_attention",
+           source="src/repro_torch/kernels/csrc/decode_attention.cu",
+           replaces="src/repro/models/attention.py:177",
+           contiguous_ms=cuda_ms(lambda: da.decode_attention_cuda(
+               qd, gathered, gathered[..., :r], nv, scale=scale)),
+           contiguous_device_ms=device_ms(lambda: da.decode_attention_cuda(
+               qd, gathered, gathered[..., :r], nv, scale=scale)))
+    torch.cuda.synchronize()
+    finish_records(recs)
+    for rec in recs:
+        check(rec["launches"] > 0, f"{rec['name']} {rec['shape']}: not launched on its arm")
+    return recs
+
+
 def main() -> None:
     try:
         import torch
@@ -3672,6 +4492,9 @@ def main() -> None:
         ssm_counts, ssm_f32_counts = phase_ssm(pad_to)
         seamless_counts, _ = phase_seamless()
         chameleon_counts, _ = phase_chameleon()
+        _, moe_arms, _ = phase_moe("qwen3-moe-30b-a3b", pad_to)
+        _, mla_arms, mla_records = phase_moe("deepseek-v2-236b", pad_to)
+        records += mla_records
         # each kernel's launches come from the run of the path it is on; an
         # f32 route's from the f32 run of its path
         path_counts = {"paged_decode_attention": paged_counts["paged"],
@@ -3684,7 +4507,9 @@ def main() -> None:
                  "hstu": hstu_counts, "ssm": ssm_counts, "seamless": seamless_counts,
                  "chameleon": chameleon_counts, "mixed": mixed_counts}
         for r in records:
-            if "path" in r:  # RMSNorm by prologue, flash's mixed step, the multimodal
+            if "launches" in r:  # the MLA shapes: counted per shape in their arm's run
+                pass
+            elif "path" in r:  # RMSNorm by prologue, flash's mixed step, the multimodal
                 # shapes: the count on their path
                 r["launches"] = paths[r.pop("path")][r.pop("counter")]
             else:

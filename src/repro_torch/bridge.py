@@ -7,7 +7,10 @@ rename: dicts and lists are rebuilt, leaves become tensors on ``device``.
 A ``scanned`` block (``scan_layers``: every leaf with a leading [L] axis)
 is unstacked into the ``layers`` list the port runs; bf16 leaves (numpy's
 ``ml_dtypes.bfloat16``) are reinterpreted bit for bit. Tied non-f32 tables
-get the f32 unembed copy the port's own ``init`` adds. The
+get the f32 unembed copy the port's own ``init`` adds. MoE leaves
+(``router.w`` f32 [d, E], ``w1``/``w3`` [E, d, f], ``w2`` [E, f, d], the
+``shared`` FFN), MLA's projections, an untied ``lm_head`` and MLA's
+``latent`` cache [B, S, r + rope] cross as they are. The
 encoder-decoder's ``encoder`` / ``decoder`` lists, Seamless's nested ``t2u``
 and ``vocoder`` and the encoder-decoder cache (``cross_k``, ``cross_v``,
 ``frame_lengths``) go through the same walk.

@@ -5,8 +5,8 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig  # noqa: F401
-from repro_torch.configs import (chameleon_34b, hstu, llama3_2_1b, mamba2_130m, seamless_m4t,
-                                 whisper_base)
+from repro_torch.configs import (chameleon_34b, deepseek_v2_236b, hstu, llama3_2_1b,
+                                 mamba2_130m, qwen3_moe_30b_a3b, seamless_m4t, whisper_base)
 
 _MODULES = {
     "llama3.2-1b": llama3_2_1b,
@@ -15,6 +15,8 @@ _MODULES = {
     "whisper-base": whisper_base,
     "seamless-m4t": seamless_m4t,
     "chameleon-34b": chameleon_34b,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
+    "deepseek-v2-236b": deepseek_v2_236b,
 }
 
 CONFIGS: Dict[str, ModelConfig] = {k: m.CONFIG for k, m in _MODULES.items()}

@@ -3,9 +3,9 @@
 
 Every architecture is a single frozen ``ModelConfig``; family-specific
 blocks (MoE, MLA, SSM, hybrid, enc-dec, VLM) are optional sub-configs.
-The dense, SSM and HSTU families run in the port so far; the other
-sub-configs are kept so a config copied from the reference reads the same
-here.
+The dense, VLM, MoE, MLA + MoE, encoder-decoder, SSM and HSTU families
+run in the port so far; the hybrid sub-config is kept so a config copied
+from the reference reads the same here.
 """
 from __future__ import annotations
 

@@ -34,7 +34,7 @@ from repro_torch.models import transformer
 from repro_torch.models.registry import Model
 
 #: families whose cache rolls back by a lengths rewind / table truncation
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "moe", "mla_moe", "vlm")
 
 
 def early_exit_forward(

@@ -157,9 +157,9 @@ class BlockPool(_PoolBase):
             raise NotImplementedError(
                 "paged pool unsupported for enc-dec cross-attention caches"
             )
-        if cfg.family not in ("dense", "vlm"):
+        if cfg.family not in ("dense", "moe", "mla_moe", "vlm"):
             raise NotImplementedError(
-                f"family {cfg.family!r}: the paged pool holds attention K/V only"
+                f"family {cfg.family!r}: the paged pool holds attention K/V or MLA latents only"
             )
         self.model = model
         self.max_len = max_len

@@ -40,10 +40,13 @@ SIGNATURES: Dict[str, List] = {
     # stream
     "rmsnorm_launch": [_I, _I, _I, _I, _P, _P, ctypes.c_longlong, _P, _P, _P,
                        ctypes.c_longlong, _I, ctypes.c_float, _P],
-    # dtype, q, k, v, q_pos, k_pos, k_valid, out, B, Tq, Tk, Hq, Hkv, D,
+    # dtype, q, k, v, q_pos, k_pos, k_valid, out, B, Tq, Tk, Hq, Hkv, D, Dv,
     # causal, window, scale, stream
     "flash_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, ctypes.c_float, _P],
+                               _I, _I, _I, _I, ctypes.c_float, _P],
+    # q, kv, q_pos, k_pos, k_valid, out, B, Tq, Tk, Hq, causal, window, scale, stream
+    "flash_attention_latent_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      ctypes.c_float, _P],
     # dtype, q, k, v, lengths, out, partial, B, S, Hq, Hkv, D, splits, split_len,
     # scale, stream
     "decode_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -52,6 +55,10 @@ SIGNATURES: Dict[str, List] = {
     # splits, split_len, scale, stream
     "paged_decode_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I, _I, _I, ctypes.c_float, _P],
+    # q, kv, lengths, bt, NB, bs, out, partial, B, S, Hq, splits, split_len, scale,
+    # stream
+    "decode_attention_latent_launch": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                                       ctypes.c_float, _P],
     # dtype, x, w_q, w_scale, out, partial, M, N, K, splits, k_chunk, stream
     "int8_matmul_wo_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x_q, w_q, w_scale, x_scale, out, partial, M, N, K, splits, k_chunk, stream
@@ -183,6 +190,15 @@ def require_cuda(name: str, *tensors) -> None:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors only")
+
+
+def leading_slice(v, k) -> bool:
+    """True when ``v`` is the view ``k[..., :Dv]`` of a contiguous ``k``:
+    MLA's latent, whose V is the cached K's leading ``kv_lora_rank``
+    columns (a kernel reads it from K, never from a copy)."""
+    return (k.is_contiguous() and v.data_ptr() == k.data_ptr() and v.dim() == k.dim()
+            and v.shape[:-1] == k.shape[:-1] and v.stride() == k.stride()
+            and v.shape[-1] <= k.shape[-1])
 
 
 def require_rows(name: str, t, like):

@@ -52,9 +52,23 @@
 // entries outside [0, NB) are clamped, as the reference's gather clamps.
 // Bound: bytes, as the contiguous kernel (the live rows read once, and
 // the table).
+//
+// MLA's absorbed latent decode (decode_latent_kernel, bf16 only): q [B, 128,
+// 576] against the latent [B, S, 576] or its block pool through the table,
+// one shared KV head, V the leading 512 columns. G * D = 128 * 576 cannot sit
+// in one block's registers as the GQA kernel's group does, so the 128 heads
+// become the rows of an mma.sync tile (two 64-row tiles) against each 64-key
+// latent tile, the 512 output columns are split over 4 blocks (grid z), and
+// split_plan's sequence split and the combine kernel (at Dv = 512) are kept:
+// 8 rows x 2 row tiles x 4 column blocks x 6 splits = 384 blocks at the
+// served S = 321. The tile loader resolves each key's row, contiguous or
+// through the table (LatentContig / LatentPaged), so the two give the same
+// bits on the same rows. Bound: bytes (the live latent rows once, ~1 us at
+// the served shape); in practice latency.
 #include <cstdint>
 
 #include "common.cuh"
+#include "latent_attention.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -298,7 +312,8 @@ decode_attention_paged_kernel(const T* __restrict__ q, const T* __restrict__ kbu
 }
 
 // One warp per (row, q head): the live splits' partials merged in split
-// order (the JAX package's combine_partial_attention).
+// order (the JAX package's combine_partial_attention). D here is the
+// partial's and the output's width (Dv).
 template <typename T, int D>
 __global__ void __launch_bounds__(kCombineWarps * 32)
 decode_attention_combine_kernel(const float* __restrict__ partial,
@@ -326,6 +341,155 @@ decode_attention_combine_kernel(const float* __restrict__ partial,
 #pragma unroll
   for (int e = 0; e < D / 32; ++e) ob[lane + 32 * e] = from_f32<T>(acc[e] / fmaxf(l, REPRO_L_MIN));
 }
+
+// MLA's absorbed latent decode (bf16): q [B, Hq, 576] against the latent
+// [B, S, 576] (contiguous) or its block pool [NB, bs, 576] through bt (paged),
+// Hkv = 1, V the latent's leading 512 columns read from the key tile. The
+// grid is x: the split (decode_attention.py split_plan, as the GQA
+// kernel's), y: the batch row, z: (64-head row tile) x (128 output
+// columns). A block's rows are 64 heads of the row's one query token, the
+// rows of the mma.sync tile against each 64-key latent tile
+// (latent_attention.cuh); a split past the row's length exits. With one
+// split the block writes its normalised output columns; with more, its
+// unnormalised f32 partial (acc [splits][B][Hq][512], then (m, l)
+// [splits][B][Hq][2], m in natural-log units, written by the z blocks of
+// output columns 0) for the shared combine kernel.
+template <typename Rows>
+__global__ void __launch_bounds__(latent::kThreads)
+decode_latent_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kv,
+                     const int* __restrict__ lengths, Rows rows_of, int row_stride_b,
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int B,
+                     int S, int Hq, int split_len, float scale_log2) {
+  // the latent tile's shape (these shadow the GQA kernels' constants)
+  constexpr int kThreads = latent::kThreads, kRows = latent::kRows, kTileK = latent::kTileK;
+  constexpr int kStride = latent::kStride, kChunks = latent::kChunks, kD = latent::kD;
+  constexpr int kDV = latent::kDV, kDVS = latent::kDVS, kSplitsV = latent::kSplitsV;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kRows][kStride]
+  __nv_bfloat16* ks = qs + kRows * kStride;                          // [2][kTileK][kStride]
+  const int b = blockIdx.y;
+  const int h0 = (blockIdx.z / kSplitsV) * kRows, dv0 = (blockIdx.z % kSplitsV) * kDVS;
+  const int heads = min(kRows, Hq - h0);
+  const int len = min(max(lengths[b], 0), S);
+  const int t_begin = blockIdx.x * split_len;
+  const int t_end = min(len, t_begin + split_len);
+  if (partial != nullptr && t_begin >= len) return;  // the combine never reads it
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gid = lane / 4;
+  const Rows rows = rows_of.at(b);
+  const __nv_bfloat16* kb = kv + static_cast<long long>(b) * row_stride_b;
+
+  const __nv_bfloat16* qb = q + (static_cast<long long>(b) * Hq + h0) * kD;
+  for (int i = tid; i < kRows * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    cp_async16(qs + r * kStride + c * 8, r < heads ? qb + r * kD + c * 8 : q,
+               r < heads ? 16 : 0);
+  }
+  cp_async_commit();
+  // each key's row resolved once a tile (paged: one block-table read a key,
+  // not one per 16-byte chunk), -1 past t_end; only load_k reads it, between
+  // its two barriers
+  __shared__ int krow[kTileK];
+  auto load_k = [&](int t0, int sb) {  // keys t0 .. t0 + 63, those past t_end zero-filled
+    __syncthreads();  // the last tile's rows are read
+    if (tid < kTileK) krow[tid] = t0 + tid < t_end ? static_cast<int>(rows(t0 + tid)) : -1;
+    __syncthreads();
+    for (int i = tid; i < kTileK * kChunks; i += kThreads) {
+      const int j = i / kChunks, c = i % kChunks, r = krow[j];
+      cp_async16(ks + (sb * kTileK + j) * kStride + c * 8,
+                 r >= 0 ? kb + static_cast<long long>(r) * kD + c * 8 : kv, r >= 0 ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  bool qlive[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) qlive[i] = warp * 16 + gid + 8 * i < heads;
+  float o[kDVS / 8][4];
+#pragma unroll
+  for (int n = 0; n < kDVS / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l[2] = {0.f, 0.f};
+  const __nv_bfloat16* qw = qs + warp * 16 * kStride;
+  if (t_begin < t_end) load_k(t_begin, 0);
+  int sb = 0;
+  for (int t0 = t_begin; t0 < t_end; t0 += kTileK, sb ^= 1) {
+    if (t0 + kTileK < t_end) {  // the next tile loads while this one computes
+      load_k(t0 + kTileK, sb ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int n = t_end - t0;
+    auto ok = [&](int i, int j) { return qlive[i] && j < n; };
+    latent::tile_step(qw, ks + sb * kTileK * kStride, dv0, scale_log2, ok, o, m, l);
+    __syncthreads();  // buffer sb is free for the tile after next
+  }
+  cp_async_wait<0>();  // an empty row: the Q tile's copy is still pending
+  __syncthreads();
+
+  const long long head0 = static_cast<long long>(b) * Hq + h0;  // [B, Hq] row of head h0
+  if (partial == nullptr) {
+    float inv[2];
+    latent::row_inverse(l, inv);
+    __nv_bfloat16* qwo = qs + warp * 16 * kStride;
+    latent::stage_out(qwo, o, inv);
+    __nv_bfloat16* ob = out + head0 * kDV + dv0;
+    for (int i = lane; i < 16 * (kDVS / 8); i += 32) {
+      const int rr = i / (kDVS / 8), c = i % (kDVS / 8), r = warp * 16 + rr;
+      if (r < heads)
+        *reinterpret_cast<uint4*>(ob + static_cast<long long>(r) * kDV + c * 8) =
+            *reinterpret_cast<const uint4*>(qwo + rr * kStride + c * 8);
+    }
+    return;
+  }
+  // partial: this thread's accumulator entries as they are, and (m, l) of
+  // its two rows from the first output-column block
+  const int tig = lane % 4;
+  const long long split_rows = static_cast<long long>(blockIdx.x) * B * Hq + head0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + gid + 8 * i;
+    if (r >= heads) continue;
+    float* pa = partial + (split_rows + r) * kDV + dv0;
+#pragma unroll
+    for (int n = 0; n < kDVS / 8; ++n)
+      *reinterpret_cast<float2*>(pa + n * 8 + 2 * tig) = make_float2(o[n][2 * i], o[n][2 * i + 1]);
+  }
+  float lsum[2] = {l[0], l[1]};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 1);
+    lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 2);
+  }
+  if (dv0 == 0 && tig == 0) {
+    float* pml = partial + static_cast<long long>(gridDim.x) * B * Hq * kDV + split_rows * 2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = warp * 16 + gid + 8 * i;
+      if (r < heads) {
+        pml[2 * r] = m[i] * 0.6931471805599453f;  // log2 units to the combine's natural log
+        pml[2 * r + 1] = lsum[i];
+      }
+    }
+  }
+}
+
+// Latent row offsets (in rows of 576): contiguous t, or paged through the
+// batch row's table. at(b) gives the batch row's own functor.
+struct LatentContig {
+  __device__ __forceinline__ LatentContig at(int) const { return *this; }
+  __device__ __forceinline__ long long operator()(int t) const { return t; }
+};
+struct LatentPaged {
+  const int* bt;
+  int bs, nb, mb;
+  __device__ __forceinline__ LatentPaged at(int b) const {
+    return {bt + static_cast<long long>(b) * mb, bs, nb, mb};
+  }
+  __device__ __forceinline__ long long operator()(int t) const {
+    const int phys = min(max(bt[t / bs], 0), nb - 1);
+    return static_cast<long long>(phys) * bs + t % bs;
+  }
+};
 
 // The contiguous kernel when bt is null; else the paged one, over S = MB * bs
 // logical keys of an NB-block pool.
@@ -423,4 +587,55 @@ extern "C" int paged_decode_attention_launch(int dtype, const void* q, const voi
   if (bt == nullptr || MB < 1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(dtype, q, kbuf, vbuf, n_valid, bt, NB, bs, out, partial, B, MB * bs, Hq,
                   Hkv, D, splits, split_len, scale, stream);
+}
+
+// MLA's absorbed latent (bf16): q [B, Hq, 576]; kv the latent [B, S, 576]
+// when bt is null, else its block pool [NB, bs, 576] read through bt [B, MB]
+// (S = MB * bs); lengths [B] the valid keys; out [B, Hq, 512]; partial the
+// split workspace (splits > 1).
+extern "C" int decode_attention_latent_launch(const void* q, const void* kv,
+                                              const void* lengths, const void* bt, int NB,
+                                              int bs, void* out, void* partial, int B, int S,
+                                              int Hq, int splits, int split_len, float scale,
+                                              void* stream) {
+  if (splits < 1 || splits > 0x7fffffff || split_len < kTileK || split_len % kTileK ||
+      static_cast<long long>(splits) * split_len < S || (splits > 1 && partial == nullptr) ||
+      B > 65535 || Hq < 1 || (bt != nullptr && (bs < 1 || NB < 1 || S % bs)) ||
+      reinterpret_cast<std::uintptr_t>(kv) % 16 || reinterpret_cast<std::uintptr_t>(q) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = latent::kTileBytes;
+  float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
+  const dim3 grid(splits, B, ((Hq + latent::kRows - 1) / latent::kRows) * latent::kSplitsV);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const int* len = static_cast<const int*>(lengths);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(kv);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  cudaError_t e;
+  if (bt == nullptr) {
+    auto kern = decode_latent_kernel<LatentContig>;
+    static bool smem_allowed[kMaxDevices] = {};
+    e = allow_smem(kern, bytes, smem_allowed);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid, latent::kThreads, bytes, s>>>(qb, kb, len, LatentContig{}, S * latent::kD,
+                                                ob, part, B, S, Hq, split_len, scale_log2);
+  } else {
+    auto kern = decode_latent_kernel<LatentPaged>;
+    static bool smem_allowed[kMaxDevices] = {};
+    e = allow_smem(kern, bytes, smem_allowed);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid, latent::kThreads, bytes, s>>>(
+        qb, kb, len, LatentPaged{static_cast<const int*>(bt), bs, NB, S / bs}, 0, ob, part, B,
+        S, Hq, split_len, scale_log2);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess || part == nullptr) return static_cast<int>(e);
+  const int rows = B * Hq;
+  decode_attention_combine_kernel<__nv_bfloat16, latent::kDV>
+      <<<(rows + kCombineWarps - 1) / kCombineWarps, kCombineWarps * 32, 0, s>>>(
+          part, len, ob, B, S, Hq, splits, split_len);
+  return static_cast<int>(cudaGetLastError());
 }

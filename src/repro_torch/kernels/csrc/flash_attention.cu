@@ -50,10 +50,24 @@
 // f32 (flash_attention_kernel, 256 threads, the first design): Q scaled in
 // f32, K and V tiles in shared memory, scores and the P.V update by f32 FMA
 // loops. wgmma, TMA and warp specialisation are later work.
+//
+// Widths: the bf16 kernel is templated on (D, Dv): (64, 64), (128, 128) and
+// MLA's prefill (192, 128), where q/k rows are nope + rope = 192 and v rows
+// v_head = 128 (V tiles at their own stride; the output staged in the
+// warp's Q rows). MLA's absorbed latent (D = 576, Dv = 512, one shared KV
+// head whose V is the leading 512 columns of K) runs flash_latent_kernel
+// (bf16 only; latent_attention.cuh): a block holds 64 (token, head) rows of
+// a batch row, 128 of the 512 output columns (4 blocks share a row tile),
+// Q and two key tiles in shared memory, V read from the key tile. Bound at
+// the served mixed step (8 slots x 64 lanes x 128 heads over 336 keys):
+// bytes in principle (~0.03 ms); the 4 blocks recompute the scores, so
+// operations come closer (2.6x the least flops). f32 at either MLA width
+// has no kernel: the wrapper raises.
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "latent_attention.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -243,13 +257,16 @@ constexpr int kTileK = 64;  // keys per tile
 template <int D>
 constexpr int kStride = D + 8;
 
-template <int D>
+template <int D, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(__nv_bfloat16) * static_cast<size_t>(kStride<D>) * (kRows + 4 * kTileK)
+  return sizeof(__nv_bfloat16) *
+             (static_cast<size_t>(kStride<D>) * (kRows + 2 * kTileK) +
+              static_cast<size_t>(kStride<DV>) * 2 * kTileK)
          + sizeof(int) * (kRows + 4 * kTileK);  // q_pos, 2 x (k_pos, k_valid)
 }
 
-template <int D>
+// D: the q/k width; DV: the v/out width (MLA's prefill: 192 / 128)
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
@@ -258,13 +275,14 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const unsigned char* __restrict__ k_valid,
                            __nv_bfloat16* __restrict__ out, int Tq, int Tk, int Hq, int Hkv,
                            int causal, int window, float scale_log2) {
-  constexpr int S = kStride<D>;
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  constexpr int S = kStride<D>, SV = kStride<DV>;
+  constexpr int kChunks = D / 8, kVChunks = DV / 8;  // 16-byte chunks per row
+  static_assert(DV <= D, "the output is staged in the warp's Q rows");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kRows][S]
   __nv_bfloat16* ks = qs + kRows * S;                                // [2][kTileK][S]
-  __nv_bfloat16* vs = ks + 2 * kTileK * S;                           // [2][kTileK][S]
-  int* qp_s = reinterpret_cast<int*>(vs + 2 * kTileK * S);           // [kRows]
+  __nv_bfloat16* vs = ks + 2 * kTileK * S;                           // [2][kTileK][SV]
+  int* qp_s = reinterpret_cast<int*>(vs + 2 * kTileK * SV);          // [kRows]
   int* kp_s = qp_s + kRows;                                          // [2][kTileK]
   int* kv_s = kp_s + 2 * kTileK;                                     // [2][kTileK]
 
@@ -279,9 +297,11 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane / 4, tig = lane % 4;
   const long long q_row = static_cast<long long>(Hq) * D;
+  const long long o_row = static_cast<long long>(Hq) * DV;
   const long long kv_row = static_cast<long long>(Hkv) * D;
+  const long long v_row = static_cast<long long>(Hkv) * DV;
   const __nv_bfloat16* kb = k + static_cast<long long>(b) * Tk * kv_row + h * D;
-  const __nv_bfloat16* vb = v + static_cast<long long>(b) * Tk * kv_row + h * D;
+  const __nv_bfloat16* vb = v + static_cast<long long>(b) * Tk * v_row + h * DV;
 
   // Q tile: the G heads of one position are G * D contiguous elements
   const __nv_bfloat16* qb =
@@ -333,9 +353,12 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = tid; i < kTileK * kChunks; i += kThreads) {
       const int j = i / kChunks, c = i % kChunks;
       const long long off = static_cast<long long>(k0 + j) * kv_row + c * 8;
-      const int bytes = j < nk ? 16 : 0;
-      cp_async16(ks + (sb * kTileK + j) * S + c * 8, j < nk ? kb + off : k, bytes);
-      cp_async16(vs + (sb * kTileK + j) * S + c * 8, j < nk ? vb + off : v, bytes);
+      cp_async16(ks + (sb * kTileK + j) * S + c * 8, j < nk ? kb + off : k, j < nk ? 16 : 0);
+    }
+    for (int i = tid; i < kTileK * kVChunks; i += kThreads) {
+      const int j = i / kVChunks, c = i % kVChunks;
+      const long long off = static_cast<long long>(k0 + j) * v_row + c * 8;
+      cp_async16(vs + (sb * kTileK + j) * SV + c * 8, j < nk ? vb + off : v, j < nk ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -349,9 +372,9 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int kk = 0; kk < D / 16; ++kk)
     ldmatrix_x4(qf[kk], qs + (warp * 16 + lane % 16) * S + kk * 16 + (lane / 16) * 8);
 
-  float o[D / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < DV / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF};  // running max, in log2 units
   float l[2] = {0.f, 0.f};                      // this thread's part of the row sum
   int sb = 0;
@@ -365,7 +388,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
     const __nv_bfloat16* kt_s = ks + sb * kTileK * S;
-    const __nv_bfloat16* vt_s = vs + sb * kTileK * S;
+    const __nv_bfloat16* vt_s = vs + sb * kTileK * SV;
     const int* kp = kp_s + sb * kTileK;
     const int* kv = kv_s + sb * kTileK;
 
@@ -410,7 +433,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       o[n][0] *= alpha[0];
       o[n][1] *= alpha[0];
       o[n][2] *= alpha[1];
@@ -423,9 +446,9 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
+      for (int n = 0; n < DV / 8; n += 2) {
         uint32_t bf[4];  // V rows kk*16.., d columns n*8 .. n*8 + 15
-        ldmatrix_x4_trans(bf, vt_s + (kk * 16 + lane % 16) * S + n * 8 + (lane / 16) * 8);
+        ldmatrix_x4_trans(bf, vt_s + (kk * 16 + lane % 16) * SV + n * 8 + (lane / 16) * 8);
         mma_bf16_16816(o[n], pa, bf[0], bf[1]);
         mma_bf16_16816(o[n + 1], pa, bf[2], bf[3]);
       }
@@ -445,7 +468,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // stage the warp's 16 output rows in its own Q rows, then 16-byte stores
   __nv_bfloat16* os = qs + warp * 16 * S;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     *reinterpret_cast<uint32_t*>(os + gid * S + n * 8 + 2 * tig) =
         pack_bf16(o[n][0] * inv[0], o[n][1] * inv[0]);
     *reinterpret_cast<uint32_t*>(os + (gid + 8) * S + n * 8 + 2 * tig) =
@@ -453,12 +476,12 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncwarp();
   __nv_bfloat16* ob =
-      out + (static_cast<long long>(b) * Tq + t_lo) * q_row + static_cast<long long>(h) * G * D;
-  for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int rr = i / kChunks, c = i % kChunks;
+      out + (static_cast<long long>(b) * Tq + t_lo) * o_row + static_cast<long long>(h) * G * DV;
+  for (int i = lane; i < 16 * kVChunks; i += 32) {
+    const int rr = i / kVChunks, c = i % kVChunks;
     const int r = warp * 16 + rr, t = r / G;
     if (r < rows && t < nq) {
-      *reinterpret_cast<uint4*>(ob + t * q_row + (r % G) * D + c * 8) =
+      *reinterpret_cast<uint4*>(ob + t * o_row + (r % G) * DV + c * 8) =
           *reinterpret_cast<const uint4*>(os + rr * S + c * 8);
     }
   }
@@ -466,9 +489,135 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace mma
 
+
+namespace latent {
+
+// Flash attention over MLA's absorbed latent (the paged mixed and the
+// verify steps): q [B, Tq, Hq, kD] against the latent kv [B, Tk, kD] (Hkv =
+// 1), V = kv[..., :kDV] read from the key tile; out [B, Tq, Hq, kDV]. The
+// grid is x: tiles of 64 of a batch row's Tq * Hq (token, head) rows (row i
+// is token i / Hq, head i % Hq: at Hq = 128 a tile is 64 heads of one
+// token), y: the batch row, z: the block's kDVS output columns. Masks and
+// tile skipping as the GQA kernel's.
+__global__ void __launch_bounds__(kThreads)
+flash_latent_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kv,
+                    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+                    const unsigned char* __restrict__ k_valid, __nv_bfloat16* __restrict__ out,
+                    int Tq, int Tk, int Hq, int causal, int window, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kRows][kStride]
+  __nv_bfloat16* ks = qs + kRows * kStride;                          // [2][kTileK][kStride]
+  int* qp_s = reinterpret_cast<int*>(smem_raw + kTileBytes);         // [kRows]
+  int* kp_s = qp_s + kRows;                                          // [2][kTileK]
+  int* kv_s = kp_s + 2 * kTileK;                                     // [2][kTileK]
+
+  const int b = blockIdx.y, dv0 = blockIdx.z * kDVS;
+  const long long n_rows = static_cast<long long>(Tq) * Hq;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
+  const int rows = static_cast<int>(min(static_cast<long long>(kRows), n_rows - row0));
+  const int n_tiles = (Tk + kTileK - 1) / kTileK;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gid = lane / 4;
+  const __nv_bfloat16* qb = q + (static_cast<long long>(b) * n_rows + row0) * kD;
+  const __nv_bfloat16* kb = kv + static_cast<long long>(b) * Tk * kD;
+
+  for (int i = tid; i < kRows * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    cp_async16(qs + r * kStride + c * 8, r < rows ? qb + r * kD + c * 8 : q, r < rows ? 16 : 0);
+  }
+  cp_async_commit();
+  for (int r = tid; r < kRows; r += kThreads)
+    qp_s[r] = r < rows ? q_pos[static_cast<long long>(b) * Tq + (row0 + r) / Hq] : 0;
+  int qp[2];
+  bool qlive[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + gid + 8 * i;
+    qlive[i] = r < rows;
+    qp[i] = qlive[i] ? q_pos[static_cast<long long>(b) * Tq + (row0 + r) / Hq] : 0;
+  }
+
+  auto stage = [&](int kt, int sb) {  // as the GQA kernel's: true when the tile is live
+    const int k0 = kt * kTileK, nk = min(kTileK, Tk - k0);
+    for (int j = tid; j < kTileK; j += kThreads) {
+      const long long gj = static_cast<long long>(b) * Tk + k0 + j;
+      kp_s[sb * kTileK + j] = j < nk ? k_pos[gj] : 0;
+      kv_s[sb * kTileK + j] = j < nk && (k_valid == nullptr || k_valid[gj]);
+    }
+    __syncthreads();
+    int any = 0;
+    for (int i = tid; i < rows * kTileK; i += kThreads) {
+      const int j = sb * kTileK + i % kTileK;
+      if (allowed(qp_s[i / kTileK], kp_s[j], kv_s[j], causal, window)) any = 1;
+    }
+    return __syncthreads_or(any) != 0;
+  };
+  auto next_live = [&](int kt, int sb) {
+    while (kt < n_tiles && !stage(kt, sb)) ++kt;
+    return kt;
+  };
+  auto load_k = [&](int kt, int sb) {  // rows past Tk zero-filled
+    const int k0 = kt * kTileK, nk = min(kTileK, Tk - k0);
+    for (int i = tid; i < kTileK * kChunks; i += kThreads) {
+      const int j = i / kChunks, c = i % kChunks;
+      cp_async16(ks + (sb * kTileK + j) * kStride + c * 8,
+                 j < nk ? kb + static_cast<long long>(k0 + j) * kD + c * 8 : kv,
+                 j < nk ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  int kt = next_live(0, 0);
+  if (kt < n_tiles) load_k(kt, 0);
+  float o[kDVS / 8][4];
+#pragma unroll
+  for (int n = 0; n < kDVS / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l[2] = {0.f, 0.f};
+  const __nv_bfloat16* qw = qs + warp * 16 * kStride;
+  int sb = 0;
+  while (kt < n_tiles) {
+    const int nxt = next_live(kt + 1, sb ^ 1);
+    if (nxt < n_tiles) {
+      load_k(nxt, sb ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int* kp = kp_s + sb * kTileK;
+    const int* kvl = kv_s + sb * kTileK;
+    auto ok = [&](int i, int j) {
+      return qlive[i] && allowed(qp[i], kp[j], kvl[j], causal, window);
+    };
+    tile_step(qw, ks + sb * kTileK * kStride, dv0, scale_log2, ok, o, m, l);
+    __syncthreads();  // buffer sb is free for the tile after next
+    kt = nxt;
+    sb ^= 1;
+  }
+  cp_async_wait<0>();  // no tile was live: the Q tile's copy is still pending
+  __syncthreads();
+
+  float inv[2];
+  row_inverse(l, inv);
+  __nv_bfloat16* qwo = qs + warp * 16 * kStride;
+  stage_out(qwo, o, inv);
+  __nv_bfloat16* ob = out + (static_cast<long long>(b) * n_rows + row0) * kDV + dv0;
+  for (int i = lane; i < 16 * (kDVS / 8); i += 32) {
+    const int rr = i / (kDVS / 8), c = i % (kDVS / 8), r = warp * 16 + rr;
+    if (r < rows)
+      *reinterpret_cast<uint4*>(ob + static_cast<long long>(r) * kDV + c * 8) =
+          *reinterpret_cast<const uint4*>(qwo + rr * kStride + c * 8);
+  }
+}
+
+constexpr size_t flash_smem_bytes() {
+  return kTileBytes + sizeof(int) * (kRows + 4 * kTileK);
+}
+
+}  // namespace latent
+
 namespace {
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, const int* q_pos, const int* k_pos,
            const unsigned char* k_valid, void* out, int B, int Tq, int Tk, int Hq,
            int Hkv, int causal, int window, float scale, cudaStream_t stream) {
@@ -479,10 +628,10 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos, const 
   if (B == 0 || Tq == 0) return 0;
   const int bq = kRows / G;
   dim3 grid((Tq + bq - 1) / bq, B * Hkv);
-  static bool smem_allowed[kMaxDevices] = {};  // this launch<T, D>'s kernel only
+  static bool smem_allowed[kMaxDevices] = {};  // this launch<T, D, DV>'s kernel only
   if constexpr (kMma) {
-    const size_t bytes = mma::smem_bytes<D>();
-    auto kern = mma::flash_attention_mma_kernel<D>;
+    const size_t bytes = mma::smem_bytes<D, DV>();
+    auto kern = mma::flash_attention_mma_kernel<D, DV>;
     const cudaError_t e = allow_smem(kern, bytes, smem_allowed);
     if (e != cudaSuccess) return static_cast<int>(e);
     kern<<<grid, mma::kThreads, bytes, stream>>>(
@@ -490,6 +639,7 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos, const 
         k_pos, k_valid, static_cast<T*>(out), Tq, Tk, Hq, Hkv, causal, window,
         scale * 1.4426950408889634f);  // log2(e): the kernel exponentiates with exp2
   } else {
+    static_assert(kMma || D == DV, "the f32 kernel takes D == Dv");
     const size_t bytes = f32::smem_bytes<D>();
     auto kern = f32::flash_attention_kernel<T, D>;
     const cudaError_t e = allow_smem(kern, bytes, smem_allowed);
@@ -504,13 +654,18 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos, const 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const int* qp, const int* kp,
                const unsigned char* kv, void* out, int B, int Tq, int Tk, int Hq, int Hkv,
-               int D, int causal, int window, float scale, cudaStream_t s) {
-  if (D == 64)
-    return launch<T, 64>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, causal, window,
-                         scale, s);
-  if (D == 128)
-    return launch<T, 128>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, causal, window,
-                          scale, s);
+               int D, int DV, int causal, int window, float scale, cudaStream_t s) {
+  if (D == 64 && DV == 64)
+    return launch<T, 64, 64>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, causal, window,
+                             scale, s);
+  if (D == 128 && DV == 128)
+    return launch<T, 128, 128>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, causal, window,
+                               scale, s);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (D == 192 && DV == 128)  // MLA's prefill: nope + rope against v_head
+      return launch<T, 192, 128>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, causal,
+                                 window, scale, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -519,17 +674,43 @@ int dispatch_d(const void* q, const void* k, const void* v, const int* qp, const
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k, const void* v,
                                       const void* q_pos, const void* k_pos,
                                       const void* k_valid, void* out, int B, int Tq, int Tk,
-                                      int Hq, int Hkv, int D, int causal, int window,
+                                      int Hq, int Hkv, int D, int DV, int causal, int window,
                                       float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(k_pos);
   const unsigned char* kv = static_cast<const unsigned char*>(k_valid);
   if (dtype == REPRO_DTYPE_F32)
-    return dispatch_d<float>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, D, causal,
+    return dispatch_d<float>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, D, DV, causal,
                              window, scale, s);
   if (dtype == REPRO_DTYPE_BF16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, D,
+    return dispatch_d<__nv_bfloat16>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, D, DV,
                                      causal, window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// MLA's absorbed latent, bf16 only: q [B, Tq, Hq, 576], kv [B, Tk, 576] (V its
+// leading 512 columns), out [B, Tq, Hq, 512].
+extern "C" int flash_attention_latent_launch(const void* q, const void* kv, const void* q_pos,
+                                             const void* k_pos, const void* k_valid,
+                                             void* out, int B, int Tq, int Tk, int Hq,
+                                             int causal, int window, float scale,
+                                             void* stream) {
+  if (B < 0 || B > 65535 || Tq < 0 || Hq < 1 || Tk < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (static_cast<long long>(Tq) * Hq + latent::kRows - 1) / latent::kRows;
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Tq == 0) return 0;
+  static bool smem_allowed[kMaxDevices] = {};
+  const size_t bytes = latent::flash_smem_bytes();
+  const cudaError_t e = allow_smem(latent::flash_latent_kernel, bytes, smem_allowed);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(tiles), B, latent::kSplitsV);
+  latent::flash_latent_kernel<<<grid, latent::kThreads, bytes,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kv),
+      static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
+      static_cast<const unsigned char*>(k_valid), static_cast<__nv_bfloat16*>(out), Tq, Tk,
+      Hq, causal, window, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
 }

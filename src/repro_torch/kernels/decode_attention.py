@@ -11,6 +11,13 @@ blocks along the sequence (:func:`split_plan`, from the static S alone:
 ``lengths`` is never read on the host) and a second small kernel merges
 the splits that hold keys by their log-sum-exp, in split order, with the
 maths of ``combine_partial_attention`` (see the source's note).
+
+MLA's absorbed latent (D = 576, Dv = 512, Hkv = 1, V the view
+``k[..., :512]``, G = the 128 heads) runs on its own bf16 kernel
+(``decode_latent_kernel``): the heads are the rows of an mma.sync tile
+against each 64-key latent tile, the 512 output columns split over 4
+blocks, the sequence split by the same :func:`split_plan` and merged by the
+same combine. f32 at the latent width raises.
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ NEG_INF = -1e30
 LAUNCHES = 0
 #: head widths the kernel is instantiated for (D == Dv)
 HEAD_DIMS = (64, 128)
+#: (D, Dv) of MLA's absorbed latent (Hkv = 1, V = K[..., :Dv]), bf16 only
+LATENT = (576, 512)
 #: per-thread output registers x threads of one block: bounds G * D
 MAX_GROUP_WIDTH = 8 * 256
 #: keys per tile of the kernel; a split is a whole number of tiles
@@ -123,15 +132,29 @@ def decode_attention_cuda(
     combine) on PyTorch's current stream. ``lengths`` must be contiguous
     int32 [B]; raises for anything the kernel does not take."""
     global LAUNCHES
-    _build.require_cuda("decode_attention", q, k, v, lengths)
     b, hq, d = q.shape
     s, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    if (d, dv) == LATENT:
+        if not (v.is_cuda and _build.leading_slice(v, k)):
+            raise ValueError("decode_attention: at the latent width v must be the view "
+                             "k[..., :512] of a contiguous k")
+        if hkv != 1 or k.shape != (b, s, 1, d) or q.dtype != torch.bfloat16:
+            raise ValueError(f"decode_attention: the latent kernel takes bf16 q [B, Hq, 576] "
+                             f"over k [B, S, 1, 576]; got q {tuple(q.shape)} {q.dtype}, k "
+                             f"{tuple(k.shape)}")
+        _build.require_cuda("decode_attention", q, k, lengths)
+        if k.dtype != q.dtype or lengths.dtype != torch.int32 or lengths.shape != (b,):
+            raise ValueError("decode_attention: k in q's type, lengths int32 [B]")
+        out = latent_decode(q, k, lengths, None, scale=scale, kind="decode_attention")
+        LAUNCHES += 1
+        return out
+    _build.require_cuda("decode_attention", q, k, v, lengths)
     if k.shape != (b, s, hkv, d) or v.shape[:3] != (b, s, hkv):
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not agree")
     if dv != d or d not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: the kernel takes D == Dv in {HEAD_DIMS}, "
-                         f"got D={d}, Dv={dv}")
+        raise ValueError(f"decode_attention: the kernel takes D == Dv in {HEAD_DIMS} or "
+                         f"{LATENT}, got D={d}, Dv={dv}")
     if hq % hkv or (hq // hkv) * d > MAX_GROUP_WIDTH:
         raise ValueError(f"decode_attention: {hq} q heads over {hkv} KV heads at D={d}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -153,4 +176,33 @@ def decode_attention_cuda(
     )
     _build.check(rc, "decode_attention")
     LAUNCHES += 1
+    return out
+
+
+def latent_decode(q: torch.Tensor, kv: torch.Tensor, lengths: torch.Tensor,
+                  bt: Optional[torch.Tensor], *, scale: Optional[float], kind: str):
+    """Launch the latent decode kernel (and the combine when the sequence
+    is split): q [B, Hq, 576] bf16 against the latent rows of ``kv``, [B, S,
+    ..., 576] contiguous when ``bt`` is None, else a block pool [NB, bs, ...,
+    576] read through ``bt`` [B, MB]; V is the rows' leading 512 columns.
+    Returns [B, Hq, 512]; the calling wrapper (``kind``) counts the launch."""
+    b, hq, d = q.shape
+    dv = LATENT[1]
+    if bt is None:
+        nb, bs, s = 0, 0, kv.shape[1]
+    else:
+        nb, bs = kv.shape[:2]
+        s = bt.shape[1] * bs
+    if b > 65535:  # the grid's y extent
+        raise ValueError(f"{kind}: B = {b} exceeds 65535")
+    scale = scale if scale is not None else d ** -0.5
+    out = q.new_empty((b, hq, dv))
+    splits, split_len = split_plan(b, 1, s, _build.n_sms(q.device.index))
+    part = (torch.empty(splits * b * hq * (dv + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    rc = _build.library().decode_attention_latent_launch(
+        q.data_ptr(), kv.data_ptr(), lengths.data_ptr(), None if bt is None else bt.data_ptr(),
+        nb, bs, out.data_ptr(), None if part is None else part.data_ptr(), b, s, hq, splits,
+        split_len, float(scale), _build.stream_of(q))
+    _build.check(rc, kind)
     return out

@@ -11,6 +11,13 @@ bf16 for P.V, the one rounding the f32 reference lacks); f32 keeps exact
 f32 FMAs on the CUDA cores, since TF32 could not meet the f32 tolerance. At
 the served prefill shapes (B=1, T<=256, 32/8 heads, D=64) the H100 bound
 is bytes, and latency dominates (see the source's note).
+
+Widths: D == Dv in {64, 128} in both types; MLA's prefill (D = 192 =
+nope + rope against Dv = 128) in bf16; MLA's absorbed latent (D = 576,
+Dv = 512, Hkv = 1, V the view ``k[..., :512]``) in bf16 on its own kernel
+(``flash_latent_kernel``: 64 (token, head) rows a block, the 512 output
+columns over 4 blocks, V read from the key tile). f32 at the two MLA
+widths raises.
 """
 from __future__ import annotations
 
@@ -25,6 +32,10 @@ NEG_INF = -1e30
 LAUNCHES = 0
 #: head widths the kernel is instantiated for (D == Dv)
 HEAD_DIMS = (64, 128)
+#: (D, Dv) of MLA's prefill, bf16 only
+PREFILL_MLA = (192, 128)
+#: (D, Dv) of MLA's absorbed latent (Hkv = 1, V = K[..., :Dv]), bf16 only
+LATENT = (576, 512)
 #: most query heads per KV head one block holds
 MAX_GROUP = 64
 
@@ -93,19 +104,29 @@ def flash_attention_cuda(
     16-byte aligned (cp.async). Raises for anything the kernels do not
     take."""
     global LAUNCHES
-    if k_valid is None:
-        _build.require_cuda("flash_attention", q, k, v, q_positions, k_positions)
-    else:
-        _build.require_cuda("flash_attention", q, k, v, q_positions, k_positions, k_valid)
     b, tq, hq, d = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
-    if k.shape != (b, tk, hkv, d) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: the kernel takes k and v [B, Tk, Hkv, D] with "
-                         f"D == Dv in {HEAD_DIMS}; got q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes D == Dv in {HEAD_DIMS}, got {d}")
-    if hq % hkv or hq // hkv > MAX_GROUP:
+    tk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    latent = (d, dv) == LATENT
+    if latent:  # V is read from K: it must be K's leading slice, never a copy
+        if not (v.is_cuda and _build.leading_slice(v, k)):
+            raise ValueError("flash_attention: at the latent width v must be the view "
+                             "k[..., :512] of a contiguous k")
+        v_gate = ()
+    else:
+        v_gate = (v,)
+    extra = () if k_valid is None else (k_valid,)
+    _build.require_cuda("flash_attention", q, k, *v_gate, q_positions, k_positions, *extra)
+    if k.shape != (b, tk, hkv, d) or v.shape != (b, tk, hkv, dv):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} do not agree")
+    if not (d == dv and d in HEAD_DIMS) and (d, dv) not in (PREFILL_MLA, LATENT):
+        raise ValueError(f"flash_attention: the kernel takes D == Dv in {HEAD_DIMS}, "
+                         f"{PREFILL_MLA} or {LATENT}; got D={d}, Dv={dv}")
+    if d != dv and q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention: (D, Dv) = ({d}, {dv}) runs in bf16 only")
+    if latent and hkv != 1:
+        raise ValueError(f"flash_attention: the latent kernel takes one KV head, got {hkv}")
+    if hq % hkv or (not latent and hq // hkv > MAX_GROUP):
         raise ValueError(f"flash_attention: {hq} q heads over {hkv} KV heads")
     if b * hkv > 65535:  # the grid's y extent
         raise ValueError(f"flash_attention: B * Hkv = {b * hkv} exceeds 65535")
@@ -122,13 +143,18 @@ def flash_attention_cuda(
     if code == _build.BF16 and (qp | kp | vp) % 16:
         raise ValueError("flash_attention: the bf16 kernel needs 16-byte aligned q, k and v")
     scale = scale if scale is not None else d ** -0.5
-    out = torch.empty_like(q)
-    rc = _build.library().flash_attention_launch(
-        code, qp, kp, vp, q_positions.data_ptr(), k_positions.data_ptr(),
-        None if k_valid is None else k_valid.data_ptr(), out.data_ptr(), b, tq, tk, hq, hkv,
-        d, int(causal), -1 if window is None else int(window), float(scale),
-        _build.stream_of(q),
-    )
+    out = q.new_empty((b, tq, hq, dv))
+    kv_ptr = None if k_valid is None else k_valid.data_ptr()
+    win = -1 if window is None else int(window)
+    if latent:
+        rc = _build.library().flash_attention_latent_launch(
+            qp, kp, q_positions.data_ptr(), k_positions.data_ptr(), kv_ptr, out.data_ptr(),
+            b, tq, tk, hq, int(causal), win, float(scale), _build.stream_of(q))
+    else:
+        rc = _build.library().flash_attention_launch(
+            code, qp, kp, vp, q_positions.data_ptr(), k_positions.data_ptr(), kv_ptr,
+            out.data_ptr(), b, tq, tk, hq, hkv, d, dv, int(causal), win, float(scale),
+            _build.stream_of(q))
     _build.check(rc, "flash_attention")
     LAUNCHES += 1
     return out

@@ -10,9 +10,11 @@
               silent fallback: a CUDA tensor launches the kernel or raises.
 
 Inputs are made contiguous here (a no-op for the served path's tensors),
-so the kernel wrappers only ever see the layout they take. The fused
-RMSNorms' second operand is the one exception: a view whose rows share one
-stride (a slice of a wider projection) reaches the kernel as it is.
+so the kernel wrappers only ever see the layout they take. Two operands
+are the exceptions: the fused RMSNorms' second operand, a view whose rows
+share one stride (a slice of a wider projection), and an attention V that
+is the leading slice of its K (MLA's absorbed latent, ``_v_of``) reach the
+kernel as they are.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hstu_attention as _ha
@@ -38,6 +41,12 @@ def _resolve(impl: str, x: torch.Tensor) -> str:
     if impl == "auto":
         return "cuda" if x.is_cuda else "torch"
     return impl
+
+
+def _v_of(v: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``v`` as the kernels take it: kept as a view when it is ``k``'s
+    leading slice (``_build.leading_slice``), else contiguous."""
+    return v if _build.leading_slice(v, k) else v.contiguous()
 
 
 def flash_attention(
@@ -67,7 +76,8 @@ def flash_attention(
     if k_valid is not None:
         k_valid = k_valid.to(torch.bool).expand(b, tk).contiguous()
     fn = _fa.flash_attention_cuda if impl == "cuda" else _fa.flash_attention_plain
-    return fn(q.contiguous(), k.contiguous(), v.contiguous(), q_positions=q_positions,
+    k = k.contiguous()
+    return fn(q.contiguous(), k, _v_of(v, k), q_positions=q_positions,
               k_positions=k_positions, causal=causal, window=window, k_valid=k_valid,
               scale=scale)
 
@@ -84,7 +94,8 @@ def decode_attention(
     impl = _resolve(impl, q)
     lengths = lengths.to(torch.int32).contiguous()
     fn = _da.decode_attention_cuda if impl == "cuda" else _da.decode_attention_plain
-    return fn(q.contiguous(), k.contiguous(), v.contiguous(), lengths, scale=scale)
+    k = k.contiguous()
+    return fn(q.contiguous(), k, _v_of(v, k), lengths, scale=scale)
 
 
 #: the split decode's maths (decode_attention.py): one shard's unnormalised
@@ -96,22 +107,26 @@ combine_partial_attention = _da.combine_partial_attention
 
 def paged_decode_attention(
     q: torch.Tensor,  # [B, Hq, D]
-    kbuf: torch.Tensor,  # [NB, bs, Hkv, D] block pool
-    vbuf: torch.Tensor,  # [NB, bs, Hkv, D]
+    kbuf: torch.Tensor,  # [NB, bs, Hkv, D] block pool, or [NB, bs, D] (latent)
+    vbuf: Optional[torch.Tensor],  # like kbuf, or None: V = K[..., :v_dim]
     bt: torch.Tensor,  # [B, MB] block table
     n_valid: torch.Tensor,  # [B] valid cached tokens per row
     *,
     scale: Optional[float] = None,
+    v_dim: Optional[int] = None,
     impl: str = "auto",
 ) -> torch.Tensor:
     """Flash-decode straight off a block pool through the block table (the
-    reference's XLA ``paged_decode_attention``); out in q's type."""
+    reference's XLA ``paged_decode_attention``); out in q's type.
+    ``vbuf=None`` with ``v_dim`` serves MLA's absorbed latent: a shared-head
+    pool [NB, bs, D] whose V is the leading ``v_dim`` columns of K."""
     impl = _resolve(impl, q)
     bt = bt.to(torch.int32).contiguous()
     n_valid = n_valid.to(torch.int32).contiguous()
     fn = (_pda.paged_decode_attention_cuda if impl == "cuda"
           else _pda.paged_decode_attention_plain)
-    return fn(q.contiguous(), kbuf.contiguous(), vbuf.contiguous(), bt, n_valid, scale=scale)
+    return fn(q.contiguous(), kbuf.contiguous(), None if vbuf is None else vbuf.contiguous(),
+              bt, n_valid, scale=scale, v_dim=v_dim)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,

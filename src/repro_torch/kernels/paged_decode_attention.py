@@ -25,20 +25,36 @@ from repro_torch.kernels import decode_attention as _da
 LAUNCHES = 0
 
 
+def latent_kv(kbuf: torch.Tensor, vbuf: Optional[torch.Tensor], v_dim: Optional[int]):
+    """(K, V) pools as [NB, bs, Hkv, D] / [NB, bs, Hkv, Dv]: a 3-D shared-head
+    latent pool [NB, bs, D] gains the Hkv = 1 axis, and ``vbuf=None`` makes V
+    the view ``K[..., :v_dim]`` (MLA's absorbed latent; never a copy)."""
+    if kbuf.dim() == 3:
+        kbuf = kbuf[:, :, None, :]
+        vbuf = vbuf[:, :, None, :] if vbuf is not None else None
+    if vbuf is None:
+        if v_dim is None:
+            raise ValueError("paged_decode_attention: vbuf=None needs v_dim")
+        vbuf = kbuf[..., :v_dim]
+    return kbuf, vbuf
+
+
 def paged_decode_attention_plain(
     q: torch.Tensor,  # [B, Hq, D]
-    kbuf: torch.Tensor,  # [NB, bs, Hkv, D]
-    vbuf: torch.Tensor,  # [NB, bs, Hkv, Dv]
+    kbuf: torch.Tensor,  # [NB, bs, Hkv, D] or [NB, bs, D] (shared-head latent)
+    vbuf: Optional[torch.Tensor],  # like kbuf, or None: V = K[..., :v_dim]
     bt: torch.Tensor,  # [B, MB] int
     n_valid: torch.Tensor,  # [B]
     *,
     scale: Optional[float] = None,
+    v_dim: Optional[int] = None,
 ) -> torch.Tensor:
     """The reference's algorithm: an unnormalised f32 partial per logical
     block (``decode_attention_partial`` over the block's ``bs`` keys, those
     below ``n_valid`` valid), then the LSE combine over the blocks in order.
     Table entries are clamped into the pool, as the reference's gather
     clamps them."""
+    kbuf, vbuf = latent_kv(kbuf, vbuf, v_dim)
     b, mb = bt.shape
     bs = kbuf.shape[1]
     phys = bt.long().clamp(0, kbuf.shape[0] - 1)  # [B, MB]
@@ -60,20 +76,38 @@ def paged_decode_attention_plain(
 def paged_decode_attention_cuda(
     q: torch.Tensor,
     kbuf: torch.Tensor,
-    vbuf: torch.Tensor,
+    vbuf: Optional[torch.Tensor],
     bt: torch.Tensor,
     n_valid: torch.Tensor,
     *,
     scale: Optional[float] = None,
+    v_dim: Optional[int] = None,
 ) -> torch.Tensor:
     """Launch the paged kernel (and, when the sequence is split, the
     combine) on PyTorch's current stream. ``bt`` and ``n_valid`` must be
     contiguous int32; raises for anything the kernel does not take."""
     global LAUNCHES
-    _build.require_cuda("paged_decode_attention", q, kbuf, vbuf, bt, n_valid)
     b, hq, d = q.shape
-    nb, bs, hkv = kbuf.shape[:3]
     mb = bt.shape[1] if bt.dim() == 2 else -1
+    if vbuf is None:  # the latent form: V = K[..., :v_dim] of a shared-head pool
+        if (d, v_dim) != _da.LATENT or kbuf.shape[-1] != d or kbuf.dim() not in (3, 4) or (
+                kbuf.dim() == 4 and kbuf.shape[2] != 1):
+            raise ValueError(f"paged_decode_attention: the latent form takes q [B, Hq, 576] "
+                             f"over a [NB, bs, 576] pool with v_dim 512; got q "
+                             f"{tuple(q.shape)}, kbuf {tuple(kbuf.shape)}, v_dim {v_dim}")
+        _build.require_cuda("paged_decode_attention", q, kbuf, bt, n_valid)
+        if q.dtype != torch.bfloat16 or kbuf.dtype != q.dtype:
+            raise TypeError("paged_decode_attention: the latent kernel runs in bf16 only")
+        if bt.dtype != torch.int32 or n_valid.dtype != torch.int32 or n_valid.shape != (b,) \
+                or bt.shape != (b, mb) or mb < 1:
+            raise ValueError("paged_decode_attention: bt must be int32 [B, MB] and n_valid "
+                             "int32 [B]")
+        out = _da.latent_decode(q, kbuf, n_valid, bt, scale=scale,
+                                kind="paged_decode_attention")
+        LAUNCHES += 1
+        return out
+    _build.require_cuda("paged_decode_attention", q, kbuf, vbuf, bt, n_valid)
+    nb, bs, hkv = kbuf.shape[:3]
     if kbuf.shape != (nb, bs, hkv, d) or vbuf.shape[:3] != (nb, bs, hkv) or bt.shape != (b, mb):
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)}, kbuf "
                          f"{tuple(kbuf.shape)}, vbuf {tuple(vbuf.shape)}, bt "

@@ -28,11 +28,16 @@ the CPU with ``--device cpu``), and prints the fleet's spills, requeues,
 busy-time rate and one line per replica. ``--boost-after S`` ages waiting
 requests: one priority a full ``S`` seconds waited. Weights are random, drawn from a
 ``torch.Generator`` seeded with ``--seed``; on the card the model's kernels
-(attention and RMSNorm for ``llama3.2-1b``, the SSD scan and RMSNorm for
-``mamba2-130m``) are the hand-written CUDA ones.
+(attention and RMSNorm for ``llama3.2-1b`` and the MoE models, the latent
+attention too for ``deepseek-v2-236b``, the SSD scan and RMSNorm for
+``mamba2-130m``) are the hand-written CUDA ones. ``--n-layers`` cuts the
+depth of a model too large for one card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --n-layers 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --n-layers 3 \
+      --paged --chunked --block-size 16 --num-blocks 48 --prefill-budget 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --n-requests 8 --batch-slots 4 --max-new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
@@ -648,8 +653,12 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def build_model(arch: str, *, smoke: bool, seed: int, device):
+def build_model(arch: str, *, smoke: bool, seed: int, device, n_layers=None):
+    """(config, model, random params from ``seed``) of ``arch``; ``n_layers``
+    cuts the depth (the widths stay the published ones)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     model = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.inference_mode():
@@ -661,6 +670,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the model to its first N layers (published widths kept; "
+                         "qwen3-moe-30b-a3b and deepseek-v2-236b fit one card only so)")
     ap.add_argument("--n-requests", type=int, default=8)
     ap.add_argument("--batch-slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
@@ -739,7 +751,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg, model, params = build_model(args.arch, smoke=args.smoke, seed=args.seed,
-                                     device=device)
+                                     device=device, n_layers=args.n_layers)
     prof = data_mod.PAPER_PROFILES[args.profile]
     mask_offset = None
     if cfg.vlm is not None:  # a VLM's contrastive requests draw image tokens

@@ -38,9 +38,17 @@ over K/V blocks [NB, bs, Hkv, D]; see ``core/kv_cache.py``):
 - ``verify``:  the mixed step's device program over a speculative window
                (the caller keeps every lane's logits).
 
+DeepSeek-V2's Multi-head Latent Attention (``mla_attention``) serves the
+same modes over one fused latent cache [B, S, kv_lora + rope] (or its block
+pool [NB, bs, kv_lora + rope]): prefill expands the latents to per-head K
+and V for flash attention at D = nope + rope, Dv = v_head; decode, verify
+and the paged steps run absorbed against the latent, a single shared KV
+head whose V is the latent's leading ``kv_lora_rank`` columns (a view of
+the cached K, never a copy).
+
 Not ported yet (each raises ``NotImplementedError``): ``extend`` (it comes
-with the prefix cache), ring/sliding-window caches, the sequence-parallel
-decode (``SP_MESH``) and MLA with its latent cache.
+with the prefix cache), ring/sliding-window caches and the
+sequence-parallel decode (``SP_MESH``).
 """
 from __future__ import annotations
 
@@ -310,8 +318,6 @@ def _paged_attention(q, k, v, cache: dict, *, positions, lengths, mode: str, t_n
     (K/V blocks, the shared block table ``bt`` and, from
     ``transformer.forward``, the step's ``paged_addresses``); writes go into
     the pool in place."""
-    if cache["k"].dim() != 4:
-        raise NotImplementedError("MLA's latent paged cache waits for a later slice of the port")
     bt = cache["bt"]
     addr = cache if "rows" in cache else paged_addresses(
         bt, lengths, cache["k"].shape[1], mode, t_new, q.shape[1])
@@ -333,3 +339,145 @@ def _paged_attention(q, k, v, cache: dict, *, positions, lengths, mode: str, t_n
         k_valid=addr["k_valid"], impl=impl,
     )
     return out, new_cache
+
+
+# --------------------------------------------------------------------------
+# DeepSeek-V2 Multi-head Latent Attention
+# --------------------------------------------------------------------------
+
+def init_mla(gen, cfg: ModelConfig, device):
+    m = cfg.mla
+    dt = L.param_dtype(cfg)
+    d, h = cfg.d_model, cfg.n_heads
+    p = {}
+    if m.q_lora_rank > 0:
+        p["q_down"] = L.dense_init(gen, d, m.q_lora_rank, dt, device)
+        p["q_norm"] = L.rmsnorm_init(m.q_lora_rank, dt, device)
+        p["q_up"] = L.dense_init(gen, m.q_lora_rank, h * (m.qk_nope_dim + m.qk_rope_dim), dt,
+                                 device)
+    else:
+        p["q_up"] = L.dense_init(gen, d, h * (m.qk_nope_dim + m.qk_rope_dim), dt, device)
+    p["kv_down"] = L.dense_init(gen, d, m.kv_lora_rank + m.qk_rope_dim, dt, device)
+    p["kv_norm"] = L.rmsnorm_init(m.kv_lora_rank, dt, device)
+    p["kv_up"] = L.dense_init(gen, m.kv_lora_rank, h * (m.qk_nope_dim + m.v_head_dim), dt,
+                              device)
+    p["wo"] = L.dense_init(gen, h * m.v_head_dim, d, dt, device)
+    return p
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    """One fused latent buffer [B, S, kv_lora + rope]: the absorbed step's K
+    is the whole row and its V the leading ``kv_lora_rank`` columns."""
+    m = cfg.mla
+    return {"latent": torch.zeros((batch, max_len, m.kv_lora_rank + m.qk_rope_dim),
+                                  dtype=L.param_dtype(cfg), device=device)}
+
+
+def _mla_qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor, impl: str):
+    """The query path and the new tokens' latent: (q_nope [B,T,H,nope],
+    q_rope [B,T,H,rope] with RoPE, latent [B,T,r + rope] = the normalised
+    c_kv beside the rotated shared k_rope)."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.n_heads
+    if "q_down" in p:
+        cq = L.rmsnorm(p["q_norm"], L.dense(p["q_down"], x, impl), cfg.rmsnorm_eps, impl=impl)
+    else:
+        cq = x
+    qall = L.dense(p["q_up"], cq, impl).reshape(b, t, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = qall[..., : m.qk_nope_dim], qall[..., m.qk_nope_dim:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    kv = L.dense(p["kv_down"], x, impl)
+    c_kv = L.rmsnorm(p["kv_norm"], kv[..., : m.kv_lora_rank], cfg.rmsnorm_eps, impl=impl)
+    k_rope = L.apply_rope(kv[..., m.kv_lora_rank:][:, :, None, :], positions,
+                          cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, torch.cat([c_kv, k_rope], dim=-1)
+
+
+def mla_attention(
+    cfg: ModelConfig,
+    p,
+    x: torch.Tensor,  # [B, T, d]
+    *,
+    positions: torch.Tensor,
+    lengths: Optional[torch.Tensor],
+    cache: Optional[dict],
+    mode: str,
+    impl: str = "auto",
+    t_new: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """MLA in every mode the port serves. ``train`` / ``prefill``: the
+    latents up-projected to per-head K (nope beside the shared rope part)
+    and V, flash attention at D = nope + rope, Dv = v_head; a prefill also
+    writes the latent into the cache. ``decode`` (contiguous or paged),
+    ``verify`` (contiguous or paged) and ``mixed`` (paged): the new latent
+    written as K/V are, then attention absorbed against the latent (the
+    query's nope part folded through kv_up's K half, Hkv = 1, V the
+    latent's leading ``kv_lora_rank`` columns) and the context folded
+    through kv_up's V half in f32."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h, r = cfg.n_heads, m.kv_lora_rank
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    if mode == "mixed" and (cache is None or "bt" not in cache):
+        raise ValueError("mixed mode requires a paged (block-table) cache")
+    if mode == "verify" and (cache is None or t_new is None):
+        raise ValueError("verify mode requires a cache and per-slot widths t_new")
+    if mode == "extend":
+        raise NotImplementedError("extend mode waits for the port's prefix cache")
+    if mode not in ("train", "prefill", "decode", "mixed", "verify"):
+        raise ValueError(f"unknown mode {mode!r}")
+    q_nope, q_rope, latent_new = _mla_qkv(cfg, p, x, positions, impl)
+
+    if mode in ("train", "prefill"):
+        kv = L.dense(p["kv_up"], latent_new[..., :r], impl).reshape(
+            b, t, h, m.qk_nope_dim + m.v_head_dim)
+        k_rope = latent_new[..., r:][:, :, None, :].expand(b, t, h, m.qk_rope_dim)
+        k = torch.cat([kv[..., : m.qk_nope_dim], k_rope], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = ops.flash_attention(q, k, kv[..., m.qk_nope_dim:], q_positions=positions,
+                                  k_positions=positions, causal=True, scale=scale, impl=impl)
+        new_cache = None
+        if cache is not None:
+            new_cache = {"latent": write_prefill(cache["latent"], latent_new)}
+        return L.dense(p["wo"], out.reshape(b, t, h * m.v_head_dim), impl), new_cache
+
+    # absorbed attention (DeepSeek-V2 §2.1): scores = [q_nope W_uk ; q_rope] .
+    # [c_kv ; k_rope] against the latent, a single shared KV head
+    w_up = p["kv_up"]["w"].reshape(r, h, m.qk_nope_dim + m.v_head_dim)
+    w_uk, w_uv = w_up[:, :, : m.qk_nope_dim], w_up[:, :, m.qk_nope_dim:]
+    q_eff = torch.cat([torch.einsum("bthn,rhn->bthr", q_nope, w_uk), q_rope], dim=-1)
+    buf = cache["latent"]
+    if "bt" in cache:
+        bt = cache["bt"]
+        addr = cache if "rows" in cache else paged_addresses(bt, lengths, buf.shape[1], mode,
+                                                             t_new, t)
+        new_cache = {"latent": paged_write_rows(
+            buf, latent_new[:, 0] if mode == "decode" else latent_new, addr["rows"]), "bt": bt}
+        if mode == "decode":
+            ctx = ops.paged_decode_attention(q_eff[:, 0], new_cache["latent"], None, bt,
+                                             addr["n_valid"], scale=scale, v_dim=r,
+                                             impl=impl)[:, None]
+        else:  # mixed / verify: chunk-query flash over the gathered latent
+            lat = paged_gather(new_cache["latent"], bt)[:, :, None, :]
+            ctx = ops.flash_attention(q_eff, lat, lat[..., :r], q_positions=positions,
+                                      k_positions=addr["kpos"], causal=True,
+                                      k_valid=addr["k_valid"], scale=scale, impl=impl)
+    elif mode == "verify":
+        s = buf.shape[1]
+        addr = cache if "win_b" in cache else None
+        new_cache = {"latent": write_window(buf, latent_new, lengths, t_new, addr)}
+        lat = new_cache["latent"][:, :, None, :]
+        kpos = torch.arange(s, device=x.device, dtype=torch.int32)[None].expand(b, s)
+        ctx = ops.flash_attention(q_eff, lat, lat[..., :r], q_positions=positions,
+                                  k_positions=kpos, causal=True,
+                                  k_valid=kpos < (lengths + t_new)[:, None], scale=scale,
+                                  impl=impl)
+    else:  # contiguous decode
+        s = buf.shape[1]
+        new_cache = {"latent": write_decode(buf, latent_new[:, 0], lengths % s)}
+        lat = new_cache["latent"][:, :, None, :]
+        ctx = ops.decode_attention(q_eff[:, 0], lat, lat[..., :r], valid_counts(lengths + 1, s),
+                                   scale=scale, impl=impl)[:, None]
+    out = torch.einsum("bthr,rhv->bthv", ctx.float(), w_uv.float()).to(x.dtype)
+    return L.dense(p["wo"], out.reshape(b, t, h * m.v_head_dim), impl), new_cache

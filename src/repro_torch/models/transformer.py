@@ -1,8 +1,12 @@
-"""Decoder-only transformer stack, dense and early-fusion VLM (chameleon,
-with qk-norm) families — the counterpart of ``repro/models/transformer.py``
-for llama-style models.
+"""Decoder-only transformer stack: dense (llama), early-fusion VLM
+(chameleon, with qk-norm), MoE (qwen3-moe) and MLA + MoE (deepseek-v2) —
+the counterpart of ``repro/models/transformer.py``. The family only changes
+the blocks plugged into each layer: MLA (``attention.mla_attention``) for
+GQA attention, and an MoE FFN (``moe.moe_ffn``, with shared experts) from
+layer ``first_dense_layers`` on, the layers before it dense at
+``d_ff_dense``.
 
-MoE, MLA and the stacked ``scan_layers`` layout are not ported
+The stacked ``scan_layers`` layout and ``qkv_bias`` are not ported
 (``NotImplementedError``); a JAX ``scanned`` param block is unstacked by
 ``repro_torch.bridge`` instead.
 """
@@ -15,14 +19,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+
+FAMILIES = ("dense", "vlm", "moe", "mla_moe")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: this stack serves dense and vlm models only")
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError("MoE / MLA blocks wait for a later slice of the port")
+            f"family {cfg.family!r}: this stack serves {', '.join(FAMILIES)} models only")
     if cfg.qkv_bias:
         raise NotImplementedError("qkv bias attention waits for a later slice")
     if cfg.scan_layers:
@@ -31,14 +36,29 @@ def check_supported(cfg: ModelConfig) -> None:
         )
 
 
-def init_layer(gen, cfg: ModelConfig, device):
+def layer_uses_moe(cfg: ModelConfig, layer: int) -> bool:
+    return cfg.moe is not None and layer >= cfg.moe.first_dense_layers
+
+
+def dense_ff_width(cfg: ModelConfig) -> int:
+    if cfg.moe is not None and cfg.moe.first_dense_layers > 0:
+        return cfg.moe.d_ff_dense or cfg.d_ff
+    return cfg.d_ff
+
+
+def init_layer(gen, cfg: ModelConfig, layer: int, device):
     dt = L.param_dtype(cfg)
-    return {
+    p = {
         "attn_norm": L.rmsnorm_init(cfg.d_model, dt, device),
         "ffn_norm": L.rmsnorm_init(cfg.d_model, dt, device),
-        "attn": A.init_attention(gen, cfg, device),
-        "ffn": L.ffn_init(gen, cfg.d_model, cfg.d_ff, dt, device),
+        "attn": (A.init_mla(gen, cfg, device) if cfg.mla is not None
+                 else A.init_attention(gen, cfg, device)),
     }
+    if layer_uses_moe(cfg, layer):
+        p["moe"] = M.init_moe(gen, cfg, device)
+    else:
+        p["ffn"] = L.ffn_init(gen, cfg.d_model, dense_ff_width(cfg), dt, device)
+    return p
 
 
 def _layer_body(cfg: ModelConfig, p, x: torch.Tensor, h: torch.Tensor, *,
@@ -46,14 +66,20 @@ def _layer_body(cfg: ModelConfig, p, x: torch.Tensor, h: torch.Tensor, *,
                 cache: Optional[dict], mode: str, impl: str,
                 t_new: Optional[torch.Tensor] = None):
     """One layer from ``x`` and ``h = attn_norm(x)``: returns (x plus the
-    attention's output, the FFN's residual delta, the new cache). The
-    attention's residual add runs in the ffn_norm's kernel."""
-    attn_out, new_cache = A.attention(
-        cfg, p["attn"], h, positions=positions, lengths=lengths, cache=cache,
-        mode=mode, window=cfg.sliding_window, impl=impl, t_new=t_new,
-    )
+    attention's output, the FFN's residual delta, the new cache, the MoE
+    aux loss or None). The attention's residual add runs in the ffn_norm's
+    kernel."""
+    kw = dict(positions=positions, lengths=lengths, cache=cache, mode=mode, impl=impl,
+              t_new=t_new)
+    if cfg.mla is not None:
+        attn_out, new_cache = A.mla_attention(cfg, p["attn"], h, **kw)
+    else:
+        attn_out, new_cache = A.attention(cfg, p["attn"], h, window=cfg.sliding_window, **kw)
     x, h = L.add_rmsnorm(p["ffn_norm"], x, attn_out, cfg.rmsnorm_eps, impl=impl)
-    return x, L.ffn(p["ffn"], h, impl), new_cache
+    if "moe" in p:
+        delta, aux = M.moe_ffn(cfg, p["moe"], h, impl)
+        return x, delta, new_cache, aux
+    return x, L.ffn(p["ffn"], h, impl), new_cache, None
 
 
 def layer_forward(
@@ -68,8 +94,8 @@ def layer_forward(
     impl: str = "auto",
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     h = L.rmsnorm(p["attn_norm"], x, cfg.rmsnorm_eps, impl=impl)
-    x, delta, new_cache = _layer_body(cfg, p, x, h, positions=positions, lengths=lengths,
-                                      cache=cache, mode=mode, impl=impl)
+    x, delta, new_cache, _ = _layer_body(cfg, p, x, h, positions=positions, lengths=lengths,
+                                         cache=cache, mode=mode, impl=impl)
     return x + delta, new_cache
 
 
@@ -82,7 +108,7 @@ def init(cfg: ModelConfig, gen: torch.Generator, device):
     p = {
         "embed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
         "final_norm": L.rmsnorm_init(cfg.d_model, dt, device),
-        "layers": [init_layer(gen, cfg, device) for _ in range(cfg.n_layers)],
+        "layers": [init_layer(gen, cfg, i, device) for i in range(cfg.n_layers)],
     }
     if cfg.tie_embeddings:
         L.add_f32_table(p["embed"])
@@ -92,14 +118,15 @@ def init(cfg: ModelConfig, gen: torch.Generator, device):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    """Per layer K/V [B, S, Hkv, D], or MLA's one latent [B, S, r + rope]."""
     check_supported(cfg)
-    return {
-        "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "layers": [
-            A.init_attention_cache(cfg, batch, max_len, device, window=cfg.sliding_window)
-            for _ in range(cfg.n_layers)
-        ],
-    }
+    if cfg.mla is not None:
+        mk = lambda: A.init_mla_cache(cfg, batch, max_len, device)  # noqa: E731
+    else:
+        mk = lambda: A.init_attention_cache(  # noqa: E731
+            cfg, batch, max_len, device, window=cfg.sliding_window)
+    return {"lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "layers": [mk() for _ in range(cfg.n_layers)]}
 
 
 def forward(
@@ -154,8 +181,8 @@ def forward(
     # a paged step's table, write rows and key validity, and a contiguous
     # verify window's live lanes, are the same in every layer
     if bt is not None:
-        shared = dict(bt=bt, **A.paged_addresses(bt, lengths, cache["layers"][0]["k"].shape[1],
-                                                 mode, t_new, t))
+        block_size = next(iter(cache["layers"][0].values())).shape[1]  # K or the latent
+        shared = dict(bt=bt, **A.paged_addresses(bt, lengths, block_size, mode, t_new, t))
     elif mode == "verify":
         shared = A.window_addresses(lengths, t_new, t)
     else:
@@ -168,12 +195,15 @@ def forward(
     norms = [lp["attn_norm"] for lp in layers] + [params["final_norm"]]
     h = L.rmsnorm(norms[0], x, cfg.rmsnorm_eps, impl=impl)
     new_layers = []
+    aux_total = torch.zeros((), device=dev)
     for i, lp in enumerate(layers):
         lc = cache["layers"][i] if cache is not None else None
         if lc is not None and shared:
             lc = dict(lc, **shared)
-        x, delta, nlc = _layer_body(cfg, lp, x, h, positions=positions, lengths=lengths,
-                                    cache=lc, mode=mode, impl=impl, t_new=t_new)
+        x, delta, nlc, aux = _layer_body(cfg, lp, x, h, positions=positions, lengths=lengths,
+                                         cache=lc, mode=mode, impl=impl, t_new=t_new)
+        if aux is not None:
+            aux_total = aux_total + aux
         if bt is not None and nlc is not None:
             nlc = {k: v for k, v in nlc.items() if k != "bt"}
         if mode == "mixed" and i == len(layers) - 1:
@@ -210,4 +240,4 @@ def forward(
         new_cache = {"lengths": new_len, "layers": new_layers}
         if bt is not None:
             new_cache["block_tables"] = bt
-    return logits, new_cache, {"aux_loss": torch.zeros((), device=dev)}
+    return logits, new_cache, {"aux_loss": aux_total}

@@ -1050,3 +1050,181 @@ def test_speculative_serving_on_card():
         assert fa.LAUNCHES - before == cfg.n_layers * (
             card.n_prefills + card.n_mixed_steps + card.n_spec_steps)
         assert got == want
+
+
+def _paged_tables(g, b, mb, nb, dev):
+    """Disjoint random block tables (block 0, the sink, never handed out)."""
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(b * mb)) + 1
+    return perm[: b * mb].reshape(b, mb).to(torch.int32).to(dev)
+
+
+#: MLA's flash shapes: the prefill at D = 192 / Dv = 128 over 128 heads, and
+#: the absorbed latent (D = 576, V = K[..., :512], one KV head, 128 q heads)
+#: at a mixed step (8 slots x 64 lanes over 336 gathered keys) and a verify
+#: step (8 slots x 5 lanes over the contiguous 321)
+MLA_FLASH = {"prefill 192/128": (1, 256, 256, 128, 128, 192, 128),
+             "latent mixed": (8, 64, 336, 128, 1, 576, 512),
+             "latent verify": (8, 5, 321, 128, 1, 576, 512)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MLA_FLASH))
+def test_flash_attention_mla_widths_on_card(case):
+    """The two MLA instantiations against the plain version in bf16, the
+    latent's V a strided view of K (never copied), per-slot k_valid and
+    query positions as the paged layer builds them, a repeat call
+    bit-identical; f32 at these widths and a latent V that is not K's
+    slice raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, tq, tk, hq, hkv, d, dv = MLA_FLASH[case]
+    q = torch.randn((b, tq, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    if dv == 512:
+        k = torch.randn((b, tk, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+        v = k[..., :dv]
+        lengths = torch.tensor([0, 40, 100, 200, 250, 270, 7, tk - tq][:b], dtype=torch.int32,
+                               device=dev)
+        t_new = torch.tensor([tq, 1, tq, 3, 0, 1, tq, tq][:b], dtype=torch.int32, device=dev)
+        qpos = (lengths[:, None] + torch.arange(tq, device=dev, dtype=torch.int32)).contiguous()
+        kpos = torch.arange(tk, device=dev, dtype=torch.int32)[None].expand(b, tk).contiguous()
+        kw = dict(q_positions=qpos, k_positions=kpos, causal=True,
+                  k_valid=kpos < (lengths + t_new)[:, None], scale=192 ** -0.5)
+    else:
+        k = torch.randn((b, tk, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((b, tk, hkv, dv), generator=g, device=dev).to(torch.bfloat16)
+        kw = dict(causal=True, scale=192 ** -0.5)
+    before = fa.LAUNCHES
+    got = ops.flash_attention(q, k, v, **kw)
+    again = ops.flash_attention(q, k, v, **kw)
+    want = ops.flash_attention(q, k, v, impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 2 and got.shape == (b, tq, hq, dv)
+    close(got, want, torch.bfloat16)
+    assert torch.equal(got, again)
+    kf = k.float()
+    with pytest.raises(TypeError):  # f32 at the MLA widths: no kernel, no fallback
+        ops.flash_attention(q.float(), kf, kf[..., :dv] if dv == 512 else v.float(), **kw)
+    if dv == 512:
+        with pytest.raises(ValueError):
+            fa.flash_attention_cuda(q, k, v.contiguous(), **{
+                n: (t.to(torch.int32) if n.endswith("positions") else t)
+                for n, t in kw.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_latent_decode_on_card(paged):
+    """The absorbed latent decode (q [8, 128, 576] over a 576-wide latent, V
+    its leading 512 columns) against the plain version: contiguous over
+    S = 321 and paged over a 48-block pool of 16 through 21-block tables,
+    lengths 0, 1, a tile edge, mid and full, the sequence split (two blocks
+    an SM) and unsplit (one batch row at S = 64); a repeat call
+    bit-identical; each wrapper counts its launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    b, hq, d, r = 8, 128, 576, 512
+    q = torch.randn((b, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    scale = 192 ** -0.5
+    if paged:
+        nb, bs, mb = 48, 16, 21
+        pool = torch.randn((nb, bs, d), generator=g, device=dev).to(torch.bfloat16)
+        bt = _paged_tables(g, 2, mb, nb, dev)
+        bt = torch.cat([bt, bt.flip(0), bt, bt, bt.flip(1), bt.flip(1), bt, bt])[:b]
+        n_valid = torch.tensor([0, 1, 64, 65, 200, mb * bs, 17, 300], dtype=torch.int32,
+                               device=dev)
+        before = pda.LAUNCHES
+        got = ops.paged_decode_attention(q, pool, None, bt, n_valid, scale=scale, v_dim=r)
+        again = ops.paged_decode_attention(q, pool, None, bt, n_valid, scale=scale, v_dim=r)
+        want = ops.paged_decode_attention(q, pool, None, bt, n_valid, scale=scale, v_dim=r,
+                                          impl="torch")
+        torch.cuda.synchronize()
+        assert pda.LAUNCHES == before + 2
+        # a row past its length never reads: the contiguous kernel on the gathered rows agrees
+        lat = pool[bt.long()].reshape(b, mb * bs, 1, d)
+        contig = ops.decode_attention(q, lat, lat[..., :r], n_valid, scale=scale)
+        torch.cuda.synchronize()
+        assert torch.equal(contig, got) and got.shape == (b, hq, r)
+        close(got, want, torch.bfloat16)
+        assert torch.equal(got, again)
+    else:
+        for s, rows in ((321, b), (64, 1)):
+            lat = torch.randn((rows, s, 1, d), generator=g, device=dev).to(torch.bfloat16)
+            n_valid = torch.tensor([0, 1, 64, 65, 200, s, 17, 300][:rows], dtype=torch.int32,
+                                   device=dev).clamp(max=s)
+            before = da.LAUNCHES
+            got = ops.decode_attention(q[:rows], lat, lat[..., :r], n_valid, scale=scale)
+            again = ops.decode_attention(q[:rows], lat, lat[..., :r], n_valid, scale=scale)
+            want = ops.decode_attention(q[:rows], lat, lat[..., :r], n_valid, scale=scale,
+                                        impl="torch")
+            torch.cuda.synchronize()
+            assert da.LAUNCHES == before + 2
+            close(got, want, torch.bfloat16)
+            assert torch.equal(got, again)
+        with pytest.raises(ValueError):  # the latent V must be K's slice, not a copy
+            ops.decode_attention(q[:1], lat, lat[..., :r].contiguous(), n_valid, scale=scale,
+                                 impl="cuda")
+
+
+def _small_moe_on_card(arch):
+    """A bf16 model of ``arch``'s family at small width but the kernels'
+    head widths (qwen3-moe: heads of 64; deepseek-v2: MLA's published
+    kv_lora 512, rope 64, nope 128 and v_head 128, so the latent kernels
+    run), 2 layers, 8 experts, on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=2, d_model=256, n_heads=4, d_ff=512, vocab_size=1024,
+                      n_kv_heads=2 if cfg.mla is None else 4,
+                      d_head=64 if cfg.mla is None else cfg.d_head,
+                      moe=dataclasses.replace(cfg.moe, n_experts=8, d_ff_expert=128,
+                                              d_ff_dense=512 if cfg.moe.d_ff_dense else 0),
+                      mla=None if cfg.mla is None else dataclasses.replace(cfg.mla,
+                                                                           q_lora_rank=128))
+    model = get_model(cfg)
+    dev = torch.device("cuda")
+    return cfg, model, model.init(torch.Generator(device=dev).manual_seed(0), dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", list(STAGED_POOLS))
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-236b"])
+def test_moe_step_begin_makes_no_sync_on_card(arch, pool):
+    """The MoE families keep the two-phase step sync-free: every
+    ``step_begin`` of a served trace (routing over every lane, static
+    capacity, the scatter-add; MLA's latent writes and absorbed attention)
+    runs under ``set_sync_debug_mode("error")``; each request gets its
+    tokens and each step kind launched its kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.scheduler import Scheduler, ServeRequest
+
+    cfg, model, params = _small_moe_on_card(arch)
+    rng = np.random.default_rng(5)
+    sched = Scheduler(model, params, slots=3, pad_to=24, max_new_cap=10,
+                      device=torch.device("cuda"), **STAGED_POOLS[pool])
+    sched.submit([ServeRequest(rid=i, prompt=rng.integers(0, cfg.vocab_size, 20), max_new=10,
+                               temperature=0.8 * (i % 2), top_p=0.9) for i in range(4)])
+    before = (fa.LAUNCHES, da.LAUNCHES, pda.LAUNCHES)
+    kinds = set()
+    with torch.inference_mode():
+        while sched.waiting or sched.has_work:
+            sched._admit(sched._now())
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending = sched.step_begin()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            kinds.add(pending[0])
+            sched.step_finish(pending)
+    assert kinds == ({"decode", "mixed"} if pool == "chunked" else {"decode"})
+    assert len(sched.finished) == 4 and all(len(r.tokens) == 10 for r in sched.finished)
+    launched = (fa.LAUNCHES - before[0], da.LAUNCHES - before[1], pda.LAUNCHES - before[2])
+    assert launched[0] > 0 and (launched[2] if pool == "chunked" else launched[1]) > 0

@@ -286,6 +286,8 @@ _LOCKED_MODULES = {
     "repro_torch.configs.seamless_m4t", "repro_torch.configs.chameleon_34b",
     "repro_torch.core.prefix_cache", "repro_torch.core.scheduler",
     "repro_torch.core.slot_pool", "repro_torch.launch.serve", "repro_torch.core.router",
+    "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
+    "repro_torch.configs.deepseek_v2_236b",
 }
 
 
