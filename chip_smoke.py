@@ -236,6 +236,36 @@ Phases (any failure exits non-zero and prints no result):
              decode and the paged latent decode (bit for bit the
              contiguous kernel on the gathered rows). Each model's weights
              are freed before the next phase.
+14. dense — qwen2.5-3b (36 layers, q/k/v bias redrawn N(0, 0.5^2)),
+             llama3-405b (4 of 126 layers, d 16384, 128/8 heads: G * D =
+             2048) and yi-34b (all 60 layers, 68.8 GB, 56/8 heads: G = 7)
+             at full width, bf16, seeded weights, each serving 8
+             ``llama_humaneval`` requests of 16 tokens through the
+             contiguous pool and the paged + chunked one (block 16, budget
+             64): exact launches, no leaked block or refcount, the plain
+             path's tokens under the near-tie rule, and the kernel path
+             forced to the plain run's draws with every committed row's
+             |dlogit| within the model's DENSE_DLOGIT_BOUND (the contiguous
+             arm with the decode kernel one key short must break it). The kernels
+             phase's records gain flash at G = 7 and G = 16 (held at Tq 1,
+             5, 64, 154 and the served prefill, causal and under
+             ``k_valid``), the contiguous and paged decode at G = 7 and
+             G * D = 2048 (split edges, 4096 rows, paged bit for bit the
+             contiguous kernel on the gathered rows) and RMSNorm none and
+             add at d 7168 and 16384 (their routes from the profiler);
+15. characterize — the paper's four workloads (``launch/op_breakdown.py``,
+             the shapes of ``benchmarks/bench_op_breakdown.py``): T-T
+             yi-34b (60 layers; prefill 4 x 154, decode at 846), I-T
+             chameleon-34b (24 of 48 layers; 16 x 1040, 1050), S-T
+             whisper-base (the encoder over 32 utterances and the BOS
+             prefill; one 4-beam step of 128 streams) and H-A HSTU (32
+             histories of 4814, prefill only). Each window profiled once
+             (host and card, input shapes) with the counters set to 0
+             around it: device ms and share of linear, attention, norm,
+             embed and other, idle, the unprofiled wall and the analytic
+             H100 roofline shares; every kernel in one class, classes plus
+             idle within 1 % of the window, the ported kernels in their
+             class as often as their wrappers launched.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` summary. Imports nothing of JAX or the JAX package.
@@ -338,47 +368,25 @@ def host_ms(fn, calls: int = 200) -> float:
     return (t1 - t0) / calls * 1e3
 
 
-#: spin kernels that open (after the profiler starts) and close (before it
-#: stops) every profiler session (``profiler``), each run synchronised apart
-#: from the profiled work: under the card's NVIDIA stack 580.159.03 a long
-#: process's profiler sessions lost their first device records (this
-#: script's later phases, in earlier versions of it too), and the spin
-#: kernels take that loss in their place; ``device_kernels`` leaves them out
-HEAD_KERNELS, TAIL_KERNELS = 512, 64
-PAD_NAME = "spin_kernel"  # torch.cuda._sleep's kernel
+def profiler(cpu: bool = False, shapes: bool = False):
+    """A torch.profiler session over the card (and the host, with ``cpu``;
+    the host ops' input shapes too, with ``shapes``), padded with spin
+    kernels that ``device_kernels`` leaves out (``op_breakdown``'s
+    ``padded_session``): under the card's NVIDIA stack 580.159.03 a long
+    process's profiler sessions lost their first device records (this
+    script's later phases, in earlier versions of it too), and the spin
+    kernels take that loss in their place."""
+    from repro_torch.launch.op_breakdown import padded_session
 
-
-def profiler(cpu: bool = False):
-    """A torch.profiler session over the card (and the host, with ``cpu``)
-    that runs HEAD_KERNELS spin kernels after it starts and TAIL_KERNELS
-    before it stops, synchronised apart from the profiled work."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    def spin(n):
-        torch.cuda.synchronize()
-        for _ in range(n):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-
-    class Padded(profile):
-        def __enter__(self):
-            out = super().__enter__()
-            spin(HEAD_KERNELS)
-            return out
-
-        def __exit__(self, *exc):
-            spin(TAIL_KERNELS)
-            return super().__exit__(*exc)
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
-    return Padded(activities=acts, acc_events=True)
+    return padded_session(cpu=cpu, shapes=shapes)
 
 
 def device_kernels(prof):
     """The CUDA kernel (and memcpy/memset) events of a torch.profiler run,
     ``profiler``'s spin kernels left out."""
     from torch.autograd import DeviceType
+
+    from repro_torch.launch.op_breakdown import PAD_NAME
 
     return [e for e in prof.events()
             if e.device_type == DeviceType.CUDA and PAD_NAME not in e.name]
@@ -1096,15 +1104,10 @@ def shared_table_case(gen, dt, max_len):
 
 
 def st_frame_lengths(n: int, n_frames: int = N_FRAMES):
-    """The S-T batch's frame lengths: ``seamless_s2t``'s input lengths at
-    seed 2, clipped to the encoder's frames (as
-    ``examples/speech_translation.py`` makes them)."""
-    import numpy as np
+    """The S-T batch's frame lengths (``op_breakdown.st_frame_lengths``)."""
+    from repro_torch.launch import op_breakdown as ob
 
-    from repro_torch.training import data as data_mod
-
-    ins, _ = data_mod.sample_lengths(data_mod.PAPER_PROFILES["seamless_s2t"], n, seed=2)
-    return np.minimum(ins, n_frames).astype(np.int32)
+    return ob.st_frame_lengths(n, n_frames)
 
 
 def multimodal_kernel_records(gen):
@@ -1383,6 +1386,7 @@ def hstu_forward_rows() -> tuple:
 LLAMA_D, MAMBA_D, MAMBA_D_IN, MAMBA_ZXBCDT, HSTU_D, HSTU_UVQK = 2048, 768, 1536, 3352, 512, 2048
 #: whisper-base's width, and chameleon-34b's width and head (its qk-norm rows)
 WHISPER_D, CHAMELEON_D, CHAMELEON_HEADS, CHAMELEON_DH = 512, 8192, 64, 128
+YI_D, LLAMA405_D = 7168, 16384  # the dense phase's widest norms
 
 
 def rmsnorm_cases(pad_to: int):
@@ -1410,6 +1414,10 @@ def rmsnorm_cases(pad_to: int):
          (IT_LEN * CHAMELEON_HEADS, CHAMELEON_DH), None),
         ("chameleon qk-norm decode", None, "none", (2 * CHAMELEON_HEADS, CHAMELEON_DH), None),
         ("chameleon prefill", None, "add", (1, IT_LEN, CHAMELEON_D), None),
+        ("yi-34b decode", "dense yi-34b", "none", (SLOTS, 1, YI_D), None),
+        ("yi-34b prefill", "dense yi-34b", "add", (1, pad_to, YI_D), None),
+        ("llama3-405b decode", "dense llama3-405b", "none", (SLOTS, 1, LLAMA405_D), None),
+        ("llama3-405b prefill", "dense llama3-405b", "add", (1, pad_to, LLAMA405_D), None),
     ]
 
 
@@ -1430,7 +1438,10 @@ def rmsnorm_routes(gen, pad_to: int) -> None:
                         (3, 20000, torch.bfloat16), (4096, HSTU_D, torch.float32),
                         (pad_to, MAMBA_D_IN, torch.float32), (3, 9000, torch.float32),
                         (IT_LEN * CHAMELEON_HEADS, CHAMELEON_DH, torch.bfloat16),
-                        (N_UTTER * N_BEAMS * N_FRAMES, WHISPER_D, torch.bfloat16)):
+                        (N_UTTER * N_BEAMS * N_FRAMES, WHISPER_D, torch.bfloat16),
+                        (SLOTS, YI_D, torch.bfloat16), (pad_to, YI_D, torch.bfloat16),
+                        (SLOTS, LLAMA405_D, torch.bfloat16),
+                        (pad_to, LLAMA405_D, torch.bfloat16)):
         x = _rand(gen, (rows, d), dt, dev)
         w = torch.ones((d,), dtype=dt, device=dev)
         with profiler() as prof:
@@ -1802,12 +1813,13 @@ def _want_counts(cfg, n_fwd: int, **kernels):
     return want
 
 
-def _trace(cfg, pad_to, temperature: float = 0.0, top_p: float = 1.0):
+def _trace(cfg, pad_to, temperature: float = 0.0, top_p: float = 1.0, n: int = N_REQUESTS,
+           max_new: int = MAX_NEW):
     from repro_torch.launch import serve
     from repro_torch.training import data as data_mod
 
-    return serve.poisson_trace(data_mod.PAPER_PROFILES["llama_humaneval"], N_REQUESTS,
-                               pad_to=pad_to, max_new_cap=MAX_NEW,
+    return serve.poisson_trace(data_mod.PAPER_PROFILES["llama_humaneval"], n,
+                               pad_to=pad_to, max_new_cap=max_new,
                                vocab_size=cfg.vocab_size, arrival_rate=0.0, seed=SEED,
                                temperature=temperature, top_p=top_p)
 
@@ -3947,13 +3959,21 @@ class Forced:
         check(self.n_draw == len(self.ref.draws) and self.fwd + 1 == len(self.ref.routing),
               f"{tag}: {self.n_draw} draws, {self.fwd + 1} forwards; recorded "
               f"{len(self.ref.draws)}, {len(self.ref.routing)}")
+        clean = [r[0] for r in self.row_stats if not r[1]]
+        dmax = max(clean) if clean else 0.0
+        untainted = [r for r in picks if not r[1]]
+        if not self.first_dprob:  # a dense model: nothing routed, every row counts
+            print(f"[{tag}] {self.fwd + 1} forwards and {self.n_draw} draws as the plain run's "
+                  f"| rows {len(dl)}: max|dlogit| {dmax:.6f}, median {med:.6f} | kernel picks "
+                  f"that differ {len(picks)}"
+                  + (f", at a deciding gap <= {max(r[3] for r in picks):.6f}, "
+                     f"{sum(r[3] < FIXED_TIE for r in picks)} below {FIXED_TIE}"
+                     if picks else ""), flush=True)
+            return 0.0, dmax, med
         first = float(torch.stack(self.first_dprob).max())
         fd = torch.cat([f[0] for f in self.flips]).cpu()
         fg = torch.cat([f[1] for f in self.flips]).cpu()
         ft = torch.cat([f[2] for f in self.flips]).cpu()
-        clean = [r[0] for r in self.row_stats if not r[1]]
-        dmax = max(clean) if clean else 0.0
-        untainted = [r for r in picks if not r[1]]
         print(f"[{tag}] {self.fwd + 1} forwards and {self.n_draw} draws as the plain run's | "
               f"first MoE layer max|dprob| {first:.6f} (bound {FORCED_DPROB_BOUND}) | lanes "
               f"first routed otherwise {fd.numel()} ({int(ft.sum())} by top-k, the rest by a "
@@ -4451,6 +4471,384 @@ def mla_kernel_records(cfg, arms, pad_to):
     return recs
 
 
+# --------------------------------------------------------------------------
+# the dense configs and the characterization
+# --------------------------------------------------------------------------
+
+#: the dense phase's models in serving order, each (arch, layers run: None
+#: all of them): yi-34b last, its weights kept for the characterize phase's
+#: T-T windows
+DENSE_MODELS = (("qwen2.5-3b", None), ("llama3-405b", 4), ("yi-34b", None))
+#: its trace (``llama_humaneval``, prompts padded to 256) and output cap
+DENSE_REQUESTS, DENSE_MAX_NEW = 8, 16
+DENSE_ARMS = {"contiguous": {},
+              "chunked": dict(paged=True, chunked=True, block_size=16, prefill_budget=64)}
+#: the dense phase's teacher-forced check, per model: max |dlogit| of the
+#: kernel path's committed rows against the plain run's, forced to the plain
+#: run's tokens (bf16; no routing, so every row counts). Each is set between
+#: the model's sound runs (both arms) and its contiguous arm with the decode
+#: kernel one key short (``one_key_short``), which must break it (NVIDIA H100
+#: 80GB HBM3, 700 W; the readings repeat to the bit): sound at most 0.094,
+#: 0.047 and 0.141, one key short 0.164, 0.250 and 0.461
+DENSE_DLOGIT_BOUND = {"qwen2.5-3b": 0.125, "llama3-405b": 0.125, "yi-34b": 0.25}
+#: the qwen2.5-3b biases' scale: its init makes them zero, which checks nothing
+QKV_BIAS_SCALE = 0.5
+
+
+def dense_trace(cfg, pad_to):
+    return _trace(cfg, pad_to, n=DENSE_REQUESTS, max_new=DENSE_MAX_NEW)
+
+
+def phase_dense(pad_to):
+    """qwen2.5-3b (36 layers, its q/k/v biases redrawn N(0, 0.5^2)),
+    llama3-405b (4 of 126 layers) and yi-34b (60 layers) at full width,
+    bf16, seeded weights, each serving ``DENSE_REQUESTS`` requests through
+    the contiguous pool and the paged + chunked one: per arm a kernel run
+    (exact launches, finite logits, no leaked block or refcount), a plain
+    run recorded, its tokens against the kernel run's under the near-tie
+    rule, and a kernel run forced to the plain run's draws (the same steps,
+    max |dlogit| of its rows within the model's DENSE_DLOGIT_BOUND); the
+    contiguous arm once more with the decode kernel one key short, which
+    must break that bound. Each model
+    is freed before the next. Returns ({arch: {arm: launch counts}},
+    [yi-34b's (config, model, params)]: a list the characterize phase
+    empties, so that nothing else holds the weights)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.kv_cache import leaves
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import serve
+
+    dev = torch.device("cuda")
+    counts, kept = {}, None
+    for arch, layers in DENSE_MODELS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg, model, params = serve.build_model(arch, smoke=False, seed=SEED, device=dev,
+                                               n_layers=layers)
+        check(cfg == full.replace(n_layers=cfg.n_layers) and cfg.dtype == "bfloat16",
+              f"unexpected config {cfg}")
+        if cfg.qkv_bias:
+            gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+            with torch.inference_mode():
+                for lp in params["layers"]:
+                    for name in ("wq", "wk", "wv"):
+                        b = lp["attn"][name]["b"]
+                        b.copy_((QKV_BIAS_SCALE * torch.randn(b.shape, generator=gen,
+                                                              device=dev)).to(b.dtype))
+        n_el = sum(p.numel() for p in leaves(params))
+        n_bytes = sum(p.numel() * p.element_size() for p in leaves(params))
+        check(n_el == cfg.n_params() + cfg.d_model,  # the count leaves out the final norm
+              f"{arch}: {n_el} parameters, the config counts {cfg.n_params()}")
+        print(f"[dense] {arch}: {cfg.n_layers} of {full.n_layers} layers"
+              + (" (depth cut)" if cfg.n_layers < full.n_layers else "")
+              + f", d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim} "
+              f"(G = {cfg.q_per_kv}, G*D = {cfg.q_per_kv * cfg.head_dim}), d_ff {cfg.d_ff}, "
+              f"vocab {cfg.vocab_size}"
+              + (f", q/k/v bias N(0, {QKV_BIAS_SCALE}^2)" if cfg.qkv_bias else "")
+              + f" | params {n_el / 1e9:.3f}G elements, {n_bytes} B | init "
+              f"{time.perf_counter() - t0:.1f}s | device memory free "
+              f"{torch.cuda.mem_get_info()[0]} B", flush=True)
+        counts[arch] = {}
+        for arm, geometry in DENSE_ARMS.items():
+            t_arm = time.perf_counter()
+            tag = f"dense {arch}/{arm}"
+            kw = dict(policy="continuous", int8_mode=None, **geometry)
+            serve.warmup(model, params, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
+                         device=dev, **geometry)
+            _, toks, got = serve_once(model, params, cfg, pad_to, tag=tag,
+                                      reqs=dense_trace(cfg, pad_to), **kw)
+            plain = Forced("record")
+            with plain_path(), forcing(plain):
+                mp, ptoks, _ = serve_once(model, params, cfg, pad_to, tag=f"{tag} plain",
+                                          reqs=dense_trace(cfg, pad_to), **kw)
+            same_tokens(model, params, cfg, pad_to, toks, ptoks, 0.0, 1.0, tag,
+                        "the plain path's tokens", reqs=dense_trace(cfg, pad_to))
+            runs = ("forced", "control") if arm == "contiguous" else ("forced",)
+            dl = {}
+            for run in runs:
+                rec = Forced("steps", plain)
+                with forcing(rec), (one_key_short(da, "decode_attention_cuda", 3)
+                                    if run == "control" else contextlib.nullcontext()):
+                    mf, ftoks, _ = serve_once(model, params, cfg, pad_to, tag=f"{tag} {run}",
+                                              reqs=dense_trace(cfg, pad_to), **kw)
+                check(ftoks == ptoks and _geometry(mf) == _geometry(mp),
+                      f"{tag} {run}: tokens or steps differ from the plain run's")
+                dl[run] = rec.summary(f"{tag} {run}")[1]
+            bound = DENSE_DLOGIT_BOUND[arch]
+            print(f"[{tag}] arm {time.perf_counter() - t_arm:.1f} s | max |dlogit| forced "
+                  f"{dl['forced']:.6f}" + (f", control {dl['control']:.6f}" if "control" in dl
+                                           else "") + f" (bound {bound})", flush=True)
+            check(dl["forced"] <= bound,
+                  f"{tag}: max |dlogit| {dl['forced']} against the plain path, bound {bound}")
+            if "control" in dl:
+                check(dl["control"] > bound,
+                      f"{tag} control: a decode kernel one key short stayed within the bound "
+                      f"({dl['control']} <= {bound})")
+            counts[arch][arm] = got
+            del plain, rec
+        if arch == DENSE_MODELS[-1][0]:
+            kept = [(cfg, model, params)]
+        del model, params
+    return counts, kept
+
+
+def dense_kernel_records(pad_to, counts, tt_counts):
+    """The dense configs' new kernel shapes against their plain versions in
+    bf16, a repeat call bit-identical, timed beside their bound and SDPA:
+    flash at G = 7 (yi-34b, 56/8 heads of 128; 9 positions a 64-row block)
+    and G = 16 (llama3-405b, 128/8) at Tq 1, 5, 64, 154 and the served
+    prefill, causal and under ``k_valid``; the contiguous decode at the
+    served pool's rows (lengths at the split edges) and at 4096 rows, and
+    the paged decode through the chunked arm's tables (bit for bit the
+    contiguous kernel on the gathered rows), at G = 7 and G * D = 2048
+    (RMSNorm at d = 7168 and 16384 is in ``rmsnorm_cases``). Records: flash
+    at the T-T prefill ([4, 154]; launches from its characterize window,
+    ``tt_counts``) and at llama3-405b's served prefill, both decodes;
+    launches from the dense arms."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    models = {"yi-34b": get_config("yi-34b"), "llama3-405b": get_config("llama3-405b")}
+    s_ctg = pad_to + MAX_NEW + 1  # a contiguous slot's rows
+    bs = DENSE_ARMS["chunked"]["block_size"]
+    mb = -(-s_ctg // bs)
+    nb = SLOTS * mb + 1  # the parity pool and its sink block
+    recs, errs = [], {}
+
+    def ipos(b, t):
+        return torch.arange(t, device=dev, dtype=torch.int32)[None].expand(b, t).contiguous()
+
+    def expand(x, g):  # GQA K/V repeated per q head, [B, H, T, D], for SDPA
+        return x.repeat_interleave(g, dim=2).transpose(1, 2)
+
+    def record(shape_txt, call, plain, lib, err, n_bytes, flops, launches, **src):
+        check(torch.equal(call(), call()), f"{shape_txt}: a repeat call differs")
+        recs.append(dict(route="cuda", shape=shape_txt, max_abs_err=err, call=call,
+                         ms=cuda_ms(call), plain_ms=cuda_ms(plain), library=lib,
+                         bytes=n_bytes, flops=flops, launches=launches, **src))
+
+    flash_src = dict(name="flash_attention",
+                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                     replaces="src/repro/kernels/flash_attention.py:88")
+    dec_src = dict(name="decode_attention",
+                   source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                   replaces="src/repro/kernels/decode_attention.py:80")
+    flash_in = {}
+    for arch, cfg in models.items():
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        for b, t in ((1, 1), (2, 5), (2, 64), (4, 154), (1, pad_to)):
+            q = _rand(gen, (b, t, hq, dh), bf, dev)
+            k, v = (_rand(gen, (b, t, hkv, dh), bf, dev) for _ in range(2))
+            pos = ipos(b, t)
+            valid = [t, max(t - 3, 1)][:b] + [t] * (b - 2)
+            kval = (pos < torch.tensor(valid, device=dev)[:, None]).contiguous()
+            for how, kw in (("causal", dict(q_positions=pos, k_positions=pos, causal=True)),
+                            ("k_valid", dict(q_positions=pos, k_positions=pos, causal=True,
+                                             k_valid=kval))):
+                got = fa.flash_attention_cuda(q, k, v, **kw)
+                errs[f"flash G={hq // hkv} [{b},{t}] {how}"] = max_err(
+                    got, fa.flash_attention_plain(q, k, v, **kw), "bfloat16")
+                check(torch.equal(got, fa.flash_attention_cuda(q, k, v, **kw)),
+                      f"flash: a repeat call differs (G = {hq // hkv} [{b}, {t}] {how})")
+            flash_in[(arch, b, t)] = (q, k, v, dict(q_positions=pos, k_positions=pos,
+                                                         causal=True))
+    for (name, b, t), launches in ((("yi-34b", 4, 154), tt_counts["flash_attention"]),
+                                   (("llama3-405b", 1, pad_to),
+                                    counts["llama3-405b"]["contiguous"]["flash_attention"])):
+        q, k, v, kw = flash_in[(name, b, t)]
+        g = q.shape[2] // k.shape[2]
+        pairs = b * t * (t + 1) // 2
+        record(f"q[{b},{t},{q.shape[2]},{q.shape[3]}] kv[{b},{t},{k.shape[2]},{k.shape[3]}] "
+               f"bf16 causal ({name} prefill, G = {g}: {64 // g} positions a 64-row block)",
+               lambda a=(q, k, v), kw=kw: fa.flash_attention_cuda(*a, **kw),
+               lambda a=(q, k, v), kw=kw: fa.flash_attention_plain(*a, **kw),
+               lambda qt=q.transpose(1, 2), ke=expand(k, g), ve=expand(v, g):
+               F.scaled_dot_product_attention(qt, ke, ve, is_causal=True),
+               errs[f"flash G={g} [{b},{t}] causal"],
+               (2 * q.numel() + 2 * k.numel()) * 2 + 2 * b * t * 4,
+               pairs * q.shape[2] * 4 * q.shape[3], launches, **flash_src)
+
+    # decode over the served pool's rows: lengths at the split edges (1, 63,
+    # 64, 65), mid and full; the paged pool through a random permutation
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(SEED))
+    bt = (perm[: SLOTS * mb] + 1).reshape(SLOTS, mb).to(torch.int32).to(dev).contiguous()
+    for arch, cfg in models.items():
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        g = hq // hkv
+        qd = _rand(gen, (SLOTS, hq, dh), bf, dev)
+        kc, vc = (_rand(gen, (SLOTS, s_ctg, hkv, dh), bf, dev) for _ in range(2))
+        ln = torch.tensor([1, 63, 64, 65, 200, 257, s_ctg - 1, s_ctg], dtype=torch.int32,
+                          device=dev)
+        errs[f"decode G={g} G*D={g * dh}"] = max_err(da.decode_attention_cuda(qd, kc, vc, ln),
+                                                     da.decode_attention_plain(qd, kc, vc, ln),
+                                                     "bfloat16")
+        kl, vl = (_rand(gen, (2, 4096, hkv, dh), bf, dev) for _ in range(2))
+        ll = torch.tensor([4095, 4096], dtype=torch.int32, device=dev)
+        errs[f"decode G={g} S=4096"] = max_err(da.decode_attention_cuda(qd[:2], kl, vl, ll),
+                                               da.decode_attention_plain(qd[:2], kl, vl, ll),
+                                               "bfloat16")
+        kp, vp = (_rand(gen, (nb, bs, hkv, dh), bf, dev) for _ in range(2))
+        nv = ln.clamp(max=mb * bs)
+        got = pda.paged_decode_attention_cuda(qd, kp, vp, bt, nv)
+        errs[f"paged decode G={g}"] = max_err(
+            got, pda.paged_decode_attention_plain(qd, kp, vp, bt, nv), "bfloat16")
+        kg, vg = (x[bt.long()].reshape(SLOTS, mb * bs, hkv, dh) for x in (kp, vp))
+        check(torch.equal(got, da.decode_attention_cuda(qd, kg, vg, nv)),
+              f"paged decode G = {g}: differs from the contiguous kernel on the gathered rows")
+        n_rows = int(ln.sum())
+        amask = (torch.arange(s_ctg, device=dev)[None] < ln[:, None])[:, None, None, :]
+        c = counts[arch]
+        record(f"q[{SLOTS},{hq},{dh}] cache[{SLOTS},{s_ctg},{hkv},{dh}] bf16 lengths "
+               f"{ln.tolist()} ({arch} decode, G = {g}, G*D = {g * dh})",
+               lambda a=(qd, kc, vc, ln): da.decode_attention_cuda(*a),
+               lambda a=(qd, kc, vc, ln): da.decode_attention_plain(*a),
+               lambda qq=qd[:, :, None], ke=expand(kc, g), ve=expand(vc, g), m=amask:
+               F.scaled_dot_product_attention(qq, ke, ve, attn_mask=m),
+               errs[f"decode G={g} G*D={g * dh}"],
+               (2 * qd.numel() + 2 * n_rows * hkv * dh) * 2 + SLOTS * 4,
+               n_rows * hq * 4 * dh, c["contiguous"]["decode_attention"], **dec_src)
+        n_rows = int(nv.sum())
+        record(f"q[{SLOTS},{hq},{dh}] pool[{nb},{bs},{hkv},{dh}] bt[{SLOTS},{mb}] bf16 "
+               f"n_valid {nv.tolist()} ({arch} paged decode, G = {g})",
+               lambda a=(qd, kp, vp, bt, nv): pda.paged_decode_attention_cuda(*a),
+               lambda a=(qd, kp, vp, bt, nv): pda.paged_decode_attention_plain(*a),
+               None, errs[f"paged decode G={g}"],
+               (2 * qd.numel() + 2 * n_rows * hkv * dh) * 2 + bt.numel() * 4 + SLOTS * 4,
+               n_rows * hq * 4 * dh, c["chunked"]["paged_decode_attention"],
+               name="paged_decode_attention",
+               source="src/repro_torch/kernels/csrc/decode_attention.cu",
+               replaces="src/repro/models/attention.py:177",
+               contiguous_ms=cuda_ms(lambda a=(qd, kg, vg, nv): da.decode_attention_cuda(*a)),
+               contiguous_device_ms=device_ms(
+                   lambda a=(qd, kg, vg, nv): da.decode_attention_cuda(*a)))
+
+    torch.cuda.synchronize()
+    for case, e in errs.items():
+        print(f"[kernels] dense {case:36s} max|err| {e:.3e}", flush=True)
+    finish_records(recs)
+    for rec in recs:
+        check(rec["launches"] > 0, f"{rec['name']} {rec['shape']}: not launched on its path")
+    return recs
+
+
+def _as_events(kern):
+    """Profiler-event stand-ins (name, time_range) for ``note_short_session``."""
+    from types import SimpleNamespace
+
+    return [SimpleNamespace(name=k.name, time_range=SimpleNamespace(start=k.start_us,
+                                                                    end=k.end_us))
+            for k in kern]
+
+
+def characterize_window(wl, ph, cfg, model, params):
+    """One (workload, phase) window of ``op_breakdown.measure``: warmed up,
+    its unprofiled wall, then one call profiled (host and card, input
+    shapes) with every launch counter set to 0 just before it and read just
+    after; a session short of the ported kernels is recorded and taken once
+    more. Checks: ``op_breakdown.problems`` finds none (every kernel in one
+    class, every kernel that its name does not place linked to its aten op,
+    classes plus idle equal to the window within ``RESIDUAL_BOUND``, the
+    flash, decode, HSTU and RMSNorm kernels each in its class as many times
+    as their wrappers launched), at least one ported attention kernel among
+    them. Prints the measured and the analytic breakdown; returns the
+    result and the launch counts."""
+    import torch
+
+    from repro_torch.launch import op_breakdown as ob
+
+    tag = f"characterize {wl} {ph}"
+    res = ob.measure(wl, ph, cfg, model, params, torch.device("cuda"), SEED,
+                     session=lambda: profiler(cpu=True, shapes=True), reset=_reset_counts,
+                     read=_read_counts)
+    counts, ported = res["launched"], res["ported"]
+    check(len(res["short"]) <= 1, f"{tag}: two profiler sessions short of the ported kernels")
+    if res["short"]:
+        note_short_session(tag, _as_events(res["short"][0]), _as_events(res["kernels"]),
+                           sum(p["launched"] for p in ported.values()))
+    wrong = ob.problems(res)
+    check(not wrong, f"{tag}: " + "; ".join(wrong))
+    check(sum(ported[k]["launched"] for k in ("flash", "decode", "hstu")) > 0,
+          f"{tag}: no ported attention kernel launched")
+    cls, ana, wall = res["classes"], res["analytic"], res["wall_ms"]
+    busy = res["busy_ms"]
+    print(f"[{tag}] {cfg.name} ({cfg.n_layers} layers), {res['shape']} | window "
+          f"{res['window_ms']:.3f} ms profiled, wall {wall:.3f} ms unprofiled | " + " | ".join(
+              f"{c} {cls[c]['ms']:.3f} ms {cls[c]['share']:.1%} (n {cls[c]['n']})"
+              for c in ob.CLASSES)
+          + f" | idle {res['idle_ms']:.3f} ms {res['idle_share']:.1%} (of the unprofiled "
+          f"wall: {max(wall - busy, 0.0):.3f} ms, {max(1 - busy / wall, 0.0):.1%}) | residual "
+          f"{res['residual']:+.2e} | kernels {res['n_kernels']}, {res['linked']} linked to an "
+          f"aten op, the rest placed by name", flush=True)
+    print(f"[{tag}] analytic (H100 roofline, batch {res['batch']}, seq {res['seq']}): "
+          + " | ".join(f"{c} {a['ms']:.3f} ms {a['share']:.1%}" for c, a in ana.items())
+          + " | measured / analytic: " + " ".join(
+              f"{c} {r:.2f}" if r is not None else f"{c} -"
+              for c, r in res["measured_over_analytic"].items()), flush=True)
+    for c in ob.CLASSES:
+        if cls[c]["top"]:
+            print(f"[{tag}]   {c} top: " + "; ".join(
+                f"{ms:.3f} ms x{n} {name[:70]}" for name, ms, n in cls[c]["top"]), flush=True)
+    print(f"[{tag}] launches {counts} | ported kernels (seen, launched, classes) "
+          + " ".join(f"{k} {p['seen']}/{p['launched']} {p['classes']}"
+                     for k, p in ported.items()), flush=True)
+    return res, counts
+
+
+def phase_characterize(tt):
+    """The paper's four workload analogues (``op_breakdown.WORKLOADS``)
+    measured by class on the card, prefill and decode, beside the analytic
+    H100 roofline: T-T on the dense phase's yi-34b (popped from the list
+    ``tt``), then I-T
+    (chameleon-34b, 24 of 48 layers), S-T (whisper-base) and H-A (HSTU),
+    each model freed before the next. Returns {(workload, phase): (result,
+    launch counts)}."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import op_breakdown as ob
+
+    dev = torch.device("cuda")
+    out = {}
+    for wl, spec in ob.WORKLOADS.items():
+        t0 = time.perf_counter()
+        if wl == "T-T":
+            cfg, model, params = tt.pop()
+        else:
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg, model, params = ob.build(wl, dev, SEED)
+        torch.cuda.reset_peak_memory_stats()
+        for ph in spec[5]:
+            out[(wl, ph)] = characterize_window(wl, ph, cfg, model, params)
+        del model, params
+        print(f"[characterize {wl}] {cfg.name}: {time.perf_counter() - t0:.1f} s | "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated()} B", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = {f"{wl} {ph}": {"window_ms": r["window_ms"], "wall_ms": r["wall_ms"],
+                           "idle_share": r["idle_share"],
+                           "measured": {c: r["classes"][c]["share"] for c in ob.CLASSES},
+                           "analytic": {c: a["share"] for c, a in r["analytic"].items()}}
+            for (wl, ph), (r, _) in out.items()}
+    print(f"[characterize] {json.dumps(rows)}", flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -4495,6 +4893,15 @@ def main() -> None:
         _, moe_arms, _ = phase_moe("qwen3-moe-30b-a3b", pad_to)
         _, mla_arms, mla_records = phase_moe("deepseek-v2-236b", pad_to)
         records += mla_records
+        dense_pad = serve.trace_pad_to(data_mod.PAPER_PROFILES["llama_humaneval"],
+                                       DENSE_REQUESTS, SEED)
+        t0 = time.perf_counter()
+        dense_counts, kept = phase_dense(dense_pad)
+        print(f"[dense] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        windows = phase_characterize(kept)  # takes yi-34b out of ``kept`` and frees it
+        print(f"[characterize] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        records += dense_kernel_records(dense_pad, dense_counts, windows[("T-T", "P")][1])
         # each kernel's launches come from the run of the path it is on; an
         # f32 route's from the f32 run of its path
         path_counts = {"paged_decode_attention": paged_counts["paged"],
@@ -4505,7 +4912,8 @@ def main() -> None:
         paths = {"serve": runs["continuous"][2], "chunked": paged_counts["chunked"],
                  "spec": spec_counts["spec t=0.8"], "spec_paged": spec_counts["spec t=0.8 paged"],
                  "hstu": hstu_counts, "ssm": ssm_counts, "seamless": seamless_counts,
-                 "chameleon": chameleon_counts, "mixed": mixed_counts}
+                 "chameleon": chameleon_counts, "mixed": mixed_counts,
+                 **{f"dense {a}": dense_counts[a]["contiguous"] for a in dense_counts}}
         for r in records:
             if "launches" in r:  # the MLA shapes: counted per shape in their arm's run
                 pass

@@ -208,16 +208,14 @@ def paged_write_chunk(buf: torch.Tensor, new: torch.Tensor, bt: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def init_attention(gen, cfg: ModelConfig, device):
-    """q/k/v/o projections, plus per-head ``q_norm`` / ``k_norm`` scales
-    under ``cfg.qk_norm``. ``qkv_bias`` is refused (a later slice)."""
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv bias attention waits for a later slice of the port")
+    """q/k/v/o projections (q/k/v with a zero bias under ``cfg.qkv_bias``),
+    plus per-head ``q_norm`` / ``k_norm`` scales under ``cfg.qk_norm``."""
     dt = L.param_dtype(cfg)
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "wq": L.dense_init(gen, d, hq * dh, dt, device),
-        "wk": L.dense_init(gen, d, hkv * dh, dt, device),
-        "wv": L.dense_init(gen, d, hkv * dh, dt, device),
+        "wq": L.dense_init(gen, d, hq * dh, dt, device, bias=cfg.qkv_bias),
+        "wk": L.dense_init(gen, d, hkv * dh, dt, device, bias=cfg.qkv_bias),
+        "wv": L.dense_init(gen, d, hkv * dh, dt, device, bias=cfg.qkv_bias),
         "wo": L.dense_init(gen, hq * dh, d, dt, device),
     }
     if cfg.qk_norm:

@@ -29,8 +29,11 @@ def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
 
 
-def dense_init(gen, d_in: int, d_out: int, dtype, device):
-    return {"w": (_normal(gen, (d_in, d_out), device) * d_in ** -0.5).to(dtype)}
+def dense_init(gen, d_in: int, d_out: int, dtype, device, bias: bool = False):
+    p = {"w": (_normal(gen, (d_in, d_out), device) * d_in ** -0.5).to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
 
 
 def dense(p, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:

@@ -6,9 +6,9 @@ GQA attention, and an MoE FFN (``moe.moe_ffn``, with shared experts) from
 layer ``first_dense_layers`` on, the layers before it dense at
 ``d_ff_dense``.
 
-The stacked ``scan_layers`` layout and ``qkv_bias`` are not ported
-(``NotImplementedError``); a JAX ``scanned`` param block is unstacked by
-``repro_torch.bridge`` instead.
+``qkv_bias`` (qwen2.5) adds a bias to the q/k/v projections. The stacked
+``scan_layers`` layout is not ported (``NotImplementedError``); a JAX
+``scanned`` param block is unstacked by ``repro_torch.bridge`` instead.
 """
 from __future__ import annotations
 
@@ -28,8 +28,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r}: this stack serves {', '.join(FAMILIES)} models only")
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv bias attention waits for a later slice")
     if cfg.scan_layers:
         raise NotImplementedError(
             "scan_layers: the port runs unrolled layers (bridge unstacks 'scanned')"

@@ -287,7 +287,9 @@ _LOCKED_MODULES = {
     "repro_torch.core.prefix_cache", "repro_torch.core.scheduler",
     "repro_torch.core.slot_pool", "repro_torch.launch.serve", "repro_torch.core.router",
     "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
-    "repro_torch.configs.deepseek_v2_236b",
+    "repro_torch.configs.deepseek_v2_236b", "repro_torch.configs.qwen2_5_3b",
+    "repro_torch.configs.yi_34b", "repro_torch.configs.llama3_405b",
+    "repro_torch.core.characterization", "repro_torch.launch.op_breakdown",
 }
 
 
