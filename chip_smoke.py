@@ -265,7 +265,30 @@ Phases (any failure exits non-zero and prints no result):
              embed and other, idle, the unprofiled wall and the analytic
              H100 roofline shares; every kernel in one class, classes plus
              idle within 1 % of the window, the ported kernels in their
-             class as often as their wrappers launched.
+             class as often as their wrappers launched;
+16. hybrid — recurrentgemma-2b at full width and depth (26 layers: 18
+             RG-LRU blocks, 8 local attention layers of 10 heads over one KV
+             head of 256, window 2048 over ring-buffer K/V caches; d 2560,
+             vocab 256000, bf16, seeded weights: 2.9 G parameters) serves
+             phase 4's 16 requests under the continuous and the fixed
+             policy (the same tokens; exact launches: flash 8 a prefill,
+             decode 8 a decode step, RMSNorm none 1 and add 52 a forward),
+             then a plain run recorded, the kernel path forced to its draws
+             (every committed row's |dlogit| within
+             HYBRID_DLOGIT_BOUND["serve"], a differing pick only at a near
+             tie) and, one key short, above the bound; one decode step of
+             8 slots profiled, the RG-LRU and the conv timed on the device;
+             a long-context arm through ``engine.generate`` (2 prompts of
+             3072 tokens, 32 greedy tokens: a ring prefill, windowed flash
+             over 3072 keys, decode over a wrapped ring) with exact
+             launches, forced to the plain run's tokens within
+             HYBRID_DLOGIT_BOUND["long"], one key short and the ring's
+             wrap ignored above it, and for the record a plain run without
+             the window. Its kernel records: flash at D = 256
+             (the served prefill and the long prompt, window 2048, the
+             window's edge checked exactly), the decode at G * D = 2560
+             over the served ring and a full ring of 2048, f32 at small
+             shapes, RMSNorm at d 2560 (phase 3's cases).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` summary. Imports nothing of JAX or the JAX package.
@@ -1387,6 +1410,7 @@ LLAMA_D, MAMBA_D, MAMBA_D_IN, MAMBA_ZXBCDT, HSTU_D, HSTU_UVQK = 2048, 768, 1536,
 #: whisper-base's width, and chameleon-34b's width and head (its qk-norm rows)
 WHISPER_D, CHAMELEON_D, CHAMELEON_HEADS, CHAMELEON_DH = 512, 8192, 64, 128
 YI_D, LLAMA405_D = 7168, 16384  # the dense phase's widest norms
+HYBRID_D = 2560  # recurrentgemma-2b's d_model
 
 
 def rmsnorm_cases(pad_to: int):
@@ -1418,6 +1442,8 @@ def rmsnorm_cases(pad_to: int):
         ("yi-34b prefill", "dense yi-34b", "add", (1, pad_to, YI_D), None),
         ("llama3-405b decode", "dense llama3-405b", "none", (SLOTS, 1, LLAMA405_D), None),
         ("llama3-405b prefill", "dense llama3-405b", "add", (1, pad_to, LLAMA405_D), None),
+        ("recurrentgemma decode", "hybrid", "none", (SLOTS, 1, HYBRID_D), None),
+        ("recurrentgemma prefill", "hybrid", "add", (1, pad_to, HYBRID_D), None),
     ]
 
 
@@ -1441,7 +1467,8 @@ def rmsnorm_routes(gen, pad_to: int) -> None:
                         (N_UTTER * N_BEAMS * N_FRAMES, WHISPER_D, torch.bfloat16),
                         (SLOTS, YI_D, torch.bfloat16), (pad_to, YI_D, torch.bfloat16),
                         (SLOTS, LLAMA405_D, torch.bfloat16),
-                        (pad_to, LLAMA405_D, torch.bfloat16)):
+                        (pad_to, LLAMA405_D, torch.bfloat16),
+                        (SLOTS, HYBRID_D, torch.bfloat16), (pad_to, HYBRID_D, torch.bfloat16)):
         x = _rand(gen, (rows, d), dt, dev)
         w = torch.ones((d,), dtype=dt, device=dev)
         with profiler() as prof:
@@ -1792,19 +1819,27 @@ def _none_per_layer(cfg) -> int:
     return 2 if (cfg.qk_norm or cfg.mla is not None) else 0
 
 
+def _attn_layers(cfg) -> int:
+    """Attention layers of ``cfg``: a hybrid's by its pattern, else all."""
+    if cfg.family == "hybrid":
+        return sum(cfg.hybrid.block_kind(i) == "attention" for i in range(cfg.n_layers))
+    return cfg.n_layers
+
+
 def _want_counts(cfg, n_fwd: int, **kernels):
     """Every counter 0 but ``kernels`` and RMSNorm's over ``n_fwd``
     forwards of ``cfg``: 2 x n_layers + 1 launches a forward, the first
     layer's norm alone (none) and every residual add fused into the norm
-    after it (add: 2 a layer in a dense, VLM or MoE model, 1 in HSTU and
-    Mamba-2, whose gate products take the other: mul and mul_silu); under
+    after it (add: 2 a layer in a dense, VLM, MoE or hybrid model, 1 in
+    HSTU and Mamba-2, whose gate products take the other: mul and
+    mul_silu); under
     qk-norm or MLA 2 x n_layers more (none: q and k per head, or MLA's q and
     latent norms)."""
     n_layers = cfg.n_layers
     want = dict.fromkeys(_counters(), 0)
     want.update(kernels)
     want["rmsnorm/none"] = n_fwd * (1 + _none_per_layer(cfg) * n_layers)
-    if cfg.family in ("dense", "vlm", "moe", "mla_moe"):
+    if cfg.family in ("dense", "vlm", "moe", "mla_moe", "hybrid"):
         want["rmsnorm/add"] = 2 * n_layers * n_fwd
     else:
         want["rmsnorm/add"] = n_layers * n_fwd
@@ -1836,7 +1871,8 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
     flash attention per prefill layer and per mixed-step layer, decode
     attention per decode layer (the paged kernel on a paged pool) and the
     int8 kernel of ``int8_mode`` ("wo"/"dyn"/None) 7 x n_layers per
-    forward; for an SSM the scan per prefill layer; every other kernel 0.
+    forward; for an SSM the scan per prefill layer; for a hybrid flash and
+    decode attention in its attention layers only; every other kernel 0.
     Every request samples at ``temperature`` / ``top_p``; ``speculative``
     makes each a ``SpeculativeProfile`` (exit layer ``spec_exit``,
     ``SPEC_DRAFT`` drafts), and a speculative step counts as a full forward
@@ -1930,9 +1966,10 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
     if cfg.family == "ssm":  # the scan at every prefill; decode is plain torch
         want_counts["ssd_scan"] = cfg.n_layers * m["prefills"]
     else:
-        want_counts["flash_attention"] = cfg.n_layers * (m["prefills"] + mixed + spec)
+        n_attn = _attn_layers(cfg)
+        want_counts["flash_attention"] = n_attn * (m["prefills"] + mixed + spec)
         decode = "paged_decode_attention" if geometry.get("paged") else "decode_attention"
-        want_counts[decode] = (cfg.n_layers * (m["decode_steps"] - mixed - spec)
+        want_counts[decode] = (n_attn * (m["decode_steps"] - mixed - spec)
                                + spec_exit * drafts)
         if int8_mode is not None:
             want_counts[f"int8_matmul_{'weight_only' if int8_mode == 'wo' else 'dynamic'}"] = (
@@ -4598,6 +4635,38 @@ def phase_dense(pad_to):
     return counts, kept
 
 
+#: the attention kernels' record fields
+FLASH_SRC = dict(name="flash_attention", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:88")
+DECODE_SRC = dict(name="decode_attention",
+                  source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                  replaces="src/repro/kernels/decode_attention.py:80")
+
+
+def int_positions(b, t, dev):
+    """Positions 0 .. t - 1 of every row, as the flash kernel reads them."""
+    import torch
+
+    return torch.arange(t, device=dev, dtype=torch.int32)[None].expand(b, t).contiguous()
+
+
+def per_head(x, g):
+    """GQA K/V [B, T, Hkv, D] repeated per q head, [B, H, T, D], for SDPA."""
+    return x.repeat_interleave(g, dim=2).transpose(1, 2)
+
+
+def kernel_record(recs, shape_txt, call, plain, lib, err, n_bytes, flops, launches, **src):
+    """Append a kernel's record to ``recs`` (a repeat call bit-identical, the
+    kernel and its plain version timed by CUDA events); ``finish_records``
+    adds the bound and the device and library times."""
+    import torch
+
+    check(torch.equal(call(), call()), f"{shape_txt}: a repeat call differs")
+    recs.append(dict(route="cuda", shape=shape_txt, max_abs_err=err, call=call,
+                     ms=cuda_ms(call), plain_ms=cuda_ms(plain), library=lib,
+                     bytes=n_bytes, flops=flops, launches=launches, **src))
+
+
 def dense_kernel_records(pad_to, counts, tt_counts):
     """The dense configs' new kernel shapes against their plain versions in
     bf16, a repeat call bit-identical, timed beside their bound and SDPA:
@@ -4629,31 +4698,15 @@ def dense_kernel_records(pad_to, counts, tt_counts):
     nb = SLOTS * mb + 1  # the parity pool and its sink block
     recs, errs = [], {}
 
-    def ipos(b, t):
-        return torch.arange(t, device=dev, dtype=torch.int32)[None].expand(b, t).contiguous()
-
-    def expand(x, g):  # GQA K/V repeated per q head, [B, H, T, D], for SDPA
-        return x.repeat_interleave(g, dim=2).transpose(1, 2)
-
-    def record(shape_txt, call, plain, lib, err, n_bytes, flops, launches, **src):
-        check(torch.equal(call(), call()), f"{shape_txt}: a repeat call differs")
-        recs.append(dict(route="cuda", shape=shape_txt, max_abs_err=err, call=call,
-                         ms=cuda_ms(call), plain_ms=cuda_ms(plain), library=lib,
-                         bytes=n_bytes, flops=flops, launches=launches, **src))
-
-    flash_src = dict(name="flash_attention",
-                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                     replaces="src/repro/kernels/flash_attention.py:88")
-    dec_src = dict(name="decode_attention",
-                   source="src/repro_torch/kernels/csrc/decode_attention.cu",
-                   replaces="src/repro/kernels/decode_attention.py:80")
+    def record(*a, **src):
+        kernel_record(recs, *a, **src)
     flash_in = {}
     for arch, cfg in models.items():
         hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         for b, t in ((1, 1), (2, 5), (2, 64), (4, 154), (1, pad_to)):
             q = _rand(gen, (b, t, hq, dh), bf, dev)
             k, v = (_rand(gen, (b, t, hkv, dh), bf, dev) for _ in range(2))
-            pos = ipos(b, t)
+            pos = int_positions(b, t, dev)
             valid = [t, max(t - 3, 1)][:b] + [t] * (b - 2)
             kval = (pos < torch.tensor(valid, device=dev)[:, None]).contiguous()
             for how, kw in (("causal", dict(q_positions=pos, k_positions=pos, causal=True)),
@@ -4676,11 +4729,11 @@ def dense_kernel_records(pad_to, counts, tt_counts):
                f"bf16 causal ({name} prefill, G = {g}: {64 // g} positions a 64-row block)",
                lambda a=(q, k, v), kw=kw: fa.flash_attention_cuda(*a, **kw),
                lambda a=(q, k, v), kw=kw: fa.flash_attention_plain(*a, **kw),
-               lambda qt=q.transpose(1, 2), ke=expand(k, g), ve=expand(v, g):
+               lambda qt=q.transpose(1, 2), ke=per_head(k, g), ve=per_head(v, g):
                F.scaled_dot_product_attention(qt, ke, ve, is_causal=True),
                errs[f"flash G={g} [{b},{t}] causal"],
                (2 * q.numel() + 2 * k.numel()) * 2 + 2 * b * t * 4,
-               pairs * q.shape[2] * 4 * q.shape[3], launches, **flash_src)
+               pairs * q.shape[2] * 4 * q.shape[3], launches, **FLASH_SRC)
 
     # decode over the served pool's rows: lengths at the split edges (1, 63,
     # 64, 65), mid and full; the paged pool through a random permutation
@@ -4716,11 +4769,11 @@ def dense_kernel_records(pad_to, counts, tt_counts):
                f"{ln.tolist()} ({arch} decode, G = {g}, G*D = {g * dh})",
                lambda a=(qd, kc, vc, ln): da.decode_attention_cuda(*a),
                lambda a=(qd, kc, vc, ln): da.decode_attention_plain(*a),
-               lambda qq=qd[:, :, None], ke=expand(kc, g), ve=expand(vc, g), m=amask:
+               lambda qq=qd[:, :, None], ke=per_head(kc, g), ve=per_head(vc, g), m=amask:
                F.scaled_dot_product_attention(qq, ke, ve, attn_mask=m),
                errs[f"decode G={g} G*D={g * dh}"],
                (2 * qd.numel() + 2 * n_rows * hkv * dh) * 2 + SLOTS * 4,
-               n_rows * hq * 4 * dh, c["contiguous"]["decode_attention"], **dec_src)
+               n_rows * hq * 4 * dh, c["contiguous"]["decode_attention"], **DECODE_SRC)
         n_rows = int(nv.sum())
         record(f"q[{SLOTS},{hq},{dh}] pool[{nb},{bs},{hkv},{dh}] bt[{SLOTS},{mb}] bf16 "
                f"n_valid {nv.tolist()} ({arch} paged decode, G = {g})",
@@ -4849,6 +4902,402 @@ def phase_characterize(tt):
     return out
 
 
+# --------------------------------------------------------------------------
+# the hybrid phase: recurrentgemma-2b (RG-LRU blocks and local attention over
+# ring-buffer K/V caches) at full width
+# --------------------------------------------------------------------------
+
+HYBRID_ARCH = "recurrentgemma-2b"
+#: the long-context arm through ``engine.generate``: prompts of 1.5 x the
+#: window 2048 (a ring prefill, windowed flash over 3072 keys, decode over a
+#: wrapped ring), greedy tokens
+LONG_BATCH, LONG_PROMPT, LONG_NEW = 2, 3072, 32
+#: the hybrid phase's teacher-forced checks: max |dlogit| of the kernel
+#: path's committed rows against the plain run's, forced to its tokens
+#: (bf16), for the served trace and for the long-context arm. Each is set
+#: between the sound run and its controls, which must break it: the decode
+#: kernel one key short (``one_key_short``) in both arms, and in the long
+#: arm also the ring's wrap ignored (``ring_unwrapped``). The random model's
+#: logits reach ~900 (the last token's own embedding), so bf16's rounding
+#: (P to bf16 in the kernels, f32 in the plain versions) alone moves them by
+#: ~7; in f32 the two paths agree within 0.0014 (``launch/path_drift.py``).
+#: Readings (NVIDIA H100 80GB HBM3, 700 W; they repeat to the bit): served
+#: sound 7.158, one key short 7.611; long sound 6.373, one key short 6.974,
+#: unwrapped 30.19
+HYBRID_DLOGIT_BOUND = {"serve": 7.4, "long": 6.7}
+
+
+@contextlib.contextmanager
+def ring_unwrapped():
+    """The long arm's control: decode reads only the ring rows written
+    since its last wrap (``lengths % S`` of them, not ``min(lengths, S)``),
+    the fault of a decode path that forgets its ring has wrapped."""
+    from repro_torch.models import attention as A
+
+    real = A.valid_counts
+    A.valid_counts = lambda lengths, s: (lengths - 1) % s + 1
+    try:
+        yield
+    finally:
+        A.valid_counts = real
+
+
+def near_tie_picks(rec, tag):
+    """Every kernel-path pick of a forced run that differs from the plain
+    run's draw must be at a near tie: the plain row's top-two gap below the
+    row's |dlogit|. Returns the number of such picks."""
+    picks = [r for r in rec.row_stats if r[2]]
+    for dl, _, _, gap in picks:
+        check(gap < dl, f"{tag}: a kernel pick differs at a deciding gap {gap} >= its row's "
+                        f"|dlogit| {dl}")
+    return len(picks)
+
+
+def hybrid_rows(model, params, prompts, feed, impl, n_new):
+    """Greedy decoding of ``prompts`` teacher-forced to ``feed`` [B, n_new]
+    (its own picks when None): the logits each token is drawn from (the
+    prefill's last position, then ``n_new - 1`` decode steps) [n_new, B, V]
+    f32, and the tokens fed [B, n_new]."""
+    import torch
+
+    from repro_torch.core import engine, sampling
+
+    b, t = prompts.shape
+    lengths = torch.full((b,), t, dtype=torch.int32, device=prompts.device)
+    logits, cache = engine.prefill(model, params, prompts, lengths, t + n_new + 1, impl=impl)
+    rows, toks = [logits.float()], []
+    for i in range(n_new):
+        tok = sampling.greedy(rows[-1]).to(torch.int32) if feed is None else feed[:, i]
+        toks.append(tok)
+        if i < n_new - 1:
+            logits, cache = engine.decode_step(model, params, cache, tok, impl=impl)
+            rows.append(logits.float())
+    del cache
+    return torch.stack(rows), torch.stack(toks, dim=1)
+
+
+def hybrid_long_arm(cfg, model, params):
+    """Two prompts of LONG_PROMPT tokens through ``engine.generate`` on the
+    kernels (exact launches: flash n_attn at the prefill, decode n_attn a
+    decode step), a plain run, the kernel path forced to its tokens within
+    HYBRID_DLOGIT_BOUND["long"] (a differing pick only at a near tie), the
+    one-key-short and the ring-unwrapped controls above it, and for the
+    record a plain run with the window removed. Returns the launch counts of
+    the generate run."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import get_model
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    prompts = torch.randint(0, cfg.vocab_size, (LONG_BATCH, LONG_PROMPT), generator=gen,
+                            device=dev, dtype=torch.int32)
+    n_attn = _attn_layers(cfg)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    out = engine.generate(model, params, prompts, max_new_tokens=LONG_NEW)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    wall = time.perf_counter() - t0
+    want = _want_counts(cfg, LONG_NEW, flash_attention=n_attn,
+                        decode_attention=n_attn * (LONG_NEW - 1))
+    check(out["n_steps"] == LONG_NEW and tuple(out["tokens"].shape) == (LONG_BATCH, LONG_NEW),
+          f"hybrid long: {out['n_steps']} steps, tokens {tuple(out['tokens'].shape)}")
+    check(counts == want, f"hybrid long: kernel launches {counts}, expected {want}")
+    print(f"[hybrid long] generate {LONG_BATCH} x {LONG_PROMPT} + {LONG_NEW}: {wall:.2f} s | "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B | launches {counts}",
+          flush=True)
+    with torch.inference_mode():
+        prow, ptok = hybrid_rows(model, params, prompts, None, "torch", LONG_NEW)
+        same = [bool(torch.equal(out["tokens"][i], ptok[i])) for i in range(LONG_BATCH)]
+        rows = {}
+        for run, ctx in (("forced", contextlib.nullcontext()), ("control", ring_unwrapped()),
+                         ("one key short", one_key_short(da, "decode_attention_cuda", 3))):
+            with ctx:
+                rows[run] = hybrid_rows(model, params, prompts, ptok, "auto", LONG_NEW)[0]
+        check(bool(torch.isfinite(rows["forced"]).all()), "hybrid long: non-finite logits")
+        dl = {run: float((r - prow).abs().amax()) for run, r in rows.items()}
+        # a kernel pick that differs from the plain path's: only at a near tie
+        own = rows["forced"].argmax(-1)
+        top2 = prow.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        row_dl = (rows["forced"] - prow).abs().amax(-1)
+        differs = own != ptok.T.long()
+        check(bool((gap[differs] < row_dl[differs]).all()),
+              "hybrid long: a kernel pick differs away from a near tie")
+        nowin_cfg = cfg.replace(hybrid=dataclasses.replace(cfg.hybrid, window=None))
+        nowin = hybrid_rows(get_model(nowin_cfg), params, prompts, ptok, "torch", LONG_NEW)[0]
+        dl_nowin = float((nowin - prow).abs().amax())
+    bound = HYBRID_DLOGIT_BOUND["long"]
+    print(f"[hybrid long] kernel tokens = plain path's in {sum(same)} of {LONG_BATCH} rows | "
+          f"forced: max |dlogit| {dl['forced']:.6f} (bound {bound}), kernel picks that differ "
+          f"{int(differs.sum())} | controls: one key short {dl['one key short']:.6f}, the "
+          f"ring unwrapped {dl['control']:.6f} | plain run without the window "
+          f"{dl_nowin:.6f}", flush=True)
+    check(dl["forced"] <= bound, f"hybrid long: max |dlogit| {dl['forced']}, bound {bound}")
+    for run in ("control", "one key short"):
+        check(dl[run] > bound,
+              f"hybrid long {run}: stayed within the bound ({dl[run]} <= {bound})")
+    check(dl_nowin > dl["forced"], "hybrid long: removing the window changed nothing")
+    del rows, prow, nowin, out
+    return counts
+
+
+def hybrid_step_profile(cfg, model, params, pad_to):
+    """One decode step of 8 slots profiled as ``step_profile``, then the
+    RG-LRU (``hybrid._rg_lru``) and the causal conv of one recurrent block
+    timed on the device at the step's shapes and at the served prefill's,
+    times the recurrent layers."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.models import hybrid as H
+    from repro_torch.models.ssm import _causal_conv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    toks = torch.randint(0, cfg.vocab_size, (SLOTS, pad_to), generator=gen, device=dev,
+                         dtype=torch.int32)
+    _, cache = engine.prefill(model, params, toks,
+                              torch.full((SLOTS,), pad_to, dtype=torch.int32, device=dev),
+                              pad_to + 16)
+    state = {"cache": cache, "tok": toks[:, -1].contiguous()}
+
+    def step():
+        logits, state["cache"] = engine.decode_step(model, params, state["cache"],
+                                                    state["tok"])
+        state["cache"]["lengths"].fill_(pad_to)  # every step at the same length
+        state["tok"] = logits.argmax(-1).to(torch.int32)
+
+    with torch.inference_mode():
+        step_profile("hybrid decode step", step)
+        rec = next(lp["rec"] for lp in params["layers"] if "rec" in lp)
+        n_rec = cfg.n_layers - _attn_layers(cfg)
+        w = cfg.hybrid.lru_width
+        for what, b, t in (("decode step", SLOTS, 1), ("served prefill", 1, pad_to)):
+            x = _rand(gen, (b, t, w), torch.bfloat16, dev)
+            h0 = torch.randn((b, w), generator=gen, device=dev) if t == 1 else None
+            tail = _rand(gen, (b, cfg.hybrid.conv_width - 1, w), torch.bfloat16, dev)
+            lru = device_ms(lambda: H._rg_lru(rec, x, h0))
+            conv = device_ms(lambda: _causal_conv(x, rec["conv_w"], rec["conv_b"],
+                                                  tail if t == 1 else None))
+            fmt = (lambda v: "not measured" if v is None else f"{v:.4f} ms")  # noqa: E731
+            print(f"[hybrid decode step] {what} x[{b},{t},{w}]: RG-LRU {fmt(lru)} (gates' "
+                  f"GEMMs and the scan's {(t - 1).bit_length()} rounds), causal conv "
+                  f"{fmt(conv)} a layer; x {n_rec} recurrent layers: RG-LRU "
+                  f"{fmt(None if lru is None else lru * n_rec)}, conv "
+                  f"{fmt(None if conv is None else conv * n_rec)}", flush=True)
+    del cache, state
+
+
+def phase_hybrid(pad_to):
+    """recurrentgemma-2b at full width (26 layers: 18 recurrent, 8 local
+    attention of 10 heads over one KV head of 256, window 2048), bf16,
+    seeded weights. Serves the 16 requests under the continuous and the
+    fixed policy (the same tokens; exact launches; finite logits), then a
+    plain run recorded, its tokens against the kernel run's (a differing
+    pick only at a near tie, from the forced run), the kernel path forced
+    to its draws within HYBRID_DLOGIT_BOUND["serve"] and, one key short,
+    above it; one decode step profiled; the long-context arm. Returns
+    (the continuous run's launch counts, the long arm's)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.kv_cache import leaves
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import serve
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg, model, params = serve.build_model(HYBRID_ARCH, smoke=False, seed=SEED, device=dev)
+    check(cfg == get_config(HYBRID_ARCH) and cfg.dtype == "bfloat16"
+          and _attn_layers(cfg) == 8 and cfg.n_layers == 26, f"unexpected config {cfg}")
+    n_el = sum(p.numel() for p in leaves(params))
+    n_bytes = sum(p.numel() * p.element_size() for p in leaves(params))
+    print(f"[hybrid] {HYBRID_ARCH}: {cfg.n_layers} layers ({_attn_layers(cfg)} local attention, "
+          f"window {cfg.hybrid.window}), d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+          f"of {cfg.head_dim} (G*D = {cfg.q_per_kv * cfg.head_dim}), lru {cfg.hybrid.lru_width}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} | params {n_el / 1e9:.3f}G elements, "
+          f"{n_bytes} B (the f32 unembed table included) | init "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    serve.warmup(model, params, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW, device=dev)
+    runs = {policy: serve_once(model, params, cfg, pad_to, policy=policy, int8_mode=None,
+                               tag=f"hybrid/{policy}")
+            for policy in ("continuous", "fixed")}
+    check(runs["continuous"][1] == runs["fixed"][1],
+          "hybrid: continuous and fixed policies gave different tokens")
+    kw = dict(policy="continuous", int8_mode=None)
+    plain = Forced("record")
+    with plain_path(), forcing(plain):
+        mp, ptoks, _ = serve_once(model, params, cfg, pad_to, tag="hybrid plain", **kw)
+    same = sum(runs["continuous"][1][r] == ptoks[r] for r in ptoks)
+    dl, picks = {}, 0
+    for run in ("forced", "control"):
+        rec = Forced("steps", plain)
+        with forcing(rec), (one_key_short(da, "decode_attention_cuda", 3)
+                            if run == "control" else contextlib.nullcontext()):
+            mf, ftoks, _ = serve_once(model, params, cfg, pad_to, tag=f"hybrid {run}", **kw)
+        check(ftoks == ptoks and _geometry(mf) == _geometry(mp),
+              f"hybrid {run}: tokens or steps differ from the plain run's")
+        dl[run] = rec.summary(f"hybrid {run}")[1]
+        if run == "forced":  # the near-tie rule for the kernel run's own tokens
+            picks = near_tie_picks(rec, "hybrid forced")
+        del rec
+    bound = HYBRID_DLOGIT_BOUND["serve"]
+    print(f"[hybrid] kernel tokens = plain path's in {same} of {len(ptoks)} requests, "
+          f"{picks} differing picks at a near tie | max |dlogit| forced {dl['forced']:.6f}, "
+          f"control {dl['control']:.6f} (bound {bound})", flush=True)
+    check(dl["forced"] <= bound, f"hybrid: max |dlogit| {dl['forced']} against the plain "
+                                 f"path, bound {bound}")
+    check(dl["control"] > bound, f"hybrid control: a decode kernel one key short stayed "
+                                 f"within the bound ({dl['control']} <= {bound})")
+    del plain
+    hybrid_step_profile(cfg, model, params, pad_to)
+    long_counts = hybrid_long_arm(cfg, model, params)
+    print(f"[hybrid] phase {time.perf_counter() - t_phase:.1f} s | max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B", flush=True)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs["continuous"][2], long_counts
+
+
+def hybrid_kernel_records(pad_to, counts, long_counts):
+    """recurrentgemma's kernel shapes against their plain versions, bf16
+    (and f32 at a small shape), a repeat call bit-identical, timed beside
+    their bound and SDPA: flash at D = 256, G = 10 at the served prefill (q
+    [1, pad_to, 10, 256], window 2048) and at the long prompt ([2, 3072],
+    window 2048, where a row past 2048 sees exactly its 2048 newest keys:
+    a dominant key at the window's lower edge is seen by the row 2047 ahead
+    of it and not by the row 2048 ahead); the decode at G * D = 2560 over
+    the served ring (321 rows, lengths at the split edges) and over a full
+    ring of 2048. Launches from the served run (``counts``) and the long
+    arm (``long_counts``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    cfg = get_config(HYBRID_ARCH)
+    hq, hkv, dh, win = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.hybrid.window
+    g = hq // hkv
+    s_ctg = pad_to + MAX_NEW + 1  # the served ring's rows (below the window)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    recs, errs = [], {}
+
+    def record(*a, **src):
+        kernel_record(recs, *a, **src)
+
+    # flash: f32 at small shapes, bf16 at the served and the long prompt
+    for dt, cases in ((torch.float32, ((1, 67, None), (2, 100, 32))),
+                      (bf, ((1, pad_to, win), (LONG_BATCH, LONG_PROMPT, win)))):
+        name = str(dt).split(".")[-1]
+        for b, t, w in cases:
+            q = _rand(gen, (b, t, hq, dh), dt, dev)
+            k, v = (_rand(gen, (b, t, hkv, dh), dt, dev) for _ in range(2))
+            kw = dict(q_positions=int_positions(b, t, dev), k_positions=int_positions(b, t, dev), causal=True, window=w)
+            got = fa.flash_attention_cuda(q, k, v, **kw)
+            case = f"flash D=256 G={g} {name} [{b},{t}] window {w}"
+            errs[case] = max_err(got, fa.flash_attention_plain(q, k, v, **kw), name)
+            check(torch.equal(got, fa.flash_attention_cuda(q, k, v, **kw)),
+                  f"{case}: a repeat call differs")
+            if dt == bf:
+                pairs = sum(min(i + 1, w) for i in range(t)) * b
+                amask = (torch.arange(t, device=dev)[None] <= torch.arange(t, device=dev)[:, None])
+                amask &= torch.arange(t, device=dev)[None] > torch.arange(t, device=dev)[:, None] - w
+                record(f"q[{b},{t},{hq},{dh}] kv[{b},{t},{hkv},{dh}] bf16 causal, window {w} "
+                       f"(recurrentgemma {'served prefill' if b == 1 else 'long prompt'}, G = "
+                       f"{g}: {64 // g} positions a 64-row block)",
+                       lambda a=(q, k, v), kw=kw: fa.flash_attention_cuda(*a, **kw),
+                       lambda a=(q, k, v), kw=kw: fa.flash_attention_plain(*a, **kw),
+                       lambda qt=q.transpose(1, 2), ke=per_head(k, g), ve=per_head(v, g), m=amask:
+                       F.scaled_dot_product_attention(qt, ke, ve, attn_mask=m),
+                       errs[case], (2 * q.numel() + 2 * k.numel()) * 2 + 2 * b * t * 4,
+                       pairs * hq * 4 * dh,
+                       counts["flash_attention"] if b == 1 else long_counts["flash_attention"],
+                       **FLASH_SRC)
+            del q, k, v
+
+    # the window's edge at the long prompt: keys 999 and 1000 dominate every
+    # score (40 against 0), V column 0 marks key 1000 and column 1 key 999
+    t = LONG_PROMPT
+    q = torch.zeros((1, t, hq, dh), dtype=bf, device=dev)
+    q[..., 0] = 32.0
+    k = torch.zeros((1, t, hkv, dh), dtype=bf, device=dev)
+    k[0, 999:1001, :, 0] = 20.0  # 32 * 20 / 16 = a score of 40
+    v = torch.zeros_like(k)
+    v[0, 1000, :, 0] = 1.0
+    v[0, 999, :, 1] = 1.0
+    edge = fa.flash_attention_cuda(q, k, v, q_positions=int_positions(1, t, dev), k_positions=int_positions(1, t, dev),
+                                   causal=True, window=win).float()[0, :, :, :2]
+    for row, want in ((999 + win, (1.0, 0.0)), (998 + win, (0.5, 0.5)), (1000 + win, (0.0, 0.0)),
+                      (1000, (0.5, 0.5)), (998, (0.0, 0.0))):
+        got_row = edge[row]
+        check(bool((got_row - torch.tensor(want, device=dev)).abs().max() < 1e-2),
+              f"flash window edge: row {row} gives {got_row[0].tolist()}, want {want}")
+    print(f"[kernels] hybrid flash window {win}: row {999 + win} sees key {1000} (its "
+          f"{win}th newest) and not key 999; rows {998 + win} and {1000 + win} see both and "
+          f"neither", flush=True)
+    del q, k, v, edge
+
+    # decode: f32 and bf16 over the served ring at the split edges, bf16 over
+    # a full ring of 2048 rows
+    split_len = da.split_plan(SLOTS, hkv, s_ctg, n_sms)[1]
+    edges = [1, split_len - 1, split_len, split_len + 1, 2 * split_len, 200, s_ctg - 1, s_ctg]
+    for dt in (torch.float32, bf):
+        name = str(dt).split(".")[-1]
+        for b, s, lens in ((SLOTS, s_ctg, edges), (LONG_BATCH, win, [win, win]),
+                           (3, 100, [0, 37, 100])):
+            if dt == torch.float32 and s == win:
+                continue
+            qd = _rand(gen, (b, hq, dh), dt, dev)
+            kc, vc = (_rand(gen, (b, s, hkv, dh), dt, dev) for _ in range(2))
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            got = da.decode_attention_cuda(qd, kc, vc, ln)
+            case = f"decode G*D={g * dh} {name} [{b},{s}] lengths {lens}"
+            errs[case] = max_err(got, da.decode_attention_plain(qd, kc, vc, ln), name)
+            check(torch.equal(got, da.decode_attention_cuda(qd, kc, vc, ln)),
+                  f"{case}: a repeat call differs")
+            if lens[0] == 0:
+                check(bool((got[0] == 0).all()), "decode: a row of length 0 is not exactly zero")
+            if dt == bf and b != 3:
+                n_rows = int(ln.sum())
+                amask = (torch.arange(s, device=dev)[None] < ln[:, None])[:, None, None, :]
+                record(f"q[{b},{hq},{dh}] cache[{b},{s},{hkv},{dh}] bf16 lengths {lens} "
+                       f"(recurrentgemma {'served ring' if s == s_ctg else 'full ring'}, "
+                       f"G*D = {g * dh})",
+                       lambda a=(qd, kc, vc, ln): da.decode_attention_cuda(*a),
+                       lambda a=(qd, kc, vc, ln): da.decode_attention_plain(*a),
+                       lambda qq=qd[:, :, None], ke=per_head(kc, g), ve=per_head(vc, g), m=amask:
+                       F.scaled_dot_product_attention(qq, ke, ve, attn_mask=m),
+                       errs[case], (2 * qd.numel() + 2 * n_rows * hkv * dh) * 2 + b * 4,
+                       n_rows * hq * 4 * dh,
+                       counts["decode_attention"] if s == s_ctg
+                       else long_counts["decode_attention"], **DECODE_SRC)
+    torch.cuda.synchronize()
+    for case, e in errs.items():
+        print(f"[kernels] hybrid {case:52s} max|err| {e:.3e}", flush=True)
+    finish_records(recs)
+    for rec in recs:
+        check(rec["launches"] > 0, f"{rec['name']} {rec['shape']}: not launched on its path")
+    return recs
+
+
 def main() -> None:
     try:
         import torch
@@ -4902,6 +5351,11 @@ def main() -> None:
         windows = phase_characterize(kept)  # takes yi-34b out of ``kept`` and frees it
         print(f"[characterize] phase {time.perf_counter() - t0:.1f} s", flush=True)
         records += dense_kernel_records(dense_pad, dense_counts, windows[("T-T", "P")][1])
+        t0 = time.perf_counter()
+        hybrid_counts, long_counts = phase_hybrid(pad_to)
+        records += hybrid_kernel_records(pad_to, hybrid_counts, long_counts)
+        print(f"[hybrid] phase with its kernel records {time.perf_counter() - t0:.1f} s",
+              flush=True)
         # each kernel's launches come from the run of the path it is on; an
         # f32 route's from the f32 run of its path
         path_counts = {"paged_decode_attention": paged_counts["paged"],
@@ -4913,6 +5367,7 @@ def main() -> None:
                  "spec": spec_counts["spec t=0.8"], "spec_paged": spec_counts["spec t=0.8 paged"],
                  "hstu": hstu_counts, "ssm": ssm_counts, "seamless": seamless_counts,
                  "chameleon": chameleon_counts, "mixed": mixed_counts,
+                 "hybrid": hybrid_counts,
                  **{f"dense {a}": dense_counts[a]["contiguous"] for a in dense_counts}}
         for r in records:
             if "launches" in r:  # the MLA shapes: counted per shape in their arm's run

@@ -12,8 +12,11 @@ get the f32 unembed copy the port's own ``init`` adds. MoE leaves
 ``shared`` FFN), MLA's projections, an untied ``lm_head`` and MLA's
 ``latent`` cache [B, S, r + rope] cross as they are. The
 encoder-decoder's ``encoder`` / ``decoder`` lists, Seamless's nested ``t2u``
-and ``vocoder`` and the encoder-decoder cache (``cross_k``, ``cross_v``,
-``frame_lengths``) go through the same walk.
+and ``vocoder``, the encoder-decoder cache (``cross_k``, ``cross_v``,
+``frame_lengths``) and the hybrid's list of unlike layers (``attn`` or
+``rec`` beside ``norm``, ``ffn_norm`` and ``ffn``; the recurrent block's
+``gate_a`` / ``gate_x`` biases and its f32 ``lam``) and its cache (K/V rings
+beside f32 ``state`` and ``conv`` tails) go through the same walk.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ from typing import Dict
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 from repro_torch.configs import (chameleon_34b, deepseek_v2_236b, hstu, llama3_2_1b,
                                  llama3_405b, mamba2_130m, qwen2_5_3b, qwen3_moe_30b_a3b,
-                                 seamless_m4t, whisper_base, yi_34b)
+                                 recurrentgemma_2b, seamless_m4t, whisper_base, yi_34b)
 
 _MODULES = {
     "llama3.2-1b": llama3_2_1b,
@@ -15,6 +15,7 @@ _MODULES = {
     "yi-34b": yi_34b,
     "llama3-405b": llama3_405b,
     "mamba2-130m": mamba2_130m,
+    "recurrentgemma-2b": recurrentgemma_2b,
     "hstu": hstu,
     "whisper-base": whisper_base,
     "seamless-m4t": seamless_m4t,

@@ -3,9 +3,8 @@
 
 Every architecture is a single frozen ``ModelConfig``; family-specific
 blocks (MoE, MLA, SSM, hybrid, enc-dec, VLM) are optional sub-configs.
-The dense, VLM, MoE, MLA + MoE, encoder-decoder, SSM and HSTU families
-run in the port so far; the hybrid sub-config is kept so a config copied
-from the reference reads the same here.
+Every family of the reference runs in the port: dense, VLM, MoE, MLA +
+MoE, encoder-decoder, SSM, hybrid and HSTU.
 """
 from __future__ import annotations
 

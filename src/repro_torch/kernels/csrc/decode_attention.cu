@@ -37,6 +37,14 @@
 // sum alpha_s acc_s / max(sum alpha_s l_s, 1e-30). A row of length 0 has no
 // live split and gets exact zeros.
 //
+// Widths: D == Dv in {64, 128} with G * D <= 2048, and D = 256 with G * D <=
+// 2560 (recurrentgemma-2b: 10 q heads over one KV head, over the ring of its
+// local attention): each thread holds kMaxAcc<D> of the group's outputs (8,
+// or 10 at D = 256), and f32 at D = 256 walks its split in 32-key tiles (two
+// 64-key K/V tiles of 1 KB rows would take 264 KB of shared memory). The
+// paged kernel is not instantiated at D = 256: the paged pool refuses the
+// hybrid's rings.
+//
 // Paged flash-decode (decode_attention_paged_kernel) replaces the JAX
 // package's XLA paged_decode_attention (repro/models/attention.py, which has
 // no Pallas kernel): the same split decode over a block pool K/V [NB, bs,
@@ -74,18 +82,26 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileK = 64;
-constexpr int kMaxAcc = 8;  // per-thread outputs: G * D <= kThreads * kMaxAcc
+constexpr int kTileK = 64;  // the split plan's granularity (decode_attention.py TILE_K)
 constexpr int kCombineWarps = 4;
+
+// Per-thread outputs: G * D <= kThreads * kMaxAcc<D>, 2048 up to D = 128 and
+// 2560 at D = 256 (recurrentgemma's 10 heads over one KV head).
+template <int D>
+constexpr int kMaxAcc = D == 256 ? 10 : 8;
 
 template <typename T, int D>
 struct Tile {
   static constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte chunk
   static constexpr int kChunks = D / kVec;      // chunks per cache row
   static constexpr int kKStride = D + kVec;     // K rows padded by 16 bytes
+  // keys per shared-memory tile: 64, or 32 where a row is over 512 bytes
+  // (f32 at D = 256: two 64-key K/V tiles would take 264 KB); a divisor of
+  // the split's 64-key granularity either way
+  static constexpr int kTile = sizeof(T) * D > 512 ? 32 : 64;
   static size_t smem_bytes(int g) {
-    return sizeof(T) * 2 * kTileK * static_cast<size_t>(kKStride + D)  // K, V (x2)
-           + sizeof(float) * static_cast<size_t>(g) * (D + kTileK + 3);  // q, p, m/l/alpha
+    return sizeof(T) * 2 * kTile * static_cast<size_t>(kKStride + D)  // K, V (x2)
+           + sizeof(float) * static_cast<size_t>(g) * (D + kTile + 3);  // q, p, m/l/alpha
   }
 };
 
@@ -151,6 +167,8 @@ __device__ __forceinline__ void decode_split(unsigned char* smem_raw, const T* _
                                              int h) {
   using L = Tile<T, D>;
   constexpr int kVec = L::kVec, kChunks = L::kChunks, kKStride = L::kKStride;
+  constexpr int kTileK = L::kTile;  // shadows the split granularity
+  constexpr int kAcc = kMaxAcc<D>;
   const int G = Hq / Hkv;
   const int t_begin = blockIdx.x * split_len;
   const int t_end = min(len, t_begin + split_len);
@@ -178,9 +196,9 @@ __device__ __forceinline__ void decode_split(unsigned char* smem_raw, const T* _
     m_s[g] = REPRO_NEG_INF;
     l_s[g] = 0.f;
   }
-  float acc[kMaxAcc];
+  float acc[kAcc];
 #pragma unroll
-  for (int i = 0; i < kMaxAcc; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
   __syncthreads();
 
   int buf = 0;
@@ -238,7 +256,7 @@ __device__ __forceinline__ void decode_split(unsigned char* smem_raw, const T* _
     }
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < kMaxAcc; ++i) {
+    for (int i = 0; i < kAcc; ++i) {
       const int idx = tid + i * kThreads;
       if (idx < G * D) {
         const int g = idx / D, dd = idx % D;
@@ -255,7 +273,7 @@ __device__ __forceinline__ void decode_split(unsigned char* smem_raw, const T* _
   if (partial == nullptr) {
     T* ob = out + head0 * D;
 #pragma unroll
-    for (int i = 0; i < kMaxAcc; ++i) {
+    for (int i = 0; i < kAcc; ++i) {
       const int idx = tid + i * kThreads;
       if (idx < G * D) ob[idx] = from_f32<T>(acc[i] / fmaxf(l_s[idx / D], REPRO_L_MIN));
     }
@@ -265,7 +283,7 @@ __device__ __forceinline__ void decode_split(unsigned char* smem_raw, const T* _
   const long long split_rows = static_cast<long long>(blockIdx.x) * B * Hq + head0;
   float* pa = partial + split_rows * D;
 #pragma unroll
-  for (int i = 0; i < kMaxAcc; ++i) {
+  for (int i = 0; i < kAcc; ++i) {
     const int idx = tid + i * kThreads;
     if (idx < G * D) pa[idx] = acc[i];
   }
@@ -498,7 +516,7 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, cons
            int NB, int bs, void* out, void* partial, int B, int S, int Hq, int Hkv,
            int splits, int split_len, float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
-  if (G * D > kThreads * kMaxAcc || splits < 1 || splits > 65535 || split_len < kTileK ||
+  if (G * D > kThreads * kMaxAcc<D> || splits < 1 || splits > 65535 || split_len < kTileK ||
       split_len % kTileK || static_cast<long long>(splits) * split_len < S ||
       (splits > 1 && partial == nullptr) ||
       (bt != nullptr && (bs < 1 || NB < 1 || S % bs)) ||
@@ -509,7 +527,7 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, cons
   const size_t bytes = Tile<T, D>::smem_bytes(G);
   // the attribute once per device for each kernel of this launch<T, D>, at
   // its widest group, so every G of the instantiation fits under it
-  const size_t widest = Tile<T, D>::smem_bytes(kThreads * kMaxAcc / D);
+  const size_t widest = Tile<T, D>::smem_bytes(kThreads * kMaxAcc<D> / D);
   float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
   const dim3 grid(splits, B * Hkv);
   cudaError_t e;
@@ -521,6 +539,10 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, cons
     kern<<<grid, kThreads, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
         static_cast<T*>(out), part, B, S, Hq, Hkv, split_len, scale);
+  } else if constexpr (D == 256) {
+    // D = 256 serves only the hybrid's rings, which the paged pool refuses:
+    // the paged kernel is not instantiated at this width
+    return static_cast<int>(cudaErrorInvalidValue);
   } else {
     auto kern = decode_attention_paged_kernel<T, D>;
     static bool smem_allowed[kMaxDevices] = {};
@@ -548,6 +570,9 @@ int dispatch_d(const void* q, const void* k, const void* v, const int* lengths, 
                          split_len, scale, s);
   if (D == 128)
     return launch<T, 128>(q, k, v, lengths, bt, NB, bs, out, partial, B, S, Hq, Hkv, splits,
+                          split_len, scale, s);
+  if (D == 256)  // contiguous only (launch refuses a table at this width)
+    return launch<T, 256>(q, k, v, lengths, bt, NB, bs, out, partial, B, S, Hq, Hkv, splits,
                           split_len, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

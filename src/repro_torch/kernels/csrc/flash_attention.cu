@@ -51,10 +51,16 @@
 // f32, K and V tiles in shared memory, scores and the P.V update by f32 FMA
 // loops. wgmma, TMA and warp specialisation are later work.
 //
-// Widths: the bf16 kernel is templated on (D, Dv): (64, 64), (128, 128) and
-// MLA's prefill (192, 128), where q/k rows are nope + rope = 192 and v rows
-// v_head = 128 (V tiles at their own stride; the output staged in the
-// warp's Q rows). MLA's absorbed latent (D = 576, Dv = 512, one shared KV
+// Widths: the bf16 kernel is templated on (D, Dv): (64, 64), (128, 128),
+// (256, 256) and MLA's prefill (192, 128), where q/k rows are nope + rope =
+// 192 and v rows v_head = 128 (V tiles at their own stride; the output
+// staged in the warp's Q rows). At (256, 256) (recurrentgemma: G = 10 over
+// one KV head, 6 positions a 64-row block, window 2048) a warp's output
+// tile alone is 128 f32 registers a thread, so Q's fragments are not held
+// in registers but reloaded from shared memory (where the Q tile stays)
+// two k-steps at a time; shared memory is 2 x 264 x (64 + 128 + 128) bytes
+// (~170 KB: one block an SM). The f32 kernel at D = 256 takes ~215 KB of
+// its 227. MLA's absorbed latent (D = 576, Dv = 512, one shared KV
 // head whose V is the leading 512 columns of K) runs flash_latent_kernel
 // (bf16 only; latent_attention.cuh): a block holds 64 (token, head) rows of
 // a batch row, 128 of the 512 output columns (4 blocks share a row tile),
@@ -367,10 +373,17 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   if (kt < n_tiles) load_kv(kt, 0);
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[D / 16][4];  // this warp's 16 x D Q fragments
+  // this warp's 16 x D Q fragments: in registers for the block's life up to
+  // D = 192; at D = 256 they and the 16 x 256 f32 output tile (128 registers
+  // a thread) would not fit together, so Q stays in shared memory and two
+  // k-steps' fragments are reloaded at a time (kQRegs false)
+  constexpr bool kQRegs = D <= 192;
+  const __nv_bfloat16* qw = qs + (warp * 16 + lane % 16) * S + (lane / 16) * 8;
+  uint32_t qf[kQRegs ? D / 16 : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qf[kk], qs + (warp * 16 + lane % 16) * S + kk * 16 + (lane / 16) * 8);
+    for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qf[kk], qw + kk * 16);
+  }
 
   float o[DV / 8][4];
 #pragma unroll
@@ -393,15 +406,33 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int* kv = kv_s + sb * kTileK;
 
     float s[kTileK / 8][4];  // S: 8 key columns per n-tile
+    if constexpr (kQRegs) {
 #pragma unroll
-    for (int n = 0; n < kTileK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      for (int n = 0; n < kTileK / 8; ++n) {
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
+        for (int kk = 0; kk < D / 16; kk += 2) {
+          uint32_t bf[4];  // keys n*8.., d in [kk*16, kk*16 + 32)
+          ldmatrix_x4(bf, kt_s + (n * 8 + lane % 8) * S + kk * 16 + (lane / 8) * 8);
+          mma_bf16_16816(s[n], qf[kk], bf[0], bf[1]);
+          mma_bf16_16816(s[n], qf[kk + 1], bf[2], bf[3]);
+        }
+      }
+    } else {  // the same sums, each s[n] over kk in the same order
+#pragma unroll
+      for (int n = 0; n < kTileK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 1
       for (int kk = 0; kk < D / 16; kk += 2) {
-        uint32_t bf[4];  // keys n*8.., d in [kk*16, kk*16 + 32)
-        ldmatrix_x4(bf, kt_s + (n * 8 + lane % 8) * S + kk * 16 + (lane / 8) * 8);
-        mma_bf16_16816(s[n], qf[kk], bf[0], bf[1]);
-        mma_bf16_16816(s[n], qf[kk + 1], bf[2], bf[3]);
+        uint32_t qa[4], qb[4];
+        ldmatrix_x4(qa, qw + kk * 16);
+        ldmatrix_x4(qb, qw + (kk + 1) * 16);
+#pragma unroll
+        for (int n = 0; n < kTileK / 8; ++n) {
+          uint32_t bf[4];
+          ldmatrix_x4(bf, kt_s + (n * 8 + lane % 8) * S + kk * 16 + (lane / 8) * 8);
+          mma_bf16_16816(s[n], qa, bf[0], bf[1]);
+          mma_bf16_16816(s[n], qb, bf[2], bf[3]);
+        }
       }
     }
     float mx[2] = {m[0], m[1]};
@@ -660,6 +691,9 @@ int dispatch_d(const void* q, const void* k, const void* v, const int* qp, const
                              scale, s);
   if (D == 128 && DV == 128)
     return launch<T, 128, 128>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, causal, window,
+                               scale, s);
+  if (D == 256 && DV == 256)  // recurrentgemma's local attention
+    return launch<T, 256, 256>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, causal, window,
                                scale, s);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (D == 192 && DV == 128)  // MLA's prefill: nope + rope against v_head

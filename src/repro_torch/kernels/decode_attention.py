@@ -12,6 +12,13 @@ blocks along the sequence (:func:`split_plan`, from the static S alone:
 the splits that hold keys by their log-sum-exp, in split order, with the
 maths of ``combine_partial_attention`` (see the source's note).
 
+Widths: D == Dv in {64, 128} with G * D <= 2048, and D = 256 with G * D <=
+2560 (recurrentgemma's MQA: 10 heads over one KV head, over the ring of
+its local attention; the per-thread accumulator is sized from D), in both
+types; f32 at D = 256 walks each split in 32-key tiles (two 64-key K/V
+tiles of 1 KB rows would not fit in shared memory). The paged kernel keeps
+D in {64, 128}.
+
 MLA's absorbed latent (D = 576, Dv = 512, Hkv = 1, V the view
 ``k[..., :512]``, G = the 128 heads) runs on its own bf16 kernel
 (``decode_latent_kernel``): the heads are the rows of an mma.sync tile
@@ -33,11 +40,15 @@ NEG_INF = -1e30
 #: launches of the CUDA kernel in this process (chip_smoke resets and reads it)
 LAUNCHES = 0
 #: head widths the kernel is instantiated for (D == Dv)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
+#: the paged kernel's (D = 256 serves only the hybrid's rings, which the
+#: paged pool refuses)
+PAGED_HEAD_DIMS = (64, 128)
 #: (D, Dv) of MLA's absorbed latent (Hkv = 1, V = K[..., :Dv]), bf16 only
 LATENT = (576, 512)
-#: per-thread output registers x threads of one block: bounds G * D
-MAX_GROUP_WIDTH = 8 * 256
+#: per-thread outputs x the block's 256 threads, by D: bounds G * D (2560 at
+#: D = 256: recurrentgemma's 10 heads over one KV head)
+MAX_GROUP_WIDTH = {64: 8 * 256, 128: 8 * 256, 256: 10 * 256}
 #: keys per tile of the kernel; a split is a whole number of tiles
 TILE_K = 64
 #: blocks per SM the split plan aims for
@@ -155,7 +166,7 @@ def decode_attention_cuda(
     if dv != d or d not in HEAD_DIMS:
         raise ValueError(f"decode_attention: the kernel takes D == Dv in {HEAD_DIMS} or "
                          f"{LATENT}, got D={d}, Dv={dv}")
-    if hq % hkv or (hq // hkv) * d > MAX_GROUP_WIDTH:
+    if hq % hkv or (hq // hkv) * d > MAX_GROUP_WIDTH[d]:
         raise ValueError(f"decode_attention: {hq} q heads over {hkv} KV heads at D={d}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("decode_attention: q, k and v must share one type")

@@ -12,7 +12,11 @@ f32 FMAs on the CUDA cores, since TF32 could not meet the f32 tolerance. At
 the served prefill shapes (B=1, T<=256, 32/8 heads, D=64) the H100 bound
 is bytes, and latency dominates (see the source's note).
 
-Widths: D == Dv in {64, 128} in both types; MLA's prefill (D = 192 =
+Widths: D == Dv in {64, 128, 256} in both types (256: recurrentgemma's
+local attention, G = 10 over one KV head, window 2048; the bf16 kernel
+reloads Q's fragments from shared memory at each k-step there, since Q
+and a 16 x 256 f32 output tile a warp would not fit in registers
+together); MLA's prefill (D = 192 =
 nope + rope against Dv = 128) in bf16; MLA's absorbed latent (D = 576,
 Dv = 512, Hkv = 1, V the view ``k[..., :512]``) in bf16 on its own kernel
 (``flash_latent_kernel``: 64 (token, head) rows a block, the 512 output
@@ -31,7 +35,7 @@ NEG_INF = -1e30
 #: launches of the CUDA kernel in this process (chip_smoke resets and reads it)
 LAUNCHES = 0
 #: head widths the kernel is instantiated for (D == Dv)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 #: (D, Dv) of MLA's prefill, bf16 only
 PREFILL_MLA = (192, 128)
 #: (D, Dv) of MLA's absorbed latent (Hkv = 1, V = K[..., :Dv]), bf16 only

@@ -112,10 +112,10 @@ def paged_decode_attention_cuda(
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)}, kbuf "
                          f"{tuple(kbuf.shape)}, vbuf {tuple(vbuf.shape)}, bt "
                          f"{tuple(bt.shape)} do not agree")
-    if vbuf.shape[-1] != d or d not in _da.HEAD_DIMS:
+    if vbuf.shape[-1] != d or d not in _da.PAGED_HEAD_DIMS:
         raise ValueError(f"paged_decode_attention: the kernel takes D == Dv in "
-                         f"{_da.HEAD_DIMS}, got D={d}, Dv={vbuf.shape[-1]}")
-    if hq % hkv or (hq // hkv) * d > _da.MAX_GROUP_WIDTH:
+                         f"{_da.PAGED_HEAD_DIMS}, got D={d}, Dv={vbuf.shape[-1]}")
+    if hq % hkv or (hq // hkv) * d > _da.MAX_GROUP_WIDTH[d]:
         raise ValueError(f"paged_decode_attention: {hq} q heads over {hkv} KV heads at D={d}")
     if kbuf.dtype != q.dtype or vbuf.dtype != q.dtype:
         raise TypeError("paged_decode_attention: q, kbuf and vbuf must share one type")

@@ -30,11 +30,13 @@ requests: one priority a full ``S`` seconds waited. Weights are random, drawn fr
 ``torch.Generator`` seeded with ``--seed``; on the card the model's kernels
 (attention and RMSNorm for ``llama3.2-1b`` and the MoE models, the latent
 attention too for ``deepseek-v2-236b``, the SSD scan and RMSNorm for
-``mamba2-130m``) are the hand-written CUDA ones. ``--n-layers`` cuts the
+``mamba2-130m``, windowed attention and RMSNorm for ``recurrentgemma-2b``,
+whose paged pool ``--paged`` refuses) are the hand-written CUDA ones. ``--n-layers`` cuts the
 depth of a model too large for one card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --n-layers 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --n-layers 3 \
       --paged --chunked --block-size 16 --num-blocks 48 --prefill-budget 64
@@ -792,11 +794,16 @@ def main(argv=None):
     geometry = dict(paged=args.paged, block_size=args.block_size,
                     num_blocks=args.num_blocks, chunked=args.chunked,
                     prefill_budget=args.prefill_budget, prefix_cache=args.prefix_cache)
-    warmup(model, params, slots=args.batch_slots, pad_to=pad_to,
-           max_new_cap=args.max_new, device=device,
-           profile_mix=bool({"beam", "contrastive", "cfg"} & set(kinds)),
-           n_beams=args.n_beams, speculative="speculative" in kinds,
-           exit_layer=args.exit_layer, n_draft=args.n_draft, **geometry)
+    try:
+        warmup(model, params, slots=args.batch_slots, pad_to=pad_to,
+               max_new_cap=args.max_new, device=device,
+               profile_mix=bool({"beam", "contrastive", "cfg"} & set(kinds)),
+               n_beams=args.n_beams, speculative="speculative" in kinds,
+               exit_layer=args.exit_layer, n_draft=args.n_draft, **geometry)
+    except NotImplementedError as e:  # the paged pool refuses the family
+        if not args.paged:
+            raise
+        raise SystemExit(f"--paged: {e}") from e
     m = run_scheduler(
         model, params, reqs, slots=args.batch_slots, pad_to=pad_to,
         max_new_cap=args.max_new, device=device, eos_id=args.eos_id,

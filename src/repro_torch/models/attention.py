@@ -46,9 +46,16 @@ and the paged steps run absorbed against the latent, a single shared KV
 head whose V is the latent's leading ``kv_lora_rank`` columns (a view of
 the cached K, never a copy).
 
+A sliding ``window`` (the hybrid's local attention, a dense config's
+``sliding_window``) turns a contiguous layer cache into a ring of ``S =
+min(max_len, window)`` rows: a prefill longer than S keeps its last S
+tokens, token t at row t % S (``write_prefill``); decode writes at
+``lengths % S`` and reads ``min(lengths + 1, S)`` rows. Train, prefill and
+decode take a window; verify, mixed and paged caches refuse one, as the
+reference does, before any write.
+
 Not ported yet (each raises ``NotImplementedError``): ``extend`` (it comes
-with the prefix cache), ring/sliding-window caches and the
-sequence-parallel decode (``SP_MESH``).
+with the prefix cache) and the sequence-parallel decode (``SP_MESH``).
 """
 from __future__ import annotations
 
@@ -68,13 +75,13 @@ from repro_torch.models import layers as L
 
 def write_prefill(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     """Write [B, T, ...] into [B, S, ...] at offset 0 and zero the rest of
-    each row (the reference pads ``new`` to S). Ring caches (T > S) are not
-    ported."""
+    each row (the reference pads ``new`` to S). A ring (T > S) keeps the
+    last S entries, token t at row t % S: every row is written."""
     s, t = buf.shape[1], new.shape[1]
     if t > s:
-        raise NotImplementedError(
-            f"ring-buffer prefill (T={t} > cache {s}) waits for the port's window caches"
-        )
+        slots = torch.arange(t - s, t, device=buf.device) % s
+        buf[:, slots] = new[:, t - s:].to(buf.dtype)
+        return buf
     buf[:, :t].copy_(new)
     buf[:, t:].zero_()
     return buf
@@ -225,10 +232,10 @@ def init_attention(gen, cfg: ModelConfig, device):
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, device, window=None):
-    if window:
-        raise NotImplementedError("ring/window KV caches wait for a later slice of the port")
+    """K/V [B, S, Hkv, D], S = max_len, or the ring's min(max_len, window)."""
     dt = L.param_dtype(cfg)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    s = min(max_len, window) if window else max_len
+    shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -260,8 +267,11 @@ def attention(
         raise NotImplementedError("extend mode waits for the port's prefix cache")
     if mode not in ("train", "prefill", "decode", "mixed", "verify"):
         raise ValueError(f"unknown mode {mode!r}")
-    if cache is not None and window is not None:
-        raise NotImplementedError("ring/window KV caches wait for a later slice of the port")
+    if window is not None and cache is not None and (mode in ("mixed", "verify")
+                                                     or "bt" in cache):
+        raise NotImplementedError(
+            f"{mode} over a {'paged' if 'bt' in cache else 'contiguous'} cache: ring/window "
+            "caches serve train, prefill and decode only")
 
     q = L.dense(p["wq"], x, impl).reshape(b, t, hq, dh)
     k = L.dense(p["wk"], x, impl).reshape(b, t, hkv, dh)

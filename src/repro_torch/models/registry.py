@@ -1,7 +1,7 @@
 """Model registry: resolves a ModelConfig to its family module and wraps it
 in a uniform ``Model`` handle used by the engine, launcher and tests (the
 counterpart of ``repro/models/registry.py``; the dense, VLM, MoE, MLA + MoE,
-encoder-decoder, Seamless, HSTU and SSM families so far)."""
+encoder-decoder, Seamless, HSTU, SSM and hybrid families)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -10,10 +10,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import encdec, hstu, seamless, ssm, transformer, vlm
+from repro_torch.models import encdec, hstu, hybrid, seamless, ssm, transformer, vlm
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "mla_moe": transformer, "vlm": vlm,
-             "encdec": encdec, "seamless": seamless, "hstu": hstu, "ssm": ssm}
+             "encdec": encdec, "seamless": seamless, "hstu": hstu, "ssm": ssm,
+             "hybrid": hybrid}
 
 
 @dataclass(frozen=True)

@@ -57,7 +57,7 @@ def assert_same(tcfg, jcfg, mode, batch, seq):
 
 
 def test_every_shared_arch_is_covered():
-    assert len(SHARED) == len(CONFIGS) == 11
+    assert len(SHARED) == len(CONFIGS) == 12
 
 
 @pytest.mark.parametrize("mode", ["prefill", "decode"])

@@ -1228,3 +1228,100 @@ def test_moe_step_begin_makes_no_sync_on_card(arch, pool):
     assert len(sched.finished) == 4 and all(len(r.tokens) == 10 for r in sched.finished)
     launched = (fa.LAUNCHES - before[0], da.LAUNCHES - before[1], pda.LAUNCHES - before[2])
     assert launched[0] > 0 and (launched[2] if pool == "chunked" else launched[1]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,t,window", [
+    (dt, b, t, w) for dt in (torch.bfloat16, torch.float32)
+    for b, t, w in ((1, 256, 2048), (1, 67, None), (2, 300, 64))] + [
+    (torch.bfloat16, 1, 2200, 2048)])
+def test_flash_attention_d256_window_on_card(dtype, b, t, window):
+    """Flash at D = Dv = 256, 10 q heads over one KV head (recurrentgemma's
+    local attention), causal under a window, against the plain version (f32
+    at the small shapes); a repeat call bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(25)
+    q = torch.randn((b, t, 10, 256), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, t, 1, 256), generator=g, device=dev).to(dtype) for _ in range(2))
+    pos = torch.arange(t, device=dev, dtype=torch.int32)[None].expand(b, t).contiguous()
+    kw = dict(q_positions=pos, k_positions=pos, causal=True, window=window)
+    before = fa.LAUNCHES
+    got = ops.flash_attention(q, k, v, window=window)
+    close(got, fa.flash_attention_plain(q, k, v, **kw), dtype)
+    assert torch.equal(got, fa.flash_attention_cuda(q, k, v, **kw))
+    assert fa.LAUNCHES == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,lengths", [(321, [0, 1, 63, 64, 65, 200, 320, 321]),
+                                       (2048, [2048, 1500])])
+def test_decode_attention_group_width_2560_on_card(s, lengths, dtype):
+    """Flash-decode at G * D = 10 x 256 = 2560 over a ring of ``s`` rows,
+    lengths at the split edges, against the plain version (a row of length
+    0 exact zeros, a repeat call bit-identical); the paged kernel refuses
+    D = 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    b = len(lengths)
+    q = torch.randn((b, 10, 256), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, s, 1, 256), generator=g, device=dev).to(dtype) for _ in range(2))
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = ops.decode_attention(q, k, v, ln)
+    close(got, da.decode_attention_plain(q, k, v, ln), dtype)
+    assert torch.equal(got, da.decode_attention_cuda(q, k, v, ln))
+    if lengths[0] == 0:
+        assert bool((got[0] == 0).all())
+    bt = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="D == Dv"):
+        pda.paged_decode_attention_cuda(q, k[:1, :16].contiguous(), v[:1, :16].contiguous(),
+                                        bt, ln.clamp(max=16))
+    with pytest.raises(ValueError, match="q heads"):
+        da.decode_attention_cuda(torch.cat([q, q[:, :1]], dim=1), k, v, ln)
+
+
+@pytest.mark.cuda
+def test_hybrid_served_on_card_matches_the_cpu():
+    """A small f32 recurrentgemma (the published pattern, heads and window
+    at d 128) served on the card through the scheduler at pad 48 over a
+    window of 32: the CPU run's tokens, flash and decode launched in its
+    attention layers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.scheduler import Scheduler, ServeRequest
+    from repro_torch.models import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = get_smoke_config("recurrentgemma-2b")
+    cfg = smoke.replace(dtype="float32", n_heads=10, d_head=256,
+                        hybrid=dataclasses.replace(smoke.hybrid, window=32))
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(7)
+    traffic = [(i, rng.integers(0, cfg.vocab_size, int(rng.integers(3, 49))), 20)
+               for i in range(4)]
+    tokens = {}
+    before = (fa.LAUNCHES, da.LAUNCHES)
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else _to(params, torch.device("cuda"))
+        sched = Scheduler(model, p, slots=2, pad_to=48, max_new_cap=20, device=dev)
+        done = sched.run([ServeRequest(rid=i, prompt=pr, max_new=m) for i, pr, m in traffic])
+        tokens[dev] = {r.rid: r.tokens for r in done}
+    assert tokens["cuda"] == tokens["cpu"]
+    assert fa.LAUNCHES > before[0] and da.LAUNCHES > before[1]
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
