@@ -138,6 +138,39 @@ Phases (any failure exits non-zero and prints no result):
              profiled as in phase 6; printed for the record: tok/s, TTFT,
              TPOT, int8 vs bf16 weight bytes, logit drift against the bf16
              params, and the counts of ``calibrate="measure"``;
+7b. extend — the same bf16 llama3.2-1b, 8 slots of its contiguous cache
+             (321 rows) prefilled on the plain path to lengths 1..320, each
+             takes a 4-token window through ``forward(mode="extend")``:
+             flash exactly n_layers (RMSNorm a forward's, nothing else);
+             lengths + 4; in every layer each window written at rows
+             [min(len, S - 4), +4) by the kernel and the plain path alike,
+             every other row bit-identical to the prefilled cache (the
+             slot at 320 overhangs: the reference's clamp writes it at
+             317..320); the slots that fit held against a chain of 4 plain
+             decode steps on the window's tokens, the overhanging slot
+             against the plain extend (its layer-0 rows bit for bit): max
+             |dlogit| within 2e-2 of the logits' scale, the written rows
+             within EXTEND_KV_NORMWISE, a differing greedy pick only at a
+             near tie. Then an f32 cut of 2 layers (the f32 flash
+             kernel) within EXTEND_F32_BOUND and, the flash kernel one key
+             short, above it; a paged cache and a ring refuse extend before
+             any write; flash at the extend shape timed beside its bound
+             and SDPA;
+7c. train — full-width llama3.2-1b (16 layers, bf16, tied, 1.24 G
+             parameters, seeded init on the card) trained 8 AdamW steps
+             (f32 moments, lr 1e-3 after one warmup step) through
+             ``train_loop.train`` on one repeated ``token_stream`` batch of
+             4 x 128 (seed 0) with ``impl="torch"``: no kernel launched, the
+             loss falling from the first step to the last, finite gradient
+             norms and learning rates, every step printed; step wall ms,
+             tok/s and ``max_memory_allocated``. The 12.4 GB ``.npz``
+             checkpoint saved under ``build/`` and restored into fresh
+             tensors on the card, bit for bit, then deleted; a forward and
+             backward under ``impl="auto"`` refused by the kernels' guard
+             (no launch); one f32 step of a 2-layer cut on the card against
+             the same step on the CPU (TF32 off): loss, gradient norm and
+             every gradient at f32 tolerance, new params too but where the
+             CPU's gradient is rounding noise (there within 2 lr);
 8. hstu    — full-width HSTU (14 layers, d 512, 8 heads, band 1024 from
              layer 3, bf16, seeded weights) scores 8 user histories from
              ``hstu_user_histories(seed=0)``, right-padded with ``lengths``:
@@ -234,8 +267,12 @@ Phases (any failure exits non-zero and prints no result):
              (D 576, V its leading 512 columns, Hkv 1, G 128) at the
              chunked arm's mixed step and at the verify step, the latent
              decode and the paged latent decode (bit for bit the
-             contiguous kernel on the gathered rows). Each model's weights
-             are freed before the next phase.
+             contiguous kernel on the gathered rows). Then phase 7b's
+             extend over the latent (dropless capacity, so extend and decode
+             route alike but at near ties; rows routed otherwise are left
+             out) within FORCED_DLOGIT_BOUND, the flash kernel one key short
+             above it, and flash over the latent at the extend shape. Each
+             model's weights are freed before the next phase.
 14. dense — qwen2.5-3b (36 layers, q/k/v bias redrawn N(0, 0.5^2)),
              llama3-405b (4 of 126 layers, d 16384, 128/8 heads: G * D =
              2048) and yi-34b (all 60 layers, 68.8 GB, 56/8 heads: G = 7)
@@ -276,7 +313,11 @@ Phases (any failure exits non-zero and prints no result):
              then a plain run recorded, the kernel path forced to its draws
              (every committed row's |dlogit| within
              HYBRID_DLOGIT_BOUND["serve"], a differing pick only at a near
-             tie) and, one key short, above the bound; one decode step of
+             tie) and, one key short, above the bound; the same forced arm
+             in f32 on the f32 kernels at 6 of the 26 layers (its own
+             HYBRID_F32_BOUND; the sound reading, the control and their
+             separation printed: bf16's noise on logits of ~900 leaves the
+             bf16 bound only 1.03-1.09x from its controls); one decode step of
              8 slots profiled, the RG-LRU and the conv timed on the device;
              a long-context arm through ``engine.generate`` (2 prompts of
              3072 tokens, 32 greedy tokens: a ring prefill, windowed flash
@@ -4287,7 +4328,9 @@ def phase_moe(arch, pad_to):
         del plain, rec
     dropless_pools(tag, cfg, params, pad_to)
     moe_step_profile(tag, cfg, model, params, pad_to)
-    records = mla_kernel_records(cfg, out, pad_to) if cfg.mla is not None else []
+    records = []
+    if cfg.mla is not None:
+        records = mla_kernel_records(cfg, out, pad_to) + mla_extend(cfg, params, pad_to)
     del model, params
     torch.cuda.empty_cache()
     return cfg, out, records
@@ -5162,6 +5205,7 @@ def phase_hybrid(pad_to):
     check(dl["control"] > bound, f"hybrid control: a decode kernel one key short stayed "
                                  f"within the bound ({dl['control']} <= {bound})")
     del plain
+    hybrid_f32_arm(pad_to)
     hybrid_step_profile(cfg, model, params, pad_to)
     long_counts = hybrid_long_arm(cfg, model, params)
     print(f"[hybrid] phase {time.perf_counter() - t_phase:.1f} s | max_memory_allocated "
@@ -5298,6 +5342,643 @@ def hybrid_kernel_records(pad_to, counts, long_counts):
     return recs
 
 
+# --------------------------------------------------------------------------
+# the extend phase: a window of tokens a slot through forward(mode="extend")
+# on the contiguous cache
+# --------------------------------------------------------------------------
+
+#: 8 slots at these lengths over the contiguous cache of pad_to + MAX_NEW + 1
+#: = 321 rows take a window of EXTEND_T tokens; the last slot overhangs (320 +
+#: 4 > 321): the reference's clamp writes its window at rows 317..320
+EXTEND_LENGTHS, EXTEND_T = [1, 44, 100, 200, 256, 300, 316, 320], 4
+#: the bf16 arms' logit bound: max |dlogit| against the plain path within the
+#: bf16 tolerance of the logits' scale (2e-2 of the reference's max |logit|,
+#: the HSTU check's normwise rule)
+EXTEND_BF16_NORMWISE = TOL["bfloat16"][1]
+#: the written K/V (or latent) rows against the plain path's, normwise (max
+#: |d| over max |ref|, every layer) by the cache's type: in bf16 the kernel
+#: path's residual drifts from the plain one by up to 3 % over llama's 16
+#: layers (``launch/path_drift.py``), and a layer's K/V with it; layer 0's
+#: rows (their inputs differ only by the RMSNorm kernel) are held
+#: elementwise at the bf16 tolerance besides
+EXTEND_KV_NORMWISE = {"bfloat16": 5e-2, "float32": TOL["float32"][1]}
+#: the f32 llama arm (EXTEND_F32_LAYERS of 16 layers at full width, the f32
+#: flash kernel): max |dlogit| of the kernel extend against the plain decode
+#: chain, set between the sound reading and the flash kernel one key short
+#: (``flash_one_key_short``)
+EXTEND_F32_LAYERS, EXTEND_F32_BOUND = 2, 0.01
+
+
+def _clone_cache(cache):
+    from repro_torch.core.kv_cache import _map
+
+    return _map(lambda x: x.clone(), cache)
+
+
+@contextlib.contextmanager
+def flash_one_key_short():
+    """The extend arms' control: the flash kernel with each row's newest
+    valid key left out (its valid keys are a prefix), the off-by-one of a
+    wrong ``k_valid``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    real = fa.flash_attention_cuda
+
+    def short(q, k, v, **kw):
+        kv = kw["k_valid"]
+        n = kv.sum(-1, keepdim=True)
+        kw["k_valid"] = (kv & (torch.arange(kv.shape[1], device=kv.device)[None] < n - 1))
+        return real(q, k, v, **kw)
+
+    fa.flash_attention_cuda = short
+    try:
+        yield
+    finally:
+        fa.flash_attention_cuda = real
+
+
+@contextlib.contextmanager
+def routing_log(log):
+    """Appends each MoE layer's chosen experts [B, T, k] (sorted) to ``log``,
+    in call order."""
+    from repro_torch.models import moe as M
+
+    real = M.moe_ffn
+
+    def spy(cfg, p, x, impl="auto"):
+        n = x.shape[0] * x.shape[1]
+        ids = M.route(cfg, p, x.reshape(n, -1))[2]
+        log.append(ids.reshape(x.shape[0], x.shape[1], -1).sort(-1).values)
+        return real(cfg, p, x, impl)
+
+    M.moe_ffn = spy
+    try:
+        yield
+    finally:
+        M.moe_ffn = real
+
+
+def _cache_leaves(cache):
+    """(layer, name, tensor) of a contiguous cache's [B, S, ...] leaves."""
+    return [(i, k, v) for i, lc in enumerate(cache["layers"]) for k, v in lc.items()]
+
+
+def extend_runs(cfg, model, params, pad_to, control=False):
+    """The extend arm's runs from one plain-path prefill of 8 slots at
+    EXTEND_LENGTHS (a cache of pad_to + MAX_NEW + 1 rows): the kernel path's
+    extend of a EXTEND_T-token window (launch counts read around it), the
+    plain path's, a chain of EXTEND_T plain decode steps on the window's
+    tokens, and with ``control`` the kernel extend with the flash kernel one
+    key short. Each: (logits [B, T, V] f32, cache, counts, routing)."""
+    import torch
+
+    dev = torch.device("cuda")
+    s = pad_to + MAX_NEW + 1
+    b = len(EXTEND_LENGTHS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    prompts = torch.randint(0, cfg.vocab_size, (b, s - 1), generator=gen, device=dev,
+                            dtype=torch.int32)
+    win = torch.randint(0, cfg.vocab_size, (b, EXTEND_T), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ln = torch.tensor(EXTEND_LENGTHS, dtype=torch.int32, device=dev)
+    routed = cfg.moe is not None
+    runs = {}
+    with torch.inference_mode():
+        cache0 = model.init_cache(b, s, dev)
+        _, cache0, _ = model.forward(params, {"tokens": prompts, "prompt_lengths": ln},
+                                     cache=cache0, mode="prefill", impl="torch")
+        arms = [("kernel", "auto", contextlib.nullcontext), ("plain", "torch",
+                                                               contextlib.nullcontext)]
+        if control:
+            arms.append(("control", "auto", flash_one_key_short))
+        for run, impl, ctx in arms:
+            log = []
+            c = _clone_cache(cache0)
+            torch.cuda.synchronize()
+            _reset_counts()
+            with ctx(), (routing_log(log) if routed else contextlib.nullcontext()):
+                lg, c, _ = model.forward(params, {"tokens": win}, cache=c, mode="extend",
+                                         impl=impl)
+            torch.cuda.synchronize()
+            runs[run] = (lg.float(), c, _read_counts(), log)
+        c, rows, log = _clone_cache(cache0), [], []
+        with routing_log(log) if routed else contextlib.nullcontext():
+            for i in range(EXTEND_T):
+                lg, c, _ = model.forward(params, {"tokens": win[:, i:i + 1]}, cache=c,
+                                         mode="decode", impl="torch")
+                rows.append(lg[:, 0].float())
+        runs["chain"] = (torch.stack(rows, 1), c, None, log)
+    return cache0, ln, runs
+
+
+def _clean_rows(cfg, runs, a, ref):
+    """[B, T] bool: the rows of run ``a`` whose slot routed every lane up to
+    them as in run ``ref`` in every MoE layer (all rows for a dense model).
+    The chain's log holds one [B, 1, k] a layer a step."""
+    import torch
+
+    la, lr = runs[a][3], runs[ref][3]
+    b = len(EXTEND_LENGTHS)
+    if cfg.moe is None:
+        return torch.ones((b, EXTEND_T), dtype=torch.bool, device=runs[a][0].device)
+
+    def per_layer(log):
+        if len(log) and log[0].shape[1] == EXTEND_T:
+            return log
+        n = len(log) // EXTEND_T
+        return [torch.cat([log[i * n + j] for i in range(EXTEND_T)], dim=1) for j in range(n)]
+
+    same = torch.stack([(x == y).all(-1) for x, y in zip(per_layer(la), per_layer(lr))]).all(0)
+    return same.int().cumprod(dim=1).bool()
+
+
+def extend_check(tag, cfg, model, params, pad_to, *, bound=None, control=False):
+    """The extend arm's checks (bf16 unless ``cfg`` is f32): exact launches
+    (flash n_layers, RMSNorm as a forward's, nothing else; the plain runs
+    none); new lengths = lengths + T; in every layer each slot's window
+    written at rows [min(len, S - T), +T) by the kernel path and by the plain
+    path, every other row bit-identical to the prefilled cache; the slots
+    that fit held against the plain decode chain, the overhanging slot
+    against the plain extend: max |dlogit| of the rows routed alike within
+    ``bound`` (None: EXTEND_BF16_NORMWISE of the reference's max |logit|),
+    the written K/V (or latent) rows within EXTEND_KV_NORMWISE (layer 0's
+    elementwise at the type's tolerance, and in bf16 the overhanging slot's
+    bit for bit: their inputs differ only by the RMSNorm kernel, which
+    rounds as its plain version at these rows), and each row's greedy pick the reference's unless at a near tie (its
+    top-two gap below the row's |dlogit|). With ``control`` the flash kernel
+    one key short must break the bound. Returns the kernel run's counts and
+    the readings."""
+    import torch
+
+    cache0, ln, runs = extend_runs(cfg, model, params, pad_to, control)
+    s = cache0["layers"][0][next(iter(cache0["layers"][0]))].shape[1]
+    n_attn = _attn_layers(cfg)
+    want = _want_counts(cfg, 1, flash_attention=n_attn)
+    check(runs["kernel"][2] == want,
+          f"{tag}: kernel launches {runs['kernel'][2]}, expected {want}")
+    check(all(v == 0 for v in runs["plain"][2].values()), f"{tag}: the plain path launched")
+    start = torch.clamp(ln.long(), max=s - EXTEND_T)
+    rows = torch.arange(s, device=ln.device)[None]
+    written = (rows >= start[:, None]) & (rows < start[:, None] + EXTEND_T)  # [B, S]
+    fits = (ln + EXTEND_T <= s)
+    check(int((~fits).sum()) == 1, f"{tag}: expected one overhanging slot")
+    for run in ("kernel", "plain"):
+        c = runs[run][1]
+        check(torch.equal(c["lengths"], ln + EXTEND_T), f"{tag} {run}: lengths {c['lengths']}")
+        for (i, name, got), (_, _, before) in zip(_cache_leaves(c), _cache_leaves(cache0)):
+            check(torch.equal(got[~written], before[~written]),
+                  f"{tag} {run}: layer {i} {name} changed a row outside its window")
+            check(bool((got[written] != before[written]).flatten(1).any(-1).all()),
+                  f"{tag} {run}: layer {i} {name} left a window row unwritten")
+    # the reference of each slot: the decode chain where the window fits, the
+    # plain extend where it overhangs (a decode would wrap to row 0)
+    ref_logits = torch.where(fits[:, None, None], runs["chain"][0], runs["plain"][0])
+    clean = torch.where(fits[:, None], _clean_rows(cfg, runs, "kernel", "chain"),
+                        _clean_rows(cfg, runs, "kernel", "plain"))
+    check(int(clean.sum()) * 2 >= clean.numel(),
+          f"{tag}: only {int(clean.sum())} of {clean.numel()} rows routed as the reference")
+    scale = float(ref_logits.abs().amax())
+    limit = EXTEND_BF16_NORMWISE * scale if bound is None else bound
+
+    def dlogit(run):
+        d = (runs[run][0] - ref_logits).abs().amax(-1)  # [B, T]
+        return d, float(d[clean].max())
+
+    row_dl, dl = dlogit("kernel")
+    top2 = ref_logits.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differs = (runs["kernel"][0].argmax(-1) != ref_logits.argmax(-1)) & clean
+    check(bool((gap[differs] < row_dl[differs]).all()),
+          f"{tag}: a greedy pick differs from the reference's away from a near tie")
+    # the written rows' values: the chain's cache where the window fits, the
+    # plain extend's where it overhangs; rows routed otherwise left out
+    kv_worst, kv0 = 0.0, 0.0
+    b = len(EXTEND_LENGTHS)
+    for (i, name, got), (_, _, ch), (_, _, pl) in zip(
+            _cache_leaves(runs["kernel"][1]), _cache_leaves(runs["chain"][1]),
+            _cache_leaves(runs["plain"][1])):
+        ref = torch.where(fits.view(-1, *([1] * (ch.dim() - 1))), ch, pl)
+        g = got[written].reshape(b, EXTEND_T, -1).float()  # [B, T, ...] in lane order
+        r = ref[written].reshape(b, EXTEND_T, -1).float()
+        if i == 0:
+            kv0 = max(kv0, max_err(g, r, cfg.dtype))
+            if cfg.dtype == "bfloat16":  # the overhanging slot's rows, bit for bit
+                check(torch.equal(g[~fits], r[~fits]),
+                      f"{tag}: the overhanging window's layer-0 rows differ from the plain "
+                      f"path's")
+        g, r = g[clean], r[clean]
+        kv_worst = max(kv_worst, float((g - r).abs().amax()) / max(float(r.abs().amax()),
+                                                                   1e-30))
+    line = (f"[{tag}] {len(EXTEND_LENGTHS)} slots at {EXTEND_LENGTHS} over {s} rows + "
+            f"{EXTEND_T} tokens: launches {runs['kernel'][2]['flash_attention']} flash (= "
+            f"{n_attn} layers) | window rows exact (the overhanging slot at rows "
+            f"{s - EXTEND_T}..{s - 1}) | rows routed as the reference {int(clean.sum())} of "
+            f"{clean.numel()} | max |dlogit| {dl:.6f} (bound {limit:.6f}; logits' max "
+            f"{scale:.3f}) | greedy picks that differ {int(differs.sum())} (near ties) | "
+            f"written rows: layer 0 max |d| {kv0:.3e}, every layer's max |d| / max |ref| "
+            f"{kv_worst:.2e} (bound {EXTEND_KV_NORMWISE[cfg.dtype]})")
+    readings = {"sound": dl, "bound": limit, "kv_rel": kv_worst}
+    if control:
+        cdl = dlogit("control")[1]
+        readings["control"] = cdl
+        line += f" | control (flash one key short) {cdl:.6f}, {cdl / max(dl, 1e-30):.1f}x"
+    print(line, flush=True)
+    check(dl <= limit, f"{tag}: max |dlogit| {dl} above {limit}")
+    check(kv_worst <= EXTEND_KV_NORMWISE[cfg.dtype],
+          f"{tag}: written rows off by {kv_worst:.3e} of their scale")
+    if control:
+        check(readings["control"] > limit,
+              f"{tag} control: the flash kernel one key short stayed within {limit}")
+    return runs["kernel"][2], readings
+
+
+def extend_refusals(cfg, params):
+    """A paged cache and (but for MLA) a ring raise NotImplementedError on
+    extend, before any write (one layer of ``cfg``)."""
+    import torch
+
+    from repro_torch.core.kv_cache import leaves
+    from repro_torch.models import get_model
+
+    dev = torch.device("cuda")
+    one = cfg.replace(n_layers=1)
+    p1 = dict(params, layers=params["layers"][:1])
+    win = torch.zeros((2, EXTEND_T), dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        paged = {"lengths": torch.zeros((2,), dtype=torch.int32, device=dev),
+                 "block_tables": torch.zeros((2, 2), dtype=torch.int32, device=dev),
+                 "layers": [{n: torch.zeros((4, 16) + tuple(x.shape[2:]), dtype=x.dtype,
+                                            device=dev)
+                             for n, x in get_model(one).init_cache(1, 1, dev)["layers"][0]
+                             .items()}]}
+        cases = [("paged", get_model(one), paged)]
+        if cfg.mla is None:  # MLA's latent has no ring in either package
+            ring = get_model(one.replace(sliding_window=64))
+            cases.append(("ring", ring, ring.init_cache(2, 321, dev)))
+        for what, model, cache in cases:
+            try:
+                model.forward(p1, {"tokens": win}, cache=cache, mode="extend")
+            except NotImplementedError as e:
+                check(all(not bool(x.any()) for x in leaves(cache["layers"])),
+                      f"extend on a {what} cache wrote before it refused")
+                print(f"[extend] {cfg.name}: a {what} cache refuses extend ({e})", flush=True)
+            else:
+                fail(f"extend on a {what} cache did not raise")
+
+
+def flash_extend_record(recs, gen, cfg, pad_to, launches, what):
+    """Flash at an extend step's shapes against its plain version (bf16,
+    atol/rtol 2e-2), timed beside its bound and SDPA: 8 slots x EXTEND_T
+    queries at EXTEND_LENGTHS + i over the contiguous cache's rows, keys
+    valid below lengths + EXTEND_T. GQA K/V for a dense model, MLA's latent
+    (Hkv 1, D = kv_lora + rope, V its leading kv_lora columns) for deepseek."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    b, t, s = len(EXTEND_LENGTHS), EXTEND_T, pad_to + MAX_NEW + 1
+    ln = torch.tensor(EXTEND_LENGTHS, dtype=torch.int32, device=dev)
+    if cfg.mla is not None:
+        hq, hkv = cfg.n_heads, 1
+        d = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim
+        dv = cfg.mla.kv_lora_rank
+        scale = (cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim) ** -0.5
+    else:
+        hq, hkv, d, dv, scale = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim, None
+    q = _rand(gen, (b, t, hq, d), bf, dev)
+    k = _rand(gen, (b, s, hkv, d), bf, dev)
+    v = k[..., :dv] if cfg.mla is not None else _rand(gen, (b, s, hkv, dv), bf, dev)
+    qpos = (ln[:, None] + torch.arange(t, device=dev, dtype=torch.int32)[None]).contiguous()
+    kpos = int_positions(b, s, dev)
+    kval = (kpos < (ln + t)[:, None]).contiguous()
+    kw = dict(q_positions=qpos, k_positions=kpos, causal=True, k_valid=kval, scale=scale)
+    err = max_err(fa.flash_attention_cuda(q, k, v, **kw), fa.flash_attention_plain(q, k, v, **kw),
+                  "bfloat16")
+    ok = (kpos[:, None, :] <= qpos[:, :, None]) & kval[:, None, :]
+    g = hq // hkv
+    keys = int(kval.sum())
+    v_bytes = 0 if cfg.mla is not None else keys * hkv * dv * 2
+    kernel_record(
+        recs, f"q[{b},{t},{hq},{d}] {'latent' if cfg.mla is not None else 'kv'}[{b},{s},{hkv},"
+        f"{d}]{f' v = latent[..., :{dv}]' if cfg.mla is not None else ''} bf16 lengths "
+        f"{EXTEND_LENGTHS} + {t} ({what})",
+        lambda: fa.flash_attention_cuda(q, k, v, **kw),
+        lambda: fa.flash_attention_plain(q, k, v, **kw),
+        lambda qt=q.transpose(1, 2), ke=per_head(k, g), ve=per_head(v, g), m=ok[:, None]:
+        F.scaled_dot_product_attention(qt, ke, ve, attn_mask=m, scale=scale),
+        err, (q.numel() + b * t * hq * dv) * 2 + keys * hkv * d * 2 + v_bytes
+        + (qpos.numel() + kpos.numel()) * 4 + kval.numel(),
+        int(ok.sum()) * hq * 2 * (d + dv), launches, **FLASH_SRC)
+
+
+def phase_extend(cfg, model, params, pad_to):
+    """llama3.2-1b's extend at full width: the bf16 served model (16 layers)
+    through ``extend_check``, then an f32 cut of EXTEND_F32_LAYERS layers
+    (the f32 flash kernel) within EXTEND_F32_BOUND with the flash kernel one
+    key short above it; the refusals; flash at the extend shapes. Returns
+    (the kernel records, the bf16 run's counts)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    counts, _ = extend_check("extend", cfg, model, params, pad_to)
+    dev = torch.device("cuda")
+    cfg32 = get_config(ARCH).replace(dtype="float32", n_layers=EXTEND_F32_LAYERS)
+    model32 = get_model(cfg32)
+    with torch.inference_mode():
+        params32 = model32.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    extend_check(f"extend f32 {EXTEND_F32_LAYERS} layers", cfg32, model32, params32, pad_to,
+                 bound=EXTEND_F32_BOUND, control=True)
+    del params32
+    extend_refusals(cfg, params)
+    recs = []
+    flash_extend_record(recs, torch.Generator(device=dev).manual_seed(SEED + 29), cfg, pad_to,
+                        counts["flash_attention"], "llama3.2-1b extend, contiguous K/V")
+    finish_records(recs)
+    print(f"[extend] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return recs, counts
+
+
+# --------------------------------------------------------------------------
+# the train phase: full-width llama3.2-1b trained on the plain path
+# --------------------------------------------------------------------------
+
+#: 8 AdamW steps on one repeated token_stream batch (seed 0) of 4 x 128, lr
+#: 1e-3 from the first step (one warmup step; bf16 params would round a
+#: warmup's smaller updates away), then cosine over the 8 steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 128, 8, 1e-3
+#: the f32 card-against-CPU step: layers kept, batch and sequence
+TRAIN_F32_LAYERS, TRAIN_F32_BATCH, TRAIN_F32_SEQ = 2, 2, 64
+
+
+def train_f32_step_parity():
+    """One f32 step of full-width llama3.2-1b cut to TRAIN_F32_LAYERS layers,
+    the same params (drawn on the CPU) and batch on the card and on the CPU,
+    both on the plain path (TF32 off): loss, gradient norm and every
+    gradient leaf within atol 2e-5 + 2e-4 max|g|, every new param within
+    atol 2e-5 / rtol 2e-4 but where the CPU's gradient is rounding noise
+    (there within 2 lr: Adam's first step is about lr * sign(g))."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.training import data, optimizer as opt, train_loop as tl
+
+    cfg = get_config(ARCH).replace(dtype="float32", n_layers=TRAIN_F32_LAYERS)
+    model = get_model(cfg)
+    params = L.drop_f32_table(model.init(torch.Generator().manual_seed(SEED), "cpu"))
+    batch = next(data.token_stream(cfg, batch=TRAIN_F32_BATCH, seq_len=TRAIN_F32_SEQ,
+                                   seed=SEED))
+    ocfg = opt.OptimizerConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    out = {}
+    for name in ("cpu", "cuda"):
+        dev = torch.device(name)
+        p = opt.tree_map(lambda _, x: x.to(dev), params)
+        t0 = time.perf_counter()
+        loss, _, grads = tl.value_and_grad(model, p, tl.to_batch(batch, dev), impl="torch")
+        new, _, om = opt.apply_updates(p, grads, opt.init_state(p, ocfg), ocfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        to_cpu = lambda t: opt.leaf_list(opt.tree_map(lambda _, x: x.cpu(), t))  # noqa: E731
+        out[name] = (float(loss), float(om["grad_norm"]), to_cpu(grads), to_cpu(new), secs)
+        del p, grads, new
+    (l_c, n_c, g_c, p_c, s_c), (l_g, n_g, g_g, p_g, s_g) = out["cpu"], out["cuda"]
+    check(abs(l_g - l_c) <= 2e-5 + 2e-4 * abs(l_c), f"train f32: loss {l_g} vs CPU {l_c}")
+    check(abs(n_g - n_c) <= 2e-5 + 2e-4 * abs(n_c), f"train f32: grad norm {n_g} vs {n_c}")
+    worst, noise_n, flips = 0.0, 0, 0
+    for (path, _), gc_, gg, pc, pg in zip(opt.tree_items(params), g_c, g_g, p_c, p_g):
+        tol = 2e-5 + 2e-4 * float(gc_.abs().max())
+        err = float((gg - gc_).abs().max())
+        worst = max(worst, err / tol)
+        check(err <= tol, f"train f32: gradient {opt.path_str(path)} off by {err} > {tol}")
+        noise = gc_.abs() <= tol
+        ok = torch.isclose(pg, pc, atol=2e-5, rtol=2e-4)
+        check(bool(ok[~noise].all()), f"train f32: param {opt.path_str(path)} differs")
+        check(bool(((pg - pc).abs()[noise] <= 2 * TRAIN_LR).all()),
+              f"train f32: param {opt.path_str(path)} moved past 2 lr at a noise gradient")
+        noise_n += int(noise.sum())
+        flips += int((~ok & noise).sum())
+    print(f"[train f32] {cfg.n_layers}-layer cut, batch {TRAIN_F32_BATCH} x {TRAIN_F32_SEQ}: "
+          f"loss {l_g:.6f} (CPU {l_c:.6f}) | grad norm {n_g:.6f} (CPU {n_c:.6f}) | worst "
+          f"gradient error {worst:.3f} of its tolerance | new params within f32 tolerance; "
+          f"{noise_n} elements at rounding-noise gradients, {flips} of them updated otherwise "
+          f"(within 2 lr) | step {s_g * 1e3:.1f} ms on the card, {s_c * 1e3:.1f} ms on the CPU",
+          flush=True)
+
+
+def phase_train():
+    """Full-width llama3.2-1b (16 layers, bf16, tied, seeded init on the
+    card) trained TRAIN_STEPS AdamW steps on one repeated ``token_stream``
+    batch through ``train_loop.train`` with ``impl="torch"``: no kernel
+    launched, the loss falling from the first step to the last, finite
+    gradient norms and learning rates; step wall ms, tok/s and
+    ``max_memory_allocated``. Then the checkpoint saved and restored into
+    fresh tensors on the card, bit for bit; a forward and backward under
+    ``impl="auto"`` refused by the kernels' guard; the f32 step against the
+    CPU (``train_f32_step_parity``); two more steps profiled and AdamW's
+    device time alone beside its bound."""
+    import gc
+    import itertools
+    import math
+    import statistics as st
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.kv_cache import leaves
+    from repro_torch.models import get_model
+    from repro_torch.training import checkpoint, data, optimizer as opt, train_loop as tl
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    check(cfg.n_layers == 16 and cfg.d_model == 2048 and cfg.tie_embeddings
+          and cfg.dtype == "bfloat16", f"unexpected config {cfg}")
+    batch = next(data.token_stream(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED))
+    ocfg = opt.OptimizerConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    res = tl.train(cfg, data=itertools.repeat(batch), steps=TRAIN_STEPS, opt_cfg=ocfg,
+                   seed=SEED, log_every=1, device=dev, impl="torch")
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(v == 0 for v in counts.values()), f"train: kernels launched {counts}")
+    hist = res.metrics_history
+    check(len(hist) == TRAIN_STEPS, f"train: {len(hist)} logged steps")
+    for h in hist:
+        check(all(math.isfinite(h[k]) for k in ("loss", "grad_norm", "lr")),
+              f"train: a non-finite metric {h}")
+    check(hist[-1]["loss"] < hist[0]["loss"],
+          f"train: the loss did not fall ({hist[0]['loss']} -> {hist[-1]['loss']})")
+    walls = [hist[0]["wall_s"]] + [b["wall_s"] - a["wall_s"] for a, b in zip(hist, hist[1:])]
+    step_ms = st.median(walls[1:]) * 1e3
+    n_el = sum(p.numel() for p in leaves(res.params))
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {n_el / 1e9:.3f}G params (bf16, tied), AdamW f32 moments, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ} (token_stream seed {SEED}, repeated), lr "
+          f"{TRAIN_LR}, impl torch | loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f} over "
+          f"{TRAIN_STEPS} steps | step wall {step_ms:.1f} ms (median of steps 1..; the first "
+          f"{walls[0] * 1e3:.1f} ms) = {TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f} tok/s | "
+          f"max_memory_allocated {peak} B | {gpu_line()}", flush=True)
+
+    path = os.path.join(ROOT, "build", "train_ckpt", "llama3.2-1b.npz")
+    t0 = time.perf_counter()
+    checkpoint.save(path, res.params, res.opt_state, step=TRAIN_STEPS)
+    t_save = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    empty = lambda tree: opt.tree_map(lambda _, x: torch.empty_like(x), tree)  # noqa: E731
+    t0 = time.perf_counter()
+    got_p, got_o, step = checkpoint.restore(path, empty(res.params), empty(res.opt_state))
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    os.remove(path)
+    check(step == TRAIN_STEPS and int(got_o.step) == TRAIN_STEPS, f"train: restored step {step}")
+    for tree, back in ((res.params, got_p), (res.opt_state, got_o)):
+        for (p, a), (_, b) in zip(opt.tree_items(tree), opt.tree_items(back)):
+            check(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b),
+                  f"train: checkpoint leaf {opt.path_str(p)} came back otherwise")
+    print(f"[train] checkpoint {size} B: save {t_save:.1f} s, restore {t_restore:.1f} s, every "
+          f"leaf bit for bit on the card", flush=True)
+    del got_p, got_o
+
+    model = get_model(cfg)
+    _reset_counts()
+    try:
+        tl.value_and_grad(model, res.params, tl.to_batch(batch, dev), impl="auto")
+    except RuntimeError as e:
+        check("no backward" in str(e), f"train: auto under autograd raised otherwise: {e}")
+        print(f"[train] impl='auto' under autograd on the card refused: {e}", flush=True)
+    else:
+        fail("train: a forward and backward under impl='auto' on the card did not raise")
+    check(all(v == 0 for v in _read_counts().values()), "train: the refused step launched")
+
+    # where a step's time goes: two more steps profiled, then AdamW alone
+    # beside its bound (params and bf16 grads read, f32 moments read and
+    # written, params written: 22 B an element)
+    b = tl.to_batch(batch, dev)
+    st_ = {"p": res.params, "o": res.opt_state}
+    train_step = tl.make_train_step(model, ocfg, impl="torch")
+
+    def one():
+        st_["p"], st_["o"], _ = train_step(st_["p"], st_["o"], b)
+
+    step_profile("train step", one, n_steps=2)
+    _, _, grads = tl.value_and_grad(model, st_["p"], b, impl="torch")
+    adam = device_ms(lambda: opt.apply_updates(st_["p"], grads, st_["o"], ocfg), calls=3)
+    print(f"[train step] AdamW alone: device {'not measured' if adam is None else f'{adam:.3f} ms'}"
+          f" over {n_el} params | bound {n_el * 22 / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes)",
+          flush=True)
+    del res, st_, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_f32_step_parity()
+    print(f"[train] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# --------------------------------------------------------------------------
+# the hybrid phase's f32 forced arm
+# --------------------------------------------------------------------------
+
+#: recurrentgemma-2b in f32 at a depth cut (the published widths, its first
+#: HYBRID_F32_LAYERS layers: two periods of rec, rec, attention), served on
+#: the f32 kernels, forced to the f32 plain run's draws: max |dlogit| of the
+#: committed rows within HYBRID_F32_BOUND, set between the sound reading and
+#: the decode kernel one key short
+HYBRID_F32_LAYERS, HYBRID_F32_BOUND = 6, 0.01
+
+
+def hybrid_f32_arm(pad_to):
+    """The f32 forced arm: recurrentgemma-2b cut to HYBRID_F32_LAYERS layers
+    in f32 (seeded weights), phase 4's 16 requests recorded on the plain
+    path, then served on the kernels forced to its draws (exact launches,
+    the same tokens and steps) within HYBRID_F32_BOUND, and with the decode
+    kernel one key short above it. Prints both readings, the control and
+    their separation. Returns the readings."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import get_model
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH).replace(dtype="float32", n_layers=HYBRID_F32_LAYERS)
+    model = get_model(cfg)
+    with torch.inference_mode():
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    kw = dict(policy="continuous", int8_mode=None)
+    plain = Forced("record")
+    with plain_path(), forcing(plain):
+        mp, ptoks, _ = serve_once(model, params, cfg, pad_to, tag="hybrid f32 plain", **kw)
+    dl = {}
+    for run in ("forced", "control"):
+        rec = Forced("steps", plain)
+        with forcing(rec), (one_key_short(da, "decode_attention_cuda", 3)
+                            if run == "control" else contextlib.nullcontext()):
+            mf, ftoks, _ = serve_once(model, params, cfg, pad_to, tag=f"hybrid f32 {run}", **kw)
+        check(ftoks == ptoks and _geometry(mf) == _geometry(mp),
+              f"hybrid f32 {run}: tokens or steps differ from the plain run's")
+        dl[run] = rec.summary(f"hybrid f32 {run}")[1]
+        del rec
+    bound = HYBRID_F32_BOUND
+    print(f"[hybrid f32] {cfg.n_layers} of 26 layers ({_attn_layers(cfg)} local attention), "
+          f"f32 kernels, forced to the f32 plain run: max |dlogit| sound {dl['forced']:.6f}, "
+          f"one key short {dl['control']:.6f} (bound {bound}; separation "
+          f"{dl['control'] / max(dl['forced'], 1e-30):.1f}x) | {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(dl["forced"] <= bound, f"hybrid f32: max |dlogit| {dl['forced']}, bound {bound}")
+    check(dl["control"] > bound,
+          f"hybrid f32 control: a decode kernel one key short stayed within {bound}")
+    del model, params, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dl
+
+
+def mla_extend(cfg, params, pad_to):
+    """deepseek-v2's extend over the latent (the phase's depth cut) through
+    ``extend_check`` under dropless capacity (E / k: a token's experts do
+    not depend on what shares its forward, so the extend and the decode
+    chain route alike but at near ties), within FORCED_DLOGIT_BOUND with the
+    flash kernel one key short above it; the paged refusal; flash over the
+    latent at the extend shapes. Returns the kernel records."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    m = cfg.moe
+    dropless = cfg.replace(moe=dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k))
+    counts, _ = extend_check("mla extend", dropless, get_model(dropless), params, pad_to,
+                             bound=FORCED_DLOGIT_BOUND, control=True)
+    extend_refusals(cfg, params)
+    recs = []
+    flash_extend_record(recs, torch.Generator(device=torch.device("cuda")).manual_seed(SEED + 30),
+                        cfg, pad_to, counts["flash_attention"],
+                        "deepseek-v2 extend, absorbed latent")
+    finish_records(recs)
+    print(f"[mla extend] {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return recs
+
+
 def main() -> None:
     try:
         import torch
@@ -5333,8 +6014,11 @@ def main() -> None:
         phase_parity(model, params, pad_to, trace[:2], runs["continuous"][1])
         phase_profile(model, params, pad_to, trace, fused=fused_per_forward(cfg))
         arms = phase_quant(cfg, model, params, pad_to, trace)
+        extend_records, _ = phase_extend(cfg, model, params, pad_to)
+        records += extend_records
         del model, params
         torch.cuda.empty_cache()
+        phase_train()
         hstu_counts, hstu_f32_counts = phase_hstu()
         ssm_counts, ssm_f32_counts = phase_ssm(pad_to)
         seamless_counts, _ = phase_seamless()

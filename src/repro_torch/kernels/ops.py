@@ -9,6 +9,11 @@
 - ``auto``  — ``cuda`` for CUDA tensors, ``torch`` for CPU tensors. Never a
               silent fallback: a CUDA tensor launches the kernel or raises.
 
+The kernels have no backward: each writes its output into a fresh tensor
+through ``ctypes``, which autograd would take for a constant. So a ``cuda``
+dispatch raises when grad mode is on and an input requires a gradient
+(``_check_no_grad``); training runs ``impl="torch"``.
+
 Inputs are made contiguous here (a no-op for the served path's tensors),
 so the kernel wrappers only ever see the layout they take. Two operands
 are the exceptions: the fused RMSNorms' second operand, a view whose rows
@@ -43,6 +48,15 @@ def _resolve(impl: str, x: torch.Tensor) -> str:
     return impl
 
 
+def _check_no_grad(impl: str, *inputs: Optional[torch.Tensor]) -> None:
+    """Refuse a kernel launch that autograd would need to differentiate."""
+    if impl == "cuda" and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            "a CUDA kernel wrapper got an input that requires a gradient: the port's "
+            "kernels have no backward; train with impl='torch'")
+
+
 def _v_of(v: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """``v`` as the kernels take it: kept as a view when it is ``k``'s
     leading slice (``_build.leading_slice``), else contiguous."""
@@ -63,6 +77,7 @@ def flash_attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     impl = _resolve(impl, q)
+    _check_no_grad(impl, q, k, v)
     b, tq = q.shape[:2]
     tk = k.shape[1]
     dev = q.device
@@ -92,6 +107,7 @@ def decode_attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     impl = _resolve(impl, q)
+    _check_no_grad(impl, q, k, v)
     lengths = lengths.to(torch.int32).contiguous()
     fn = _da.decode_attention_cuda if impl == "cuda" else _da.decode_attention_plain
     k = k.contiguous()
@@ -121,6 +137,7 @@ def paged_decode_attention(
     ``vbuf=None`` with ``v_dim`` serves MLA's absorbed latent: a shared-head
     pool [NB, bs, D] whose V is the leading ``v_dim`` columns of K."""
     impl = _resolve(impl, q)
+    _check_no_grad(impl, q, kbuf, vbuf)
     bt = bt.to(torch.int32).contiguous()
     n_valid = n_valid.to(torch.int32).contiguous()
     fn = (_pda.paged_decode_attention_cuda if impl == "cuda"
@@ -132,6 +149,7 @@ def paged_decode_attention(
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
             impl: str = "auto") -> torch.Tensor:
     impl = _resolve(impl, x)
+    _check_no_grad(impl, x, weight)
     fn = _rn.rmsnorm_cuda if impl == "cuda" else _rn.rmsnorm_plain
     return fn(x.contiguous(), weight.contiguous(), eps)
 
@@ -152,6 +170,7 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
 def _fused(kernel, plain, impl: str, x: torch.Tensor, other: torch.Tensor,
            weight: torch.Tensor, eps: float):
     impl = _resolve(impl, x)
+    _check_no_grad(impl, x, other, weight)
     if other.shape != x.shape or other.dtype != x.dtype:
         raise ValueError(f"fused rmsnorm: operands {tuple(x.shape)} {x.dtype} and "
                          f"{tuple(other.shape)} {other.dtype} differ")
@@ -203,6 +222,7 @@ def int8_matmul_weight_only(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.T
     §4.2 weight-only); the per-output-channel scale is applied after the
     dot."""
     impl = _resolve(impl, x)
+    _check_no_grad(impl, x, w_scale)
     fn = (_im.int8_matmul_weight_only_cuda if impl == "cuda"
           else _im.int8_matmul_weight_only_plain)
     return fn(x.contiguous(), w_q.contiguous(), w_scale.float().contiguous())
@@ -223,6 +243,7 @@ def int8_matmul_dynamic(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tenso
     (amax, scale, round, clip) are plain torch outside the kernel, as the
     reference computes them outside its Pallas kernel."""
     impl = _resolve(impl, x)
+    _check_no_grad(impl, x, w_scale)
     x_q, x_scale = quantize_rows(x)
     fn = _im.int8_matmul_dynamic_cuda if impl == "cuda" else _im.int8_matmul_dynamic_plain
     return fn(x_q, w_q.contiguous(), w_scale.float().contiguous(), x_scale)
@@ -248,6 +269,7 @@ def ssd_scan(
     chunk is ``min(chunk, T)``, as the TPU kernel's wrapper takes it; the
     chunked result equals the sequential recurrence up to rounding."""
     impl = _resolve(impl, x)
+    _check_no_grad(impl, x, dt, A, B_, C, D, initial_state)
     chunk = max(1, min(chunk, x.shape[1]))
     if initial_state is not None:
         initial_state = initial_state.float().contiguous()
@@ -300,6 +322,7 @@ def hstu_attention(
     causal, ``max_attn_len`` and key-length masks; ``lengths`` None means
     every row is ``T`` long."""
     impl = _resolve(impl, q)
+    _check_no_grad(impl, q, k, v, rel_bias)
     b, t = q.shape[:2]
     if lengths is None:
         lengths = torch.full((b,), t, dtype=torch.int32, device=q.device)

@@ -16,6 +16,14 @@ Modes:
 - ``decode``:  one token per slot; write at ``lengths % cache_len``, then
                flash-decode over the cache with ``n_valid = min(lengths + 1,
                cache_len)``.
+- ``extend``:  a window of T tokens per slot written at ``lengths``
+               (``write_extend``: the reference's ``dynamic_update_slice``,
+               whose start is clamped to ``S - T``, so a window that would
+               overhang the cache lands on its last T rows), then flash
+               attention over the whole cache with explicit key positions and
+               ``k_valid = arange(S) < lengths + T``. Contiguous caches only:
+               a paged cache and a ring (``window``) raise, as in the
+               reference.
 - ``verify``:  each slot's speculative window of ``t_new`` tokens written at
                ``lengths`` (``write_window``: lanes past ``t_new`` dropped,
                never clamped), then flash attention over the whole cache with
@@ -41,8 +49,8 @@ over K/V blocks [NB, bs, Hkv, D]; see ``core/kv_cache.py``):
 DeepSeek-V2's Multi-head Latent Attention (``mla_attention``) serves the
 same modes over one fused latent cache [B, S, kv_lora + rope] (or its block
 pool [NB, bs, kv_lora + rope]): prefill expands the latents to per-head K
-and V for flash attention at D = nope + rope, Dv = v_head; decode, verify
-and the paged steps run absorbed against the latent, a single shared KV
+and V for flash attention at D = nope + rope, Dv = v_head; decode, extend,
+verify and the paged steps run absorbed against the latent, a single shared KV
 head whose V is the latent's leading ``kv_lora_rank`` columns (a view of
 the cached K, never a copy).
 
@@ -51,11 +59,11 @@ A sliding ``window`` (the hybrid's local attention, a dense config's
 min(max_len, window)`` rows: a prefill longer than S keeps its last S
 tokens, token t at row t % S (``write_prefill``); decode writes at
 ``lengths % S`` and reads ``min(lengths + 1, S)`` rows. Train, prefill and
-decode take a window; verify, mixed and paged caches refuse one, as the
-reference does, before any write.
+decode take a window; extend, verify, mixed and paged caches refuse one,
+as the reference does, before any write.
 
-Not ported yet (each raises ``NotImplementedError``): ``extend`` (it comes
-with the prefix cache) and the sequence-parallel decode (``SP_MESH``).
+Not ported yet: the sequence-parallel decode (``SP_MESH``), which needs
+more than one card.
 """
 from __future__ import annotations
 
@@ -91,6 +99,18 @@ def write_decode(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> tor
     """Write one entry per batch row: buf [B,S,...], new [B,...], idx [B]."""
     rows = torch.arange(buf.shape[0], device=buf.device)
     buf[rows, idx.long()] = new.to(buf.dtype)
+    return buf
+
+
+def write_extend(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Write a [B, T, ...] block into buf [B, S, ...] at per-slot offsets
+    idx [B], each start clamped to [0, S - T] as ``dynamic_update_slice``
+    clamps it: an overhanging window is written whole at ``S - T``, over
+    committed rows (the reference's ``write_extend``)."""
+    b, t = new.shape[:2]
+    start = torch.clamp(idx.long(), 0, buf.shape[1] - t)
+    pos = start[:, None] + torch.arange(t, device=buf.device)[None]
+    buf[torch.arange(b, device=buf.device)[:, None], pos] = new.to(buf.dtype)
     return buf
 
 
@@ -263,11 +283,13 @@ def attention(
         raise ValueError("mixed mode requires a paged (block-table) cache")
     if mode == "verify" and (cache is None or t_new is None):
         raise ValueError("verify mode requires a cache and per-slot widths t_new")
-    if mode == "extend":
-        raise NotImplementedError("extend mode waits for the port's prefix cache")
-    if mode not in ("train", "prefill", "decode", "mixed", "verify"):
+    if mode not in ("train", "prefill", "decode", "extend", "mixed", "verify"):
         raise ValueError(f"unknown mode {mode!r}")
-    if window is not None and cache is not None and (mode in ("mixed", "verify")
+    if mode == "extend" and cache is None:
+        raise ValueError("extend mode requires a cache")
+    if mode == "extend" and "bt" in cache:
+        raise NotImplementedError("extend unsupported on paged caches")
+    if window is not None and cache is not None and (mode in ("extend", "mixed", "verify")
                                                      or "bt" in cache):
         raise NotImplementedError(
             f"{mode} over a {'paged' if 'bt' in cache else 'contiguous'} cache: ring/window "
@@ -295,18 +317,25 @@ def attention(
         out, new_cache = _paged_attention(q, k, v, cache, positions=positions,
                                           lengths=lengths, mode=mode, t_new=t_new,
                                           impl=impl)
-    elif mode == "verify":
-        # the window written at the slot offsets, then window-query flash over
-        # the cache: intra-window causality by the query positions, each
-        # slot's width by k_valid
+    elif mode in ("extend", "verify"):
+        # the window written at the slot offsets (extend: whole, its start
+        # clamped; verify: t_new lanes), then window-query flash over the
+        # cache: intra-window causality by the query positions, each slot's
+        # valid keys by k_valid
         s = cache["k"].shape[1]
-        addr = cache if "win_b" in cache else None
-        new_cache = {"k": write_window(cache["k"], k, lengths, t_new, addr),
-                     "v": write_window(cache["v"], v, lengths, t_new, addr)}
+        if mode == "extend":
+            new_cache = {"k": write_extend(cache["k"], k, lengths),
+                         "v": write_extend(cache["v"], v, lengths)}
+            n_valid = lengths + t
+        else:
+            addr = cache if "win_b" in cache else None
+            new_cache = {"k": write_window(cache["k"], k, lengths, t_new, addr),
+                         "v": write_window(cache["v"], v, lengths, t_new, addr)}
+            n_valid = lengths + t_new
         kpos = torch.arange(s, device=x.device, dtype=torch.int32)[None].expand(b, s)
         out = ops.flash_attention(
             q, new_cache["k"], new_cache["v"], q_positions=positions, k_positions=kpos,
-            causal=True, k_valid=kpos < (lengths + t_new)[:, None], impl=impl,
+            causal=True, k_valid=kpos < n_valid[:, None], impl=impl,
         )
     else:  # decode
         s = cache["k"].shape[1]
@@ -414,11 +443,12 @@ def mla_attention(
     impl: str = "auto",
     t_new: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """MLA in every mode the port serves. ``train`` / ``prefill``: the
+    """MLA in every mode of the reference. ``train`` / ``prefill``: the
     latents up-projected to per-head K (nope beside the shared rope part)
     and V, flash attention at D = nope + rope, Dv = v_head; a prefill also
     writes the latent into the cache. ``decode`` (contiguous or paged),
-    ``verify`` (contiguous or paged) and ``mixed`` (paged): the new latent
+    ``extend`` (contiguous), ``verify`` (contiguous or paged) and ``mixed``
+    (paged): the new latent
     written as K/V are, then attention absorbed against the latent (the
     query's nope part folded through kv_up's K half, Hkv = 1, V the
     latent's leading ``kv_lora_rank`` columns) and the context folded
@@ -431,10 +461,12 @@ def mla_attention(
         raise ValueError("mixed mode requires a paged (block-table) cache")
     if mode == "verify" and (cache is None or t_new is None):
         raise ValueError("verify mode requires a cache and per-slot widths t_new")
-    if mode == "extend":
-        raise NotImplementedError("extend mode waits for the port's prefix cache")
-    if mode not in ("train", "prefill", "decode", "mixed", "verify"):
+    if mode not in ("train", "prefill", "decode", "extend", "mixed", "verify"):
         raise ValueError(f"unknown mode {mode!r}")
+    if mode == "extend" and cache is None:
+        raise ValueError("extend mode requires a cache")
+    if mode == "extend" and "bt" in cache:
+        raise NotImplementedError("extend unsupported on paged caches")
     q_nope, q_rope, latent_new = _mla_qkv(cfg, p, x, positions, impl)
 
     if mode in ("train", "prefill"):
@@ -471,16 +503,20 @@ def mla_attention(
             ctx = ops.flash_attention(q_eff, lat, lat[..., :r], q_positions=positions,
                                       k_positions=addr["kpos"], causal=True,
                                       k_valid=addr["k_valid"], scale=scale, impl=impl)
-    elif mode == "verify":
+    elif mode in ("extend", "verify"):  # window-query flash over the latent
         s = buf.shape[1]
-        addr = cache if "win_b" in cache else None
-        new_cache = {"latent": write_window(buf, latent_new, lengths, t_new, addr)}
+        if mode == "extend":
+            new_cache = {"latent": write_extend(buf, latent_new, lengths)}
+            n_valid = lengths + t
+        else:
+            addr = cache if "win_b" in cache else None
+            new_cache = {"latent": write_window(buf, latent_new, lengths, t_new, addr)}
+            n_valid = lengths + t_new
         lat = new_cache["latent"][:, :, None, :]
         kpos = torch.arange(s, device=x.device, dtype=torch.int32)[None].expand(b, s)
         ctx = ops.flash_attention(q_eff, lat, lat[..., :r], q_positions=positions,
                                   k_positions=kpos, causal=True,
-                                  k_valid=kpos < (lengths + t_new)[:, None], scale=scale,
-                                  impl=impl)
+                                  k_valid=kpos < n_valid[:, None], scale=scale, impl=impl)
     else:  # contiguous decode
         s = buf.shape[1]
         new_cache = {"latent": write_decode(buf, latent_new[:, 0], lengths % s)}

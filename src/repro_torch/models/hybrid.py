@@ -77,12 +77,12 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t from h_{-1} = 0 along axis 1, as an inclusive
     Hillis-Steele scan of the reference's combine ``(a1, b1), (a2, b2) ->
     (a1 a2, a2 b1 + b2)``: round s folds each step's pair into the pair s
-    steps back. ceil(log2 T) rounds; ``a`` and ``b`` are not modified."""
-    a, b = a.clone(), b.clone()
+    steps back. ceil(log2 T) rounds, each building new tensors (autograd
+    can differentiate it); ``a`` and ``b`` are not modified."""
     s = 1
     while s < a.shape[1]:
-        b[:, s:] += a[:, s:] * b[:, :-s]
-        a[:, s:] = a[:, s:] * a[:, :-s]
+        b = torch.cat([b[:, :s], b[:, s:] + a[:, s:] * b[:, :-s]], dim=1)
+        a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
         s *= 2
     return b
 

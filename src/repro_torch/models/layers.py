@@ -1,13 +1,20 @@
 """Shared model primitives: inits, RMSNorm, RoPE, sinusoid positions,
-SwiGLU, embeddings — counterparts of ``repro/models/layers.py``.
+SwiGLU, embeddings and the loss — counterparts of ``repro/models/layers.py``.
 
 Params are nested dicts of tensors with the JAX tree paths as names, and
 the JAX layout: ``dense`` weights are ``[d_in, d_out]`` applied as
 ``x @ w``, or an AutoQuant'd int8 linear (``core/quantization.py``).
 Param dtype follows ``cfg.dtype``; norms and RoPE run in f32, the tied
 unembed in f32.
+
+Serving keeps an f32 copy of a non-f32 tied table (``table_f32``, see
+``add_f32_table``); it is not a parameter. Training runs on the
+reference's tree without it (``drop_f32_table``), so the unembed converts
+``table`` inside the graph and its gradient lands on ``table`` itself.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +68,29 @@ def add_f32_table(p) -> None:
     step; an f32 table needs no copy."""
     if p["table"].dtype != torch.float32:
         p["table_f32"] = p["table"].float()
+
+
+def drop_f32_table(params: dict) -> dict:
+    """``params`` as the reference's tree: without the serving-only
+    ``table_f32`` beside ``params["embed"]["table"]`` (a shallow copy; the
+    tensors are shared)."""
+    embed = params.get("embed")
+    if not isinstance(embed, dict) or "table_f32" not in embed:
+        return params
+    return dict(params, embed={k: v for k, v in embed.items() if k != "table_f32"})
+
+
+def with_f32_table(cfg: ModelConfig, params: dict) -> dict:
+    """The reference's tree (trained params, a restored checkpoint) made
+    ready to serve: a tied model's embedding gets its f32 unembed copy back,
+    as the family's ``init`` gives it (a shallow copy; the tensors are
+    shared)."""
+    if not cfg.tie_embeddings or "embed" not in params:
+        return params
+    embed = {k: v for k, v in params["embed"].items() if k != "table_f32"}
+    with torch.no_grad():
+        add_f32_table(embed)
+    return dict(params, embed=embed)
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
@@ -135,3 +165,18 @@ def ffn_init(gen, d: int, d_ff: int, dtype, device):
 
 def ffn(p, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     return dense(p["w2"], F.silu(dense(p["w1"], x, impl)) * dense(p["w3"], x, impl), impl)
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,  # [B, T, V]
+    labels: torch.Tensor,  # [B, T]
+    mask: Optional[torch.Tensor] = None,  # [B, T]
+) -> torch.Tensor:
+    """Mean next-token NLL in f32 (f32 log-softmax, the labels' entries
+    gathered); with ``mask``, the masked sum over ``max(mask.sum(), 1)``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -6,15 +6,17 @@ GQA attention, and an MoE FFN (``moe.moe_ffn``, with shared experts) from
 layer ``first_dense_layers`` on, the layers before it dense at
 ``d_ff_dense``.
 
-``qkv_bias`` (qwen2.5) adds a bias to the q/k/v projections. The stacked
-``scan_layers`` layout is not ported (``NotImplementedError``); a JAX
-``scanned`` param block is unstacked by ``repro_torch.bridge`` instead.
+``qkv_bias`` (qwen2.5) adds a bias to the q/k/v projections. ``remat``
+checkpoints each layer in a train forward (``torch.utils.checkpoint``). The
+stacked ``scan_layers`` layout is not ported (``NotImplementedError``); a
+JAX ``scanned`` param block is unstacked by ``repro_torch.bridge`` instead.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -22,6 +24,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 
 FAMILIES = ("dense", "vlm", "moe", "mla_moe")
+MODES = ("train", "prefill", "decode", "extend", "mixed", "verify")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -78,6 +81,19 @@ def _layer_body(cfg: ModelConfig, p, x: torch.Tensor, h: torch.Tensor, *,
         delta, aux = M.moe_ffn(cfg, p["moe"], h, impl)
         return x, delta, new_cache, aux
     return x, L.ffn(p["ffn"], h, impl), new_cache, None
+
+
+def _layer_body_remat(cfg: ModelConfig, p, x: torch.Tensor, h: torch.Tensor, **kw):
+    """``_layer_body`` activation-checkpointed (``cfg.remat``, the
+    reference's ``_layer_forward_remat``): the layer's internals are
+    recomputed in the backward pass instead of kept. Train mode only (no
+    cache)."""
+    def body(x_, h_):
+        x_, delta, _, aux = _layer_body(cfg, p, x_, h_, **kw)
+        return x_, delta, torch.zeros((), device=x_.device) if aux is None else aux
+
+    x, delta, aux = torch.utils.checkpoint.checkpoint(body, x, h, use_reentrant=False)
+    return x, delta, None, aux
 
 
 def layer_forward(
@@ -155,13 +171,12 @@ def forward(
     exit, ``core/layerskip.py``): the last run layer's residual add goes into
     the final norm's kernel and the shared unembed follows; the other layers'
     caches are returned untouched. ``advance`` [B] replaces each slot's
-    length bump in decode mode (a frozen draft slot advances 0)."""
+    length bump in decode mode (a frozen draft slot advances 0). ``extend``
+    mode (contiguous caches only) writes a window of T tokens per slot at
+    ``lengths`` and advances each slot by T."""
     check_supported(cfg)
-    if mode not in ("train", "prefill", "decode", "mixed", "verify"):
-        raise NotImplementedError(
-            f"mode {mode!r} waits for a later slice of the port "
-            "(train/prefill/decode/mixed/verify only)"
-        )
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; the stack runs {MODES}")
     tokens = batch["tokens"]
     b, t = tokens.shape
     dev = tokens.device
@@ -176,6 +191,8 @@ def forward(
     # or hit the sink block (paged), and their outputs are never read
     t_new = batch["t_new"].to(torch.int32) if mode in ("mixed", "verify") else None
     bt = cache.get("block_tables") if cache is not None else None
+    if bt is not None and mode == "extend":
+        raise NotImplementedError("extend unsupported on paged caches")
     # a paged step's table, write rows and key validity, and a contiguous
     # verify window's live lanes, are the same in every layer
     if bt is not None:
@@ -198,8 +215,9 @@ def forward(
         lc = cache["layers"][i] if cache is not None else None
         if lc is not None and shared:
             lc = dict(lc, **shared)
-        x, delta, nlc, aux = _layer_body(cfg, lp, x, h, positions=positions, lengths=lengths,
-                                         cache=lc, mode=mode, impl=impl, t_new=t_new)
+        body = _layer_body_remat if cfg.remat and mode == "train" else _layer_body
+        x, delta, nlc, aux = body(cfg, lp, x, h, positions=positions, lengths=lengths,
+                                  cache=lc, mode=mode, impl=impl, t_new=t_new)
         if aux is not None:
             aux_total = aux_total + aux
         if bt is not None and nlc is not None:
@@ -233,7 +251,7 @@ def forward(
             new_len = cache["lengths"] + t_new
         elif advance is not None:  # a draft step: frozen slots advance 0
             new_len = cache["lengths"] + advance.to(torch.int32)
-        else:  # decode
+        else:  # decode, extend
             new_len = cache["lengths"] + t
         new_cache = {"lengths": new_len, "layers": new_layers}
         if bt is not None:

@@ -1,14 +1,17 @@
-"""Request-length profiles of the paper's workloads (Table 2) and HSTU's
-user histories: a copy of ``LengthProfile``, ``PAPER_PROFILES``,
-``_sample_lognormal``, ``sample_lengths`` and ``hstu_user_histories`` from
-``repro/training/data.py``, so that the port draws the same lengths and
-items as the JAX package for the same seed."""
+"""Request-length profiles of the paper's workloads (Table 2), the training
+token stream and HSTU's user histories: a copy of ``LengthProfile``,
+``PAPER_PROFILES``, ``_sample_lognormal``, ``sample_lengths``,
+``token_stream`` and ``hstu_user_histories`` from
+``repro/training/data.py``, so that the port draws the same lengths, batches
+and items as the JAX package for the same seed."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
+
+from repro_torch.configs.base import ModelConfig
 
 
 @dataclass(frozen=True)
@@ -52,6 +55,27 @@ def sample_lengths(
     ins = _sample_lognormal(rng, profile.in_min, profile.in_max, profile.in_mean, n)
     outs = _sample_lognormal(rng, profile.out_min, profile.out_max, profile.out_mean, n)
     return ins, outs
+
+
+def token_stream(
+    cfg: ModelConfig,
+    *,
+    batch: int,
+    seq_len: int,
+    seed: int = 0,
+    rank: int = 0,
+    world: int = 1,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite deterministic next-token-prediction batches of numpy int32
+    ``tokens`` and ``labels`` [batch, seq_len], sharded by data-parallel
+    rank (each rank sees a disjoint substream)."""
+    rng = np.random.default_rng(seed * world + rank + 1)
+    while True:
+        tokens = rng.integers(0, cfg.vocab_size, size=(batch, seq_len + 1))
+        yield {
+            "tokens": tokens[:, :-1].astype(np.int32),
+            "labels": tokens[:, 1:].astype(np.int32),
+        }
 
 
 def hstu_user_histories(

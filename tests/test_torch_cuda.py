@@ -1325,3 +1325,71 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+@pytest.mark.cuda
+def test_training_under_auto_raises_on_card():
+    """A forward under ``impl="auto"`` with params that require a gradient:
+    the first kernel dispatch (RMSNorm) refuses, since the kernels have no
+    backward; under ``impl="torch"`` the same step runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.training import train_loop as tl
+
+    dev = torch.device("cuda")
+    model = get_model(get_smoke_config("llama3.2-1b").replace(d_head=64, n_heads=4,
+                                                              n_kv_heads=2))
+    params = L.drop_f32_table(model.init(torch.Generator(device=dev).manual_seed(0), dev))
+    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32, device=dev),
+             "labels": torch.ones((2, 8), dtype=torch.int32, device=dev)}
+    before = rn.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward"):
+        tl.value_and_grad(model, params, batch, impl="auto")
+    assert rn.LAUNCHES == before
+    loss, _, grads = tl.value_and_grad(model, params, batch, impl="torch")
+    assert bool(torch.isfinite(loss)) and rn.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-130m", "recurrentgemma-2b"])
+def test_f32_train_step_on_card_matches_the_cpu(arch):
+    """One f32 ``make_train_step`` step of the smoke config on the card
+    (TF32 off, ``impl="torch"``) against the same step on the CPU: loss,
+    gradient norm and every new param at atol 2e-5 / rtol 2e-4, but where
+    the CPU's gradient is rounding noise (there within 2 lr)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop as tl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    model = get_model(cfg)
+    params = L.drop_f32_table(model.init(torch.Generator().manual_seed(0), "cpu"))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    ocfg = opt.OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, torch.device(dev))
+        b = {k: v.to(dev) for k, v in batch.items()}
+        _, _, grads = tl.value_and_grad(model, p, b, impl="torch")
+        new, _, metrics = tl.make_train_step(model, ocfg, impl="torch")(
+            p, opt.init_state(p, ocfg), b)
+        out[dev] = (opt.leaf_list(_to(new, torch.device("cpu"))),
+                    opt.leaf_list(_to(grads, torch.device("cpu"))),
+                    {k: float(v) for k, v in metrics.items()})
+    for k, v in out["cpu"][2].items():
+        assert v == pytest.approx(out["cuda"][2][k], rel=2e-4, abs=2e-5), k
+    for want, got, g in zip(out["cpu"][0], out["cuda"][0], out["cpu"][1]):
+        noise = g.abs() <= 2e-5 + 2e-4 * g.abs().max()
+        ok = torch.isclose(got, want, atol=2e-5, rtol=2e-4)
+        assert bool(ok[~noise].all())
+        assert bool(((got - want).abs()[noise] <= 2 * ocfg.lr).all())

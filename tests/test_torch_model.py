@@ -106,16 +106,25 @@ def test_gqa_attention_prefill_then_decode_matches_jax(pair):
 
 @pytest.mark.parametrize("mode", ["mixed", "verify", "extend"])
 def test_unported_attention_modes_raise(pair, mode):
-    """extend is not ported; mixed is, over a paged cache only, and refuses
-    a contiguous one as the reference does (ValueError); verify is, on
-    either cache, and refuses a call without its per-slot widths."""
+    """mixed runs over a paged cache only, and refuses a contiguous one as
+    the reference does (ValueError); verify runs on either cache, and
+    refuses a call without its per-slot widths; extend runs on a contiguous
+    cache and refuses a paged one, as the reference does
+    (NotImplementedError)."""
     _, _, _, tcfg, _, tparams = pair
     x = torch.zeros(1, 1, tcfg.d_model)
     kw = dict(positions=torch.zeros(1, 1, dtype=torch.int32),
               lengths=torch.zeros(1, dtype=torch.int32))
+    cache = A.init_attention_cache(tcfg, 1, 4, "cpu")
+    if mode == "extend":  # a paged layer cache carries its block table
+        cache = dict(cache, bt=torch.zeros((1, 1), dtype=torch.int32))
     with pytest.raises(NotImplementedError if mode == "extend" else ValueError):
-        A.attention(tcfg, tparams["layers"][0]["attn"], x,
-                    cache=A.init_attention_cache(tcfg, 1, 4, "cpu"), mode=mode, **kw)
+        A.attention(tcfg, tparams["layers"][0]["attn"], x, cache=cache, mode=mode, **kw)
+    if mode == "extend":  # on the contiguous cache it writes the window and attends
+        cache = A.init_attention_cache(tcfg, 1, 4, "cpu")
+        out, new = A.attention(tcfg, tparams["layers"][0]["attn"], x + 1, cache=cache,
+                               mode=mode, **kw)
+        assert out.shape == x.shape and bool(new["k"][0, 0].abs().sum() > 0)
     if mode == "verify":  # with its widths it writes the window and attends
         cache = A.init_attention_cache(tcfg, 1, 4, "cpu")
         out, new = A.attention(tcfg, tparams["layers"][0]["attn"], x + 1, cache=cache,

@@ -290,6 +290,8 @@ _LOCKED_MODULES = {
     "repro_torch.configs.deepseek_v2_236b", "repro_torch.configs.qwen2_5_3b",
     "repro_torch.configs.yi_34b", "repro_torch.configs.llama3_405b",
     "repro_torch.core.characterization", "repro_torch.launch.op_breakdown",
+    "repro_torch.training.optimizer", "repro_torch.training.checkpoint",
+    "repro_torch.training.train_loop", "repro_torch.launch.train",
 }
 
 
