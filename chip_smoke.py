@@ -171,6 +171,29 @@ Phases (any failure exits non-zero and prints no result):
              the same step on the CPU (TF32 off): loss, gradient norm and
              every gradient at f32 tolerance, new params too but where the
              CPU's gradient is rounding noise (there within 2 lr);
+7d. scanned — the same bf16 llama3.2-1b, 8 prompts of 256 tokens, 64
+             greedy tokens through ``engine.generate`` (the eager loop) and
+             ``engine.generate_scanned`` (one decode step captured as a CUDA
+             graph, replayed once a token, one host sync at the end): the
+             same tokens bit for bit, exact launches for both (flash
+             n_layers at the prefill, decode n_layers a decode step; the
+             captured step's counts added once a replay); the kernel path
+             teacher-forced to the plain path's tokens, eagerly and through
+             the captured step (bit for bit the eager logits), within 2e-2 of
+             the plain logits' max, and on an f32 cut of 2 layers within
+             0.01 with the decode kernel one key short above it; per decode
+             token the wall ms, device ms and busy share of each loop; a
+             sampler with a host sync makes ``generate_scanned`` raise;
+7e. audit — ``python -m repro_torch.analysis --device cuda``'s step audit
+             on the same model at the reference's pool geometry (4 slots,
+             pad 16, 64 new, block 16, 14 blocks, budget 4, exit layer 1, 4
+             drafts): prefill, decode, draft and verify on both pools and
+             the paged mixed step, each on the states two serving traces
+             left, hold one program, write their caches in place, grow
+             nothing, widen nothing but RoPE's and the unembed's per-token
+             f32, capture as one CUDA graph and replay bit for bit their
+             eager runs on both states; each step's eager and replay wall
+             ms and its graph's device kernels printed;
 8. hstu    — full-width HSTU (14 layers, d 512, 8 heads, band 1024 from
              layer 3, bf16, seeded weights) scores 8 user histories from
              ``hstu_user_histories(seed=0)``, right-padded with ``lengths``:
@@ -1820,38 +1843,23 @@ def ssd_kernel_records(gen):
 
 
 def _counters():
-    """Kernel name -> (holder, key) of its launch counter: a module and its
-    attribute, or RMSNorm's per-prologue dict and a prologue
-    (``rmsnorm/<prologue>``; ``rmsnorm`` counts every launch)."""
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import hstu_attention as ha
-    from repro_torch.kernels import int8_matmul as im
-    from repro_torch.kernels import paged_decode_attention as pda
-    from repro_torch.kernels import rmsnorm as rn
-    from repro_torch.kernels import ssd_scan as ss
+    """Every kernel launch counter's name (``kernels.counts``: a wrapper's
+    ``LAUNCHES``, RMSNorm's also by prologue as ``rmsnorm/<prologue>``)."""
+    from repro_torch.kernels import counts
 
-    return {"rmsnorm": (rn, "LAUNCHES"),
-            **{f"rmsnorm/{p}": (rn.LAUNCHES_BY_PROLOGUE, p) for p in rn.PROLOGUES},
-            "flash_attention": (fa, "LAUNCHES"),
-            "decode_attention": (da, "LAUNCHES"),
-            "paged_decode_attention": (pda, "LAUNCHES"),
-            "int8_matmul_weight_only": (im, "LAUNCHES_WO"),
-            "int8_matmul_dynamic": (im, "LAUNCHES_DYN"),
-            "hstu_attention": (ha, "LAUNCHES"), "ssd_scan": (ss, "LAUNCHES")}
+    return list(counts.snapshot())
 
 
 def _reset_counts():
-    for holder, key in _counters().values():
-        if isinstance(holder, dict):
-            holder[key] = 0
-        else:
-            setattr(holder, key, 0)
+    from repro_torch.kernels import counts
+
+    counts.restore(dict.fromkeys(_counters(), 0))
 
 
 def _read_counts():
-    return {name: holder[key] if isinstance(holder, dict) else getattr(holder, key)
-            for name, (holder, key) in _counters().items()}
+    from repro_torch.kernels import counts
+
+    return counts.snapshot()
 
 
 def _none_per_layer(cfg) -> int:
@@ -5979,6 +5987,263 @@ def mla_extend(cfg, params, pad_to):
     return recs
 
 
+# --------------------------------------------------------------------------
+# the scanned and audit phases: the decode loop captured as one CUDA graph,
+# and every hot step captured and replayed against its eager run
+# --------------------------------------------------------------------------
+
+#: the scanned phase: prompts x prompt tokens, new tokens
+SCAN_BATCH, SCAN_PROMPT, SCAN_NEW = 8, 256, 64
+#: the bf16 forced arms' bound: max |dlogit| within this share of the plain
+#: path's max |logit| (phase 7b's normwise bf16 bound); bf16 noise on logits
+#: of ~750 leaves the one-key-short control inside it, so the control is
+#: checked on an f32 cut: SCAN_F32_LAYERS layers, max |dlogit| within
+#: SCAN_F32_BOUND (phase 7b's f32 extend bound)
+SCAN_NORMWISE = TOL["bfloat16"][1]
+SCAN_F32_LAYERS, SCAN_F32_BOUND = 2, 0.01
+
+
+def forced_arms(tag, model, params, prompts, n, tokens, *, control, bound=None):
+    """The kernel path teacher-forced to the plain path's greedy tokens, in
+    the eager loop (``hybrid_rows``) and through the captured scanned step
+    (``scanned_rows``): the two bit for bit, each within ``bound`` (None:
+    SCAN_NORMWISE of the plain logits' max) of the plain logits, a differing
+    pick only at a near tie; the decode kernel one key short is printed and,
+    with ``control``, must break the bound. ``tokens`` (the captured run's,
+    or None) are counted against the plain path's."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+
+    with torch.inference_mode():
+        prow, ptok = hybrid_rows(model, params, prompts, None, "torch", n)
+        rows = {"eager": hybrid_rows(model, params, prompts, ptok, "auto", n)[0],
+                "captured": scanned_rows(model, params, prompts, ptok, n, graph=True)}
+        with one_key_short(da, "decode_attention_cuda", 3):
+            rows["one key short"] = scanned_rows(model, params, prompts, ptok, n, graph=True)
+    scale = float(prow.abs().amax())
+    limit = SCAN_NORMWISE * scale if bound is None else bound
+    dl = {run: float((r - prow).abs().amax()) for run, r in rows.items()}
+    top2 = prow.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    for run in ("eager", "captured"):
+        check(bool(torch.isfinite(rows[run]).all()), f"{tag} {run}: non-finite logits")
+        row_dl = (rows[run] - prow).abs().amax(-1)
+        differs = rows[run].argmax(-1) != ptok.T.long()
+        check(bool((gap[differs] < row_dl[differs]).all()),
+              f"{tag} {run}: a kernel pick differs from the plain path's away from a near tie")
+    same = ("" if tokens is None else
+            f"captured tokens = plain path's in "
+            f"{sum(bool(torch.equal(tokens[i], ptok[i])) for i in range(len(ptok)))} of "
+            f"{len(ptok)} rows | ")
+    print(f"{tag} {same}max |dlogit| eager {dl['eager']:.6f}, captured {dl['captured']:.6f} "
+          f"(bound {limit:.6f}; the plain logits' max {scale:.3f}) | one key short "
+          f"{dl['one key short']:.6f}{'' if control else ' (for the record)'}", flush=True)
+    for run in ("eager", "captured"):
+        check(dl[run] <= limit, f"{tag} {run}: max |dlogit| {dl[run]} above {limit}")
+    check(torch.equal(rows["eager"], rows["captured"]),
+          f"{tag} the captured step's logits differ from the eager step's")
+    if control:
+        check(dl["one key short"] > limit, f"{tag} the one-key-short control stayed within "
+                                           f"the bound ({dl['one key short']} <= {limit})")
+
+
+def loop_profile(fn, n_tokens: int):
+    """(wall ms of one call of ``fn`` unprofiled, device ms of its kernels
+    from one profiled call or None, device kernels) over a warm card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profiler() as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = device_kernels(prof)
+    dev = sum(e.time_range.elapsed_us() for e in kern) / 1e3 if kern else None
+    return wall, dev, len(kern)
+
+
+def scanned_rows(model, params, prompts, feed, n_new, graph: bool):
+    """The logits each token is drawn from [n_new, B, V] f32 when the
+    kernel path is teacher-forced to ``feed`` [B, n_new]: the prefill's last
+    position, then ``n_new - 1`` steps of ``engine.ScannedStep`` whose
+    sampler records the step's logits and feeds the next token of ``feed``
+    (the step's key carries its index). With ``graph`` the step is captured
+    once and replayed, as ``generate_scanned`` runs it; else it runs
+    eagerly."""
+    import torch
+
+    from repro_torch.core import engine, graphs
+
+    b, t = prompts.shape
+    dev = prompts.device
+    lengths = torch.full((b,), t, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        logits, cache = engine.prefill(model, params, prompts, lengths, t + n_new + 1)
+        rows = torch.empty((n_new,) + tuple(logits.shape), dtype=torch.float32, device=dev)
+        rows[0] = logits
+        token = feed[:, 0].clone()
+        out = torch.zeros((b, n_new), dtype=torch.int32, device=dev)
+        idx = torch.arange(n_new - 1, device=dev)[:, None].expand(n_new - 1, 2).contiguous()
+
+        def forced(logits, key):
+            rows.index_copy_(0, key[:1] + 1, logits.float()[None])
+            return feed.index_select(1, key[:1] + 1)[:, 0]
+
+        step = engine.ScannedStep(model, params, cache, token, out, idx, forced, "auto")
+        if not graph:
+            for _ in range(n_new - 1):
+                step()
+            return rows
+        saved = [x.clone() for x in step.state()]
+
+        def undo():
+            for x, v in zip(step.state(), saved):
+                x.copy_(v)
+
+        g, _, _ = graphs.capture(step, restore=undo)
+        for _ in range(n_new - 1):
+            g.replay()
+        torch.cuda.synchronize()
+        del g, cache
+    return rows
+
+
+def phase_scanned(cfg, model, params, gpu: str):
+    """Full-width llama3.2-1b (16 layers, bf16), SCAN_BATCH prompts of
+    SCAN_PROMPT tokens, SCAN_NEW greedy tokens through ``engine.generate``
+    (the eager loop) and ``engine.generate_scanned`` (one decode step
+    captured as a CUDA graph, replayed once a token): the same tokens bit for
+    bit; exact launches for both (flash n_layers at the prefill, decode
+    n_layers a decode step: the captured step's counts added once a replay);
+    the kernel path teacher-forced to the plain path's tokens, eagerly and
+    through the captured step (``forced_arms``), within SCAN_NORMWISE of the
+    plain logits' max, and on an f32 cut of SCAN_F32_LAYERS layers within
+    SCAN_F32_BOUND with the decode kernel one key short above it; per-token wall,
+    device ms and busy share of both loops; a sampler with a host sync makes
+    ``generate_scanned`` raise (no eager fallback)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine, sampling
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    prompts = torch.randint(0, cfg.vocab_size, (SCAN_BATCH, SCAN_PROMPT), generator=gen,
+                            device=dev, dtype=torch.int32)
+    n, n_layers = SCAN_NEW, cfg.n_layers
+    want = _want_counts(cfg, n, flash_attention=n_layers, decode_attention=n_layers * (n - 1))
+    runs = {}
+    for name, fn in (("eager", lambda: engine.generate(model, params, prompts,
+                                                       max_new_tokens=n)["tokens"]),
+                     ("captured", lambda: engine.generate_scanned(model, params, prompts,
+                                                                  max_new_tokens=n))):
+        torch.cuda.synchronize()
+        _reset_counts()
+        toks = fn()
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        check(counts == want, f"[scanned {name}] kernel launches {counts}, expected {want}")
+        check(tuple(toks.shape) == (SCAN_BATCH, n), f"[scanned {name}] tokens {toks.shape}")
+        runs[name] = (toks, counts)
+    check(torch.equal(runs["eager"][0], runs["captured"][0]),
+          "[scanned] generate_scanned's tokens differ from generate's")
+    # the loops' times: each whole call, less one prefill, over its decode steps
+    lengths = torch.full((SCAN_BATCH,), SCAN_PROMPT, dtype=torch.int32, device=dev)
+    pre = loop_profile(lambda: engine.prefill(model, params, prompts, lengths,
+                                              SCAN_PROMPT + n + 1), 1)
+    for name, fn in (("eager", lambda: engine.generate(model, params, prompts,
+                                                       max_new_tokens=n)),
+                     ("captured", lambda: engine.generate_scanned(model, params, prompts,
+                                                                  max_new_tokens=n))):
+        wall, dms, nk = loop_profile(fn, n)
+        tok_wall = (wall - pre[0]) / (n - 1)
+        tok_dev = None if dms is None or pre[1] is None else (dms - pre[1]) / (n - 1)
+        dev_txt = ("device not measured" if tok_dev is None else
+                   f"device {tok_dev:.3f} ms ({tok_dev / tok_wall:.1%} busy), "
+                   f"{(nk - pre[2]) / (n - 1):.0f} device kernels")
+        print(f"[scanned {name}] {gpu} | {SCAN_BATCH} x {SCAN_PROMPT} + {n} tokens: call "
+              f"{wall:.2f} ms, prefill {pre[0]:.2f} ms | per decode token: wall "
+              f"{tok_wall:.3f} ms, {dev_txt}", flush=True)
+    # teacher-forced: the kernel path (eager and captured) on the plain path's
+    # tokens, in bf16 at full depth, then in f32 at SCAN_F32_LAYERS layers
+    # (f32 noise is small enough that the one-key-short control shows)
+    forced_arms(f"[scanned forced] {gpu} |", model, params, prompts, n,
+                runs["captured"][0], control=False)
+    cfg32 = get_config(ARCH).replace(dtype="float32", n_layers=SCAN_F32_LAYERS)
+    model32 = get_model(cfg32)
+    with torch.inference_mode():
+        params32 = model32.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    forced_arms(f"[scanned forced f32 {SCAN_F32_LAYERS} layers] {gpu} |", model32, params32,
+                prompts, n, None, control=True, bound=SCAN_F32_BOUND)
+    del params32
+
+    # a capture-breaking op: generate_scanned raises, nothing runs eagerly instead
+    def syncing(logits, key):
+        int(logits[0, 0].argmax())  # a host sync inside the step
+        return sampling.greedy(logits)
+
+    try:
+        engine.generate_scanned(model, params, prompts[:2, :16], max_new_tokens=4,
+                                sampler=syncing)
+    except Exception as e:  # what the capture raised
+        raised = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    else:
+        raised = None
+    torch.cuda.synchronize()
+    check(raised is not None, "[scanned] a sampler with a host sync was captured")
+    check(torch.cuda.current_stream() == torch.cuda.default_stream(),
+          "[scanned] the failed capture left the program on its capture stream")
+    check(float(torch.ones(1, device=dev).add(1)) == 2.0, "[scanned] the card broke")
+    print(f"[scanned] a sampler with a host sync: generate_scanned raised {raised}",
+          flush=True)
+    torch.cuda.empty_cache()
+    print(f"[scanned] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_audit(model, params, gpu: str):
+    """``python -m repro_torch.analysis --device cuda``'s step audit on the
+    served full-width llama3.2-1b at the reference's pool geometry (4 slots,
+    pad 16, 64 new, block 16, 14 blocks, budget 4, exit layer 1, 4 drafts):
+    every hot step (prefill; decode, draft and verify on both pools; the
+    paged mixed step) on two traces' states holds the static-program,
+    in-place, growth and dtype checks, captures as one CUDA graph and
+    replays bit for bit its eager run on both states. Prints each step's
+    eager and replay wall ms and its graph's device kernels (one profiled
+    replay)."""
+    import torch
+
+    from repro_torch.analysis import trace_audit
+
+    t0 = time.perf_counter()
+    steps = []
+    fails = trace_audit.run_trace_audit("cuda", model=model, params=params, steps_out=steps)
+    for msg in fails[:40]:
+        print(f"[audit] {msg}", flush=True)
+    check(not fails, f"[audit] {len(fails)} failure(s)")
+    for step in steps:
+        rep = step.report
+        with profiler() as prof:
+            rep["replay"]()
+            torch.cuda.synchronize()
+        kern = device_kernels(prof)
+        launched = {k: v for k, v in rep["launches"].items() if v and "/" not in k}
+        print(f"[audit {step.label}] {gpu} | {rep['ops']} ops | eager {rep['eager_ms'] - rep['load_ms']:.3f} ms, "
+              f"graph replay {rep['replay_ms'] - rep['load_ms']:.3f} ms (wall, the state's load "
+              f"of {rep['load_ms']:.3f} ms taken out) | graph: {len(kern)} device kernels, "
+              f"ported kernels a replay {launched}", flush=True)
+        rep.pop("graph"), rep.pop("replay")
+    del steps
+    torch.cuda.empty_cache()
+    print(f"[audit] {len(fails)} failures | phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -6016,6 +6281,8 @@ def main() -> None:
         arms = phase_quant(cfg, model, params, pad_to, trace)
         extend_records, _ = phase_extend(cfg, model, params, pad_to)
         records += extend_records
+        phase_scanned(cfg, model, params, gpu)
+        phase_audit(model, params, gpu)
         del model, params
         torch.cuda.empty_cache()
         phase_train()

@@ -32,7 +32,13 @@ profile:
 - ``generate_contrastive`` — ``ContrastiveProfile`` (Chameleon T-I): two
                              streams, two forwards a step (§2.1.2).
 
-Everything runs eagerly under ``torch.inference_mode()``. LayerSkip's draft
+:func:`generate_scanned` is the whole-generation-as-one-program engine (the
+reference's ``lax.scan`` decode): a prefill, then one static decode step
+(``decode_step`` plus the sampler and the token's write into the output)
+that on a CUDA device is captured as a CUDA graph and replayed once a token,
+with one host sync at the end.
+
+Everything else runs eagerly under ``torch.inference_mode()``. LayerSkip's draft
 and batch engine live in core/layerskip.py on these primitives.
 """
 from __future__ import annotations
@@ -41,7 +47,9 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.core import kv_cache, prng, profiles, sampling
+from repro_torch.analysis.hotpath import hot_path
+from repro_torch.core import graphs, kv_cache, prng, profiles, sampling
+from repro_torch.kernels import counts
 from repro_torch.models.registry import Model
 
 
@@ -113,6 +121,7 @@ def verify_step(model: Model, params, cache, tokens: torch.Tensor, t_new: torch.
 # the ONE profile-driven decode loop
 # --------------------------------------------------------------------------
 
+@hot_path
 @torch.inference_mode()
 def run_profile(
     model: Model,
@@ -143,6 +152,7 @@ def run_profile(
         prompt_lengths = torch.full((g,), tp, dtype=torch.int32, device=dev)
     if max_len is None:
         max_len = tp + max_new_tokens + 1
+    # repro-lint: disable=HS001 — the caller's key, moved to the host once before the loop
     key = prng.PRNGKey(0) if key is None else key.cpu()
     reorder = reorder if reorder is not None else kv_cache.reorder_donated
 
@@ -163,10 +173,106 @@ def run_profile(
             cache = reorder(cache, out.perm)
         n_steps += 1
         # the loop's one host sync per step: a single scalar transfer
-        halt = out.done is not None and bool(out.done.all().item())
+        halt = out.done is not None and bool(out.done.all().item())  # repro-lint: disable=HS001
     result = profile.finalize(state)
     result.update(cache=cache, n_steps=n_steps)
     return result
+
+
+# --------------------------------------------------------------------------
+# the whole generation as one replayed program
+# --------------------------------------------------------------------------
+
+class ScannedStep:
+    """The static decode step of :func:`generate_scanned`: ``decode_step``
+    on the prefill's cache (K/V written in place; the fresh ``lengths`` and
+    any recurrent state copied back into the cache's own tensors,
+    ``kv_cache.write_back``), the sampler under step ``i``'s key, the
+    token written into column ``i + 1`` of ``out`` and fed back, and the
+    device step counter ``i`` advanced. Every input it reads is device
+    state it owns, so one call can be captured and replayed."""
+
+    def __init__(self, model: Model, params, cache, token: torch.Tensor, out: torch.Tensor,
+                 keys: torch.Tensor, sampler: sampling.Sampler, impl: str):
+        self.model, self.params, self.cache = model, params, cache
+        self.token, self.out, self.keys = token, out, keys
+        self.sampler, self.impl = sampler, impl
+        self.i = torch.zeros((1,), dtype=torch.int64, device=token.device)
+
+    def __call__(self) -> None:
+        logits, new = decode_step(self.model, self.params, self.cache, self.token, self.impl)
+        kv_cache.write_back(self.cache, new)
+        nxt = self.sampler(logits, self.keys.index_select(0, self.i)[0]).to(torch.int32)
+        self.token.copy_(nxt)
+        self.out.index_copy_(1, self.i + 1, nxt[:, None])
+        self.i.add_(1)
+
+    def state(self):
+        """What one call changes besides the K/V row at ``lengths`` (which
+        the next call writes again): every cache leaf but the K/V buffers
+        (lengths, recurrent state), the token and the step counter."""
+        kv = {id(t) for layer in self.cache.get("layers", []) if isinstance(layer, dict)
+              for name, t in layer.items() if name in ("k", "v", "latent")}
+        return [t for t in kv_cache.leaves(self.cache) if id(t) not in kv] + [self.token, self.i]
+
+
+@torch.inference_mode()
+def generate_scanned(
+    model: Model,
+    params,
+    prompt_tokens: torch.Tensor,  # [B, Tp]
+    *,
+    max_new_tokens: int = 32,
+    sampler: sampling.Sampler = sampling.greedy,
+    key: Optional[torch.Tensor] = None,
+    extra_inputs: Optional[Dict[str, torch.Tensor]] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Whole-generation-as-one-program decoding (the reference's
+    ``generate_scanned``): every prompt at its full length ``Tp``, one
+    prefill into a cache of ``Tp + max_new_tokens + 1`` rows, the first
+    token sampled under ``key`` itself (default ``PRNGKey(0)``), then
+    ``max_new_tokens - 1`` decode steps under ``prng.split(key,
+    max_new_tokens - 1)``, split on the host once and staged to the device in
+    one copy. Returns the tokens [B, max_new_tokens].
+
+    On a CUDA device the step (:class:`ScannedStep`) is warmed up, captured
+    as one CUDA graph and replayed once a token, with one host sync after
+    the loop; a step that cannot be captured raises. The kernel wrappers'
+    launch counters advance by the captured step's counts once a replay, so
+    they read what the eager loop launches. On the CPU the same step runs
+    eagerly."""
+    b, tp = prompt_tokens.shape
+    dev = prompt_tokens.device
+    prompt_lengths = torch.full((b,), tp, dtype=torch.int32, device=dev)
+    key = prng.PRNGKey(0) if key is None else key.cpu()
+    max_len = tp + max_new_tokens + 1
+    logits, cache = prefill(model, params, prompt_tokens, prompt_lengths, max_len, impl,
+                            extra_inputs)
+    out = torch.zeros((b, max_new_tokens), dtype=torch.int32, device=dev)
+    token = sampler(logits, key.to(dev)).to(torch.int32)
+    out[:, 0] = token
+    n = max_new_tokens - 1
+    if n <= 0:
+        return out
+    step = ScannedStep(model, params, cache, token, out, prng.split(key, n).to(dev), sampler,
+                       impl)
+    if dev.type != "cuda":
+        for _ in range(n):
+            step()
+        return out
+    saved = [t.clone() for t in step.state()]
+
+    def undo_warmup():
+        for t, s in zip(step.state(), saved):
+            t.copy_(s)
+
+    graph, _, per_step = graphs.capture(step, restore=undo_warmup)
+    for _ in range(n):
+        graph.replay()
+    counts.add(per_step, n)
+    torch.cuda.current_stream(dev).synchronize()  # the loop's one host sync
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""KV-cache ops — the beam reorders, the slot-pool row ops and the paged
-block ops of ``repro/core/kv_cache.py``, as in-place index updates.
+"""KV-cache ops — the beam reorders, the slot-pool row ops, the paged
+block ops, the per-token byte rate and the concat-grown ``DynamicCache``
+of ``repro/core/kv_cache.py``, as in-place index updates.
 
 Every cache leaf's axis 0 is the sequence-slot axis: a transformer's K/V
 buffers, or an SSM's conv tail and f32 state (``models/ssm.py``), beside
@@ -21,7 +22,7 @@ touched here.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict
 
 import torch
 
@@ -40,8 +41,36 @@ def leaves(tree: Any):
         yield tree
 
 
+def sorted_leaves(tree: Any):
+    """The tensors of a nested dict/list tree in the reference's pytree
+    order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from sorted_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from sorted_leaves(v)
+    else:
+        yield tree
+
+
 def cache_bytes(cache: Any) -> int:
     return sum(t.numel() * t.element_size() for t in leaves(cache))
+
+
+def cache_token_bytes(cache: Any) -> float:
+    """Bytes per cached token per sequence (the KV-cache rate): the whole
+    cache's bytes over batch x the longest sequence axis. The batch is the
+    leading axis of the first leaf of two or more dims in the reference's
+    leaf order (a paged pool's block table: its slots), the sequence axis
+    axis 1 of the leaves of three or more dims (a block pool's block size).
+    0.0 when no leaf has two dims (``{}``, a cache of ``lengths`` alone)."""
+    wide = [x for x in sorted_leaves(cache) if x.dim() >= 2]
+    if not wide:
+        return 0.0
+    b = wide[0].shape[0]
+    s = max((x.shape[1] for x in wide if x.dim() >= 3), default=1)
+    return cache_bytes(cache) / (b * s)
 
 
 def _map(fn, tree: Any) -> Any:
@@ -57,13 +86,20 @@ def _map(fn, tree: Any) -> Any:
 # beam reorder (paper Obs #4's KV_Cache_Reorder)
 # --------------------------------------------------------------------------
 
+def reorder(cache: Any, beam_idx: torch.Tensor) -> Any:
+    """The functional gather along the batch axis, ``cache[b] <-
+    cache[beam_idx[b]]`` for every leaf, into fresh tensors (the reference's
+    ``jnp.take(x, beam_idx, axis=0)``)."""
+    idx = beam_idx.to(torch.long)
+    return _map(lambda x: x.index_select(0, idx.to(x.device)), cache)
+
+
 @torch.inference_mode()
 def reorder_realloc(cache: Any, beam_idx: torch.Tensor) -> Any:
     """The paper's ``index_select`` baseline: gather every cache leaf along
     the batch axis, ``cache[b] <- cache[beam_idx[b]]`` (the K/V buffers,
     the cross K/V, ``lengths`` and ``frame_lengths``) into fresh tensors."""
-    idx = beam_idx.to(torch.long)
-    return _map(lambda x: x.index_select(0, idx.to(x.device)), cache)
+    return reorder(cache, beam_idx)
 
 
 @torch.inference_mode()
@@ -98,6 +134,23 @@ def reset_slots(pool: Any, mask: torch.Tensor) -> Any:
     belongs to the SlotPool's host free-list, not this counter."""
     pool["lengths"].masked_fill_(mask.to(pool["lengths"].device), 0)
     return pool
+
+
+def write_back(cache: Any, new: Any) -> Any:
+    """Copy every leaf of a step's returned cache ``new`` that is not
+    ``cache``'s own tensor into it, in place: the forward's fresh
+    ``lengths``, and a recurrent layer's new state and conv tail (the
+    attention K/V is written in place already). A step replayed as a CUDA
+    graph must leave its state in the tensors it reads. Returns ``cache``."""
+    if isinstance(new, dict):
+        for k, v in new.items():
+            write_back(cache[k], v)
+    elif isinstance(new, (list, tuple)):
+        for dst, src in zip(cache, new):
+            write_back(dst, src)
+    elif new is not cache:
+        cache.copy_(new)
+    return cache
 
 
 @torch.inference_mode()
@@ -141,6 +194,14 @@ def copy_block(pool_layers: Any, src: int, dst: int) -> Any:
     return pool_layers
 
 
+def free_blocks(pool: Any, mask: torch.Tensor) -> Any:
+    """Paged eviction: zero the freed slots' ``lengths`` in place
+    (``reset_slots``). The block table and the block free-list are host
+    state (``BlockPool``), and freed blocks need no clearing: stale K/V is
+    unreachable until a new owner's validity mask covers what it rewrote."""
+    return reset_slots(pool, mask)
+
+
 @torch.inference_mode()
 def set_slot_length(pool: Any, slot: int, length: int) -> Any:
     """Install one slot's token counter in place, a fill on the device
@@ -149,3 +210,30 @@ def set_slot_length(pool: Any, slot: int, length: int) -> Any:
     unreachable until a new owner's validity mask covers what it rewrote)."""
     pool["lengths"][slot].fill_(length)
     return pool
+
+
+class DynamicCache:
+    """Concat-grown K/V cache, the anti-pattern the static cache replaces:
+    every append reallocates each layer's K and V one step longer, so no
+    step's shapes repeat and no step can be captured as a graph (the paper's
+    Obs #2 launch-overhead pathology). Kept as the reference's baseline."""
+
+    def __init__(self):
+        self.layers: Dict[int, Dict[str, torch.Tensor]] = {}
+
+    def append(self, layer: int, k: torch.Tensor, v: torch.Tensor):
+        """Grow ``layer``'s K and V [B, S, ...] by ``k`` / ``v`` along axis 1
+        (the first append stores them); returns the grown pair."""
+        if layer not in self.layers:
+            self.layers[layer] = {"k": k, "v": v}
+        else:
+            c = self.layers[layer]
+            c["k"] = torch.cat([c["k"], k], dim=1)
+            c["v"] = torch.cat([c["v"], v], dim=1)
+        return self.layers[layer]["k"], self.layers[layer]["v"]
+
+    @property
+    def seq_len(self) -> int:
+        if not self.layers:
+            return 0
+        return next(iter(self.layers.values()))["k"].shape[1]

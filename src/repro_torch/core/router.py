@@ -39,6 +39,7 @@ from typing import Any, Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.hotpath import hot_path
 from repro_torch.core import prng
 from repro_torch.core.kv_cache import _map, leaves
 from repro_torch.core.scheduler import Scheduler, ServeRequest, age_waiting
@@ -211,6 +212,7 @@ class ReplicaRouter:
             self.finished.extend(sched.drain_finished())
 
     # ---- stepping --------------------------------------------------------
+    @hot_path
     def _round(self, live: Sequence[Scheduler]) -> None:
         """One fleet round: every live replica's step launched, then each
         one waited for and committed."""

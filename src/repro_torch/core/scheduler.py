@@ -84,8 +84,8 @@ block table) through pinned host buffers, copies them to the device without
 blocking, launches the forward and the sampler and starts the sampled
 tokens' copy back into a pinned buffer behind a CUDA event; ``step_finish``
 waits on that event (the step's one sync) and commits on the host.
-``step()`` is the two back to back. A speculative begin keeps one more
-sync: the verify window's live lanes are selected with ``nonzero``
+``step()`` is the two back to back. A speculative begin syncs no more
+than a plain one: the verify window's write has a static shape
 (``attention.window_addresses``). Admissions may copy synchronously.
 
 Not ported yet: the tensor-parallel pool (``tp_mesh``).
@@ -101,6 +101,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.hotpath import hot_path
 from repro_torch.core import engine, kv_cache, layerskip, prng, profiles, sampling
 from repro_torch.core.prefill import ChunkCursor, ChunkedPrefill
 from repro_torch.core.prefix_cache import PrefixCache
@@ -750,6 +751,7 @@ class Scheduler:
         self._t0 = t0
 
     # ---- cross-request prefix cache (core/prefix_cache.py) ----------------
+    @hot_path
     def _prefix_admit(self, slot: int, prompt: np.ndarray) -> int:
         """Adopt every cached leading full block of ``prompt`` into
         ``slot``'s table (refcounted, no device K/V work) and return the
@@ -792,6 +794,7 @@ class Scheduler:
             if short > 0:
                 self._pcache.reclaim(self.pool, short)
 
+    @hot_path
     def _ensure_or_reclaim(self, slot: int, kv_len: int, writable: bool = False) -> bool:
         """``BlockPool.ensure`` (``ensure_writable`` for a group stream)
         with the prefix cache as the first back-pressure: while the
@@ -841,6 +844,7 @@ class Scheduler:
         self.waiting.appendleft(st.req)
         self.n_preemptions += 1
 
+    @hot_path
     def _ensure_blocks(self, extra: Optional[np.ndarray] = None) -> None:
         """Before a paged step every resident must own the block its next
         token writes into, a group stream exclusively (copy-on-write via
@@ -871,6 +875,7 @@ class Scheduler:
                 continue
             if ent.slot not in self.active:
                 continue  # already preempted while growing an older one
+            # repro-lint: disable=HS001 — extra is the host's numpy width vector
             target = ent.kv_len + (0 if extra is None else int(extra[ent.slot]))
             while not self._ensure_or_reclaim(ent.slot, target):
                 victim = self._victim()
@@ -879,12 +884,13 @@ class Scheduler:
                     break  # this slot WAS the victim; it queues
 
     # ---- decode ----------------------------------------------------------
+    @hot_path
     def _sample(self, logits: torch.Tensor):
         """Launch per-slot sampling (an all-greedy pool takes the argmax
         alone; the keys are folded on the host and staged with the knobs)
         and start the tokens' copy to the host: the fetch ``step_finish``
         waits on, the step's one device-to-host copy."""
-        if not self._temp.any():
+        if not self._temp.any():  # repro-lint: disable=TB001 — the host's numpy knobs
             toks = sampling.greedy(logits)
         else:
             keys = sampling.slot_step_keys(self.base_key, self._rid, self._ngen, self._stream)
@@ -932,11 +938,13 @@ class Scheduler:
         self.pool.evict(st.slot)
         self._temp[st.slot] = 0.0  # free slots decode greedy garbage
 
+    @hot_path
     def step(self) -> List[ServeRequest]:
         """One pool-wide step, both phases back to back; returns the
         requests it finished."""
         return self.step_finish(self.step_begin())
 
+    @hot_path
     @torch.inference_mode()
     def step_begin(self):
         """Phase 1 of one pool-wide step: with pending chunk cursors the
@@ -957,6 +965,7 @@ class Scheduler:
         finally:
             self.busy_s += self.clock() - t
 
+    @hot_path
     @torch.inference_mode()
     def step_finish(self, pending) -> List[ServeRequest]:
         """Phase 2: wait for the step's sampled tokens (its one sync) and
@@ -977,6 +986,7 @@ class Scheduler:
         finally:
             self.busy_s += self.clock() - t
 
+    @hot_path
     def _begin_decode(self):
         if self.paged:
             self._ensure_blocks()
@@ -987,6 +997,7 @@ class Scheduler:
                                                      self._staging.put("token", self._token))
         return ("decode", logits, self._sample(logits))
 
+    @hot_path
     def _finish_decode(self, logits: torch.Tensor, fetched) -> List[ServeRequest]:
         toks = self._staging.wait(fetched)
         self._record_step_metrics()
@@ -994,6 +1005,7 @@ class Scheduler:
         done = self._commit_decode(toks, now)
         return done + self._commit_groups(logits, now)
 
+    @hot_path
     def _begin_mixed(self):
         """One token-budget mixed step: a decode lane for every live slot
         plus up to ``prefill_budget`` prompt-chunk tokens, one forward."""
@@ -1042,6 +1054,7 @@ class Scheduler:
         )
         return ("mixed", logits, plan.chunks, self._sample(logits))
 
+    @hot_path
     def _finish_mixed(self, logits: torch.Tensor, chunks, fetched) -> List[ServeRequest]:
         toks = self._staging.wait(fetched)
         self._record_step_metrics()
@@ -1104,15 +1117,14 @@ class Scheduler:
                        if isinstance(prof, profiles.SpeculativeProfile) else 1)
         return w
 
+    @hot_path
     def _begin_speculative(self):
         """One draft + verify step (LayerSkip, paper §4.3), at the largest
         resident (exit_layer, n_draft): narrower slots are frozen through
         per-slot draft counts ``n_live``. Paged, every slot first grows for
         its whole window (draft writes reach ``kv_len + w - 2``, verify
         ``kv_len + w - 1``), which may preempt; the widths are then rebuilt
-        for the survivors and the table synced once, before the draft. The
-        verify window's write selects its live lanes with ``nonzero``: this
-        begin's one sync."""
+        for the survivors and the table synced once, before the draft."""
         if self.paged:
             self._ensure_blocks(extra=np.maximum(self._window_widths() - 1, 0))
             if not self.active:
@@ -1139,6 +1151,7 @@ class Scheduler:
                                                      t_new, lengths)
         return ("spec", w, self._sample_window(logits, window))
 
+    @hot_path
     def _finish_speculative(self, w: np.ndarray, fetched) -> List[ServeRequest]:
         both = self._staging.wait(fetched)
         self._record_step_metrics()
@@ -1154,13 +1167,14 @@ class Scheduler:
         kv_cache.rewind(self.pool.cache, torch.from_numpy(new_len).to(self.device))
         return done
 
+    @hot_path
     def _sample_window(self, logits: torch.Tensor, window: torch.Tensor):
         """Every verify lane sampled under its own key: lane ``j`` of a slot
         holds its request's token index ``n_generated + j``, the key plain
         decoding folds in for that token. Starts the copy of (samples,
         window) to the host, the step's one device-to-host copy, and
         returns its fetch."""
-        if not self._temp.any():
+        if not self._temp.any():  # repro-lint: disable=TB001 — the host's numpy knobs
             samples = sampling.greedy(logits)
         else:
             steps = self._ngen[:, None] + np.arange(logits.shape[1])[None]
@@ -1208,6 +1222,7 @@ class Scheduler:
         return done
 
     # ---- slot groups (multi-stream decoding profiles) ---------------------
+    @hot_path
     def _advance_group(self, g: GroupState, logit_rows: torch.Tensor, now: float) -> bool:
         """One profile step of one group: the profile takes the group's
         [n_streams, V] logits rows and gives every stream's next feed token,
@@ -1224,7 +1239,8 @@ class Scheduler:
             parts.append(out.perm.to(torch.int64))
         if out.done is not None:
             parts.append(out.done.to(torch.int64))
-        host = torch.cat(parts).cpu().numpy()  # the group's one sync a step
+        # the group's one sync a step, through the staged copy
+        host = self._staging.wait(self._staging.fetch("group", torch.cat(parts)))
         feed, rest = host[:s_n], host[s_n:]
         if out.perm is not None:
             self._apply_group_perm(g, rest[:s_n])
@@ -1241,6 +1257,7 @@ class Scheduler:
             return True
         return False
 
+    @hot_path
     def _apply_group_perm(self, g: GroupState, perm: np.ndarray) -> None:
         """Re-bind each stream's cache to its surviving parent's (beam's
         Obs #4 reorder). Paged: a host table permutation with refcounted
@@ -1255,11 +1272,12 @@ class Scheduler:
             self.n_block_permutes += 1
         else:
             full = np.arange(self.slots)
-            sl = np.asarray(g.slots)
+            sl = np.asarray(g.slots)  # repro-lint: disable=HS001 — a host list
             full[sl] = sl[perm]
             kv_cache.reorder_donated(self.pool.cache, torch.from_numpy(full).to(self.device))
             self.n_cache_reorders += 1
 
+    @hot_path
     def _commit_groups(self, logits: torch.Tensor, now: float) -> List[ServeRequest]:
         """Advance every resident group on the pool-wide step's logits (its
         rows gathered by the admission-time device index). Runs after the

@@ -29,6 +29,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.hotpath import hot_path
 from repro_torch.core import kv_cache
 from repro_torch.models.registry import Model
 
@@ -100,6 +101,7 @@ class SlotPool(_PoolBase):
         self.cache = kv_cache.set_slot_length(self.cache, slot, 0)
         heapq.heappush(self._free, slot)
 
+    @hot_path
     def sync(self, stage=None) -> None:
         """No host-side tables to flush (BlockPool signature parity)."""
 
@@ -395,6 +397,7 @@ class BlockPool(_PoolBase):
             self._drop_ref(phys)
             self._bt_dirty = True
 
+    @hot_path
     @torch.inference_mode()
     def sync(self, stage=None) -> None:
         """Copy the host block table into the device table in place, if it

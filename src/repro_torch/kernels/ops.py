@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis.hotpath import hot_path
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
@@ -121,6 +122,7 @@ decode_attention_partial = _da.decode_attention_partial
 combine_partial_attention = _da.combine_partial_attention
 
 
+@hot_path
 def paged_decode_attention(
     q: torch.Tensor,  # [B, Hq, D]
     kbuf: torch.Tensor,  # [NB, bs, Hkv, D] block pool, or [NB, bs, D] (latent)

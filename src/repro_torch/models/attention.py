@@ -25,8 +25,8 @@ Modes:
                a paged cache and a ring (``window``) raise, as in the
                reference.
 - ``verify``:  each slot's speculative window of ``t_new`` tokens written at
-               ``lengths`` (``write_window``: lanes past ``t_new`` dropped,
-               never clamped), then flash attention over the whole cache with
+               ``lengths`` (``write_window``: a static-shape write, lanes
+               past ``t_new`` or past the cache dropped, never clamped), then flash attention over the whole cache with
                explicit key positions and ``k_valid = arange(S) < lengths +
                t_new``.
 
@@ -71,6 +71,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.hotpath import hot_path
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -122,28 +123,38 @@ def write_slot_row(buf: torch.Tensor, row: torch.Tensor, slot: int) -> torch.Ten
     return buf
 
 
-def window_addresses(lengths: torch.Tensor, t_new: torch.Tensor, c: int) -> dict:
-    """The live lanes of a verify window, as index tensors shared by every
-    layer's ``write_window``: slot ``win_b``, cache position ``win_pos`` and
-    window lane ``win_lane`` of each lane ``j < t_new[b]``, at position
-    ``lengths[b] + j``. Found once a forward: selecting them is the window
-    write's one host sync."""
+def window_addresses(lengths: torch.Tensor, t_new: torch.Tensor, c: int, s: int) -> dict:
+    """Every lane's address in a verify window over a cache of ``s`` rows,
+    as static-shape index tensors shared by every layer's ``write_window``
+    (no ``nonzero``, no host sync: the step is one replayable program).
+    Lane ``j`` of slot ``b`` is live iff ``j < t_new[b]`` and its position
+    ``lengths[b] + j`` lies inside the cache (``win_live`` [B, C]); every lane
+    is addressed at ``(lengths[b] + j) % s`` (``win_pos``), which is the
+    live lanes' own position and, for ``c <= s``, a row of the slot that no
+    other lane of the window addresses. A dead lane writes back what its row
+    already holds: the reference's ``mode="drop"`` write, where no two lanes
+    write one position and no dead lane changes a committed entry."""
+    if c > s:
+        raise ValueError(f"verify window of {c} lanes over a cache of {s} rows")
     lanes = torch.arange(c, device=lengths.device)
-    live = lanes[None] < t_new.long()[:, None]  # [B, C]
-    b_idx, lane = live.nonzero(as_tuple=True)
-    return {"win_b": b_idx, "win_pos": lengths.long()[b_idx] + lane, "win_lane": lane}
+    pos = lengths.long()[:, None] + lanes[None]  # [B, C]
+    live = (lanes[None] < t_new.long()[:, None]) & (pos < s)
+    rows = torch.arange(lengths.shape[0], device=lengths.device)[:, None].expand_as(pos)
+    return {"win_b": rows, "win_pos": pos % s, "win_live": live}
 
 
 def write_window(buf: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor,
                  t_new: torch.Tensor, addr: Optional[dict] = None) -> torch.Tensor:
     """Masked multi-token write for verify windows on contiguous caches: new
     [B, C, ...] lands in buf [B, S, ...] at per-slot offsets ``lengths`` [B],
-    lane ``j`` written iff ``j < t_new[b]``. Only the live lanes are indexed
-    (``window_addresses``, or ``addr`` when given): a lane past ``t_new`` is
-    dropped, never clamped onto a committed entry."""
+    lane ``j`` written iff ``j < t_new[b]`` and its position is below S
+    (``window_addresses``, or ``addr`` when given). A dead lane is dropped:
+    its row gets back the value it held, never a clamped neighbour's."""
     if addr is None:
-        addr = window_addresses(lengths, t_new, new.shape[1])
-    buf[addr["win_b"], addr["win_pos"]] = new[addr["win_b"], addr["win_lane"]].to(buf.dtype)
+        addr = window_addresses(lengths, t_new, new.shape[1], buf.shape[1])
+    b_idx, pos, live = addr["win_b"], addr["win_pos"], addr["win_live"]
+    live = live.reshape(live.shape + (1,) * (new.dim() - 2))
+    buf[b_idx, pos] = torch.where(live, new.to(buf.dtype), buf[b_idx, pos])
     return buf
 
 
@@ -206,6 +217,7 @@ def paged_write_rows(buf: torch.Tensor, new: torch.Tensor, rows: torch.Tensor) -
     return buf
 
 
+@hot_path
 def paged_write_token(buf: torch.Tensor, new: torch.Tensor, bt: torch.Tensor,
                       lengths: torch.Tensor) -> torch.Tensor:
     """Write one token per slot into a block pool: buf [NB, bs, ...], new
@@ -222,6 +234,7 @@ def paged_gather(buf: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     return g.reshape((b, mb * buf.shape[1]) + tuple(buf.shape[2:]))
 
 
+@hot_path
 def paged_write_chunk(buf: torch.Tensor, new: torch.Tensor, bt: torch.Tensor,
                       lengths: torch.Tensor, t_new: torch.Tensor) -> torch.Tensor:
     """Write one chunk per slot into a block pool (chunked prefill): buf

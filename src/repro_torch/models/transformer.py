@@ -199,7 +199,9 @@ def forward(
         block_size = next(iter(cache["layers"][0].values())).shape[1]  # K or the latent
         shared = dict(bt=bt, **A.paged_addresses(bt, lengths, block_size, mode, t_new, t))
     elif mode == "verify":
-        shared = A.window_addresses(lengths, t_new, t)
+        first = cache["layers"][0]
+        shared = A.window_addresses(lengths, t_new, t,
+                                    (first["latent"] if "latent" in first else first["k"]).shape[1])
     else:
         shared = {}
 

@@ -292,6 +292,9 @@ _LOCKED_MODULES = {
     "repro_torch.core.characterization", "repro_torch.launch.op_breakdown",
     "repro_torch.training.optimizer", "repro_torch.training.checkpoint",
     "repro_torch.training.train_loop", "repro_torch.launch.train",
+    "repro_torch.analysis.astlint", "repro_torch.analysis.hotpath",
+    "repro_torch.analysis.trace_audit", "repro_torch.core.graphs",
+    "repro_torch.kernels.counts",
 }
 
 
