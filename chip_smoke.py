@@ -352,7 +352,35 @@ Phases (any failure exits non-zero and prints no result):
              (the served prefill and the long prompt, window 2048, the
              window's edge checked exactly), the decode at G * D = 2560
              over the served ring and a full ring of 2048, f32 at small
-             shapes, RMSNorm at d 2560 (phase 3's cases).
+             shapes, RMSNorm at d 2560 (phase 3's cases);
+17. smoke_configs — each of the twelve smoke configs in f32 on the card
+             (``SMOKE_CONFIGS``: heads of 32 but qwen3-moe's 64, MLA at
+             (96, 64)), through its normal entry twice, on the kernels and
+             on the plain path: the decoder families on the contiguous pool
+             and on paged + chunked (block 8, 24 blocks, budget 16: it
+             preempts), 8 greedy requests at pad 16; mamba2 on the
+             contiguous pool; recurrentgemma at pad 48, past its 32-row
+             ring; whisper and seamless as 2 S-T groups of 4 beams; HSTU's
+             forward. The same host counters (prefills, steps, mixed steps,
+             preemptions, chunks), the same tokens up to a near tie (beams
+             and scores too), launches exactly ``_want_counts``'. Then bf16
+             arms teacher-forced to the plain path's greedy tokens (llama
+             D = 32, recurrentgemma's ring, deepseek-v2's MLA at 96 / 64),
+             each within SMOKE_DLOGIT_BOUND, which the decode kernel one
+             key short must break; and the records of the new widths
+             (flash, decode and paged decode at D = 32, MLA's prefill and
+             latent at (96, 64), f32 and bf16), plus the widths no served
+             path runs (D = 16; f32 at (192, 128) and (576, 512)) timed
+             and printed outside the ``kernels`` line;
+18. examples — the reference's five examples ported
+             (``repro_torch.examples``) on the card: quickstart (top-p,
+             AutoQuant, LayerSkip lossless), serve_batched (the launcher
+             on the HumanEval smoke trace), speech_translation (S-T and
+             S-S, batch and served: the served beams the batch run's),
+             image_generation (T-I, I-T, the served T-I group the batch
+             run's) and train_small (the 67.4 M llama, 300 steps on the
+             plain path, checkpoints every 100, as the reference's): the four that serve move
+             the attention kernels' counters, train_small none.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` summary. Imports nothing of JAX or the JAX package.
@@ -624,7 +652,7 @@ REDESIGNED = ("rmsnorm_warp_kernel", "flash_attention_mma_kernel", "int8_mma_ker
               "decode_attention_kernel", "decode_attention_paged_kernel",
               "decode_attention_combine_kernel", "hstu_attention_mma_kernel", "ssd_chunk_state_kernel",
               "ssd_state_passing_kernel", "ssd_chunk_scan_kernel", "flash_latent_kernel",
-              "decode_latent_kernel")
+              "decode_latent_kernel", "flash_attention_kernel")
 
 
 def ptxas_report(text: str, names):
@@ -6244,6 +6272,553 @@ def phase_audit(model, params, gpu: str):
     print(f"[audit] {len(fails)} failures | phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------- smoke configs
+#: the smoke_configs phase: requests, prompt pad and new tokens a request;
+#: the hybrid's pad past its 32-row ring; the paged + chunked geometry (8
+#: slots of up to 16 + 24 tokens want 40 blocks of 8: 24 make it preempt)
+SMOKE_REQS, SMOKE_PAD, SMOKE_NEW, SMOKE_RING_PAD = 8, 16, 24, 48
+SMOKE_PAGED = dict(paged=True, chunked=True, block_size=8, num_blocks=24, prefill_budget=16)
+#: the encoder-decoders' S-T arm: utterances x beams, new tokens
+SMOKE_UTTER, SMOKE_ST_NEW = 2, 16
+#: the host counters a kernel run and its plain run must share
+SMOKE_HOST = ("prefills", "decode_steps", "mixed_steps", "n_preemptions", "prefill_chunks")
+#: the bf16 teacher-forced arms: prompt rows x tokens and new tokens by
+#: arch; the hybrid's prompts wrap its 32-row ring
+SMOKE_FORCED = {"llama3.2-1b": (4, 16, 24), "recurrentgemma-2b": (4, 48, 24),
+                "deepseek-v2-236b": (4, 16, 24)}
+#: each bf16 arm's bound on max |dlogit| against the plain path, set between
+#: its sound readings (0.384, 0.117, 0.375 on the H100) and its one-key-short
+#: control (5.757, 3.388, 0.926); the readings repeat run to run (PERF.md)
+SMOKE_DLOGIT_BOUND = {"llama3.2-1b": 1.5, "recurrentgemma-2b": 0.625,
+                      "deepseek-v2-236b": 0.625}
+
+
+def smoke_build(arch: str, dtype: str):
+    """The smoke config of ``arch`` in ``dtype`` on the card, params from SEED."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+
+    dev = torch.device("cuda")
+    cfg = get_smoke_config(arch).replace(dtype=dtype)
+    model = get_model(cfg)
+    with torch.inference_mode():
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    return cfg, model, params
+
+
+def smoke_served(tag, cfg, model, params, pad_to, geometry):
+    """The kernel run (exact launches, ``serve_once``) and the plain run (no
+    launch) of SMOKE_REQS greedy requests: the same host counters, and the
+    same tokens up to a near tie. Returns the kernel run's launches."""
+    def reqs():
+        return _trace(cfg, pad_to, n=SMOKE_REQS, max_new=SMOKE_NEW)
+
+    m, toks, counts = serve_once(model, params, cfg, pad_to, policy="continuous",
+                                 int8_mode=None, tag=f"{tag} kernels", reqs=reqs(), **geometry)
+    with plain_path():
+        pm, ptoks, _ = serve_once(model, params, cfg, pad_to, policy="continuous",
+                                  int8_mode=None, tag=f"{tag} plain", reqs=reqs(), **geometry)
+    host, phost = ({k: m.get(k, 0) for k in SMOKE_HOST}, {k: pm.get(k, 0) for k in SMOKE_HOST})
+    check(host == phost, f"{tag}: host counters {host}, the plain run's {phost}")
+    if geometry.get("paged"):
+        check(m["n_preemptions"] > 0, f"{tag}: the paged arm did not preempt")
+    same_tokens(model, params, cfg, pad_to, toks, ptoks, 0.0, 1.0, tag,
+                "the plain path's tokens", reqs=reqs())
+    print(f"[{tag}] host counters {host}", flush=True)
+    return counts
+
+
+def smoke_encdec(tag, cfg, model, params):
+    """S-T beam groups (SMOKE_UTTER utterances x N_BEAMS beams) through the
+    contiguous scheduler, kernels then plain: exact launches (a prefill per
+    admission and a decode step per pool step, ``st_served``'s sum), the
+    same host counters, the same tokens and scores within 1e-4."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import profiles
+    from repro_torch.core.scheduler import Scheduler, ServeRequest
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    n_f = cfg.encdec.n_frames
+    frames = torch.randn((SMOKE_UTTER, n_f, cfg.d_model), generator=gen, device=dev)
+    extra = {"frames": frames, "frame_lengths": torch.tensor(
+        st_frame_lengths(SMOKE_UTTER, n_f), dtype=torch.int32, device=dev)}
+
+    def run():
+        reqs = [ServeRequest(rid=i, prompt=np.asarray([BOS]), max_new=SMOKE_ST_NEW,
+                             profile=profiles.BeamProfile(n_beams=N_BEAMS, eos_id=EOS),
+                             extra_inputs={k: v[i:i + 1] for k, v in extra.items()})
+                for i in range(SMOKE_UTTER)]
+        sched = Scheduler(model, params, slots=SMOKE_UTTER * N_BEAMS, pad_to=1,
+                          max_new_cap=SMOKE_ST_NEW, device=dev)
+        _reset_counts()
+        with torch.inference_mode():
+            done = sorted(sched.run(reqs), key=lambda r: r.rid)
+        torch.cuda.synchronize()
+        host = (sched.n_prefills, sched.n_decode_steps, sched.n_group_admissions,
+                sched.n_cache_reorders)
+        return done, host, _read_counts()
+
+    done, host, got = run()
+    one, two = _encdec_counts(cfg, 1), _encdec_counts(cfg, 2)
+    want = {k: host[0] * one[k] + host[1] * (two[k] - one[k]) for k in one}
+    check(got == want, f"{tag}: kernel launches {got}, expected {want}")
+    with plain_path():
+        pdone, phost, pgot = run()
+    check(not any(pgot.values()), f"{tag} plain: kernel launches {pgot}")
+    check(host == phost, f"{tag}: host counters {host}, the plain run's {phost}")
+    for r, p in zip(done, pdone):
+        check(r.tokens == p.tokens and 1 <= len(r.tokens) <= SMOKE_ST_NEW,
+              f"{tag} request {r.rid}: tokens {r.tokens}, the plain run's {p.tokens}")
+        check(abs(r.score - p.score) <= 1e-4, f"{tag} request {r.rid}: score {r.score}, "
+                                              f"the plain run's {p.score}")
+    print(f"[{tag}] {SMOKE_UTTER} utterances x {N_BEAMS} beams | prefills, steps, groups, "
+          f"reorders {host} | tokens and scores = the plain run's | launches {got}",
+          flush=True)
+    return got
+
+
+def smoke_hstu(tag, cfg, model, params):
+    """One forward over four histories through the kernels (exact launches)
+    and the plain path, at the f32 tolerance."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    lengths = torch.tensor([64, 50, 17, 1], dtype=torch.int32, device=dev)
+    tokens = torch.randint(1, cfg.vocab_size, (4, 64), generator=gen, device=dev,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "lengths": lengths}
+    with torch.inference_mode():
+        _reset_counts()
+        got, _, aux = model.forward(params, batch, mode="prefill")
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        with plain_path():
+            want, _, paux = model.forward(params, batch, mode="prefill")
+    wc = _want_counts(cfg, 1, hstu_attention=cfg.n_layers)
+    check(counts == wc, f"{tag}: kernel launches {counts}, expected {wc}")
+    tol = (HSTU_PARITY["float32"], HSTU_PARITY["float32"])
+    err = max(max_err(got, want, "float32", tol),
+              max_err(aux["ranking_logits"], paux["ranking_logits"], "float32", tol))
+    print(f"[{tag}] one forward over lengths {lengths.tolist()}: max |dlogit| {err:.3e} "
+          f"against the plain path | launches {counts}", flush=True)
+    return counts
+
+
+def smoke_forced_arm(arch):
+    """The bf16 smoke config of ``arch`` teacher-forced to its plain path's
+    greedy tokens (``hybrid_rows``): exact launches, max |dlogit| within the
+    arm's bound (SMOKE_DLOGIT_BOUND), a differing pick only at a near tie;
+    the decode kernel one key short must break the bound. Returns the
+    kernel run's launches."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+
+    cfg, model, params = smoke_build(arch, "bfloat16")
+    b, t, n = SMOKE_FORCED[arch]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    prompts = torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device=dev,
+                            dtype=torch.int32)
+    with torch.inference_mode():
+        prow, ptok = hybrid_rows(model, params, prompts, None, "torch", n)
+        _reset_counts()
+        rows = hybrid_rows(model, params, prompts, ptok, "auto", n)[0]
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        with one_key_short(da, "decode_attention_cuda", 3):
+            short = hybrid_rows(model, params, prompts, ptok, "auto", n)[0]
+    n_attn = _attn_layers(cfg)
+    want = _want_counts(cfg, n, flash_attention=n_attn, decode_attention=n_attn * (n - 1))
+    check(counts == want, f"[smoke forced {arch}] kernel launches {counts}, expected {want}")
+    scale = float(prow.abs().amax())
+    limit = SMOKE_DLOGIT_BOUND[arch]
+    dl, dl_short = float((rows - prow).abs().amax()), float((short - prow).abs().amax())
+    top2 = prow.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    row_dl = (rows - prow).abs().amax(-1)
+    differs = rows.argmax(-1) != ptok.T.long()
+    check(bool(torch.isfinite(rows).all()), f"[smoke forced {arch}] non-finite logits")
+    check(bool((gap[differs] < row_dl[differs]).all()),
+          f"[smoke forced {arch}] a kernel pick differs from the plain path's away from a "
+          f"near tie")
+    print(f"[smoke forced {arch}] bf16, {b} prompts x {t} tokens, {n} forced tokens | max "
+          f"|dlogit| {dl:.6f} (bound {limit:.6f}; the plain logits' max {scale:.3f}; "
+          f"{int(differs.sum())} picks differ at near ties) | one key short {dl_short:.6f} | "
+          f"launches {counts}", flush=True)
+    check(dl <= limit, f"[smoke forced {arch}] max |dlogit| {dl} above {limit}")
+    check(dl_short > limit, f"[smoke forced {arch}] the one-key-short control stayed within "
+                            f"the bound ({dl_short} <= {limit})")
+    del model, params
+    return counts
+
+
+def _attn_work(mask, hq, d, dv):
+    """Operations of attention over the (query, key) pairs ``mask`` allows
+    [B, Tq, Tk], hq heads: 2 (d + dv) a pair and head."""
+    return int(mask.sum()) * hq * 2 * (d + dv)
+
+
+def smoke_kernel_records(paths):
+    """The new widths' records against their plain versions at the smoke
+    paths' shapes, a repeat call bit-identical, timed beside their bound and
+    SDPA where one call computes the same function; ``paths`` holds each
+    path's launches ((arch, arm) -> counts). Then the widths that no served
+    path runs (D = 16, and f32 at deepseek-v2-236b's widths (192, 128) and
+    (576, 512)) timed the same way and printed, outside the ``kernels``
+    line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    paged_src = dict(name="paged_decode_attention",
+                     source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                     replaces="src/repro/models/attention.py:177")
+    recs, off = [], []
+
+    def mask_of(b, kw):
+        m = fa._mask(kw["q_positions"], kw["k_positions"], kw.get("causal", True),
+                     kw.get("window"), kw.get("k_valid"))
+        return m.expand(b, *m.shape[1:])
+
+    def flash(out, what, dt, q, k, v, kw, launches, latent=False):
+        b, tq, hq, d = q.shape
+        dv = v.shape[-1]
+        elt = q.element_size()
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        err = max_err(got, fa.flash_attention_plain(q, k, v, **kw), dt)
+        m = mask_of(b, kw)
+        g = hq // k.shape[2]
+        am = m[:, None]
+        sc = kw.get("scale", d ** -0.5)
+        lib = (lambda qt=q.transpose(1, 2), ke=per_head(k, g), ve=per_head(v, g), am=am, sc=sc:
+               F.scaled_dot_product_attention(qt, ke, ve, attn_mask=am, scale=sc))
+        n_bytes = elt * (q.numel() + got.numel() + k.numel() + (0 if latent else v.numel())) \
+            + 4 * (kw["q_positions"].numel() + kw["k_positions"].numel()) \
+            + (0 if kw.get("k_valid") is None else kw["k_valid"].numel())
+        kernel_record(out, f"q{list(q.shape)} k{list(k.shape)} v{list(v.shape)} "
+                           f"{'bf16' if elt == 2 else 'f32'} ({what})",
+                      lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                      lambda: fa.flash_attention_plain(q, k, v, **kw), lib, err, n_bytes,
+                      _attn_work(m, hq, d, dv), launches,
+                      peak=BF16_FLOPS_PER_S if elt == 2 else F32_FLOPS_PER_S, **FLASH_SRC)
+
+    def decode(out, what, dt, q, k, v, ln, launches, latent=False, scale=None):
+        b, hq, d = q.shape
+        dv, hkv = v.shape[-1], k.shape[2]
+        elt = q.element_size()
+        got = da.decode_attention_cuda(q, k, v, ln, scale=scale)
+        err = max_err(got, da.decode_attention_plain(q, k, v, ln, scale=scale), dt)
+        s = k.shape[1]
+        am = (torch.arange(s, device=dev)[None] < ln[:, None])[:, None, None, :]
+        g = hq // hkv
+        sc = d ** -0.5 if scale is None else scale
+        lib = (lambda qq=q[:, :, None], ke=per_head(k, g), ve=per_head(v, g), am=am, sc=sc:
+               F.scaled_dot_product_attention(qq, ke, ve, attn_mask=am, scale=sc))
+        rows = int(ln.sum())
+        n_bytes = elt * (q.numel() + got.numel() + rows * hkv * (d if latent else d + dv)) \
+            + 4 * b
+        kernel_record(out, f"q{list(q.shape)} cache{list(k.shape)} v width {dv} "
+                           f"{'bf16' if elt == 2 else 'f32'} lengths {ln.tolist()} ({what})",
+                      lambda: da.decode_attention_cuda(q, k, v, ln, scale=scale),
+                      lambda: da.decode_attention_plain(q, k, v, ln, scale=scale), lib, err,
+                      n_bytes, rows * hq * 2 * (d + dv), launches,
+                      peak=BF16_FLOPS_PER_S if elt == 2 else F32_FLOPS_PER_S, **DECODE_SRC)
+
+    def paged(out, what, dt, q, kbuf, vbuf, bt, nv, launches, v_dim=None, scale=None):
+        b, hq, d = q.shape
+        elt = q.element_size()
+        kw = dict(scale=scale, v_dim=v_dim)
+        got = pda.paged_decode_attention_cuda(q, kbuf, vbuf, bt, nv, **kw)
+        err = max_err(got, pda.paged_decode_attention_plain(q, kbuf, vbuf, bt, nv, **kw), dt)
+        dv = got.shape[-1]
+        hkv = 1 if kbuf.dim() == 3 else kbuf.shape[2]
+        rows = int(nv.sum())
+        n_bytes = elt * (q.numel() + got.numel() + rows * hkv * (d if vbuf is None else d + dv)) \
+            + 4 * (bt.numel() + b)
+        kernel_record(out, f"q{list(q.shape)} pool{list(kbuf.shape)} bt{list(bt.shape)} v width "
+                           f"{dv} {'bf16' if elt == 2 else 'f32'} n_valid {nv.tolist()} ({what})",
+                      lambda: pda.paged_decode_attention_cuda(q, kbuf, vbuf, bt, nv, **kw),
+                      lambda: pda.paged_decode_attention_plain(q, kbuf, vbuf, bt, nv, **kw),
+                      None, err, n_bytes, rows * hq * 2 * (d + dv), launches,
+                      peak=BF16_FLOPS_PER_S if elt == 2 else F32_FLOPS_PER_S, **paged_src)
+
+    def inputs(dtype, b, t, hq, hkv, d, dv=None, s=None, latent=False):
+        dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+        s = t if s is None else s
+        q = _rand(gen, (b, t, hq, d), dt, dev)
+        k = _rand(gen, (b, s, hkv, d), dt, dev)
+        v = k[..., :dv] if latent else _rand(gen, (b, s, hkv, d if dv is None else dv), dt, dev)
+        return q, k, v
+
+    s_ctg = SMOKE_PAD + MAX_NEW + 1  # a contiguous slot's rows (serve_once's max_new_cap)
+    bs = SMOKE_PAGED["block_size"]
+    mb = -(-s_ctg // bs)
+    nb = SMOKE_PAGED["num_blocks"]
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(SEED))
+    bt = torch.stack([perm[(i * 3) % (nb - 1 - mb):][:mb] + 1 for i in range(SLOTS)]).to(
+        torch.int32).to(dev).contiguous()
+    lens = torch.tensor([1, 7, 16, 17, 24, 33, 39, 40], dtype=torch.int32, device=dev)
+    dense = get_smoke_config("llama3.2-1b")
+    mla = get_smoke_config("deepseek-v2-236b").mla
+    rg = get_smoke_config("recurrentgemma-2b")
+    wh = get_smoke_config("whisper-base")
+    mla_d, mla_dv = mla.qk_nope_dim + mla.qk_rope_dim, mla.v_head_dim
+    lat_d, lat_dv = mla.kv_lora_rank + mla.qk_rope_dim, mla.kv_lora_rank
+    mla_scale = mla_d ** -0.5
+    hq, hkv, dh = dense.n_heads, dense.n_kv_heads, dense.head_dim
+    for dtype, src in (("float32", "f32 smoke serve"), ("bfloat16", "bf16 forced arm")):
+        f32 = dtype == "float32"
+
+        def n(arch, arm, counter):
+            return paths[(arch, arm if f32 else "bf16 forced")][counter]
+        t = SMOKE_PAD if f32 else SMOKE_FORCED["llama3.2-1b"][1]
+        q, k, v = inputs(dtype, 1, t, hq, hkv, dh)
+        pos = int_positions(1, t, dev)
+        flash(recs, f"llama3.2-1b smoke prefill, G = {hq // hkv}, D = {dh}; {src}", dtype, q,
+              k, v, dict(q_positions=pos, k_positions=pos, causal=True),
+              n("llama3.2-1b", "contiguous", "flash_attention"))
+        # a contiguous slot's rows: serve_once's pool, or the forced arm's cache
+        s_dec = s_ctg if f32 else sum(SMOKE_FORCED["llama3.2-1b"][1:]) + 1
+        ln = lens.clamp(max=s_dec)
+        q, k, v = inputs(dtype, SLOTS, 1, hq, hkv, dh, s=s_dec)
+        decode(recs, f"llama3.2-1b smoke decode; {src}", dtype, q[:, 0], k, v, ln,
+               n("llama3.2-1b", "contiguous", "decode_attention"))
+        t = SMOKE_RING_PAD if f32 else SMOKE_FORCED["recurrentgemma-2b"][1]
+        q, k, v = inputs(dtype, 1, t, rg.n_heads, rg.n_kv_heads, rg.head_dim)
+        pos = int_positions(1, t, dev)
+        flash(recs, f"recurrentgemma-2b smoke prefill, G = {rg.n_heads}, window "
+                    f"{rg.hybrid.window}; {src}", dtype, q, k, v,
+              dict(q_positions=pos, k_positions=pos, causal=True, window=rg.hybrid.window),
+              n("recurrentgemma-2b", "contiguous", "flash_attention"))
+        q, k, v = inputs(dtype, SLOTS, 1, rg.n_heads, 1, rg.head_dim, s=rg.hybrid.window)
+        decode(recs, f"recurrentgemma-2b smoke ring decode; {src}", dtype, q[:, 0], k, v,
+               lens.clamp(max=rg.hybrid.window), n("recurrentgemma-2b", "contiguous",
+                                                   "decode_attention"))
+        t = SMOKE_PAD if f32 else SMOKE_FORCED["deepseek-v2-236b"][1]
+        h = get_smoke_config("deepseek-v2-236b").n_heads
+        q, k, v = inputs(dtype, 1, t, h, h, mla_d, mla_dv)
+        pos = int_positions(1, t, dev)
+        flash(recs, f"deepseek-v2 smoke MLA prefill ({mla_d}, {mla_dv}); {src}", dtype, q, k,
+              v, dict(q_positions=pos, k_positions=pos, causal=True, scale=mla_scale),
+              n("deepseek-v2-236b", "contiguous", "flash_attention"))
+        q, k, v = inputs(dtype, SLOTS, 1, h, 1, lat_d, lat_dv, s=s_dec, latent=True)
+        decode(recs, f"deepseek-v2 smoke latent decode ({lat_d}, {lat_dv}); {src}", dtype,
+               q[:, 0], k, v, ln, n("deepseek-v2-236b", "contiguous", "decode_attention"),
+               latent=True, scale=mla_scale)
+        if not f32:
+            continue
+        # the f32 paged paths: the chunked arm's pool and tables
+        q, kb, vb = (_rand(gen, (SLOTS, hq, dh), torch.float32, dev),
+                     _rand(gen, (nb, bs, hkv, dh), torch.float32, dev),
+                     _rand(gen, (nb, bs, hkv, dh), torch.float32, dev))
+        paged(recs, "llama3.2-1b smoke paged decode; f32 smoke serve", dtype, q, kb, vb, bt,
+              lens, n("llama3.2-1b", "chunked", "paged_decode_attention"))
+        q, pool = (_rand(gen, (SLOTS, h, lat_d), torch.float32, dev),
+                   _rand(gen, (nb, bs, lat_d), torch.float32, dev))
+        paged(recs, "deepseek-v2 smoke paged latent decode; f32 smoke serve", dtype, q, pool,
+              None, bt, lens, n("deepseek-v2-236b", "chunked", "paged_decode_attention"),
+              v_dim=lat_dv, scale=mla_scale)
+        # the chunked arm's mixed step over the gathered latent: 8 slots of
+        # the budget's 16 lanes
+        tq, tk = SMOKE_PAGED["prefill_budget"], mb * bs
+        q = _rand(gen, (SLOTS, tq, h, lat_d), torch.float32, dev)
+        lat = _rand(gen, (SLOTS, tk, 1, lat_d), torch.float32, dev)
+        qpos = (lens[:, None] - 1 + torch.arange(tq, device=dev, dtype=torch.int32)).contiguous()
+        kpos = int_positions(SLOTS, tk, dev)
+        flash(recs, f"deepseek-v2 smoke latent mixed step ({lat_d}, {lat_dv}); f32 smoke "
+                    f"serve", dtype, q, lat, lat[..., :lat_dv],
+              dict(q_positions=qpos, k_positions=kpos, causal=True,
+                   k_valid=(kpos < (lens + tq)[:, None]).contiguous(), scale=mla_scale),
+              n("deepseek-v2-236b", "chunked", "flash_attention"), latent=True)
+        # whisper's cross attention: G = 1, bidirectional over the valid frames
+        fl = torch.tensor(st_frame_lengths(SLOTS, wh.encdec.n_frames), device=dev)
+        q, k, v = inputs(dtype, SLOTS, 1, wh.n_heads, wh.n_kv_heads, wh.head_dim,
+                         s=wh.encdec.n_frames)
+        kpos = int_positions(SLOTS, wh.encdec.n_frames, dev)
+        flash(recs, f"whisper-base smoke cross attention, G = 1, frame lengths "
+                    f"{fl.tolist()}; f32 smoke serve", dtype, q, k, v,
+              dict(q_positions=int_positions(SLOTS, 1, dev), k_positions=kpos, causal=False,
+                   k_valid=(kpos < fl[:, None]).contiguous()),
+              n("whisper-base", "contiguous", "flash_attention"))
+
+    # widths no served path runs: timed and printed, not in the kernels line
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = inputs(dtype, 1, 256, 8, 2, 16)
+        pos = int_positions(1, 256, dev)
+        flash(off, "D = 16, G = 4, causal", dtype, q, k, v,
+              dict(q_positions=pos, k_positions=pos, causal=True), 0)
+        q, k, v = inputs(dtype, SLOTS, 1, 8, 2, 16, s=s_ctg)
+        decode(off, "D = 16, G = 4", dtype, q[:, 0], k, v, lens, 0)
+        q, kb, vb = (_rand(gen, (SLOTS, 8, 16), q.dtype, dev),
+                     _rand(gen, (nb, bs, 2, 16), q.dtype, dev),
+                     _rand(gen, (nb, bs, 2, 16), q.dtype, dev))
+        paged(off, "D = 16, G = 4", dtype, q, kb, vb, bt, lens, 0)
+    q, k, v = inputs("float32", 1, 256, 128, 128, 192, 128)
+    pos = int_positions(1, 256, dev)
+    flash(off, "deepseek-v2-236b MLA prefill (192, 128) in f32", "float32", q, k, v,
+          dict(q_positions=pos, k_positions=pos, causal=True, scale=192 ** -0.5), 0)
+    q = _rand(gen, (SLOTS, 5, 128, 576), torch.float32, dev)
+    lat = _rand(gen, (SLOTS, 321, 1, 576), torch.float32, dev)
+    ln = torch.tensor([1, 44, 100, 200, 256, 300, 0, 316], dtype=torch.int32, device=dev)
+    qpos = (ln[:, None] + torch.arange(5, device=dev, dtype=torch.int32)).contiguous()
+    kpos = int_positions(SLOTS, 321, dev)
+    flash(off, "deepseek-v2-236b latent verify step (576, 512) in f32", "float32", q, lat,
+          lat[..., :512], dict(q_positions=qpos, k_positions=kpos, causal=True,
+                               k_valid=(kpos < (ln + 5)[:, None]).contiguous(),
+                               scale=192 ** -0.5), 0, latent=True)
+    decode(off, "deepseek-v2-236b latent decode (576, 512) in f32", "float32",
+           q[:, 0].contiguous(), lat,
+           lat[..., :512], ln + 1, 0, latent=True, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    finish_records(recs)
+    print("[kernels] widths no served path runs (not in the kernels line):", flush=True)
+    finish_records(off)
+    for r in off:
+        print(f"[kernels off-path] {json.dumps(r)}", flush=True)
+    for r in recs:
+        check(r["launches"] > 0, f"{r['name']} {r['shape']}: not launched on its path")
+    return recs
+
+
+#: the smoke configs by the entry that serves them
+SMOKE_SERVED = ("llama3.2-1b", "qwen2.5-3b", "yi-34b", "llama3-405b", "chameleon-34b",
+                "qwen3-moe-30b-a3b", "deepseek-v2-236b")
+
+
+def phase_smoke_configs():
+    """Each of the twelve smoke configs in f32 on the card, through its
+    normal entry with the kernels and on the plain path: the decoder
+    families on the contiguous pool and on paged + chunked (SMOKE_PAGED),
+    mamba2 on the contiguous pool, recurrentgemma at a pad past its ring,
+    the encoder-decoders' S-T beam groups, HSTU's forward. Then the bf16
+    forced arms (SMOKE_FORCED) and the new widths' kernel records. Returns
+    the records."""
+    import torch
+
+    from repro_torch.configs import SMOKE_CONFIGS
+
+    t0 = time.perf_counter()
+    paths = {}
+    for arch in SMOKE_CONFIGS:
+        cfg, model, params = smoke_build(arch, "float32")
+        tag = f"smoke {arch}"
+        if cfg.family in ("encdec", "seamless"):
+            paths[(arch, "contiguous")] = smoke_encdec(tag, cfg, model, params)
+        elif cfg.family == "hstu":
+            paths[(arch, "contiguous")] = smoke_hstu(tag, cfg, model, params)
+        else:
+            pad = SMOKE_RING_PAD if cfg.family == "hybrid" else SMOKE_PAD
+            paths[(arch, "contiguous")] = smoke_served(f"{tag}/contiguous", cfg, model, params,
+                                                       pad, {})
+            if arch in SMOKE_SERVED:
+                paths[(arch, "chunked")] = smoke_served(f"{tag}/chunked", cfg, model, params,
+                                                        pad, SMOKE_PAGED)
+        del model, params
+    check(set(SMOKE_CONFIGS) == {a for a, _ in paths}, "a smoke config was not served")
+    t1 = time.perf_counter()
+    for arch in SMOKE_FORCED:
+        paths[(arch, "bf16 forced")] = smoke_forced_arm(arch)
+    t2 = time.perf_counter()
+    recs = smoke_kernel_records(paths)
+    torch.cuda.empty_cache()
+    print(f"[smoke_configs] phase {time.perf_counter() - t0:.1f} s (served {t1 - t0:.1f} s, "
+          f"forced arms {t2 - t1:.1f} s, records {time.perf_counter() - t2:.1f} s)", flush=True)
+    return recs
+
+
+# ---------------------------------------------------------------- examples
+#: the train_small example's run on the card: steps, checkpoint every
+EXAMPLE_TRAIN_STEPS, EXAMPLE_TRAIN_CKPT_EVERY = 300, 100
+
+
+def phase_examples():
+    """The reference's five examples ported (``repro_torch.examples``) run on
+    the card through their bodies, as ``python -m repro_torch.examples.<name>``
+    runs them; the four that serve must move the attention kernels' counters,
+    ``train_small`` (the plain path) none. Each example's own assertions
+    hold (LayerSkip lossless, T-I tokens in the image range); the served
+    groups must match their batch runs."""
+    import torch
+
+    from repro_torch.examples import (image_generation, quickstart, serve_batched,
+                                      speech_translation, train_small)
+    from repro_torch.models import get_model
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+
+    def counted(name, fn):
+        _reset_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _read_counts().items() if v}
+        print(f"[examples/{name}] {time.perf_counter() - t:.1f} s | launches {got}", flush=True)
+        return out, got
+
+    attn = ("flash_attention", "decode_attention", "paged_decode_attention")
+
+    def moved(name, got):
+        check(any(got.get(k, 0) > 0 for k in attn) and got.get("rmsnorm", 0) > 0,
+              f"examples/{name}: the attention kernels' counters did not move ({got})")
+
+    def quick():
+        model, params = quickstart.build(dev)
+        with torch.inference_mode():
+            return quickstart.run(model, params, dev)
+    out, got = counted("quickstart", quick)
+    moved("quickstart", got)
+    check(got.get("int8_matmul_weight_only", 0) + got.get("int8_matmul_dynamic", 0) > 0,
+          "examples/quickstart: the quantized generate launched no int8 kernel")
+    _, got = counted("serve_batched", lambda: serve_batched.run("cuda"))
+    moved("serve_batched", got)
+
+    def speech():
+        with torch.inference_mode():
+            st = speech_translation.run_st(*speech_translation.build("whisper-base", dev), dev)
+            ss = speech_translation.run_ss(*speech_translation.build("seamless-m4t", dev), dev)
+        return st, ss
+    (st, ss), got = counted("speech_translation", speech)
+    moved("speech_translation", got)
+    check(all(st["matches"]) and all(ss["matches"]),
+          f"examples/speech_translation: served beams differ from the batch run's "
+          f"({st['matches']}, {ss['matches']})")
+
+    def image():
+        model, params = image_generation.build(dev)
+        with torch.inference_mode():
+            return image_generation.run(model, params, dev)
+    out, got = counted("image_generation", image)
+    moved("image_generation", got)
+    check(out["matches"], "examples/image_generation: the served T-I group differs from the "
+                          "batch run")
+
+    def train():
+        model = get_model(train_small.CFG_100M)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        return train_small.run(model, params, dev, steps=EXAMPLE_TRAIN_STEPS,
+                               ckpt_every=EXAMPLE_TRAIN_CKPT_EVERY)
+    out, got = counted("train_small", train)
+    check(not got, f"examples/train_small: the plain path launched kernels ({got})")
+    check(out["last"] < out["first"] and os.path.exists(out["ckpt"]),
+          f"examples/train_small: loss {out['first']} -> {out['last']}, checkpoint "
+          f"{out['ckpt']}")
+    print(f"[examples] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -6307,6 +6882,8 @@ def main() -> None:
         records += hybrid_kernel_records(pad_to, hybrid_counts, long_counts)
         print(f"[hybrid] phase with its kernel records {time.perf_counter() - t0:.1f} s",
               flush=True)
+        records += phase_smoke_configs()
+        phase_examples()
         # each kernel's launches come from the run of the path it is on; an
         # f32 route's from the f32 run of its path
         path_counts = {"paged_decode_attention": paged_counts["paged"],

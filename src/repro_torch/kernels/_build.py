@@ -44,9 +44,10 @@ SIGNATURES: Dict[str, List] = {
     # causal, window, scale, stream
     "flash_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, ctypes.c_float, _P],
-    # q, kv, q_pos, k_pos, k_valid, out, B, Tq, Tk, Hq, causal, window, scale, stream
-    "flash_attention_latent_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                      ctypes.c_float, _P],
+    # dtype, q, kv, q_pos, k_pos, k_valid, out, B, Tq, Tk, Hq, D, Dv, causal, window,
+    # scale, stream
+    "flash_attention_latent_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _I, _I, ctypes.c_float, _P],
     # dtype, q, k, v, lengths, out, partial, B, S, Hq, Hkv, D, splits, split_len,
     # scale, stream
     "decode_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -55,10 +56,10 @@ SIGNATURES: Dict[str, List] = {
     # splits, split_len, scale, stream
     "paged_decode_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I, _I, _I, ctypes.c_float, _P],
-    # q, kv, lengths, bt, NB, bs, out, partial, B, S, Hq, splits, split_len, scale,
-    # stream
-    "decode_attention_latent_launch": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
-                                       ctypes.c_float, _P],
+    # dtype, q, kv, lengths, bt, NB, bs, out, partial, B, S, Hq, D, Dv, splits,
+    # split_len, scale, stream
+    "decode_attention_latent_launch": [_I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I,
+                                       _I, _I, _I, ctypes.c_float, _P],
     # dtype, x, w_q, w_scale, out, partial, M, N, K, splits, k_chunk, stream
     "int8_matmul_wo_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x_q, w_q, w_scale, x_scale, out, partial, M, N, K, splits, k_chunk, stream

@@ -37,13 +37,16 @@
 // sum alpha_s acc_s / max(sum alpha_s l_s, 1e-30). A row of length 0 has no
 // live split and gets exact zeros.
 //
-// Widths: D == Dv in {64, 128} with G * D <= 2048, and D = 256 with G * D <=
-// 2560 (recurrentgemma-2b: 10 q heads over one KV head, over the ring of its
-// local attention): each thread holds kMaxAcc<D> of the group's outputs (8,
-// or 10 at D = 256), and f32 at D = 256 walks its split in 32-key tiles (two
-// 64-key K/V tiles of 1 KB rows would take 264 KB of shared memory). The
-// paged kernel is not instantiated at D = 256: the paged pool refuses the
-// hybrid's rings.
+// Widths: D == Dv in {16, 32, 64, 128} with G * D <= 2048, and D = 256 with
+// G * D <= 2560 (recurrentgemma-2b: 10 q heads over one KV head, over the
+// ring of its local attention): each thread holds kMaxAcc<D> of the group's
+// outputs (8, or 10 at D = 256; thread i holds outputs i, i + 256, ..., so
+// the mapping needs no D of its own and at D = 16 or 32 most threads of a
+// small group hold none), and f32 at D = 256 walks its split in 32-key
+// tiles (two 64-key K/V tiles of 1 KB rows would take 264 KB of shared
+// memory). The paged kernel is not instantiated at D = 256: the paged pool
+// refuses the hybrid's rings. The combine kernel gives each lane
+// ceil(Dv / 32) columns, the last partly idle at Dv = 16.
 //
 // Paged flash-decode (decode_attention_paged_kernel) replaces the JAX
 // package's XLA paged_decode_attention (repro/models/attention.py, which has
@@ -61,18 +64,23 @@
 // Bound: bytes, as the contiguous kernel (the live rows read once, and
 // the table).
 //
-// MLA's absorbed latent decode (decode_latent_kernel, bf16 only): q [B, 128,
-// 576] against the latent [B, S, 576] or its block pool through the table,
-// one shared KV head, V the leading 512 columns. G * D = 128 * 576 cannot sit
-// in one block's registers as the GQA kernel's group does, so the 128 heads
-// become the rows of an mma.sync tile (two 64-row tiles) against each 64-key
-// latent tile, the 512 output columns are split over 4 blocks (grid z), and
-// split_plan's sequence split and the combine kernel (at Dv = 512) are kept:
-// 8 rows x 2 row tiles x 4 column blocks x 6 splits = 384 blocks at the
-// served S = 321. The tile loader resolves each key's row, contiguous or
-// through the table (LatentContig / LatentPaged), so the two give the same
-// bits on the same rows. Bound: bytes (the live latent rows once, ~1 us at
-// the served shape); in practice latency.
+// MLA's absorbed latent decode (decode_latent_kernel, bf16): q [B, Hq, D]
+// against the latent [B, S, D] or its block pool through the table, one
+// shared KV head, V the leading Dv columns, at (D, Dv) = (576, 512) and
+// (96, 64) (the smoke config; latent_attention.cuh's Widths). G * D = 128 *
+// 576 cannot sit in one block's registers as the GQA kernel's group does,
+// so the heads become the rows of an mma.sync tile (64-row tiles) against
+// each 64-key latent tile, the output columns are split over min(128, Dv)
+// column blocks (grid z; 4 at 512), and split_plan's sequence split and the
+// combine kernel (at Dv) are kept: 8 rows x 2 row tiles x 4 column blocks x
+// 6 splits = 384 blocks at the served S = 321. The tile loader resolves
+// each key's row, contiguous or through the table (LatentContig /
+// LatentPaged), so the two give the same bits on the same rows. Bound:
+// bytes (the live latent rows once, ~1 us at the served shape); in practice
+// latency. The f32 latent runs decode_split (the GQA kernels, contiguous or
+// paged) with Hkv = 1, V read at K's row stride, 16 heads and min(128, Dv)
+// output columns a block (grid z tiles both): f32 K tiles of 32 keys at D =
+// 576 (~213 KB of shared memory with the V slice and Q).
 #include <cstdint>
 
 #include "common.cuh"
@@ -84,23 +92,29 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTileK = 64;  // the split plan's granularity (decode_attention.py TILE_K)
 constexpr int kCombineWarps = 4;
+// q heads a block of the f32 latent holds (grid z tiles the rest)
+constexpr int kLatentHeads = 16;
 
-// Per-thread outputs: G * D <= kThreads * kMaxAcc<D>, 2048 up to D = 128 and
-// 2560 at D = 256 (recurrentgemma's 10 heads over one KV head).
+// Per-thread outputs: a block's heads x output columns <= kThreads *
+// kMaxAcc<D>: G * D <= 2048 up to D = 128 and 2560 at D = 256
+// (recurrentgemma's 10 heads over one KV head).
 template <int D>
 constexpr int kMaxAcc = D == 256 ? 10 : 8;
 
-template <typename T, int D>
+// D: the K row's width; DVS: the V columns (and outputs) a block holds
+template <typename T, int D, int DVS>
 struct Tile {
   static constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte chunk
-  static constexpr int kChunks = D / kVec;      // chunks per cache row
+  static constexpr int kChunks = D / kVec;      // chunks per K row
+  static constexpr int kVChunks = DVS / kVec;   // chunks per V row slice
   static constexpr int kKStride = D + kVec;     // K rows padded by 16 bytes
   // keys per shared-memory tile: 64, or 32 where a row is over 512 bytes
-  // (f32 at D = 256: two 64-key K/V tiles would take 264 KB); a divisor of
-  // the split's 64-key granularity either way
+  // (f32 at D = 256 and 576: two 64-key K/V tiles would not fit); a divisor
+  // of the split's 64-key granularity either way
   static constexpr int kTile = sizeof(T) * D > 512 ? 32 : 64;
+  static_assert(D % kVec == 0 && DVS % kVec == 0, "whole 16-byte chunks");
   static size_t smem_bytes(int g) {
-    return sizeof(T) * 2 * kTile * static_cast<size_t>(kKStride + D)  // K, V (x2)
+    return sizeof(T) * 2 * kTile * static_cast<size_t>(kKStride + DVS)  // K, V (x2)
            + sizeof(float) * static_cast<size_t>(g) * (D + kTile + 3);  // q, p, m/l/alpha
   }
 };
@@ -141,31 +155,36 @@ struct PagedRows {
 };
 
 // K/V cache rows t0 .. t0 + n - 1 into one buffer of the tile ring by
-// 16-byte cp.async (rows past n are never read).
-template <typename T, int D, typename Rows>
+// 16-byte cp.async (rows past n are never read): K's D columns, V's DVS
+// columns from dv0 (V rows at K's offsets: V = K[..., :Dv] for the latent).
+template <typename T, int D, int DVS, typename Rows>
 __device__ __forceinline__ void load_tile(const T* kb, const T* vb, const Rows& rows, int t0,
-                                          int n, T* ks, T* vs) {
-  using L = Tile<T, D>;
+                                          int n, int dv0, T* ks, T* vs) {
+  using L = Tile<T, D, DVS>;
   for (int i = threadIdx.x; i < n * L::kChunks; i += kThreads) {
     const int j = i / L::kChunks, c = i % L::kChunks;
-    const long long off = rows(t0 + j) + c * L::kVec;
-    cp_async16(ks + j * L::kKStride + c * L::kVec, kb + off, 16);
-    cp_async16(vs + j * D + c * L::kVec, vb + off, 16);
+    cp_async16(ks + j * L::kKStride + c * L::kVec, kb + rows(t0 + j) + c * L::kVec, 16);
+  }
+  for (int i = threadIdx.x; i < n * L::kVChunks; i += kThreads) {
+    const int j = i / L::kVChunks, c = i % L::kVChunks;
+    cp_async16(vs + j * DVS + c * L::kVec, vb + rows(t0 + j) + dv0 + c * L::kVec, 16);
   }
   cp_async_commit();
 }
 
 // One block's split of one (batch row b, KV head h): kb / vb point at the
 // row's key 0 of head h, `rows` maps a logical key to its offset from there,
-// and `len` is the row's clamped count of valid keys.
-template <typename T, int D, typename Rows>
+// and `len` is the row's clamped count of valid keys. The block holds the
+// group's heads g0 .. g0 + gh - 1 and output columns dv0 .. dv0 + DVS - 1 of
+// the DV (the whole group and all columns but for the f32 latent).
+template <typename T, int D, int DV, int DVS, typename Rows>
 __device__ __forceinline__ void decode_split(unsigned char* smem_raw, const T* __restrict__ q,
                                              const T* kb, const T* vb, const Rows& rows,
                                              int len, T* __restrict__ out,
                                              float* __restrict__ partial, int B, int Hq,
                                              int Hkv, int split_len, float scale, int b,
-                                             int h) {
-  using L = Tile<T, D>;
+                                             int h, int g0, int gh, int dv0) {
+  using L = Tile<T, D, DVS>;
   constexpr int kVec = L::kVec, kChunks = L::kChunks, kKStride = L::kKStride;
   constexpr int kTileK = L::kTile;  // shadows the split granularity
   constexpr int kAcc = kMaxAcc<D>;
@@ -176,23 +195,24 @@ __device__ __forceinline__ void decode_split(unsigned char* smem_raw, const T* _
   if (partial != nullptr && t_begin >= len) return;
 
   T* ks = reinterpret_cast<T*>(smem_raw);          // [2][kTileK][kKStride]
-  T* vs = ks + 2 * kTileK * kKStride;              // [2][kTileK][D]
-  float* qs = reinterpret_cast<float*>(vs + 2 * kTileK * D);  // [G][D]
-  float* ss = qs + G * D;                          // [G][kTileK]
-  float* m_s = ss + G * kTileK;
-  float* l_s = m_s + G;
-  float* a_s = l_s + G;
+  T* vs = ks + 2 * kTileK * kKStride;              // [2][kTileK][DVS]
+  float* qs = reinterpret_cast<float*>(vs + 2 * kTileK * DVS);  // [gh][D]
+  float* ss = qs + gh * D;                         // [gh][kTileK]
+  float* m_s = ss + gh * kTileK;
+  float* l_s = m_s + gh;
+  float* a_s = l_s + gh;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, n_warps = kThreads / 32;
 
-  if (t_begin < t_end) load_tile<T, D>(kb, vb, rows, t_begin, min(kTileK, t_end - t_begin),
-                                       ks, vs);
+  if (t_begin < t_end)
+    load_tile<T, D, DVS>(kb, vb, rows, t_begin, min(kTileK, t_end - t_begin), dv0, ks, vs);
 
-  // q[b, h*G + g, :] for g < G is one contiguous run of G * D elements
-  const T* qb = q + (static_cast<long long>(b) * Hq + h * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) qs[i] = to_f32(qb[i]) * scale;
-  for (int g = tid; g < G; g += kThreads) {
+  // q[b, h*G + g0 + g, :] for g < gh is one contiguous run of gh * D elements
+  const long long head0 = static_cast<long long>(b) * Hq + h * G + g0;  // [B, Hq] row
+  const T* qb = q + head0 * D;
+  for (int i = tid; i < gh * D; i += kThreads) qs[i] = to_f32(qb[i]) * scale;
+  for (int g = tid; g < gh; g += kThreads) {
     m_s[g] = REPRO_NEG_INF;
     l_s[g] = 0.f;
   }
@@ -206,16 +226,16 @@ __device__ __forceinline__ void decode_split(unsigned char* smem_raw, const T* _
     const int n = min(kTileK, t_end - t0);
     if (t0 + kTileK < t_end) {  // the next tile loads while this one computes
       const int t1 = t0 + kTileK, nb = buf ^ 1;
-      load_tile<T, D>(kb, vb, rows, t1, min(kTileK, t_end - t1), ks + nb * kTileK * kKStride,
-                      vs + nb * kTileK * D);
+      load_tile<T, D, DVS>(kb, vb, rows, t1, min(kTileK, t_end - t1), dv0,
+                           ks + nb * kTileK * kKStride, vs + nb * kTileK * DVS);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
     const T* kt = ks + buf * kTileK * kKStride;
-    const T* vt = vs + buf * kTileK * D;
-    for (int i = tid; i < G * kTileK; i += kThreads) {
+    const T* vt = vs + buf * kTileK * DVS;
+    for (int i = tid; i < gh * kTileK; i += kThreads) {
       const int g = i / kTileK, j = i % kTileK;
       float s = REPRO_NEG_INF;
       if (j < n) {
@@ -233,7 +253,7 @@ __device__ __forceinline__ void decode_split(unsigned char* smem_raw, const T* _
       ss[i] = s;
     }
     __syncthreads();
-    for (int g = warp; g < G; g += n_warps) {
+    for (int g = warp; g < gh; g += n_warps) {
       float* row = ss + g * kTileK;
       float mx = REPRO_NEG_INF;
       for (int j = lane; j < kTileK; j += 32) mx = fmaxf(mx, row[j]);
@@ -258,75 +278,94 @@ __device__ __forceinline__ void decode_split(unsigned char* smem_raw, const T* _
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) {
       const int idx = tid + i * kThreads;
-      if (idx < G * D) {
-        const int g = idx / D, dd = idx % D;
+      if (idx < gh * DVS) {
+        const int g = idx / DVS, dd = idx % DVS;
         const float* p = ss + g * kTileK;
         float pv = 0.f;
-        for (int j = 0; j < n; ++j) pv = fmaf(p[j], to_f32(vt[j * D + dd]), pv);
+        for (int j = 0; j < n; ++j) pv = fmaf(p[j], to_f32(vt[j * DVS + dd]), pv);
         acc[i] = acc[i] * a_s[g] + pv;
       }
     }
     __syncthreads();  // buffer `buf` and the scores are free for the next tile
   }
 
-  const long long head0 = static_cast<long long>(b) * Hq + h * G;  // [B, Hq] row of head 0
   if (partial == nullptr) {
-    T* ob = out + head0 * D;
+    T* ob = out + head0 * DV + dv0;
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) {
       const int idx = tid + i * kThreads;
-      if (idx < G * D) ob[idx] = from_f32<T>(acc[i] / fmaxf(l_s[idx / D], REPRO_L_MIN));
+      if (idx < gh * DVS) {
+        const int g = idx / DVS, dd = idx % DVS;
+        ob[g * DV + dd] = from_f32<T>(acc[i] / fmaxf(l_s[g], REPRO_L_MIN));
+      }
     }
     return;
   }
-  // partial: acc [splits][B][Hq][D], then (m, l) [splits][B][Hq][2]
+  // partial: acc [splits][B][Hq][DV], then (m, l) [splits][B][Hq][2]
   const long long split_rows = static_cast<long long>(blockIdx.x) * B * Hq + head0;
-  float* pa = partial + split_rows * D;
+  float* pa = partial + split_rows * DV + dv0;
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) {
     const int idx = tid + i * kThreads;
-    if (idx < G * D) pa[idx] = acc[i];
+    if (idx < gh * DVS) pa[(idx / DVS) * DV + idx % DVS] = acc[i];
   }
-  float* pml = partial + static_cast<long long>(gridDim.x) * B * Hq * D + split_rows * 2;
-  for (int g = tid; g < G; g += kThreads) {
+  if (dv0 != 0) return;  // one column block writes (m, l)
+  float* pml = partial + static_cast<long long>(gridDim.x) * B * Hq * DV + split_rows * 2;
+  for (int g = tid; g < gh; g += kThreads) {
     pml[2 * g] = m_s[g];
     pml[2 * g + 1] = l_s[g];
   }
 }
 
-template <typename T, int D>
+// The block's heads and output columns: grid z walks (head tile of `heads`
+// q heads) x (DV / DVS column blocks); the GQA launches have one z block
+// holding the whole group (heads = G, DVS = DV).
+template <int DV, int DVS>
+struct BlockCols {
+  int g0, gh, dv0;
+  __device__ __forceinline__ BlockCols(int G, int heads) {
+    constexpr int nsv = DV / DVS;
+    g0 = (blockIdx.z / nsv) * heads;
+    gh = min(heads, G - g0);
+    dv0 = (blockIdx.z % nsv) * DVS;
+  }
+};
+
+template <typename T, int D, int DV, int DVS>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ lengths,
                         T* __restrict__ out, float* __restrict__ partial, int B, int S,
-                        int Hq, int Hkv, int split_len, float scale) {
+                        int Hq, int Hkv, int heads, int split_len, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.y / Hkv;
   const int h = blockIdx.y % Hkv;
+  const BlockCols<DV, DVS> bc(Hq / Hkv, heads);
   const long long row_stride = static_cast<long long>(Hkv) * D;  // between cache rows
   const long long base = static_cast<long long>(b) * S * row_stride + h * D;
-  decode_split<T, D>(smem_raw, q, k + base, v + base, ContigRows{row_stride},
-                     min(max(lengths[b], 0), S), out, partial, B, Hq, Hkv, split_len, scale, b,
-                     h);
+  decode_split<T, D, DV, DVS>(smem_raw, q, k + base, v + base, ContigRows{row_stride},
+                              min(max(lengths[b], 0), S), out, partial, B, Hq, Hkv, split_len,
+                              scale, b, h, bc.g0, bc.gh, bc.dv0);
 }
 
 // The same split decode over a block pool kbuf/vbuf [NB, bs, Hkv, D] through
 // the block table bt [B, MB]; n_valid [B] counts each row's valid keys.
-template <typename T, int D>
+template <typename T, int D, int DV, int DVS>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_paged_kernel(const T* __restrict__ q, const T* __restrict__ kbuf,
                               const T* __restrict__ vbuf, const int* __restrict__ bt,
                               const int* __restrict__ n_valid, T* __restrict__ out,
                               float* __restrict__ partial, int B, int NB, int bs, int MB,
-                              int Hq, int Hkv, int split_len, float scale) {
+                              int Hq, int Hkv, int heads, int split_len, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.y / Hkv;
   const int h = blockIdx.y % Hkv;
+  const BlockCols<DV, DVS> bc(Hq / Hkv, heads);
   const PagedRows rows{bt + static_cast<long long>(b) * MB, bs, NB,
                        static_cast<long long>(Hkv) * D};
-  decode_split<T, D>(smem_raw, q, kbuf + h * D, vbuf + h * D, rows,
-                     min(max(n_valid[b], 0), MB * bs), out, partial, B, Hq, Hkv, split_len,
-                     scale, b, h);
+  decode_split<T, D, DV, DVS>(smem_raw, q, kbuf + h * D, vbuf + h * D, rows,
+                              min(max(n_valid[b], 0), MB * bs), out, partial, B, Hq, Hkv,
+                              split_len, scale, b, h, bc.g0, bc.gh, bc.dv0);
 }
 
 // One warp per (row, q head): the live splits' partials merged in split
@@ -337,6 +376,7 @@ __global__ void __launch_bounds__(kCombineWarps * 32)
 decode_attention_combine_kernel(const float* __restrict__ partial,
                                 const int* __restrict__ lengths, T* __restrict__ out, int B,
                                 int S, int Hq, int splits, int split_len) {
+  constexpr int kPer = (D + 31) / 32;  // columns a lane (the last partly idle at D = 16)
   const int row = blockIdx.x * kCombineWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long rows = static_cast<long long>(B) * Hq;
   if (row >= rows) return;
@@ -345,43 +385,45 @@ decode_attention_combine_kernel(const float* __restrict__ partial,
   const float* pml = partial + static_cast<long long>(splits) * rows * D;
   float m = REPRO_NEG_INF;
   for (int s = 0; s < live; ++s) m = fmaxf(m, pml[(s * rows + row) * 2]);
-  float l = 0.f, acc[D / 32];
+  float l = 0.f, acc[kPer];
 #pragma unroll
-  for (int e = 0; e < D / 32; ++e) acc[e] = 0.f;
+  for (int e = 0; e < kPer; ++e) acc[e] = 0.f;
   for (int s = 0; s < live; ++s) {
     const float alpha = expf(pml[(s * rows + row) * 2] - m);
     l += pml[(s * rows + row) * 2 + 1] * alpha;
     const float* pa = partial + (s * rows + row) * D;
 #pragma unroll
-    for (int e = 0; e < D / 32; ++e) acc[e] += pa[lane + 32 * e] * alpha;
+    for (int e = 0; e < kPer; ++e)
+      if (lane + 32 * e < D) acc[e] += pa[lane + 32 * e] * alpha;
   }
   T* ob = out + static_cast<long long>(row) * D;
 #pragma unroll
-  for (int e = 0; e < D / 32; ++e) ob[lane + 32 * e] = from_f32<T>(acc[e] / fmaxf(l, REPRO_L_MIN));
+  for (int e = 0; e < kPer; ++e)
+    if (lane + 32 * e < D) ob[lane + 32 * e] = from_f32<T>(acc[e] / fmaxf(l, REPRO_L_MIN));
 }
 
-// MLA's absorbed latent decode (bf16): q [B, Hq, 576] against the latent
-// [B, S, 576] (contiguous) or its block pool [NB, bs, 576] through bt (paged),
-// Hkv = 1, V the latent's leading 512 columns read from the key tile. The
+// MLA's absorbed latent decode (bf16): q [B, Hq, kD] against the latent
+// [B, S, kD] (contiguous) or its block pool [NB, bs, kD] through bt (paged),
+// Hkv = 1, V the latent's leading kDV columns read from the key tile. The
 // grid is x: the split (decode_attention.py split_plan, as the GQA
-// kernel's), y: the batch row, z: (64-head row tile) x (128 output
+// kernel's), y: the batch row, z: (64-head row tile) x (kDVS output
 // columns). A block's rows are 64 heads of the row's one query token, the
 // rows of the mma.sync tile against each 64-key latent tile
 // (latent_attention.cuh); a split past the row's length exits. With one
 // split the block writes its normalised output columns; with more, its
-// unnormalised f32 partial (acc [splits][B][Hq][512], then (m, l)
+// unnormalised f32 partial (acc [splits][B][Hq][kDV], then (m, l)
 // [splits][B][Hq][2], m in natural-log units, written by the z blocks of
 // output columns 0) for the shared combine kernel.
-template <typename Rows>
+template <typename W, typename Rows>
 __global__ void __launch_bounds__(latent::kThreads)
 decode_latent_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kv,
-                     const int* __restrict__ lengths, Rows rows_of, int row_stride_b,
+                     const int* __restrict__ lengths, Rows rows_of, long long row_stride_b,
                      __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int B,
                      int S, int Hq, int split_len, float scale_log2) {
   // the latent tile's shape (these shadow the GQA kernels' constants)
   constexpr int kThreads = latent::kThreads, kRows = latent::kRows, kTileK = latent::kTileK;
-  constexpr int kStride = latent::kStride, kChunks = latent::kChunks, kD = latent::kD;
-  constexpr int kDV = latent::kDV, kDVS = latent::kDVS, kSplitsV = latent::kSplitsV;
+  constexpr int kStride = W::kStride, kChunks = W::kChunks, kD = W::kD;
+  constexpr int kDV = W::kDV, kDVS = W::kDVS, kSplitsV = W::kSplitsV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kRows][kStride]
   __nv_bfloat16* ks = qs + kRows * kStride;                          // [2][kTileK][kStride]
@@ -438,7 +480,7 @@ decode_latent_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     __syncthreads();
     const int n = t_end - t0;
     auto ok = [&](int i, int j) { return qlive[i] && j < n; };
-    latent::tile_step(qw, ks + sb * kTileK * kStride, dv0, scale_log2, ok, o, m, l);
+    latent::tile_step<W>(qw, ks + sb * kTileK * kStride, dv0, scale_log2, ok, o, m, l);
     __syncthreads();  // buffer sb is free for the tile after next
   }
   cp_async_wait<0>();  // an empty row: the Q tile's copy is still pending
@@ -449,7 +491,7 @@ decode_latent_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     float inv[2];
     latent::row_inverse(l, inv);
     __nv_bfloat16* qwo = qs + warp * 16 * kStride;
-    latent::stage_out(qwo, o, inv);
+    latent::stage_out<W>(qwo, o, inv);
     __nv_bfloat16* ob = out + head0 * kDV + dv0;
     for (int i = lane; i < 16 * (kDVS / 8); i += 32) {
       const int rr = i / (kDVS / 8), c = i % (kDVS / 8), r = warp * 16 + rr;
@@ -491,7 +533,7 @@ decode_latent_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
-// Latent row offsets (in rows of 576): contiguous t, or paged through the
+// Latent row offsets (in rows of kD): contiguous t, or paged through the
 // batch row's table. at(b) gives the batch row's own functor.
 struct LatentContig {
   __device__ __forceinline__ LatentContig at(int) const { return *this; }
@@ -509,55 +551,71 @@ struct LatentPaged {
   }
 };
 
-// The contiguous kernel when bt is null; else the paged one, over S = MB * bs
-// logical keys of an NB-block pool.
+bool bad_plan(int S, int splits, int split_len, const void* partial, const int* bt, int NB,
+              int bs) {
+  return splits < 1 || splits > 65535 || split_len < kTileK || split_len % kTileK ||
+         static_cast<long long>(splits) * split_len < S || (splits > 1 && partial == nullptr) ||
+         (bt != nullptr && (bs < 1 || NB < 1 || S % bs));
+}
+
 template <typename T, int D>
+void combine(float* part, const int* lengths, void* out, int B, int S, int Hq, int splits,
+             int split_len, cudaStream_t stream) {
+  const int rows = B * Hq;
+  decode_attention_combine_kernel<T, D>
+      <<<(rows + kCombineWarps - 1) / kCombineWarps, kCombineWarps * 32, 0, stream>>>(
+          part, lengths, static_cast<T*>(out), B, S, Hq, splits, split_len);
+}
+
+// The contiguous kernel when bt is null; else the paged one, over S = MB * bs
+// logical keys of an NB-block pool. `heads` is the q heads a block holds (0:
+// the whole group of its KV head); a block holds DVS of the DV output
+// columns.
+template <typename T, int D, int DV, int DVS>
 int launch(const void* q, const void* k, const void* v, const int* lengths, const int* bt,
            int NB, int bs, void* out, void* partial, int B, int S, int Hq, int Hkv,
-           int splits, int split_len, float scale, cudaStream_t stream) {
+           int heads, int splits, int split_len, float scale, cudaStream_t stream) {
+  if (Hkv < 1 || Hq % Hkv) return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / Hkv;
-  if (G * D > kThreads * kMaxAcc<D> || splits < 1 || splits > 65535 || split_len < kTileK ||
-      split_len % kTileK || static_cast<long long>(splits) * split_len < S ||
-      (splits > 1 && partial == nullptr) ||
-      (bt != nullptr && (bs < 1 || NB < 1 || S % bs)) ||
+  if (heads == 0) heads = G;
+  constexpr int kWidest = kThreads * kMaxAcc<D> / DVS;  // most heads a block can hold
+  if (heads < 1 || heads > kWidest || bad_plan(S, splits, split_len, partial, bt, NB, bs) ||
       reinterpret_cast<std::uintptr_t>(k) % 16 || reinterpret_cast<std::uintptr_t>(v) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
-  const size_t bytes = Tile<T, D>::smem_bytes(G);
-  // the attribute once per device for each kernel of this launch<T, D>, at
-  // its widest group, so every G of the instantiation fits under it
-  const size_t widest = Tile<T, D>::smem_bytes(kThreads * kMaxAcc<D> / D);
+  const size_t bytes = Tile<T, D, DVS>::smem_bytes(heads);
+  // the attribute once per device for each kernel of this launch, at its
+  // widest block, so every G of the instantiation fits under it
+  const size_t widest = Tile<T, D, DVS>::smem_bytes(kWidest);
   float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
-  const dim3 grid(splits, B * Hkv);
+  const dim3 grid(splits, B * Hkv, ((G + heads - 1) / heads) * (DV / DVS));
   cudaError_t e;
   if (bt == nullptr) {
-    auto kern = decode_attention_kernel<T, D>;
+    auto kern = decode_attention_kernel<T, D, DV, DVS>;
     static bool smem_allowed[kMaxDevices] = {};
     e = allow_smem(kern, widest, smem_allowed);
     if (e != cudaSuccess) return static_cast<int>(e);
     kern<<<grid, kThreads, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-        static_cast<T*>(out), part, B, S, Hq, Hkv, split_len, scale);
+        static_cast<T*>(out), part, B, S, Hq, Hkv, heads, split_len, scale);
   } else if constexpr (D == 256) {
     // D = 256 serves only the hybrid's rings, which the paged pool refuses:
     // the paged kernel is not instantiated at this width
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    auto kern = decode_attention_paged_kernel<T, D>;
+    auto kern = decode_attention_paged_kernel<T, D, DV, DVS>;
     static bool smem_allowed[kMaxDevices] = {};
     e = allow_smem(kern, widest, smem_allowed);
     if (e != cudaSuccess) return static_cast<int>(e);
     kern<<<grid, kThreads, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bt,
-        lengths, static_cast<T*>(out), part, B, NB, bs, S / bs, Hq, Hkv, split_len, scale);
+        lengths, static_cast<T*>(out), part, B, NB, bs, S / bs, Hq, Hkv, heads, split_len,
+        scale);
   }
   e = cudaGetLastError();
   if (e != cudaSuccess || part == nullptr) return static_cast<int>(e);
-  const int rows = B * Hq;
-  decode_attention_combine_kernel<T, D>
-      <<<(rows + kCombineWarps - 1) / kCombineWarps, kCombineWarps * 32, 0, stream>>>(
-          part, lengths, static_cast<T*>(out), B, S, Hq, splits, split_len);
+  combine<T, DV>(part, lengths, out, B, S, Hq, splits, split_len, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -565,15 +623,13 @@ template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const int* lengths, const int* bt,
                int NB, int bs, void* out, void* partial, int B, int S, int Hq, int Hkv, int D,
                int splits, int split_len, float scale, cudaStream_t s) {
-  if (D == 64)
-    return launch<T, 64>(q, k, v, lengths, bt, NB, bs, out, partial, B, S, Hq, Hkv, splits,
-                         split_len, scale, s);
-  if (D == 128)
-    return launch<T, 128>(q, k, v, lengths, bt, NB, bs, out, partial, B, S, Hq, Hkv, splits,
-                          split_len, scale, s);
-  if (D == 256)  // contiguous only (launch refuses a table at this width)
-    return launch<T, 256>(q, k, v, lengths, bt, NB, bs, out, partial, B, S, Hq, Hkv, splits,
-                          split_len, scale, s);
+#define REPRO_CASE(d)                                                                  \
+  if (D == d)                                                                          \
+    return launch<T, d, d, d>(q, k, v, lengths, bt, NB, bs, out, partial, B, S, Hq, Hkv, \
+                              0, splits, split_len, scale, s);
+  REPRO_CASE(16) REPRO_CASE(32) REPRO_CASE(64) REPRO_CASE(128)
+  REPRO_CASE(256)  // contiguous only (launch refuses a table at this width)
+#undef REPRO_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -590,6 +646,41 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
     return dispatch_d<__nv_bfloat16>(q, k, v, len, tab, NB, bs, out, partial, B, S, Hq, Hkv,
                                      D, splits, split_len, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The latent's tensor-core decode at widths W (bf16).
+template <typename W>
+int launch_latent(const void* q, const void* kv, const int* len, const int* bt, int NB, int bs,
+                  void* out, void* partial, int B, int S, int Hq, int splits, int split_len,
+                  float scale, cudaStream_t s) {
+  const size_t bytes = W::kTileBytes;
+  float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
+  const dim3 grid(splits, B, ((Hq + latent::kRows - 1) / latent::kRows) * W::kSplitsV);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(kv);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  cudaError_t e;
+  if (bt == nullptr) {
+    auto kern = decode_latent_kernel<W, LatentContig>;
+    static bool smem_allowed[kMaxDevices] = {};
+    e = allow_smem(kern, bytes, smem_allowed);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid, latent::kThreads, bytes, s>>>(qb, kb, len, LatentContig{},
+                                                static_cast<long long>(S) * W::kD, ob, part, B,
+                                                S, Hq, split_len, scale_log2);
+  } else {
+    auto kern = decode_latent_kernel<W, LatentPaged>;
+    static bool smem_allowed[kMaxDevices] = {};
+    e = allow_smem(kern, bytes, smem_allowed);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid, latent::kThreads, bytes, s>>>(qb, kb, len, LatentPaged{bt, bs, NB, S / bs}, 0,
+                                                ob, part, B, S, Hq, split_len, scale_log2);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess || part == nullptr) return static_cast<int>(e);
+  combine<__nv_bfloat16, W::kDV>(part, len, out, B, S, Hq, splits, split_len, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -614,53 +705,40 @@ extern "C" int paged_decode_attention_launch(int dtype, const void* q, const voi
                   Hkv, D, splits, split_len, scale, stream);
 }
 
-// MLA's absorbed latent (bf16): q [B, Hq, 576]; kv the latent [B, S, 576]
-// when bt is null, else its block pool [NB, bs, 576] read through bt [B, MB]
-// (S = MB * bs); lengths [B] the valid keys; out [B, Hq, 512]; partial the
-// split workspace (splits > 1).
-extern "C" int decode_attention_latent_launch(const void* q, const void* kv,
+// MLA's absorbed latent at (D, DV) = (576, 512) or (96, 64): q [B, Hq, D]; kv
+// the latent [B, S, D] when bt is null, else its block pool [NB, bs, D] read
+// through bt [B, MB] (S = MB * bs); lengths [B] the valid keys; out [B, Hq,
+// DV]; partial the split workspace (splits > 1). bf16 runs the latent's
+// tensor-core kernel; f32 the CUDA-core split decode with Hkv = 1, V read at
+// K's row stride, kLatentHeads heads and min(128, DV) columns a block.
+extern "C" int decode_attention_latent_launch(int dtype, const void* q, const void* kv,
                                               const void* lengths, const void* bt, int NB,
                                               int bs, void* out, void* partial, int B, int S,
-                                              int Hq, int splits, int split_len, float scale,
-                                              void* stream) {
-  if (splits < 1 || splits > 0x7fffffff || split_len < kTileK || split_len % kTileK ||
-      static_cast<long long>(splits) * split_len < S || (splits > 1 && partial == nullptr) ||
-      B > 65535 || Hq < 1 || (bt != nullptr && (bs < 1 || NB < 1 || S % bs)) ||
+                                              int Hq, int D, int DV, int splits, int split_len,
+                                              float scale, void* stream) {
+  const int* len = static_cast<const int*>(lengths);
+  const int* tab = static_cast<const int*>(bt);
+  if (bad_plan(S, splits, split_len, partial, tab, NB, bs) || B > 65535 || Hq < 1 ||
       reinterpret_cast<std::uintptr_t>(kv) % 16 || reinterpret_cast<std::uintptr_t>(q) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bytes = latent::kTileBytes;
-  float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
-  const dim3 grid(splits, B, ((Hq + latent::kRows - 1) / latent::kRows) * latent::kSplitsV);
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const int* len = static_cast<const int*>(lengths);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(kv);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  cudaError_t e;
-  if (bt == nullptr) {
-    auto kern = decode_latent_kernel<LatentContig>;
-    static bool smem_allowed[kMaxDevices] = {};
-    e = allow_smem(kern, bytes, smem_allowed);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kern<<<grid, latent::kThreads, bytes, s>>>(qb, kb, len, LatentContig{}, S * latent::kD,
-                                                ob, part, B, S, Hq, split_len, scale_log2);
-  } else {
-    auto kern = decode_latent_kernel<LatentPaged>;
-    static bool smem_allowed[kMaxDevices] = {};
-    e = allow_smem(kern, bytes, smem_allowed);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kern<<<grid, latent::kThreads, bytes, s>>>(
-        qb, kb, len, LatentPaged{static_cast<const int*>(bt), bs, NB, S / bs}, 0, ob, part, B,
-        S, Hq, split_len, scale_log2);
+  if (dtype == REPRO_DTYPE_BF16) {
+    if (D == latent::Mla::kD && DV == latent::Mla::kDV)
+      return launch_latent<latent::Mla>(q, kv, len, tab, NB, bs, out, partial, B, S, Hq,
+                                        splits, split_len, scale, s);
+    if (D == latent::MlaSmoke::kD && DV == latent::MlaSmoke::kDV)
+      return launch_latent<latent::MlaSmoke>(q, kv, len, tab, NB, bs, out, partial, B, S, Hq,
+                                             splits, split_len, scale, s);
+  } else if (dtype == REPRO_DTYPE_F32) {
+    const int heads = Hq < kLatentHeads ? Hq : kLatentHeads;
+    if (D == 576 && DV == 512)
+      return launch<float, 576, 512, 128>(q, kv, kv, len, tab, NB, bs, out, partial, B, S, Hq,
+                                          1, heads, splits, split_len, scale, s);
+    if (D == 96 && DV == 64)
+      return launch<float, 96, 64, 64>(q, kv, kv, len, tab, NB, bs, out, partial, B, S, Hq, 1,
+                                       heads, splits, split_len, scale, s);
   }
-  e = cudaGetLastError();
-  if (e != cudaSuccess || part == nullptr) return static_cast<int>(e);
-  const int rows = B * Hq;
-  decode_attention_combine_kernel<__nv_bfloat16, latent::kDV>
-      <<<(rows + kCombineWarps - 1) / kCombineWarps, kCombineWarps * 32, 0, s>>>(
-          part, len, ob, B, S, Hq, splits, split_len);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

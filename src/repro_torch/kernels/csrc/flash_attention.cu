@@ -49,26 +49,33 @@
 //
 // f32 (flash_attention_kernel, 256 threads, the first design): Q scaled in
 // f32, K and V tiles in shared memory, scores and the P.V update by f32 FMA
-// loops. wgmma, TMA and warp specialisation are later work.
+// loops. A block takes 64 consecutive (position, q head) rows of one KV
+// head's group, whatever G (32 rows and 32-key tiles at D = 576, where a
+// 64-row Q tile alone would be 147 KB). wgmma, TMA and warp specialisation
+// are later work.
 //
-// Widths: the bf16 kernel is templated on (D, Dv): (64, 64), (128, 128),
-// (256, 256) and MLA's prefill (192, 128), where q/k rows are nope + rope =
-// 192 and v rows v_head = 128 (V tiles at their own stride; the output
-// staged in the warp's Q rows). At (256, 256) (recurrentgemma: G = 10 over
-// one KV head, 6 positions a 64-row block, window 2048) a warp's output
-// tile alone is 128 f32 registers a thread, so Q's fragments are not held
-// in registers but reloaded from shared memory (where the Q tile stays)
-// two k-steps at a time; shared memory is 2 x 264 x (64 + 128 + 128) bytes
-// (~170 KB: one block an SM). The f32 kernel at D = 256 takes ~215 KB of
-// its 227. MLA's absorbed latent (D = 576, Dv = 512, one shared KV
-// head whose V is the leading 512 columns of K) runs flash_latent_kernel
-// (bf16 only; latent_attention.cuh): a block holds 64 (token, head) rows of
-// a batch row, 128 of the 512 output columns (4 blocks share a row tile),
-// Q and two key tiles in shared memory, V read from the key tile. Bound at
-// the served mixed step (8 slots x 64 lanes x 128 heads over 336 keys):
-// bytes in principle (~0.03 ms); the 4 blocks recompute the scores, so
-// operations come closer (2.6x the least flops). f32 at either MLA width
-// has no kernel: the wrapper raises.
+// Widths: both kernels are templated on (D, Dv): D == Dv in {16, 32, 64,
+// 128, 256} and MLA's prefill (96, 64) (the smoke config) and (192, 128),
+// where q/k rows are nope + rope and v rows v_head (V tiles at their own
+// stride; the output staged in the warp's Q rows). At D = 16 the bf16
+// kernel's one k-step of 16 reads K by ldmatrix.x2; the rows (D + 8
+// elements: 48 bytes at 16, 80 at 32) stay an odd count of 16-byte units,
+// so every ldmatrix is free of bank conflicts at every width. At (256, 256)
+// (recurrentgemma: G = 10 over one KV head, 6 positions a 64-row block,
+// window 2048) a warp's output tile alone is 128 f32 registers a thread, so
+// Q's fragments are not held in registers but reloaded from shared memory
+// (where the Q tile stays) two k-steps at a time; shared memory is 2 x 264 x
+// (64 + 128 + 128) bytes (~170 KB: one block an SM). The f32 kernel at D =
+// 256 takes ~215 KB of its 227, at (576, 512) ~213 KB. MLA's absorbed
+// latent (one shared KV head whose V is the leading Dv columns of K: (576,
+// 512), and (96, 64) for the smoke config) runs flash_latent_kernel in bf16
+// (latent_attention.cuh): a block holds 64 (token, head) rows of a batch
+// row, min(128, Dv) of the output columns (at 512, 4 blocks share a row
+// tile), Q and two key tiles in shared memory, V read from the key tile.
+// Bound at the served mixed step (8 slots x 64 lanes x 128 heads over 336
+// keys): bytes in principle (~0.03 ms); the 4 blocks recompute the scores,
+// so operations come closer (2.6x the least flops). The f32 latent runs the
+// f32 kernel above with Hkv = 1 and V read at K's row stride.
 #include <cstdint>
 #include <type_traits>
 
@@ -87,79 +94,90 @@ __device__ __forceinline__ bool allowed(int qp, int kp, int kv, int causal, int 
 namespace f32 {
 
 constexpr int kThreads = 256;
-constexpr int kTileK = 64;
-constexpr int kMaxRows = 64;  // query rows per block: (positions per tile) x G
 
+// query rows and keys a block holds: 64 of each up to D = 256; at the
+// latent's D = 576 a 64-row Q tile alone would be 147 KB, so 32 and 32
 template <int D>
+constexpr int kRows = D > 256 ? 32 : 64;
+template <int D>
+constexpr int kTileK = D > 256 ? 32 : 64;
+
+template <int D, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(kMaxRows) * D  // q (scaled)
-                          + kTileK * (D + 1)                  // K tile (padded rows)
-                          + kTileK * D                        // V tile
-                          + kMaxRows * kTileK                 // scores / probabilities
-                          + 3 * kMaxRows)                     // m, l, alpha
-         + sizeof(int) * (kMaxRows + 2 * kTileK);             // q_pos, k_pos, k_valid
+  constexpr size_t R = kRows<D>, TK = kTileK<D>;
+  return sizeof(float) * (R * D           // q (scaled)
+                          + TK * (D + 1)  // K tile (padded rows)
+                          + TK * DV       // V tile
+                          + R * TK        // scores / probabilities
+                          + 3 * R)        // m, l, alpha
+         + sizeof(int) * (R + 2 * TK);    // q_pos, k_pos, k_valid
 }
 
-template <typename T, int D>
+// A block holds kRows<D> consecutive rows of one (batch row, KV head)'s Tq x
+// G (position, q head) rows: row i is position i / G, q head h * G + i % G,
+// for any G (the latent's 128 heads over one KV head too). V rows are
+// v_row elements apart: Hkv * DV for a V tensor of its own, D for the
+// latent's V, the leading DV columns of K's rows.
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ q_pos,
                        const int* __restrict__ k_pos,
                        const unsigned char* __restrict__ k_valid, T* __restrict__ out,
-                       int Tq, int Tk, int Hq, int Hkv, int causal, int window,
-                       float scale) {
+                       int Tq, int Tk, int Hq, int Hkv, long long v_row, int causal,
+                       int window, float scale) {
+  constexpr int R = kRows<D>, TK = kTileK<D>;
   extern __shared__ float smem[];
   const int G = Hq / Hkv;
-  const int bq = kMaxRows / G;        // query positions per block
-  const int rows = bq * G;            // query rows per block (<= kMaxRows)
   const int b = blockIdx.y / Hkv;
   const int h = blockIdx.y % Hkv;
-  const int t_lo = blockIdx.x * bq;
-  const int nq = min(bq, Tq - t_lo);  // live query positions in this tile
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  const int rows = static_cast<int>(min(static_cast<long long>(R),
+                                        static_cast<long long>(Tq) * G - row0));
 
   float* qs = smem;
-  float* ks = qs + kMaxRows * D;
-  float* vs = ks + kTileK * (D + 1);
-  float* ss = vs + kTileK * D;
-  float* m_s = ss + kMaxRows * kTileK;
-  float* l_s = m_s + kMaxRows;
-  float* a_s = l_s + kMaxRows;
-  int* qp_s = reinterpret_cast<int*>(a_s + kMaxRows);
-  int* kp_s = qp_s + kMaxRows;
-  int* kv_s = kp_s + kTileK;
+  float* ks = qs + R * D;
+  float* vs = ks + TK * (D + 1);
+  float* ss = vs + TK * DV;
+  float* m_s = ss + R * TK;
+  float* l_s = m_s + R;
+  float* a_s = l_s + R;
+  int* qp_s = reinterpret_cast<int*>(a_s + R);
+  int* kp_s = qp_s + R;
+  int* kv_s = kp_s + TK;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, n_warps = kThreads / 32;
   const long long q_row = static_cast<long long>(Hq) * D;   // between positions
+  const long long o_row = static_cast<long long>(Hq) * DV;
   const long long kv_row = static_cast<long long>(Hkv) * D;
-  // row r of the block is (position t_lo + r / G, q head h * G + r % G); the
-  // G heads of one position are one contiguous run of G * D elements
-  for (int i = tid; i < rows * D; i += kThreads) {
+  // the q row (position t, head h * G + g) of block row r
+  auto q_off = [&](int r) {
+    const long long i = row0 + r;
+    const long long t = i / G;
+    return (static_cast<long long>(b) * Tq + t) * q_row + (h * G + i % G) * D;
+  };
+  for (int i = tid; i < R * D; i += kThreads) {
     const int r = i / D, dd = i % D;
-    const int t = r / G, g = r % G;
-    float x = 0.f;
-    if (t < nq)
-      x = to_f32(q[(static_cast<long long>(b) * Tq + t_lo + t) * q_row +
-                   (h * G + g) * D + dd]) * scale;
-    qs[i] = x;
+    qs[i] = r < rows ? to_f32(q[q_off(r) + dd]) * scale : 0.f;
   }
-  for (int t = tid; t < bq; t += kThreads)
-    qp_s[t] = t < nq ? q_pos[static_cast<long long>(b) * Tq + t_lo + t] : 0;
-  for (int r = tid; r < rows; r += kThreads) {
+  for (int r = tid; r < R; r += kThreads) {
+    qp_s[r] = r < rows ? q_pos[static_cast<long long>(b) * Tq + (row0 + r) / G] : 0;
     m_s[r] = REPRO_NEG_INF;
     l_s[r] = 0.f;
   }
-  constexpr int kAcc = kMaxRows * D / kThreads;  // outputs per thread
+  constexpr int kAcc = R * DV / kThreads;  // outputs per thread
+  static_assert(R * DV % kThreads == 0, "whole outputs a thread");
   float acc[kAcc];
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
   const T* kb = k + static_cast<long long>(b) * Tk * kv_row + h * D;
-  const T* vb = v + static_cast<long long>(b) * Tk * kv_row + h * D;
+  const T* vb = v + static_cast<long long>(b) * Tk * v_row + h * DV;
   __syncthreads();
 
-  for (int k0 = 0; k0 < Tk; k0 += kTileK) {
-    const int nk = min(kTileK, Tk - k0);
-    for (int j = tid; j < kTileK; j += kThreads) {
+  for (int k0 = 0; k0 < Tk; k0 += TK) {
+    const int nk = min(TK, Tk - k0);
+    for (int j = tid; j < TK; j += kThreads) {
       const long long gj = static_cast<long long>(b) * Tk + k0 + j;
       kp_s[j] = j < nk ? k_pos[gj] : 0;
       kv_s[j] = j < nk ? (k_valid == nullptr ? 1 : static_cast<int>(k_valid[gj])) : 0;
@@ -167,29 +185,25 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     // tile skip: is any (query, key) pair of this tile unmasked?
     int any = 0;
-    for (int i = tid; i < bq * kTileK; i += kThreads) {
-      const int t = i / kTileK, j = i % kTileK;
-      if (t < nq && allowed(qp_s[t], kp_s[j], kv_s[j], causal, window)) any = 1;
+    for (int i = tid; i < rows * TK; i += kThreads) {
+      const int r = i / TK, j = i % TK;
+      if (allowed(qp_s[r], kp_s[j], kv_s[j], causal, window)) any = 1;
     }
     if (!__syncthreads_or(any)) continue;  // block-uniform
 
-    for (int i = tid; i < kTileK * D; i += kThreads) {
+    for (int i = tid; i < TK * D; i += kThreads) {
       const int j = i / D, dd = i % D;
-      float kx = 0.f, vx = 0.f;
-      if (j < nk) {
-        const long long off = (k0 + j) * kv_row + dd;
-        kx = to_f32(kb[off]);
-        vx = to_f32(vb[off]);
-      }
-      ks[j * (D + 1) + dd] = kx;
-      vs[j * D + dd] = vx;
+      ks[j * (D + 1) + dd] = j < nk ? to_f32(kb[(k0 + j) * kv_row + dd]) : 0.f;
+    }
+    for (int i = tid; i < TK * DV; i += kThreads) {
+      const int j = i / DV, dd = i % DV;
+      vs[i] = j < nk ? to_f32(vb[(k0 + j) * v_row + dd]) : 0.f;
     }
     __syncthreads();
-    for (int i = tid; i < rows * kTileK; i += kThreads) {
-      const int r = i / kTileK, j = i % kTileK;
-      const int t = r / G;
+    for (int i = tid; i < rows * TK; i += kThreads) {
+      const int r = i / TK, j = i % TK;
       float s = REPRO_NEG_INF;
-      if (t < nq && allowed(qp_s[t], kp_s[j], kv_s[j], causal, window)) {
+      if (allowed(qp_s[r], kp_s[j], kv_s[j], causal, window)) {
         s = 0.f;
         const float* qr = qs + r * D;
         const float* kr = ks + j * (D + 1);
@@ -200,16 +214,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     for (int r = warp; r < rows; r += n_warps) {
-      const int t = r / G;
-      float* row = ss + r * kTileK;
+      float* row = ss + r * TK;
       float mx = REPRO_NEG_INF;
-      for (int j = lane; j < kTileK; j += 32) mx = fmaxf(mx, row[j]);
+      for (int j = lane; j < TK; j += 32) mx = fmaxf(mx, row[j]);
       mx = warp_max(mx);
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, mx);
       float sum = 0.f;
-      for (int j = lane; j < kTileK; j += 32) {
-        const bool ok = t < nq && allowed(qp_s[t], kp_s[j], kv_s[j], causal, window);
+      for (int j = lane; j < TK; j += 32) {
+        const bool ok = allowed(qp_s[r], kp_s[j], kv_s[j], causal, window);
         const float p = ok ? expf(row[j] - m_new) : 0.f;
         row[j] = p;
         sum += p;
@@ -226,11 +239,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) {
       const int idx = tid + i * kThreads;
-      const int r = idx / D, dd = idx % D;
+      const int r = idx / DV, dd = idx % DV;
       if (r < rows) {
-        const float* p = ss + r * kTileK;
+        const float* p = ss + r * TK;
         float pv = 0.f;
-        for (int j = 0; j < nk; ++j) pv = fmaf(p[j], vs[j * D + dd], pv);
+        for (int j = 0; j < nk; ++j) pv = fmaf(p[j], vs[j * DV + dd], pv);
         acc[i] = acc[i] * a_s[r] + pv;
       }
     }
@@ -240,11 +253,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) {
     const int idx = tid + i * kThreads;
-    const int r = idx / D, dd = idx % D;
-    const int t = r / G, g = r % G;
-    if (r < rows && t < nq) {
-      out[(static_cast<long long>(b) * Tq + t_lo + t) * q_row + (h * G + g) * D + dd] =
-          from_f32<T>(acc[i] / fmaxf(l_s[r], REPRO_L_MIN));
+    const int r = idx / DV, dd = idx % DV;
+    if (r < rows) {
+      const long long o = q_off(r) / D * DV;  // the same (position, head) of out
+      out[o + dd] = from_f32<T>(acc[i] / fmaxf(l_s[r], REPRO_L_MIN));
     }
   }
 }
@@ -284,6 +296,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int S = kStride<D>, SV = kStride<DV>;
   constexpr int kChunks = D / 8, kVChunks = DV / 8;  // 16-byte chunks per row
   static_assert(DV <= D, "the output is staged in the warp's Q rows");
+  static_assert(D % 16 == 0 && DV % 16 == 0 && (D <= 192 || D % 32 == 0), "mma widths");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kRows][S]
   __nv_bfloat16* ks = qs + kRows * S;                                // [2][kTileK][S]
@@ -411,11 +424,16 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int n = 0; n < kTileK / 8; ++n) {
         s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < D / 16; kk += 2) {
+        for (int kk = 0; kk + 1 < D / 16; kk += 2) {
           uint32_t bf[4];  // keys n*8.., d in [kk*16, kk*16 + 32)
           ldmatrix_x4(bf, kt_s + (n * 8 + lane % 8) * S + kk * 16 + (lane / 8) * 8);
           mma_bf16_16816(s[n], qf[kk], bf[0], bf[1]);
           mma_bf16_16816(s[n], qf[kk + 1], bf[2], bf[3]);
+        }
+        if constexpr (D % 32 == 16) {  // D = 16: one k-step of 16, the last
+          uint32_t bf[2];  // keys n*8.., d in [D - 16, D)
+          ldmatrix_x2(bf, kt_s + (n * 8 + lane % 8) * S + (D - 16) + ((lane / 8) % 2) * 8);
+          mma_bf16_16816(s[n], qf[D / 16 - 1], bf[0], bf[1]);
         }
       }
     } else {  // the same sums, each s[n] over kk in the same order
@@ -530,11 +548,15 @@ namespace latent {
 // is token i / Hq, head i % Hq: at Hq = 128 a tile is 64 heads of one
 // token), y: the batch row, z: the block's kDVS output columns. Masks and
 // tile skipping as the GQA kernel's.
+template <typename W>
 __global__ void __launch_bounds__(kThreads)
 flash_latent_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kv,
                     const int* __restrict__ q_pos, const int* __restrict__ k_pos,
                     const unsigned char* __restrict__ k_valid, __nv_bfloat16* __restrict__ out,
                     int Tq, int Tk, int Hq, int causal, int window, float scale_log2) {
+  constexpr int kD = W::kD, kDV = W::kDV, kDVS = W::kDVS;
+  constexpr int kStride = W::kStride, kChunks = W::kChunks;
+  constexpr size_t kTileBytes = W::kTileBytes;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kRows][kStride]
   __nv_bfloat16* ks = qs + kRows * kStride;                          // [2][kTileK][kStride]
@@ -619,7 +641,7 @@ flash_latent_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     auto ok = [&](int i, int j) {
       return qlive[i] && allowed(qp[i], kp[j], kvl[j], causal, window);
     };
-    tile_step(qw, ks + sb * kTileK * kStride, dv0, scale_log2, ok, o, m, l);
+    tile_step<W>(qw, ks + sb * kTileK * kStride, dv0, scale_log2, ok, o, m, l);
     __syncthreads();  // buffer sb is free for the tile after next
     kt = nxt;
     sb ^= 1;
@@ -630,7 +652,7 @@ flash_latent_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   float inv[2];
   row_inverse(l, inv);
   __nv_bfloat16* qwo = qs + warp * 16 * kStride;
-  stage_out(qwo, o, inv);
+  stage_out<W>(qwo, o, inv);
   __nv_bfloat16* ob = out + (static_cast<long long>(b) * n_rows + row0) * kDV + dv0;
   for (int i = lane; i < 16 * (kDVS / 8); i += 32) {
     const int rr = i / (kDVS / 8), c = i % (kDVS / 8), r = warp * 16 + rr;
@@ -640,27 +662,32 @@ flash_latent_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
+template <typename W>
 constexpr size_t flash_smem_bytes() {
-  return kTileBytes + sizeof(int) * (kRows + 4 * kTileK);
+  return W::kTileBytes + sizeof(int) * (kRows + 4 * kTileK);
 }
 
 }  // namespace latent
 
 namespace {
 
+// The GQA kernels (bf16: the tensor-core kernel; f32: the CUDA-core
+// kernel); v_row is V's row stride in elements (Hkv * DV, or D for the f32
+// latent, whose V is K's leading columns).
 template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, const int* q_pos, const int* k_pos,
            const unsigned char* k_valid, void* out, int B, int Tq, int Tk, int Hq,
-           int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+           int Hkv, long long v_row, int causal, int window, float scale,
+           cudaStream_t stream) {
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int kRows = kMma ? mma::kRows : f32::kMaxRows;
+  if (Hkv < 1 || Hq % Hkv) return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / Hkv;
-  if (G < 1 || G > kRows) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Tq == 0) return 0;
-  const int bq = kRows / G;
-  dim3 grid((Tq + bq - 1) / bq, B * Hkv);
   static bool smem_allowed[kMaxDevices] = {};  // this launch<T, D, DV>'s kernel only
   if constexpr (kMma) {
+    if (G > mma::kRows) return static_cast<int>(cudaErrorInvalidValue);
+    const int bq = mma::kRows / G;
+    const dim3 grid((Tq + bq - 1) / bq, B * Hkv);
     const size_t bytes = mma::smem_bytes<D, DV>();
     auto kern = mma::flash_attention_mma_kernel<D, DV>;
     const cudaError_t e = allow_smem(kern, bytes, smem_allowed);
@@ -670,37 +697,58 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos, const 
         k_pos, k_valid, static_cast<T*>(out), Tq, Tk, Hq, Hkv, causal, window,
         scale * 1.4426950408889634f);  // log2(e): the kernel exponentiates with exp2
   } else {
-    static_assert(kMma || D == DV, "the f32 kernel takes D == Dv");
-    const size_t bytes = f32::smem_bytes<D>();
-    auto kern = f32::flash_attention_kernel<T, D>;
+    const long long tiles =
+        (static_cast<long long>(Tq) * G + f32::kRows<D> - 1) / f32::kRows<D>;
+    if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(static_cast<unsigned>(tiles), B * Hkv);
+    const size_t bytes = f32::smem_bytes<D, DV>();
+    auto kern = f32::flash_attention_kernel<T, D, DV>;
     const cudaError_t e = allow_smem(kern, bytes, smem_allowed);
     if (e != cudaSuccess) return static_cast<int>(e);
     kern<<<grid, f32::kThreads, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_pos,
-        k_pos, k_valid, static_cast<T*>(out), Tq, Tk, Hq, Hkv, causal, window, scale);
+        k_pos, k_valid, static_cast<T*>(out), Tq, Tk, Hq, Hkv, v_row, causal, window, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// (D, Dv) of the GQA kernels: D == Dv in {16, 32, 64, 128, 256}, and MLA's
+// prefill (nope + rope against v_head) at (96, 64) (smoke) and (192, 128).
+#define REPRO_FLASH_WIDTHS(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(256, 256) X(96, 64) X(192, 128)
+
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const int* qp, const int* kp,
                const unsigned char* kv, void* out, int B, int Tq, int Tk, int Hq, int Hkv,
-               int D, int DV, int causal, int window, float scale, cudaStream_t s) {
-  if (D == 64 && DV == 64)
-    return launch<T, 64, 64>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, causal, window,
-                             scale, s);
-  if (D == 128 && DV == 128)
-    return launch<T, 128, 128>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, causal, window,
-                               scale, s);
-  if (D == 256 && DV == 256)  // recurrentgemma's local attention
-    return launch<T, 256, 256>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, causal, window,
-                               scale, s);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (D == 192 && DV == 128)  // MLA's prefill: nope + rope against v_head
-      return launch<T, 192, 128>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, causal,
-                                 window, scale, s);
-  }
+               int D, int DV, long long v_row, int causal, int window, float scale,
+               cudaStream_t s) {
+#define REPRO_CASE(d, dv)                                                                  \
+  if (D == d && DV == dv)                                                                  \
+    return launch<T, d, dv>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, v_row, causal, \
+                            window, scale, s);
+  REPRO_FLASH_WIDTHS(REPRO_CASE)
+#undef REPRO_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The latent's tensor-core kernel at widths W.
+template <typename W>
+int launch_latent(const void* q, const void* kv, const int* q_pos, const int* k_pos,
+                  const unsigned char* k_valid, void* out, int B, int Tq, int Tk, int Hq,
+                  int causal, int window, float scale, cudaStream_t stream) {
+  const long long tiles = (static_cast<long long>(Tq) * Hq + latent::kRows - 1) / latent::kRows;
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_allowed[kMaxDevices] = {};
+  const size_t bytes = latent::flash_smem_bytes<W>();
+  auto kern = latent::flash_latent_kernel<W>;
+  const cudaError_t e = allow_smem(kern, bytes, smem_allowed);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(tiles), B, W::kSplitsV);
+  kern<<<grid, latent::kThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kv), q_pos, k_pos,
+      k_valid, static_cast<__nv_bfloat16*>(out), Tq, Tk, Hq, causal, window,
+      scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -714,37 +762,46 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k, c
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(k_pos);
   const unsigned char* kv = static_cast<const unsigned char*>(k_valid);
+  const long long v_row = static_cast<long long>(Hkv) * DV;
   if (dtype == REPRO_DTYPE_F32)
-    return dispatch_d<float>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, D, DV, causal,
-                             window, scale, s);
+    return dispatch_d<float>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, D, DV, v_row,
+                             causal, window, scale, s);
   if (dtype == REPRO_DTYPE_BF16)
     return dispatch_d<__nv_bfloat16>(q, k, v, qp, kp, kv, out, B, Tq, Tk, Hq, Hkv, D, DV,
-                                     causal, window, scale, s);
+                                     v_row, causal, window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// MLA's absorbed latent, bf16 only: q [B, Tq, Hq, 576], kv [B, Tk, 576] (V its
-// leading 512 columns), out [B, Tq, Hq, 512].
-extern "C" int flash_attention_latent_launch(const void* q, const void* kv, const void* q_pos,
-                                             const void* k_pos, const void* k_valid,
-                                             void* out, int B, int Tq, int Tk, int Hq,
-                                             int causal, int window, float scale,
-                                             void* stream) {
+// MLA's absorbed latent: q [B, Tq, Hq, D], kv [B, Tk, D] (V its leading DV
+// columns), out [B, Tq, Hq, DV], at (D, DV) = (576, 512) or (96, 64). bf16
+// runs the latent's tensor-core kernel, f32 the CUDA-core GQA kernel with
+// Hkv = 1 and V read at K's row stride.
+extern "C" int flash_attention_latent_launch(int dtype, const void* q, const void* kv,
+                                             const void* q_pos, const void* k_pos,
+                                             const void* k_valid, void* out, int B, int Tq,
+                                             int Tk, int Hq, int D, int DV, int causal,
+                                             int window, float scale, void* stream) {
   if (B < 0 || B > 65535 || Tq < 0 || Hq < 1 || Tk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles = (static_cast<long long>(Tq) * Hq + latent::kRows - 1) / latent::kRows;
-  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Tq == 0) return 0;
-  static bool smem_allowed[kMaxDevices] = {};
-  const size_t bytes = latent::flash_smem_bytes();
-  const cudaError_t e = allow_smem(latent::flash_latent_kernel, bytes, smem_allowed);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>(tiles), B, latent::kSplitsV);
-  latent::flash_latent_kernel<<<grid, latent::kThreads, bytes,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kv),
-      static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
-      static_cast<const unsigned char*>(k_valid), static_cast<__nv_bfloat16*>(out), Tq, Tk,
-      Hq, causal, window, scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* qp = static_cast<const int*>(q_pos);
+  const int* kp = static_cast<const int*>(k_pos);
+  const unsigned char* kvl = static_cast<const unsigned char*>(k_valid);
+  if (dtype == REPRO_DTYPE_BF16) {
+    if (D == latent::Mla::kD && DV == latent::Mla::kDV)
+      return launch_latent<latent::Mla>(q, kv, qp, kp, kvl, out, B, Tq, Tk, Hq, causal, window,
+                                        scale, s);
+    if (D == latent::MlaSmoke::kD && DV == latent::MlaSmoke::kDV)
+      return launch_latent<latent::MlaSmoke>(q, kv, qp, kp, kvl, out, B, Tq, Tk, Hq, causal,
+                                             window, scale, s);
+  } else if (dtype == REPRO_DTYPE_F32) {
+    if (D == 576 && DV == 512)
+      return launch<float, 576, 512>(q, kv, kv, qp, kp, kvl, out, B, Tq, Tk, Hq, 1, D, causal,
+                                     window, scale, s);
+    if (D == 96 && DV == 64)
+      return launch<float, 96, 64>(q, kv, kv, qp, kp, kvl, out, B, Tq, Tk, Hq, 1, D, causal,
+                                   window, scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

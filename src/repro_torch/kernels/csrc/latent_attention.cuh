@@ -4,21 +4,27 @@
 // flash-decode (decode_attention.cu, contiguous and paged).
 //
 // The latent is one shared KV head (Hkv = 1) of width kD = kv_lora_rank +
-// qk_rope_dim = 576 whose V is its leading kDV = kv_lora_rank = 512 columns.
-// A block holds kRows = 64 query rows (4 warps of 16; at G = 128 heads of
-// one token these are the rows of the mma.sync tile) and kDVS = 128 of the
-// 512 output columns: a 16-row warp tile's accumulator over all 512 would
-// be 256 f32 registers a lane, so the output columns are split over 4
-// blocks (grid z), each computing the same scores (the scores are 1152
-// flops a (row, key) against 256 for its P.V share: the split costs about
-// 2.6x the least flops, on a step bound by bytes and latency).
-// Shared memory holds the 64 x 576 Q tile (73 KB) and two 64 x 576 key
+// qk_rope_dim whose V is its leading kDV = kv_lora_rank columns. The widths
+// are a template (Widths<kD, kDV>): (576, 512) for deepseek-v2-236b and
+// (96, 64) for its smoke config. A block holds kRows = 64 query rows (4
+// warps of 16; at G = 128 heads of one token these are the rows of the
+// mma.sync tile) and kDVS = min(128, kDV) output columns: at kDV = 512 a
+// 16-row warp tile's accumulator over all 512 would be 256 f32 registers a
+// lane, so the output columns are split over kSplitsV = 4 blocks (grid z),
+// each computing the same scores (the scores are 1152 flops a (row, key)
+// against 256 for its P.V share: the split costs about 2.6x the least
+// flops, on a step bound by bytes and latency); at kDV = 64 one block holds
+// them all.
+// Shared memory holds the 64 x kD Q tile (73 KB at 576) and two 64 x kD key
 // tiles (146 KB); V is read from the key tile already there, never loaded
 // twice. Q's fragments are read from shared memory at every tile (holding
-// 36 of them a lane would take 144 registers). Rows are padded to 584
-// elements (1168 bytes, 73 16-byte units): the 8 rows of an ldmatrix land
-// in 8 different bank groups. Key rows past the valid ones are zero-filled,
-// so P = 0 never meets a stale non-finite value.
+// 36 of them a lane would take 144 registers). Rows are padded by 8
+// elements (584 at 576: 73 16-byte units; 104 at 96: 13 units): an odd
+// count of 16-byte units puts the 8 rows of an ldmatrix in 8 different bank
+// groups. Key rows past the valid ones are zero-filled, so P = 0 never
+// meets a stale non-finite value. f32 has no tensor-core path here: the
+// f32 latent runs the CUDA-core GQA kernels with Hkv = 1 and V read at K's
+// row stride (flash_attention.cu, decode_attention.cu).
 #pragma once
 
 #include <cstdint>
@@ -28,20 +34,28 @@
 
 namespace latent {
 
-constexpr int kD = 576;    // latent width (kv_lora_rank + qk_rope_dim)
-constexpr int kDV = 512;   // V width (kv_lora_rank): V = K[:, :kDV]
-constexpr int kDVS = 128;  // output columns a block
-constexpr int kSplitsV = kDV / kDVS;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 64;   // query rows a block, 16 a warp
 constexpr int kTileK = 64;  // keys a tile
-constexpr int kStride = kD + 8;
-constexpr int kChunks = kD / 8;  // 16-byte chunks a row
 
-// Q tile + two key tiles, then the ints the caller keeps behind them
-constexpr size_t kTileBytes = sizeof(__nv_bfloat16) * static_cast<size_t>(kStride) *
-                              (kRows + 2 * kTileK);
+template <int D, int DV>
+struct Widths {
+  static_assert(D % 32 == 0 && DV % 16 == 0 && DV <= D, "latent widths");
+  static constexpr int kD = D;    // latent width (kv_lora_rank + qk_rope_dim)
+  static constexpr int kDV = DV;  // V width (kv_lora_rank): V = K[:, :kDV]
+  static constexpr int kDVS = DV < 128 ? DV : 128;  // output columns a block
+  static constexpr int kSplitsV = DV / kDVS;
+  static constexpr int kStride = D + 8;
+  static constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  // Q tile + two key tiles, then the ints the caller keeps behind them
+  static constexpr size_t kTileBytes = sizeof(__nv_bfloat16) * static_cast<size_t>(kStride) *
+                                       (kRows + 2 * kTileK);
+  static_assert(DV % kDVS == 0 && (kStride / 8) % 2 == 1, "latent tiling");
+};
+
+using Mla = Widths<576, 512>;       // deepseek-v2-236b
+using MlaSmoke = Widths<96, 64>;    // its smoke config
 
 // One key tile kt (64 x kD in shared memory) against this warp's 16 query
 // rows qw (16 x kD in shared memory): S = Q K^T in f32, masked where
@@ -49,11 +63,12 @@ constexpr size_t kTileBytes = sizeof(__nv_bfloat16) * static_cast<size_t>(kStrid
 // key), scaled by scale_log2, the online softmax in log2 units (m the
 // running max, l this thread's part of the row sum), then o = o * alpha +
 // P V over V = kt's columns [dv0, dv0 + kDVS), P rounded to bf16.
-template <typename Ok>
+template <typename W, typename Ok>
 __device__ __forceinline__ void tile_step(const __nv_bfloat16* qw, const __nv_bfloat16* kt,
                                           int dv0, float scale_log2, const Ok& ok,
-                                          float (&o)[kDVS / 8][4], float (&m)[2],
+                                          float (&o)[W::kDVS / 8][4], float (&m)[2],
                                           float (&l)[2]) {
+  constexpr int kD = W::kD, kDVS = W::kDVS, kStride = W::kStride;
   const int lane = threadIdx.x % 32, tig = lane % 4;
   float s[kTileK / 8][4];
 #pragma unroll
@@ -135,8 +150,10 @@ __device__ __forceinline__ void row_inverse(float (&l)[2], float (&inv)[2]) {
 // Stage the warp's 16 x kDVS outputs, each times inv of its row, as bf16 in
 // the warp's own Q rows (qw, free once the last tile_step is done); row rr
 // then sits at qw + rr * kStride.
-__device__ __forceinline__ void stage_out(__nv_bfloat16* qw, const float (&o)[kDVS / 8][4],
+template <typename W>
+__device__ __forceinline__ void stage_out(__nv_bfloat16* qw, const float (&o)[W::kDVS / 8][4],
                                           const float (&inv)[2]) {
+  constexpr int kDVS = W::kDVS, kStride = W::kStride;
   const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
 #pragma unroll
   for (int n = 0; n < kDVS / 8; ++n) {

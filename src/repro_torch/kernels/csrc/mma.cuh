@@ -1,6 +1,6 @@
 // Warp-level tensor-core and async-copy primitives (PTX, sm_80 and later),
 // shared by the mma.sync kernels: cp.async 16-byte copies with zero fill,
-// ldmatrix (plain and transposed), the two mma.sync shapes the port uses,
+// ldmatrix (x4, x2 and x4 transposed), the two mma.sync shapes the port uses,
 // bf16 m16n8k16 -> f32 and s8 m16n8k32 -> s32, and the bf16 packing of f32
 // pairs into one A-fragment register.
 //
@@ -47,6 +47,14 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// Two 8x8 b16 matrices: lanes 0-15 give the row addresses (lane l: row
+// l % 8 of matrix l / 8); the other lanes' addresses are not read.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
 

@@ -12,19 +12,22 @@ blocks along the sequence (:func:`split_plan`, from the static S alone:
 the splits that hold keys by their log-sum-exp, in split order, with the
 maths of ``combine_partial_attention`` (see the source's note).
 
-Widths: D == Dv in {64, 128} with G * D <= 2048, and D = 256 with G * D <=
-2560 (recurrentgemma's MQA: 10 heads over one KV head, over the ring of
-its local attention; the per-thread accumulator is sized from D), in both
-types; f32 at D = 256 walks each split in 32-key tiles (two 64-key K/V
-tiles of 1 KB rows would not fit in shared memory). The paged kernel keeps
-D in {64, 128}.
+Widths (:func:`supports`): D == Dv in {16, 32, 64, 128} with G * D <=
+2048, and D = 256 with G * D <= 2560 (recurrentgemma's MQA: 10 heads over
+one KV head, over the ring of its local attention; the per-thread
+accumulator is sized from D), in both types; f32 at D = 256 walks each
+split in 32-key tiles (two 64-key K/V tiles of 1 KB rows would not fit in
+shared memory). The paged kernel takes D in {16, 32, 64, 128}
+(``PAGED_HEAD_DIMS``).
 
-MLA's absorbed latent (D = 576, Dv = 512, Hkv = 1, V the view
-``k[..., :512]``, G = the 128 heads) runs on its own bf16 kernel
-(``decode_latent_kernel``): the heads are the rows of an mma.sync tile
-against each 64-key latent tile, the 512 output columns split over 4
-blocks, the sequence split by the same :func:`split_plan` and merged by the
-same combine. f32 at the latent width raises.
+MLA's absorbed latent (one KV head whose V is the view ``k[..., :Dv]``, at
+(D, Dv) = (96, 64) for the smoke config and (576, 512), any number of
+heads) runs in bf16 on its own kernel (``decode_latent_kernel``): the heads
+are the rows of an mma.sync tile against each 64-key latent tile, the
+output columns split over min(128, Dv) column blocks, the sequence split by
+the same :func:`split_plan` and merged by the same combine. In f32 it runs
+the split decode above with Hkv = 1, 16 heads and min(128, Dv) output
+columns a block, V read at K's row stride.
 """
 from __future__ import annotations
 
@@ -35,20 +38,39 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as _fa
 
 NEG_INF = -1e30
 #: launches of the CUDA kernel in this process (chip_smoke resets and reads it)
 LAUNCHES = 0
 #: head widths the kernel is instantiated for (D == Dv)
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 #: the paged kernel's (D = 256 serves only the hybrid's rings, which the
 #: paged pool refuses)
-PAGED_HEAD_DIMS = (64, 128)
-#: (D, Dv) of MLA's absorbed latent (Hkv = 1, V = K[..., :Dv]), bf16 only
-LATENT = (576, 512)
+PAGED_HEAD_DIMS = (16, 32, 64, 128)
+#: (D, Dv) of MLA's absorbed latent (Hkv = 1, V = K[..., :Dv])
+LATENT = ((96, 64), (576, 512))
 #: per-thread outputs x the block's 256 threads, by D: bounds G * D (2560 at
 #: D = 256: recurrentgemma's 10 heads over one KV head)
-MAX_GROUP_WIDTH = {64: 8 * 256, 128: 8 * 256, 256: 10 * 256}
+MAX_GROUP_WIDTH = {16: 8 * 256, 32: 8 * 256, 64: 8 * 256, 128: 8 * 256, 256: 10 * 256}
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def supports(d: int, dv: int, hq: int, hkv: int, dtype: torch.dtype, latent: bool = False,
+             paged: bool = False) -> bool:
+    """True when the CUDA decode kernel (``paged``: the paged one) takes q
+    heads ``hq`` of width ``d`` over ``hkv`` KV heads with V of width ``dv``
+    in ``dtype`` (``latent``: the absorbed form, V the leading ``dv``
+    columns of the one KV head). The wrappers' gate; pure, so a CPU test
+    can check coverage."""
+    if dtype not in DTYPES or hkv < 1 or hq < 1 or hq % hkv:
+        return False
+    if latent:
+        return hkv == 1 and (d, dv) in LATENT
+    dims = PAGED_HEAD_DIMS if paged else HEAD_DIMS
+    return d == dv and d in dims and (hq // hkv) * d <= MAX_GROUP_WIDTH[d]
+
+
 #: keys per tile of the kernel; a split is a whole number of tiles
 TILE_K = 64
 #: blocks per SM the split plan aims for
@@ -145,29 +167,26 @@ def decode_attention_cuda(
     global LAUNCHES
     b, hq, d = q.shape
     s, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
-    if (d, dv) == LATENT:
-        if not (v.is_cuda and _build.leading_slice(v, k)):
-            raise ValueError("decode_attention: at the latent width v must be the view "
-                             "k[..., :512] of a contiguous k")
-        if hkv != 1 or k.shape != (b, s, 1, d) or q.dtype != torch.bfloat16:
-            raise ValueError(f"decode_attention: the latent kernel takes bf16 q [B, Hq, 576] "
-                             f"over k [B, S, 1, 576]; got q {tuple(q.shape)} {q.dtype}, k "
-                             f"{tuple(k.shape)}")
+    if v.is_cuda and _fa.is_latent(k, v):  # V is read from K: never a copy
         _build.require_cuda("decode_attention", q, k, lengths)
+        if k.shape != (b, s, 1, d) or not supports(d, dv, hq, 1, q.dtype, latent=True):
+            raise ValueError(f"decode_attention: the latent kernel takes q [B, Hq, D] over k "
+                             f"[B, S, 1, D] at (D, Dv) in {LATENT}; got q {tuple(q.shape)} "
+                             f"{q.dtype}, k {tuple(k.shape)}, Dv {dv}")
         if k.dtype != q.dtype or lengths.dtype != torch.int32 or lengths.shape != (b,):
             raise ValueError("decode_attention: k in q's type, lengths int32 [B]")
-        out = latent_decode(q, k, lengths, None, scale=scale, kind="decode_attention")
+        out = latent_decode(q, k, lengths, None, dv, scale=scale, kind="decode_attention")
         LAUNCHES += 1
         return out
     _build.require_cuda("decode_attention", q, k, v, lengths)
     if k.shape != (b, s, hkv, d) or v.shape[:3] != (b, s, hkv):
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not agree")
-    if dv != d or d not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: the kernel takes D == Dv in {HEAD_DIMS} or "
-                         f"{LATENT}, got D={d}, Dv={dv}")
-    if hq % hkv or (hq // hkv) * d > MAX_GROUP_WIDTH[d]:
-        raise ValueError(f"decode_attention: {hq} q heads over {hkv} KV heads at D={d}")
+    if not supports(d, dv, hq, hkv, q.dtype):
+        raise ValueError(f"decode_attention: no kernel for D={d}, Dv={dv}, {hq} q heads over "
+                         f"{hkv} KV heads in {q.dtype}: the kernel takes D == Dv in "
+                         f"{HEAD_DIMS} with G * D <= {MAX_GROUP_WIDTH}, or the latent "
+                         f"{LATENT} over one KV head whose V is the view k[..., :Dv]")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("decode_attention: q, k and v must share one type")
     if lengths.dtype != torch.int32 or lengths.shape != (b,):
@@ -191,14 +210,13 @@ def decode_attention_cuda(
 
 
 def latent_decode(q: torch.Tensor, kv: torch.Tensor, lengths: torch.Tensor,
-                  bt: Optional[torch.Tensor], *, scale: Optional[float], kind: str):
+                  bt: Optional[torch.Tensor], dv: int, *, scale: Optional[float], kind: str):
     """Launch the latent decode kernel (and the combine when the sequence
-    is split): q [B, Hq, 576] bf16 against the latent rows of ``kv``, [B, S,
-    ..., 576] contiguous when ``bt`` is None, else a block pool [NB, bs, ...,
-    576] read through ``bt`` [B, MB]; V is the rows' leading 512 columns.
-    Returns [B, Hq, 512]; the calling wrapper (``kind``) counts the launch."""
+    is split): q [B, Hq, D] against the latent rows of ``kv``, [B, S, ...,
+    D] contiguous when ``bt`` is None, else a block pool [NB, bs, ..., D]
+    read through ``bt`` [B, MB]; V is the rows' leading ``dv`` columns.
+    Returns [B, Hq, dv]; the calling wrapper (``kind``) counts the launch."""
     b, hq, d = q.shape
-    dv = LATENT[1]
     if bt is None:
         nb, bs, s = 0, 0, kv.shape[1]
     else:
@@ -212,8 +230,9 @@ def latent_decode(q: torch.Tensor, kv: torch.Tensor, lengths: torch.Tensor,
     part = (torch.empty(splits * b * hq * (dv + 2), dtype=torch.float32, device=q.device)
             if splits > 1 else None)
     rc = _build.library().decode_attention_latent_launch(
-        q.data_ptr(), kv.data_ptr(), lengths.data_ptr(), None if bt is None else bt.data_ptr(),
-        nb, bs, out.data_ptr(), None if part is None else part.data_ptr(), b, s, hq, splits,
-        split_len, float(scale), _build.stream_of(q))
+        _build.dtype_code(q), q.data_ptr(), kv.data_ptr(), lengths.data_ptr(),
+        None if bt is None else bt.data_ptr(), nb, bs, out.data_ptr(),
+        None if part is None else part.data_ptr(), b, s, hq, d, dv, splits, split_len,
+        float(scale), _build.stream_of(q))
     _build.check(rc, kind)
     return out

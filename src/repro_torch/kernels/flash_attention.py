@@ -12,16 +12,18 @@ f32 FMAs on the CUDA cores, since TF32 could not meet the f32 tolerance. At
 the served prefill shapes (B=1, T<=256, 32/8 heads, D=64) the H100 bound
 is bytes, and latency dominates (see the source's note).
 
-Widths: D == Dv in {64, 128, 256} in both types (256: recurrentgemma's
-local attention, G = 10 over one KV head, window 2048; the bf16 kernel
-reloads Q's fragments from shared memory at each k-step there, since Q
-and a 16 x 256 f32 output tile a warp would not fit in registers
-together); MLA's prefill (D = 192 =
-nope + rope against Dv = 128) in bf16; MLA's absorbed latent (D = 576,
-Dv = 512, Hkv = 1, V the view ``k[..., :512]``) in bf16 on its own kernel
-(``flash_latent_kernel``: 64 (token, head) rows a block, the 512 output
-columns over 4 blocks, V read from the key tile). f32 at the two MLA
-widths raises.
+Widths (:func:`supports`): D == Dv in {16, 32, 64, 128, 256} in both
+types (16 and 32: the smoke configs' heads; 256: recurrentgemma's local
+attention, G = 10 over one KV head, window 2048; the bf16 kernel reloads
+Q's fragments from shared memory at each k-step there, since Q and a 16 x
+256 f32 output tile a warp would not fit in registers together); MLA's
+prefill (D = nope + rope against Dv = v_head: (96, 64) for the smoke config,
+(192, 128)) in both types; MLA's absorbed latent (one KV head whose V is the
+view ``k[..., :Dv]``: (96, 64) and (576, 512)) in both types, bf16 on its
+own kernel (``flash_latent_kernel``: 64 (token, head) rows a block, the
+output columns over min(128, Dv) column blocks, V read from the key tile),
+f32 on the CUDA-core kernel with V read at K's row stride. Anything else
+raises.
 """
 from __future__ import annotations
 
@@ -34,14 +36,35 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 #: launches of the CUDA kernel in this process (chip_smoke resets and reads it)
 LAUNCHES = 0
-#: head widths the kernel is instantiated for (D == Dv)
-HEAD_DIMS = (64, 128, 256)
-#: (D, Dv) of MLA's prefill, bf16 only
-PREFILL_MLA = (192, 128)
-#: (D, Dv) of MLA's absorbed latent (Hkv = 1, V = K[..., :Dv]), bf16 only
-LATENT = (576, 512)
-#: most query heads per KV head one block holds
+#: head widths the kernels are instantiated for (D == Dv)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+#: (D, Dv) of MLA's prefill: the smoke config's and deepseek-v2-236b's
+PREFILL_MLA = ((96, 64), (192, 128))
+#: (D, Dv) of MLA's absorbed latent (Hkv = 1, V = K[..., :Dv])
+LATENT = ((96, 64), (576, 512))
+#: most query heads per KV head one block holds (the bf16 GQA kernel)
 MAX_GROUP = 64
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def is_latent(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """MLA's absorbed latent form: one KV head whose V is the view
+    ``k[..., :Dv]`` of a contiguous K, narrower than K."""
+    return k.dim() == 4 and k.shape[2] == 1 and v.shape[-1] < k.shape[-1] and \
+        _build.leading_slice(v, k)
+
+
+def supports(d: int, dv: int, hq: int, hkv: int, dtype: torch.dtype,
+             latent: bool = False) -> bool:
+    """True when the CUDA kernels take q heads ``hq`` of width ``d`` over
+    ``hkv`` KV heads with V of width ``dv`` in ``dtype`` (``latent``: the
+    absorbed form, V the leading ``dv`` columns of the one KV head). The
+    wrapper's gate; pure, so a CPU test can check coverage."""
+    if dtype not in DTYPES or hkv < 1 or hq < 1 or hq % hkv:
+        return False
+    if latent:
+        return hkv == 1 and (d, dv) in LATENT
+    return hq // hkv <= MAX_GROUP and ((d == dv and d in HEAD_DIMS) or (d, dv) in PREFILL_MLA)
 
 
 def _mask(q_positions, k_positions, causal, window, k_valid):
@@ -110,28 +133,19 @@ def flash_attention_cuda(
     global LAUNCHES
     b, tq, hq, d = q.shape
     tk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
-    latent = (d, dv) == LATENT
-    if latent:  # V is read from K: it must be K's leading slice, never a copy
-        if not (v.is_cuda and _build.leading_slice(v, k)):
-            raise ValueError("flash_attention: at the latent width v must be the view "
-                             "k[..., :512] of a contiguous k")
-        v_gate = ()
-    else:
-        v_gate = (v,)
+    latent = v.is_cuda and is_latent(k, v)  # V is read from K: never a copy
+    v_gate = () if latent else (v,)
     extra = () if k_valid is None else (k_valid,)
     _build.require_cuda("flash_attention", q, k, *v_gate, q_positions, k_positions, *extra)
     if k.shape != (b, tk, hkv, d) or v.shape != (b, tk, hkv, dv):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} do not agree")
-    if not (d == dv and d in HEAD_DIMS) and (d, dv) not in (PREFILL_MLA, LATENT):
-        raise ValueError(f"flash_attention: the kernel takes D == Dv in {HEAD_DIMS}, "
-                         f"{PREFILL_MLA} or {LATENT}; got D={d}, Dv={dv}")
-    if d != dv and q.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention: (D, Dv) = ({d}, {dv}) runs in bf16 only")
-    if latent and hkv != 1:
-        raise ValueError(f"flash_attention: the latent kernel takes one KV head, got {hkv}")
-    if hq % hkv or (not latent and hq // hkv > MAX_GROUP):
-        raise ValueError(f"flash_attention: {hq} q heads over {hkv} KV heads")
+    if not supports(d, dv, hq, hkv, q.dtype, latent):
+        raise ValueError(f"flash_attention: no kernel for D={d}, Dv={dv}, {hq} q heads over "
+                         f"{hkv} KV heads in {q.dtype}{' (latent)' if latent else ''}: the "
+                         f"kernels take D == Dv in {HEAD_DIMS} and G <= {MAX_GROUP}, MLA's "
+                         f"prefill {PREFILL_MLA}, and the latent {LATENT} over one KV head "
+                         f"whose V is the view k[..., :Dv]")
     if b * hkv > 65535:  # the grid's y extent
         raise ValueError(f"flash_attention: B * Hkv = {b * hkv} exceeds 65535")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -152,8 +166,9 @@ def flash_attention_cuda(
     win = -1 if window is None else int(window)
     if latent:
         rc = _build.library().flash_attention_latent_launch(
-            qp, kp, q_positions.data_ptr(), k_positions.data_ptr(), kv_ptr, out.data_ptr(),
-            b, tq, tk, hq, int(causal), win, float(scale), _build.stream_of(q))
+            code, qp, kp, q_positions.data_ptr(), k_positions.data_ptr(), kv_ptr,
+            out.data_ptr(), b, tq, tk, hq, d, dv, int(causal), win, float(scale),
+            _build.stream_of(q))
     else:
         rc = _build.library().flash_attention_launch(
             code, qp, kp, vp, q_positions.data_ptr(), k_positions.data_ptr(), kv_ptr,

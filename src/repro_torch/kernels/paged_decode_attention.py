@@ -9,8 +9,11 @@ contiguous flash-decode's split over the sequence with each row's address
 resolved through the table inside the tile loader, so no gathered copy of
 a row's keys is made; the splits come from the static ``MB * bs``
 (``decode_attention.split_plan``) and the splits' partials are merged by
-the contiguous kernel's combine. Same contract: D == Dv in {64, 128} and
-G * D <= 2048. Bound: bytes (the live K/V rows once).
+the contiguous kernel's combine. Same contract: D == Dv in {16, 32, 64,
+128} and G * D <= 2048 (``decode_attention.supports(..., paged=True)``),
+and the latent form (``vbuf=None``: a shared-head pool whose V is K's
+leading ``v_dim`` columns) at (D, Dv) in ``decode_attention.LATENT`` in
+both types. Bound: bytes (the live K/V rows once).
 """
 from __future__ import annotations
 
@@ -90,19 +93,21 @@ def paged_decode_attention_cuda(
     b, hq, d = q.shape
     mb = bt.shape[1] if bt.dim() == 2 else -1
     if vbuf is None:  # the latent form: V = K[..., :v_dim] of a shared-head pool
-        if (d, v_dim) != _da.LATENT or kbuf.shape[-1] != d or kbuf.dim() not in (3, 4) or (
-                kbuf.dim() == 4 and kbuf.shape[2] != 1):
-            raise ValueError(f"paged_decode_attention: the latent form takes q [B, Hq, 576] "
-                             f"over a [NB, bs, 576] pool with v_dim 512; got q "
-                             f"{tuple(q.shape)}, kbuf {tuple(kbuf.shape)}, v_dim {v_dim}")
+        if kbuf.shape[-1] != d or kbuf.dim() not in (3, 4) or (
+                kbuf.dim() == 4 and kbuf.shape[2] != 1) or v_dim is None or not _da.supports(
+                    d, v_dim, hq, 1, q.dtype, latent=True):
+            raise ValueError(f"paged_decode_attention: the latent form takes q [B, Hq, D] "
+                             f"over a [NB, bs, D] pool at (D, v_dim) in {_da.LATENT}; got q "
+                             f"{tuple(q.shape)} {q.dtype}, kbuf {tuple(kbuf.shape)}, v_dim "
+                             f"{v_dim}")
         _build.require_cuda("paged_decode_attention", q, kbuf, bt, n_valid)
-        if q.dtype != torch.bfloat16 or kbuf.dtype != q.dtype:
-            raise TypeError("paged_decode_attention: the latent kernel runs in bf16 only")
+        if kbuf.dtype != q.dtype:
+            raise TypeError("paged_decode_attention: q and kbuf must share one type")
         if bt.dtype != torch.int32 or n_valid.dtype != torch.int32 or n_valid.shape != (b,) \
                 or bt.shape != (b, mb) or mb < 1:
             raise ValueError("paged_decode_attention: bt must be int32 [B, MB] and n_valid "
                              "int32 [B]")
-        out = _da.latent_decode(q, kbuf, n_valid, bt, scale=scale,
+        out = _da.latent_decode(q, kbuf, n_valid, bt, v_dim, scale=scale,
                                 kind="paged_decode_attention")
         LAUNCHES += 1
         return out
@@ -112,11 +117,11 @@ def paged_decode_attention_cuda(
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)}, kbuf "
                          f"{tuple(kbuf.shape)}, vbuf {tuple(vbuf.shape)}, bt "
                          f"{tuple(bt.shape)} do not agree")
-    if vbuf.shape[-1] != d or d not in _da.PAGED_HEAD_DIMS:
-        raise ValueError(f"paged_decode_attention: the kernel takes D == Dv in "
-                         f"{_da.PAGED_HEAD_DIMS}, got D={d}, Dv={vbuf.shape[-1]}")
-    if hq % hkv or (hq // hkv) * d > _da.MAX_GROUP_WIDTH[d]:
-        raise ValueError(f"paged_decode_attention: {hq} q heads over {hkv} KV heads at D={d}")
+    if not _da.supports(d, vbuf.shape[-1], hq, hkv, q.dtype, paged=True):
+        raise ValueError(f"paged_decode_attention: no kernel for D={d}, Dv={vbuf.shape[-1]}, "
+                         f"{hq} q heads over {hkv} KV heads in {q.dtype}: the kernel takes "
+                         f"D == Dv in {_da.PAGED_HEAD_DIMS} with G * D <= "
+                         f"{_da.MAX_GROUP_WIDTH}")
     if kbuf.dtype != q.dtype or vbuf.dtype != q.dtype:
         raise TypeError("paged_decode_attention: q, kbuf and vbuf must share one type")
     if bt.dtype != torch.int32 or n_valid.dtype != torch.int32 or n_valid.shape != (b,):

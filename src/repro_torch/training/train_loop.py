@@ -91,6 +91,7 @@ def train(
     jit: bool = True,
     device="cuda",
     impl: str = "auto",
+    params=None,
 ) -> TrainResult:
     """The reference's loop: random params from ``seed`` (a
     ``torch.Generator`` on ``device``), a step a
@@ -98,13 +99,16 @@ def train(
     steps and after the last, and a checkpoint every ``ckpt_every`` steps and
     at the end when ``ckpt_path`` is set. ``jit`` has no PyTorch
     counterpart here (the step runs eagerly) and is accepted for the
-    reference's signature. Returns the trained params in the reference's
+    reference's signature. ``params``, when given, are trained instead of
+    the random ones (the port's addition: a test can start both packages
+    from the same tree). Returns the trained params in the reference's
     tree: ``layers.with_f32_table`` makes them ready to serve."""
     del jit
     model = get_model(cfg)
     opt_cfg = opt_cfg or opt.OptimizerConfig(total_steps=steps)
-    params = L.drop_f32_table(
-        model.init(torch.Generator(device=device).manual_seed(seed), device))
+    if params is None:
+        params = model.init(torch.Generator(device=device).manual_seed(seed), device)
+    params = L.drop_f32_table(params)
     opt_state = opt.init_state(params, opt_cfg)
     step_fn = make_train_step(model, opt_cfg, impl)
 

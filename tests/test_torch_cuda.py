@@ -412,7 +412,9 @@ def _paged_inputs(g, dev, dtype, b, hq, hkv, d, bs, mb, nb):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,hq,hkv,d,bs,mb", [(8, 32, 8, 64, 16, 21), (3, 8, 2, 64, 4, 9),
-                                              (4, 16, 8, 128, 16, 5), (2, 8, 1, 64, 32, 3)])
+                                              (4, 16, 8, 128, 16, 5), (2, 8, 1, 64, 32, 3),
+                                              (8, 8, 2, 32, 16, 21), (3, 4, 4, 16, 4, 9),
+                                              (2, 4, 1, 32, 16, 5)])
 def test_paged_decode_attention_on_card(b, hq, hkv, d, bs, mb, dtype):
     """The paged kernel (it reads the block table itself) against its plain
     version: the served shape (8 slots, block 16, 21 blocks a slot) and
@@ -457,8 +459,8 @@ def test_paged_decode_attention_refuses_on_card():
         ops.paged_decode_attention(q.cpu(), kbuf.cpu(), vbuf.cpu(), bt.cpu(), nv.cpu(),
                                    impl="cuda")
     with pytest.raises(ValueError):
-        pda.paged_decode_attention_cuda(q[..., :32].contiguous(), kbuf[..., :32].contiguous(),
-                                        vbuf[..., :32].contiguous(), bt, nv)
+        pda.paged_decode_attention_cuda(q[..., :48].contiguous(), kbuf[..., :48].contiguous(),
+                                        vbuf[..., :48].contiguous(), bt, nv)
     with pytest.raises(ValueError):
         pda.paged_decode_attention_cuda(q, kbuf, vbuf, bt.long(), nv)
 
@@ -1064,37 +1066,42 @@ def _paged_tables(g, b, mb, nb, dev):
 #: step (8 slots x 5 lanes over the contiguous 321)
 MLA_FLASH = {"prefill 192/128": (1, 256, 256, 128, 128, 192, 128),
              "latent mixed": (8, 64, 336, 128, 1, 576, 512),
-             "latent verify": (8, 5, 321, 128, 1, 576, 512)}
+             "latent verify": (8, 5, 321, 128, 1, 576, 512),
+             "prefill 96/64": (2, 40, 40, 4, 4, 96, 64),
+             "latent mixed 96/64": (8, 16, 48, 4, 1, 96, 64),
+             "latent verify 96/64": (8, 5, 40, 4, 1, 96, 64)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(MLA_FLASH))
 def test_flash_attention_mla_widths_on_card(case):
-    """The two MLA instantiations against the plain version in bf16, the
-    latent's V a strided view of K (never copied), per-slot k_valid and
-    query positions as the paged layer builds them, a repeat call
-    bit-identical; f32 at these widths and a latent V that is not K's
-    slice raise."""
+    """The MLA instantiations (deepseek-v2-236b's and its smoke config's)
+    against the plain version in bf16 and in f32, the latent's V a strided
+    view of K (never copied), per-slot k_valid and query positions as the
+    paged layer builds them, a repeat call bit-identical; a V copied out of
+    K is no latent: at (576, 512) it raises, at (96, 64) the prefill's GQA
+    kernel takes it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
     b, tq, tk, hq, hkv, d, dv = MLA_FLASH[case]
     q = torch.randn((b, tq, hq, d), generator=g, device=dev).to(torch.bfloat16)
-    if dv == 512:
+    if hkv == 1:
         k = torch.randn((b, tk, hkv, d), generator=g, device=dev).to(torch.bfloat16)
         v = k[..., :dv]
         lengths = torch.tensor([0, 40, 100, 200, 250, 270, 7, tk - tq][:b], dtype=torch.int32,
-                               device=dev)
+                               device=dev).clamp(max=tk - tq)
         t_new = torch.tensor([tq, 1, tq, 3, 0, 1, tq, tq][:b], dtype=torch.int32, device=dev)
         qpos = (lengths[:, None] + torch.arange(tq, device=dev, dtype=torch.int32)).contiguous()
         kpos = torch.arange(tk, device=dev, dtype=torch.int32)[None].expand(b, tk).contiguous()
         kw = dict(q_positions=qpos, k_positions=kpos, causal=True,
-                  k_valid=kpos < (lengths + t_new)[:, None], scale=192 ** -0.5)
+                  k_valid=kpos < (lengths + t_new)[:, None], scale=(d // 3) ** -0.5)
     else:
         k = torch.randn((b, tk, hkv, d), generator=g, device=dev).to(torch.bfloat16)
         v = torch.randn((b, tk, hkv, dv), generator=g, device=dev).to(torch.bfloat16)
-        kw = dict(causal=True, scale=192 ** -0.5)
+        kw = dict(causal=True, scale=(d // 3 if d == 576 else d) ** -0.5)
     before = fa.LAUNCHES
     got = ops.flash_attention(q, k, v, **kw)
     again = ops.flash_attention(q, k, v, **kw)
@@ -1103,35 +1110,51 @@ def test_flash_attention_mla_widths_on_card(case):
     assert fa.LAUNCHES == before + 2 and got.shape == (b, tq, hq, dv)
     close(got, want, torch.bfloat16)
     assert torch.equal(got, again)
-    kf = k.float()
-    with pytest.raises(TypeError):  # f32 at the MLA widths: no kernel, no fallback
-        ops.flash_attention(q.float(), kf, kf[..., :dv] if dv == 512 else v.float(), **kw)
-    if dv == 512:
-        with pytest.raises(ValueError):
-            fa.flash_attention_cuda(q, k, v.contiguous(), **{
-                n: (t.to(torch.int32) if n.endswith("positions") else t)
-                for n, t in kw.items()})
+    # f32 at the MLA widths: the CUDA-core kernel (the latent's V read at K's
+    # row stride) against the plain version, a repeat call bit-identical
+    qf, kf = q.float(), k.float()
+    vf = kf[..., :dv] if hkv == 1 else v.float()
+    got = ops.flash_attention(qf, kf, vf, **kw)
+    again = ops.flash_attention(qf, kf, vf, **kw)
+    want = ops.flash_attention(qf, kf, vf, impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 4 and got.dtype == torch.float32
+    close(got, want, torch.float32)
+    assert torch.equal(got, again)
+    if hkv == 1:
+        kw32 = {n: (t.to(torch.int32) if n.endswith("positions") else t)
+                for n, t in kw.items()}
+        if d == 576:  # a V copied out of K is no latent, and (576, 512) has no GQA kernel
+            with pytest.raises(ValueError):
+                fa.flash_attention_cuda(q, k, v.contiguous(), **kw32)
+        else:  # (96, 64) is also MLA's prefill width: the GQA kernel takes the copy
+            close(fa.flash_attention_cuda(q, k, v.contiguous(), **kw32),
+                  fa.flash_attention_plain(q, k, v.contiguous(), **kw32), torch.bfloat16)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hq,d,r", [(128, 576, 512), (4, 96, 64)])
 @pytest.mark.parametrize("paged", [False, True])
-def test_latent_decode_on_card(paged):
+def test_latent_decode_on_card(paged, hq, d, r, dtype):
     """The absorbed latent decode (q [8, 128, 576] over a 576-wide latent, V
-    its leading 512 columns) against the plain version: contiguous over
-    S = 321 and paged over a 48-block pool of 16 through 21-block tables,
-    lengths 0, 1, a tile edge, mid and full, the sequence split (two blocks
-    an SM) and unsplit (one batch row at S = 64); a repeat call
-    bit-identical; each wrapper counts its launches."""
+    its leading 512 columns; and the smoke config's 4 heads over a 96-wide
+    latent, V its leading 64) against the plain version in bf16 and f32:
+    contiguous over S = 321 and paged over a 48-block pool of 16 through
+    21-block tables, lengths 0, 1, a tile edge, mid and full, the sequence
+    split (two blocks an SM) and unsplit (one batch row at S = 64); a
+    repeat call bit-identical; each wrapper counts its launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(8)
-    b, hq, d, r = 8, 128, 576, 512
-    q = torch.randn((b, hq, d), generator=g, device=dev).to(torch.bfloat16)
-    scale = 192 ** -0.5
+    b = 8
+    q = torch.randn((b, hq, d), generator=g, device=dev).to(dtype)
+    scale = (d // 3) ** -0.5
     if paged:
         nb, bs, mb = 48, 16, 21
-        pool = torch.randn((nb, bs, d), generator=g, device=dev).to(torch.bfloat16)
+        pool = torch.randn((nb, bs, d), generator=g, device=dev).to(dtype)
         bt = _paged_tables(g, 2, mb, nb, dev)
         bt = torch.cat([bt, bt.flip(0), bt, bt, bt.flip(1), bt.flip(1), bt, bt])[:b]
         n_valid = torch.tensor([0, 1, 64, 65, 200, mb * bs, 17, 300], dtype=torch.int32,
@@ -1148,11 +1171,11 @@ def test_latent_decode_on_card(paged):
         contig = ops.decode_attention(q, lat, lat[..., :r], n_valid, scale=scale)
         torch.cuda.synchronize()
         assert torch.equal(contig, got) and got.shape == (b, hq, r)
-        close(got, want, torch.bfloat16)
+        close(got, want, dtype)
         assert torch.equal(got, again)
     else:
         for s, rows in ((321, b), (64, 1)):
-            lat = torch.randn((rows, s, 1, d), generator=g, device=dev).to(torch.bfloat16)
+            lat = torch.randn((rows, s, 1, d), generator=g, device=dev).to(dtype)
             n_valid = torch.tensor([0, 1, 64, 65, 200, s, 17, 300][:rows], dtype=torch.int32,
                                    device=dev).clamp(max=s)
             before = da.LAUNCHES
@@ -1162,11 +1185,86 @@ def test_latent_decode_on_card(paged):
                                         impl="torch")
             torch.cuda.synchronize()
             assert da.LAUNCHES == before + 2
-            close(got, want, torch.bfloat16)
+            close(got, want, dtype)
             assert torch.equal(got, again)
         with pytest.raises(ValueError):  # the latent V must be K's slice, not a copy
             ops.decode_attention(q[:1], lat, lat[..., :r].contiguous(), n_valid, scale=scale,
                                  impl="cuda")
+
+
+#: flash at the smoke configs' head widths: (B, Tq, Tk, Hq, Hkv, D, causal,
+#: window, k_valid): the dense smoke configs' G = 4 at D = 32, the
+#: encoder-decoders' G = 1 (cross attention: bidirectional, k_valid), the
+#: hybrid's 4 heads over one KV head under its 32-row window, and D = 16
+SMOKE_FLASH = {"dense 32": (2, 67, 67, 8, 2, 32, True, None, False),
+               "cross 32": (3, 5, 64, 4, 4, 32, False, None, True),
+               "ring 32": (2, 70, 70, 4, 1, 32, True, 32, False),
+               "decode step 32": (8, 1, 40, 8, 2, 32, True, None, True),
+               "gqa 16": (2, 67, 67, 8, 2, 16, True, 16, False),
+               "mqa 16": (1, 130, 130, 64, 1, 16, True, None, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(SMOKE_FLASH))
+def test_flash_attention_smoke_widths_on_card(case, dtype):
+    """Flash at D = Dv = 16 and 32 against the plain version (causal, a
+    window, bidirectional with k_valid, MQA up to G = 64, a query past every
+    valid key), one launch a call, a repeat call bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    b, tq, tk, hq, hkv, d, causal, window, valid = SMOKE_FLASH[case]
+    q = torch.randn((b, tq, hq, d), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, tk, hkv, d), generator=g, device=dev).to(dtype) for _ in range(2))
+    qpos = (torch.arange(tq, device=dev, dtype=torch.int32)[None] + (tk - tq)).expand(b, tq)
+    kpos = torch.arange(tk, device=dev, dtype=torch.int32)[None].expand(b, tk)
+    kw = dict(q_positions=qpos.contiguous(), k_positions=kpos.contiguous(), causal=causal,
+              window=window)
+    if valid:
+        n = torch.randint(0, tk + 1, (b,), generator=g, device=dev)
+        n[0] = 0
+        kw["k_valid"] = (kpos < n[:, None]).contiguous()
+    before = fa.LAUNCHES
+    got = ops.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 2 and got.shape == q.shape
+    close(got, fa.flash_attention_plain(q, k, v, **kw), dtype)
+    assert torch.equal(got, again)
+    if valid:
+        assert bool((got[0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,hq,hkv", [(32, 8, 2), (32, 4, 4), (32, 4, 1), (16, 8, 2),
+                                      (16, 128, 1), (32, 64, 1)])
+@pytest.mark.parametrize("s", [40, 321])
+def test_decode_attention_smoke_widths_on_card(s, d, hq, hkv, dtype):
+    """Flash-decode at D = 16 and 32 against the plain version, over a cache
+    of 40 rows (one split shorter than a tile) and of 321 (split edges),
+    lengths 0, 1, a tile edge and full; G up to the widest group
+    (G * D = 2048); a repeat call bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(32)
+    lengths = [ln for ln in (0, 1, 17, 63, 64, 65, 200, s) if ln <= s]
+    b = len(lengths)
+    q = torch.randn((b, hq, d), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device=dev).to(dtype) for _ in range(2))
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = da.LAUNCHES
+    got = ops.decode_attention(q, k, v, ln)
+    again = da.decode_attention_cuda(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES == before + 2
+    close(got, da.decode_attention_plain(q, k, v, ln), dtype)
+    assert torch.equal(got, again) and bool((got[0] == 0).all())
 
 
 def _small_moe_on_card(arch):
