@@ -194,6 +194,26 @@ Phases (any failure exits non-zero and prints no result):
              f32, capture as one CUDA graph and replay bit for bit their
              eager runs on both states; each step's eager and replay wall
              ms and its graph's device kernels printed;
+7f. tp — full-width llama3.2-1b (bf16, seeded weights) at TP = 2: two
+             ``torch.distributed`` ranks on cuda:0 under gloo
+             (``tp_pool.spawn``; the kernels built here first, so the ranks
+             only load them), each with its shard and its KV heads. Rank 0
+             first records the single-rank plain run of both arms (the
+             serve trace on the contiguous pool, and phase 4b's chunked
+             geometry) and the single-rank kernel run forced to it. Each
+             TP arm: host counters the single-rank run's, launches exact
+             and the same on both ranks, no leaked block, KV a rank <= 0.6x
+             the pool (the ranks' pools counted once are the single pool's
+             bytes), teacher-forced |dlogit| within TP_DLOGIT_BOUND, which
+             the decode kernel one key short breaks; the f32 smoke llama's
+             TP tokens the single-rank kernel run's on both smoke pools.
+             Printed, labelled "2 ranks on one card, no interconnect": the
+             backend, the bytes a rank holds, tok/s and TTFT, a decode
+             step's wall and device ms beside the single rank's, the
+             reduces a step and their host ms. Then flash, decode and
+             paged decode at a rank's shapes as kernel records.
+             ``python3 chip_smoke.py tp`` runs device, build and this phase
+             alone, with no result lines;
 8. hstu    — full-width HSTU (14 layers, d 512, 8 heads, band 1024 from
              layer 3, bf16, seeded weights) scores 8 user histories from
              ``hstu_user_histories(seed=0)``, right-padded with ``lengths``:
@@ -1938,7 +1958,7 @@ def _trace(cfg, pad_to, temperature: float = 0.0, top_p: float = 1.0, n: int = N
 
 def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperature=0.0,
                top_p=1.0, speculative=False, reqs=None, mix=None, prepare=None,
-               spec_exit=SPEC_EXIT, **geometry):
+               spec_exit=SPEC_EXIT, tp=None, **geometry):
     """One scheduler run of the trace, launch counters set to 0 just before
     it and read just after. Checks that every request got its max_new
     tokens, that every logits tensor the scheduler sampled from was finite
@@ -1963,8 +1983,10 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
     kinds over it (beam groups of ``MIX_BEAMS``, speculative requests as
     above; a group's prefills and steps count as everyone's, and a beam may
     end early at its EOS); ``prepare`` edits the requests before the run
-    (recording profiles). Prints the device memory the run allocated at its
-    peak."""
+    (recording profiles). ``tp`` (a rank's ``TPContext``) serves as that
+    rank of a tensor-parallel pool: the counts are the rank's own, which
+    runs every layer at its heads. Prints the device memory the run
+    allocated at its peak."""
     import torch
 
     from repro_torch.core import engine
@@ -2016,7 +2038,7 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
         _reset_counts()
         m, done = serve.run_scheduler(
             model, params, reqs, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
-            device=dev, policy=policy, return_requests=True, **geometry,
+            device=dev, policy=policy, return_requests=True, tp=tp, **geometry,
         )
         got_counts = _read_counts()
     finally:
@@ -6819,6 +6841,354 @@ def phase_examples():
     print(f"[examples] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------- tp
+#: the tp phase: two ranks on the one card (gloo), its full-width arms (the
+#: serve phase's contiguous pool and the paged phase's chunked geometry) and
+#: the smoke width's (the smoke_configs phase's pools)
+TP_RANKS, TP_DEVICES = 2, ("cuda:0", "cuda:0")
+TP_ARMS = {"contiguous": {}, "chunked": PAGED_ARMS["chunked"]}
+TP_SMOKE = {"contiguous": {}, "chunked": SMOKE_PAGED}
+#: max |dlogit| of a TP = 2 arm's committed rows, teacher-forced to the
+#: single-rank plain run's draws (bf16, full-width llama3.2-1b, logits of
+#: ~200); set between the sound readings of both arms and the contiguous
+#: arm with the decode kernel one key short on both ranks, which must break
+#: it (NVIDIA H100 80GB HBM3, 700 W: sound 4.857 and 4.643, one key short
+#: 13.164; each rank rounds its row-parallel partial sums to bf16)
+TP_DLOGIT_BOUND = 8.0
+TP_LABEL = "2 ranks on one card, no interconnect"
+TP_STEPS = 10  # decode steps timed a rank
+#: a TP run's host counters: prefills, steps, mixed steps, preemptions, chunks
+TP_HOST = ("prefills", "decode_steps", "mixed_steps", "n_preemptions", "prefill_chunks")
+
+
+def _tp_host(m):
+    return {k: m.get(k, 0) for k in TP_HOST}
+
+
+def _decode_step_times(model, params, pad_to, cfg, group=None):
+    """One 8-slot decode step over a cache prefilled to ``pad_to`` (every
+    step at that length): wall ms (CUDA-synchronised, TP_STEPS steps), the
+    device ms of its kernels and of its copies (torch.profiler), and under
+    ``group`` the reduces a step and their host ms. Every rank of a group
+    calls it alike."""
+    import torch
+
+    from repro_torch.core import engine
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    toks = torch.randint(0, cfg.vocab_size, (SLOTS, pad_to), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens = torch.full((SLOTS,), pad_to, dtype=torch.int32, device=dev)
+    pre, dec = ((engine.prefill, engine.decode_step) if group is None else
+                (engine.tp_prefill, engine.tp_decode_step))
+    _, cache = pre(model, params, toks, lens, pad_to + 16)
+    state = {"cache": cache, "tok": toks[:, -1].contiguous()}
+
+    def step():
+        logits, state["cache"] = dec(model, params, state["cache"], state["tok"])
+        state["cache"]["lengths"].fill_(pad_to)
+        state["tok"] = logits.argmax(-1).to(torch.int32)
+
+    with torch.inference_mode():
+        step()
+        torch.cuda.synchronize()
+        n0, s0 = (group.n_reduces, group.reduce_s) if group is not None else (0, 0.0)
+        t0 = time.perf_counter()
+        for _ in range(TP_STEPS):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / TP_STEPS * 1e3
+        n1, s1 = (group.n_reduces, group.reduce_s) if group is not None else (0, 0.0)
+        with profiler() as prof:
+            for _ in range(TP_STEPS):
+                step()
+            torch.cuda.synchronize()
+    kern = device_kernels(prof)
+    copies = [e for e in kern if "memcpy" in e.name.lower() or "memset" in e.name.lower()]
+    us = sum(e.time_range.elapsed_us() for e in kern)
+    cus = sum(e.time_range.elapsed_us() for e in copies)
+    del cache, state
+    return dict(wall_ms=wall, device_ms=us / TP_STEPS / 1e3,
+                copy_ms=cus / TP_STEPS / 1e3, kernels=(len(kern) - len(copies)) / TP_STEPS,
+                reduces=(n1 - n0) / TP_STEPS, reduce_ms=(s1 - s0) / TP_STEPS * 1e3)
+
+
+def _tp_smoke(group):
+    """The f32 smoke llama through the kernels on each of TP_SMOKE's pools:
+    single-rank on rank 0, then at TP = 2 on both ranks. Returns each
+    pool's (TP tokens, single-rank tokens or None, launches)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import tp_pool
+
+    cfg, model, params = smoke_build("llama3.2-1b", "float32")
+    single = {}
+    if group.rank == 0:
+        for pool, geometry in TP_SMOKE.items():
+            single[pool] = serve_once(
+                model, params, cfg, SMOKE_PAD, policy="continuous", int8_mode=None,
+                tag=f"tp smoke {pool} single-rank", **geometry,
+                reqs=_trace(cfg, SMOKE_PAD, n=SMOKE_REQS, max_new=SMOKE_NEW))[1]
+    dist.barrier()
+    tp = tp_pool.TPContext(model, params, group)
+    out = {}
+    for pool, geometry in TP_SMOKE.items():
+        _, toks, counts = serve_once(
+            tp.model, tp.params, cfg, SMOKE_PAD, policy="continuous", int8_mode=None,
+            tag=f"tp smoke {pool} rank {group.rank}", tp=tp, **geometry,
+            reqs=_trace(cfg, SMOKE_PAD, n=SMOKE_REQS, max_new=SMOKE_NEW))
+        out[pool] = (toks, single.get(pool), counts)
+    return out
+
+
+def tp_rank(group, pad_to):
+    """One rank of the tp phase (``tp_pool.spawn``; both on cuda:0, gloo).
+    Rank 0 first serves both arms on the whole model on the plain path,
+    recorded (``Forced``), and times a single-rank decode step, while rank 1
+    waits. Then each rank keeps its shard (``TPContext``) and serves each arm
+    at TP = 2 through ``serve_once`` (exact launches a rank, no leaked block):
+    the contiguous arm sound, teacher-forced to the plain run's draws (rank 0
+    forces and compares; its tokens reach rank 1 through the scheduler's
+    broadcast) and forced with the decode kernel one key short on both ranks;
+    the chunked arm forced. Then the TP decode step's times and the smoke
+    width. Returns the rank's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.kv_cache import cache_bytes
+    from repro_torch.distributed import tp_pool
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank0 = group.rank == 0
+    dev = group.device
+    out = {"rank": group.rank, "arms": {}, "backend": group.backend}
+    cfg, model, params = serve.build_model(ARCH, smoke=False, seed=SEED, device=dev)
+    out["whole_param_bytes"] = cache_bytes(params)
+    plain = {}
+    if rank0:
+        for arm, geometry in TP_ARMS.items():
+            rec = Forced("record")
+            with plain_path(), forcing(rec):
+                mp, ptoks, _ = serve_once(model, params, cfg, pad_to, policy="continuous",
+                                          int8_mode=None, tag=f"tp {arm} single-rank plain",
+                                          **geometry)
+            plain[arm] = (rec, mp, ptoks)
+            out["arms"][arm] = {"single": dict(_tp_host(mp),
+                                               kv_reserved_bytes=mp["kv_reserved_bytes"])}
+        # the single-rank kernel path forced alike: the reading TP's sits beside
+        rec = Forced("steps", plain["contiguous"][0])
+        tag = "tp contiguous single-rank kernels forced"
+        with forcing(rec):
+            serve_once(model, params, cfg, pad_to, policy="continuous", int8_mode=None, tag=tag)
+        out["single_dlogit"] = rec.summary(tag)[1]
+        out["single_step"] = _decode_step_times(model, params, pad_to, cfg)
+    dist.barrier()
+    tp = tp_pool.TPContext(model, params, group)
+    del model, params
+    torch.cuda.empty_cache()
+    for arm, geometry in TP_ARMS.items():
+        serve.warmup(tp.model, tp.params, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
+                     device=dev, tp=tp, **geometry)
+        res = out["arms"].setdefault(arm, {})
+        for run in (("sound", "forced", "control") if arm == "contiguous" else ("forced",)):
+            tag = f"tp {arm} rank {group.rank} {run}"
+            rec = Forced("steps", plain[arm][0]) if rank0 and run != "sound" else None
+            with (forcing(rec) if rec is not None else contextlib.nullcontext()), \
+                    (one_key_short(da, "decode_attention_cuda", 3) if run == "control"
+                     else contextlib.nullcontext()):
+                m, toks, counts = serve_once(tp.model, tp.params, cfg, pad_to,
+                                             policy="continuous", int8_mode=None, tag=tag,
+                                             tp=tp, **geometry)
+            r = dict(host=_tp_host(m), counts=counts, **{k: m[k] for k in (
+                "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms", "wall_s",
+                "kv_reserved_bytes", "kv_reserved_per_device_bytes", "param_bytes_per_device",
+                "reduces", "reduce_s", "decode_steps", "prefills")})
+            if rec is not None:
+                r["dlogit"] = rec.summary(tag)[1]
+                r["plain_tokens"] = toks == plain[arm][2]
+            res[run] = r
+    out["step"] = _decode_step_times(tp.model, tp.params, pad_to, cfg, group)
+    del tp, plain
+    torch.cuda.empty_cache()
+    out["smoke"] = _tp_smoke(group)
+    return out
+
+
+def phase_tp(pad_to):
+    """Full-width llama3.2-1b (bf16, seeded weights) served at TP = 2 by two
+    ``torch.distributed`` ranks that share the one card under gloo
+    (``tp_rank``, the kernels built here first so the ranks only load them):
+    each arm teacher-forced to the single-rank plain run's draws within
+    TP_DLOGIT_BOUND, which the contiguous arm with the decode kernel one key
+    short breaks; every run's host counters the single-rank run's; each
+    rank's launches exact and the same on both ranks; each rank's KV pool at
+    most 0.6x the single pool (its ranks' pools counted once are the single
+    pool's bytes); the f32 smoke llama's TP tokens the single-rank kernel
+    run's. Prints the backend, the bytes a rank holds, tok/s and TTFT, a
+    decode step's wall and device ms and its reduces (TP_LABEL). Returns
+    rank 0's results."""
+    from repro_torch.distributed import tp_pool
+
+    t0 = time.perf_counter()
+    ranks = tp_pool.spawn(tp_rank, TP_RANKS, pad_to, devices=list(TP_DEVICES))
+    r0 = ranks[0]
+    check(all(r["backend"] == "gloo" for r in ranks), f"tp: backends {[r['backend'] for r in ranks]}")
+    print(f"[tp] {TP_LABEL}: {TP_RANKS} ranks on {', '.join(TP_DEVICES)}, backend "
+          f"{r0['backend']} (collectives on the CUDA tensors directly)", flush=True)
+    for arm in TP_ARMS:
+        single = r0["arms"][arm]["single"]
+        want = {k: single[k] for k in TP_HOST}
+        for r in ranks:
+            for run, res in r["arms"][arm].items():
+                if run == "single":
+                    continue
+                check(res["host"] == want, f"tp {arm} rank {r['rank']} {run}: host counters "
+                      f"{res['host']}, the single-rank run's {want}")
+                check(res["counts"] == r0["arms"][arm][run]["counts"],
+                      f"tp {arm} {run}: rank {r['rank']}'s launches differ from rank 0's")
+                ratio = res["kv_reserved_per_device_bytes"] / single["kv_reserved_bytes"]
+                check(res["kv_reserved_bytes"] == single["kv_reserved_bytes"] and ratio <= 0.6,
+                      f"tp {arm} rank {r['rank']}: KV {res['kv_reserved_per_device_bytes']} B a "
+                      f"rank of {res['kv_reserved_bytes']} B, the single pool "
+                      f"{single['kv_reserved_bytes']} B")
+        first = r0["arms"][arm]["forced"]
+        print(f"[tp {arm}] {TP_LABEL} | host counters {want} on both ranks, every run, as "
+              f"the single-rank run's | KV reserved a rank "
+              f"{first['kv_reserved_per_device_bytes']} B of {single['kv_reserved_bytes']} B "
+              f"({first['kv_reserved_per_device_bytes'] / single['kv_reserved_bytes']:.4f}x) | "
+              f"params a rank {first['param_bytes_per_device']} B of "
+              f"{r0['whole_param_bytes']} B | launches a rank {first['counts']}", flush=True)
+        for run, res in r0["arms"][arm].items():
+            if run == "single":
+                continue
+            print(f"[tp {arm} {run}] {TP_LABEL} | {res['tokens_per_s']:.1f} tok/s | ttft p50 "
+                  f"{res['ttft_p50_ms']:.2f} ms p99 {res['ttft_p99_ms']:.2f} ms | tpot p50 "
+                  f"{res['tpot_p50_ms']:.3f} ms | wall {res['wall_s']:.2f} s | "
+                  f"{res['prefills'] + res['decode_steps']} forwards, {res['reduces']} reduces, "
+                  f"{res['reduce_s'] * 1e3:.1f} ms of host time in them"
+                  + (f" | max |dlogit| {res['dlogit']:.6f} (bound {TP_DLOGIT_BOUND})"
+                     if "dlogit" in res else ""), flush=True)
+    dl = {(arm, run): res["dlogit"] for arm in TP_ARMS
+          for run, res in r0["arms"][arm].items() if "dlogit" in res}
+    print(f"[tp] forced max |dlogit| against the single-rank plain path: the single-rank "
+          f"kernels {r0['single_dlogit']:.6f} | TP = {TP_RANKS} "
+          + ", ".join(f"{arm} {run} {d:.6f}" for (arm, run), d in dl.items())
+          + f" | bound {TP_DLOGIT_BOUND}", flush=True)
+    for (arm, run), d in dl.items():
+        check(r0["arms"][arm][run]["plain_tokens"],
+              f"tp {arm} {run}: the forced run's tokens are not the plain run's")
+        if run == "control":
+            check(d > TP_DLOGIT_BOUND, f"tp {arm} control: a decode kernel one key short "
+                  f"stayed within the bound ({d} <= {TP_DLOGIT_BOUND})")
+        else:
+            check(d <= TP_DLOGIT_BOUND, f"tp {arm}: max |dlogit| {d} against the single-rank "
+                  f"plain path, bound {TP_DLOGIT_BOUND}")
+    for name, st in (("single rank", r0["single_step"]), ("rank 0", r0["step"]),
+                     ("rank 1", ranks[1]["step"])):
+        print(f"[tp step] {TP_LABEL if name != 'single rank' else 'one rank, whole model'} | "
+              f"{name}: an 8-slot decode step at {pad_to} tokens {st['wall_ms']:.3f} ms wall, "
+              f"{st['device_ms']:.3f} ms device ({st['kernels']:.0f} kernels; "
+              f"{st['copy_ms']:.3f} ms of it copies) | {st['reduces']:.0f} reduces a step, "
+              f"{st['reduce_ms']:.3f} ms host in them", flush=True)
+    for pool in TP_SMOKE:
+        toks, single, counts = r0["smoke"][pool]
+        check(toks == single and ranks[1]["smoke"][pool][0] == single,
+              f"tp smoke {pool}: the TP = 2 tokens differ from the single-rank kernel run's")
+        print(f"[tp smoke {pool}] f32 smoke llama, {TP_LABEL}: {len(single)} requests' tokens "
+              f"on both ranks the single-rank kernel run's | launches a rank {counts}",
+              flush=True)
+    print(f"[tp] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return r0
+
+
+def tp_kernel_records(pad_to, r0):
+    """The attention kernels at a rank's shapes of full-width llama3.2-1b at
+    TP = 2 (16 q heads over 4 KV heads of 64): flash at the served prefill,
+    the contiguous decode over the served pool's rows and the paged decode
+    through the chunked arm's pool (48 blocks of 16), against their plain
+    versions in bf16, a repeat call bit-identical, timed beside their bound
+    and SDPA; launches from rank 0's TP runs (contiguous sound, chunked
+    forced)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    cfg = get_config(ARCH)
+    hq, hkv, dh = cfg.n_heads // TP_RANKS, cfg.n_kv_heads // TP_RANKS, cfg.head_dim
+    g = hq // hkv
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    ctg, chunked = r0["arms"]["contiguous"]["sound"]["counts"], r0["arms"]["chunked"]["forced"]["counts"]
+    recs = []
+    q = _rand(gen, (1, pad_to, hq, dh), bf, dev)
+    k, v = (_rand(gen, (1, pad_to, hkv, dh), bf, dev) for _ in range(2))
+    pos = int_positions(1, pad_to, dev)
+    kw = dict(q_positions=pos, k_positions=pos, causal=True)
+    err = max_err(fa.flash_attention_cuda(q, k, v, **kw), fa.flash_attention_plain(q, k, v, **kw),
+                  "bfloat16")
+    kernel_record(recs, f"q[1,{pad_to},{hq},{dh}] kv[1,{pad_to},{hkv},{dh}] bf16 causal "
+                  f"(llama3.2-1b prefill, a rank's heads at TP = {TP_RANKS})",
+                  lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                  lambda: fa.flash_attention_plain(q, k, v, **kw),
+                  lambda qt=q.transpose(1, 2), ke=per_head(k, g), ve=per_head(v, g):
+                  F.scaled_dot_product_attention(qt, ke, ve, is_causal=True), err,
+                  (2 * q.numel() + 2 * k.numel()) * 2 + 2 * pad_to * 4,
+                  pad_to * (pad_to + 1) // 2 * hq * 4 * dh, ctg["flash_attention"], **FLASH_SRC)
+    s_ctg = pad_to + MAX_NEW + 1
+    qd = _rand(gen, (SLOTS, hq, dh), bf, dev)
+    kc, vc = (_rand(gen, (SLOTS, s_ctg, hkv, dh), bf, dev) for _ in range(2))
+    ln = torch.tensor([1, 63, 64, 65, 200, pad_to + 1, s_ctg - 1, s_ctg], dtype=torch.int32,
+                      device=dev)
+    err = max_err(da.decode_attention_cuda(qd, kc, vc, ln), da.decode_attention_plain(qd, kc, vc, ln),
+                  "bfloat16")
+    n_rows = int(ln.sum())
+    amask = (torch.arange(s_ctg, device=dev)[None] < ln[:, None])[:, None, None, :]
+    kernel_record(recs, f"q[{SLOTS},{hq},{dh}] cache[{SLOTS},{s_ctg},{hkv},{dh}] bf16 lengths "
+                  f"{ln.tolist()} (llama3.2-1b decode, a rank's heads at TP = {TP_RANKS})",
+                  lambda: da.decode_attention_cuda(qd, kc, vc, ln),
+                  lambda: da.decode_attention_plain(qd, kc, vc, ln),
+                  lambda qq=qd[:, :, None], ke=per_head(kc, g), ve=per_head(vc, g), m=amask:
+                  F.scaled_dot_product_attention(qq, ke, ve, attn_mask=m), err,
+                  (2 * qd.numel() + 2 * n_rows * hkv * dh) * 2 + SLOTS * 4,
+                  n_rows * hq * 4 * dh, ctg["decode_attention"], **DECODE_SRC)
+    geo = TP_ARMS["chunked"]
+    bs, nb = geo["block_size"], geo["num_blocks"]
+    mb = -(-s_ctg // bs)
+    perm = torch.randperm(SLOTS * mb, generator=torch.Generator().manual_seed(SEED))
+    bt = (perm % (nb - 1) + 1).reshape(SLOTS, mb).to(torch.int32).to(dev).contiguous()
+    kp, vp = (_rand(gen, (nb, bs, hkv, dh), bf, dev) for _ in range(2))
+    nv = ln.clamp(max=mb * bs)
+    pmask = (torch.arange(mb * bs, device=dev)[None] < nv[:, None])[:, None, None, :]
+    err = max_err(pda.paged_decode_attention_cuda(qd, kp, vp, bt, nv),
+                  pda.paged_decode_attention_plain(qd, kp, vp, bt, nv), "bfloat16")
+    kg, vg = (x[bt.long()].reshape(SLOTS, mb * bs, hkv, dh) for x in (kp, vp))
+    n_rows = int(nv.sum())
+    kernel_record(recs, f"q[{SLOTS},{hq},{dh}] pool[{nb},{bs},{hkv},{dh}] bt[{SLOTS},{mb}] bf16 "
+                  f"n_valid {nv.tolist()} (llama3.2-1b paged decode, a rank's heads at TP = "
+                  f"{TP_RANKS})",
+                  lambda: pda.paged_decode_attention_cuda(qd, kp, vp, bt, nv),
+                  lambda: pda.paged_decode_attention_plain(qd, kp, vp, bt, nv),
+                  lambda qq=qd[:, :, None], ke=per_head(kg, g), ve=per_head(vg, g), m=pmask:
+                  F.scaled_dot_product_attention(qq, ke, ve, attn_mask=m), err,
+                  (2 * qd.numel() + 2 * n_rows * hkv * dh) * 2 + bt.numel() * 4 + SLOTS * 4,
+                  n_rows * hq * 4 * dh, chunked["paged_decode_attention"],
+                  name="paged_decode_attention",
+                  source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                  replaces="src/repro/models/attention.py:177")
+    finish_records(recs)
+    for rec in recs:
+        check(rec["launches"] > 0, f"{rec['name']} {rec['shape']}: not launched at TP = 2")
+    return recs
+
+
 def main() -> None:
     try:
         import torch
@@ -6831,6 +7201,21 @@ def main() -> None:
         import repro_torch  # noqa: F401
     except ImportError as e:
         fail(f"the port is not importable from {ROOT}/src: {e}")
+    if sys.argv[1:] == ["tp"]:  # the tp phase alone: no result lines
+        try:
+            phase_device()
+            phase_build()
+            from repro_torch.launch import serve
+            from repro_torch.training import data as data_mod
+
+            pad_to = serve.trace_pad_to(data_mod.PAPER_PROFILES["llama_humaneval"],
+                                        N_REQUESTS, SEED)
+            tp_kernel_records(pad_to, phase_tp(pad_to))
+        except Exception:
+            traceback.print_exc()
+            fail("the tp phase failed")
+        print("[tp] the tp phase alone passed", flush=True)
+        return
     try:
         gpu = phase_device()
         phase_build()
@@ -6860,6 +7245,7 @@ def main() -> None:
         phase_audit(model, params, gpu)
         del model, params
         torch.cuda.empty_cache()
+        records += tp_kernel_records(pad_to, phase_tp(pad_to))
         phase_train()
         hstu_counts, hstu_f32_counts = phase_hstu()
         ssm_counts, ssm_f32_counts = phase_ssm(pad_to)

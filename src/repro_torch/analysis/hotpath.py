@@ -35,6 +35,13 @@ HOT_PATHS = frozenset({
     # per pool step while a SpeculativeProfile request is resident
     "repro_torch.core.engine.verify_step",
     "repro_torch.core.layerskip.draft_window",
+    # the tensor-parallel step family (distributed/tp_pool.py): the same
+    # per-token programs on one rank's shard, with the group's reduces
+    "repro_torch.core.engine.tp_prefill",
+    "repro_torch.core.engine.tp_decode_step",
+    "repro_torch.core.engine.tp_mixed_step",
+    "repro_torch.core.engine.tp_verify_step",
+    "repro_torch.core.layerskip.tp_draft_window",
     # the cross-request prefix cache's trie walks run once per admission
     # (match / insert) and inside the out-of-blocks back-pressure path
     # (reclaim): host code on the admission hot path, guarded against host

@@ -38,6 +38,15 @@ reference's ``lax.scan`` decode): a prefill, then one static decode step
 that on a CUDA device is captured as a CUDA graph and replayed once a token,
 with one host sync at the end.
 
+The tensor-parallel step family (``tp_prefill``, ``tp_decode_step``,
+``tp_mixed_step``, ``tp_verify_step``; ``distributed/tp_pool.py``) has the
+same signatures and runs one rank's share of a step: the model is the
+rank's (its widths, its group), the params its shard, the cache its KV
+heads. Each runs the step above, whose forward reduces after every
+row-parallel linear, and then gathers the rank's vocab slice of the logits
+whole (``layers.gather_vocab``), after ``_last_logits`` has picked the
+positions that are read.
+
 Everything else runs eagerly under ``torch.inference_mode()``. LayerSkip's draft
 and batch engine live in core/layerskip.py on these primitives.
 """
@@ -50,6 +59,7 @@ import torch
 from repro_torch.analysis.hotpath import hot_path
 from repro_torch.core import graphs, kv_cache, prng, profiles, sampling
 from repro_torch.kernels import counts
+from repro_torch.models import layers as L
 from repro_torch.models.registry import Model
 
 
@@ -115,6 +125,46 @@ def verify_step(model: Model, params, cache, tokens: torch.Tensor, t_new: torch.
     logits, cache, _ = model.forward(params, {"tokens": tokens, "t_new": t_new},
                                      cache=cache, mode="verify")
     return logits, cache
+
+
+# --------------------------------------------------------------------------
+# the tensor-parallel step family (distributed/tp_pool.py)
+# --------------------------------------------------------------------------
+
+@torch.inference_mode()
+def tp_prefill(model: Model, params, tokens: torch.Tensor, prompt_lengths: torch.Tensor,
+               max_len: int, impl: str = "auto",
+               extra: Optional[Dict[str, torch.Tensor]] = None):
+    """``prefill`` on one rank: the fresh cache holds the rank's KV heads,
+    and the last positions' logits are gathered over the vocab after
+    ``_last_logits`` picked them (never the [B, T, V] block)."""
+    logits, cache = prefill(model, params, tokens, prompt_lengths, max_len, impl, extra)
+    return L.gather_vocab(logits, model.tp), cache
+
+
+@torch.inference_mode()
+def tp_decode_step(model: Model, params, cache, token: torch.Tensor, impl: str = "auto"):
+    """``decode_step`` on one rank, the logits gathered over the vocab."""
+    logits, cache = decode_step(model, params, cache, token, impl)
+    return L.gather_vocab(logits, model.tp), cache
+
+
+@torch.inference_mode()
+def tp_mixed_step(model: Model, params, cache, tokens: torch.Tensor, t_new: torch.Tensor,
+                  lengths: torch.Tensor):
+    """``mixed_step`` on one rank, each slot's last-lane logits gathered
+    over the vocab."""
+    logits, cache = mixed_step(model, params, cache, tokens, t_new, lengths)
+    return L.gather_vocab(logits, model.tp), cache
+
+
+@torch.inference_mode()
+def tp_verify_step(model: Model, params, cache, tokens: torch.Tensor, t_new: torch.Tensor,
+                   lengths: torch.Tensor):
+    """``verify_step`` on one rank, every lane's logits gathered over the
+    vocab."""
+    logits, cache = verify_step(model, params, cache, tokens, t_new, lengths)
+    return L.gather_vocab(logits, model.tp), cache
 
 
 # --------------------------------------------------------------------------

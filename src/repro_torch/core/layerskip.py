@@ -18,8 +18,11 @@ caches roll back this way: the port's dense and VLM families.
 
 :func:`draft_window` + ``engine.verify_step`` are the serving pool's
 speculative step (core/scheduler.py); :func:`layerskip_generate` is the
-batch-at-a-time engine on the same primitives (per-row commit). The
-tensor-parallel draft waits for the port's ``distributed/``.
+batch-at-a-time engine on the same primitives (per-row commit).
+:func:`tp_draft_window` is the draft on one tensor-parallel rank
+(``distributed/tp_pool.py``): each draft's logits are gathered over the
+vocab before the argmax, and rank 0's window is broadcast, so every rank
+verifies and commits the same window.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kv_cache
+from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.models.registry import Model
 
@@ -47,14 +51,17 @@ def early_exit_forward(
     mode: str = "decode",
     advance: Optional[torch.Tensor] = None,
     impl: str = "auto",
+    tp=None,
 ):
     """The forward through the first ``n_layers`` layers only, then the
     final norm and the shared LM head — the LayerSkip draft model, on a
     contiguous or a paged cache. ``advance`` [B] replaces each slot's length
     bump (default the token count): the pool's draft loop freezes slots whose
-    window is spent by advancing them 0. Returns (logits, new cache)."""
+    window is spent by advancing them 0. ``tp`` runs one rank's shard (its
+    vocab slice of the logits). Returns (logits, new cache)."""
     logits, new_cache, _ = transformer.forward(cfg, params, batch, cache=cache, mode=mode,
-                                               impl=impl, n_layers=n_layers, advance=advance)
+                                               impl=impl, n_layers=n_layers, advance=advance,
+                                               tp=tp)
     return logits, new_cache
 
 
@@ -70,20 +77,35 @@ def draft_window(model: Model, exit_layer: int, n_draft: int, params, cache,
     host's write position of every slot, pinned in place first. Returns
     ``(window [B, n_draft + 1], cache)``: lane 0 is ``token0``, lanes
     1..n_draft the drafts (a frozen slot repeats its token; those lanes are
-    never verified or committed)."""
-    cfg = model.config
+    never verified or committed). A tensor-parallel rank's model (``tp``)
+    drafts on its shard and gathers each draft's logits over the vocab."""
+    cfg, tp = model.config, getattr(model, "tp", None)
     cache["lengths"].copy_(lengths)
     token, lanes = token0, [token0]
     for i in range(n_draft):
         live = i < n_live  # [B]
         logits, cache = early_exit_forward(
             cfg, params, {"tokens": token[:, None]}, n_layers=exit_layer, cache=cache,
-            mode="decode", advance=live.to(torch.int32), impl=impl,
+            mode="decode", advance=live.to(torch.int32), impl=impl, tp=tp,
         )
+        if tp is not None:
+            logits = L.gather_vocab(logits, tp)
         nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
         token = torch.where(live, nxt, token)
         lanes.append(token)
     return torch.stack(lanes, dim=1), cache
+
+
+@torch.inference_mode()
+def tp_draft_window(model: Model, exit_layer: int, n_draft: int, params, cache,
+                    token0: torch.Tensor, n_live: torch.Tensor, lengths: torch.Tensor,
+                    impl: str = "auto"):
+    """``draft_window`` on one tensor-parallel rank: the drafts come from
+    the vocab-gathered logits, and rank 0's window (host state: the
+    scheduler commits against it) is broadcast to every rank."""
+    window, cache = draft_window(model, exit_layer, n_draft, params, cache, token0, n_live,
+                                 lengths, impl)
+    return model.tp.broadcast(window), cache
 
 
 def layerskip_generate(

@@ -1,5 +1,8 @@
 """ReplicaRouter: data-parallel scheduler pools behind one shared queue — the
-port of ``repro/core/router.py`` (without the tensor-parallel fleet).
+port of ``repro/core/router.py``. The DP x TP fleet (``tp > 1``: each
+replica a tensor-parallel pool on its own device group,
+``sharding.replica_devices(group_size=tp)``) is refused by name: ROADMAP
+Queue 1, step 6.
 
 The router owns N ``Scheduler`` pools of one geometry (contiguous or paged,
 chunked or not) and places each arrived request on one of them:
@@ -43,18 +46,13 @@ from repro_torch.analysis.hotpath import hot_path
 from repro_torch.core import prng
 from repro_torch.core.kv_cache import _map, leaves
 from repro_torch.core.scheduler import Scheduler, ServeRequest, age_waiting
+from repro_torch.distributed import sharding, tp_pool
 
 
 def _replica_devices(n: int, devices: Optional[Sequence[Any]] = None) -> List[torch.device]:
-    """One device per replica, round-robin over ``devices`` (default: every
-    CUDA card), wrapping when replicas outnumber them: replicas that share
-    a device share its time."""
-    if devices is None:
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    devs = [torch.device(d) for d in devices]
-    if not devs:
-        raise ValueError("no devices to place replicas on")
-    return [devs[i % len(devs)] for i in range(n)]
+    """One device per replica: ``sharding.replica_devices`` over ``devices``
+    (default: every CUDA card), as torch devices."""
+    return [torch.device(d) for d in sharding.replica_devices(n, devices)]
 
 
 def _place_replica(tree: Any, device: torch.device) -> Any:
@@ -103,9 +101,7 @@ class ReplicaRouter:
         if replicas < 1:
             raise ValueError(f"need at least one replica, got {replicas}")
         if tp is not None and tp > 1:
-            raise ValueError(
-                "tensor-parallel replicas (tp > 1) are not ported yet: ROADMAP Queue 1, "
-                "step 5 (distributed/)")
+            raise ValueError(f"tensor-parallel replicas (tp > 1): {tp_pool.ROADMAP_ITEM}")
         if isinstance(devices, str) and devices == "auto":
             if not torch.cuda.is_available():
                 raise RuntimeError(

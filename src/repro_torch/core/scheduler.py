@@ -88,7 +88,17 @@ waits on that event (the step's one sync) and commits on the host.
 than a plain one: the verify window's write has a static shape
 (``attention.window_addresses``). Admissions may copy synchronously.
 
-Not ported yet: the tensor-parallel pool (``tp_mesh``).
+``tp`` (a ``distributed.tp_pool.TPContext``) makes the scheduler one
+rank of a tensor-parallel pool: the model, params and device are the
+rank's (its widths, its shard, its card), and every prefill, decode,
+mixed, verify and draft call goes through the one dispatch seam
+``self._steps`` — the TP step family here, the single-device one
+otherwise. Every rank runs the same scheduler on the same trace; rank 0
+broadcasts each sampled token tensor (and the clock's readings), and every
+rank commits those, so the host state stays the same on every rank by
+construction, never by float sums agreeing. A TP step syncs the host (the
+group's collectives wait), so ``step_begin``'s no-sync contract holds for
+single-device steps only.
 """
 from __future__ import annotations
 
@@ -107,6 +117,16 @@ from repro_torch.core.prefill import ChunkCursor, ChunkedPrefill
 from repro_torch.core.prefix_cache import PrefixCache
 from repro_torch.core.slot_pool import BlockPool, SlotPool
 from repro_torch.models.registry import Model
+
+
+class _SingleDevice:
+    """The single-device step family, read from its modules at each call."""
+
+    prefill = property(lambda self: engine.prefill)
+    decode_step = property(lambda self: engine.decode_step)
+    mixed_step = property(lambda self: engine.mixed_step)
+    verify_step = property(lambda self: engine.verify_step)
+    draft_window = property(lambda self: layerskip.draft_window)
 
 
 @dataclass
@@ -291,7 +311,10 @@ class Scheduler:
     once per step; the step's one device-to-host copy is its sampled tokens
     (``_sample`` / ``_sample_window``). ``base_key`` (default
     ``PRNGKey(0)``) seeds every request's sampling keys, which are folded
-    on the host. ``replica_id`` names the pool in a router's fleet."""
+    on the host. ``replica_id`` names the pool in a router's fleet. With
+    ``tp`` (a rank's ``TPContext``) the rank's local model, shard and device
+    replace ``model``, ``params`` and ``device`` (``device`` must then be
+    None)."""
 
     def __init__(
         self,
@@ -301,7 +324,7 @@ class Scheduler:
         slots: int,
         pad_to: int,
         max_new_cap: int,
-        device,
+        device=None,
         eos_id: Optional[int] = None,
         policy: str = "continuous",
         paged: bool = False,
@@ -314,9 +337,15 @@ class Scheduler:
         base_key: Optional[torch.Tensor] = None,
         clock=time.perf_counter,
         replica_id: int = 0,
+        tp=None,
     ):
         if policy not in ("continuous", "fixed"):
             raise ValueError(f"unknown policy {policy!r}")
+        if tp is not None and device is not None:
+            raise ValueError("tp and device are mutually exclusive: a TP pool's rank is "
+                             "placed by its group")
+        if tp is None and device is None:
+            raise ValueError("a Scheduler needs a device (or a tp context)")
         if chunked and not paged:
             raise ValueError("chunked prefill requires the paged block-pool")
         if chunked and policy != "continuous":
@@ -324,6 +353,15 @@ class Scheduler:
         if prefix_cache and not chunked:
             # only a chunk cursor starts a prompt past position 0
             raise ValueError("prefix_cache requires chunked prefill")
+        # the ONE dispatch seam: every prefill / decode / mixed / verify /
+        # draft call goes through ``self._steps``
+        self.tp = tp
+        if tp is not None:
+            model, params, device = tp.model, tp.params, tp.device
+            clock = tp.group.shared_clock(clock)
+            self._steps = tp.executables()
+        else:
+            self._steps = _SingleDevice()
         self.model = model
         self.params = params
         self.slots = slots
@@ -521,8 +559,8 @@ class Scheduler:
         slot = self._acquire()
         tokens, length = self._pad_prompt(req.prompt)
         n_prompt = min(len(req.prompt), self.pad_to)
-        logits, row = engine.prefill(self.model, self.params, tokens, length,
-                                     self.max_len, extra=self._request_extra(req))
+        logits, row = self._steps.prefill(self.model, self.params, tokens, length,
+                                          self.max_len, extra=self._request_extra(req))
         if self.paged:
             # assign pops the free-list directly: reclaim any shortfall from
             # the prefix cache first (the gate counted those blocks as free)
@@ -537,12 +575,12 @@ class Scheduler:
             self.pool.ensure(slot, n_prompt)
         self.n_prefills += 1
         if req.temperature <= 0.0:
-            first = int(sampling.greedy(logits)[0])  # the admission's one sync
+            first = int(self._agree(sampling.greedy(logits))[0])  # the admission's one sync
         else:  # the (rid, stream 0, token 0) key, as every later token's
             keys = sampling.slot_step_keys(self.base_key, [req.rid], [0])
             knobs = torch.tensor([[req.temperature], [req.top_p]]).to(self.device)
-            first = int(sampling.sample_slots(logits, torch.from_numpy(keys).to(self.device),
-                                              knobs[0], knobs[1])[0])
+            first = int(self._agree(sampling.sample_slots(
+                logits, torch.from_numpy(keys).to(self.device), knobs[0], knobs[1]))[0])
         req.t_admit, req.t_first = now, self._now()
         req.tokens.append(first)
         req.t_tokens.append(req.t_first)
@@ -607,8 +645,8 @@ class Scheduler:
         extra = self._request_extra(req)
         if prof.prefix_shared:
             tokens, length = self._pad_prompt(prompts[0])
-            logits, row = engine.prefill(self.model, self.params, tokens, length,
-                                         self.max_len, extra=extra)
+            logits, row = self._steps.prefill(self.model, self.params, tokens, length,
+                                              self.max_len, extra=extra)
             self.n_prefills += 1
             self.pool.assign(slots[0], row, n_prompt)
             for s in slots[1:]:
@@ -621,8 +659,8 @@ class Scheduler:
             rows = []
             for s, p in zip(slots, prompts):
                 tokens, length = self._pad_prompt(p)
-                logits, row = engine.prefill(self.model, self.params, tokens, length,
-                                             self.max_len, extra=extra)
+                logits, row = self._steps.prefill(self.model, self.params, tokens, length,
+                                                  self.max_len, extra=extra)
                 self.n_prefills += 1
                 self.pool.assign(s, row, n_prompt)
                 rows.append(logits)
@@ -884,6 +922,11 @@ class Scheduler:
                     break  # this slot WAS the victim; it queues
 
     # ---- decode ----------------------------------------------------------
+    def _agree(self, toks: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``toks`` on every rank of a TP pool (one broadcast): the
+        tokens every rank commits. ``toks`` itself on one device."""
+        return toks if self.tp is None else self.tp.group.broadcast(toks)
+
     @hot_path
     def _sample(self, logits: torch.Tensor):
         """Launch per-slot sampling (an all-greedy pool takes the argmax
@@ -897,7 +940,7 @@ class Scheduler:
             knobs = self._staging.put("knobs", np.stack([self._temp, self._top_p]))
             toks = sampling.sample_slots(logits, self._staging.put("keys", keys), knobs[0],
                                          knobs[1])
-        return self._staging.fetch("tokens", toks)
+        return self._staging.fetch("tokens", self._agree(toks))
 
     def _record_step_metrics(self) -> None:
         self.n_decode_steps += 1
@@ -993,8 +1036,8 @@ class Scheduler:
             if not self.active and not self.groups:
                 return None  # everything preempted back to the queue
         self.pool.sync(self._staging)
-        logits, self.pool.cache = engine.decode_step(self.model, self.params, self.pool.cache,
-                                                     self._staging.put("token", self._token))
+        logits, self.pool.cache = self._steps.decode_step(
+            self.model, self.params, self.pool.cache, self._staging.put("token", self._token))
         return ("decode", logits, self._sample(logits))
 
     @hot_path
@@ -1047,7 +1090,7 @@ class Scheduler:
         for slot, cur in self.chunk_mgr.cursors.items():
             base[slot] = cur.pos
         self.pool.sync(self._staging)
-        logits, self.pool.cache = engine.mixed_step(
+        logits, self.pool.cache = self._steps.mixed_step(
             self.model, self.params, self.pool.cache,
             self._staging.put("plan_tokens", plan.tokens), self._staging.put("t_new", plan.t_new),
             self._staging.put("base", base),
@@ -1145,10 +1188,10 @@ class Scheduler:
         # token, drafts a slot, write position and width: one copy
         host = np.stack([self._token, np.maximum(w - 1, 0), base, w]).astype(np.int32)
         token0, n_live, lengths, t_new = self._staging.put("window_plan", host)
-        window, cache = layerskip.draft_window(self.model, e_step, k_step, self.params,
-                                               self.pool.cache, token0, n_live, lengths)
-        logits, self.pool.cache = engine.verify_step(self.model, self.params, cache, window,
-                                                     t_new, lengths)
+        window, cache = self._steps.draft_window(self.model, e_step, k_step, self.params,
+                                                 self.pool.cache, token0, n_live, lengths)
+        logits, self.pool.cache = self._steps.verify_step(self.model, self.params, cache,
+                                                          window, t_new, lengths)
         return ("spec", w, self._sample_window(logits, window))
 
     @hot_path
@@ -1182,7 +1225,7 @@ class Scheduler:
             knobs = self._staging.put("knobs", np.stack([self._temp, self._top_p]))
             samples = sampling.sample_window(logits, self._staging.put("window_keys", keys),
                                              knobs[0], knobs[1])
-        return self._staging.fetch("window", torch.stack([samples, window]))
+        return self._staging.fetch("window", torch.stack([self._agree(samples), window]))
 
     def _commit_window(self, samples: np.ndarray, win: np.ndarray, w: np.ndarray,
                        now: float) -> List[ServeRequest]:
@@ -1240,7 +1283,7 @@ class Scheduler:
         if out.done is not None:
             parts.append(out.done.to(torch.int64))
         # the group's one sync a step, through the staged copy
-        host = self._staging.wait(self._staging.fetch("group", torch.cat(parts)))
+        host = self._staging.wait(self._staging.fetch("group", self._agree(torch.cat(parts))))
         feed, rest = host[:s_n], host[s_n:]
         if out.perm is not None:
             self._apply_group_perm(g, rest[:s_n])

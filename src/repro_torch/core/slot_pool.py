@@ -20,6 +20,11 @@ cross-request prefix cache (``core/prefix_cache.py``) holds blocks of its
 own (``cache_ref`` / ``cache_unref``) that admissions ``adopt``.
 ``truncate`` releases the table suffix a rejected speculative window leaves
 behind.
+
+A tensor-parallel rank builds its pool from its rank-local model
+(``distributed/tp_pool.py``): the K/V tensors hold the rank's KV heads,
+while the host state, the block tables and ``lengths`` are whole and the
+same on every rank (``sharding.cache_specs_tp``'s head split).
 """
 from __future__ import annotations
 

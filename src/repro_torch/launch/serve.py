@@ -26,7 +26,12 @@ this geometry behind one shared queue (``core/router.py``), every replica
 on the one card (or round-robin over the cards when there are several; on
 the CPU with ``--device cpu``), and prints the fleet's spills, requeues,
 busy-time rate and one line per replica. ``--boost-after S`` ages waiting
-requests: one priority a full ``S`` seconds waited. Weights are random, drawn from a
+requests: one priority a full ``S`` seconds waited. ``--tp N`` serves one pool
+as N tensor-parallel ranks (``distributed/tp_pool.py``; the dense family):
+N processes, each holding its shard of the params and of the KV pool, on
+the first N cards, on the cards ``--tp-devices`` lists (``cuda:0,cuda:0``
+puts two ranks on one card) or, with ``--device cpu``, all on the CPU;
+rank 0 prints, with the KV bytes each rank reserves. Weights are random, drawn from a
 ``torch.Generator`` seeded with ``--seed``; on the card the model's kernels
 (attention and RMSNorm for ``llama3.2-1b`` and the MoE models, the latent
 attention too for ``deepseek-v2-236b``, the SSD scan and RMSNorm for
@@ -54,6 +59,11 @@ depth of a model too large for one card.
       --smoke --device cpu --paged --chunked --prefix-cache --shared-prefix 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --replicas 2 --boost-after 0.05
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --smoke --device cpu --tp 2 --paged --chunked --num-blocks 40 --prefill-budget 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --tp 2 --tp-devices cuda:0,cuda:0 --paged --chunked --num-blocks 48 \
+      --prefill-budget 64
 
 Reported per request: TTFT (arrival -> first token), TPOT (mean inter-
 token), e2e latency; aggregate: tokens/s, mean slot-occupancy and the
@@ -65,7 +75,8 @@ acceptance and the tokens committed a slot-step; runs with groups the
 group admissions, row gathers, table permutations and copy-on-write
 copies; prefix-cache runs the hits, prompt tokens skipped and cached
 blocks; replica runs the fleet's spills, requeues, busy-time rate and
-each replica's line.
+each replica's line; TP runs the backend, the KV bytes a rank reserves
+against the whole pool's and the reduces a step.
 """
 from __future__ import annotations
 
@@ -81,6 +92,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import engine, prng, profiles, sampling
 from repro_torch.core.kv_cache import leaves
 from repro_torch.core.scheduler import Scheduler, ServeRequest
+from repro_torch.distributed import tp_pool
 from repro_torch.models import get_model
 from repro_torch.training import data as data_mod
 
@@ -408,7 +420,7 @@ def run_scheduler(
     chunked: bool = False, prefill_budget: Optional[int] = None,
     prefix_cache: bool = False, priority_boost_after: Optional[float] = None,
     seed: int = 0, replicas: Optional[int] = None, devices="auto",
-    return_requests: bool = False,
+    return_requests: bool = False, tp=None,
 ):
     """Serve one trace under the serve key ``PRNGKey(seed)``; returns
     metrics (plus the scheduler's counters). Paged runs report the bytes
@@ -422,7 +434,16 @@ def run_scheduler(
     copy-on-write copies); prefix-cache runs the trie's counters; aged runs
     the boosts granted. ``replicas=N`` serves through a ``ReplicaRouter`` of
     N pools of this geometry (``_run_router``; on a CPU ``device`` every
-    replica is on the CPU, else ``devices`` places them)."""
+    replica is on the CPU, else ``devices`` places them). ``tp`` (a rank's
+    ``TPContext``; ``device`` None) serves as that rank of a tensor-parallel
+    pool, every rank calling with the same trace: the metrics are the same
+    on every rank, and add ``kv_reserved_per_device_bytes`` (the largest
+    rank's pool; ``kv_reserved_bytes`` is the whole pool's), the backend, the
+    reduces the run made and their host seconds."""
+    if tp is not None:
+        if replicas is not None:
+            raise ValueError(f"tensor-parallel replicas: {tp_pool.ROADMAP_ITEM}")
+        device = tp.device
     device = torch.device(device)
     if replicas is not None:
         if isinstance(devices, str) and devices == "auto" and device.type != "cuda":
@@ -437,11 +458,13 @@ def run_scheduler(
         )
     sched = Scheduler(
         model, params, slots=slots, pad_to=pad_to, max_new_cap=max_new_cap,
-        device=device, eos_id=eos_id, policy=policy, paged=paged,
+        device=None if tp is not None else device, eos_id=eos_id, policy=policy, paged=paged,
         block_size=block_size, num_blocks=num_blocks, chunked=chunked,
         prefill_budget=prefill_budget, prefix_cache=prefix_cache,
-        priority_boost_after=priority_boost_after, base_key=prng.PRNGKey(seed),
+        priority_boost_after=priority_boost_after, base_key=prng.PRNGKey(seed), tp=tp,
     )
+    if tp is not None:
+        n_red0, red_s0 = tp.group.n_reduces, tp.group.reduce_s
     _sync(device)
     t0 = time.perf_counter()
     done = sched.run(requests)
@@ -449,12 +472,14 @@ def run_scheduler(
     wall = time.perf_counter() - t0
     m = serve_metrics(done, wall)
     stalls = np.asarray(sched.admission_stalls, np.float64)
+    # a TP rank's pool holds its KV heads: the whole pool's bytes count them all
+    reserved = sched.pool.reserved_bytes if tp is None else tp.whole_bytes(sched.pool.cache)
     m.update(
         wall_s=wall,
         decode_steps=sched.n_decode_steps,
         prefills=sched.n_prefills,
         mean_slot_occupancy=sched.mean_occupancy,
-        kv_reserved_bytes=sched.pool.reserved_bytes,
+        kv_reserved_bytes=reserved,
         n_admission_stalls=len(stalls),
         admission_stall_p50_ms=(
             float(np.percentile(stalls, 50)) * 1e3 if len(stalls) else 0.0
@@ -482,7 +507,7 @@ def run_scheduler(
         )
     if paged:
         pool = sched.pool
-        token_bytes = pool.reserved_bytes / max(pool.num_blocks * pool.block_size, 1)
+        token_bytes = reserved / max(pool.num_blocks * pool.block_size, 1)
         m.update(
             n_preemptions=sched.n_preemptions,
             mean_block_occupancy=sched.mean_block_occupancy,
@@ -511,6 +536,14 @@ def run_scheduler(
         )
     if priority_boost_after is not None:
         m.update(priority_boosts=sched.n_priority_boosts)
+    if tp is not None:
+        m.update(
+            tp=tp.size, backend=tp.group.backend,
+            kv_reserved_per_device_bytes=tp_pool.max_per_device_bytes(sched.pool.cache,
+                                                                      tp.group),
+            param_bytes_per_device=tp_pool.max_per_device_bytes(tp.params, tp.group),
+            reduces=tp.group.n_reduces - n_red0, reduce_s=tp.group.reduce_s - red_s0,
+        )
     if return_requests:
         return m, done
     return m
@@ -608,7 +641,8 @@ def warmup(model, params, *, slots: int, pad_to: int, max_new_cap: int, device,
            paged: bool = False, block_size: int = 16, num_blocks: Optional[int] = None,
            chunked: bool = False, prefill_budget: Optional[int] = None,
            prefix_cache: bool = False, profile_mix: bool = False, n_beams: int = 2,
-           speculative: bool = False, exit_layer: int = 1, n_draft: int = 4) -> None:
+           speculative: bool = False, exit_layer: int = 1, n_draft: int = 4,
+           tp=None) -> None:
     """Run tiny requests through a throwaway scheduler of the serving
     geometry before any timed run: builds and loads the kernel library on
     the card, and brings up the matmul libraries, at the serving shapes.
@@ -616,11 +650,13 @@ def warmup(model, params, *, slots: int, pad_to: int, max_new_cap: int, device,
     or the row gather) and a contrastive pair; ``speculative`` a sampled
     speculative request long enough for one full draft/verify step at
     (``exit_layer``, ``n_draft``); ``prefix_cache`` serves the first prompt
-    again, so the second run adopts its blocks."""
+    again, so the second run adopts its blocks. ``tp`` warms a rank of a
+    tensor-parallel pool (every rank calls it; ``device`` is then unread)."""
     sched = Scheduler(model, params, slots=slots, pad_to=pad_to,
-                      max_new_cap=max_new_cap, device=device, paged=paged,
-                      block_size=block_size, num_blocks=num_blocks, chunked=chunked,
-                      prefill_budget=prefill_budget, prefix_cache=prefix_cache)
+                      max_new_cap=max_new_cap, device=None if tp is not None else device,
+                      paged=paged, block_size=block_size, num_blocks=num_blocks,
+                      chunked=chunked, prefill_budget=prefill_budget,
+                      prefix_cache=prefix_cache, tp=tp)
     rng = np.random.default_rng(0)
     full_prompt = rng.integers(0, 8, size=pad_to)
     reqs = [
@@ -640,7 +676,7 @@ def warmup(model, params, *, slots: int, pad_to: int, max_new_cap: int, device,
     sched.run(reqs)
     if prefix_cache:  # rid 0's blocks are in the trie now: its twin adopts them
         sched.run([ServeRequest(rid=5, prompt=full_prompt, max_new=2)])
-    _sync(torch.device(device))
+    _sync(sched.device)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -741,6 +777,13 @@ def main(argv=None):
                     choices=sorted(data_mod.PAPER_PROFILES))
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when there is no card) or cpu")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="serve one pool as this many tensor-parallel ranks (the dense "
+                         "family): on the first that many cards, on --tp-devices, or all on "
+                         "the CPU with --device cpu")
+    ap.add_argument("--tp-devices", default=None, metavar="DEVS",
+                    help="comma list of the ranks' devices, e.g. cuda:0,cuda:0 (two ranks on "
+                         "one card)")
     args = ap.parse_args(argv)
     if args.chunked and not args.paged:
         ap.error("--chunked requires --paged (chunks append into KV blocks)")
@@ -750,10 +793,31 @@ def main(argv=None):
     if args.mix_classes and (args.profile_mix or args.shared_prefix):
         ap.error("--mix-classes is its own trace generator; drop --profile-mix / "
                  "--shared-prefix")
+    if args.tp is not None and args.replicas is not None:
+        ap.error(f"--tp with --replicas: {tp_pool.ROADMAP_ITEM}")
+    if args.tp is None:
+        return _serve(args)
+    if args.tp_devices:
+        devices = args.tp_devices.split(",")
+    else:
+        devices = None if resolve_device(args.device).type == "cuda" else [args.device] * args.tp
+    return tp_pool.spawn(_serve_rank, args.tp, args, devices=devices)[0]
 
-    device = resolve_device(args.device)
+
+def _serve_rank(group, args):
+    return _serve(args, group)
+
+
+def _serve(args, group=None):
+    """Build, warm and serve per ``args``; with ``group`` as that rank of a
+    tensor-parallel pool, rank 0 printing. Returns the metrics."""
+    device = group.device if group is not None else resolve_device(args.device)
     cfg, model, params = build_model(args.arch, smoke=args.smoke, seed=args.seed,
                                      device=device, n_layers=args.n_layers)
+    tp = None
+    if group is not None:
+        tp = tp_pool.TPContext(model, params, group)
+        model, params = tp.model, tp.params
     prof = data_mod.PAPER_PROFILES[args.profile]
     mask_offset = None
     if cfg.vlm is not None:  # a VLM's contrastive requests draw image tokens
@@ -799,7 +863,7 @@ def main(argv=None):
                max_new_cap=args.max_new, device=device,
                profile_mix=bool({"beam", "contrastive", "cfg"} & set(kinds)),
                n_beams=args.n_beams, speculative="speculative" in kinds,
-               exit_layer=args.exit_layer, n_draft=args.n_draft, **geometry)
+               exit_layer=args.exit_layer, n_draft=args.n_draft, tp=tp, **geometry)
     except NotImplementedError as e:  # the paged pool refuses the family
         if not args.paged:
             raise
@@ -808,12 +872,15 @@ def main(argv=None):
         model, params, reqs, slots=args.batch_slots, pad_to=pad_to,
         max_new_cap=args.max_new, device=device, eos_id=args.eos_id,
         policy=args.policy, priority_boost_after=args.boost_after, seed=args.seed,
-        replicas=args.replicas, **geometry,
+        replicas=args.replicas, tp=tp, **geometry,
     )
+    if group is not None and group.rank != 0:
+        return m
     mode = args.policy + ("+chunked" if args.chunked else "+paged" if args.paged else "") + (
         "+pfx" if args.prefix_cache else "") + ("+mix" if args.profile_mix else "") + (
         "+classes" if args.mix_classes else "") + (
-        f"+x{args.replicas}" if args.replicas is not None else "")
+        f"+x{args.replicas}" if args.replicas is not None else "") + (
+        f"+tp{args.tp}" if args.tp is not None else "")
     print(f"[serve/{mode}] {m['n_requests']} requests in "
           f"{m['wall_s']:.2f}s | {m['tokens_per_s']:.1f} tok/s | "
           f"occupancy={m['mean_slot_occupancy']:.2f} | "
@@ -854,6 +921,13 @@ def main(argv=None):
                   f"tpot p50={row['tpot_p50_ms']:.1f}ms p99={row['tpot_p99_ms']:.1f}ms")
     if args.boost_after is not None:
         print(f"[serve/{mode}] priority boosts={m['priority_boosts']}")
+    if tp is not None:
+        print(f"[serve/{mode}] tp={m['tp']} on {args.tp_devices or device} ({m['backend']}) | "
+              f"kv reserved/rank={m['kv_reserved_per_device_bytes'] / 1e6:.1f}MB of "
+              f"{m['kv_reserved_bytes'] / 1e6:.1f}MB "
+              f"({m['kv_reserved_per_device_bytes'] / m['kv_reserved_bytes']:.3f}x) | "
+              f"params/rank={m['param_bytes_per_device'] / 1e6:.1f}MB | reduces="
+              f"{m['reduces']} ({m['reduce_s'] * 1e3:.1f} ms host)")
     if args.replicas is not None:
         print(f"[serve/{mode}] spills={m['spills']} | requeues={m['requeues']} | "
               f"steps max={m['steps_max']} | aggregate={m['aggregate_tokens_per_s']:.1f} "

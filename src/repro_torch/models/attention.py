@@ -62,8 +62,12 @@ tokens, token t at row t % S (``write_prefill``); decode writes at
 decode take a window; extend, verify, mixed and paged caches refuse one,
 as the reference does, before any write.
 
-Not ported yet: the sequence-parallel decode (``SP_MESH``), which needs
-more than one card.
+Under tensor parallelism a rank's config carries its heads (``n_heads /
+tp``, ``n_kv_heads / tp``; ``distributed/tp_pool.py``) and its params the
+matching q/k/v columns (biases included) and ``wo`` rows: every mode runs
+unchanged on the rank's heads, and the caller reduces ``wo``'s partial
+output. Not ported: the sequence-parallel decode (``SP_MESH``; ROADMAP
+Queue 1, step 6).
 """
 from __future__ import annotations
 

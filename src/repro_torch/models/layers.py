@@ -7,6 +7,13 @@ the JAX layout: ``dense`` weights are ``[d_in, d_out]`` applied as
 Param dtype follows ``cfg.dtype``; norms and RoPE run in f32, the tied
 unembed in f32.
 
+Under tensor parallelism (``tp``, a rank's ``TPGroup``) the embedding and
+the LM head are vocab-split (each rank holds ``V / tp`` rows or columns):
+``embed`` looks up the rank's rows and reduces, ``gather_vocab`` puts each
+rank's logits slice in place and reduces; ``tp_reduce`` is the reduce point
+after a row-parallel linear. Each sum has one nonzero term but for the row
+reduces, so the embedding and the logits come out exact.
+
 Serving keeps an f32 copy of a non-f32 tied table (``table_f32``, see
 ``add_f32_table``); it is not a parameter. Training runs on the
 reference's tree without it (``drop_f32_table``), so the unembed converts
@@ -43,6 +50,13 @@ def dense_init(gen, d_in: int, d_out: int, dtype, device, bias: bool = False):
     return p
 
 
+def tp_reduce(y: torch.Tensor, tp=None) -> torch.Tensor:
+    """The reduce point of a row-parallel linear (``attn/wo``, ``ffn/w2``):
+    the ranks' partial outputs summed, in place; ``y`` itself without a
+    group."""
+    return y if tp is None else tp.all_reduce(y)
+
+
 def dense(p, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """``x @ w (+ b)``; an AutoQuant'd linear (no ``"w"``) goes through
     ``core.quantization.qdense``, whose int8 GEMMs dispatch on ``impl``."""
@@ -58,8 +72,34 @@ def embedding_init(gen, vocab: int, d: int, dtype, device):
     return {"table": _normal(gen, (vocab, d), device).to(dtype)}
 
 
-def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+def embed(p, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens``. Vocab-parallel under a group of
+    more than one rank: the rank's table holds rows ``[rank * n, (rank + 1)
+    * n)``; tokens outside them look up zeros, and the reduce sums the one
+    rank's row with zeros, exactly."""
+    table = p["table"]
+    if tp is None or tp.size == 1:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens.long() - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    x = torch.where(mine[..., None], table[torch.clamp(local, 0, n - 1)],
+                    torch.zeros((), dtype=table.dtype, device=table.device))
+    return tp.all_reduce(x)
+
+
+def gather_vocab(logits: torch.Tensor, tp=None) -> torch.Tensor:
+    """The whole vocabulary's logits from each rank's slice [..., V / tp]:
+    each rank writes its slice into a zero-filled [..., V] f32 buffer and
+    the reduce sums them, exactly. Without a group (or with one rank) the
+    logits themselves."""
+    if tp is None or tp.size == 1:
+        return logits
+    n = logits.shape[-1]
+    out = torch.zeros(logits.shape[:-1] + (n * tp.size,), dtype=torch.float32,
+                      device=logits.device)
+    out[..., tp.rank * n:(tp.rank + 1) * n] = logits
+    return tp.all_reduce(out)
 
 
 def add_f32_table(p) -> None:
@@ -94,7 +134,8 @@ def with_f32_table(cfg: ModelConfig, params: dict) -> dict:
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
-    """Tied LM head: logits = x @ table^T in f32 (stable softmax/argmax)."""
+    """Tied LM head: logits = x @ table^T in f32 (stable softmax/argmax);
+    a rank's vocab slice under tensor parallelism (``gather_vocab``)."""
     table = p.get("table_f32", p["table"])
     return x.float() @ table.float().T
 

@@ -1,7 +1,11 @@
 """Model registry: resolves a ModelConfig to its family module and wraps it
 in a uniform ``Model`` handle used by the engine, launcher and tests (the
 counterpart of ``repro/models/registry.py``; the dense, VLM, MoE, MLA + MoE,
-encoder-decoder, Seamless, HSTU, SSM and hybrid families)."""
+encoder-decoder, Seamless, HSTU, SSM and hybrid families).
+
+A tensor-parallel rank's ``Model`` carries its group (``tp``, see
+``distributed/tp_pool.py``): its config has the rank's widths, and its
+forward reduces over the group (the dense family only)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -21,6 +25,7 @@ _FAMILIES = {"dense": transformer, "moe": transformer, "mla_moe": transformer, "
 class Model:
     config: ModelConfig
     module: Any
+    tp: Any = None  # a rank's TPGroup; None on one device
 
     def init(self, gen: torch.Generator, device) -> Any:
         return self.module.init(self.config, gen, device)
@@ -37,8 +42,9 @@ class Model:
         mode: str = "train",
         impl: str = "auto",
     ) -> Tuple[torch.Tensor, Optional[Any], Dict[str, torch.Tensor]]:
+        kw = {} if self.tp is None else {"tp": self.tp}
         return self.module.forward(self.config, params, batch, cache=cache, mode=mode,
-                                   impl=impl)
+                                   impl=impl, **kw)
 
 
 def get_model(cfg: ModelConfig) -> Model:

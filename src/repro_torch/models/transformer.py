@@ -6,6 +6,13 @@ GQA attention, and an MoE FFN (``moe.moe_ffn``, with shared experts) from
 layer ``first_dense_layers`` on, the layers before it dense at
 ``d_ff_dense``.
 
+Under tensor parallelism (``tp``, a rank's group; the dense family only,
+``distributed/tp_pool.py``) the config carries the rank's widths and the
+params its shard: the attention's and the FFN's row-parallel outputs are
+reduced before the residual add their norm fuses, the embedding is
+vocab-parallel, and the logits are the rank's vocab slice (the engine's
+``tp_*`` steps gather them).
+
 ``qkv_bias`` (qwen2.5) adds a bias to the q/k/v projections. ``remat``
 checkpoints each layer in a train forward (``torch.utils.checkpoint``). The
 stacked ``scan_layers`` layout is not ported (``NotImplementedError``); a
@@ -65,22 +72,23 @@ def init_layer(gen, cfg: ModelConfig, layer: int, device):
 def _layer_body(cfg: ModelConfig, p, x: torch.Tensor, h: torch.Tensor, *,
                 positions: torch.Tensor, lengths: Optional[torch.Tensor],
                 cache: Optional[dict], mode: str, impl: str,
-                t_new: Optional[torch.Tensor] = None):
+                t_new: Optional[torch.Tensor] = None, tp=None):
     """One layer from ``x`` and ``h = attn_norm(x)``: returns (x plus the
     attention's output, the FFN's residual delta, the new cache, the MoE
     aux loss or None). The attention's residual add runs in the ffn_norm's
-    kernel."""
+    kernel; under ``tp`` both outputs are reduced over the ranks first."""
     kw = dict(positions=positions, lengths=lengths, cache=cache, mode=mode, impl=impl,
               t_new=t_new)
     if cfg.mla is not None:
         attn_out, new_cache = A.mla_attention(cfg, p["attn"], h, **kw)
     else:
         attn_out, new_cache = A.attention(cfg, p["attn"], h, window=cfg.sliding_window, **kw)
-    x, h = L.add_rmsnorm(p["ffn_norm"], x, attn_out, cfg.rmsnorm_eps, impl=impl)
+    x, h = L.add_rmsnorm(p["ffn_norm"], x, L.tp_reduce(attn_out, tp), cfg.rmsnorm_eps,
+                         impl=impl)
     if "moe" in p:
         delta, aux = M.moe_ffn(cfg, p["moe"], h, impl)
         return x, delta, new_cache, aux
-    return x, L.ffn(p["ffn"], h, impl), new_cache, None
+    return x, L.tp_reduce(L.ffn(p["ffn"], h, impl), tp), new_cache, None
 
 
 def _layer_body_remat(cfg: ModelConfig, p, x: torch.Tensor, h: torch.Tensor, **kw):
@@ -153,6 +161,7 @@ def forward(
     impl: str = "auto",
     n_layers: Optional[int] = None,
     advance: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[dict], dict]:
     """Returns (logits [B,T,V] f32, new_cache, aux dict). Cache buffers are
     updated in place; ``new_cache`` carries the same layer tensors and a
@@ -173,7 +182,8 @@ def forward(
     caches are returned untouched. ``advance`` [B] replaces each slot's
     length bump in decode mode (a frozen draft slot advances 0). ``extend``
     mode (contiguous caches only) writes a window of T tokens per slot at
-    ``lengths`` and advances each slot by T."""
+    ``lengths`` and advances each slot by T. ``tp`` (a rank's group) runs
+    the rank's shard and returns its vocab slice of the logits."""
     check_supported(cfg)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; the stack runs {MODES}")
@@ -206,7 +216,7 @@ def forward(
         shared = {}
 
     layers = params["layers"] if n_layers is None else params["layers"][:n_layers]
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, tp)
     # each layer's FFN residual add runs in the next norm's kernel: the next
     # layer's attn_norm, or the final norm after the last layer run
     norms = [lp["attn_norm"] for lp in layers] + [params["final_norm"]]
@@ -219,7 +229,7 @@ def forward(
             lc = dict(lc, **shared)
         body = _layer_body_remat if cfg.remat and mode == "train" else _layer_body
         x, delta, nlc, aux = body(cfg, lp, x, h, positions=positions, lengths=lengths,
-                                  cache=lc, mode=mode, impl=impl, t_new=t_new)
+                                  cache=lc, mode=mode, impl=impl, t_new=t_new, tp=tp)
         if aux is not None:
             aux_total = aux_total + aux
         if bt is not None and nlc is not None:

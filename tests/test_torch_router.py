@@ -508,7 +508,7 @@ def test_no_card_no_fallback(pair):
         router.ReplicaRouter(model, params, replicas=2, **geo)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "llama3.2-1b", "--smoke", "--replicas", "2"])
-    with pytest.raises(ValueError, match="step 5"):
+    with pytest.raises(ValueError, match="ROADMAP Queue 1, step 6"):
         router.ReplicaRouter(model, params, replicas=2, tp=2, devices=["cpu"] * 2, **geo)
     with pytest.raises(ValueError):
         router.ReplicaRouter(model, params, replicas=0, devices=[], **geo)
