@@ -200,18 +200,33 @@ Phases (any failure exits non-zero and prints no result):
              only load them), each with its shard and its KV heads. Rank 0
              first records the single-rank plain run of both arms (the
              serve trace on the contiguous pool, and phase 4b's chunked
-             geometry) and the single-rank kernel run forced to it. Each
-             TP arm: host counters the single-rank run's, launches exact
-             and the same on both ranks, no leaked block, KV a rank <= 0.6x
-             the pool (the ranks' pools counted once are the single pool's
-             bytes), teacher-forced |dlogit| within TP_DLOGIT_BOUND, which
-             the decode kernel one key short breaks; the f32 smoke llama's
-             TP tokens the single-rank kernel run's on both smoke pools.
-             Printed, labelled "2 ranks on one card, no interconnect": the
-             backend, the bytes a rank holds, tok/s and TTFT, a decode
-             step's wall and device ms beside the single rank's, the
-             reduces a step and their host ms. Then flash, decode and
-             paged decode at a rank's shapes as kernel records.
+             geometry, which must preempt) and the single-rank kernel run
+             forced to it. Each TP arm: host counters the single-rank
+             run's, launches exact and the same on both ranks, no leaked
+             block, KV a rank <= 0.6x the pool (the ranks' pools counted
+             once are the single pool's bytes), teacher-forced |dlogit|
+             within TP_DLOGIT_BOUND, which the decode kernel one key short
+             breaks. Then TP_FAMILIES on the dense phase's trace (8
+             requests of 16 tokens), the same way, each family with its
+             bound (TP_FAMILY_BOUND) and its control: chameleon-34b (4
+             layers, 8 I-T requests, paged and chunked, and an f32 arm of
+             2 layers that decides), qwen3-moe-30b-a3b (4 layers:
+             contiguous, chunked, speculative at t = 0.8),
+             deepseek-v2-236b (3 layers: contiguous, chunked; the latent
+             whole on each rank), llama3.2-1b AutoQuant'd wo and dyn
+             (contiguous, and an f32 dyn arm of 2 layers that decides);
+             params a rank what the serving specs give, the reduces a
+             decode step ``reduces_per_forward``'s. The f32 smoke configs
+             of llama, chameleon, qwen3-moe and deepseek-v2: TP tokens the
+             single-rank kernel run's on both smoke pools. Printed,
+             labelled "2 ranks on one card, no interconnect": the backend,
+             the bytes a rank holds, tok/s and TTFT, a decode step's wall
+             and device ms beside the single rank's, the reduces a step
+             and their host ms, each family's seconds. Then the kernels at
+             a rank's shapes as kernel records: flash, decode and paged
+             decode (llama, chameleon, qwen3-moe, the MLA prefill and
+             latent at 64 heads), the qk-norm RMSNorm, both int8 GEMMs at
+             N / 2 and K / 2.
              ``python3 chip_smoke.py tp`` runs device, build and this phase
              alone, with no result lines;
 8. hstu    — full-width HSTU (14 layers, d 512, 8 heads, band 1024 from
@@ -409,6 +424,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -4129,9 +4145,10 @@ class Forced:
 @contextlib.contextmanager
 def forcing(rec):
     """Installs ``rec``'s hooks for the served runs within: the scheduler's
-    token draws (``sampling.greedy``/``sample_slots``/``sample_window`` and
-    LayerSkip's ``draft_window``, through the scheduler module's own
-    names), the engine's four forwards (their live lanes and rows), the
+    token draws (``sampling.greedy``/``sample_slots``/``sample_window``,
+    through the scheduler module's own name, and LayerSkip's
+    ``draft_window``, which a TP rank's ``tp_draft_window`` calls too), the
+    engine's four forwards (their live lanes and rows), the
     scheduler (to read its slots) and ``moe.moe_ffn`` (each layer's routing,
     recomputed from its input)."""
     import torch
@@ -4151,8 +4168,10 @@ def forcing(rec):
     def drawn(fn):
         return lambda logits, *args: rec.draw(logits, fn(logits, *args), args)
 
-    def draft(*a, **kw):
-        return rec.draft(*layerskip.draft_window(*a, **kw))
+    real_draft = layerskip.draft_window
+
+    def draft(*a, **kw):  # the module's own name: a TP rank's draft calls it too
+        return rec.draft(*real_draft(*a, **kw))
 
     def arange_lanes(tokens, n):
         lanes = torch.arange(tokens.shape[1], device=tokens.device)[None]
@@ -4181,8 +4200,8 @@ def forcing(rec):
 
     real_moe = M.moe_ffn
 
-    def moe_spy(cfg, p, x, impl="auto"):
-        out = real_moe(cfg, p, x, impl)
+    def moe_spy(cfg, p, x, impl="auto", tp=None):
+        out = real_moe(cfg, p, x, impl, tp)
         if rec.lanes is not None:
             n = x.shape[0] * x.shape[1]
             probs, _, ids = M.route(cfg, p, x.reshape(n, -1))
@@ -4206,12 +4225,12 @@ def forcing(rec):
             finally:
                 rec.admitting = None
 
-    saved = [(sched_mod, "sampling"), (sched_mod, "layerskip"), (M, "moe_ffn"),
+    saved = [(sched_mod, "sampling"), (layerskip, "draft_window"), (M, "moe_ffn"),
              (serve, "Scheduler"), (router_mod, "Scheduler")] + [(engine, n) for n in lanes_of]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
     sched_mod.sampling = Proxy(sampling, **{n: drawn(getattr(sampling, n)) for n in
                                             ("greedy", "sample_slots", "sample_window")})
-    sched_mod.layerskip = Proxy(layerskip, draft_window=draft)
+    layerskip.draft_window = draft
     M.moe_ffn = moe_spy
     serve.Scheduler = router_mod.Scheduler = Seen
     for name in lanes_of:
@@ -4759,7 +4778,9 @@ def per_head(x, g):
 def kernel_record(recs, shape_txt, call, plain, lib, err, n_bytes, flops, launches, **src):
     """Append a kernel's record to ``recs`` (a repeat call bit-identical, the
     kernel and its plain version timed by CUDA events); ``finish_records``
-    adds the bound and the device and library times."""
+    adds the bound and the device and library times. ``src`` holds the
+    record's name, source and replaced kernel, and the operations' ``peak``
+    rate when it is not the bf16 tensor cores'."""
     import torch
 
     check(torch.equal(call(), call()), f"{shape_txt}: a repeat call differs")
@@ -5465,11 +5486,11 @@ def routing_log(log):
 
     real = M.moe_ffn
 
-    def spy(cfg, p, x, impl="auto"):
+    def spy(cfg, p, x, impl="auto", tp=None):
         n = x.shape[0] * x.shape[1]
         ids = M.route(cfg, p, x.reshape(n, -1))[2]
         log.append(ids.reshape(x.shape[0], x.shape[1], -1).sort(-1).values)
-        return real(cfg, p, x, impl)
+        return real(cfg, p, x, impl, tp)
 
     M.moe_ffn = spy
     try:
@@ -6842,9 +6863,10 @@ def phase_examples():
 
 
 # ---------------------------------------------------------------------- tp
-#: the tp phase: two ranks on the one card (gloo), its full-width arms (the
-#: serve phase's contiguous pool and the paged phase's chunked geometry) and
-#: the smoke width's (the smoke_configs phase's pools)
+#: the tp phase: two ranks on the one card (gloo), its full-width llama arms
+#: (the serve phase's contiguous pool and the paged phase's chunked
+#: geometry), the family arms (TP_FAMILIES) and the smoke width's (the
+#: smoke_configs phase's pools)
 TP_RANKS, TP_DEVICES = 2, ("cuda:0", "cuda:0")
 TP_ARMS = {"contiguous": {}, "chunked": PAGED_ARMS["chunked"]}
 TP_SMOKE = {"contiguous": {}, "chunked": SMOKE_PAGED}
@@ -6857,8 +6879,72 @@ TP_SMOKE = {"contiguous": {}, "chunked": SMOKE_PAGED}
 TP_DLOGIT_BOUND = 8.0
 TP_LABEL = "2 ranks on one card, no interconnect"
 TP_STEPS = 10  # decode steps timed a rank
-#: a TP run's host counters: prefills, steps, mixed steps, preemptions, chunks
-TP_HOST = ("prefills", "decode_steps", "mixed_steps", "n_preemptions", "prefill_chunks")
+#: a TP run's host counters: prefills, steps, mixed steps, preemptions,
+#: chunks, speculative steps
+TP_HOST = ("prefills", "decode_steps", "mixed_steps", "n_preemptions", "prefill_chunks",
+           "spec_steps")
+#: the tp phase's family arms, served at TP = 2 after the llama arms, each
+#: at full width, cut in depth as its single-rank phase (``layers``, None:
+#: all), in ``dtype``, AutoQuant'd whole by ``quant``: ``trace`` "serve"
+#: (the dense phase's trace: ``reqs`` requests of the llama_humaneval
+#: profile, ``new`` tokens each) or "it" (``reqs`` I-T prompts of N_IMAGE
+#: image tokens and IT_TEXT + 0..2 text tokens, ``new`` greedy tokens, on a
+#: paged, chunked pool that holds them all); ``arms``: arm -> (temperature,
+#: top-p, speculative, geometry); ``control``: the arm served again with the
+#: decode kernel one key short (None: no control). The f32 arms at reduced
+#: depth are the deciding checks where bf16's own drift hides one key short
+#: (chameleon's 1030-key contexts, dyn's int8 codes flipping at rounding
+#: boundaries): their bf16 arms check host counters, launches, bytes and
+#: finite readings, with no bound
+TP_IT_PAD = IT_LEN + 2
+TP_IT_GEOMETRY = dict(paged=True, chunked=True, block_size=16, prefill_budget=256,
+                      num_blocks=8 * -(-(TP_IT_PAD + MAX_NEW + 1) // 16) + 1)
+_CONTIGUOUS = {"contiguous": (0.0, 1.0, False, {})}
+TP_FAMILIES = {
+    "chameleon": dict(arch="chameleon-34b", layers=CHAMELEON_LAYERS, dtype="bfloat16",
+                      trace="it", reqs=8, new=8,
+                      arms={"chunked": (0.0, 1.0, False, TP_IT_GEOMETRY)}, control=None),
+    "chameleon f32": dict(arch="chameleon-34b", layers=2, dtype="float32", trace="it", reqs=2,
+                          new=4, arms={"chunked": (0.0, 1.0, False, TP_IT_GEOMETRY)},
+                          control="chunked"),
+    "moe": dict(arch="qwen3-moe-30b-a3b", layers=4, dtype="bfloat16", trace="serve",
+                reqs=DENSE_REQUESTS, new=DENSE_MAX_NEW,
+                arms={**_CONTIGUOUS, "chunked": (0.0, 1.0, False, PAGED_ARMS["chunked"]),
+                      "spec t=0.8": (SPEC_TEMP, SPEC_TOP_P, True, {})}, control="contiguous"),
+    "mla": dict(arch="deepseek-v2-236b", layers=3, dtype="bfloat16", trace="serve",
+                reqs=DENSE_REQUESTS, new=DENSE_MAX_NEW,
+                arms={**_CONTIGUOUS, "chunked": (0.0, 1.0, False, PAGED_ARMS["chunked"])},
+                control="contiguous"),
+    "quant wo": dict(arch="llama3.2-1b", layers=None, dtype="bfloat16", quant="wo",
+                     trace="serve", reqs=DENSE_REQUESTS, new=DENSE_MAX_NEW, arms=_CONTIGUOUS,
+                     control="contiguous"),
+    "quant dyn": dict(arch="llama3.2-1b", layers=None, dtype="bfloat16", quant="dyn",
+                      trace="serve", reqs=DENSE_REQUESTS, new=DENSE_MAX_NEW, arms=_CONTIGUOUS,
+                      control=None),
+    "quant dyn f32": dict(arch="llama3.2-1b", layers=2, dtype="float32", quant="dyn",
+                          trace="serve", reqs=DENSE_REQUESTS, new=DENSE_MAX_NEW,
+                          arms=_CONTIGUOUS, control="contiguous"),
+}
+#: each family's bounds on a forced TP = 2 run against the single-rank plain
+#: path: (the first MoE layer's max |dprob|, max |dlogit| of rows routed
+#: alike), set between the sound readings and the one-key-short control
+#: (NVIDIA H100 80GB HBM3, 700 W; the readings repeat to the bit): the
+#: chameleon f32 arm 0.000011 / 0.010384; qwen3-moe |dprob| 0.000621 /
+#: 0.003469, |dlogit| 0.048828 / 0.220703; deepseek-v2 0.001523 / 0.003371,
+#: 0.046875 / 0.236572 (the single-rank moe phase's bounds); llama wo 4.383
+#: / 13.089; the dyn f32 arm 2.465 / 7.485. None: no bound, the reading is
+#: printed and must be finite (bf16 chameleon, on 8 x 16 tokens, read
+#: 0.048828 sound and 0.055664 one key short, one bf16 step apart; bf16
+#: dyn 14.376 and 19.347, int8 codes flipping at rounding boundaries: a
+#: bound between them has no margin on either side, so their f32 arms
+#: decide)
+TP_FAMILY_BOUND = {"chameleon": None, "chameleon f32": (0.0, 0.001),
+                   "moe": (FORCED_DPROB_BOUND, FORCED_DLOGIT_BOUND),
+                   "mla": (FORCED_DPROB_BOUND, FORCED_DLOGIT_BOUND),
+                   "quant wo": (0.0, TP_DLOGIT_BOUND), "quant dyn": None,
+                   "quant dyn f32": (0.0, 4.3)}
+#: the f32 smoke configs served at TP = 2 on both smoke pools
+TP_SMOKE_ARCHS = ("llama3.2-1b", "chameleon-34b", "qwen3-moe-30b-a3b", "deepseek-v2-236b")
 
 
 def _tp_host(m):
@@ -6915,30 +7001,168 @@ def _decode_step_times(model, params, pad_to, cfg, group=None):
 
 
 def _tp_smoke(group):
-    """The f32 smoke llama through the kernels on each of TP_SMOKE's pools:
-    single-rank on rank 0, then at TP = 2 on both ranks. Returns each
-    pool's (TP tokens, single-rank tokens or None, launches)."""
+    """Each TP_SMOKE_ARCHS f32 smoke config through the kernels on each of
+    TP_SMOKE's pools: single-rank on rank 0, then at TP = 2 on both ranks.
+    Returns each (arch, pool)'s (TP tokens, single-rank tokens or None,
+    launches)."""
     import torch.distributed as dist
 
     from repro_torch.distributed import tp_pool
 
-    cfg, model, params = smoke_build("llama3.2-1b", "float32")
-    single = {}
-    if group.rank == 0:
+    out = {}
+    for arch in TP_SMOKE_ARCHS:
+        cfg, model, params = smoke_build(arch, "float32")
+        single = {}
+        if group.rank == 0:
+            for pool, geometry in TP_SMOKE.items():
+                single[pool] = serve_once(
+                    model, params, cfg, SMOKE_PAD, policy="continuous", int8_mode=None,
+                    tag=f"tp smoke {arch} {pool} single-rank", **geometry,
+                    reqs=_trace(cfg, SMOKE_PAD, n=SMOKE_REQS, max_new=SMOKE_NEW))[1]
+        dist.barrier()
+        tp = tp_pool.TPContext(model, params, group)
         for pool, geometry in TP_SMOKE.items():
-            single[pool] = serve_once(
-                model, params, cfg, SMOKE_PAD, policy="continuous", int8_mode=None,
-                tag=f"tp smoke {pool} single-rank", **geometry,
-                reqs=_trace(cfg, SMOKE_PAD, n=SMOKE_REQS, max_new=SMOKE_NEW))[1]
+            _, toks, counts = serve_once(
+                tp.model, tp.params, cfg, SMOKE_PAD, policy="continuous", int8_mode=None,
+                tag=f"tp smoke {arch} {pool} rank {group.rank}", tp=tp, **geometry,
+                reqs=_trace(cfg, SMOKE_PAD, n=SMOKE_REQS, max_new=SMOKE_NEW))
+            out[arch, pool] = (toks, single.get(pool), counts)
+    return out
+
+
+def it_trace(cfg, n, new):
+    """``n`` greedy I-T requests of ``cfg`` (a VLM): N_IMAGE stub image
+    tokens then IT_TEXT + 0..2 text tokens, ``new`` new tokens each."""
+    import numpy as np
+
+    from repro_torch.core.scheduler import ServeRequest
+    from repro_torch.models import vlm
+
+    rng = np.random.default_rng(SEED + 30)
+    off = vlm.image_token_offset(cfg)
+    return [ServeRequest(rid=i, max_new=new, prompt=np.concatenate(
+        [off + rng.integers(0, cfg.vlm.image_vocab, N_IMAGE),
+         rng.integers(0, off, IT_TEXT + i % 3)]).astype(np.int32)) for i in range(n)]
+
+
+def tp_spec_bytes(cfg, params, size):
+    """The bytes a rank holds of ``params`` under the serving specs
+    (``sharding.tp_param_specs``): a split leaf's 1 / size, a replicated
+    leaf whole."""
+    from repro_torch.distributed import sharding
+
+    flat = sharding.flat_specs(sharding.tp_param_specs(cfg, params, size))
+    total = []
+    sharding.map_with_path(lambda path, t: total.append(
+        t.numel() * t.element_size() // (size if "model" in flat[path] else 1)), params)
+    return sum(total)
+
+
+def reduces_per_forward(cfg, quant=None):
+    """The reduces a TP forward of ``cfg`` makes, counted from the model's
+    structure (the oracle the measured counts are held to): the embedding
+    and the logits' gather, two a layer (the attention, and the FFN or MoE:
+    a MoE layer's routed and shared partials share one), and under ``dyn``
+    a max-reduce a row-parallel linear (``wo``, and a dense or shared FFN's
+    ``w2``; the experts' stacks stay bf16)."""
+    n = 2
+    for i in range(cfg.n_layers):
+        n += 2
+        if quant == "dyn":
+            moe = cfg.moe is not None and i >= cfg.moe.first_dense_layers
+            n += 2 if not moe or cfg.moe.n_shared_experts else 1
+    return n
+
+
+def tp_family(group, family, pad_to):
+    """One TP_FAMILIES family on both ranks (``tp_rank``): the whole model
+    built from SEED (AutoQuant'd whole first), and rank 0 serving each arm
+    on the plain path, recorded (``Forced``), while rank 1 waits; then each
+    rank keeps its shard and serves each arm at TP = 2 (exact launches a
+    rank, no leaked block), rank 0 forcing it to the plain run's draws, the
+    control arm again with the decode kernel one key short on both ranks;
+    then a TP decode step's times. Returns the rank's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.kv_cache import cache_bytes
+    from repro_torch.core.quantization import quantize_params
+    from repro_torch.distributed import tp_pool
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.launch import serve
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.training import data as data_mod
+
+    t0 = time.perf_counter()
+    fam = TP_FAMILIES[family]
+    arms, control, quant = fam["arms"], fam["control"], fam.get("quant")
+    rank0, dev = group.rank == 0, group.device
+    cfg = get_config(fam["arch"]).replace(dtype=fam["dtype"])
+    if fam["layers"] is not None:
+        cfg = cfg.replace(n_layers=fam["layers"])
+    model = get_model(cfg)
+    with torch.inference_mode():
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+        if quant is not None:
+            params = quantize_params(params, quant)
+    pad = (TP_IT_PAD if fam["trace"] == "it" else serve.trace_pad_to(
+        data_mod.PAPER_PROFILES["llama_humaneval"], fam["reqs"], SEED))
+    spec_exit = MOE_SPEC_EXIT if cfg.moe is not None else SPEC_EXIT
+
+    def reqs(temp, top_p):
+        return (it_trace(cfg, fam["reqs"], fam["new"]) if fam["trace"] == "it" else
+                _trace(cfg, pad, temp, top_p, n=fam["reqs"], max_new=fam["new"]))
+
+    out = {"arms": {}, "whole_param_bytes": cache_bytes(params),
+           "spec_param_bytes": tp_spec_bytes(cfg, params, group.size)}
+    plain = {}
+    if rank0:
+        for arm, (temp, top_p, spec, geometry) in arms.items():
+            rec = Forced("record")
+            with plain_path(), forcing(rec):
+                mp, ptoks, _ = serve_once(model, params, cfg, pad, policy="continuous",
+                                          int8_mode=quant, tag=f"tp {family} {arm} single-rank "
+                                          "plain", temperature=temp, top_p=top_p,
+                                          speculative=spec, spec_exit=spec_exit,
+                                          reqs=reqs(temp, top_p), **geometry)
+            plain[arm] = (rec, ptoks)
+            out["arms"][arm] = {"single": dict(_tp_host(mp),
+                                               kv_reserved_bytes=mp["kv_reserved_bytes"])}
     dist.barrier()
     tp = tp_pool.TPContext(model, params, group)
-    out = {}
-    for pool, geometry in TP_SMOKE.items():
-        _, toks, counts = serve_once(
-            tp.model, tp.params, cfg, SMOKE_PAD, policy="continuous", int8_mode=None,
-            tag=f"tp smoke {pool} rank {group.rank}", tp=tp, **geometry,
-            reqs=_trace(cfg, SMOKE_PAD, n=SMOKE_REQS, max_new=SMOKE_NEW))
-        out[pool] = (toks, single.get(pool), counts)
+    del model, params
+    torch.cuda.empty_cache()
+    for arm, (temp, top_p, spec, geometry) in arms.items():
+        res = out["arms"].setdefault(arm, {})
+        paged = geometry.get("paged", False)
+        short = ((pda, "paged_decode_attention_cuda", 4) if paged else
+                 (da, "decode_attention_cuda", 3))
+        for run in ("forced", "control") if arm == control else ("forced",):
+            tag = f"tp {family} {arm} rank {group.rank} {run}"
+            rec = Forced("steps", plain[arm][0]) if rank0 else None
+            with (forcing(rec) if rec is not None else contextlib.nullcontext()), \
+                    (one_key_short(*short) if run == "control" else contextlib.nullcontext()):
+                m, toks, counts = serve_once(tp.model, tp.params, cfg, pad, policy="continuous",
+                                             int8_mode=quant, tag=tag, temperature=temp,
+                                             top_p=top_p, speculative=spec,
+                                             spec_exit=spec_exit, tp=tp,
+                                             reqs=reqs(temp, top_p), **geometry)
+            r = dict(host=_tp_host(m), counts=counts, **{k: m[k] for k in (
+                "tokens_per_s", "ttft_p50_ms", "tpot_p50_ms", "wall_s", "kv_reserved_bytes",
+                "kv_reserved_per_device_bytes", "param_bytes_per_device", "reduces",
+                "reduce_s", "decode_steps", "prefills")})
+            if rec is not None:
+                r["bounds"] = rec.summary(tag)[:2]
+                r["plain_tokens"] = toks == plain[arm][1]
+            res[run] = r
+    out["step"] = _decode_step_times(tp.model, tp.params, pad_to, cfg, group)
+    out["reduces_per_forward"] = reduces_per_forward(cfg, quant)
+    out["seconds"] = time.perf_counter() - t0
+    del tp, plain
+    torch.cuda.empty_cache()
     return out
 
 
@@ -6951,8 +7175,9 @@ def tp_rank(group, pad_to):
     the contiguous arm sound, teacher-forced to the plain run's draws (rank 0
     forces and compares; its tokens reach rank 1 through the scheduler's
     broadcast) and forced with the decode kernel one key short on both ranks;
-    the chunked arm forced. Then the TP decode step's times and the smoke
-    width. Returns the rank's numbers."""
+    the chunked arm forced. Then the TP decode step's times, the
+    TP_FAMILIES arms (``tp_family``) and the smoke width. Returns the
+    rank's numbers."""
     import torch
     import torch.distributed as dist
 
@@ -6961,11 +7186,13 @@ def tp_rank(group, pad_to):
     from repro_torch.kernels import decode_attention as da
     from repro_torch.launch import serve
 
+    t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank0 = group.rank == 0
     dev = group.device
-    out = {"rank": group.rank, "arms": {}, "backend": group.backend}
+    out = {"rank": group.rank, "arms": {}, "backend": group.backend,
+           "slots": group.slots is not None}
     cfg, model, params = serve.build_model(ARCH, smoke=False, seed=SEED, device=dev)
     out["whole_param_bytes"] = cache_bytes(params)
     plain = {}
@@ -7014,7 +7241,11 @@ def tp_rank(group, pad_to):
     out["step"] = _decode_step_times(tp.model, tp.params, pad_to, cfg, group)
     del tp, plain
     torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    out["families"] = {family: tp_family(group, family, pad_to) for family in TP_FAMILIES}
+    t0 = time.perf_counter()
     out["smoke"] = _tp_smoke(group)
+    out["smoke_seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -7027,18 +7258,23 @@ def phase_tp(pad_to):
     short breaks; every run's host counters the single-rank run's; each
     rank's launches exact and the same on both ranks; each rank's KV pool at
     most 0.6x the single pool (its ranks' pools counted once are the single
-    pool's bytes); the f32 smoke llama's TP tokens the single-rank kernel
-    run's. Prints the backend, the bytes a rank holds, tok/s and TTFT, a
-    decode step's wall and device ms and its reduces (TP_LABEL). Returns
-    rank 0's results."""
+    pool's bytes). Then the TP_FAMILIES arms (chameleon-34b, qwen3-moe,
+    deepseek-v2, AutoQuant'd llama; ``check_tp_family``) and the
+    TP_SMOKE_ARCHS f32 smoke configs, whose TP tokens must be the
+    single-rank kernel run's. Prints the backend, the bytes a rank holds,
+    tok/s and TTFT, a decode step's wall and device ms and its reduces
+    (TP_LABEL). Returns rank 0's results."""
     from repro_torch.distributed import tp_pool
 
     t0 = time.perf_counter()
     ranks = tp_pool.spawn(tp_rank, TP_RANKS, pad_to, devices=list(TP_DEVICES))
     r0 = ranks[0]
-    check(all(r["backend"] == "gloo" for r in ranks), f"tp: backends {[r['backend'] for r in ranks]}")
+    check(all(r["backend"] == "gloo" and r["slots"] for r in ranks),
+          f"tp: backends {[r['backend'] for r in ranks]}, shared slots "
+          f"{[r['slots'] for r in ranks]}")
     print(f"[tp] {TP_LABEL}: {TP_RANKS} ranks on {', '.join(TP_DEVICES)}, backend "
-          f"{r0['backend']} (collectives on the CUDA tensors directly)", flush=True)
+          f"{r0['backend']} (collectives of up to {tp_pool.SLOT_BYTES} B through the ranks' "
+          "shared host slots, larger ones through gloo on the CUDA tensors)", flush=True)
     for arm in TP_ARMS:
         single = r0["arms"][arm]["single"]
         want = {k: single[k] for k in TP_HOST}
@@ -7055,6 +7291,9 @@ def phase_tp(pad_to):
                       f"tp {arm} rank {r['rank']}: KV {res['kv_reserved_per_device_bytes']} B a "
                       f"rank of {res['kv_reserved_bytes']} B, the single pool "
                       f"{single['kv_reserved_bytes']} B")
+        if TP_ARMS[arm].get("paged"):
+            check(want["n_preemptions"] >= 1, f"tp {arm}: no preemption in the single-rank "
+                  "run, the arm reaches no preemption")
         first = r0["arms"][arm]["forced"]
         print(f"[tp {arm}] {TP_LABEL} | host counters {want} on both ranks, every run, as "
               f"the single-rank run's | KV reserved a rank "
@@ -7094,15 +7333,114 @@ def phase_tp(pad_to):
               f"{st['device_ms']:.3f} ms device ({st['kernels']:.0f} kernels; "
               f"{st['copy_ms']:.3f} ms of it copies) | {st['reduces']:.0f} reduces a step, "
               f"{st['reduce_ms']:.3f} ms host in them", flush=True)
-    for pool in TP_SMOKE:
-        toks, single, counts = r0["smoke"][pool]
-        check(toks == single and ranks[1]["smoke"][pool][0] == single,
-              f"tp smoke {pool}: the TP = 2 tokens differ from the single-rank kernel run's")
-        print(f"[tp smoke {pool}] f32 smoke llama, {TP_LABEL}: {len(single)} requests' tokens "
-              f"on both ranks the single-rank kernel run's | launches a rank {counts}",
+    print(f"[tp] the llama arms {r0['seconds']:.1f} s", flush=True)
+    bad = [msg for family in TP_FAMILIES
+           for msg in check_tp_family(family, [r["families"][family] for r in ranks], pad_to)]
+    for (arch, pool), (toks, single, counts) in r0["smoke"].items():
+        check(toks == single and ranks[1]["smoke"][arch, pool][0] == single,
+              f"tp smoke {arch} {pool}: the TP = 2 tokens differ from the single-rank kernel "
+              "run's")
+        check(counts == ranks[1]["smoke"][arch, pool][2],
+              f"tp smoke {arch} {pool}: rank 1's launches differ from rank 0's")
+        print(f"[tp smoke {arch} {pool}] f32 smoke config, {TP_LABEL}: {len(single)} requests' "
+              f"tokens on both ranks the single-rank kernel run's | launches a rank {counts}",
               flush=True)
+    print(f"[tp] the f32 smoke configs {r0['smoke_seconds']:.1f} s", flush=True)
     print(f"[tp] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    check(not bad, f"tp: {len(bad)} family checks failed: {bad}")
     return r0
+
+
+def check_tp_family(family, ranks, pad_to):
+    """Prints a TP_FAMILIES family's readings on both ranks' results
+    (``tp_family``): the bytes a rank holds, each run's forced readings, a
+    decode step's times and reduces. Returns its failures: a run's host
+    counters not the single-rank plain run's, launches that differ across
+    ranks, forced tokens not the plain run's, a sound run outside the
+    family's TP_FAMILY_BOUND or the control within it (a family without a
+    bound: a reading not finite), params a rank not
+    what the serving specs give, KV a rank not half the head-split pool (at
+    most 0.6x) or, for MLA, not the whole latent pool, reduces a step not
+    ``reduces_per_forward``'s."""
+    fam = TP_FAMILIES[family]
+    arch, quant, arms = fam["arch"], fam.get("quant"), fam["arms"]
+    r0 = ranks[0]
+    bound = TP_FAMILY_BOUND[family]
+    mla = arch.startswith("deepseek")
+    bad = []
+
+    def want(cond, msg):
+        if not cond:
+            bad.append(msg)
+
+    for arm in arms:
+        single = r0["arms"][arm]["single"]
+        host = {k: single[k] for k in TP_HOST}
+        first = r0["arms"][arm]["forced"]
+        print(f"[tp {family} {arm}] {arch}, {TP_LABEL} | host counters {host} (single rank) | "
+              f"KV reserved a rank {first['kv_reserved_per_device_bytes']} B of "
+              f"{first['kv_reserved_bytes']} B "
+              f"({first['kv_reserved_per_device_bytes'] / first['kv_reserved_bytes']:.4f}x"
+              f"{', the latent whole' if mla else ''}) | params a rank "
+              f"{first['param_bytes_per_device']} B of {r0['whole_param_bytes']} B (the specs "
+              f"give {r0['spec_param_bytes']} B) | launches a rank {first['counts']}", flush=True)
+        for rank, r in enumerate(ranks):
+            for run, res in r["arms"][arm].items():
+                if run == "single":
+                    continue
+                tag = f"tp {family} {arm} rank {rank} {run}"
+                want(res["host"] == host, f"{tag}: host counters {res['host']}, the single-rank "
+                     f"run's {host}")
+                want(res["counts"] == r0["arms"][arm][run]["counts"],
+                     f"{tag}: launches differ from rank 0's")
+                want(res["param_bytes_per_device"] == r0["spec_param_bytes"],
+                     f"{tag}: {res['param_bytes_per_device']} B of params a rank, the serving "
+                     f"specs give {r0['spec_param_bytes']} B")
+                per, whole = res["kv_reserved_per_device_bytes"], res["kv_reserved_bytes"]
+                want(whole == single["kv_reserved_bytes"] and
+                     (per == whole if mla else per / whole <= 0.6),
+                     f"{tag}: KV {per} B a rank of {whole} B, the single pool "
+                     f"{single['kv_reserved_bytes']} B")
+        for run, res in r0["arms"][arm].items():
+            if run == "single":
+                continue
+            dprob, dlogit = res["bounds"]
+            print(f"[tp {family} {arm} {run}] {TP_LABEL} | {res['tokens_per_s']:.1f} tok/s | "
+                  f"ttft p50 {res['ttft_p50_ms']:.2f} ms | tpot p50 {res['tpot_p50_ms']:.3f} ms "
+                  f"| wall {res['wall_s']:.2f} s | {res['prefills'] + res['decode_steps']} "
+                  f"forwards, {res['reduces']} reduces, {res['reduce_s'] * 1e3:.1f} ms of host "
+                  f"time in them | first MoE layer max |dprob| {dprob:.6f}, max |dlogit| "
+                  f"{dlogit:.6f} " + (f"(bounds {bound[0]}, {bound[1]})" if bound else
+                                      "(no bound: the f32 arm decides)"), flush=True)
+            want(res["plain_tokens"], f"tp {family} {arm} {run}: the forced run's tokens are "
+                                      "not the plain run's")
+            if bound is None:
+                want(math.isfinite(dprob) and math.isfinite(dlogit),
+                     f"tp {family} {arm} {run}: readings {dprob}, {dlogit} not finite")
+                continue
+            dprob_bound, dlogit_bound = bound
+            within = dprob <= dprob_bound and dlogit <= dlogit_bound
+            if run == "control":
+                want(not within, f"tp {family} {arm} control: a decode kernel one key short "
+                     f"stayed within the bounds ({dprob}, {dlogit})")
+            else:
+                want(within, f"tp {family} {arm}: max |dprob| {dprob}, max |dlogit| {dlogit} "
+                     f"against the single-rank plain path, bounds {dprob_bound}, "
+                     f"{dlogit_bound}")
+    for rank, r in enumerate(ranks):
+        st = r["step"]
+        want(st["reduces"] == r["reduces_per_forward"],
+             f"tp {family} rank {rank}: {st['reduces']} reduces a decode step, "
+             f"reduces_per_forward gives {r['reduces_per_forward']}")
+        print(f"[tp {family} step] {arch}{f' ({quant})' if quant else ''} {fam['dtype']}, "
+              f"{fam['layers'] or 'all'} layers, {TP_LABEL} | rank "
+              f"{rank}: an 8-slot decode step at {pad_to} tokens {st['wall_ms']:.3f} ms wall, "
+              f"{st['device_ms']:.3f} ms device ({st['kernels']:.0f} kernels; "
+              f"{st['copy_ms']:.3f} ms of it copies) | {st['reduces']:.0f} reduces a step, "
+              f"{st['reduce_ms']:.3f} ms host in them", flush=True)
+    print(f"[tp {family}] {r0['seconds']:.1f} s" + (f" | FAILED: {bad}" if bad else ""),
+          flush=True)
+    return bad
 
 
 def tp_kernel_records(pad_to, r0):
@@ -7183,10 +7521,212 @@ def tp_kernel_records(pad_to, r0):
                   name="paged_decode_attention",
                   source="src/repro_torch/kernels/csrc/decode_attention.cu",
                   replaces="src/repro/models/attention.py:177")
+    tp_family_records(recs, gen, pad_to, r0)
     finish_records(recs)
     for rec in recs:
         check(rec["launches"] > 0, f"{rec['name']} {rec['shape']}: not launched at TP = 2")
     return recs
+
+
+def tp_family_records(recs, gen, pad_to, r0):
+    """The TP_FAMILIES arms' kernels at a rank's shapes (TP = 2), against
+    their plain versions in bf16, a repeat call bit-identical, timed beside
+    their bound and the library call: flash at chameleon-34b's last I-T
+    chunk (32 q heads over 4 KV heads of 128), at qwen3-moe's prefill (16
+    over 2) and at deepseek-v2's MLA prefill (64 heads, D 192 / Dv 128);
+    the decode kernel at qwen3-moe's G = 8, D = 128 and over deepseek-v2's
+    latent at 64 heads; the paged decode through chameleon's I-T pool; the
+    qk-norm RMSNorm over qwen3-moe's rank heads; both int8 GEMMs at
+    llama3.2-1b's column (N / 2) and row (K / 2) splits. Launches: rank 0's
+    forced run of the arm on the path."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import rmsnorm as rn
+
+    dev, bf, n = torch.device("cuda"), torch.bfloat16, TP_RANKS
+
+    def counts(family, arm):
+        return r0["families"][family]["arms"][arm]["forced"]["counts"]
+
+    def flash(label, cfg_name, hq, hkv, dq, dv, tq, tk, launches, scale=None):
+        q = _rand(gen, (1, tq, hq, dq), bf, dev)
+        k = _rand(gen, (1, tk, hkv, dq), bf, dev)
+        v = _rand(gen, (1, tk, hkv, dv), bf, dev)
+        qpos = int_positions(1, tq, dev) + (tk - tq)
+        kpos = int_positions(1, tk, dev)
+        kw = dict(q_positions=qpos.contiguous(), k_positions=kpos, causal=True, scale=scale)
+        err = max_err(fa.flash_attention_cuda(q, k, v, **kw),
+                      fa.flash_attention_plain(q, k, v, **kw), "bfloat16")
+        mask = (kpos[:, None, :] <= qpos[:, :, None])[:, None]
+        pairs = int(mask.sum())
+        kernel_record(recs, f"q[1,{tq},{hq},{dq}] k[1,{tk},{hkv},{dq}] v[1,{tk},{hkv},{dv}] "
+                      f"bf16 causal ({cfg_name} {label}, a rank's heads at TP = {n})",
+                      lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                      lambda: fa.flash_attention_plain(q, k, v, **kw),
+                      lambda qt=q.transpose(1, 2), ke=per_head(k, hq // hkv),
+                      ve=per_head(v, hq // hkv), m=mask:
+                      F.scaled_dot_product_attention(qt, ke, ve, attn_mask=m, scale=scale),
+                      err, (2 * q.numel() + k.numel() + v.numel()) * 2 + (tq + tk) * 4,
+                      pairs * hq * 2 * (dq + dv), launches, **FLASH_SRC)
+
+    cham, qwen, ds = (get_config(a) for a in ("chameleon-34b", "qwen3-moe-30b-a3b",
+                                               "deepseek-v2-236b"))
+    flash("I-T prefill, its last chunk", "chameleon-34b", cham.n_heads // n,
+          cham.n_kv_heads // n, cham.head_dim, cham.head_dim,
+          TP_IT_GEOMETRY["prefill_budget"], IT_LEN,
+          counts("chameleon", "chunked")["flash_attention"])
+    flash("prefill", "qwen3-moe-30b-a3b", qwen.n_heads // n, qwen.n_kv_heads // n,
+          qwen.head_dim, qwen.head_dim, pad_to, pad_to,
+          counts("moe", "contiguous")["flash_attention"])
+    ml = ds.mla
+    dq = ml.qk_nope_dim + ml.qk_rope_dim
+    flash(f"MLA prefill, D {dq} / Dv {ml.v_head_dim}", "deepseek-v2-236b", ds.n_heads // n,
+          ds.n_heads // n, dq, ml.v_head_dim, pad_to, pad_to,
+          counts("mla", "contiguous")["flash_attention"], scale=dq ** -0.5)
+
+    s_ctg = pad_to + MAX_NEW + 1
+    ln = torch.tensor([1, 63, 64, 65, 200, pad_to + 1, s_ctg - 1, s_ctg], dtype=torch.int32,
+                      device=dev)
+    n_rows = int(ln.sum())
+    amask = (torch.arange(s_ctg, device=dev)[None] < ln[:, None])[:, None, None, :]
+    hq, hkv, dh = qwen.n_heads // n, qwen.n_kv_heads // n, qwen.head_dim
+    qd = _rand(gen, (SLOTS, hq, dh), bf, dev)
+    kc, vc = (_rand(gen, (SLOTS, s_ctg, hkv, dh), bf, dev) for _ in range(2))
+    err = max_err(da.decode_attention_cuda(qd, kc, vc, ln),
+                  da.decode_attention_plain(qd, kc, vc, ln), "bfloat16")
+    kernel_record(recs, f"q[{SLOTS},{hq},{dh}] cache[{SLOTS},{s_ctg},{hkv},{dh}] bf16 lengths "
+                  f"{ln.tolist()} (qwen3-moe-30b-a3b decode, G = {hq // hkv}, a rank's heads "
+                  f"at TP = {n})",
+                  lambda: da.decode_attention_cuda(qd, kc, vc, ln),
+                  lambda: da.decode_attention_plain(qd, kc, vc, ln),
+                  lambda qq=qd[:, :, None], ke=per_head(kc, hq // hkv),
+                  ve=per_head(vc, hq // hkv), m=amask:
+                  F.scaled_dot_product_attention(qq, ke, ve, attn_mask=m), err,
+                  (2 * qd.numel() + 2 * n_rows * hkv * dh) * 2 + SLOTS * 4,
+                  n_rows * hq * 4 * dh, counts("moe", "contiguous")["decode_attention"],
+                  **DECODE_SRC)
+    h, r, d = ds.n_heads // n, ml.kv_lora_rank, ml.kv_lora_rank + ml.qk_rope_dim
+    ql = _rand(gen, (SLOTS, h, d), bf, dev)
+    lat = _rand(gen, (SLOTS, s_ctg, 1, d), bf, dev)
+    kw = dict(scale=dq ** -0.5)
+    err = max_err(da.decode_attention_cuda(ql, lat, lat[..., :r], ln, **kw),
+                  da.decode_attention_plain(ql, lat, lat[..., :r], ln, **kw), "bfloat16")
+    kexp = lat[:, :, 0][:, None].expand(SLOTS, h, s_ctg, d)
+    kernel_record(recs, f"q[{SLOTS},{h},{d}] latent[{SLOTS},{s_ctg},1,{d}] v = latent[..., :{r}]"
+                  f" bf16 lengths {ln.tolist()} (deepseek-v2-236b decode, absorbed latent, "
+                  f"G = {h}: a rank's heads at TP = {n})",
+                  lambda: da.decode_attention_cuda(ql, lat, lat[..., :r], ln, **kw),
+                  lambda: da.decode_attention_plain(ql, lat, lat[..., :r], ln, **kw),
+                  lambda qq=ql[:, :, None], ke=kexp, m=amask:
+                  F.scaled_dot_product_attention(qq, ke, ke[..., :r], attn_mask=m, **kw),
+                  err, (ql.numel() + n_rows * d + SLOTS * h * r) * 2 + SLOTS * 4,
+                  n_rows * h * 2 * (d + r), counts("mla", "contiguous")["decode_attention"],
+                  **DECODE_SRC)
+
+    hq, hkv, dh = cham.n_heads // n, cham.n_kv_heads // n, cham.head_dim
+    bs, nb = TP_IT_GEOMETRY["block_size"], TP_IT_GEOMETRY["num_blocks"]
+    s_it = TP_IT_PAD + TP_FAMILIES["chameleon"]["new"]
+    mb = -(-(TP_IT_PAD + MAX_NEW + 1) // bs)
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(SEED))[
+        : SLOTS * mb] + 1
+    bt = perm.reshape(SLOTS, mb).to(torch.int32).to(dev).contiguous()
+    qp = _rand(gen, (SLOTS, hq, dh), bf, dev)
+    kp, vp = (_rand(gen, (nb, bs, hkv, dh), bf, dev) for _ in range(2))
+    nv = torch.tensor([IT_LEN + i for i in range(SLOTS)], dtype=torch.int32,
+                      device=dev).clamp(max=s_it)
+    err = max_err(pda.paged_decode_attention_cuda(qp, kp, vp, bt, nv),
+                  pda.paged_decode_attention_plain(qp, kp, vp, bt, nv), "bfloat16")
+    kg, vg = (x[bt.long()].reshape(SLOTS, mb * bs, hkv, dh) for x in (kp, vp))
+    pmask = (torch.arange(mb * bs, device=dev)[None] < nv[:, None])[:, None, None, :]
+    n_rows = int(nv.sum())
+    kernel_record(recs, f"q[{SLOTS},{hq},{dh}] pool[{nb},{bs},{hkv},{dh}] bt[{SLOTS},{mb}] bf16 "
+                  f"n_valid {nv.tolist()} (chameleon-34b I-T paged decode, a rank's heads at "
+                  f"TP = {n})",
+                  lambda: pda.paged_decode_attention_cuda(qp, kp, vp, bt, nv),
+                  lambda: pda.paged_decode_attention_plain(qp, kp, vp, bt, nv),
+                  lambda qq=qp[:, :, None], ke=per_head(kg, hq // hkv),
+                  ve=per_head(vg, hq // hkv), m=pmask:
+                  F.scaled_dot_product_attention(qq, ke, ve, attn_mask=m), err,
+                  (2 * qp.numel() + 2 * n_rows * hkv * dh) * 2 + bt.numel() * 4 + SLOTS * 4,
+                  n_rows * hq * 4 * dh, counts("chameleon", "chunked")["paged_decode_attention"],
+                  name="paged_decode_attention",
+                  source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                  replaces="src/repro/models/attention.py:177")
+
+    # qk-norm: RMSNorm over each of a rank's q heads' rows of head_dim
+    hq, dh = qwen.n_heads // n, qwen.head_dim
+    x = _rand(gen, (SLOTS, 1, hq, dh), bf, dev) * 3
+    w = (1 + 0.1 * _rand(gen, (dh,), torch.float32, dev)).to(bf)
+    err = max_err(rn.rmsnorm_cuda(x, w), rn.rmsnorm_plain(x, w), "bfloat16")
+    kernel_record(recs, f"none x[{SLOTS},1,{hq},{dh}] bf16 (qwen3-moe-30b-a3b decode qk-norm, a "
+                  f"rank's q heads at TP = {n})",
+                  lambda: rn.rmsnorm_cuda(x, w), lambda: rn.rmsnorm_plain(x, w),
+                  lambda: F.rms_norm(x, (dh,), w, 1e-5), err,
+                  launches=counts("moe", "contiguous")["rmsnorm/none"], name="rmsnorm",
+                  prologue="none", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+                  replaces="src/repro/kernels/rmsnorm.py:25", **_rmsnorm_args(x.numel(), dh))
+
+    # both int8 GEMMs at llama3.2-1b's splits: wq's columns (N / 2) and w2's
+    # rows (K / 2), weight-only at the decode step, dynamic at a prefill
+    llama = get_config(ARCH)
+    d = llama.d_model
+    for mode, m in (("wo", SLOTS), ("dyn", pad_to)):
+        name = "int8_matmul_weight_only" if mode == "wo" else "int8_matmul_dynamic"
+        launches = counts(f"quant {mode}", "contiguous")[name]
+        for what, k, nn in (("wq, its columns", d, d // n),
+                            ("w2, its rows", llama.d_ff // n, d)):
+            xq, w_q, w_scale = _int8_operands(gen, m, k, nn)
+            label = f"llama3.2-1b {'decode' if mode == 'wo' else 'prefill'} {what} at TP = {n}"
+            if mode == "wo":
+                xb = xq.to(bf)
+                err = max_err(im.int8_matmul_weight_only_cuda(xb, w_q, w_scale),
+                              im.int8_matmul_weight_only_plain(xb, w_q, w_scale), "bfloat16")
+                kernel_record(recs, f"x[{m},{k}] bf16 @ w_q[{k},{nn}] int8 ({label})",
+                              lambda a=(xb, w_q, w_scale): im.int8_matmul_weight_only_cuda(*a),
+                              lambda a=(xb, w_q, w_scale): im.int8_matmul_weight_only_plain(*a),
+                              lambda a=(xb, w_q, w_scale): torch.matmul(a[0], a[1].to(bf)) * a[2],
+                              err, launches=launches, name=name,
+                              source="src/repro_torch/kernels/csrc/int8_matmul.cu",
+                              replaces="src/repro/kernels/int8_matmul.py:66",
+                              **_int8_args(m, k, nn, False))
+            else:
+                x_q, x_scale = ops.quantize_rows(xq)
+                a = (x_q, w_q, w_scale, x_scale)
+                err = max_err(im.int8_matmul_dynamic_cuda(*a), im.int8_matmul_dynamic_plain(*a),
+                              "float32")
+                kernel_record(recs, f"x_q[{m},{k}] int8 @ w_q[{k},{nn}] int8, f32 out ({label})",
+                              lambda a=a: im.int8_matmul_dynamic_cuda(*a),
+                              lambda a=a: im.int8_matmul_dynamic_plain(*a),
+                              _int_mm_call(x_q, w_q, w_scale, x_scale), err,
+                              launches=launches, name=name,
+                              source="src/repro_torch/kernels/csrc/int8_matmul.cu",
+                              replaces="src/repro/kernels/int8_matmul.py:104",
+                              **_int8_args(m, k, nn, True))
+
+
+def _rmsnorm_args(n, d):
+    w = rmsnorm_work("none", n, d)
+    return dict(n_bytes=w["bytes"], flops=w["flops"], peak=w["peak"])
+
+
+def _int8_args(m, k, n, dynamic):
+    w = _int8_work(m, k, n, dynamic)
+    return dict(n_bytes=w["bytes"], flops=w["flops"], peak=w["peak"])
+
+
+def timed(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds printed as ``[main] name``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"[main] {name} {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main() -> None:
@@ -7217,42 +7757,46 @@ def main() -> None:
         print("[tp] the tp phase alone passed", flush=True)
         return
     try:
-        gpu = phase_device()
-        phase_build()
+        gpu = timed("device", phase_device)
+        timed("build", phase_build)
         from repro_torch.launch import serve
         from repro_torch.training import data as data_mod
 
         pad_to = serve.trace_pad_to(data_mod.PAPER_PROFILES["llama_humaneval"],
                                     N_REQUESTS, SEED)
-        records = phase_kernels(pad_to, pad_to + MAX_NEW + 1)
-        cfg, model, params, trace, runs = phase_serve(pad_to)
-        paged_counts, paged_toks = phase_paged(cfg, model, params, pad_to, runs["continuous"][1])
-        spec_counts, sampled_toks = phase_speculative(cfg, model, params, pad_to,
-                                                      runs["continuous"][1])
-        mixed_counts = phase_mixed(cfg, model, params, pad_to, runs["continuous"][1])
-        phase_prefix(cfg, model, params)
+        records = timed("kernels", phase_kernels, pad_to, pad_to + MAX_NEW + 1)
+        cfg, model, params, trace, runs = timed("serve", phase_serve, pad_to)
+        paged_counts, paged_toks = timed("paged", phase_paged, cfg, model, params, pad_to,
+                                         runs["continuous"][1])
+        spec_counts, sampled_toks = timed("speculative", phase_speculative, cfg, model, params,
+                                          pad_to, runs["continuous"][1])
+        mixed_counts = timed("mixed", phase_mixed, cfg, model, params, pad_to,
+                             runs["continuous"][1])
+        timed("prefix", phase_prefix, cfg, model, params)
         t0 = time.perf_counter()
         phase_router(cfg, model, params, pad_to, {"serve": runs["continuous"][1],
                                                   "sampled": sampled_toks,
                                                   "paged": paged_toks["paged"]})
         print(f"[router] phase {time.perf_counter() - t0:.1f} s", flush=True)
-        phase_parity(model, params, pad_to, trace[:2], runs["continuous"][1])
-        phase_profile(model, params, pad_to, trace, fused=fused_per_forward(cfg))
-        arms = phase_quant(cfg, model, params, pad_to, trace)
+        timed("parity", phase_parity, model, params, pad_to, trace[:2], runs["continuous"][1])
+        timed("profile", phase_profile, model, params, pad_to, trace,
+              fused=fused_per_forward(cfg))
+        arms = timed("quant", phase_quant, cfg, model, params, pad_to, trace)
         extend_records, _ = phase_extend(cfg, model, params, pad_to)
         records += extend_records
         phase_scanned(cfg, model, params, gpu)
         phase_audit(model, params, gpu)
         del model, params
         torch.cuda.empty_cache()
-        records += tp_kernel_records(pad_to, phase_tp(pad_to))
+        records += timed("tp kernel records", tp_kernel_records, pad_to,
+                         timed("tp", phase_tp, pad_to))
         phase_train()
-        hstu_counts, hstu_f32_counts = phase_hstu()
-        ssm_counts, ssm_f32_counts = phase_ssm(pad_to)
-        seamless_counts, _ = phase_seamless()
-        chameleon_counts, _ = phase_chameleon()
-        _, moe_arms, _ = phase_moe("qwen3-moe-30b-a3b", pad_to)
-        _, mla_arms, mla_records = phase_moe("deepseek-v2-236b", pad_to)
+        hstu_counts, hstu_f32_counts = timed("hstu", phase_hstu)
+        ssm_counts, ssm_f32_counts = timed("ssm", phase_ssm, pad_to)
+        seamless_counts, _ = timed("seamless", phase_seamless)
+        chameleon_counts, _ = timed("chameleon", phase_chameleon)
+        _, moe_arms, _ = timed("moe", phase_moe, "qwen3-moe-30b-a3b", pad_to)
+        _, mla_arms, mla_records = timed("mla", phase_moe, "deepseek-v2-236b", pad_to)
         records += mla_records
         dense_pad = serve.trace_pad_to(data_mod.PAPER_PROFILES["llama_humaneval"],
                                        DENSE_REQUESTS, SEED)
@@ -7268,7 +7812,7 @@ def main() -> None:
         records += hybrid_kernel_records(pad_to, hybrid_counts, long_counts)
         print(f"[hybrid] phase with its kernel records {time.perf_counter() - t0:.1f} s",
               flush=True)
-        records += phase_smoke_configs()
+        records += timed("smoke_configs", phase_smoke_configs)
         phase_examples()
         # each kernel's launches come from the run of the path it is on; an
         # f32 route's from the f32 run of its path

@@ -49,11 +49,20 @@ def quantize_linear(p: Dict[str, torch.Tensor], mode: str) -> Dict[str, torch.Te
     return out
 
 
-def qdense(p: Dict[str, torch.Tensor], x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+def qdense(p: Dict[str, torch.Tensor], x: torch.Tensor, impl: str = "auto",
+           row_group=None) -> torch.Tensor:
     """Forward through a (possibly) quantized linear param dict; ``impl``
-    picks the int8 kernels or their plain versions (``kernels/ops.py``)."""
+    picks the int8 kernels or their plain versions (``kernels/ops.py``).
+    ``row_group`` (a tensor-parallel group) marks a row-parallel linear,
+    whose ``x`` holds the rank's slice of K: a dynamic linear takes each
+    row's activation scale over the whole row (one ``all_reduce_max``), so
+    its codes are the single device's and the ranks' partial outputs sum to
+    its output as a bf16 linear's do. A weight-only linear needs nothing:
+    its scale is per output column."""
     if "w_q_dyn" in p:
-        y = ops.int8_matmul_dynamic(x, p["w_q_dyn"], p["w_scale"], impl=impl).to(x.dtype)
+        amax = row_group.all_reduce_max if row_group is not None else None
+        y = ops.int8_matmul_dynamic(x, p["w_q_dyn"], p["w_scale"], impl=impl,
+                                    amax_reduce=amax).to(x.dtype)
     elif "w_q_wo" in p:
         y = ops.int8_matmul_weight_only(x, p["w_q_wo"], p["w_scale"], impl=impl).to(x.dtype)
     else:

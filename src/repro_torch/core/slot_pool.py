@@ -22,9 +22,10 @@ own (``cache_ref`` / ``cache_unref``) that admissions ``adopt``.
 behind.
 
 A tensor-parallel rank builds its pool from its rank-local model
-(``distributed/tp_pool.py``): the K/V tensors hold the rank's KV heads,
-while the host state, the block tables and ``lengths`` are whole and the
-same on every rank (``sharding.cache_specs_tp``'s head split).
+(``distributed/tp_pool.py``): the K/V tensors hold the rank's KV heads
+(``sharding.cache_specs_tp``'s head split), an MLA pool the whole latent
+(which the reference replicates), while the host state, the block tables
+and ``lengths`` are whole and the same on every rank.
 """
 from __future__ import annotations
 

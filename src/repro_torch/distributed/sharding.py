@@ -25,8 +25,9 @@ TP serving (``distributed/tp_pool.py``) reuses the same rules on a 1-D
 ``("model",)`` mesh of ``tp`` ranks: params by :func:`param_specs` with
 ``enable_tp=True`` (:func:`tp_param_specs` adds the port's own leaves), the
 KV pool by :func:`cache_specs_tp` (the head axis; its sequence-axis
-fallback is refused by the pool), and :func:`shard_tree` cuts each rank's
-slice, the counterpart of ``device_put`` under a ``NamedSharding``.
+fallback is refused by the pool; MLA's ``latent`` matches no KV leaf and
+stays whole), and :func:`shard_tree` cuts each rank's slice, the
+counterpart of ``device_put`` under a ``NamedSharding``.
 """
 from __future__ import annotations
 
@@ -330,11 +331,20 @@ def fsdp_upgrade(cfg: ModelConfig, tree_like: Any, spec_tree: Any, mesh,
 _BIAS = re.compile(r"attn/(wq|wk|wv)/b$")
 
 
+def _column_split(spec: Spec) -> Spec:
+    """A 1-D per-column leaf's spec beside a weight of ``spec``: split with
+    its columns, else whole."""
+    return ("model",) if spec and spec[-1] == "model" else ()
+
+
 def tp_param_specs(cfg: ModelConfig, params_like: Any, tp: int) -> Any:
     """The serving spec tree of the port's params at ``tp`` ranks:
     :func:`param_specs` with ``enable_tp=True`` on ``("model",)``, plus the
     port's own leaves — a tied table's f32 unembed copy (``table_f32``) split
-    as its table, and each q/k/v bias split with its weight's columns."""
+    as its table, each q/k/v bias split with its weight's columns, and an
+    AutoQuant'd linear's per-column ``w_scale`` [N] split with a
+    column-parallel ``w_q_*`` leaf's columns and whole beside a row-parallel
+    one (the reference leaves every 1-D ``w_scale`` whole)."""
     specs = param_specs(cfg, params_like, MeshShape({"model": tp}), enable_tp=True)
     flat = flat_specs(specs)
 
@@ -342,8 +352,11 @@ def tp_param_specs(cfg: ModelConfig, params_like: Any, tp: int) -> Any:
         if path.endswith("embed/table_f32"):
             return flat[path[:-len("_f32")]]
         if _BIAS.search(path):
-            w = flat[path[:-1] + "w"]
-            return ("model",) if w and w[-1] == "model" else ()
+            return _column_split(flat[path[:-1] + "w"])
+        if path.endswith("/w_scale") and _ndim(leaf) == 1:
+            base = path[:-len("w_scale")]
+            weight = next(flat[base + q] for q in ("w_q_wo", "w_q_dyn") if base + q in flat)
+            return _column_split(weight)
         return flat[path]
 
     return map_with_path(fix, params_like)

@@ -9,39 +9,53 @@ two collectives the model uses) and a :class:`TPContext`:
 
 - the rank's param shard, cut by ``sharding.tp_param_specs`` (megatron
   column / row splits, the vocab-split embedding and LM head, the q/k/v
-  biases with their columns) through ``sharding.shard_tree``;
-- a rank-local model: the config at ``n_heads / tp``, ``n_kv_heads / tp``
-  and ``d_ff / tp``, whose forward reduces after each row-parallel linear
-  (``attn/wo``, ``ffn/w2``) and after the vocab-parallel embedding lookup,
-  so its pools (``SlotPool``, ``BlockPool``) hold the rank's KV heads: the
-  head split of ``sharding.cache_specs_tp``, with block tables and lengths
-  whole on every rank;
+  biases with their columns, MoE experts on their axis, MLA's ``q_up`` /
+  ``kv_up`` columns, an AutoQuant'd leaf's ``w_scale`` with its columns)
+  through ``sharding.shard_tree``. AutoQuant'd trees are quantized whole
+  and then cut: a row-parallel leaf's per-column scale is the max over the
+  whole K, so cutting first would give other codes;
+- a rank-local model (:func:`local_config`: the rank's heads and FFN
+  columns, all ``n_experts`` kept), whose forward reduces after each
+  row-parallel linear (``attn/wo``, ``ffn/w2``; a MoE layer's routed and
+  shared partials in one reduce) and after the vocab-parallel embedding
+  lookup, so its pools (``SlotPool``, ``BlockPool``) hold the rank's KV
+  heads, the head split of ``sharding.cache_specs_tp``, or MLA's whole
+  latent (the reference replicates it), with block tables and lengths whole
+  on every rank;
 - :meth:`TPContext.executables`, the TP step family (``engine.tp_prefill``,
   ``tp_decode_step``, ``tp_mixed_step``, ``tp_verify_step`` and
   ``layerskip.tp_draft_window``) with the single-device call signatures:
   the seam ``Scheduler(tp=...)`` routes every step through.
 
-Collectives are ``all_reduce`` and ``broadcast`` only, the two that gloo
-offers on CUDA tensors. The backend follows one rule: ``gloo`` when the
-ranks run on the CPU or share a card (NCCL refuses two ranks on one
-device), ``nccl`` when each rank has a card of its own. Every rank's host
-state stays the same by construction: rank 0 broadcasts every token the
-scheduler commits and every clock reading it acts on, so admissions,
-preemptions, block tables and the prefix cache agree and the ranks enter
-the same collectives in the same order.
+Collectives are ``all_reduce`` (sum, and max for an AutoQuant'd ``dyn``
+row-parallel linear's activation scale) and ``broadcast``, which gloo
+offers on CUDA tensors; ``TPGroup`` counts the reduces. The backend
+follows one rule: ``gloo`` when the ranks run on the CPU or share a card
+(NCCL refuses two ranks on one device), ``nccl`` when each rank has a card
+of its own. Gloo ranks that meet through a file store share a host, and
+their collectives of up to ``SLOT_BYTES`` go through a file they all map
+(:class:`SharedSlots`), bit for bit gloo's results without its socket
+round trips. Every rank's host state stays the same by construction: rank 0
+broadcasts every token the scheduler commits and every clock reading it
+acts on, so admissions, preemptions, block tables and the prefix cache
+agree and the ranks enter the same collectives in the same order.
 
-A collective waits on the host under gloo, so a TP step syncs: the
-no-sync contract of ``Scheduler.step_begin`` holds for single-device steps
-only, and a TP step is not captured as a CUDA graph.
+A collective waits on the host (through the slots or gloo), so a TP step
+syncs: the no-sync contract of ``Scheduler.step_begin`` holds for
+single-device steps only, and a TP step is not captured as a CUDA graph.
 
-Refused, by name (ROADMAP, Queue 1, step 6): families other than ``dense``;
-``n_kv_heads``, ``n_heads``, ``d_ff`` or the vocabulary not divisible by
-``tp`` (the reference falls back to the sequence axis or replicates);
-AutoQuant'd leaves.
+Served: the ``dense``, ``vlm``, ``moe`` and ``mla_moe`` families, bf16 or
+AutoQuant'd (``wo`` / ``dyn``). Refused, by name (ROADMAP, Queue 1, step
+6): the ``ssm``, ``hybrid``, ``encdec``, ``seamless`` and ``hstu``
+families; a width that does not divide ``tp`` (heads, FFN columns, the
+vocabulary, experts, the shared experts' width, ``d_ff_dense``), where the
+reference falls back to the sequence axis or replicates.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
+import platform
 import re
 import tempfile
 import time
@@ -59,18 +73,88 @@ from repro_torch.models.registry import Model
 #: where the refused parts of TP serving are queued
 ROADMAP_ITEM = "ROADMAP Queue 1, step 6 (distributed/: what tensor parallelism still refuses)"
 
+#: a collective of at most this many bytes between gloo ranks goes through
+#: their shared slots (``SharedSlots``), which skip gloo's socket round
+#: trips; a larger one through gloo, where the copies, the same either way,
+#: set the time (a decode step's reduces and its logits' gather fit)
+SLOT_BYTES = 8 << 20
+#: how long a rank waits for the others to reach a collective
+SLOT_TIMEOUT_S = 600.0
+
+
+class SharedSlots:
+    """The collectives of ranks on one host through a file every rank maps
+    (``torch.from_file``): a sequence number a rank (each on a cache line of
+    its own) and, for each of two parities, a slot of SLOT_BYTES a rank. A
+    collective writes the rank's slot of its parity, publishes its sequence
+    number, waits until every rank has published it, and reads. A rank
+    writes a parity's slot again only two collectives later, after every
+    rank published the next one and so finished reading this one. Every rank
+    combines the slots in rank order, so each gets the same result, as
+    gloo's (a sum of two bf16 tensors rounds once). The data must be visible
+    before the sequence number: stores become visible in program order on
+    x86-64, the only host ``make_tp_group`` uses them on."""
+
+    def __init__(self, path: str, rank: int, size: int):
+        self.rank, self.size = rank, size
+        self.header = 64 * size
+        self.buf = torch.from_file(path, shared=True, dtype=torch.uint8,
+                                   size=self.header + 2 * size * SLOT_BYTES)
+        self.published = self.buf[:self.header].numpy().view("int64")[::8]
+        self.seq = 0
+
+    def _slot(self, parity: int, rank: int, like: torch.Tensor) -> torch.Tensor:
+        at = self.header + (parity * self.size + rank) * SLOT_BYTES
+        n = like.numel() * like.element_size()
+        return self.buf[at:at + n].view(like.dtype).view(like.shape)
+
+    def _meet(self) -> None:
+        self.published[self.rank] = self.seq
+        deadline = time.monotonic() + SLOT_TIMEOUT_S
+        while int(self.published.min()) < self.seq:
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"rank {self.rank}: the other ranks did not reach "
+                                   f"collective {self.seq} within {SLOT_TIMEOUT_S} s")
+            os.sched_yield()
+
+    def all_reduce(self, x: torch.Tensor, op) -> None:
+        self.seq += 1
+        parity = self.seq % 2
+        self._slot(parity, self.rank, x).copy_(x)
+        self._meet()
+        acc = self._slot(parity, 0, x).clone()
+        for r in range(1, self.size):
+            if op == dist.ReduceOp.MAX:
+                torch.maximum(acc, self._slot(parity, r, x), out=acc)
+            else:
+                acc += self._slot(parity, r, x)
+        x.copy_(acc)
+
+    def broadcast(self, x: torch.Tensor, src: int) -> None:
+        self.seq += 1
+        parity = self.seq % 2
+        if self.rank == src:
+            self._slot(parity, src, x).copy_(x)
+        self._meet()
+        if self.rank != src:
+            x.copy_(self._slot(parity, src, x))
+
 
 class TPGroup:
     """One rank's handle on its tensor-parallel group: ``rank`` of ``size``
-    on ``device``, and the group's two collectives. A group of one rank
-    (``size == 1``) needs no process group: its collectives return their
-    input. Counts each ``all_reduce`` and its host seconds (``n_reduces``,
-    ``reduce_s``) and each ``broadcast`` (``n_broadcasts``)."""
+    on ``device``, and the group's two collectives, through ``slots`` (a
+    ``SharedSlots``) when the ranks have them and the tensor fits, else
+    through the process group. A group of one rank (``size == 1``) needs no
+    process group: its collectives return their input. Counts each
+    ``all_reduce`` and its host seconds (``n_reduces``, ``reduce_s``) and
+    each ``broadcast`` (``n_broadcasts``)."""
 
-    def __init__(self, rank: int, size: int, device, backend: Optional[str] = None):
+    def __init__(self, rank: int, size: int, device, backend: Optional[str] = None,
+                 slots: Optional[SharedSlots] = None):
         self.rank, self.size = rank, size
         self.device = torch.device(device)
         self.backend = backend
+        self.slots = slots
         self.n_reduces = 0
         self.reduce_s = 0.0
         self.n_broadcasts = 0
@@ -78,21 +162,42 @@ class TPGroup:
     def __repr__(self) -> str:
         return f"TPGroup(rank={self.rank}, size={self.size}, device={self.device})"
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the ranks, in place; returns ``x``."""
+    def _in_slots(self, x: torch.Tensor) -> bool:
+        return self.slots is not None and x.numel() * x.element_size() <= SLOT_BYTES
+
+    def _reduce(self, x: torch.Tensor, op) -> None:
+        if self._in_slots(x):
+            self.slots.all_reduce(x, op)
+        else:
+            dist.all_reduce(x, op=op)
+
+    def _broadcast(self, x: torch.Tensor, src: int) -> None:
+        if self._in_slots(x):
+            self.slots.broadcast(x, src)
+        else:
+            dist.broadcast(x, src)
+
+    def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``x`` reduced over the ranks by ``op`` (a sum), in place; returns
+        ``x``."""
         if self.size == 1:
             return x
         t = time.perf_counter()
-        dist.all_reduce(x)
+        self._reduce(x, op)
         self.reduce_s += time.perf_counter() - t
         self.n_reduces += 1
         return x
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s elementwise max over the ranks, in place (an AutoQuant'd
+        ``dyn`` row-parallel linear's whole-row activation scale)."""
+        return self.all_reduce(x, dist.ReduceOp.MAX)
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``x`` on every rank, in place; returns ``x``."""
         if self.size == 1:
             return x
-        dist.broadcast(x, src)
+        self._broadcast(x, src)
         self.n_broadcasts += 1
         return x
 
@@ -106,7 +211,7 @@ class TPGroup:
         if self.size == 1:
             return int(value)
         t = self._host_scalar(value, torch.int64)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        self._reduce(t, dist.ReduceOp.MAX)
         return int(t[0])
 
     def shared_clock(self, clock: Callable[[], float]) -> Callable[[], float]:
@@ -118,7 +223,7 @@ class TPGroup:
 
         def read() -> float:
             t = self._host_scalar(clock() if self.rank == 0 else 0.0, torch.float64)
-            dist.broadcast(t, 0)
+            self._broadcast(t, 0)
             return float(t[0])
 
         return read
@@ -161,7 +266,15 @@ def make_tp_group(tp: int, devices: Optional[Sequence[Any]] = None, *, rank: int
         if init_method is None:
             raise ValueError("a group of more than one rank needs an init_method")
         dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=tp)
-    return TPGroup(rank, tp, devs[rank], backend)
+    slots = None
+    if (tp > 1 and backend == "gloo" and init_method is not None
+            and init_method.startswith("file://") and platform.machine() == "x86_64"):
+        # the ranks of a file store share its host: slots beside the store
+        slots = SharedSlots(init_method[len("file://"):] + ".slots", rank, tp)
+        if rank == 0:
+            slots.published[:] = 0
+        dist.barrier()
+    return TPGroup(rank, tp, devs[rank], backend, slots)
 
 
 def _rank_main(rank: int, fn, tp: int, devices, init_method: str, results, args) -> None:
@@ -219,14 +332,33 @@ def spawn(fn: Callable[..., Any], tp: int, *args, devices: Optional[Sequence[Any
 
 # ---- the rank's shard and model --------------------------------------------
 
+#: the families TP serves (``models/transformer.py``'s stack)
+FAMILIES = ("dense", "vlm", "moe", "mla_moe")
+
+
+def _split_widths(cfg: ModelConfig) -> list:
+    """(name, width) of every width TP splits over the ranks."""
+    widths = [("n_heads", cfg.n_heads), ("vocab_size", cfg.vocab_size)]
+    if cfg.mla is None:  # MLA's one latent is whole on every rank
+        widths.append(("n_kv_heads", cfg.n_kv_heads))
+    m = cfg.moe
+    if m is None:
+        return widths + [("d_ff", cfg.d_ff)]
+    widths.append(("moe.n_experts", m.n_experts))
+    if m.n_shared_experts:
+        widths.append(("the shared experts' width", m.n_shared_experts * m.d_ff_expert))
+    if m.first_dense_layers:
+        widths.append(("moe.d_ff_dense", m.d_ff_dense or cfg.d_ff))
+    return widths
+
+
 def check_supported(cfg: ModelConfig, tp: int) -> None:
     """Raise for what TP serving refuses, naming its ROADMAP item."""
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"tensor parallelism serves the dense family only, not {cfg.family!r}: "
-            f"{ROADMAP_ITEM}")
-    for what, n in (("n_kv_heads", cfg.n_kv_heads), ("n_heads", cfg.n_heads),
-                    ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+            f"tensor parallelism serves the {', '.join(FAMILIES)} families, not "
+            f"{cfg.family!r}: {ROADMAP_ITEM}")
+    for what, n in _split_widths(cfg):
         if n % tp:
             raise NotImplementedError(
                 f"{what} = {n} does not split over tp = {tp} (the reference falls back to "
@@ -236,15 +368,18 @@ def check_supported(cfg: ModelConfig, tp: int) -> None:
 
 
 def local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
-    """One rank's widths: its q and KV heads and its FFN columns."""
-    return cfg.replace(n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
-                       d_head=cfg.head_dim, d_ff=cfg.d_ff // tp)
-
-
-def _leaf_paths(tree) -> List[str]:
-    paths: List[str] = []
-    sharding.map_with_path(lambda p, leaf: paths.append(p), tree)
-    return paths
+    """One rank's widths: its q and KV heads and its FFN columns (a MoE
+    model's dense layers at ``d_ff_dense / tp``). ``moe.n_experts`` stays
+    whole: the router, the top-k and the capacity are the whole model's,
+    and a rank holds experts ``[rank * E / tp, (rank + 1) * E / tp)``
+    (halving it would double the capacity and change which assignments
+    drop)."""
+    local = cfg.replace(n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+                        d_head=cfg.head_dim, d_ff=cfg.d_ff // tp)
+    if cfg.moe is not None and cfg.moe.first_dense_layers:
+        local = local.replace(moe=dataclasses.replace(
+            cfg.moe, d_ff_dense=(cfg.moe.d_ff_dense or cfg.d_ff) // tp))
+    return local
 
 
 class TPContext:
@@ -256,9 +391,6 @@ class TPContext:
     def __init__(self, model: Model, params, group: TPGroup):
         cfg = model.config
         check_supported(cfg, group.size)
-        if any(re.search(r"/w_q_(wo|dyn)$", p) for p in _leaf_paths(params)):
-            raise NotImplementedError(f"AutoQuant'd leaves under tensor parallelism: "
-                                      f"{ROADMAP_ITEM}")
         self.config, self.group = cfg, group
         self.size, self.rank, self.device = group.size, group.rank, group.device
         self.model = Model(config=local_config(cfg, group.size), module=model.module,
@@ -278,8 +410,8 @@ class TPContext:
 
     def whole_bytes(self, cache) -> int:
         """The bytes of the pool this rank holds a shard of, counted once:
-        K/V leaves (split by heads) ``size`` times, the replicated lengths and
-        block tables once."""
+        K/V leaves (split by heads) ``size`` times; MLA's latent (whole on
+        every rank), the replicated lengths and block tables once."""
         total = 0
 
         def add(path, leaf):

@@ -23,7 +23,7 @@ kernel as they are.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -212,10 +212,14 @@ def quantize_int8(w: torch.Tensor, axis: int = 0):
     ``max(amax, 1e-8) / 127`` and then ``w / scale``, rounded half to even,
     in that order, so the int8 weights are bit-identical to the reference's."""
     wf = w.float()
-    amax = wf.abs().amax(dim=axis, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
-    w_q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    w_q, scale = _int8_codes(wf, wf.abs().amax(dim=axis, keepdim=True))
     return w_q, scale.squeeze(axis)
+
+
+def _int8_codes(xf: torch.Tensor, amax: torch.Tensor):
+    """(int8 codes, f32 scale) of ``xf`` under its channels' ``amax``."""
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 
 def int8_matmul_weight_only(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -230,23 +234,31 @@ def int8_matmul_weight_only(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.T
     return fn(x.contiguous(), w_q.contiguous(), w_scale.float().contiguous())
 
 
-def quantize_rows(x: torch.Tensor):
+def quantize_rows(x: torch.Tensor, amax_reduce: Optional[Callable] = None):
     """Dynamic activation quantization, per row of ``x [..., K]``: returns
     (x_q int8 [..., K], x_scale f32 [..., 1]), by the same formula and in
-    the same order as ``quantize_int8``."""
-    x_q, x_scale = quantize_int8(x, axis=-1)
-    return x_q, x_scale.unsqueeze(-1)
+    the same order as ``quantize_int8``. ``amax_reduce`` maps each row's
+    amax [..., 1] to the whole row's when ``x`` holds only a slice of its K
+    axis (a row-parallel linear under tensor parallelism: the max over the
+    ranks), so the codes are those of the whole row."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    return _int8_codes(xf, amax)
 
 
 def int8_matmul_dynamic(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-                        impl: str = "auto") -> torch.Tensor:
+                        impl: str = "auto", amax_reduce: Optional[Callable] = None
+                        ) -> torch.Tensor:
     """Dynamic per-row activation quantization + int8 x int8 GEMM, out f32:
     the compute-bound lever (paper §4.2 dynamic). The activation scales
     (amax, scale, round, clip) are plain torch outside the kernel, as the
-    reference computes them outside its Pallas kernel."""
+    reference computes them outside its Pallas kernel; ``amax_reduce`` as
+    in ``quantize_rows``."""
     impl = _resolve(impl, x)
     _check_no_grad(impl, x, w_scale)
-    x_q, x_scale = quantize_rows(x)
+    x_q, x_scale = quantize_rows(x, amax_reduce)
     fn = _im.int8_matmul_dynamic_cuda if impl == "cuda" else _im.int8_matmul_dynamic_plain
     return fn(x_q, w_q.contiguous(), w_scale.float().contiguous(), x_scale)
 

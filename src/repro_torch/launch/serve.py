@@ -27,11 +27,16 @@ on the one card (or round-robin over the cards when there are several; on
 the CPU with ``--device cpu``), and prints the fleet's spills, requeues,
 busy-time rate and one line per replica. ``--boost-after S`` ages waiting
 requests: one priority a full ``S`` seconds waited. ``--tp N`` serves one pool
-as N tensor-parallel ranks (``distributed/tp_pool.py``; the dense family):
-N processes, each holding its shard of the params and of the KV pool, on
-the first N cards, on the cards ``--tp-devices`` lists (``cuda:0,cuda:0``
-puts two ranks on one card) or, with ``--device cpu``, all on the CPU;
-rank 0 prints, with the KV bytes each rank reserves. Weights are random, drawn from a
+as N tensor-parallel ranks (``distributed/tp_pool.py``; the dense, vlm, moe
+and mla_moe families, bf16 or ``--quant``'d): N processes, each holding its
+shard of the params and of the KV pool (its KV heads, or MLA's whole
+latent), on the first N cards, on the cards ``--tp-devices`` lists
+(``cuda:0,cuda:0`` puts two ranks on one card) or, with ``--device cpu``,
+all on the CPU; rank 0 prints, with the KV bytes each rank reserves, the
+reduces the run made and, measured, a forward's. ``--quant wo|dyn``
+quantizes every linear of the whole model with one AutoQuant mode
+(``quantization.quantize_params``) before any shard is cut. Weights are
+random, drawn from a
 ``torch.Generator`` seeded with ``--seed``; on the card the model's kernels
 (attention and RMSNorm for ``llama3.2-1b`` and the MoE models, the latent
 attention too for ``deepseek-v2-236b``, the SSD scan and RMSNorm for
@@ -61,9 +66,15 @@ depth of a model too large for one card.
       --smoke --device cpu --replicas 2 --boost-after 0.05
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --tp 2 --paged --chunked --num-blocks 40 --prefill-budget 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
+      --smoke --device cpu --tp 2 --paged --chunked --num-blocks 40 --prefill-budget 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --smoke --device cpu --tp 2 --quant dyn
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --tp 2 --tp-devices cuda:0,cuda:0 --paged --chunked --num-blocks 48 \
       --prefill-budget 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
+      --n-layers 3 --tp 2 --tp-devices cuda:0,cuda:0
 
 Reported per request: TTFT (arrival -> first token), TPOT (mean inter-
 token), e2e latency; aggregate: tokens/s, mean slot-occupancy and the
@@ -76,7 +87,7 @@ group admissions, row gathers, table permutations and copy-on-write
 copies; prefix-cache runs the hits, prompt tokens skipped and cached
 blocks; replica runs the fleet's spills, requeues, busy-time rate and
 each replica's line; TP runs the backend, the KV bytes a rank reserves
-against the whole pool's and the reduces a step.
+against the whole pool's, the reduces and the forwards.
 """
 from __future__ import annotations
 
@@ -543,6 +554,9 @@ def run_scheduler(
                                                                       tp.group),
             param_bytes_per_device=tp_pool.max_per_device_bytes(tp.params, tp.group),
             reduces=tp.group.n_reduces - n_red0, reduce_s=tp.group.reduce_s - red_s0,
+            # a prefill or a pool-wide step is one forward (a speculative
+            # step adds its draft window's)
+            forwards=sched.n_prefills + sched.n_decode_steps,
         )
     if return_requests:
         return m, done
@@ -778,9 +792,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when there is no card) or cpu")
     ap.add_argument("--tp", type=int, default=None,
-                    help="serve one pool as this many tensor-parallel ranks (the dense "
-                         "family): on the first that many cards, on --tp-devices, or all on "
-                         "the CPU with --device cpu")
+                    help="serve one pool as this many tensor-parallel ranks (the dense, "
+                         "vlm, moe and mla_moe families): on the first that many cards, on "
+                         "--tp-devices, or all on the CPU with --device cpu")
+    ap.add_argument("--quant", choices=["wo", "dyn"], default=None,
+                    help="AutoQuant every linear with this one mode (int8 weight-only or "
+                         "dynamic), the whole model before any tensor-parallel shard")
     ap.add_argument("--tp-devices", default=None, metavar="DEVS",
                     help="comma list of the ranks' devices, e.g. cuda:0,cuda:0 (two ranks on "
                          "one card)")
@@ -797,6 +814,9 @@ def main(argv=None):
         ap.error(f"--tp with --replicas: {tp_pool.ROADMAP_ITEM}")
     if args.tp is None:
         return _serve(args)
+    # refused before any rank starts (the ROADMAP item named)
+    tp_pool.check_supported(get_smoke_config(args.arch) if args.smoke else get_config(args.arch),
+                            args.tp)
     if args.tp_devices:
         devices = args.tp_devices.split(",")
     else:
@@ -814,6 +834,11 @@ def _serve(args, group=None):
     device = group.device if group is not None else resolve_device(args.device)
     cfg, model, params = build_model(args.arch, smoke=args.smoke, seed=args.seed,
                                      device=device, n_layers=args.n_layers)
+    if args.quant is not None:
+        from repro_torch.core import quantization
+
+        with torch.inference_mode():
+            params = quantization.quantize_params(params, args.quant)
     tp = None
     if group is not None:
         tp = tp_pool.TPContext(model, params, group)
@@ -927,7 +952,9 @@ def _serve(args, group=None):
               f"{m['kv_reserved_bytes'] / 1e6:.1f}MB "
               f"({m['kv_reserved_per_device_bytes'] / m['kv_reserved_bytes']:.3f}x) | "
               f"params/rank={m['param_bytes_per_device'] / 1e6:.1f}MB | reduces="
-              f"{m['reduces']} ({m['reduce_s'] * 1e3:.1f} ms host)")
+              f"{m['reduces']} ({m['reduce_s'] * 1e3:.1f} ms host) over {m['forwards']} "
+              f"forwards" + ("" if "spec_steps" in m else
+                             f", {m['reduces'] / m['forwards']:g} a forward"))
     if args.replicas is not None:
         print(f"[serve/{mode}] spills={m['spills']} | requeues={m['requeues']} | "
               f"steps max={m['steps_max']} | aggregate={m['aggregate_tokens_per_s']:.1f} "

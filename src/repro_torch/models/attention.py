@@ -65,9 +65,12 @@ as the reference does, before any write.
 Under tensor parallelism a rank's config carries its heads (``n_heads /
 tp``, ``n_kv_heads / tp``; ``distributed/tp_pool.py``) and its params the
 matching q/k/v columns (biases included) and ``wo`` rows: every mode runs
-unchanged on the rank's heads, and the caller reduces ``wo``'s partial
-output. Not ported: the sequence-parallel decode (``SP_MESH``; ROADMAP
-Queue 1, step 6).
+unchanged on the rank's heads (qk-norm's per-``head_dim`` scales
+replicated), and ``wo``'s partial outputs are reduced over the ranks
+(``layers.row_parallel``). MLA runs at a
+rank's query heads over the whole latent, as the reference's specs leave
+it (replicated): the latent cache is the same on every rank. Not ported:
+the sequence-parallel decode (``SP_MESH``; ROADMAP Queue 1, step 6).
 """
 from __future__ import annotations
 
@@ -290,10 +293,12 @@ def attention(
     impl: str = "auto",
     bidirectional: bool = False,
     t_new: Optional[torch.Tensor] = None,  # [B] chunk / window widths
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """``bidirectional`` (encoder stacks): no RoPE, and non-causal flash
     attention in train and prefill. Under ``cfg.qk_norm`` q and k are
-    RMS-normalised per head (rows of ``head_dim``) before RoPE."""
+    RMS-normalised per head (rows of ``head_dim``) before RoPE. ``tp``: the
+    group ``wo``'s rows are split over (its output is reduced over it)."""
     b, t, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if mode == "mixed" and (cache is None or "bt" not in cache):
@@ -363,7 +368,7 @@ def attention(
         out = ops.decode_attention(
             q[:, 0], new_cache["k"], new_cache["v"], n_valid, impl=impl
         )[:, None]
-    return L.dense(p["wo"], out.reshape(b, t, hq * dh), impl), new_cache
+    return L.row_parallel(p["wo"], out.reshape(b, t, hq * dh), impl, tp), new_cache
 
 
 def _paged_attention(q, k, v, cache: dict, *, positions, lengths, mode: str, t_new,
@@ -459,8 +464,13 @@ def mla_attention(
     mode: str,
     impl: str = "auto",
     t_new: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """MLA in every mode of the reference. ``train`` / ``prefill``: the
+    """MLA in every mode of the reference, at ``cfg.n_heads`` heads: under
+    ``tp`` a rank's, whose ``q_up`` / ``kv_up`` columns and ``wo`` rows it
+    holds (both up projections are head-major, so a contiguous column split
+    is a head split) over the whole latent, which every rank writes alike;
+    ``wo``'s output is then reduced over the ranks. ``train`` / ``prefill``: the
     latents up-projected to per-head K (nope beside the shared rope part)
     and V, flash attention at D = nope + rope, Dv = v_head; a prefill also
     writes the latent into the cache. ``decode`` (contiguous or paged),
@@ -497,7 +507,7 @@ def mla_attention(
         new_cache = None
         if cache is not None:
             new_cache = {"latent": write_prefill(cache["latent"], latent_new)}
-        return L.dense(p["wo"], out.reshape(b, t, h * m.v_head_dim), impl), new_cache
+        return L.row_parallel(p["wo"], out.reshape(b, t, h * m.v_head_dim), impl, tp), new_cache
 
     # absorbed attention (DeepSeek-V2 §2.1): scores = [q_nope W_uk ; q_rope] .
     # [c_kv ; k_rope] against the latent, a single shared KV head
@@ -541,4 +551,4 @@ def mla_attention(
         ctx = ops.decode_attention(q_eff[:, 0], lat, lat[..., :r], valid_counts(lengths + 1, s),
                                    scale=scale, impl=impl)[:, None]
     out = torch.einsum("bthr,rhv->bthv", ctx.float(), w_uv.float()).to(x.dtype)
-    return L.dense(p["wo"], out.reshape(b, t, h * m.v_head_dim), impl), new_cache
+    return L.row_parallel(p["wo"], out.reshape(b, t, h * m.v_head_dim), impl, tp), new_cache

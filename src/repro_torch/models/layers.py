@@ -10,8 +10,10 @@ unembed in f32.
 Under tensor parallelism (``tp``, a rank's ``TPGroup``) the embedding and
 the LM head are vocab-split (each rank holds ``V / tp`` rows or columns):
 ``embed`` looks up the rank's rows and reduces, ``gather_vocab`` puts each
-rank's logits slice in place and reduces; ``tp_reduce`` is the reduce point
-after a row-parallel linear. Each sum has one nonzero term but for the row
+rank's logits slice in place and reduces; ``row_parallel`` reduces a
+row-parallel linear's output (``dense``'s ``row_group`` marks one for an
+AutoQuant'd ``dyn`` linear's whole-row activation scale), so each sublayer
+returns its output reduced. Each sum has one nonzero term but for the row
 reduces, so the embedding and the logits come out exact.
 
 Serving keeps an f32 copy of a non-f32 tied table (``table_f32``, see
@@ -50,22 +52,25 @@ def dense_init(gen, d_in: int, d_out: int, dtype, device, bias: bool = False):
     return p
 
 
-def tp_reduce(y: torch.Tensor, tp=None) -> torch.Tensor:
-    """The reduce point of a row-parallel linear (``attn/wo``, ``ffn/w2``):
-    the ranks' partial outputs summed, in place; ``y`` itself without a
-    group."""
-    return y if tp is None else tp.all_reduce(y)
-
-
-def dense(p, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+def dense(p, x: torch.Tensor, impl: str = "auto", row_group=None) -> torch.Tensor:
     """``x @ w (+ b)``; an AutoQuant'd linear (no ``"w"``) goes through
-    ``core.quantization.qdense``, whose int8 GEMMs dispatch on ``impl``."""
+    ``core.quantization.qdense``, whose int8 GEMMs dispatch on ``impl``.
+    ``row_group``: the tensor-parallel group a row-parallel linear's K axis
+    is split over (``qdense``)."""
     if "w" not in p:
-        return qdense(p, x, impl=impl)
+        return qdense(p, x, impl=impl, row_group=row_group)
     y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def row_parallel(p, x: torch.Tensor, impl: str = "auto", tp=None) -> torch.Tensor:
+    """A row-parallel linear (``attn/wo``, ``ffn/w2``): under ``tp`` ``x``
+    holds the rank's slice of K and the ranks' partial outputs are summed,
+    in place; ``dense`` itself without a group."""
+    y = dense(p, x, impl, row_group=tp)
+    return y if tp is None else tp.all_reduce(y)
 
 
 def embedding_init(gen, vocab: int, d: int, dtype, device):
@@ -204,8 +209,15 @@ def ffn_init(gen, d: int, d_ff: int, dtype, device):
     }
 
 
-def ffn(p, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    return dense(p["w2"], F.silu(dense(p["w1"], x, impl)) * dense(p["w3"], x, impl), impl)
+def ffn(p, x: torch.Tensor, impl: str = "auto", tp=None, reduce: bool = True) -> torch.Tensor:
+    """SwiGLU; under ``tp`` the rank's columns of ``w1`` / ``w3`` and rows of
+    ``w2``: the output reduced over the ranks, or with ``reduce=False`` the
+    rank's partial sum (a MoE layer's shared experts, which it reduces
+    beside its routed partial)."""
+    h = F.silu(dense(p["w1"], x, impl)) * dense(p["w3"], x, impl)
+    if reduce:
+        return row_parallel(p["w2"], h, impl, tp)
+    return dense(p["w2"], h, impl, row_group=tp)
 
 
 def cross_entropy_loss(

@@ -15,6 +15,17 @@ are scatter-added back in f32 with their router weights, then the shared
 experts. Every size is static, so the layer makes no host sync: no
 ``nonzero``, no boolean-mask indexing, no ``.item()``.
 
+Under tensor parallelism (``tp``, a rank's group; ``distributed/tp_pool.py``)
+the experts are split on their axis: a rank holds experts ``[rank * E / tp,
+(rank + 1) * E / tp)`` and the config keeps all ``E``, so the replicated
+router, the top-k, each assignment's rank in its expert's queue, the
+capacity and the aux loss are the whole model's on every rank. A rank runs
+only its experts' ``[E / tp, capacity, d]`` buffers and scatter-adds them
+into an f32 partial; the shared experts are split column / row as a dense
+FFN, a second partial. Both partials are reduced in ONE collective (side by
+side in f32), then each is cast to the activation type as on one device:
+one reduce a MoE layer.
+
 The expert products are ``torch.bmm`` (the reference leaves them to XLA,
 outside any Pallas kernel). At decode every expert's weights are read every
 step, mostly for zero rows: the reference's static-capacity dispatch, kept.
@@ -84,9 +95,11 @@ def route(cfg: ModelConfig, p, xf: torch.Tensor):
     return probs, top_w, top_ids
 
 
-def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor,
-            impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, T, d] -> (out [B, T, d] in x's type, aux loss f32 scalar)."""
+def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor, impl: str = "auto",
+            tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, T, d] -> (out [B, T, d] in x's type, aux loss f32 scalar).
+    Under ``tp`` ``p`` holds the rank's experts and shared columns, and
+    ``out`` is reduced over the ranks (one ``all_reduce``)."""
     m = cfg.moe
     b, t, d = x.shape
     n = b * t
@@ -116,12 +129,24 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor,
     used = torch.zeros(e * cap + 1, dtype=torch.float32, device=dev).scatter_(
         0, slot, torch.ones_like(flat_w))[: e * cap]
 
-    xe = xf[tok_of_slot].reshape(e, cap, d) * used.reshape(e, cap, 1).to(x.dtype)
+    # the slots of the experts this rank holds (all of them on one device)
+    el = p["w1"].shape[0]
+    mine = slice(0, e * cap) if tp is None else slice(tp.rank * el * cap,
+                                                      (tp.rank + 1) * el * cap)
+    tok_of_slot, w_of_slot, used = tok_of_slot[mine], w_of_slot[mine], used[mine]
+    xe = xf[tok_of_slot].reshape(el, cap, d) * used.reshape(el, cap, 1).to(x.dtype)
     h = F.silu(torch.bmm(xe, p["w1"])) * torch.bmm(xe, p["w3"])
-    ye = torch.bmm(h, p["w2"]).reshape(e * cap, d)
+    ye = torch.bmm(h, p["w2"]).reshape(el * cap, d)
     out = torch.zeros((n, d), dtype=torch.float32, device=dev).index_add_(
         0, tok_of_slot, ye.float() * (w_of_slot * used)[:, None])
+    shared = L.ffn(p["shared"], xf, impl, tp, reduce=False) if "shared" in p else None
+    if tp is not None:  # one reduce: the routed and the shared partials side by side
+        if shared is None:
+            out = tp.all_reduce(out)
+        else:
+            both = tp.all_reduce(torch.cat([out, shared.float()], -1))
+            out, shared = both[:, :d], both[:, d:].to(x.dtype)
     out = out.to(x.dtype)
-    if "shared" in p:
-        out = out + L.ffn(p["shared"], xf, impl)
+    if shared is not None:
+        out = out + shared
     return out.reshape(b, t, d), aux

@@ -6,12 +6,17 @@ GQA attention, and an MoE FFN (``moe.moe_ffn``, with shared experts) from
 layer ``first_dense_layers`` on, the layers before it dense at
 ``d_ff_dense``.
 
-Under tensor parallelism (``tp``, a rank's group; the dense family only,
-``distributed/tp_pool.py``) the config carries the rank's widths and the
-params its shard: the attention's and the FFN's row-parallel outputs are
-reduced before the residual add their norm fuses, the embedding is
-vocab-parallel, and the logits are the rank's vocab slice (the engine's
-``tp_*`` steps gather them).
+Under tensor parallelism (``tp``, a rank's group; every family of this
+stack, ``distributed/tp_pool.py``) the config carries the rank's widths and
+the params its shard: each sublayer reduces its own row-parallel output
+before the residual add its norm fuses — the attention (GQA or MLA: a
+rank's heads over the whole latent) and the FFN after ``wo`` / ``w2``
+(``layers.row_parallel``; deepseek's dense first layer at ``d_ff_dense /
+tp``), a MoE layer its routed and shared partials in one reduce
+(``moe.moe_ffn``) — the embedding is vocab-parallel, and the logits are
+the rank's vocab slice (the engine's ``tp_*`` steps gather them). An
+AutoQuant'd ``dyn`` row-parallel linear takes one max-reduce more for its
+activation scale (``layers.dense``'s ``row_group``).
 
 ``qkv_bias`` (qwen2.5) adds a bias to the q/k/v projections. ``remat``
 checkpoints each layer in a train forward (``torch.utils.checkpoint``). The
@@ -76,19 +81,19 @@ def _layer_body(cfg: ModelConfig, p, x: torch.Tensor, h: torch.Tensor, *,
     """One layer from ``x`` and ``h = attn_norm(x)``: returns (x plus the
     attention's output, the FFN's residual delta, the new cache, the MoE
     aux loss or None). The attention's residual add runs in the ffn_norm's
-    kernel; under ``tp`` both outputs are reduced over the ranks first."""
+    kernel; under ``tp`` each sublayer returns its output reduced over the
+    ranks."""
     kw = dict(positions=positions, lengths=lengths, cache=cache, mode=mode, impl=impl,
-              t_new=t_new)
+              t_new=t_new, tp=tp)
     if cfg.mla is not None:
         attn_out, new_cache = A.mla_attention(cfg, p["attn"], h, **kw)
     else:
         attn_out, new_cache = A.attention(cfg, p["attn"], h, window=cfg.sliding_window, **kw)
-    x, h = L.add_rmsnorm(p["ffn_norm"], x, L.tp_reduce(attn_out, tp), cfg.rmsnorm_eps,
-                         impl=impl)
+    x, h = L.add_rmsnorm(p["ffn_norm"], x, attn_out, cfg.rmsnorm_eps, impl=impl)
     if "moe" in p:
-        delta, aux = M.moe_ffn(cfg, p["moe"], h, impl)
+        delta, aux = M.moe_ffn(cfg, p["moe"], h, impl, tp)
         return x, delta, new_cache, aux
-    return x, L.tp_reduce(L.ffn(p["ffn"], h, impl), tp), new_cache, None
+    return x, L.ffn(p["ffn"], h, impl, tp), new_cache, None
 
 
 def _layer_body_remat(cfg: ModelConfig, p, x: torch.Tensor, h: torch.Tensor, **kw):

@@ -13,9 +13,16 @@ refusals.
 - Shards: ``shard_tree`` of the bridged f32 smoke llama at TP = 2 equals
   ``numpy.split`` of the reference's leaves along the reference's spec,
   every leaf, both ranks (the port's ``table_f32`` split as its table).
-- Refusals: every family outside ``dense``, and ``n_kv_heads`` not divisible
-  by ``tp``, raise naming the ROADMAP item; a rank's single KV head is not
-  taken for MLA's latent."""
+- Refusals: every family outside ``dense``, ``vlm``, ``moe`` and
+  ``mla_moe``, and a width not divisible by ``tp`` (KV heads, experts, the
+  shared experts' width, ``d_ff_dense``), raise naming the ROADMAP item; a
+  rank's single KV head is not taken for MLA's latent.
+- AutoQuant'd trees: ``w_q_*`` leaves split as their weights, ``w_scale``
+  with a column-parallel leaf's columns and whole beside a row-parallel
+  one; a rank's MoE / MLA widths (all experts kept in its config)."""
+import dataclasses
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -203,11 +210,37 @@ def test_tp_param_specs_split_qkv_biases_with_their_columns():
                                         enable_tp=True))["layers/0/attn/wq/b"] == ()
 
 
-@pytest.mark.parametrize("arch", sorted(a for a, c in CONFIGS.items() if c.family != "dense"))
+@pytest.mark.parametrize("arch", sorted(a for a, c in CONFIGS.items()
+                                        if c.family not in tp_pool.FAMILIES))
 def test_tp_refuses_other_families_by_name(arch):
     cfg = get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, step 6"):
         tp_pool.check_supported(cfg, 2)
+
+
+@pytest.mark.parametrize("arch", sorted(a for a, c in CONFIGS.items()
+                                        if c.family in tp_pool.FAMILIES))
+def test_tp_serves_the_transformer_families(arch):
+    """Every dense, vlm, moe and mla_moe config splits at TP = 2, published
+    and smoke widths alike."""
+    tp_pool.check_supported(CONFIGS[arch], 2)
+    tp_pool.check_supported(get_smoke_config(arch), 2)
+
+
+@pytest.mark.parametrize("arch,field,value,what", [
+    ("qwen3-moe-30b-a3b", "n_experts", 5, "moe.n_experts = 5"),
+    ("deepseek-v2-236b", "n_experts", 7, "moe.n_experts = 7"),
+    ("deepseek-v2-236b", "d_ff_expert", 129, "the shared experts' width = 129"),
+    ("deepseek-v2-236b", "d_ff_dense", 511, "moe.d_ff_dense = 511"),
+])
+def test_tp_refuses_moe_widths_that_do_not_split(arch, field, value, what):
+    """An expert count, shared width or dense-layer width that does not
+    split over the ranks: the reference's ``_spec_for`` would replicate it."""
+    cfg = get_smoke_config(arch)
+    bad = cfg.replace(moe=dataclasses.replace(cfg.moe, **{field: value}))
+    tp_pool.check_supported(cfg, 2)
+    with pytest.raises(NotImplementedError, match=f"{re.escape(what)} does not split.*ROADMAP"):
+        tp_pool.check_supported(bad, 2)
 
 
 def test_tp_refuses_kv_heads_that_do_not_split():
@@ -220,14 +253,60 @@ def test_tp_refuses_kv_heads_that_do_not_split():
         tp_pool.check_supported(cfg.replace(n_kv_heads=1), 2)
 
 
-def test_tp_refuses_autoquant_leaves():
+@pytest.mark.parametrize("mode", ["wo", "dyn"])
+def test_tp_autoquant_shard_specs(mode):
+    """AutoQuant'd leaves under the serving specs: ``w_q_*`` as its weight
+    (the reference's rules), ``w_scale`` [N] with a column-parallel leaf's
+    columns and whole beside a row-parallel one (the reference keeps every
+    1-D leaf whole); each rank's slice is the whole tree's codes cut."""
     from repro_torch.core.quantization import quantize_params
 
     cfg = get_smoke_config("llama3.2-1b").replace(dtype="float32")
+    params = quantize_params(get_model(cfg).init(torch.Generator().manual_seed(0), "cpu"),
+                             mode)
+    flat = sh.flat_specs(sh.tp_param_specs(cfg, params, 2))
+    q = f"w_q_{mode}"
+    for name in ("attn/wq", "attn/wk", "attn/wv", "ffn/w1", "ffn/w3"):
+        assert flat[f"layers/0/{name}/{q}"] == (None, "model")
+        assert flat[f"layers/0/{name}/w_scale"] == ("model",)
+    for name in ("attn/wo", "ffn/w2"):
+        assert flat[f"layers/0/{name}/{q}"] == ("model", None)
+        assert flat[f"layers/0/{name}/w_scale"] == ()
+    ref = sh.flat_specs(sh.param_specs(cfg, params, MESHES["model2"], enable_tp=True))
+    assert ref["layers/0/attn/wq/w_scale"] == ()
+    for rank in (0, 1):
+        ffn = sh.shard_tree(params, sh.tp_param_specs(cfg, params, 2), rank, 2)[
+            "layers"][0]["ffn"]
+        whole = params["layers"][0]["ffn"]
+        n = cfg.d_ff // 2
+        assert torch.equal(ffn["w1"][q], whole["w1"][q][:, rank * n:(rank + 1) * n])
+        assert torch.equal(ffn["w1"]["w_scale"], whole["w1"]["w_scale"][rank * n:(rank + 1) * n])
+        assert torch.equal(ffn["w2"][q], whole["w2"][q][rank * n:(rank + 1) * n])
+        assert torch.equal(ffn["w2"]["w_scale"], whole["w2"]["w_scale"])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-236b"])
+def test_rank_context_keeps_every_expert(arch):
+    """A MoE rank's config keeps all ``n_experts`` (the router, top-k and
+    capacity are the whole model's) while its params hold E / tp experts;
+    deepseek's dense first layer runs at ``d_ff_dense / tp`` and its MLA
+    at the rank's heads over the whole latent."""
+    cfg = get_smoke_config(arch).replace(dtype="float32")
     model = get_model(cfg)
-    params = quantize_params(model.init(torch.Generator().manual_seed(0), "cpu"), "wo")
-    with pytest.raises(NotImplementedError, match="AutoQuant"):
-        tp_pool.TPContext(model, params, tp_pool.TPGroup(0, 2, "cpu"))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tp = tp_pool.TPContext(model, params, tp_pool.TPGroup(1, 2, "cpu"))
+    local, m = tp.model.config, cfg.moe
+    assert local.moe.n_experts == m.n_experts and local.n_heads == cfg.n_heads // 2
+    moe = tp.params["layers"][m.first_dense_layers]["moe"]
+    assert moe["w1"].shape[0] == m.n_experts // 2
+    assert torch.equal(moe["w1"], params["layers"][m.first_dense_layers]["moe"]["w1"][
+        m.n_experts // 2:])
+    if cfg.mla is not None:
+        assert local.moe.d_ff_dense == m.d_ff_dense // 2
+        assert tp.params["layers"][0]["ffn"]["w1"]["w"].shape[1] == m.d_ff_dense // 2
+        cache = tp.model.init_cache(3, 16, "cpu")
+        assert cache["layers"][0]["latent"].shape == (
+            3, 16, cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim)
 
 
 def test_rank_context_widths_and_shapes():

@@ -18,9 +18,13 @@ single-device functions and scheduler.
   ``tp_draft_window`` against the reference's single-device functions at
   atol 1e-4 / rtol 1e-3, and each rank's KV heads against the
   reference's cache.
+- The collectives' shared slots (``tp_pool.SharedSlots``): two spawned
+  ranks' sums, max and broadcasts bit for bit gloo's.
 
 The JAX package is imported inside the tests only: the spawned ranks import
 this module and stay free of it."""
+import platform
+
 import numpy as np
 import pytest
 import torch
@@ -349,6 +353,61 @@ def test_launcher_serves_tp2_on_the_cpu(capfd):
     assert m["tp"] == 2 and m["backend"] == "gloo" and m["n_requests"] == 4
     assert m["kv_reserved_per_device_bytes"] / m["kv_reserved_bytes"] <= 0.6
     assert "tp=2 on" in capfd.readouterr().out
+
+
+def _slot_checks(group):
+    """On each rank, through the group's shared slots and through gloo, on
+    the same rank-seeded tensors: sums in bf16 and f32, a max, a broadcast
+    from rank 1 and a host max, more collectives in a row than the slots'
+    two parities; a tensor above SLOT_BYTES (through gloo)."""
+    import torch.distributed as dist
+
+    gen = torch.Generator().manual_seed(group.rank)
+    out = {"slots": group.slots is not None}
+    for name, dtype, op in [("sum bf16", torch.bfloat16, dist.ReduceOp.SUM),
+                            ("sum f32", torch.float32, dist.ReduceOp.SUM),
+                            ("max bf16", torch.bfloat16, dist.ReduceOp.MAX)]:
+        x = torch.randn(3, 5, 64, generator=gen).to(dtype)
+        got, want = x.clone(), x.clone()
+        for _ in range(3):
+            group.all_reduce(got, op)
+            dist.all_reduce(want, op=op)
+        out[name] = (got, want)
+    got = torch.arange(28, dtype=torch.float32).reshape(4, 7) * (group.rank + 1)
+    want = got.clone()
+    group.broadcast(got, src=1)
+    dist.broadcast(want, src=1)
+    out["broadcast"] = (got, want)
+    out["host max"] = (group.max(10 + group.rank), 11)
+    big = torch.full((tp_pool.SLOT_BYTES // 4 + 1,), float(group.rank + 1))
+    group.all_reduce(big)
+    out["above the slots"] = (big[:4], torch.full((4,), 3.0))
+    # tensors leave the rank as their dtype and bytes (a tensor's storage
+    # would be shared with a process that is gone)
+    return {k: tuple((str(t.dtype), t.contiguous().view(-1).view(torch.uint8).numpy().copy())
+                     if isinstance(t, torch.Tensor) else t for t in v)
+            if isinstance(v, tuple) else v for k, v in out.items()}
+
+
+@pytest.fixture(scope="module")
+def slot_ranks(tmp_path_factory):
+    store = tmp_path_factory.mktemp("tp_slots_store") / "store"
+    return tp_pool.spawn(_slot_checks, TP, devices=["cpu"] * TP, init_file=str(store))
+
+
+@pytest.mark.parametrize("case", ["sum bf16", "sum f32", "max bf16", "broadcast", "host max",
+                                  "above the slots"])
+def test_shared_slots_give_gloos_results(slot_ranks, case):
+    """Ranks on one x86-64 host reduce and broadcast through shared slots,
+    bit for bit gloo's results on every rank."""
+    for rank in slot_ranks:
+        assert rank["slots"] == (platform.machine() == "x86_64")
+        got, want = rank[case]
+        if isinstance(got, tuple):  # (dtype, bytes): bit for bit
+            assert got[0] == want[0]
+            np.testing.assert_array_equal(got[1], want[1])
+        else:
+            assert got == want
 
 
 def test_router_refuses_tp_by_its_roadmap_item():
