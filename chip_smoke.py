@@ -5,7 +5,14 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero and prints no result):
+Phases (any failure exits non-zero and prints no result). They are listed
+by number; they run in this order: 1-4, 7b, then 7f (tp) beside 4b-7 and
+8-10, the tp kernel records, then 12-13 (moe, mla: a process of their own)
+beside 7d, 7e, 7c, 11, 16 and 18, the MLA and hybrid kernel records, 14,
+15, 17. Served steps keep the host busy and the card mostly idle, so the
+work beside overlaps well; the phases that run beside another (``BESIDE``,
+printed when the work beside starts) take their walls and profiled times
+under that load. Every kernel record is timed with the card to itself.
 
 1. device  — require CUDA, print the card's name and power limit, turn TF32
              off for the f32 checks;
@@ -214,7 +221,14 @@ Phases (any failure exits non-zero and prints no result):
              contiguous, chunked, speculative at t = 0.8),
              deepseek-v2-236b (3 layers: contiguous, chunked; the latent
              whole on each rank), llama3.2-1b AutoQuant'd wo and dyn
-             (contiguous, and an f32 dyn arm of 2 layers that decides);
+             (contiguous, and an f32 dyn arm of 2 layers that decides),
+             mamba2-130m (24 layers, greedy and t = 0.8: a rank's 12
+             heads, the gate norm on the RMSNorm kernel's split-row form;
+             its control the split-row sums one column short; an f32 arm
+             of 2 layers decides), whisper-base (6 + 6 layers, S-T with
+             each request's frames, greedy and 2 beam groups of 4 forced
+             to the plain run's beams; its 51865-row vocabulary whole) and
+             seamless-m4t (S-T greedy);
              params a rank what the serving specs give, the reduces a
              decode step ``reduces_per_forward``'s. The f32 smoke configs
              of llama, chameleon, qwen3-moe and deepseek-v2: TP tokens the
@@ -226,9 +240,12 @@ Phases (any failure exits non-zero and prints no result):
              a rank's shapes as kernel records: flash, decode and paged
              decode (llama, chameleon, qwen3-moe, the MLA prefill and
              latent at 64 heads), the qk-norm RMSNorm, both int8 GEMMs at
-             N / 2 and K / 2.
+             N / 2 and K / 2, the split-row RMSNorm (beside the whole-row
+             kernel), the SSD scan at 12 heads, whisper's encoder flash
+             and cross attention at 4 heads.
              ``python3 chip_smoke.py tp`` runs device, build and this phase
-             alone, with no result lines;
+             alone, with no result lines (``tp FAMILY ...``: only those
+             TP_FAMILIES and their records);
 8. hstu    — full-width HSTU (14 layers, d 512, 8 heads, band 1024 from
              layer 3, bf16, seeded weights) scores 8 user histories from
              ``hstu_user_histories(seed=0)``, right-padded with ``lengths``:
@@ -1957,8 +1974,30 @@ def _want_counts(cfg, n_fwd: int, **kernels):
     else:
         want["rmsnorm/add"] = n_layers * n_fwd
         want[f"rmsnorm/{'mul' if cfg.family == 'hstu' else 'mul_silu'}"] = n_layers * n_fwd
-    want["rmsnorm"] = sum(want[f"rmsnorm/{p}"] for p in ("none", "add", "mul", "mul_silu"))
+    want["rmsnorm"] = sum(want[f"rmsnorm/{p}"] for p in RMSNORM_COUNTERS)
     return want
+
+
+#: RMSNorm's counters by prologue and the split-row form's (``kernels.rmsnorm``)
+RMSNORM_COUNTERS = ("none", "add", "mul", "mul_silu", "mul_silu_split")
+
+
+def _split_gate_norms(want) -> None:
+    """A TP rank's Mamba-2 counts: each gate norm is the split-row form's
+    two launches (``ops.mul_silu_rmsnorm_split``) instead of one
+    ``mul_silu`` launch."""
+    n = want["rmsnorm/mul_silu"]
+    want["rmsnorm/mul_silu"] = 0
+    want["rmsnorm/mul_silu_split"] = 2 * n
+    want["rmsnorm"] += n
+
+
+def _encdec_served(cfg, prefills: int, steps: int):
+    """Launches of ``prefills`` admissions and ``steps`` pool steps of an
+    encoder-decoder served by the scheduler (``_encdec_counts``' prefill
+    an admission and decode step a pool step)."""
+    one, two = _encdec_counts(cfg, 1), _encdec_counts(cfg, 2)
+    return {k: prefills * one[k] + steps * (two[k] - one[k]) for k in one}
 
 
 def _trace(cfg, pad_to, temperature: float = 0.0, top_p: float = 1.0, n: int = N_REQUESTS,
@@ -2080,6 +2119,10 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
     want_counts["rmsnorm"] += (1 + (2 + _none_per_layer(cfg)) * spec_exit) * drafts
     if cfg.family == "ssm":  # the scan at every prefill; decode is plain torch
         want_counts["ssd_scan"] = cfg.n_layers * m["prefills"]
+        if tp is not None and tp.size > 1:
+            _split_gate_norms(want_counts)
+    elif cfg.encdec is not None:
+        want_counts = _encdec_served(cfg, m["prefills"], m["decode_steps"])
     else:
         n_attn = _attn_layers(cfg)
         want_counts["flash_attention"] = n_attn * (m["prefills"] + mixed + spec)
@@ -4407,6 +4450,7 @@ def phase_moe(arch, pad_to):
     moe_step_profile(tag, cfg, model, params, pad_to)
     records = []
     if cfg.mla is not None:
+        await_quiet(tag)  # the records are timed with the card to itself
         records = mla_kernel_records(cfg, out, pad_to) + mla_extend(cfg, params, pad_to)
     del model, params
     torch.cuda.empty_cache()
@@ -6878,6 +6922,16 @@ TP_SMOKE = {"contiguous": {}, "chunked": SMOKE_PAGED}
 #: 13.164; each rank rounds its row-parallel partial sums to bf16)
 TP_DLOGIT_BOUND = 8.0
 TP_LABEL = "2 ranks on one card, no interconnect"
+#: set while the tp phase runs beside the main sequence (``main``): its
+#: walls are taken under that load, and its lines say so
+TP_BESIDE = {"on": False}
+
+
+def tp_label(single: bool = False) -> str:
+    """TP_LABEL (``single``: the single rank's), and whether the walls on
+    the line were taken beside the main sequence."""
+    label = "one rank, whole model" if single else TP_LABEL
+    return label + (", beside the main sequence" if TP_BESIDE["on"] else "")
 TP_STEPS = 10  # decode steps timed a rank
 #: a TP run's host counters: prefills, steps, mixed steps, preemptions,
 #: chunks, speculative steps
@@ -6897,6 +6951,9 @@ TP_HOST = ("prefills", "decode_steps", "mixed_steps", "n_preemptions", "prefill_
 #: boundaries): their bf16 arms check host counters, launches, bytes and
 #: finite readings, with no bound
 TP_IT_PAD = IT_LEN + 2
+#: the S-T arms: beam groups of N_BEAMS (SLOTS streams), the prompt's pad
+#: (BOS and up to 2 text tokens) and the decode step's timed context
+TP_ST_GROUPS, TP_ST_PAD, TP_ST_STEP_PAD = SLOTS // N_BEAMS, 4, 16
 TP_IT_GEOMETRY = dict(paged=True, chunked=True, block_size=16, prefill_budget=256,
                       num_blocks=8 * -(-(TP_IT_PAD + MAX_NEW + 1) // 16) + 1)
 _CONTIGUOUS = {"contiguous": (0.0, 1.0, False, {})}
@@ -6924,6 +6981,28 @@ TP_FAMILIES = {
     "quant dyn f32": dict(arch="llama3.2-1b", layers=2, dtype="float32", quant="dyn",
                           trace="serve", reqs=DENSE_REQUESTS, new=DENSE_MAX_NEW,
                           arms=_CONTIGUOUS, control="contiguous"),
+    # mamba2: a rank's 12 of 24 heads, its gate norm's sums reduced; the
+    # control: the split-row kernel's partial sums one column short
+    "ssm": dict(arch="mamba2-130m", layers=None, dtype="bfloat16", trace="serve",
+                reqs=DENSE_REQUESTS, new=DENSE_MAX_NEW,
+                arms={"greedy": (0.0, 1.0, False, {}),
+                      "t=0.8": (SPEC_TEMP, SPEC_TOP_P, False, {})},
+                control="greedy", short="split"),
+    "ssm f32": dict(arch="mamba2-130m", layers=2, dtype="float32", trace="serve",
+                    reqs=DENSE_REQUESTS, new=DENSE_MAX_NEW,
+                    arms={"greedy": (0.0, 1.0, False, {})}, control="greedy", short="split"),
+    # the S-T families: each request its own frames; whisper's vocabulary
+    # (51865) whole on each rank, seamless's split; beam groups forced to
+    # the plain run's beams (``beam_rows``); the control: the decode kernel
+    # one key short
+    "whisper": dict(arch="whisper-base", layers=None, dtype="bfloat16", trace="st",
+                    reqs=DENSE_REQUESTS, groups=TP_ST_GROUPS, new=DENSE_MAX_NEW,
+                    arms={"greedy": (0.0, 1.0, False, {}), "beams": (0.0, 1.0, "beams", {})},
+                    control="greedy", step_pad=TP_ST_STEP_PAD),
+    "seamless": dict(arch="seamless-m4t", layers=None, dtype="bfloat16", trace="st",
+                     reqs=DENSE_REQUESTS, new=DENSE_MAX_NEW,
+                     arms={"greedy": (0.0, 1.0, False, {})}, control="greedy",
+                     step_pad=TP_ST_STEP_PAD),
 }
 #: each family's bounds on a forced TP = 2 run against the single-rank plain
 #: path: (the first MoE layer's max |dprob|, max |dlogit| of rows routed
@@ -6937,26 +7016,35 @@ TP_FAMILIES = {
 #: 0.048828 sound and 0.055664 one key short, one bf16 step apart; bf16
 #: dyn 14.376 and 19.347, int8 codes flipping at rounding boundaries: a
 #: bound between them has no margin on either side, so their f32 arms
-#: decide)
+#: decide). The ssm and S-T families: whisper-base 0.0625 (greedy and beams) / one
+#: key short 2.4219, seamless-m4t 0.0625 / 2.6328; mamba2-130m in bf16
+#: 5.2560 (t = 0.8: 5.4717) against the split-row norm's sums one column
+#: short 5.6123, 1.07x: no margin for a bound, so none, and its f32 arm
+#: of 2 layers decides: 0.000216 against 0.580139
 TP_FAMILY_BOUND = {"chameleon": None, "chameleon f32": (0.0, 0.001),
                    "moe": (FORCED_DPROB_BOUND, FORCED_DLOGIT_BOUND),
                    "mla": (FORCED_DPROB_BOUND, FORCED_DLOGIT_BOUND),
                    "quant wo": (0.0, TP_DLOGIT_BOUND), "quant dyn": None,
-                   "quant dyn f32": (0.0, 4.3)}
+                   "quant dyn f32": (0.0, 4.3), "ssm": None, "ssm f32": (0.0, 0.01),
+                   "whisper": (0.0, 0.5), "seamless": (0.0, 0.5)}
 #: the f32 smoke configs served at TP = 2 on both smoke pools
 TP_SMOKE_ARCHS = ("llama3.2-1b", "chameleon-34b", "qwen3-moe-30b-a3b", "deepseek-v2-236b")
+#: ``python3 chip_smoke.py tp FAMILY ...`` runs those TP_FAMILIES alone (the
+#: ranks get them from ``phase_tp``)
+TP_ONLY = []
 
 
 def _tp_host(m):
     return {k: m.get(k, 0) for k in TP_HOST}
 
 
-def _decode_step_times(model, params, pad_to, cfg, group=None):
+def _decode_step_times(model, params, pad_to, cfg, group=None, extra=None):
     """One 8-slot decode step over a cache prefilled to ``pad_to`` (every
-    step at that length): wall ms (CUDA-synchronised, TP_STEPS steps), the
-    device ms of its kernels and of its copies (torch.profiler), and under
-    ``group`` the reduces a step and their host ms. Every rank of a group
-    calls it alike."""
+    step at that length; ``extra`` joins the prefill: an encoder-decoder's
+    frames): wall ms (CUDA-synchronised, TP_STEPS steps), the device ms of
+    its kernels and of its copies (torch.profiler), and under ``group`` the
+    reduces a step and their host ms. Every rank of a group calls it
+    alike."""
     import torch
 
     from repro_torch.core import engine
@@ -6968,7 +7056,7 @@ def _decode_step_times(model, params, pad_to, cfg, group=None):
     lens = torch.full((SLOTS,), pad_to, dtype=torch.int32, device=dev)
     pre, dec = ((engine.prefill, engine.decode_step) if group is None else
                 (engine.tp_prefill, engine.tp_decode_step))
-    _, cache = pre(model, params, toks, lens, pad_to + 16)
+    _, cache = pre(model, params, toks, lens, pad_to + 16, extra=extra)
     state = {"cache": cache, "tok": toks[:, -1].contiguous()}
 
     def step():
@@ -7048,40 +7136,136 @@ def it_trace(cfg, n, new):
 def tp_spec_bytes(cfg, params, size):
     """The bytes a rank holds of ``params`` under the serving specs
     (``sharding.tp_param_specs``): a split leaf's 1 / size, a replicated
-    leaf whole."""
+    leaf whole; a Mamba-2 mixer's ``in_proj`` columns and conv channels
+    those of its heads beside B and C whole (``2 * N`` of each, one
+    group)."""
     from repro_torch.distributed import sharding
 
     flat = sharding.flat_specs(sharding.tp_param_specs(cfg, params, size))
     total = []
-    sharding.map_with_path(lambda path, t: total.append(
-        t.numel() * t.element_size() // (size if "model" in flat[path] else 1)), params)
+
+    def add(path, t):
+        n = t.numel() * t.element_size()
+        if "model" not in flat[path]:
+            total.append(n)
+            return
+        d = flat[path].index("model")
+        width = t.shape[d]
+        if cfg.ssm is not None and re.search(r"mixer/(in_proj|conv_)", path):
+            bc = 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+            total.append(n // width * ((width - bc) // size + bc))
+        else:
+            total.append(n // size)
+
+    sharding.map_with_path(add, params)
     return sum(total)
 
 
 def reduces_per_forward(cfg, quant=None):
-    """The reduces a TP forward of ``cfg`` makes, counted from the model's
-    structure (the oracle the measured counts are held to): the embedding
-    and the logits' gather, two a layer (the attention, and the FFN or MoE:
-    a MoE layer's routed and shared partials share one), and under ``dyn``
+    """The reduces a TP decode forward of ``cfg`` makes, counted from the
+    model's structure (the oracle the measured counts are held to): the
+    embedding and the logits' gather when the vocabulary splits (whisper's
+    51865 stays whole: neither), two a layer (the attention, and the FFN or
+    MoE: a MoE layer's routed and shared partials share one; a Mamba-2
+    layer's gate-norm sums and ``out_proj``), three a decoder layer of an
+    encoder-decoder (self and cross attention, the FFN), and under ``dyn``
     a max-reduce a row-parallel linear (``wo``, and a dense or shared FFN's
     ``w2``; the experts' stacks stay bf16)."""
-    n = 2
+    n = 2 if cfg.vocab_size % TP_RANKS == 0 else 0
     for i in range(cfg.n_layers):
-        n += 2
+        n += 3 if cfg.encdec is not None else 2
         if quant == "dyn":
             moe = cfg.moe is not None and i >= cfg.moe.first_dense_layers
             n += 2 if not moe or cfg.moe.n_shared_experts else 1
     return n
 
 
+def st_trace(cfg, n, new, beams=None):
+    """``n`` S-T requests of the encoder-decoder ``cfg``: BOS then 0..2 text
+    tokens, ``new`` tokens each, each with its own stub frames (N(0, 1) from
+    SEED + 31 on the card, in the params' type) and its frame length
+    (``st_frame_lengths``); with ``beams`` each a beam group whose profile
+    is ``beams(rid)``. Every rank draws the same trace."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.scheduler import ServeRequest
+    from repro_torch.models import layers as L
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    rng = np.random.default_rng(SEED + 31)
+    fl = st_frame_lengths(n, cfg.encdec.n_frames)
+    reqs = []
+    for i in range(n):
+        frames = torch.randn((1, cfg.encdec.n_frames, cfg.d_model), generator=gen,
+                             device=dev).to(L.param_dtype(cfg))
+        prompt = np.concatenate([[BOS], rng.integers(3, cfg.vocab_size, i % 3)])
+        reqs.append(ServeRequest(rid=i, prompt=prompt.astype(np.int32), max_new=new,
+                                 profile=None if beams is None else beams(i),
+                                 extra_inputs={"frames": frames,
+                                               "frame_lengths": fl[i:i + 1]}))
+    return reqs
+
+
+def beam_rows(ref=None):
+    """A ``BeamProfile`` of N_BEAMS beams (EOS) that keeps the logits rows
+    of every step (``ref`` None: the plain run's record, ``rows``), or that
+    takes the choice ``ref``'s rows give at every step (the plain run's
+    beams, so the run takes its steps), keeping its own rows' max |dlogit|
+    against them (``dl``) and whether its own choice differs (``differs``),
+    as device scalars. A replay after a preemption starts anew."""
+    from repro_torch.core import profiles
+
+    class BeamProfile(profiles.BeamProfile):  # the name request_class reads
+        def step(self, state, logits, key=None):
+            if state.step == 0:
+                self.rows, self.dl, self.differs = [], [], []
+            if self.ref is None:
+                self.rows.append(logits.float().clone())
+                return super().step(state, logits, key)
+            r = self.ref[len(self.dl)]
+            want = super().step(state, r, key)
+            own = super().step(state, logits, key)
+            self.dl.append((logits.float() - r).abs().amax())
+            self.differs.append(((own.feed != want.feed) | (own.perm != want.perm)).any())
+            return want
+
+    prof = BeamProfile(n_beams=N_BEAMS, eos_id=EOS)
+    prof.ref, prof.rows, prof.dl, prof.differs = ref, [], [], []
+    return prof
+
+
+@contextlib.contextmanager
+def split_sums_short():
+    """The split-row RMSNorm's control: each row's partial sum of squares
+    one column short (its last column's square left out) on every rank."""
+    from repro_torch.kernels import rmsnorm as rn
+
+    real = rn.mul_silu_partial_cuda
+
+    def short(y, z):
+        p, sumsq = real(y, z)
+        return p, sumsq - p[..., -1].float() ** 2
+
+    rn.mul_silu_partial_cuda = short
+    try:
+        yield
+    finally:
+        rn.mul_silu_partial_cuda = real
+
+
 def tp_family(group, family, pad_to):
     """One TP_FAMILIES family on both ranks (``tp_rank``): the whole model
     built from SEED (AutoQuant'd whole first), and rank 0 serving each arm
-    on the plain path, recorded (``Forced``), while rank 1 waits; then each
-    rank keeps its shard and serves each arm at TP = 2 (exact launches a
-    rank, no leaked block), rank 0 forcing it to the plain run's draws, the
-    control arm again with the decode kernel one key short on both ranks;
-    then a TP decode step's times. Returns the rank's numbers."""
+    on the plain path, recorded (``Forced``, or a beam arm's ``beam_rows``,
+    whose rows go to rank 1 too), while rank 1 waits; then each rank keeps
+    its shard and serves each arm at TP = 2 (exact launches a rank, no
+    leaked block), rank 0 forcing it to the plain run's draws (a beam arm:
+    both ranks to its beams), the control arm again with its control (the
+    decode kernel one key short, or the split-row norm's sums one column
+    short) on both ranks; then a TP decode step's times. Returns the rank's
+    numbers."""
     import torch
     import torch.distributed as dist
 
@@ -7108,30 +7292,47 @@ def tp_family(group, family, pad_to):
         params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
         if quant is not None:
             params = quantize_params(params, quant)
-    pad = (TP_IT_PAD if fam["trace"] == "it" else serve.trace_pad_to(
-        data_mod.PAPER_PROFILES["llama_humaneval"], fam["reqs"], SEED))
+    trace = fam["trace"]
+    pad = {"it": TP_IT_PAD, "st": TP_ST_PAD}.get(trace) or serve.trace_pad_to(
+        data_mod.PAPER_PROFILES["llama_humaneval"], fam["reqs"], SEED)
     spec_exit = MOE_SPEC_EXIT if cfg.moe is not None else SPEC_EXIT
 
-    def reqs(temp, top_p):
-        return (it_trace(cfg, fam["reqs"], fam["new"]) if fam["trace"] == "it" else
-                _trace(cfg, pad, temp, top_p, n=fam["reqs"], max_new=fam["new"]))
+    def reqs(temp, top_p, beams=None):
+        if trace == "it":
+            return it_trace(cfg, fam["reqs"], fam["new"])
+        if trace == "st":
+            return st_trace(cfg, fam["groups"] if beams else fam["reqs"], fam["new"], beams)
+        return _trace(cfg, pad, temp, top_p, n=fam["reqs"], max_new=fam["new"])
 
     out = {"arms": {}, "whole_param_bytes": cache_bytes(params),
            "spec_param_bytes": tp_spec_bytes(cfg, params, group.size)}
     plain = {}
     if rank0:
         for arm, (temp, top_p, spec, geometry) in arms.items():
-            rec = Forced("record")
-            with plain_path(), forcing(rec):
-                mp, ptoks, _ = serve_once(model, params, cfg, pad, policy="continuous",
-                                          int8_mode=quant, tag=f"tp {family} {arm} single-rank "
-                                          "plain", temperature=temp, top_p=top_p,
-                                          speculative=spec, spec_exit=spec_exit,
-                                          reqs=reqs(temp, top_p), **geometry)
-            plain[arm] = (rec, ptoks)
+            tag = f"tp {family} {arm} single-rank plain"
+            if spec == "beams":
+                rs = reqs(temp, top_p, lambda i: beam_rows())
+                with plain_path():
+                    mp, ptoks, _ = serve_once(model, params, cfg, pad, policy="continuous",
+                                              int8_mode=quant, tag=tag, reqs=rs, **geometry)
+                plain[arm] = ({r.rid: [row.cpu() for row in r.profile.rows] for r in rs},
+                              ptoks)
+            else:
+                rec = Forced("record")
+                with plain_path(), forcing(rec):
+                    mp, ptoks, _ = serve_once(model, params, cfg, pad, policy="continuous",
+                                              int8_mode=quant, tag=tag, temperature=temp,
+                                              top_p=top_p, speculative=spec,
+                                              spec_exit=spec_exit, reqs=reqs(temp, top_p),
+                                              **geometry)
+                plain[arm] = (rec, ptoks)
             out["arms"][arm] = {"single": dict(_tp_host(mp),
                                                kv_reserved_bytes=mp["kv_reserved_bytes"])}
     dist.barrier()
+    beam_refs = [{arm: plain[arm][0] for arm, a in arms.items() if a[2] == "beams"}
+                 if rank0 else None]
+    if any(a[2] == "beams" for a in arms.values()):  # both ranks take the plain beams
+        dist.broadcast_object_list(beam_refs, src=0)
     tp = tp_pool.TPContext(model, params, group)
     del model, params
     torch.cuda.empty_cache()
@@ -7142,14 +7343,22 @@ def tp_family(group, family, pad_to):
                  (da, "decode_attention_cuda", 3))
         for run in ("forced", "control") if arm == control else ("forced",):
             tag = f"tp {family} {arm} rank {group.rank} {run}"
-            rec = Forced("steps", plain[arm][0]) if rank0 else None
-            with (forcing(rec) if rec is not None else contextlib.nullcontext()), \
-                    (one_key_short(*short) if run == "control" else contextlib.nullcontext()):
+            rec, rs = None, None
+            if spec == "beams":
+                refs = beam_refs[0][arm]
+                rs = reqs(temp, top_p, lambda i: beam_rows([x.to(dev) for x in refs[i]]))
+            elif rank0:
+                rec = Forced("steps", plain[arm][0])
+            ctl = contextlib.nullcontext()
+            if run == "control":
+                ctl = split_sums_short() if fam.get("short") == "split" else one_key_short(*short)
+            with (forcing(rec) if rec is not None else contextlib.nullcontext()), ctl:
                 m, toks, counts = serve_once(tp.model, tp.params, cfg, pad, policy="continuous",
                                              int8_mode=quant, tag=tag, temperature=temp,
-                                             top_p=top_p, speculative=spec,
+                                             top_p=top_p, speculative=spec is True,
                                              spec_exit=spec_exit, tp=tp,
-                                             reqs=reqs(temp, top_p), **geometry)
+                                             reqs=rs if rs is not None else reqs(temp, top_p),
+                                             **geometry)
             r = dict(host=_tp_host(m), counts=counts, **{k: m[k] for k in (
                 "tokens_per_s", "ttft_p50_ms", "tpot_p50_ms", "wall_s", "kv_reserved_bytes",
                 "kv_reserved_per_device_bytes", "param_bytes_per_device", "reduces",
@@ -7157,16 +7366,33 @@ def tp_family(group, family, pad_to):
             if rec is not None:
                 r["bounds"] = rec.summary(tag)[:2]
                 r["plain_tokens"] = toks == plain[arm][1]
+            elif rs is not None and rank0:
+                dl = max(float(torch.stack(q.profile.dl).max()) for q in rs)
+                picks = sum(int(torch.stack(q.profile.differs).sum()) for q in rs)
+                steps = sum(len(q.profile.dl) for q in rs)
+                print(f"[{tag}] {len(rs)} beam groups forced to the plain run's beams over "
+                      f"{steps} group steps | rows' max|dlogit| {dl:.6f} | steps whose own "
+                      f"choice differs {picks}", flush=True)
+                r["bounds"] = (0.0, dl)
+                r["plain_tokens"] = toks == plain[arm][1]
             res[run] = r
-    out["step"] = _decode_step_times(tp.model, tp.params, pad_to, cfg, group)
+    extra = None
+    if cfg.encdec is not None:  # the decode step's prefill reads frames
+        st = st_trace(cfg, SLOTS, 1)
+        extra = {"frames": torch.cat([r.extra_inputs["frames"] for r in st]),
+                 "frame_lengths": torch.tensor([int(r.extra_inputs["frame_lengths"][0])
+                                                for r in st], device=dev)}
+    out["step"] = _decode_step_times(tp.model, tp.params, fam.get("step_pad", pad_to), cfg,
+                                     group, extra)
     out["reduces_per_forward"] = reduces_per_forward(cfg, quant)
+    out["pad"] = pad
     out["seconds"] = time.perf_counter() - t0
     del tp, plain
     torch.cuda.empty_cache()
     return out
 
 
-def tp_rank(group, pad_to):
+def tp_rank(group, pad_to, only=()):
     """One rank of the tp phase (``tp_pool.spawn``; both on cuda:0, gloo).
     Rank 0 first serves both arms on the whole model on the plain path,
     recorded (``Forced``), and times a single-rank decode step, while rank 1
@@ -7193,6 +7419,10 @@ def tp_rank(group, pad_to):
     dev = group.device
     out = {"rank": group.rank, "arms": {}, "backend": group.backend,
            "slots": group.slots is not None}
+    TP_ONLY[:] = only
+    if TP_ONLY:  # ``python3 chip_smoke.py tp FAMILY ...``: those families alone
+        out["families"] = {f: tp_family(group, f, pad_to) for f in TP_ONLY}
+        return out
     cfg, model, params = serve.build_model(ARCH, smoke=False, seed=SEED, device=dev)
     out["whole_param_bytes"] = cache_bytes(params)
     plain = {}
@@ -7267,12 +7497,21 @@ def phase_tp(pad_to):
     from repro_torch.distributed import tp_pool
 
     t0 = time.perf_counter()
-    ranks = tp_pool.spawn(tp_rank, TP_RANKS, pad_to, devices=list(TP_DEVICES))
+    with expandable_segments():  # both ranks build whole models beside each other
+        ranks = tp_pool.spawn(tp_rank, TP_RANKS, pad_to, tuple(TP_ONLY),
+                              devices=list(TP_DEVICES))
     r0 = ranks[0]
     check(all(r["backend"] == "gloo" and r["slots"] for r in ranks),
           f"tp: backends {[r['backend'] for r in ranks]}, shared slots "
           f"{[r['slots'] for r in ranks]}")
-    print(f"[tp] {TP_LABEL}: {TP_RANKS} ranks on {', '.join(TP_DEVICES)}, backend "
+    if TP_ONLY:
+        bad = [msg for family in TP_ONLY
+               for msg in check_tp_family(family, [r["families"][family] for r in ranks],
+                                          pad_to)]
+        print(f"[tp] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        check(not bad, f"tp: {len(bad)} family checks failed: {bad}")
+        return r0
+    print(f"[tp] {tp_label()}: {TP_RANKS} ranks on {', '.join(TP_DEVICES)}, backend "
           f"{r0['backend']} (collectives of up to {tp_pool.SLOT_BYTES} B through the ranks' "
           "shared host slots, larger ones through gloo on the CUDA tensors)", flush=True)
     for arm in TP_ARMS:
@@ -7295,7 +7534,7 @@ def phase_tp(pad_to):
             check(want["n_preemptions"] >= 1, f"tp {arm}: no preemption in the single-rank "
                   "run, the arm reaches no preemption")
         first = r0["arms"][arm]["forced"]
-        print(f"[tp {arm}] {TP_LABEL} | host counters {want} on both ranks, every run, as "
+        print(f"[tp {arm}] {tp_label()} | host counters {want} on both ranks, every run, as "
               f"the single-rank run's | KV reserved a rank "
               f"{first['kv_reserved_per_device_bytes']} B of {single['kv_reserved_bytes']} B "
               f"({first['kv_reserved_per_device_bytes'] / single['kv_reserved_bytes']:.4f}x) | "
@@ -7304,7 +7543,7 @@ def phase_tp(pad_to):
         for run, res in r0["arms"][arm].items():
             if run == "single":
                 continue
-            print(f"[tp {arm} {run}] {TP_LABEL} | {res['tokens_per_s']:.1f} tok/s | ttft p50 "
+            print(f"[tp {arm} {run}] {tp_label()} | {res['tokens_per_s']:.1f} tok/s | ttft p50 "
                   f"{res['ttft_p50_ms']:.2f} ms p99 {res['ttft_p99_ms']:.2f} ms | tpot p50 "
                   f"{res['tpot_p50_ms']:.3f} ms | wall {res['wall_s']:.2f} s | "
                   f"{res['prefills'] + res['decode_steps']} forwards, {res['reduces']} reduces, "
@@ -7328,7 +7567,7 @@ def phase_tp(pad_to):
                   f"plain path, bound {TP_DLOGIT_BOUND}")
     for name, st in (("single rank", r0["single_step"]), ("rank 0", r0["step"]),
                      ("rank 1", ranks[1]["step"])):
-        print(f"[tp step] {TP_LABEL if name != 'single rank' else 'one rank, whole model'} | "
+        print(f"[tp step] {tp_label(name == 'single rank')} | "
               f"{name}: an 8-slot decode step at {pad_to} tokens {st['wall_ms']:.3f} ms wall, "
               f"{st['device_ms']:.3f} ms device ({st['kernels']:.0f} kernels; "
               f"{st['copy_ms']:.3f} ms of it copies) | {st['reduces']:.0f} reduces a step, "
@@ -7342,7 +7581,7 @@ def phase_tp(pad_to):
               "run's")
         check(counts == ranks[1]["smoke"][arch, pool][2],
               f"tp smoke {arch} {pool}: rank 1's launches differ from rank 0's")
-        print(f"[tp smoke {arch} {pool}] f32 smoke config, {TP_LABEL}: {len(single)} requests' "
+        print(f"[tp smoke {arch} {pool}] f32 smoke config, {tp_label()}: {len(single)} requests' "
               f"tokens on both ranks the single-rank kernel run's | launches a rank {counts}",
               flush=True)
     print(f"[tp] the f32 smoke configs {r0['smoke_seconds']:.1f} s", flush=True)
@@ -7377,7 +7616,7 @@ def check_tp_family(family, ranks, pad_to):
         single = r0["arms"][arm]["single"]
         host = {k: single[k] for k in TP_HOST}
         first = r0["arms"][arm]["forced"]
-        print(f"[tp {family} {arm}] {arch}, {TP_LABEL} | host counters {host} (single rank) | "
+        print(f"[tp {family} {arm}] {arch}, {tp_label()} | host counters {host} (single rank) | "
               f"KV reserved a rank {first['kv_reserved_per_device_bytes']} B of "
               f"{first['kv_reserved_bytes']} B "
               f"({first['kv_reserved_per_device_bytes'] / first['kv_reserved_bytes']:.4f}x"
@@ -7405,7 +7644,7 @@ def check_tp_family(family, ranks, pad_to):
             if run == "single":
                 continue
             dprob, dlogit = res["bounds"]
-            print(f"[tp {family} {arm} {run}] {TP_LABEL} | {res['tokens_per_s']:.1f} tok/s | "
+            print(f"[tp {family} {arm} {run}] {tp_label()} | {res['tokens_per_s']:.1f} tok/s | "
                   f"ttft p50 {res['ttft_p50_ms']:.2f} ms | tpot p50 {res['tpot_p50_ms']:.3f} ms "
                   f"| wall {res['wall_s']:.2f} s | {res['prefills'] + res['decode_steps']} "
                   f"forwards, {res['reduces']} reduces, {res['reduce_s'] * 1e3:.1f} ms of host "
@@ -7433,8 +7672,9 @@ def check_tp_family(family, ranks, pad_to):
              f"tp {family} rank {rank}: {st['reduces']} reduces a decode step, "
              f"reduces_per_forward gives {r['reduces_per_forward']}")
         print(f"[tp {family} step] {arch}{f' ({quant})' if quant else ''} {fam['dtype']}, "
-              f"{fam['layers'] or 'all'} layers, {TP_LABEL} | rank "
-              f"{rank}: an 8-slot decode step at {pad_to} tokens {st['wall_ms']:.3f} ms wall, "
+              f"{fam['layers'] or 'all'} layers, {tp_label()} | rank "
+              f"{rank}: an 8-slot decode step at {fam.get('step_pad', pad_to)} tokens "
+              f"{st['wall_ms']:.3f} ms wall, "
               f"{st['device_ms']:.3f} ms device ({st['kernels']:.0f} kernels; "
               f"{st['copy_ms']:.3f} ms of it copies) | {st['reduces']:.0f} reduces a step, "
               f"{st['reduce_ms']:.3f} ms host in them", flush=True)
@@ -7464,8 +7704,12 @@ def tp_kernel_records(pad_to, r0):
     g = hq // hkv
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED + 29)
-    ctg, chunked = r0["arms"]["contiguous"]["sound"]["counts"], r0["arms"]["chunked"]["forced"]["counts"]
     recs = []
+    if TP_ONLY:  # the named families' records alone
+        tp_ssm_encdec_records(recs, gen, r0)
+        finish_records(recs)
+        return recs
+    ctg, chunked = r0["arms"]["contiguous"]["sound"]["counts"], r0["arms"]["chunked"]["forced"]["counts"]
     q = _rand(gen, (1, pad_to, hq, dh), bf, dev)
     k, v = (_rand(gen, (1, pad_to, hkv, dh), bf, dev) for _ in range(2))
     pos = int_positions(1, pad_to, dev)
@@ -7709,6 +7953,116 @@ def tp_family_records(recs, gen, pad_to, r0):
                               source="src/repro_torch/kernels/csrc/int8_matmul.cu",
                               replaces="src/repro/kernels/int8_matmul.py:104",
                               **_int8_args(m, k, nn, True))
+    tp_ssm_encdec_records(recs, gen, r0)
+
+
+def tp_ssm_encdec_records(recs, gen, r0):
+    """mamba2-130m's and whisper-base's kernels at a rank's shapes (TP = 2),
+    against their plain versions in bf16, a repeat call bit-identical, timed
+    beside their bound: the split-row RMSNorm (its two launches: the rank's
+    ``y * silu(z)`` with its partial sums of squares, then the scale over
+    all 1536 channels) at the gate norm's decode and prefill rows of 768 (z
+    a slice of the rank's ``in_proj`` rows), beside the whole-row kernel
+    over 1536; the SSD scan at 12 of 24 heads; whisper-base's encoder flash
+    over 1500 frames and its cross attention at 4 of 8 heads. Launches:
+    rank 0's forced greedy run of the family."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
+
+    dev, bf, n = torch.device("cuda"), torch.bfloat16, TP_RANKS
+    fams = r0["families"]
+    if "ssm" in fams:
+        cfg = get_config("mamba2-130m")
+        s = cfg.ssm
+        d_in, nh = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
+        dl, hl, gn = d_in // n, nh // n, s.n_groups * s.d_state
+        width = 2 * dl + 2 * gn + hl  # the rank's in_proj columns
+        counts = fams["ssm"]["arms"]["greedy"]["forced"]["counts"]
+        pad = fams["ssm"]["pad"]
+        for label, rows in (("decode", (SLOTS, 1)), ("prefill", (1, pad))):
+            zx = _rand(gen, rows + (width,), bf, dev)
+            y, z = _rand(gen, rows + (dl,), bf, dev), zx[..., :dl]
+            w = (1 + 0.1 * _rand(gen, (dl,), torch.float32, dev)).to(bf)
+            yw, zw = _rand(gen, rows + (d_in,), bf, dev), _rand(gen, rows + (d_in,), bf, dev)
+            ww = (1 + 0.1 * _rand(gen, (d_in,), torch.float32, dev)).to(bf)
+
+            def split(y=y, z=z, w=w):
+                p, sumsq = rn.mul_silu_partial_cuda(y, z)
+                return rn.rmsnorm_scale_cuda(p, sumsq, w, d_in)
+
+            def split_plain(y=y, z=z, w=w):
+                p, sumsq = rn.mul_silu_partial_plain(y, z)
+                return rn.rmsnorm_scale_plain(p, sumsq, w, d_in)
+
+            work = rmsnorm_work("mul_silu", y.numel(), dl)
+            n_rows = y.numel() // dl
+            kernel_record(recs, f"mul_silu_split y[{','.join(map(str, rows))},{dl}] of {d_in} "
+                          f"channels, z in rows of {width} bf16 (mamba2-130m {label} gate norm, "
+                          f"a rank's heads at TP = {n})", split, split_plain, None,
+                          max_err(split(), split_plain(), "bfloat16"),
+                          launches=counts["rmsnorm/mul_silu_split"], name="rmsnorm",
+                          prologue="mul_silu_split", per_call=2,
+                          whole_row_ms=cuda_ms(lambda: rn.mul_silu_rmsnorm_cuda(yw, zw, ww)),
+                          whole_row_device_ms=device_ms(
+                              lambda: rn.mul_silu_rmsnorm_cuda(yw, zw, ww)),
+                          source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+                          replaces="src/repro/kernels/rmsnorm.py:25",
+                          n_bytes=work["bytes"] + 2 * 4 * n_rows, flops=work["flops"],
+                          peak=work["peak"])
+            whole = recs[-1]["whole_row_device_ms"]
+            print(f"[kernels] rmsnorm split-row {label}: the whole-row mul_silu kernel over "
+                  f"{d_in} channels at the same rows {recs[-1]['whole_row_ms']:.4f} ms (device "
+                  f"{'not measured' if whole is None else f'{whole:.4f} ms'})", flush=True)
+        kw = _ssd_inputs(gen, 1, pad, hl, s.head_dim, s.n_groups, s.d_state, bf, False)
+        plan = ss.launch_plan(1, pad, hl, s.head_dim, s.n_groups, s.d_state, s.chunk_size, bf)
+        n_bytes, n_ops = ssd_work(1, pad, hl, s.head_dim, s.n_groups, s.d_state, s.chunk_size,
+                                  False)
+        y, st = ss.ssd_scan_cuda(chunk=s.chunk_size, **kw)
+        wy, wst = ss.ssd_scan_plain(chunk=s.chunk_size, **kw)
+        err = max(max_err(y, wy, "bfloat16"), max_err(st, wst, "float32", SSD_F32_TOL))
+        kernel_record(recs, f"x[1,{pad},{hl},{s.head_dim}] bf16, B/C[1,{pad},{s.n_groups},"
+                      f"{s.d_state}], chunk {s.chunk_size} (mamba2-130m prefill, a rank's heads "
+                      f"at TP = {n})", lambda kw=kw: ss.ssd_scan_cuda(chunk=s.chunk_size, **kw)[0],
+                      lambda kw=kw: ss.ssd_scan_plain(chunk=s.chunk_size, **kw), None, err,
+                      n_bytes, n_ops, counts["ssd_scan"], name="ssd_scan",
+                      source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                      replaces="src/repro/kernels/ssd_scan.py:90", per_call=len(plan))
+    if "whisper" in fams:
+        cfg = get_config("whisper-base")
+        h, dh, f = cfg.n_heads // n, cfg.head_dim, cfg.encdec.n_frames
+        launches = fams["whisper"]["arms"]["greedy"]["forced"]["counts"]["flash_attention"]
+        fl = torch.tensor(st_frame_lengths(SLOTS, f), device=dev)
+        zeros = torch.zeros((SLOTS, f), dtype=torch.int32, device=dev)
+        cases = {
+            "encoder (non-causal)": ((1, f, h, dh), (1, f, h, dh),
+                                     dict(q_positions=int_positions(1, f, dev),
+                                          k_positions=int_positions(1, f, dev), causal=False),
+                                     None, f * f),
+            "decoder cross attention (Tq 1, k_valid the frame lengths)":
+                ((SLOTS, 1, h, dh), (SLOTS, f, h, dh),
+                 dict(q_positions=zeros[:, :1].contiguous(), k_positions=zeros, causal=False,
+                      k_valid=(torch.arange(f, device=dev)[None] < fl[:, None]).contiguous()),
+                 (torch.arange(f, device=dev)[None] < fl[:, None])[:, None, None, :],
+                 int(fl.sum())),
+        }
+        for label, (qs, ks, kw, mask, pairs) in cases.items():
+            q, k, v = _rand(gen, qs, bf, dev), _rand(gen, ks, bf, dev), _rand(gen, ks, bf, dev)
+            err = max_err(fa.flash_attention_cuda(q, k, v, **kw),
+                          fa.flash_attention_plain(q, k, v, **kw), "bfloat16")
+            kernel_record(recs, f"q[{','.join(map(str, qs))}] k/v[{','.join(map(str, ks))}] "
+                          f"bf16 (whisper-base {label}, a rank's heads at TP = {n})",
+                          lambda q=q, k=k, v=v, kw=kw: fa.flash_attention_cuda(q, k, v, **kw),
+                          lambda q=q, k=k, v=v, kw=kw: fa.flash_attention_plain(q, k, v, **kw),
+                          lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
+                              q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              attn_mask=m),
+                          err, (2 * q.numel() + 2 * k.numel()) * 2 + (qs[1] + ks[1]) * qs[0] * 4,
+                          pairs * h * 4 * dh, launches, **FLASH_SRC)
 
 
 def _rmsnorm_args(n, d):
@@ -7722,11 +8076,188 @@ def _int8_args(m, k, n, dynamic):
 
 
 def timed(name, fn, *args, **kwargs):
-    """``fn(*args, **kwargs)``, its seconds printed as ``[main] name``."""
+    """``fn(*args, **kwargs)``, its seconds printed as ``[main] name``;
+    then the cached blocks go back to the card, for the work beside."""
+    import torch
+
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
     print(f"[main] {name} {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------
+# work beside the main sequence
+# --------------------------------------------------------------------------
+#
+# Most phases keep the host busy and the card idle (eager decode steps at
+# small batch), so two of them run beside the main sequence: the tp phase
+# (its ranks are processes already; a thread of this process waits on them)
+# and the moe and mla phases (a process of their own, ``side_moe``). Every
+# kernel record is timed with the card to itself: the records of the phases
+# beside are taken after they are joined (tp) or after the main sequence
+# has stopped for them (``await_quiet``). The phases whose walls and
+# profiled times are taken beside other work are printed when it starts
+# (BESIDE).
+
+#: the main-sequence phases that run while the tp phase or the moe / mla
+#: process shares the card and the host, by the name of the work beside;
+#: their walls and profiled device times are taken under that load (the
+#: kernels line is not)
+BESIDE = {"tp": ("paged", "speculative", "mixed", "prefix", "router", "parity", "profile",
+                 "quant", "hstu", "ssm", "seamless"),
+          "moe, mla": ("scanned", "audit", "train", "chameleon", "hybrid", "examples")}
+
+#: set in the moe / mla process: the main sequence's signal that the card is
+#: its own (``await_quiet``)
+QUIET = {}
+
+
+class Beside:
+    """``fn(*args)`` run beside the main sequence: in a thread of this
+    process (``process=False``: for work that only waits on processes of
+    its own, as the tp phase's ranks) or in a process started by spawn,
+    whose result comes back through a file. ``join`` returns the result or
+    raises the failure; after a failure elsewhere ``stop_children`` ends
+    a process left running."""
+
+    def __init__(self, name, fn, *args, process=False):
+        import threading
+
+        self.name, self.t0, self.box = name, time.perf_counter(), {}
+        print(f"[main] {name} starts, beside the phases {', '.join(BESIDE[name])} (their "
+              "walls and profiled times taken under its load)", flush=True)
+        if process:
+            import tempfile
+
+            import torch.multiprocessing as mp
+
+            ctx = mp.get_context("spawn")
+            self.quiet = ctx.Event()
+            self.tmp = tempfile.mkdtemp(prefix="chip_smoke_side_")
+            self.path = os.path.join(self.tmp, "result.pkl")
+            self.proc = ctx.Process(target=_side_main, args=(fn, args, self.quiet, self.path),
+                                    name=name)
+            with expandable_segments():
+                self.proc.start()
+            self.thread = None
+        else:
+            self.proc = None
+            self.thread = threading.Thread(target=self._run, args=(fn, args), name=name,
+                                           daemon=True)
+            self.thread.start()
+
+    def _run(self, fn, args):
+        try:
+            self.box["out"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 -- re-raised by join
+            self.box["err"], self.box["tb"] = e, traceback.format_exc()
+
+    def join(self):
+        """Waits for the work (a process is told first that the card is its
+        own: ``await_quiet``) and returns its result."""
+        import pickle
+        import shutil
+
+        t_wait = time.perf_counter()
+        if self.thread is not None:
+            self.thread.join()
+        else:
+            self.quiet.set()
+            self.proc.join()
+            code = self.proc.exitcode
+            try:
+                if code == 0:
+                    with open(self.path, "rb") as f:
+                        self.box["out"] = pickle.load(f)
+                else:
+                    self.box["err"], self.box["tb"] = f"its process exited with code {code}", ""
+            finally:
+                shutil.rmtree(self.tmp, ignore_errors=True)
+        now = time.perf_counter()
+        print(f"[main] {self.name} {now - self.t0:.1f} s beside the main sequence (which "
+              f"waited {now - t_wait:.1f} s for it)", flush=True)
+        if "err" in self.box:
+            if self.box["tb"]:
+                print(self.box["tb"], file=sys.stderr, flush=True)
+            raise PhaseError(f"{self.name}: {self.box['err']}")
+        return self.box["out"]
+
+
+def _side_main(fn, args, quiet, path):
+    """A Beside process: the card's settings as ``phase_device`` leaves
+    them, ``fn(*args)`` with ``QUIET`` set, its result (and its profiler
+    retries) pickled to ``path``; exit code 1 on any failure."""
+    import pickle
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    QUIET["event"] = quiet
+    try:
+        out = fn(*args)
+        with open(path, "wb") as f:
+            pickle.dump((out, PROFILE_RETRIES), f)
+    except BaseException:  # noqa: BLE001 -- reported, and the exit code says it
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def await_quiet(tag: str) -> None:
+    """In a Beside process: waits until the main sequence has stopped for
+    it, so that what follows is timed with the card to itself. A no-op in
+    the main process."""
+    ev = QUIET.get("event")
+    if ev is None:
+        return
+    t0 = time.perf_counter()
+    ev.wait()
+    print(f"[{tag}] waited {time.perf_counter() - t0:.1f} s for the card to itself",
+          flush=True)
+
+
+def side_moe(pad_to):
+    """The moe and mla phases, in a process beside the main sequence.
+    Returns the MLA kernel records, timed after ``await_quiet``."""
+    timed("moe", phase_moe, "qwen3-moe-30b-a3b", pad_to)
+    return timed("mla", phase_moe, "deepseek-v2-236b", pad_to)[2]
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """Processes started inside take the caching allocator's expandable
+    segments (unless the caller set ``PYTORCH_CUDA_ALLOC_CONF``): the tp
+    ranks and the moe / mla process build whole models while other
+    processes hold the card, and a model's f32 draws cast to bf16 leave
+    cached segments too fragmented to hand back. This process's own
+    allocator, set up already, keeps its segments."""
+    key = "PYTORCH_CUDA_ALLOC_CONF"
+    had = os.environ.get(key)
+    if had is None:
+        os.environ[key] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if had is None:
+            os.environ.pop(key, None)
+
+
+def stop_children() -> None:
+    """Ends every process this one started that still runs (a failure
+    left the work beside unjoined): nothing outlives the script."""
+    import multiprocessing
+
+    kids = multiprocessing.active_children()
+    for p in kids:
+        p.terminate()
+    for p in kids:
+        p.join(timeout=30)
+        if p.is_alive():
+            p.kill()
 
 
 def main() -> None:
@@ -7741,7 +8272,9 @@ def main() -> None:
         import repro_torch  # noqa: F401
     except ImportError as e:
         fail(f"the port is not importable from {ROOT}/src: {e}")
-    if sys.argv[1:] == ["tp"]:  # the tp phase alone: no result lines
+    if sys.argv[1:2] == ["tp"]:  # the tp phase alone (or its named families): no result lines
+        TP_ONLY.extend(sys.argv[2:])
+        check(all(f in TP_FAMILIES for f in TP_ONLY), f"tp: unknown families {TP_ONLY}")
         try:
             phase_device()
             phase_build()
@@ -7766,6 +8299,12 @@ def main() -> None:
                                     N_REQUESTS, SEED)
         records = timed("kernels", phase_kernels, pad_to, pad_to + MAX_NEW + 1)
         cfg, model, params, trace, runs = timed("serve", phase_serve, pad_to)
+        extend_records, _ = phase_extend(cfg, model, params, pad_to)
+        records += extend_records
+        # the tp phase's ranks serve beside the BESIDE["tp"] phases (no
+        # graph capture while its thread runs: scanned and audit come later)
+        TP_BESIDE["on"] = True
+        tp = Beside("tp", phase_tp, pad_to)
         paged_counts, paged_toks = timed("paged", phase_paged, cfg, model, params, pad_to,
                                          runs["continuous"][1])
         spec_counts, sampled_toks = timed("speculative", phase_speculative, cfg, model, params,
@@ -7782,22 +8321,28 @@ def main() -> None:
         timed("profile", phase_profile, model, params, pad_to, trace,
               fused=fused_per_forward(cfg))
         arms = timed("quant", phase_quant, cfg, model, params, pad_to, trace)
-        extend_records, _ = phase_extend(cfg, model, params, pad_to)
-        records += extend_records
+        hstu_counts, hstu_f32_counts = timed("hstu", phase_hstu)
+        ssm_counts, ssm_f32_counts = timed("ssm", phase_ssm, pad_to)
+        seamless_counts, _ = timed("seamless", phase_seamless)
+        records += timed("tp kernel records", tp_kernel_records, pad_to, tp.join())
+        # the moe and mla phases serve in a process of their own beside the
+        # BESIDE["moe, mla"] phases; their kernel records wait for the join
+        side = Beside("moe, mla", side_moe, pad_to, process=True)
         phase_scanned(cfg, model, params, gpu)
         phase_audit(model, params, gpu)
         del model, params
         torch.cuda.empty_cache()
-        records += timed("tp kernel records", tp_kernel_records, pad_to,
-                         timed("tp", phase_tp, pad_to))
         phase_train()
-        hstu_counts, hstu_f32_counts = timed("hstu", phase_hstu)
-        ssm_counts, ssm_f32_counts = timed("ssm", phase_ssm, pad_to)
-        seamless_counts, _ = timed("seamless", phase_seamless)
         chameleon_counts, _ = timed("chameleon", phase_chameleon)
-        _, moe_arms, _ = timed("moe", phase_moe, "qwen3-moe-30b-a3b", pad_to)
-        _, mla_arms, mla_records = timed("mla", phase_moe, "deepseek-v2-236b", pad_to)
+        t0 = time.perf_counter()
+        hybrid_counts, long_counts = phase_hybrid(pad_to)
+        print(f"[hybrid] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        phase_examples()
+        mla_records, side_retries = side.join()
         records += mla_records
+        PROFILE_RETRIES.extend(side_retries)
+        records += timed("hybrid kernel records", hybrid_kernel_records, pad_to, hybrid_counts,
+                         long_counts)
         dense_pad = serve.trace_pad_to(data_mod.PAPER_PROFILES["llama_humaneval"],
                                        DENSE_REQUESTS, SEED)
         t0 = time.perf_counter()
@@ -7807,13 +8352,7 @@ def main() -> None:
         windows = phase_characterize(kept)  # takes yi-34b out of ``kept`` and frees it
         print(f"[characterize] phase {time.perf_counter() - t0:.1f} s", flush=True)
         records += dense_kernel_records(dense_pad, dense_counts, windows[("T-T", "P")][1])
-        t0 = time.perf_counter()
-        hybrid_counts, long_counts = phase_hybrid(pad_to)
-        records += hybrid_kernel_records(pad_to, hybrid_counts, long_counts)
-        print(f"[hybrid] phase with its kernel records {time.perf_counter() - t0:.1f} s",
-              flush=True)
         records += timed("smoke_configs", phase_smoke_configs)
-        phase_examples()
         # each kernel's launches come from the run of the path it is on; an
         # f32 route's from the f32 run of its path
         path_counts = {"paged_decode_attention": paged_counts["paged"],
@@ -7842,7 +8381,11 @@ def main() -> None:
               f"{len(PROFILE_RETRIES)} {json.dumps(PROFILE_RETRIES)}", flush=True)
     except Exception:  # any phase failure: report and exit non-zero
         traceback.print_exc()
+        stop_children()
         fail("a phase failed")
+    except SystemExit:  # a phase's own ``fail``
+        stop_children()
+        raise
     print(gpu, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

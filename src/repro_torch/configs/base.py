@@ -63,6 +63,10 @@ class SSMConfig:
     head_dim: int
     n_groups: int = 1
     chunk_size: int = 256
+    # the port's own field: a tensor-parallel rank's mixer holds 1 / shards
+    # of the heads and of d_inner (``distributed/tp_pool.py``); the B and C
+    # groups stay whole. 1 everywhere but in a rank's local config
+    shards: int = 1
 
     def d_inner(self, d_model: int) -> int:
         return self.expand * d_model

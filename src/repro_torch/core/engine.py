@@ -44,8 +44,8 @@ same signatures and runs one rank's share of a step: the model is the
 rank's (its widths, its group), the params its shard, the cache its KV
 heads. Each runs the step above, whose forward reduces after every
 row-parallel linear, and then gathers the rank's vocab slice of the logits
-whole (``layers.gather_vocab``), after ``_last_logits`` has picked the
-positions that are read.
+whole (``layers.gather_vocab``; nothing to gather where the LM head is
+whole), after ``_last_logits`` has picked the positions that are read.
 
 Everything else runs eagerly under ``torch.inference_mode()``. LayerSkip's draft
 and batch engine live in core/layerskip.py on these primitives.
@@ -139,14 +139,14 @@ def tp_prefill(model: Model, params, tokens: torch.Tensor, prompt_lengths: torch
     and the last positions' logits are gathered over the vocab after
     ``_last_logits`` picked them (never the [B, T, V] block)."""
     logits, cache = prefill(model, params, tokens, prompt_lengths, max_len, impl, extra)
-    return L.gather_vocab(logits, model.tp), cache
+    return L.gather_vocab(logits, model.tp, model.config.vocab_size), cache
 
 
 @torch.inference_mode()
 def tp_decode_step(model: Model, params, cache, token: torch.Tensor, impl: str = "auto"):
     """``decode_step`` on one rank, the logits gathered over the vocab."""
     logits, cache = decode_step(model, params, cache, token, impl)
-    return L.gather_vocab(logits, model.tp), cache
+    return L.gather_vocab(logits, model.tp, model.config.vocab_size), cache
 
 
 @torch.inference_mode()
@@ -155,7 +155,7 @@ def tp_mixed_step(model: Model, params, cache, tokens: torch.Tensor, t_new: torc
     """``mixed_step`` on one rank, each slot's last-lane logits gathered
     over the vocab."""
     logits, cache = mixed_step(model, params, cache, tokens, t_new, lengths)
-    return L.gather_vocab(logits, model.tp), cache
+    return L.gather_vocab(logits, model.tp, model.config.vocab_size), cache
 
 
 @torch.inference_mode()
@@ -164,7 +164,7 @@ def tp_verify_step(model: Model, params, cache, tokens: torch.Tensor, t_new: tor
     """``verify_step`` on one rank, every lane's logits gathered over the
     vocab."""
     logits, cache = verify_step(model, params, cache, tokens, t_new, lengths)
-    return L.gather_vocab(logits, model.tp), cache
+    return L.gather_vocab(logits, model.tp, model.config.vocab_size), cache
 
 
 # --------------------------------------------------------------------------

@@ -89,7 +89,7 @@ def draft_window(model: Model, exit_layer: int, n_draft: int, params, cache,
             mode="decode", advance=live.to(torch.int32), impl=impl, tp=tp,
         )
         if tp is not None:
-            logits = L.gather_vocab(logits, tp)
+            logits = L.gather_vocab(logits, tp, cfg.vocab_size)
         nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
         token = torch.where(live, nxt, token)
         lanes.append(token)

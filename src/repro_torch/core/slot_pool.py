@@ -23,9 +23,11 @@ behind.
 
 A tensor-parallel rank builds its pool from its rank-local model
 (``distributed/tp_pool.py``): the K/V tensors hold the rank's KV heads
-(``sharding.cache_specs_tp``'s head split), an MLA pool the whole latent
-(which the reference replicates), while the host state, the block tables
-and ``lengths`` are whole and the same on every rank.
+(``sharding.cache_specs_tp``'s head split; an encoder-decoder's self and
+cross K/V alike), an MLA pool the whole latent (which the reference
+replicates), a Mamba-2 pool its heads' state and its conv tail's
+channels, while the host state, the block tables and ``lengths`` are
+whole and the same on every rank.
 """
 from __future__ import annotations
 

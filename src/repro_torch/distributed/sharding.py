@@ -23,7 +23,8 @@ layer axis is never split.
 
 TP serving (``distributed/tp_pool.py``) reuses the same rules on a 1-D
 ``("model",)`` mesh of ``tp`` ranks: params by :func:`param_specs` with
-``enable_tp=True`` (:func:`tp_param_specs` adds the port's own leaves), the
+``enable_tp=True`` (:func:`tp_param_specs` adds the port's own leaves and a
+Mamba-2 mixer's head-aligned layout, :func:`tp_rank_index`), the
 KV pool by :func:`cache_specs_tp` (the head axis; its sequence-axis
 fallback is refused by the pool; MLA's ``latent`` matches no KV leaf and
 stays whole), and :func:`shard_tree` cuts each rank's slice, the
@@ -337,6 +338,16 @@ def _column_split(spec: Spec) -> Spec:
     return ("model",) if spec and spec[-1] == "model" else ()
 
 
+#: a Mamba-2 mixer's per-head and per-channel leaves, head-split in the
+#: port's serving specs (the reference's rules keep the 1-D ones and
+#: ``conv_w`` whole and split ``in_proj``'s columns in contiguous halves,
+#: which GSPMD can afford and a rank computing its own heads cannot)
+_SSM_SPLIT = re.compile(r"mixer/(in_proj/(w|w_q_wo|w_q_dyn|w_scale)|conv_w|conv_b|A_log|D|"
+                        r"dt_bias|gate_norm/scale)$")
+#: the leaves among them cut at head-aligned indices, not in equal blocks
+_SSM_GATHERED = re.compile(r"mixer/(in_proj/(w|w_q_wo|w_q_dyn|w_scale)|conv_w|conv_b)$")
+
+
 def tp_param_specs(cfg: ModelConfig, params_like: Any, tp: int) -> Any:
     """The serving spec tree of the port's params at ``tp`` ranks:
     :func:`param_specs` with ``enable_tp=True`` on ``("model",)``, plus the
@@ -344,13 +355,22 @@ def tp_param_specs(cfg: ModelConfig, params_like: Any, tp: int) -> Any:
     as its table, each q/k/v bias split with its weight's columns, and an
     AutoQuant'd linear's per-column ``w_scale`` [N] split with a
     column-parallel ``w_q_*`` leaf's columns and whole beside a row-parallel
-    one (the reference leaves every 1-D ``w_scale`` whole)."""
+    one (the reference leaves every 1-D ``w_scale`` whole) — and a Mamba-2
+    mixer's per-head leaves split on their heads: ``in_proj``'s columns and
+    ``conv_w`` / ``conv_b``'s channels (at :func:`tp_rank_index`'s
+    head-aligned indices), ``A_log``, ``D``, ``dt_bias`` and ``gate_norm``'s
+    channels. A vocabulary that does not split leaves ``embed`` and
+    ``lm_head`` whole, as the reference's ``_spec_for`` does."""
     specs = param_specs(cfg, params_like, MeshShape({"model": tp}), enable_tp=True)
     flat = flat_specs(specs)
 
     def fix(path, leaf):
         if path.endswith("embed/table_f32"):
             return flat[path[:-len("_f32")]]
+        if cfg.family == "ssm" and _SSM_SPLIT.search(path):
+            spec = [None] * _ndim(leaf)
+            spec[-1 if "in_proj" in path else 0] = "model"
+            return tuple(spec)
         if _BIAS.search(path):
             return _column_split(flat[path[:-1] + "w"])
         if path.endswith("/w_scale") and _ndim(leaf) == 1:
@@ -362,12 +382,46 @@ def tp_param_specs(cfg: ModelConfig, params_like: Any, tp: int) -> Any:
     return map_with_path(fix, params_like)
 
 
-def shard_tree(tree: Any, specs: Any, rank: int, size: int, axis: str = "model") -> Any:
+def ssm_rank_columns(cfg: ModelConfig, rank: int, size: int) -> Tuple[torch.Tensor,
+                                                                      torch.Tensor]:
+    """(``in_proj`` columns, conv channels) of rank ``rank`` of ``size`` in
+    a Mamba-2 mixer of the whole ``cfg``, in the mixer's own order: ``z``
+    and ``x`` of the rank's heads ``[rank * H / size, (rank + 1) * H /
+    size)``, ``B`` and ``C`` whole (their groups do not split), ``dt`` of
+    its heads; the conv's channels are ``x`` of its heads, then ``B`` and
+    ``C``."""
+    s = cfg.ssm
+    d_in, nh = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
+    gn = s.n_groups * s.d_state
+    dl, hl = d_in // size, nh // size
+    mine = torch.arange(rank * dl, (rank + 1) * dl)
+    bc = torch.arange(2 * d_in, 2 * d_in + 2 * gn)
+    dt = 2 * d_in + 2 * gn + torch.arange(rank * hl, (rank + 1) * hl)
+    cols = torch.cat([mine, d_in + mine, bc, dt])
+    conv = torch.cat([mine, torch.arange(d_in, d_in + 2 * gn)])
+    return cols, conv
+
+
+def tp_rank_index(cfg: ModelConfig, path: str, rank: int, size: int) -> Optional[torch.Tensor]:
+    """The indices rank ``rank`` keeps along a leaf's split dim where they
+    are not its ``rank``-th equal block: a Mamba-2 mixer's ``in_proj``
+    columns (``w``, an AutoQuant'd ``w_q_*`` and its ``w_scale``) and
+    ``conv_w`` / ``conv_b`` channels (:func:`ssm_rank_columns`); None for
+    every other leaf."""
+    if cfg.family != "ssm" or not _SSM_GATHERED.search(path):
+        return None
+    cols, conv = ssm_rank_columns(cfg, rank, size)
+    return cols if "in_proj" in path else conv
+
+
+def shard_tree(tree: Any, specs: Any, rank: int, size: int, axis: str = "model",
+               index: Optional[Callable[[str], Optional[torch.Tensor]]] = None) -> Any:
     """Rank ``rank``'s slice of every leaf of ``tree`` under ``specs`` on a
     1-D ``(axis,)`` mesh of ``size`` ranks: a leaf whose spec names ``axis``
     at dim ``d`` keeps the ``rank``-th of ``size`` equal blocks along ``d``,
-    copied so the whole tensor can be freed; a replicated leaf is kept as
-    it is."""
+    or the indices ``index(path)`` gives where it gives any (a head-aligned
+    layout, :func:`tp_rank_index`), copied so the whole tensor can be freed;
+    a replicated leaf is kept as it is."""
     flat = flat_specs(specs)
 
     def cut(path, leaf):
@@ -375,11 +429,14 @@ def shard_tree(tree: Any, specs: Any, rank: int, size: int, axis: str = "model")
         if axis not in spec:
             return leaf
         d = spec.index(axis)
-        n = leaf.shape[d]
-        if n % size:
-            raise ValueError(f"{path}: dim {d} of {tuple(leaf.shape)} does not split "
-                             f"into {size}")
+        idx = index(path) if index is not None else None
         with torch.no_grad():
+            if idx is not None:
+                return leaf.index_select(d, idx.to(leaf.device))
+            n = leaf.shape[d]
+            if n % size:
+                raise ValueError(f"{path}: dim {d} of {tuple(leaf.shape)} does not split "
+                                 f"into {size}")
             return leaf.narrow(d, rank * (n // size), n // size).clone()
 
     return map_with_path(cut, tree)

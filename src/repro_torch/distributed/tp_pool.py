@@ -44,16 +44,26 @@ A collective waits on the host (through the slots or gloo), so a TP step
 syncs: the no-sync contract of ``Scheduler.step_begin`` holds for
 single-device steps only, and a TP step is not captured as a CUDA graph.
 
-Served: the ``dense``, ``vlm``, ``moe`` and ``mla_moe`` families, bf16 or
-AutoQuant'd (``wo`` / ``dyn``). Refused, by name (ROADMAP, Queue 1, step
-6): the ``ssm``, ``hybrid``, ``encdec``, ``seamless`` and ``hstu``
-families; a width that does not divide ``tp`` (heads, FFN columns, the
-vocabulary, experts, the shared experts' width, ``d_ff_dense``), where the
-reference falls back to the sequence axis or replicates.
+Served: the ``dense``, ``vlm``, ``moe``, ``mla_moe``, ``ssm``, ``encdec``
+and ``seamless`` families, bf16 or AutoQuant'd (``wo`` / ``dyn``). A
+Mamba-2 rank holds its heads (``local_config``: ``ssm.shards``; the
+head-aligned ``in_proj`` / conv layout of ``sharding.tp_rank_index``), its
+state and its conv tail's ``x`` channels; its gate norm, over all of
+``d_inner``, reduces its partial sums of squares
+(``ops.mul_silu_rmsnorm_split``). An encoder-decoder rank runs the encoder
+and both attentions at its heads and holds its self and cross K/V heads.
+A vocabulary that does not split stays whole on every rank, as the
+reference's specs leave it (no lookup reduce, no logits gather). Refused,
+by name (ROADMAP, Queue 1, step 6): the ``hybrid`` and ``hstu`` families; a
+width that does not divide ``tp`` (heads, FFN columns, experts, the shared
+experts' width, ``d_ff_dense``, Mamba-2's heads) and Mamba-2's B / C
+groups beyond one, where the reference falls back to the sequence axis or
+replicates.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import platform
 import re
@@ -332,13 +342,17 @@ def spawn(fn: Callable[..., Any], tp: int, *args, devices: Optional[Sequence[Any
 
 # ---- the rank's shard and model --------------------------------------------
 
-#: the families TP serves (``models/transformer.py``'s stack)
-FAMILIES = ("dense", "vlm", "moe", "mla_moe")
+#: the families TP serves (``models/transformer.py``'s stack, Mamba-2 and
+#: the encoder-decoders)
+FAMILIES = ("dense", "vlm", "moe", "mla_moe", "ssm", "encdec", "seamless")
 
 
 def _split_widths(cfg: ModelConfig) -> list:
-    """(name, width) of every width TP splits over the ranks."""
-    widths = [("n_heads", cfg.n_heads), ("vocab_size", cfg.vocab_size)]
+    """(name, width) of every width TP splits over the ranks (the
+    vocabulary splits where it can, else stays whole)."""
+    if cfg.family == "ssm":
+        return [("the SSM heads", cfg.ssm.n_heads(cfg.d_model))]
+    widths = [("n_heads", cfg.n_heads)]
     if cfg.mla is None:  # MLA's one latent is whole on every rank
         widths.append(("n_kv_heads", cfg.n_kv_heads))
     m = cfg.moe
@@ -363,6 +377,10 @@ def check_supported(cfg: ModelConfig, tp: int) -> None:
             raise NotImplementedError(
                 f"{what} = {n} does not split over tp = {tp} (the reference falls back to "
                 f"the sequence axis or replicates): {ROADMAP_ITEM}")
+    if cfg.ssm is not None and cfg.ssm.n_groups != 1:
+        raise NotImplementedError(
+            f"ssm.n_groups = {cfg.ssm.n_groups}: a rank's heads would read other groups' B "
+            f"and C: {ROADMAP_ITEM}")
     if cfg.scan_layers:
         raise NotImplementedError("scan_layers: the port runs unrolled layers")
 
@@ -373,13 +391,21 @@ def local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
     whole: the router, the top-k and the capacity are the whole model's,
     and a rank holds experts ``[rank * E / tp, (rank + 1) * E / tp)``
     (halving it would double the capacity and change which assignments
-    drop)."""
+    drop). A Mamba-2 rank's mixer widths come from ``d_model`` through
+    ``ssm.shards`` (``n_heads`` alone would leave them whole)."""
     local = cfg.replace(n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
                         d_head=cfg.head_dim, d_ff=cfg.d_ff // tp)
+    if cfg.ssm is not None:
+        local = local.replace(ssm=dataclasses.replace(cfg.ssm, shards=tp))
     if cfg.moe is not None and cfg.moe.first_dense_layers:
         local = local.replace(moe=dataclasses.replace(
             cfg.moe, d_ff_dense=(cfg.moe.d_ff_dense or cfg.d_ff) // tp))
     return local
+
+
+#: pool leaves a rank holds its heads of (``TPContext.whole_bytes``)
+_HEAD_SPLIT = re.compile(r"layers/\d+/((self/)?(k|v)|cross_(k|v)|state)$")
+_CONV_TAIL = re.compile(r"layers/\d+/conv$")
 
 
 class TPContext:
@@ -396,7 +422,8 @@ class TPContext:
         self.model = Model(config=local_config(cfg, group.size), module=model.module,
                            tp=group)
         specs = sharding.tp_param_specs(cfg, params, group.size)
-        shard = sharding.shard_tree(params, specs, group.rank, group.size)
+        index = functools.partial(sharding.tp_rank_index, cfg, rank=group.rank, size=group.size)
+        shard = sharding.shard_tree(params, specs, group.rank, group.size, index=index)
         self.params = kv_cache._map(lambda t: t.to(self.device), shard)
 
     def executables(self) -> types.SimpleNamespace:
@@ -410,15 +437,27 @@ class TPContext:
 
     def whole_bytes(self, cache) -> int:
         """The bytes of the pool this rank holds a shard of, counted once:
-        K/V leaves (split by heads) ``size`` times; MLA's latent (whole on
-        every rank), the replicated lengths and block tables once."""
+        leaves split by heads (K/V, an encoder-decoder's self and cross
+        K/V, the SSM state) ``size`` times; the SSM conv tail at the whole
+        model's channels (its ``x`` channels split, ``B`` and ``C`` whole);
+        MLA's latent (whole on every rank), the replicated lengths and block
+        tables once."""
         total = 0
+        conv_whole = conv_local = 1
+        if self.config.ssm is not None:
+            gn = 2 * self.config.ssm.n_groups * self.config.ssm.d_state
+            d_in = self.config.ssm.d_inner(self.config.d_model)
+            conv_whole, conv_local = d_in + gn, d_in // self.size + gn
 
         def add(path, leaf):
             nonlocal total
             if isinstance(leaf, torch.Tensor):
                 n = leaf.numel() * leaf.element_size()
-                total += n * self.size if re.search(r"layers/\d+/(k|v)$", path) else n
+                if _HEAD_SPLIT.search(path):
+                    n *= self.size
+                elif _CONV_TAIL.search(path):
+                    n = n // conv_local * conv_whole
+                total += n
 
         sharding.map_with_path(add, cache)
         return total

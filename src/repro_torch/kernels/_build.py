@@ -40,6 +40,12 @@ SIGNATURES: Dict[str, List] = {
     # stream
     "rmsnorm_launch": [_I, _I, _I, _I, _P, _P, ctypes.c_longlong, _P, _P, _P,
                        ctypes.c_longlong, _I, ctypes.c_float, _P],
+    # dtype, prologue, x, r, r_stride, p, sumsq, n_rows, d, stream
+    "rmsnorm_partial_launch": [_I, _I, _P, _P, ctypes.c_longlong, _P, _P, ctypes.c_longlong,
+                               _I, _P],
+    # dtype, p, sumsq, weight, y, n_rows, d, d_total, eps, stream
+    "rmsnorm_scale_launch": [_I, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float,
+                             ctypes.c_float, _P],
     # dtype, q, k, v, q_pos, k_pos, k_valid, out, B, Tq, Tk, Hq, Hkv, D, Dv,
     # causal, window, scale, stream
     "flash_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

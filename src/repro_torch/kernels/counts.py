@@ -1,7 +1,8 @@
 """The kernel wrappers' launch counters, read and advanced as one.
 
 Every CUDA wrapper adds one to its module's counter where it launches its
-kernel (RMSNorm also by prologue, the int8 GEMMs by mode). A launch recorded
+kernel (RMSNorm also by prologue and its split-row form, the int8 GEMMs by
+mode). A launch recorded
 into a CUDA graph runs again at every replay, but a replay runs no Python,
 so whoever replays a graph adds the captured call's counts once a replay
 (``add``): the counters then read what an eager run would have launched.
@@ -22,7 +23,7 @@ from repro_torch.kernels import ssd_scan as _ss
 def _holders() -> Dict[str, Tuple[object, str]]:
     """Counter name -> (module or dict, key)."""
     return {"rmsnorm": (_rn, "LAUNCHES"),
-            **{f"rmsnorm/{p}": (_rn.LAUNCHES_BY_PROLOGUE, p) for p in _rn.PROLOGUES},
+            **{f"rmsnorm/{p}": (_rn.LAUNCHES_BY_PROLOGUE, p) for p in _rn.LAUNCHES_BY_PROLOGUE},
             "flash_attention": (_fa, "LAUNCHES"),
             "decode_attention": (_da, "LAUNCHES"),
             "paged_decode_attention": (_pda, "LAUNCHES"),

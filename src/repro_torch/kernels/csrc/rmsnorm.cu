@@ -369,7 +369,126 @@ int launch_type(int prologue, const Args& a, int warps, int per_lane, cudaStream
   }
 }
 
+// ---- the split-row form: a row whose channels lie on several ranks --------
+//
+// A tensor-parallel rank holds d of a row's d_total channels (Mamba-2's gate
+// norm over d_inner at TP > 1). Pass 1 makes the prologue's row p (rounded
+// to T as above) and writes it with the row's f32 partial sum of squares;
+// the caller sums the partials over the ranks; pass 2 scales p by
+// rsqrt(sum / d_total + eps) and the weight, in the whole-row kernel's
+// order. One warp per row, four rows a block, element by element: simple
+// first (each pass reads and writes the row once; bound by bytes).
+
+constexpr int kSplitRows = 4;
+
+template <typename T, int P>
+__global__ void __launch_bounds__(32 * kSplitRows)
+rmsnorm_partial_kernel(const T* __restrict__ x, const T* __restrict__ r, long long r_stride,
+                       T* __restrict__ p, float* __restrict__ sumsq, long long n_rows,
+                       int d) {
+  const int lane = threadIdx.x % 32;
+  const long long row = static_cast<long long>(blockIdx.x) * kSplitRows + threadIdx.x / 32;
+  if (row >= n_rows) return;
+  const T* xr = x + row * d;
+  const T* rr = r + row * r_stride;
+  T* pr = p + row * d;
+  float ss = 0.f;
+  for (int i = lane; i < d; i += 32) {
+    const float v = prologue<T, P>(to_f32(xr[i]), to_f32(rr[i]));
+    pr[i] = from_f32<T>(v);
+    ss = fmaf(v, v, ss);
+  }
+  ss = warp_sum(ss);
+  if (lane == 0) sumsq[row] = ss;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kSplitRows)
+rmsnorm_scale_kernel(const T* __restrict__ p, const float* __restrict__ sumsq,
+                     const T* __restrict__ w, T* __restrict__ y, long long n_rows, int d,
+                     float d_total, float eps) {
+  const int lane = threadIdx.x % 32;
+  const long long row = static_cast<long long>(blockIdx.x) * kSplitRows + threadIdx.x / 32;
+  if (row >= n_rows) return;
+  const float inv = rsqrtf(sumsq[row] / d_total + eps);
+  const T* pr = p + row * d;
+  T* yr = y + row * d;
+  for (int i = lane; i < d; i += 32) yr[i] = from_f32<T>((to_f32(pr[i]) * inv) * to_f32(w[i]));
+}
+
+template <typename T>
+int launch_partial(int prologue, const void* x, const void* r, long long r_stride, void* p,
+                   float* sumsq, long long n_rows, int d, cudaStream_t stream) {
+  const long long blocks = (n_rows + kSplitRows - 1) / kSplitRows;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const auto* xt = static_cast<const T*>(x);
+  const auto* rt = static_cast<const T*>(r);
+  auto* pt = static_cast<T*>(p);
+  switch (prologue) {
+    case kMul:
+      rmsnorm_partial_kernel<T, kMul><<<grid, 32 * kSplitRows, 0, stream>>>(
+          xt, rt, r_stride, pt, sumsq, n_rows, d);
+      break;
+    case kMulSilu:
+      rmsnorm_partial_kernel<T, kMulSilu><<<grid, 32 * kSplitRows, 0, stream>>>(
+          xt, rt, r_stride, pt, sumsq, n_rows, d);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_scale(const void* p, const float* sumsq, const void* w, void* y, long long n_rows,
+                 int d, float d_total, float eps, cudaStream_t stream) {
+  const long long blocks = (n_rows + kSplitRows - 1) / kSplitRows;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  rmsnorm_scale_kernel<T><<<dim3(static_cast<unsigned>(blocks)), 32 * kSplitRows, 0, stream>>>(
+      static_cast<const T*>(p), sumsq, static_cast<const T*>(w), static_cast<T*>(y), n_rows, d,
+      d_total, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// Pass 1 of the split-row form: p = the prologue's row of x and r (mul or
+// mul_silu; r row-strided), sumsq [n_rows] f32 its partial sums of squares.
+extern "C" int rmsnorm_partial_launch(int dtype, int prologue, const void* x, const void* r,
+                                      long long r_stride, void* p, float* sumsq,
+                                      long long n_rows, int d, void* stream) {
+  if (n_rows == 0 || d == 0) return 0;
+  if (n_rows < 0 || d < 0 || x == nullptr || r == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == REPRO_DTYPE_F32) {
+    return launch_partial<float>(prologue, x, r, r_stride, p, sumsq, n_rows, d, st);
+  }
+  if (dtype == REPRO_DTYPE_BF16) {
+    return launch_partial<__nv_bfloat16>(prologue, x, r, r_stride, p, sumsq, n_rows, d, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Pass 2: y = (p * rsqrt(sumsq / d_total + eps)) * w, sumsq summed over the
+// ranks.
+extern "C" int rmsnorm_scale_launch(int dtype, const void* p, const float* sumsq,
+                                    const void* w, void* y, long long n_rows, int d,
+                                    float d_total, float eps, void* stream) {
+  if (n_rows == 0 || d == 0) return 0;
+  if (n_rows < 0 || d < 0 || !(d_total >= static_cast<float>(d))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == REPRO_DTYPE_F32) {
+    return launch_scale<float>(p, sumsq, w, y, n_rows, d, d_total, eps, st);
+  }
+  if (dtype == REPRO_DTYPE_BF16) {
+    return launch_scale<__nv_bfloat16>(p, sumsq, w, y, n_rows, d, d_total, eps, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // r (row stride r_stride elements) is read for every prologue but none; s is
 // written by add only; (warps, per_lane) is the plan (warps 0: the block

@@ -202,6 +202,27 @@ def mul_silu_rmsnorm(y: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
                   eps)
 
 
+def mul_silu_rmsnorm_split(y: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
+                           d_total: int, reduce: Callable[[torch.Tensor], torch.Tensor],
+                           eps: float = 1e-5, impl: str = "auto") -> torch.Tensor:
+    """``rmsnorm(y * silu(z))`` of rows whose ``d_total`` channels lie on
+    several ranks, ``y`` / ``z`` / ``weight`` holding this rank's: the
+    rank's partial sums of squares [...] f32, ``reduce`` summing them over
+    the ranks in place, then the scale (two launches on the card about the
+    reduce)."""
+    impl = _resolve(impl, y)
+    _check_no_grad(impl, y, z, weight)
+    if z.shape != y.shape or z.dtype != y.dtype:
+        raise ValueError(f"split rmsnorm: operands {tuple(y.shape)} {y.dtype} and "
+                         f"{tuple(z.shape)} {z.dtype} differ")
+    cuda = impl == "cuda"
+    partial = _rn.mul_silu_partial_cuda if cuda else _rn.mul_silu_partial_plain
+    scale = _rn.rmsnorm_scale_cuda if cuda else _rn.rmsnorm_scale_plain
+    p, sumsq = partial(y.contiguous(), _rows(z))
+    sumsq = reduce(sumsq)
+    return scale(p, sumsq, weight.contiguous(), d_total, eps)
+
+
 # --------------------------------------------------------------------------
 # Int8 matmul (AutoQuant substrate)
 # --------------------------------------------------------------------------

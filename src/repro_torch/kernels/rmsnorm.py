@@ -21,6 +21,15 @@ row is held in registers by one warp (by up to 8 on a grid of few rows),
 loaded as 16-byte vectors and read once (see the source's note and
 :func:`route`). The second operand may be a row-strided view (unit last
 stride), read in place.
+
+The split-row form (``mul_silu_split``) normalises a row whose channels lie
+on several tensor-parallel ranks (Mamba-2's gate norm at TP > 1), in two
+launches about a reduce the caller makes: ``mul_silu_partial_cuda`` writes
+the rank's ``p = y * silu(z)`` and each row's f32 partial sum of squares,
+the ranks sum the partials, and ``rmsnorm_scale_cuda`` scales ``p`` by
+``rsqrt(sum / d_total + eps)`` and the weight. Each launch counts once under
+``mul_silu_split``; the plain versions are ``mul_silu_partial_plain`` and
+``rmsnorm_scale_plain``.
 """
 from __future__ import annotations
 
@@ -35,8 +44,11 @@ from repro_torch.kernels import _build
 PROLOGUES = ("none", "add", "mul", "mul_silu")
 #: launches of the CUDA kernel in this process, over every prologue
 LAUNCHES = 0
-#: launches by prologue (updated in place; chip_smoke resets and reads it)
-LAUNCHES_BY_PROLOGUE = dict.fromkeys(PROLOGUES, 0)
+#: the split-row form's counter name (both of its launches)
+SPLIT = "mul_silu_split"
+#: launches by prologue, and the split-row form's (updated in place;
+#: chip_smoke resets and reads it)
+LAUNCHES_BY_PROLOGUE = dict.fromkeys(PROLOGUES + (SPLIT,), 0)
 #: the warp path holds at most this many bytes of each operand a lane, with
 #: at most MAX_WARPS warps a row: rows of up to 8 * 32 * 128 bytes (16384
 #: bf16, 8192 f32); longer rows take the block-per-row kernel
@@ -155,3 +167,71 @@ def mul_silu_rmsnorm_cuda(y: torch.Tensor, z: torch.Tensor, weight: torch.Tensor
     """``rmsnorm(y * silu(z))`` on the CUDA kernel; ``z`` may be
     row-strided."""
     return _launch("mul_silu", y, z, weight, eps)[1]
+
+
+# ---- the split-row form ----------------------------------------------------
+
+def mul_silu_partial_plain(y: torch.Tensor, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(p, sumsq)``: ``p = y * silu(z)`` (the unfused ops) and each row's
+    f32 sum of squares of ``p`` [...]."""
+    p = y * F.silu(z)
+    pf = p.float()
+    return p, (pf * pf).sum(-1)
+
+
+def rmsnorm_scale_plain(p: torch.Tensor, sumsq: torch.Tensor, weight: torch.Tensor,
+                        d_total: int, eps: float = 1e-5) -> torch.Tensor:
+    """``p * rsqrt(sumsq / d_total + eps) * weight`` in f32, cast back to
+    ``p``'s type: ``rmsnorm_plain`` with the mean over ``d_total`` channels,
+    of which ``p`` holds a rank's."""
+    y = p.float() * torch.rsqrt(sumsq[..., None] / d_total + eps)
+    return (y * weight.float()).to(p.dtype)
+
+
+def _count_split() -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+    LAUNCHES_BY_PROLOGUE[SPLIT] += 1
+
+
+def mul_silu_partial_cuda(y: torch.Tensor, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 of the split-row form on the CUDA kernel: ``(p, sumsq)`` as
+    ``mul_silu_partial_plain``; ``z`` may be row-strided."""
+    _build.require_cuda("rmsnorm split", y)
+    d = y.shape[-1]
+    rows = _build.require_rows("rmsnorm split", z, y)
+    p = torch.empty_like(y)
+    sumsq = torch.empty(y.shape[:-1], dtype=torch.float32, device=y.device)
+    n_rows = y.numel() // d if d else 0
+    if n_rows == 0:
+        return p, sumsq
+    rc = _build.library().rmsnorm_partial_launch(
+        _build.dtype_code(y), PROLOGUES.index("mul_silu"), y.data_ptr(), rows.data_ptr(),
+        rows.stride(0), p.data_ptr(), sumsq.data_ptr(), n_rows, d, _build.stream_of(y))
+    _build.check(rc, "rmsnorm split (partial)")
+    _count_split()
+    return p, sumsq
+
+
+def rmsnorm_scale_cuda(p: torch.Tensor, sumsq: torch.Tensor, weight: torch.Tensor,
+                       d_total: int, eps: float = 1e-5) -> torch.Tensor:
+    """Pass 2 of the split-row form on the CUDA kernel, as
+    ``rmsnorm_scale_plain``."""
+    _build.require_cuda("rmsnorm split", p, sumsq, weight)
+    d = p.shape[-1]
+    if weight.shape != (d,) or weight.dtype != p.dtype:
+        raise ValueError(f"rmsnorm split: weight {tuple(weight.shape)} {weight.dtype} does "
+                         f"not match rows of {d} {p.dtype}")
+    if sumsq.dtype != torch.float32 or sumsq.shape != p.shape[:-1]:
+        raise ValueError(f"rmsnorm split: sums {tuple(sumsq.shape)} {sumsq.dtype} for rows "
+                         f"{tuple(p.shape[:-1])}")
+    y = torch.empty_like(p)
+    n_rows = p.numel() // d if d else 0
+    if n_rows == 0:
+        return y
+    rc = _build.library().rmsnorm_scale_launch(
+        _build.dtype_code(p), p.data_ptr(), sumsq.data_ptr(), weight.data_ptr(), y.data_ptr(),
+        n_rows, d, float(d_total), float(eps), _build.stream_of(p))
+    _build.check(rc, "rmsnorm split (scale)")
+    _count_split()
+    return y

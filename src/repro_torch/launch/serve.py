@@ -27,10 +27,11 @@ on the one card (or round-robin over the cards when there are several; on
 the CPU with ``--device cpu``), and prints the fleet's spills, requeues,
 busy-time rate and one line per replica. ``--boost-after S`` ages waiting
 requests: one priority a full ``S`` seconds waited. ``--tp N`` serves one pool
-as N tensor-parallel ranks (``distributed/tp_pool.py``; the dense, vlm, moe
-and mla_moe families, bf16 or ``--quant``'d): N processes, each holding its
-shard of the params and of the KV pool (its KV heads, or MLA's whole
-latent), on the first N cards, on the cards ``--tp-devices`` lists
+as N tensor-parallel ranks (``distributed/tp_pool.py``; the dense, vlm, moe,
+mla_moe, ssm, encdec and seamless families, bf16 or ``--quant``'d): N
+processes, each holding its shard of the params and of the pool (its KV
+heads, MLA's whole latent, its SSM heads' state, its self and cross K/V
+heads), on the first N cards, on the cards ``--tp-devices`` lists
 (``cuda:0,cuda:0`` puts two ranks on one card) or, with ``--device cpu``,
 all on the CPU; rank 0 prints, with the KV bytes each rank reserves, the
 reduces the run made and, measured, a forward's. ``--quant wo|dyn``
@@ -42,7 +43,9 @@ random, drawn from a
 attention too for ``deepseek-v2-236b``, the SSD scan and RMSNorm for
 ``mamba2-130m``, windowed attention and RMSNorm for ``recurrentgemma-2b``,
 whose paged pool ``--paged`` refuses) are the hand-written CUDA ones. ``--n-layers`` cuts the
-depth of a model too large for one card.
+depth of a model too large for one card. An encoder-decoder
+(``whisper-base``, ``seamless-m4t``) serves its T2TT path: each request
+carries stub encoder frames drawn from ``--seed`` (``attach_frames``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
@@ -75,6 +78,10 @@ depth of a model too large for one card.
       --prefill-budget 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
       --n-layers 3 --tp 2 --tp-devices cuda:0,cuda:0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+      --smoke --device cpu --tp 2 --profile seamless_s2t --profile-mix greedy,beam
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+      --tp 2 --tp-devices cuda:0,cuda:0
 
 Reported per request: TTFT (arrival -> first token), TPOT (mean inter-
 token), e2e latency; aggregate: tokens/s, mean slot-occupancy and the
@@ -367,6 +374,24 @@ def mix_class_trace(
                 temperature=r.temperature, top_p=r.top_p, exit_layer=exit_layer,
                 n_draft=n_draft)
         reqs.append(r)
+    return reqs
+
+
+def attach_frames(reqs: List[ServeRequest], cfg, seed: int) -> List[ServeRequest]:
+    """Give each request of an encoder-decoder ``cfg`` its stub encoder
+    input, as ``extra_inputs``: frames [1, F, d] drawn N(0, 1) from
+    ``seed`` in the params' type, and a frame length from ``seamless_s2t``'s
+    input lengths (seed + 2) clipped to the F frames. Returns ``reqs``."""
+    from repro_torch.models import layers as L
+
+    f = cfg.encdec.n_frames
+    rng = np.random.default_rng(seed + 1)
+    ins, _ = data_mod.sample_lengths(data_mod.PAPER_PROFILES["seamless_s2t"], len(reqs),
+                                     seed=seed + 2)
+    for r, n in zip(reqs, ins):
+        frames = rng.standard_normal((1, f, cfg.d_model), dtype=np.float32)
+        r.extra_inputs = {"frames": torch.from_numpy(frames).to(L.param_dtype(cfg)),
+                          "frame_lengths": np.asarray([min(int(n), f)], np.int32)}
     return reqs
 
 
@@ -687,6 +712,8 @@ def warmup(model, params, *, slots: int, pad_to: int, max_new_cap: int, device,
             rid=4, prompt=rng.integers(0, 8, size=3), max_new=min(n_draft + 2, max_new_cap),
             profile=profiles.SpeculativeProfile(temperature=0.8, top_p=0.9,
                                                 exit_layer=exit_layer, n_draft=n_draft)))
+    if model.config.encdec is not None:
+        attach_frames(reqs, model.config, 0)
     sched.run(reqs)
     if prefix_cache:  # rid 0's blocks are in the trie now: its twin adopts them
         sched.run([ServeRequest(rid=5, prompt=full_prompt, max_new=2)])
@@ -793,8 +820,9 @@ def main(argv=None):
                     help="cuda (default; raises when there is no card) or cpu")
     ap.add_argument("--tp", type=int, default=None,
                     help="serve one pool as this many tensor-parallel ranks (the dense, "
-                         "vlm, moe and mla_moe families): on the first that many cards, on "
-                         "--tp-devices, or all on the CPU with --device cpu")
+                         "vlm, moe, mla_moe, ssm, encdec and seamless families): on the "
+                         "first that many cards, on --tp-devices, or all on the CPU with "
+                         "--device cpu")
     ap.add_argument("--quant", choices=["wo", "dyn"], default=None,
                     help="AutoQuant every linear with this one mode (int8 weight-only or "
                          "dynamic), the whole model before any tensor-parallel shard")
@@ -879,6 +907,8 @@ def _serve(args, group=None):
         )
     if args.profile_mix:
         apply_profile_mix(reqs, args.profile_mix, **group_kw)
+    if cfg.encdec is not None:  # the encoder's stub input: frames a request
+        attach_frames(reqs, cfg, args.seed)
     kinds = [k.strip() for k in (args.profile_mix or "").split(",")] + class_kinds
     geometry = dict(paged=args.paged, block_size=args.block_size,
                     num_blocks=args.num_blocks, chunked=args.chunked,

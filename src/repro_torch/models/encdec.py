@@ -15,6 +15,15 @@ Every residual add runs in the next norm's kernel (``layers.add_rmsnorm``),
 as in the dense stack: a forward launches RMSNorm once with no prologue
 and 2 (encoder) or 3 (decoder) times a layer with ``add``. The logits are
 ``dense(lm_head)`` then f32 (no tied unembed).
+
+Under tensor parallelism (``distributed/tp_pool.py``) a rank's config
+carries its heads and FFN columns and its params the matching shard: the
+encoder, the decoder's self- and cross-attention (its cross K/V heads,
+computed and written once at prefill) and the FFNs run at the rank's
+widths and reduce after ``wo`` and ``w2``: 2 reduces an encoder layer and
+3 a decoder layer. A vocabulary that does not split (whisper's 51865)
+leaves ``embed`` and ``lm_head`` whole on every rank, as the reference's
+specs do: no reduce for the lookup and no gather of the logits.
 """
 from __future__ import annotations
 
@@ -86,28 +95,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
 
 
 def bidirectional_stack(cfg: ModelConfig, layers, x: torch.Tensor, final_norm,
-                        impl: str = "auto") -> torch.Tensor:
+                        impl: str = "auto", tp=None) -> torch.Tensor:
     """Pre-norm bidirectional layers (attention, then SwiGLU) over ``x`` [B,
     T, d] and the final norm; every residual add fused into the next norm.
-    The encoder and Seamless's T2U share it."""
+    The encoder and Seamless's T2U share it. Under ``tp`` the layers are a
+    rank's shard, and the attention and the FFN reduce their outputs."""
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device, dtype=torch.int32)[None].expand(b, t)
     norms = [lp["attn_norm"] for lp in layers] + [final_norm]
     h = L.rmsnorm(norms[0], x, cfg.rmsnorm_eps, impl=impl)
     for i, lp in enumerate(layers):
         out, _ = A.attention(cfg, lp["attn"], h, positions=positions, lengths=None,
-                             cache=None, mode="train", impl=impl, bidirectional=True)
+                             cache=None, mode="train", impl=impl, bidirectional=True, tp=tp)
         x, h = L.add_rmsnorm(lp["ffn_norm"], x, out, cfg.rmsnorm_eps, impl=impl)
-        x, h = L.add_rmsnorm(norms[i + 1], x, L.ffn(lp["ffn"], h, impl), cfg.rmsnorm_eps,
+        x, h = L.add_rmsnorm(norms[i + 1], x, L.ffn(lp["ffn"], h, impl, tp), cfg.rmsnorm_eps,
                              impl=impl)
     return h
 
 
-def encode(cfg: ModelConfig, params, frames: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """frames: [B, F, d] stubbed frontend output -> encoder states [B, F, d]."""
+def encode(cfg: ModelConfig, params, frames: torch.Tensor, impl: str = "auto",
+           tp=None) -> torch.Tensor:
+    """frames: [B, F, d] stubbed frontend output -> encoder states [B, F, d]
+    (whole on every rank under ``tp``)."""
     _, f, d = frames.shape
     x = frames + L.sinusoid_positions(f, d, frames.device).to(frames.dtype)[None]
-    return bidirectional_stack(cfg, params["encoder"], x, params["enc_norm"], impl)
+    return bidirectional_stack(cfg, params["encoder"], x, params["enc_norm"], impl, tp)
 
 
 def _cross_kv(cfg: ModelConfig, p, enc: torch.Tensor,
@@ -128,14 +140,15 @@ def _cross_inputs(b: int, t: int, frame_lengths: torch.Tensor, f: int) -> dict:
 
 
 def _cross_attention(cfg: ModelConfig, p, x: torch.Tensor, cross_k: torch.Tensor,
-                     cross_v: torch.Tensor, masks: dict, impl: str) -> torch.Tensor:
+                     cross_v: torch.Tensor, masks: dict, impl: str, tp=None) -> torch.Tensor:
     """Decoder -> encoder attention against the cross K/V: flash attention,
-    non-causal, the frames past each row's ``frame_lengths`` masked."""
+    non-causal, the frames past each row's ``frame_lengths`` masked; under
+    ``tp`` at the rank's heads, ``wo``'s output reduced."""
     b, t, _ = x.shape
     hq, dh = cfg.n_heads, cfg.head_dim
     q = L.dense(p["wq"], x, impl).reshape(b, t, hq, dh)
     out = ops.flash_attention(q, cross_k, cross_v, causal=False, impl=impl, **masks)
-    return L.dense(p["wo"], out.reshape(b, t, hq * dh), impl)
+    return L.row_parallel(p["wo"], out.reshape(b, t, hq * dh), impl, tp)
 
 
 def forward(
@@ -146,6 +159,7 @@ def forward(
     cache: Optional[dict] = None,
     mode: str = "train",
     impl: str = "auto",
+    tp=None,
 ):
     """batch: {"frames": [B, F, d] (train/prefill), "frame_lengths": [B]
     (optional, default F), "tokens": [B, T]}.
@@ -155,6 +169,12 @@ def forward(
              into the cache in place, prefills the decoder's self K/V.
     decode:  one decoder token against both caches (the encoder is not run).
 
+    ``tp`` (a rank's group) runs the rank's shard: the encoder, the self and
+    cross attention at its heads (its cross K/V heads written at prefill)
+    and the FFN at its columns, each reducing its output; the embedding and
+    the LM head vocab-parallel when the vocabulary splits (the logits then
+    the rank's slice), else whole.
+
     Returns (logits [B, T, V] f32, new_cache, aux)."""
     if mode not in MODES:
         raise NotImplementedError(f"mode {mode!r}: the encoder-decoder runs {MODES}")
@@ -163,7 +183,7 @@ def forward(
     dev = tokens.device
 
     if mode in ("train", "prefill"):
-        enc = encode(cfg, params, batch["frames"], impl=impl)
+        enc = encode(cfg, params, batch["frames"], impl=impl, tp=tp)
         f = enc.shape[1]
         frame_lengths = batch.get("frame_lengths")
         if frame_lengths is None:
@@ -188,14 +208,14 @@ def forward(
 
     layers = params["decoder"]
     norms = [lp["self_norm"] for lp in layers] + [params["dec_norm"]]
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, tp, cfg.vocab_size)
     h = L.rmsnorm(norms[0], x, cfg.rmsnorm_eps, impl=impl)
     new_layers = []
     for i, lp in enumerate(layers):
         lc = cache["layers"][i] if cache is not None else None
         out, new_self = A.attention(
             cfg, lp["self_attn"], h, positions=positions, lengths=lengths,
-            cache=None if lc is None else lc["self"], mode=mode, impl=impl,
+            cache=None if lc is None else lc["self"], mode=mode, impl=impl, tp=tp,
         )
         x, h = L.add_rmsnorm(lp["cross_norm"], x, out, cfg.rmsnorm_eps, impl=impl)
         if mode == "decode":
@@ -206,9 +226,10 @@ def forward(
                 ck = A.write_prefill(lc["cross_k"], ck)
                 cv = A.write_prefill(lc["cross_v"], cv)
         x, h = L.add_rmsnorm(lp["ffn_norm"], x,
-                             _cross_attention(cfg, lp["cross_attn"], h, ck, cv, masks, impl),
+                             _cross_attention(cfg, lp["cross_attn"], h, ck, cv, masks, impl,
+                                              tp),
                              cfg.rmsnorm_eps, impl=impl)
-        x, h = L.add_rmsnorm(norms[i + 1], x, L.ffn(lp["ffn"], h, impl), cfg.rmsnorm_eps,
+        x, h = L.add_rmsnorm(norms[i + 1], x, L.ffn(lp["ffn"], h, impl, tp), cfg.rmsnorm_eps,
                              impl=impl)
         if lc is not None:
             new_layers.append({"self": new_self, "cross_k": ck, "cross_v": cv})

@@ -8,9 +8,11 @@ Param dtype follows ``cfg.dtype``; norms and RoPE run in f32, the tied
 unembed in f32.
 
 Under tensor parallelism (``tp``, a rank's ``TPGroup``) the embedding and
-the LM head are vocab-split (each rank holds ``V / tp`` rows or columns):
-``embed`` looks up the rank's rows and reduces, ``gather_vocab`` puts each
-rank's logits slice in place and reduces; ``row_parallel`` reduces a
+the LM head are vocab-split (each rank holds ``V / tp`` rows or columns)
+when ``V`` splits, else whole on every rank, as the reference's specs
+leave them: ``embed`` looks up the rank's rows and reduces,
+``gather_vocab`` puts each rank's logits slice in place and reduces (a
+whole leaf takes neither); ``row_parallel`` reduces a
 row-parallel linear's output (``dense``'s ``row_group`` marks one for an
 AutoQuant'd ``dyn`` linear's whole-row activation scale), so each sublayer
 returns its output reduced. Each sum has one nonzero term but for the row
@@ -77,13 +79,15 @@ def embedding_init(gen, vocab: int, d: int, dtype, device):
     return {"table": _normal(gen, (vocab, d), device).to(dtype)}
 
 
-def embed(p, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+def embed(p, tokens: torch.Tensor, tp=None, vocab: Optional[int] = None) -> torch.Tensor:
     """Rows of ``table`` for ``tokens``. Vocab-parallel under a group of
-    more than one rank: the rank's table holds rows ``[rank * n, (rank + 1)
-    * n)``; tokens outside them look up zeros, and the reduce sums the one
-    rank's row with zeros, exactly."""
+    more than one rank whose table holds fewer than ``vocab`` rows: the
+    rank's table holds rows ``[rank * n, (rank + 1) * n)``; tokens outside
+    them look up zeros, and the reduce sums the one rank's row with zeros,
+    exactly. A table left whole (a vocabulary that does not split, as the
+    reference's specs leave it) is looked up with no reduce."""
     table = p["table"]
-    if tp is None or tp.size == 1:
+    if tp is None or tp.size == 1 or table.shape[0] == vocab:
         return table[tokens]
     n = table.shape[0]
     local = tokens.long() - tp.rank * n
@@ -93,12 +97,13 @@ def embed(p, tokens: torch.Tensor, tp=None) -> torch.Tensor:
     return tp.all_reduce(x)
 
 
-def gather_vocab(logits: torch.Tensor, tp=None) -> torch.Tensor:
+def gather_vocab(logits: torch.Tensor, tp=None, vocab: Optional[int] = None) -> torch.Tensor:
     """The whole vocabulary's logits from each rank's slice [..., V / tp]:
     each rank writes its slice into a zero-filled [..., V] f32 buffer and
-    the reduce sums them, exactly. Without a group (or with one rank) the
-    logits themselves."""
-    if tp is None or tp.size == 1:
+    the reduce sums them, exactly. Without a group (or with one rank), or
+    when they already span ``vocab`` (an LM head left whole), the logits
+    themselves."""
+    if tp is None or tp.size == 1 or logits.shape[-1] == vocab:
         return logits
     n = logits.shape[-1]
     out = torch.zeros(logits.shape[:-1] + (n * tp.size,), dtype=torch.float32,

@@ -5,7 +5,8 @@ encoder-decoder, Seamless, HSTU, SSM and hybrid families).
 
 A tensor-parallel rank's ``Model`` carries its group (``tp``, see
 ``distributed/tp_pool.py``): its config has the rank's widths, and its
-forward reduces over the group (the dense, vlm, moe and mla_moe families)."""
+forward reduces over the group (the dense, vlm, moe, mla_moe, ssm, encdec
+and seamless families)."""
 from __future__ import annotations
 
 from dataclasses import dataclass

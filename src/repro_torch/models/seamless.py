@@ -46,11 +46,14 @@ def init(cfg: ModelConfig, gen: torch.Generator, device):
     return p
 
 
-def forward(cfg: ModelConfig, params, batch, *, cache=None, mode="train", impl="auto"):
+def forward(cfg: ModelConfig, params, batch, *, cache=None, mode="train", impl="auto",
+            tp=None):
     """The model API is the autoregressive T2TT path (modules 1-2); the NAR
-    T2U and the vocoder run via :func:`t2u_forward` / :func:`vocode`."""
+    T2U and the vocoder run via :func:`t2u_forward` / :func:`vocode`. ``tp``
+    serves the backbone as a tensor-parallel rank (``encdec.forward``); T2U
+    and the vocoder have no TP path, as in the reference."""
     backbone = {k: v for k, v in params.items() if k not in ("t2u", "vocoder")}
-    return encdec.forward(cfg, backbone, batch, cache=cache, mode=mode, impl=impl)
+    return encdec.forward(cfg, backbone, batch, cache=cache, mode=mode, impl=impl, tp=tp)
 
 
 # --------------------------------------------------------------------------

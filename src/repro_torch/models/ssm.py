@@ -5,6 +5,13 @@ The "KV cache" of an SSM is a fixed [B, H, P, N] f32 state plus a
 [B, d_conv - 1, conv_dim] convolution tail per layer, so the contiguous
 slot pool holds it as it is: every leaf's axis 0 is the slot axis.
 
+Under tensor parallelism (``distributed/tp_pool.py``) a rank holds its
+share of the heads: its ``in_proj`` columns are ``z`` and ``x`` of its
+heads, ``B`` and ``C`` whole (one group) and ``dt`` of its heads, its conv
+channels ``x`` of its heads beside ``B`` and ``C`` whole, and ``out_proj``'s
+rows of its channels; the scan and the decode step run at its heads, the
+state and the conv tail hold them.
+
 Train, prefill and extend run the chunked SSD scan (``ops.ssd_scan``: the
 hand-written kernel on the card, its plain version on the CPU); decode is
 the O(H.P.N) recurrence step ``ops.ssd_decode_step`` in plain torch, as
@@ -27,9 +34,12 @@ MODES = ("train", "prefill", "decode", "extend")
 
 
 def _dims(cfg: ModelConfig):
+    """(ssm config, d_inner, heads, conv channels) of the mixer this config
+    runs: a tensor-parallel rank's (``ssm.shards`` > 1) holds its share of
+    d_inner and of the heads, and the B and C groups whole."""
     s = cfg.ssm
-    d_in = s.d_inner(cfg.d_model)
-    nh = s.n_heads(cfg.d_model)
+    d_in = s.d_inner(cfg.d_model) // s.shards
+    nh = s.n_heads(cfg.d_model) // s.shards
     conv_dim = d_in + 2 * s.n_groups * s.d_state
     return s, d_in, nh, conv_dim
 
@@ -94,7 +104,11 @@ def block_forward(
     cache: Optional[dict],
     mode: str,
     impl: str = "auto",
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """One mixer; under ``tp`` (a rank's group, its config ``ssm.shards``)
+    at the rank's heads: the gate norm's sum of squares is reduced over the
+    ranks (``ops.mul_silu_rmsnorm_split``) and ``out_proj``'s output too."""
     s, d_in, nh, conv_dim = _dims(cfg)
     b, t, _ = x.shape
     g, n, hp = s.n_groups, s.d_state, s.head_dim
@@ -127,9 +141,14 @@ def block_forward(
                                     initial_state=init_state, impl=impl)
     # the gate y * silu(z) runs in the gate_norm's kernel, which reads z in
     # place (a slice of the input projection)
-    y = L.mul_silu_rmsnorm(p["gate_norm"], y.reshape(b, t, d_in), z, cfg.rmsnorm_eps,
-                           impl=impl)
-    out = L.dense(p["out_proj"], y, impl)
+    if tp is None:
+        y = L.mul_silu_rmsnorm(p["gate_norm"], y.reshape(b, t, d_in), z, cfg.rmsnorm_eps,
+                               impl=impl)
+    else:  # the norm is over all d_inner channels, the rank holds d_in of them
+        y = ops.mul_silu_rmsnorm_split(y.reshape(b, t, d_in), z, p["gate_norm"]["scale"],
+                                       d_in * s.shards, tp.all_reduce, cfg.rmsnorm_eps,
+                                       impl=impl)
+    out = L.row_parallel(p["out_proj"], y, impl, tp)
 
     new_cache = None
     if cache is not None:
@@ -164,14 +183,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
 
 
 def forward(cfg: ModelConfig, params, batch: dict, *, cache: Optional[dict] = None,
-            mode: str = "train", impl: str = "auto"):
+            mode: str = "train", impl: str = "auto", tp=None):
     """Returns (logits [B,T,V] f32, new_cache, aux dict). ``new_cache``
-    holds new conv-tail and state tensors and the new ``lengths``."""
+    holds new conv-tail and state tensors and the new ``lengths``. ``tp``
+    (a rank's group) runs the rank's shard: the embedding vocab-parallel
+    when its table is split, each mixer at the rank's heads, and the
+    logits the rank's vocab slice (the engine's ``tp_*`` steps gather
+    them)."""
     if mode not in MODES:
         raise NotImplementedError(f"mode {mode!r}: the SSM runs {MODES}")
     tokens = batch["tokens"]
     b, t = tokens.shape
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, tp, cfg.vocab_size)
     # each block's residual add runs in the next norm's kernel: the next
     # layer's norm, or the final norm after the last layer
     norms = [lp["norm"] for lp in params["layers"]] + [params["final_norm"]]
@@ -179,7 +202,7 @@ def forward(cfg: ModelConfig, params, batch: dict, *, cache: Optional[dict] = No
     new_layers = []
     for i, lp in enumerate(params["layers"]):
         lc = cache["layers"][i] if cache is not None else None
-        out, nlc = block_forward(cfg, lp["mixer"], h, cache=lc, mode=mode, impl=impl)
+        out, nlc = block_forward(cfg, lp["mixer"], h, cache=lc, mode=mode, impl=impl, tp=tp)
         x, h = L.add_rmsnorm(norms[i + 1], x, out, cfg.rmsnorm_eps, impl=impl)
         new_layers.append(nlc)
     logits = L.unembed(params["embed"], h)

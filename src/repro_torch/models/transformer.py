@@ -221,7 +221,7 @@ def forward(
         shared = {}
 
     layers = params["layers"] if n_layers is None else params["layers"][:n_layers]
-    x = L.embed(params["embed"], tokens, tp)
+    x = L.embed(params["embed"], tokens, tp, cfg.vocab_size)
     # each layer's FFN residual add runs in the next norm's kernel: the next
     # layer's attn_norm, or the final norm after the last layer run
     norms = [lp["attn_norm"] for lp in layers] + [params["final_norm"]]
