@@ -227,8 +227,17 @@ under that load. Every kernel record is timed with the card to itself.
              its control the split-row sums one column short; an f32 arm
              of 2 layers decides), whisper-base (6 + 6 layers, S-T with
              each request's frames, greedy and 2 beam groups of 4 forced
-             to the plain run's beams; its 51865-row vocabulary whole) and
-             seamless-m4t (S-T greedy);
+             to the plain run's beams; its 51865-row vocabulary whole),
+             seamless-m4t (S-T greedy) and recurrentgemma-2b (all 26
+             layers: a rank's 5 q heads over the one KV head, whole on
+             each rank, and 1280 of 2560 RG-LRU channels; phase 4's trace,
+             a ring of 321 rows whole on each rank, the decode kernel at
+             G * D = 1280; the long arm, 2 x 3072 + 32 through the
+             scheduler, a ring of 2048 rows split along them, decoded by
+             ``sp_decode`` on the partial form and the merge, its control
+             the partial form one key short; no bf16 bound, an f32 arm of
+             6 layers on each route decides; a decode step timed on both
+             routes beside the whole model's);
              params a rank what the serving specs give, the reduces a
              decode step ``reduces_per_forward``'s. The f32 smoke configs
              of llama, chameleon, qwen3-moe and deepseek-v2: TP tokens the
@@ -242,7 +251,13 @@ under that load. Every kernel record is timed with the card to itself.
              latent at 64 heads), the qk-norm RMSNorm, both int8 GEMMs at
              N / 2 and K / 2, the split-row RMSNorm (beside the whole-row
              kernel), the SSD scan at 12 heads, whisper's encoder flash
-             and cross attention at 4 heads.
+             and cross attention at 4 heads, recurrentgemma's flash at 5
+             heads and decode at G * D = 1280, the decode kernel's partial
+             form over a rank's 1024 ring rows (bf16 and f32) and the
+             merge of the ranks' partials; and ``sp_decode`` on both ranks
+             at llama3.2-1b's decode shapes against the single-rank
+             decode kernel (its rows the whole write's, one partial form
+             and one merge a call, its wall beside the kernel's).
              ``python3 chip_smoke.py tp`` runs device, build and this phase
              alone, with no result lines (``tp FAMILY ...``: only those
              TP_FAMILIES and their records);
@@ -2129,6 +2144,10 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
         decode = "paged_decode_attention" if geometry.get("paged") else "decode_attention"
         want_counts[decode] = (n_attn * (m["decode_steps"] - mixed - spec)
                                + spec_exit * drafts)
+        if split_ring(cfg, pad_to + MAX_NEW + 1, tp):  # sp_decode: partial, then merge
+            want_counts["decode_attention_partial"] = want_counts[
+                "combine_partial_attention"] = want_counts.pop("decode_attention")
+            want_counts["decode_attention"] = 0
         if int8_mode is not None:
             want_counts[f"int8_matmul_{'weight_only' if int8_mode == 'wo' else 'dynamic'}"] = (
                 7 * cfg.n_layers * n_fwd)
@@ -2151,6 +2170,15 @@ def serve_once(model, params, cfg, pad_to, *, policy, int8_mode, tag, temperatur
           f"({m['run_peak_bytes']} B above the allocation before the run) | launches "
           f"{got_counts}", flush=True)
     return m, {r.rid: list(r.tokens) for r in done}, got_counts
+
+
+def split_ring(cfg, max_len: int, tp) -> bool:
+    """True when a hybrid TP rank's rings of ``min(max_len, window)`` rows
+    split along them (``hybrid.init_cache``): decode then runs
+    ``attention.sp_decode``."""
+    if cfg.family != "hybrid" or tp is None or tp.size == 1:
+        return False
+    return min(max_len, cfg.hybrid.window) % tp.size == 0
 
 
 def phase_serve(pad_to: int):
@@ -7003,6 +7031,30 @@ TP_FAMILIES = {
                      reqs=DENSE_REQUESTS, new=DENSE_MAX_NEW,
                      arms={"greedy": (0.0, 1.0, False, {})}, control="greedy",
                      step_pad=TP_ST_STEP_PAD),
+    # recurrentgemma-2b: a rank's 5 of 10 heads over the one KV head (whole
+    # on each rank) and 1280 of 2560 RG-LRU channels. The serve trace (8 x
+    # 16 at pad 256, the pool's max_len 321: a ring of 321 rows, odd, whole
+    # on each rank) runs the decode kernel at G * D = 1280; the long trace
+    # (2 x 3072 + 32: a ring of 2048, split along its rows) runs
+    # ``sp_decode``. bf16's noise hides one key short on either route (on
+    # 16 x 64: 8.244 sound against 8.758; on the long arm the control read
+    # 7.853 against 7.888 sound: NVIDIA H100 80GB HBM3, 700 W), so the bf16
+    # arms run no control and the f32 arms of HYBRID_F32_LAYERS layers (two
+    # attention layers) decide on each route, the long one's control the
+    # partial form one key short on each rank; ``hybrid`` times the decode
+    # step on both routes (``step=False``: no step of its own)
+    "hybrid": dict(arch=HYBRID_ARCH, layers=None, dtype="bfloat16", trace="serve",
+                   reqs=DENSE_REQUESTS, new=DENSE_MAX_NEW, arms=_CONTIGUOUS, control=None,
+                   step_routes=True),
+    "hybrid long": dict(arch=HYBRID_ARCH, layers=None, dtype="bfloat16", trace="long",
+                        reqs=LONG_BATCH, new=LONG_NEW, arms=_CONTIGUOUS, control=None,
+                        step=False),
+    "hybrid f32": dict(arch=HYBRID_ARCH, layers=HYBRID_F32_LAYERS, dtype="float32",
+                       trace="serve", reqs=DENSE_REQUESTS, new=DENSE_MAX_NEW, arms=_CONTIGUOUS,
+                       control="contiguous", step=False),
+    "hybrid long f32": dict(arch=HYBRID_ARCH, layers=HYBRID_F32_LAYERS, dtype="float32",
+                            trace="long", reqs=LONG_BATCH, new=LONG_NEW, arms=_CONTIGUOUS,
+                            control="contiguous", short="partial", step=False),
 }
 #: each family's bounds on a forced TP = 2 run against the single-rank plain
 #: path: (the first MoE layer's max |dprob|, max |dlogit| of rows routed
@@ -7026,7 +7078,12 @@ TP_FAMILY_BOUND = {"chameleon": None, "chameleon f32": (0.0, 0.001),
                    "mla": (FORCED_DPROB_BOUND, FORCED_DLOGIT_BOUND),
                    "quant wo": (0.0, TP_DLOGIT_BOUND), "quant dyn": None,
                    "quant dyn f32": (0.0, 4.3), "ssm": None, "ssm f32": (0.0, 0.01),
-                   "whisper": (0.0, 0.5), "seamless": (0.0, 0.5)}
+                   "whisper": (0.0, 0.5), "seamless": (0.0, 0.5),
+                   "hybrid": None, "hybrid long": None, "hybrid f32": (0.0, 0.01),
+                   "hybrid long f32": (0.0, 0.01)}
+#: sp_decode's check at llama3.2-1b's decode shapes: cache rows, split in
+#: halves over the two ranks
+SP_ROWS = 4096
 #: the f32 smoke configs served at TP = 2 on both smoke pools
 TP_SMOKE_ARCHS = ("llama3.2-1b", "chameleon-34b", "qwen3-moe-30b-a3b", "deepseek-v2-236b")
 #: ``python3 chip_smoke.py tp FAMILY ...`` runs those TP_FAMILIES alone (the
@@ -7038,13 +7095,14 @@ def _tp_host(m):
     return {k: m.get(k, 0) for k in TP_HOST}
 
 
-def _decode_step_times(model, params, pad_to, cfg, group=None, extra=None):
+def _decode_step_times(model, params, pad_to, cfg, group=None, extra=None, max_len=None):
     """One 8-slot decode step over a cache prefilled to ``pad_to`` (every
     step at that length; ``extra`` joins the prefill: an encoder-decoder's
-    frames): wall ms (CUDA-synchronised, TP_STEPS steps), the device ms of
-    its kernels and of its copies (torch.profiler), and under ``group`` the
-    reduces a step and their host ms. Every rank of a group calls it
-    alike."""
+    frames) of ``max_len`` rows (default ``pad_to + 16``; a hybrid's ring
+    ``min(max_len, window)``): wall ms (CUDA-synchronised, TP_STEPS steps),
+    the device ms of its kernels and of its copies (torch.profiler), and
+    under ``group`` the reduces a step and their host ms. Every rank of a
+    group calls it alike."""
     import torch
 
     from repro_torch.core import engine
@@ -7056,7 +7114,7 @@ def _decode_step_times(model, params, pad_to, cfg, group=None, extra=None):
     lens = torch.full((SLOTS,), pad_to, dtype=torch.int32, device=dev)
     pre, dec = ((engine.prefill, engine.decode_step) if group is None else
                 (engine.tp_prefill, engine.tp_decode_step))
-    _, cache = pre(model, params, toks, lens, pad_to + 16, extra=extra)
+    _, cache = pre(model, params, toks, lens, max_len or pad_to + 16, extra=extra)
     state = {"cache": cache, "tok": toks[:, -1].contiguous()}
 
     def step():
@@ -7161,7 +7219,7 @@ def tp_spec_bytes(cfg, params, size):
     return sum(total)
 
 
-def reduces_per_forward(cfg, quant=None):
+def reduces_per_forward(cfg, quant=None, split=False):
     """The reduces a TP decode forward of ``cfg`` makes, counted from the
     model's structure (the oracle the measured counts are held to): the
     embedding and the logits' gather when the vocabulary splits (whisper's
@@ -7170,14 +7228,34 @@ def reduces_per_forward(cfg, quant=None):
     layer's gate-norm sums and ``out_proj``), three a decoder layer of an
     encoder-decoder (self and cross attention, the FFN), and under ``dyn``
     a max-reduce a row-parallel linear (``wo``, and a dense or shared FFN's
-    ``w2``; the experts' stacks stay bf16)."""
+    ``w2``; the experts' stacks stay bf16). A hybrid: three a recurrent
+    layer (the post-conv gather, ``proj_out``, the FFN) and two an attention
+    layer, four over a ring split along its rows (``split``: the q heads'
+    gather and the partials' exchange)."""
     n = 2 if cfg.vocab_size % TP_RANKS == 0 else 0
+    if cfg.family == "hybrid":
+        n_attn = _attn_layers(cfg)
+        return n + 3 * (cfg.n_layers - n_attn) + (4 if split else 2) * n_attn
     for i in range(cfg.n_layers):
         n += 3 if cfg.encdec is not None else 2
         if quant == "dyn":
             moe = cfg.moe is not None and i >= cfg.moe.first_dense_layers
             n += 2 if not moe or cfg.moe.n_shared_experts else 1
     return n
+
+
+def long_trace(cfg, n, new):
+    """``n`` greedy requests of LONG_PROMPT random tokens (numpy, SEED + 32:
+    every rank draws the same), ``new`` tokens each: the hybrid's
+    long-context arm through the scheduler (a ring of the window's 2048
+    rows, wrapped by the prompts)."""
+    import numpy as np
+
+    from repro_torch.core.scheduler import ServeRequest
+
+    rng = np.random.default_rng(SEED + 32)
+    return [ServeRequest(rid=i, max_new=new, prompt=rng.integers(
+        0, cfg.vocab_size, LONG_PROMPT).astype(np.int32)) for i in range(n)]
 
 
 def st_trace(cfg, n, new, beams=None):
@@ -7293,13 +7371,15 @@ def tp_family(group, family, pad_to):
         if quant is not None:
             params = quantize_params(params, quant)
     trace = fam["trace"]
-    pad = {"it": TP_IT_PAD, "st": TP_ST_PAD}.get(trace) or serve.trace_pad_to(
-        data_mod.PAPER_PROFILES["llama_humaneval"], fam["reqs"], SEED)
+    pad = {"it": TP_IT_PAD, "st": TP_ST_PAD, "long": LONG_PROMPT}.get(trace) or (
+        serve.trace_pad_to(data_mod.PAPER_PROFILES["llama_humaneval"], fam["reqs"], SEED))
     spec_exit = MOE_SPEC_EXIT if cfg.moe is not None else SPEC_EXIT
 
     def reqs(temp, top_p, beams=None):
         if trace == "it":
             return it_trace(cfg, fam["reqs"], fam["new"])
+        if trace == "long":
+            return long_trace(cfg, fam["reqs"], fam["new"])
         if trace == "st":
             return st_trace(cfg, fam["groups"] if beams else fam["reqs"], fam["new"], beams)
         return _trace(cfg, pad, temp, top_p, n=fam["reqs"], max_new=fam["new"])
@@ -7328,6 +7408,13 @@ def tp_family(group, family, pad_to):
                 plain[arm] = (rec, ptoks)
             out["arms"][arm] = {"single": dict(_tp_host(mp),
                                                kv_reserved_bytes=mp["kv_reserved_bytes"])}
+    step_pad = fam.get("step_pad", pad_to)
+    routes = (step_routes(step_pad) if fam.get("step_routes") else
+              {"": None} if fam.get("step", True) else {})
+    if rank0 and fam.get("step_routes"):  # the whole model's step beside the ranks'
+        out["single_steps"] = {label: _decode_step_times(model, params, step_pad, cfg,
+                                                         max_len=max_len)
+                               for label, max_len in routes.items()}
     dist.barrier()
     beam_refs = [{arm: plain[arm][0] for arm, a in arms.items() if a[2] == "beams"}
                  if rank0 else None]
@@ -7350,8 +7437,12 @@ def tp_family(group, family, pad_to):
             elif rank0:
                 rec = Forced("steps", plain[arm][0])
             ctl = contextlib.nullcontext()
-            if run == "control":
-                ctl = split_sums_short() if fam.get("short") == "split" else one_key_short(*short)
+            if run == "control" and fam.get("short") == "split":
+                ctl = split_sums_short()
+            elif run == "control" and fam.get("short") == "partial":  # sp_decode's partials
+                ctl = one_key_short(da, "decode_attention_partial_cuda", 3)
+            elif run == "control":
+                ctl = one_key_short(*short)
             with (forcing(rec) if rec is not None else contextlib.nullcontext()), ctl:
                 m, toks, counts = serve_once(tp.model, tp.params, cfg, pad, policy="continuous",
                                              int8_mode=quant, tag=tag, temperature=temp,
@@ -7382,14 +7473,92 @@ def tp_family(group, family, pad_to):
         extra = {"frames": torch.cat([r.extra_inputs["frames"] for r in st]),
                  "frame_lengths": torch.tensor([int(r.extra_inputs["frame_lengths"][0])
                                                 for r in st], device=dev)}
-    out["step"] = _decode_step_times(tp.model, tp.params, fam.get("step_pad", pad_to), cfg,
-                                     group, extra)
-    out["reduces_per_forward"] = reduces_per_forward(cfg, quant)
+    out["steps"] = {label: dict(
+        _decode_step_times(tp.model, tp.params, step_pad, cfg, group, extra, max_len),
+        want=reduces_per_forward(cfg, quant, split_ring(cfg, max_len or step_pad + 16, tp)))
+        for label, max_len in routes.items()}
     out["pad"] = pad
     out["seconds"] = time.perf_counter() - t0
     del tp, plain
     torch.cuda.empty_cache()
     return out
+
+
+def sp_decode_check(group):
+    """``attention.sp_decode`` on this rank at llama3.2-1b's decode shapes
+    (8 slots, 32 q heads over 8 KV heads of 64, bf16) over SP_ROWS cache
+    rows split in halves, every rank alike, against the single-rank decode
+    kernel on the whole written cache: max |err| (bf16 tolerance), its rows
+    bit for bit the whole cache's write, the launches of one call (a
+    partial form, a merge) and its wall ms (the exchange's reduce included;
+    TP_STEPS calls) beside the single-rank kernel's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts as kcounts
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import attention as A
+
+    cfg = get_config(ARCH)
+    dev, bf = group.device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    hq, hkv, d, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, SP_ROWS
+    q = _rand(gen, (SLOTS, hq, d), bf, dev)
+    kc, vc = (_rand(gen, (SLOTS, s, hkv, d), bf, dev) for _ in range(2))
+    kn, vn = (_rand(gen, (SLOTS, hkv, d), bf, dev) for _ in range(2))
+    ln = torch.tensor([0, 1, 63, 64, 65, s // 2 - 1, s // 2, s - 1], dtype=torch.int32,
+                      device=dev)
+    n = s // group.size
+    rows = slice(group.rank * n, (group.rank + 1) * n)
+    cache = {"k": kc[:, rows].clone(), "v": vc[:, rows].clone()}
+    before = kcounts.snapshot()
+    with torch.inference_mode():
+        out, cache = A.sp_decode(cache, kn, vn, q, ln, group)
+        launched = {k: v for k, v in kcounts.since(before).items() if v}
+        wk, wv = A.write_decode(kc.clone(), kn, ln), A.write_decode(vc.clone(), vn, ln)
+        want = da.decode_attention_cuda(q, wk, wv, ln + 1)
+        err = max_err(out.to(bf), want, "bfloat16")
+        same = bool(torch.equal(cache["k"], wk[:, rows]) and torch.equal(cache["v"], wv[:, rows]))
+        torch.cuda.synchronize()
+        group.all_reduce(torch.zeros(1, device=dev))  # both ranks start the loop together
+        t0 = time.perf_counter()
+        for _ in range(TP_STEPS):
+            A.sp_decode(cache, kn, vn, q, ln, group)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / TP_STEPS * 1e3
+    return dict(err=err, same=same, launched=launched, wall_ms=wall,
+                single_ms=cuda_ms(lambda: da.decode_attention_cuda(q, wk, wv, ln + 1)),
+                lengths=ln.tolist())
+
+
+def check_sp(ranks) -> list:
+    """Prints both ranks' ``sp_decode_check``; returns its failures: rows
+    not the whole write's, a call that did not launch one partial form and
+    one merge."""
+    bad = []
+    for rank, r in enumerate(ranks):
+        sp = r["sp"]
+        ok = {"decode_attention_partial": 1, "combine_partial_attention": 1}
+        if not sp["same"]:
+            bad.append(f"sp_decode rank {rank}: its cache rows are not the whole write's")
+        if sp["launched"] != ok:
+            bad.append(f"sp_decode rank {rank}: launched {sp['launched']}, want {ok}")
+        print(f"[tp sp_decode] llama3.2-1b decode shapes (q[{SLOTS},32,64], cache[{SLOTS},"
+              f"{SP_ROWS},8,64] bf16 split in halves, lengths {sp['lengths']}), {tp_label()} | "
+              f"rank {rank}: max |err| {sp['err']:.6f} against the single-rank decode kernel | "
+              f"rows the whole write's: {sp['same']} | launches {sp['launched']} | "
+              f"{sp['wall_ms']:.4f} ms a call (its reduce included; the single-rank kernel "
+              f"{sp['single_ms']:.4f} ms)", flush=True)
+    return bad
+
+
+def step_routes(pad_to):
+    """The hybrid's decode step on both of a TP rank's ring routes at
+    ``pad_to`` tokens: label -> max_len, whose ring of ``min(max_len,
+    2048)`` rows is odd (whole on each rank) or even (split along its
+    rows)."""
+    odd = pad_to + 16 + (pad_to + 1) % 2
+    return {"whole ring": odd, "split ring": odd - 1}
 
 
 def tp_rank(group, pad_to, only=()):
@@ -7422,6 +7591,7 @@ def tp_rank(group, pad_to, only=()):
     TP_ONLY[:] = only
     if TP_ONLY:  # ``python3 chip_smoke.py tp FAMILY ...``: those families alone
         out["families"] = {f: tp_family(group, f, pad_to) for f in TP_ONLY}
+        out["sp"] = sp_decode_check(group)
         return out
     cfg, model, params = serve.build_model(ARCH, smoke=False, seed=SEED, device=dev)
     out["whole_param_bytes"] = cache_bytes(params)
@@ -7473,6 +7643,7 @@ def tp_rank(group, pad_to, only=()):
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     out["families"] = {family: tp_family(group, family, pad_to) for family in TP_FAMILIES}
+    out["sp"] = sp_decode_check(group)
     t0 = time.perf_counter()
     out["smoke"] = _tp_smoke(group)
     out["smoke_seconds"] = time.perf_counter() - t0
@@ -7507,7 +7678,7 @@ def phase_tp(pad_to):
     if TP_ONLY:
         bad = [msg for family in TP_ONLY
                for msg in check_tp_family(family, [r["families"][family] for r in ranks],
-                                          pad_to)]
+                                          pad_to)] + check_sp(ranks)
         print(f"[tp] phase {time.perf_counter() - t0:.1f} s", flush=True)
         check(not bad, f"tp: {len(bad)} family checks failed: {bad}")
         return r0
@@ -7575,6 +7746,7 @@ def phase_tp(pad_to):
     print(f"[tp] the llama arms {r0['seconds']:.1f} s", flush=True)
     bad = [msg for family in TP_FAMILIES
            for msg in check_tp_family(family, [r["families"][family] for r in ranks], pad_to)]
+    bad += check_sp(ranks)
     for (arch, pool), (toks, single, counts) in r0["smoke"].items():
         check(toks == single and ranks[1]["smoke"][arch, pool][0] == single,
               f"tp smoke {arch} {pool}: the TP = 2 tokens differ from the single-rank kernel "
@@ -7601,11 +7773,16 @@ def check_tp_family(family, ranks, pad_to):
     what the serving specs give, KV a rank not half the head-split pool (at
     most 0.6x) or, for MLA, not the whole latent pool, reduces a step not
     ``reduces_per_forward``'s."""
+    from repro_torch.configs import get_config
+
     fam = TP_FAMILIES[family]
     arch, quant, arms = fam["arch"], fam.get("quant"), fam["arms"]
     r0 = ranks[0]
     bound = TP_FAMILY_BOUND[family]
     mla = arch.startswith("deepseek")
+    # a hybrid's whole ring is on every rank: only its state and conv split
+    whole_ring = arch == HYBRID_ARCH and (
+        min(r0["pad"] + MAX_NEW + 1, get_config(arch).hybrid.window) % TP_RANKS)
     bad = []
 
     def want(cond, msg):
@@ -7637,7 +7814,8 @@ def check_tp_family(family, ranks, pad_to):
                      f"specs give {r0['spec_param_bytes']} B")
                 per, whole = res["kv_reserved_per_device_bytes"], res["kv_reserved_bytes"]
                 want(whole == single["kv_reserved_bytes"] and
-                     (per == whole if mla else per / whole <= 0.6),
+                     (per == whole if mla else per < whole if whole_ring else
+                      per / whole <= 0.6),
                      f"{tag}: KV {per} B a rank of {whole} B, the single pool "
                      f"{single['kv_reserved_bytes']} B")
         for run, res in r0["arms"][arm].items():
@@ -7666,15 +7844,17 @@ def check_tp_family(family, ranks, pad_to):
                 want(within, f"tp {family} {arm}: max |dprob| {dprob}, max |dlogit| {dlogit} "
                      f"against the single-rank plain path, bounds {dprob_bound}, "
                      f"{dlogit_bound}")
-    for rank, r in enumerate(ranks):
-        st = r["step"]
-        want(st["reduces"] == r["reduces_per_forward"],
-             f"tp {family} rank {rank}: {st['reduces']} reduces a decode step, "
-             f"reduces_per_forward gives {r['reduces_per_forward']}")
-        print(f"[tp {family} step] {arch}{f' ({quant})' if quant else ''} {fam['dtype']}, "
-              f"{fam['layers'] or 'all'} layers, {tp_label()} | rank "
-              f"{rank}: an 8-slot decode step at {fam.get('step_pad', pad_to)} tokens "
-              f"{st['wall_ms']:.3f} ms wall, "
+    steps = [(f"rank {rank}", label, st) for rank, r in enumerate(ranks)
+             for label, st in r["steps"].items()]
+    steps += [("single rank", label, st) for label, st in r0.get("single_steps", {}).items()]
+    for who, label, st in steps:
+        if "want" in st:
+            want(st["reduces"] == st["want"], f"tp {family} {who} {label}: {st['reduces']} "
+                 f"reduces a decode step, reduces_per_forward gives {st['want']}")
+        print(f"[tp {family} step{' ' + label if label else ''}] {arch}"
+              f"{f' ({quant})' if quant else ''} {fam['dtype']}, {fam['layers'] or 'all'} "
+              f"layers, {tp_label(who == 'single rank')} | {who}: an 8-slot decode step at "
+              f"{fam.get('step_pad', pad_to)} tokens {st['wall_ms']:.3f} ms wall, "
               f"{st['device_ms']:.3f} ms device ({st['kernels']:.0f} kernels; "
               f"{st['copy_ms']:.3f} ms of it copies) | {st['reduces']:.0f} reduces a step, "
               f"{st['reduce_ms']:.3f} ms host in them", flush=True)
@@ -7707,6 +7887,7 @@ def tp_kernel_records(pad_to, r0):
     recs = []
     if TP_ONLY:  # the named families' records alone
         tp_ssm_encdec_records(recs, gen, r0)
+        tp_hybrid_records(recs, gen, r0)
         finish_records(recs)
         return recs
     ctg, chunked = r0["arms"]["contiguous"]["sound"]["counts"], r0["arms"]["chunked"]["forced"]["counts"]
@@ -7766,6 +7947,7 @@ def tp_kernel_records(pad_to, r0):
                   source="src/repro_torch/kernels/csrc/decode_attention.cu",
                   replaces="src/repro/models/attention.py:177")
     tp_family_records(recs, gen, pad_to, r0)
+    tp_hybrid_records(recs, gen, r0)
     finish_records(recs)
     for rec in recs:
         check(rec["launches"] > 0, f"{rec['name']} {rec['shape']}: not launched at TP = 2")
@@ -8063,6 +8245,117 @@ def tp_ssm_encdec_records(recs, gen, r0):
                               attn_mask=m),
                           err, (2 * q.numel() + 2 * k.numel()) * 2 + (qs[1] + ks[1]) * qs[0] * 4,
                           pairs * h * 4 * dh, launches, **FLASH_SRC)
+
+
+def tp_hybrid_records(recs, gen, r0):
+    """recurrentgemma-2b's attention kernels at a rank's shapes (TP = 2),
+    against their plain versions, a repeat call bit-identical, timed beside
+    their bound and the nearest library call: flash at the served prefill
+    (5 q heads over the one KV head of 256, window 2048) and the decode
+    kernel over the whole ring of 321 rows (G * D = 1280), launches from the
+    ``hybrid`` arm; the partial form over a rank's 1024 rows of the long
+    arm's split ring (all 10 heads, bf16 and f32; SDPA over the same rows
+    the library call) and the merge of the two ranks' triples as
+    ``sp_decode`` holds them (strided views of the exchange buffer),
+    launches from the ``hybrid long`` arms."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    fams = r0["families"]
+    if "hybrid" not in fams and "hybrid long" not in fams:
+        return
+    cfg = get_config(HYBRID_ARCH)
+    dev, bf, n = torch.device("cuda"), torch.bfloat16, TP_RANKS
+    hq, dh, g_all = cfg.n_heads // n, cfg.head_dim, cfg.n_heads
+
+    def counts(family):
+        return fams[family]["arms"]["contiguous"]["forced"]["counts"]
+
+    if "hybrid" in fams:
+        pad = fams["hybrid"]["pad"]
+        q = _rand(gen, (1, pad, hq, dh), bf, dev)
+        k, v = (_rand(gen, (1, pad, 1, dh), bf, dev) for _ in range(2))
+        pos = int_positions(1, pad, dev)
+        kw = dict(q_positions=pos, k_positions=pos, causal=True, window=cfg.hybrid.window)
+        err = max_err(fa.flash_attention_cuda(q, k, v, **kw),
+                      fa.flash_attention_plain(q, k, v, **kw), "bfloat16")
+        kernel_record(recs, f"q[1,{pad},{hq},{dh}] kv[1,{pad},1,{dh}] bf16 causal, window "
+                      f"{cfg.hybrid.window} (recurrentgemma-2b prefill, a rank's heads at TP = "
+                      f"{n})", lambda q=q, k=k, v=v: fa.flash_attention_cuda(q, k, v, **kw),
+                      lambda q=q, k=k, v=v: fa.flash_attention_plain(q, k, v, **kw),
+                      lambda qt=q.transpose(1, 2), ke=per_head(k, hq), ve=per_head(v, hq):
+                      F.scaled_dot_product_attention(qt, ke, ve, is_causal=True), err,
+                      (2 * q.numel() + 2 * k.numel()) * 2 + 2 * pad * 4,
+                      pad * (pad + 1) // 2 * hq * 4 * dh, counts("hybrid")["flash_attention"],
+                      **FLASH_SRC)
+        s_ring = pad + MAX_NEW + 1
+        qd = _rand(gen, (SLOTS, hq, dh), bf, dev)
+        kc, vc = (_rand(gen, (SLOTS, s_ring, 1, dh), bf, dev) for _ in range(2))
+        ln = torch.tensor([1, 63, 64, 65, 200, pad + 1, s_ring - 1, s_ring], dtype=torch.int32,
+                          device=dev)
+        err = max_err(da.decode_attention_cuda(qd, kc, vc, ln),
+                      da.decode_attention_plain(qd, kc, vc, ln), "bfloat16")
+        n_rows = int(ln.sum())
+        amask = (torch.arange(s_ring, device=dev)[None] < ln[:, None])[:, None, None, :]
+        kernel_record(recs, f"q[{SLOTS},{hq},{dh}] ring[{SLOTS},{s_ring},1,{dh}] bf16 lengths "
+                      f"{ln.tolist()} (recurrentgemma-2b decode over the whole ring, G * D = "
+                      f"{hq * dh}: a rank's heads at TP = {n})",
+                      lambda: da.decode_attention_cuda(qd, kc, vc, ln),
+                      lambda: da.decode_attention_plain(qd, kc, vc, ln),
+                      lambda qq=qd[:, :, None], ke=per_head(kc, hq), ve=per_head(vc, hq),
+                      m=amask: F.scaled_dot_product_attention(qq, ke, ve, attn_mask=m), err,
+                      (2 * qd.numel() + 2 * n_rows * dh) * 2 + SLOTS * 4, n_rows * hq * 4 * dh,
+                      counts("hybrid")["decode_attention"], **DECODE_SRC)
+    if "hybrid long" not in fams:
+        return
+    b, s_loc = LONG_BATCH, cfg.hybrid.window // n
+    nv = torch.full((b,), s_loc, dtype=torch.int32, device=dev)  # the wrapped ring: all rows
+    for dtype_name, dt, family in (("bfloat16", bf, "hybrid long"),
+                                   ("float32", torch.float32, "hybrid long f32")):
+        if family not in fams:
+            continue
+        q = _rand(gen, (b, g_all, dh), dt, dev)
+        k, v = (_rand(gen, (b, s_loc, 1, dh), dt, dev) for _ in range(2))
+        err = max_err(da.decode_attention_partial_cuda(q, k, v, nv),
+                      da.decode_attention_partial_plain(q, k, v, nv), "float32")
+        elt = 2 if dt == bf else 4
+        n_rows = int(nv.sum())
+        kernel_record(recs, f"q[{b},{g_all},{dh}] rows[{b},{s_loc},1,{dh}] "
+                      f"{'bf16' if dt == bf else 'f32'} n_valid {nv.tolist()}, f32 (acc, m, l) out "
+                      f"(recurrentgemma-2b decode over a rank's rows of the split ring of "
+                      f"{cfg.hybrid.window}, every head, at TP = {n})",
+                      lambda q=q, k=k, v=v: da.decode_attention_partial_cuda(q, k, v, nv),
+                      lambda q=q, k=k, v=v: da.decode_attention_partial_plain(q, k, v, nv),
+                      lambda qq=q[:, :, None], ke=per_head(k, g_all), ve=per_head(v, g_all):
+                      F.scaled_dot_product_attention(qq, ke, ve), err,
+                      (q.numel() + 2 * n_rows * dh) * elt + b * 4 + da.partial_numel(
+                          b, g_all, dh) * 4, n_rows * g_all * 4 * dh,
+                      counts(family)["decode_attention_partial"],
+                      name="decode_attention_partial", dtype=dtype_name,
+                      source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                      replaces="src/repro/kernels/ops.py:324",
+                      **({} if dt == bf else {"peak": F32_FLOPS_PER_S}))
+    ex = torch.randn((n, da.partial_numel(b, g_all, dh)), generator=gen, device=dev)
+    nn_ = b * g_all * dh
+    ml = ex[:, nn_:].view(n, b, g_all, 2)
+    ml[..., 1].abs_()
+    accs, ms, ls = ex[:, :nn_].view(n, b, g_all, dh), ml[..., 0], ml[..., 1]
+    err = max_err(da.combine_partial_attention_cuda(accs, ms, ls),
+                  da.combine_partial_attention(accs, ms, ls), "float32")
+    kernel_record(recs, f"{n} triples acc[{n},{b},{g_all},{dh}] m/l[{n},{b},{g_all}] f32, "
+                  f"strided views of the exchange buffer, out [{b},{g_all},{dh}] f32 "
+                  f"(recurrentgemma-2b sp_decode's merge at TP = {n})",
+                  lambda: da.combine_partial_attention_cuda(accs, ms, ls),
+                  lambda: da.combine_partial_attention(accs, ms, ls), None, err,
+                  ex.numel() * 4 + nn_ * 4, n * b * g_all * (3 * dh + 8),
+                  counts("hybrid long")["combine_partial_attention"],
+                  name="combine_partial_attention", dtype="float32", peak=F32_FLOPS_PER_S,
+                  source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                  replaces="src/repro/kernels/ops.py:354")
 
 
 def _rmsnorm_args(n, d):

@@ -42,7 +42,8 @@ The tensor-parallel step family (``tp_prefill``, ``tp_decode_step``,
 ``tp_mixed_step``, ``tp_verify_step``; ``distributed/tp_pool.py``) has the
 same signatures and runs one rank's share of a step: the model is the
 rank's (its widths, its group), the params its shard, the cache its KV
-heads. Each runs the step above, whose forward reduces after every
+heads (a hybrid's: its RG-LRU channels and its ring rows, or the whole
+ring). Each runs the step above, whose forward reduces after every
 row-parallel linear, and then gathers the rank's vocab slice of the logits
 whole (``layers.gather_vocab``; nothing to gather where the LM head is
 whole), after ``_last_logits`` has picked the positions that are read.

@@ -26,8 +26,11 @@ A tensor-parallel rank builds its pool from its rank-local model
 (``sharding.cache_specs_tp``'s head split; an encoder-decoder's self and
 cross K/V alike), an MLA pool the whole latent (which the reference
 replicates), a Mamba-2 pool its heads' state and its conv tail's
-channels, while the host state, the block tables and ``lengths`` are
-whole and the same on every rank.
+channels, a hybrid pool its RG-LRU channels' state and conv tail and its
+rows of each ring split along the sequence (the whole ring where its rows
+do not divide the ranks), while the host state, the block tables and
+``lengths`` are whole and the same on every rank. Admission, write-back
+and release walk the rank's own tree, so they touch only its share.
 """
 from __future__ import annotations
 

@@ -25,10 +25,12 @@ TP serving (``distributed/tp_pool.py``) reuses the same rules on a 1-D
 ``("model",)`` mesh of ``tp`` ranks: params by :func:`param_specs` with
 ``enable_tp=True`` (:func:`tp_param_specs` adds the port's own leaves and a
 Mamba-2 mixer's head-aligned layout, :func:`tp_rank_index`), the
-KV pool by :func:`cache_specs_tp` (the head axis; its sequence-axis
-fallback is refused by the pool; MLA's ``latent`` matches no KV leaf and
-stays whole), and :func:`shard_tree` cuts each rank's slice, the
-counterpart of ``device_put`` under a ``NamedSharding``.
+KV pool by :func:`cache_specs_tp` (the head axis, else its sequence-axis
+fallback: the hybrid's one-head ring, split along its rows where they
+divide the ranks and whole on every rank where they do not; MLA's
+``latent`` matches no KV leaf and stays whole), and :func:`shard_tree`
+cuts each rank's slice, the counterpart of ``device_put`` under a
+``NamedSharding``.
 """
 from __future__ import annotations
 
@@ -346,6 +348,17 @@ _SSM_SPLIT = re.compile(r"mixer/(in_proj/(w|w_q_wo|w_q_dyn|w_scale)|conv_w|conv_
                         r"dt_bias|gate_norm/scale)$")
 #: the leaves among them cut at head-aligned indices, not in equal blocks
 _SSM_GATHERED = re.compile(r"mixer/(in_proj/(w|w_q_wo|w_q_dyn|w_scale)|conv_w|conv_b)$")
+#: a hybrid recurrent block's per-channel leaves, split on their channels
+#: (axis 0) as ``proj_x`` splits its columns: a rank's conv, RG-LRU decay
+#: and gate biases run at its ``lru_width / tp`` channels (the reference's
+#: rules keep these 1-D and ``[w, 4]`` leaves whole; GSPMD computes on the
+#: rank's channels anyway). Equal blocks: ``tp_rank_index`` keeps None.
+_HYBRID_CHANNELS = re.compile(r"rec/(conv_w|conv_b|lam|gate_a/b|gate_x/b)$")
+#: the hybrid's single-KV-head projections, whole on every rank (their
+#: biases and scales follow them): the reference's rule splits the one
+#: head's columns, which a rank that computes its own heads' scores cannot
+#: use
+_HYBRID_WHOLE = re.compile(r"attn/(wk|wv)/(w|w_q_wo|w_q_dyn)$")
 
 
 def tp_param_specs(cfg: ModelConfig, params_like: Any, tp: int) -> Any:
@@ -359,10 +372,17 @@ def tp_param_specs(cfg: ModelConfig, params_like: Any, tp: int) -> Any:
     mixer's per-head leaves split on their heads: ``in_proj``'s columns and
     ``conv_w`` / ``conv_b``'s channels (at :func:`tp_rank_index`'s
     head-aligned indices), ``A_log``, ``D``, ``dt_bias`` and ``gate_norm``'s
-    channels. A vocabulary that does not split leaves ``embed`` and
+    channels. A hybrid (recurrentgemma) keeps its attention's ``wk`` / ``wv``
+    whole (one KV head, every rank's q heads read it) and splits a
+    recurrent block's ``conv_w``, ``conv_b``, ``lam`` and the gates' biases
+    on their channels. A vocabulary that does not split leaves ``embed`` and
     ``lm_head`` whole, as the reference's ``_spec_for`` does."""
     specs = param_specs(cfg, params_like, MeshShape({"model": tp}), enable_tp=True)
     flat = flat_specs(specs)
+    hybrid = cfg.family == "hybrid"
+
+    def rule(path):
+        return () if hybrid and _HYBRID_WHOLE.search(path) else flat[path]
 
     def fix(path, leaf):
         if path.endswith("embed/table_f32"):
@@ -371,13 +391,15 @@ def tp_param_specs(cfg: ModelConfig, params_like: Any, tp: int) -> Any:
             spec = [None] * _ndim(leaf)
             spec[-1 if "in_proj" in path else 0] = "model"
             return tuple(spec)
+        if hybrid and _HYBRID_CHANNELS.search(path):
+            return ("model",) + (None,) * (_ndim(leaf) - 1)
         if _BIAS.search(path):
-            return _column_split(flat[path[:-1] + "w"])
+            return _column_split(rule(path[:-1] + "w"))
         if path.endswith("/w_scale") and _ndim(leaf) == 1:
             base = path[:-len("w_scale")]
-            weight = next(flat[base + q] for q in ("w_q_wo", "w_q_dyn") if base + q in flat)
+            weight = next(rule(base + q) for q in ("w_q_wo", "w_q_dyn") if base + q in flat)
             return _column_split(weight)
-        return flat[path]
+        return rule(path)
 
     return map_with_path(fix, params_like)
 
@@ -407,7 +429,8 @@ def tp_rank_index(cfg: ModelConfig, path: str, rank: int, size: int) -> Optional
     are not its ``rank``-th equal block: a Mamba-2 mixer's ``in_proj``
     columns (``w``, an AutoQuant'd ``w_q_*`` and its ``w_scale``) and
     ``conv_w`` / ``conv_b`` channels (:func:`ssm_rank_columns`); None for
-    every other leaf."""
+    every other leaf (a hybrid's per-channel leaves too: its channels are
+    ``proj_x``'s columns, the rank's equal block)."""
     if cfg.family != "ssm" or not _SSM_GATHERED.search(path):
         return None
     cols, conv = ssm_rank_columns(cfg, rank, size)

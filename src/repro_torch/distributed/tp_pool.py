@@ -44,21 +44,29 @@ A collective waits on the host (through the slots or gloo), so a TP step
 syncs: the no-sync contract of ``Scheduler.step_begin`` holds for
 single-device steps only, and a TP step is not captured as a CUDA graph.
 
-Served: the ``dense``, ``vlm``, ``moe``, ``mla_moe``, ``ssm``, ``encdec``
-and ``seamless`` families, bf16 or AutoQuant'd (``wo`` / ``dyn``). A
+Served: the ``dense``, ``vlm``, ``moe``, ``mla_moe``, ``ssm``, ``encdec``,
+``seamless`` and ``hybrid`` families, bf16 or AutoQuant'd (``wo`` /
+``dyn``). A
 Mamba-2 rank holds its heads (``local_config``: ``ssm.shards``; the
 head-aligned ``in_proj`` / conv layout of ``sharding.tp_rank_index``), its
 state and its conv tail's ``x`` channels; its gate norm, over all of
 ``d_inner``, reduces its partial sums of squares
 (``ops.mul_silu_rmsnorm_split``). An encoder-decoder rank runs the encoder
 and both attentions at its heads and holds its self and cross K/V heads.
-A vocabulary that does not split stays whole on every rank, as the
-reference's specs leave it (no lookup reduce, no logits gather). Refused,
-by name (ROADMAP, Queue 1, step 6): the ``hybrid`` and ``hstu`` families; a
-width that does not divide ``tp`` (heads, FFN columns, experts, the shared
-experts' width, ``d_ff_dense``, Mamba-2's heads) and Mamba-2's B / C
-groups beyond one, where the reference falls back to the sequence axis or
-replicates.
+A hybrid (recurrentgemma) rank runs its
+``lru_width / tp`` channels of each recurrent block (the post-conv input
+gathered whole for the gates, one reduce) and its q heads of each local
+attention over the one KV head, whose ``wk`` / ``wv`` every rank holds
+whole; its ring follows ``sharding.cache_specs_tp``'s sequence fallback:
+split along its rows when ``S = min(max_len, window)`` divides ``tp``
+(the rank's rows ``[rank * S / tp, (rank + 1) * S / tp)``, decoded by
+``attention.sp_decode``), else whole on every rank. A vocabulary that does
+not split stays whole on every rank, as the reference's specs leave it (no
+lookup reduce, no logits gather). Refused, by name (ROADMAP, Queue 1,
+step 6): the ``hstu`` family; a width that does not divide ``tp`` (heads,
+FFN columns, experts, the shared experts' width, ``d_ff_dense``, Mamba-2's
+heads, the hybrid's ``lru_width``) and Mamba-2's B / C groups beyond one,
+where the reference falls back to the sequence axis or replicates.
 """
 from __future__ import annotations
 
@@ -342,9 +350,9 @@ def spawn(fn: Callable[..., Any], tp: int, *args, devices: Optional[Sequence[Any
 
 # ---- the rank's shard and model --------------------------------------------
 
-#: the families TP serves (``models/transformer.py``'s stack, Mamba-2 and
-#: the encoder-decoders)
-FAMILIES = ("dense", "vlm", "moe", "mla_moe", "ssm", "encdec", "seamless")
+#: the families TP serves (``models/transformer.py``'s stack, Mamba-2, the
+#: encoder-decoders and the hybrid)
+FAMILIES = ("dense", "vlm", "moe", "mla_moe", "ssm", "encdec", "seamless", "hybrid")
 
 
 def _split_widths(cfg: ModelConfig) -> list:
@@ -352,6 +360,9 @@ def _split_widths(cfg: ModelConfig) -> list:
     vocabulary splits where it can, else stays whole)."""
     if cfg.family == "ssm":
         return [("the SSM heads", cfg.ssm.n_heads(cfg.d_model))]
+    if cfg.family == "hybrid":  # its one KV head is whole on every rank
+        return [("n_heads", cfg.n_heads), ("hybrid.lru_width", cfg.hybrid.lru_width),
+                ("d_ff", cfg.d_ff)]
     widths = [("n_heads", cfg.n_heads)]
     if cfg.mla is None:  # MLA's one latent is whole on every rank
         widths.append(("n_kv_heads", cfg.n_kv_heads))
@@ -392,7 +403,12 @@ def local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
     and a rank holds experts ``[rank * E / tp, (rank + 1) * E / tp)``
     (halving it would double the capacity and change which assignments
     drop). A Mamba-2 rank's mixer widths come from ``d_model`` through
-    ``ssm.shards`` (``n_heads`` alone would leave them whole)."""
+    ``ssm.shards`` (``n_heads`` alone would leave them whole). A hybrid rank
+    holds ``lru_width / tp`` channels and keeps its one KV head."""
+    if cfg.hybrid is not None:
+        return cfg.replace(n_heads=cfg.n_heads // tp, d_head=cfg.head_dim, d_ff=cfg.d_ff // tp,
+                           hybrid=dataclasses.replace(
+                               cfg.hybrid, lru_width=cfg.hybrid.lru_width // tp))
     local = cfg.replace(n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
                         d_head=cfg.head_dim, d_ff=cfg.d_ff // tp)
     if cfg.ssm is not None:
@@ -406,6 +422,9 @@ def local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
 #: pool leaves a rank holds its heads of (``TPContext.whole_bytes``)
 _HEAD_SPLIT = re.compile(r"layers/\d+/((self/)?(k|v)|cross_(k|v)|state)$")
 _CONV_TAIL = re.compile(r"layers/\d+/conv$")
+#: a hybrid rank's share: its channels of the RG-LRU state and the conv
+#: tail, its rows of a ring split along the sequence (a whole ring: once)
+_HYBRID_SPLIT = re.compile(r"layers/\d+/(state|conv|seq_shard/(k|v))$")
 
 
 class TPContext:
@@ -441,8 +460,10 @@ class TPContext:
         K/V, the SSM state) ``size`` times; the SSM conv tail at the whole
         model's channels (its ``x`` channels split, ``B`` and ``C`` whole);
         MLA's latent (whole on every rank), the replicated lengths and block
-        tables once."""
+        tables once; a hybrid's RG-LRU state, conv tail and sequence-split
+        ring rows ``size`` times, a whole ring once."""
         total = 0
+        hybrid = self.config.family == "hybrid"
         conv_whole = conv_local = 1
         if self.config.ssm is not None:
             gn = 2 * self.config.ssm.n_groups * self.config.ssm.d_state
@@ -453,7 +474,9 @@ class TPContext:
             nonlocal total
             if isinstance(leaf, torch.Tensor):
                 n = leaf.numel() * leaf.element_size()
-                if _HEAD_SPLIT.search(path):
+                if hybrid:
+                    n *= self.size if _HYBRID_SPLIT.search(path) else 1
+                elif _HEAD_SPLIT.search(path):
                     n *= self.size
                 elif _CONV_TAIL.search(path):
                     n = n // conv_local * conv_whole

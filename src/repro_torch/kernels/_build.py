@@ -58,6 +58,14 @@ SIGNATURES: Dict[str, List] = {
     # scale, stream
     "decode_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 ctypes.c_float, _P],
+    # dtype, q, k, v, n_valid, out (the f32 triple), partial, B, S, Hq, Hkv, D, splits,
+    # split_len, scale, stream
+    "decode_attention_partial_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                        _I, ctypes.c_float, _P],
+    # acc, m, l, out, P, B, H, D, the strides of acc, m and l over (part, row, head),
+    # stream
+    "decode_attention_merge_launch": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                      *[ctypes.c_longlong] * 9, _P],
     # dtype, q, kbuf, vbuf, bt, n_valid, out, partial, B, NB, bs, MB, Hq, Hkv, D,
     # splits, split_len, scale, stream
     "paged_decode_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -26,6 +26,8 @@ def _holders() -> Dict[str, Tuple[object, str]]:
             **{f"rmsnorm/{p}": (_rn.LAUNCHES_BY_PROLOGUE, p) for p in _rn.LAUNCHES_BY_PROLOGUE},
             "flash_attention": (_fa, "LAUNCHES"),
             "decode_attention": (_da, "LAUNCHES"),
+            "decode_attention_partial": (_da, "LAUNCHES_PARTIAL"),
+            "combine_partial_attention": (_da, "LAUNCHES_MERGE"),
             "paged_decode_attention": (_pda, "LAUNCHES"),
             "int8_matmul_weight_only": (_im, "LAUNCHES_WO"),
             "int8_matmul_dynamic": (_im, "LAUNCHES_DYN"),

@@ -64,6 +64,23 @@
 // Bound: bytes, as the contiguous kernel (the live rows read once, and
 // the table).
 //
+// The partial form (decode_attention_partial_launch) replaces the JAX
+// package's decode_attention_partial (repro/kernels/ops.py, XLA, no Pallas
+// kernel): the same split decode over one shard of a cache's rows, valid
+// below a per-row count, that writes the shard's unnormalised f32 triple
+// instead of its output: acc [B][Hq][Dv], then (m, l) [B][Hq][2], m in
+// natural-log units. At one split the block writes its triple itself (a row
+// with no valid key writes acc 0, m = -1e30, l 0); at more, the combine
+// kernel's raw form merges the splits that hold keys into the triple
+// without dividing. The merge (decode_attention_merge_launch) replaces
+// combine_partial_attention (ops.py, XLA): P stacked triples, strided as
+// the caller holds them (the ranks' partials of a sequence-parallel decode
+// after their exchange), merged by the same maths, m = max_p m_p, alpha_p =
+// exp(m_p - m), out = sum_p alpha_p acc_p / max(sum_p alpha_p l_p, 1e-30),
+// in part order, one warp a (row, head); a part with no valid key (m =
+// -1e30, l = 0) weighs exp(-1e30 - m) = 0. Bound: bytes (the partials read
+// once, the output written once).
+//
 // MLA's absorbed latent decode (decode_latent_kernel, bf16): q [B, Hq, D]
 // against the latent [B, S, D] or its block pool through the table, one
 // shared KV head, V the leading Dv columns, at (D, Dv) = (576, 512) and
@@ -191,8 +208,9 @@ __device__ __forceinline__ void decode_split(unsigned char* smem_raw, const T* _
   const int G = Hq / Hkv;
   const int t_begin = blockIdx.x * split_len;
   const int t_end = min(len, t_begin + split_len);
-  // a split with no key writes nothing: the combine never reads it
-  if (partial != nullptr && t_begin >= len) return;
+  // a split with no key writes nothing: the combine never reads it (the
+  // partial form's one split writes its empty triple: there is no combine)
+  if (partial != nullptr && t_begin >= len && gridDim.x > 1) return;
 
   T* ks = reinterpret_cast<T*>(smem_raw);          // [2][kTileK][kKStride]
   T* vs = ks + 2 * kTileK * kKStride;              // [2][kTileK][DVS]
@@ -370,8 +388,9 @@ decode_attention_paged_kernel(const T* __restrict__ q, const T* __restrict__ kbu
 
 // One warp per (row, q head): the live splits' partials merged in split
 // order (the JAX package's combine_partial_attention). D here is the
-// partial's and the output's width (Dv).
-template <typename T, int D>
+// partial's and the output's width (Dv). kRaw (the partial form, T = float):
+// the merged triple unnormalised, acc [B][Hq][D] then (m, l) [B][Hq][2].
+template <typename T, int D, bool kRaw = false>
 __global__ void __launch_bounds__(kCombineWarps * 32)
 decode_attention_combine_kernel(const float* __restrict__ partial,
                                 const int* __restrict__ lengths, T* __restrict__ out, int B,
@@ -397,9 +416,49 @@ decode_attention_combine_kernel(const float* __restrict__ partial,
       if (lane + 32 * e < D) acc[e] += pa[lane + 32 * e] * alpha;
   }
   T* ob = out + static_cast<long long>(row) * D;
+  if constexpr (kRaw) {
 #pragma unroll
-  for (int e = 0; e < kPer; ++e)
-    if (lane + 32 * e < D) ob[lane + 32 * e] = from_f32<T>(acc[e] / fmaxf(l, REPRO_L_MIN));
+    for (int e = 0; e < kPer; ++e)
+      if (lane + 32 * e < D) ob[lane + 32 * e] = acc[e];
+    if (lane == 0) {
+      float* ml = out + rows * D + static_cast<long long>(row) * 2;
+      ml[0] = m;
+      ml[1] = l;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e)
+      if (lane + 32 * e < D) ob[lane + 32 * e] = from_f32<T>(acc[e] / fmaxf(l, REPRO_L_MIN));
+  }
+}
+
+// The cross-shard merge: P unnormalised triples (acc [P][B][H][D], m and l
+// [P][B][H], each read at its own strides, D's columns contiguous) into the
+// normalised f32 output [B][H][D]; one warp a (row, head), parts in order.
+__global__ void __launch_bounds__(kCombineWarps * 32)
+decode_attention_merge_kernel(const float* __restrict__ acc, const float* __restrict__ m,
+                              const float* __restrict__ l, float* __restrict__ out, int P,
+                              int B, int H, int D, long long sa_p, long long sa_b,
+                              long long sa_h, long long sm_p, long long sm_b, long long sm_h,
+                              long long sl_p, long long sl_b, long long sl_h) {
+  const long long row = static_cast<long long>(blockIdx.x) * kCombineWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= static_cast<long long>(B) * H) return;
+  const int b = static_cast<int>(row / H), h = static_cast<int>(row % H);
+  const float* mr = m + b * sm_b + h * sm_h;
+  const float* lr = l + b * sl_b + h * sl_h;
+  float mx = mr[0];
+  for (int p = 1; p < P; ++p) mx = fmaxf(mx, mr[p * sm_p]);
+  float lsum = 0.f;
+  for (int p = 0; p < P; ++p) lsum += lr[p * sl_p] * expf(mr[p * sm_p] - mx);
+  const float den = fmaxf(lsum, REPRO_L_MIN);
+  const float* ar = acc + b * sa_b + h * sa_h;
+  float* ob = out + row * D;
+  for (int c = lane; c < D; c += 32) {
+    float s = 0.f;
+    for (int p = 0; p < P; ++p) s += ar[p * sa_p + c] * expf(mr[p * sm_p] - mx);
+    ob[c] = s / den;
+  }
 }
 
 // MLA's absorbed latent decode (bf16): q [B, Hq, kD] against the latent
@@ -558,11 +617,11 @@ bool bad_plan(int S, int splits, int split_len, const void* partial, const int* 
          (bt != nullptr && (bs < 1 || NB < 1 || S % bs));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kRaw = false>
 void combine(float* part, const int* lengths, void* out, int B, int S, int Hq, int splits,
              int split_len, cudaStream_t stream) {
   const int rows = B * Hq;
-  decode_attention_combine_kernel<T, D>
+  decode_attention_combine_kernel<T, D, kRaw>
       <<<(rows + kCombineWarps - 1) / kCombineWarps, kCombineWarps * 32, 0, stream>>>(
           part, lengths, static_cast<T*>(out), B, S, Hq, splits, split_len);
 }
@@ -570,11 +629,13 @@ void combine(float* part, const int* lengths, void* out, int B, int S, int Hq, i
 // The contiguous kernel when bt is null; else the paged one, over S = MB * bs
 // logical keys of an NB-block pool. `heads` is the q heads a block holds (0:
 // the whole group of its KV head); a block holds DVS of the DV output
-// columns.
+// columns. `raw` (the partial form, contiguous, whole group): `out` is the
+// f32 triple, written by the one split's block or by the raw combine.
 template <typename T, int D, int DV, int DVS>
 int launch(const void* q, const void* k, const void* v, const int* lengths, const int* bt,
            int NB, int bs, void* out, void* partial, int B, int S, int Hq, int Hkv,
-           int heads, int splits, int split_len, float scale, cudaStream_t stream) {
+           int heads, int splits, int split_len, float scale, cudaStream_t stream,
+           bool raw = false) {
   if (Hkv < 1 || Hq % Hkv) return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / Hkv;
   if (heads == 0) heads = G;
@@ -588,7 +649,10 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, cons
   // the attribute once per device for each kernel of this launch, at its
   // widest block, so every G of the instantiation fits under it
   const size_t widest = Tile<T, D, DVS>::smem_bytes(kWidest);
-  float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
+  if (raw && (bt != nullptr || heads != G || DVS != DV || out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* part = splits > 1 ? static_cast<float*>(partial)
+                           : (raw ? static_cast<float*>(out) : nullptr);
   const dim3 grid(splits, B * Hkv, ((G + heads - 1) / heads) * (DV / DVS));
   cudaError_t e;
   if (bt == nullptr) {
@@ -598,7 +662,7 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, cons
     if (e != cudaSuccess) return static_cast<int>(e);
     kern<<<grid, kThreads, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-        static_cast<T*>(out), part, B, S, Hq, Hkv, heads, split_len, scale);
+        raw ? nullptr : static_cast<T*>(out), part, B, S, Hq, Hkv, heads, split_len, scale);
   } else if constexpr (D == 256) {
     // D = 256 serves only the hybrid's rings, which the paged pool refuses:
     // the paged kernel is not instantiated at this width
@@ -614,19 +678,22 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, cons
         scale);
   }
   e = cudaGetLastError();
-  if (e != cudaSuccess || part == nullptr) return static_cast<int>(e);
-  combine<T, DV>(part, lengths, out, B, S, Hq, splits, split_len, stream);
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  if (raw)
+    combine<float, DV, true>(part, lengths, out, B, S, Hq, splits, split_len, stream);
+  else
+    combine<T, DV>(part, lengths, out, B, S, Hq, splits, split_len, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const int* lengths, const int* bt,
                int NB, int bs, void* out, void* partial, int B, int S, int Hq, int Hkv, int D,
-               int splits, int split_len, float scale, cudaStream_t s) {
+               int splits, int split_len, float scale, cudaStream_t s, bool raw) {
 #define REPRO_CASE(d)                                                                  \
   if (D == d)                                                                          \
     return launch<T, d, d, d>(q, k, v, lengths, bt, NB, bs, out, partial, B, S, Hq, Hkv, \
-                              0, splits, split_len, scale, s);
+                              0, splits, split_len, scale, s, raw);
   REPRO_CASE(16) REPRO_CASE(32) REPRO_CASE(64) REPRO_CASE(128)
   REPRO_CASE(256)  // contiguous only (launch refuses a table at this width)
 #undef REPRO_CASE
@@ -635,16 +702,17 @@ int dispatch_d(const void* q, const void* k, const void* v, const int* lengths, 
 
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* lengths,
              const void* bt, int NB, int bs, void* out, void* partial, int B, int S, int Hq,
-             int Hkv, int D, int splits, int split_len, float scale, void* stream) {
+             int Hkv, int D, int splits, int split_len, float scale, void* stream,
+             bool raw = false) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   const int* tab = static_cast<const int*>(bt);
   if (dtype == REPRO_DTYPE_F32)
     return dispatch_d<float>(q, k, v, len, tab, NB, bs, out, partial, B, S, Hq, Hkv, D,
-                             splits, split_len, scale, s);
+                             splits, split_len, scale, s, raw);
   if (dtype == REPRO_DTYPE_BF16)
     return dispatch_d<__nv_bfloat16>(q, k, v, len, tab, NB, bs, out, partial, B, S, Hq, Hkv,
-                                     D, splits, split_len, scale, s);
+                                     D, splits, split_len, scale, s, raw);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -691,6 +759,40 @@ extern "C" int decode_attention_launch(int dtype, const void* q, const void* k,
                                        int splits, int split_len, float scale, void* stream) {
   return dispatch(dtype, q, k, v, lengths, nullptr, 0, 0, out, partial, B, S, Hq, Hkv, D,
                   splits, split_len, scale, stream);
+}
+
+// The partial form over a contiguous shard k, v [B, S, Hkv, D] (D == Dv), valid
+// below lengths[b] (clamped to [0, S]): out the f32 triple [B*Hq*D] (acc) then
+// [B*Hq*2] (m, l); partial the split workspace (splits > 1).
+extern "C" int decode_attention_partial_launch(int dtype, const void* q, const void* k,
+                                               const void* v, const void* lengths, void* out,
+                                               void* partial, int B, int S, int Hq, int Hkv,
+                                               int D, int splits, int split_len, float scale,
+                                               void* stream) {
+  return dispatch(dtype, q, k, v, lengths, nullptr, 0, 0, out, partial, B, S, Hq, Hkv, D,
+                  splits, split_len, scale, stream, true);
+}
+
+// The merge of P f32 triples into out [B, H, D] f32: acc, m and l each at
+// their strides (elements) over (part, row, head); acc's D columns
+// contiguous.
+extern "C" int decode_attention_merge_launch(const void* acc, const void* m, const void* l,
+                                             void* out, int P, int B, int H, int D,
+                                             long long sa_p, long long sa_b, long long sa_h,
+                                             long long sm_p, long long sm_b, long long sm_h,
+                                             long long sl_p, long long sl_b, long long sl_h,
+                                             void* stream) {
+  if (P < 1 || B < 0 || H < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(B) * H;
+  if (rows == 0) return 0;
+  const long long blocks = (rows + kCombineWarps - 1) / kCombineWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  decode_attention_merge_kernel<<<static_cast<unsigned>(blocks), kCombineWarps * 32, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(acc), static_cast<const float*>(m),
+      static_cast<const float*>(l), static_cast<float*>(out), P, B, H, D, sa_p, sa_b, sa_h,
+      sm_p, sm_b, sm_h, sl_p, sl_b, sl_h);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // q [B, Hq, D]; kbuf, vbuf [NB, bs, Hkv, D]; bt [B, MB] and n_valid [B] int32.

@@ -28,6 +28,19 @@ output columns split over min(128, Dv) column blocks, the sequence split by
 the same :func:`split_plan` and merged by the same combine. In f32 it runs
 the split decode above with Hkv = 1, 16 heads and min(128, Dv) output
 columns a block, V read at K's row stride.
+
+The sequence-parallel decode (``models/attention.py``'s ``sp_decode``)
+runs two more launches of the same source: the partial form
+(:func:`decode_attention_partial_cuda`: the split decode over one shard of
+a cache's rows, valid below a per-row count, writing the shard's
+unnormalised f32 triple ``(acc, m, l)`` in one flat buffer,
+:func:`split_partial`), counted in ``LAUNCHES_PARTIAL``, and the merge of
+stacked triples (:func:`combine_partial_attention_cuda`, strided as the
+caller holds them), counted in ``LAUNCHES_MERGE``: the counterparts of the
+reference's XLA ``decode_attention_partial`` and
+``combine_partial_attention`` (``repro/kernels/ops.py``), whose plain
+versions here are :func:`decode_attention_partial_plain` and
+:func:`combine_partial_attention`.
 """
 from __future__ import annotations
 
@@ -43,6 +56,9 @@ from repro_torch.kernels import flash_attention as _fa
 NEG_INF = -1e30
 #: launches of the CUDA kernel in this process (chip_smoke resets and reads it)
 LAUNCHES = 0
+#: launches of the partial form and of the merge
+LAUNCHES_PARTIAL = 0
+LAUNCHES_MERGE = 0
 #: head widths the kernel is instantiated for (D == Dv)
 HEAD_DIMS = (16, 32, 64, 128, 256)
 #: the paged kernel's (D = 256 serves only the hybrid's rings, which the
@@ -151,6 +167,122 @@ def combine_partial_attention(accs: torch.Tensor, ms: torch.Tensor,
     l = (ls * alpha).sum(dim=0)
     acc = (accs * alpha[..., None]).sum(dim=0)
     return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def partial_numel(b: int, hq: int, dv: int) -> int:
+    """f32 elements of one shard's flat triple: acc [B, Hq, Dv], then (m,
+    l) [B, Hq, 2]."""
+    return b * hq * (dv + 2)
+
+
+def split_partial(buf: torch.Tensor, b: int, hq: int, dv: int):
+    """(acc [B, Hq, Dv], m [B, Hq], l [B, Hq]): views of a flat triple
+    ``buf`` (:func:`partial_numel` f32 elements)."""
+    acc = buf[:b * hq * dv].view(b, hq, dv)
+    ml = buf[b * hq * dv:partial_numel(b, hq, dv)].view(b, hq, 2)
+    return acc, ml[..., 0], ml[..., 1]
+
+
+def _partial_out(out: Optional[torch.Tensor], b: int, hq: int, dv: int, device):
+    n = partial_numel(b, hq, dv)
+    if out is None:
+        return torch.empty(n, dtype=torch.float32, device=device)
+    if out.dtype != torch.float32 or out.shape != (n,) or not out.is_contiguous():
+        raise ValueError(f"decode_attention_partial: out must be a contiguous f32 [{n}], got "
+                         f"{out.dtype} {tuple(out.shape)}")
+    return out
+
+
+def decode_attention_partial_plain(
+    q: torch.Tensor,  # [B, Hq, D]
+    k: torch.Tensor,  # [B, S_shard, Hkv, D]
+    v: torch.Tensor,  # [B, S_shard, Hkv, Dv]
+    n_valid: torch.Tensor,  # [B] valid rows of the shard, a prefix
+    *,
+    scale: Optional[float] = None,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The partial form's function: :func:`decode_attention_partial` over
+    the shard's rows below ``n_valid``, written into the flat triple ``out``
+    (allocated when None), which it returns."""
+    b, hq, _ = q.shape
+    s, dv = k.shape[1], v.shape[-1]
+    out = _partial_out(out, b, hq, dv, q.device)
+    ok = torch.arange(s, device=k.device)[None] < n_valid.to(k.device)[:, None]
+    for dst, src in zip(split_partial(out, b, hq, dv),
+                        decode_attention_partial(q, k, v, ok, scale=scale)):
+        dst.copy_(src)
+    return out
+
+
+def decode_attention_partial_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    n_valid: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the partial form (and, when the shard is split, the combine's
+    raw form) on PyTorch's current stream: the shard's flat triple written
+    into ``out`` (allocated when None), which it returns. ``n_valid`` must
+    be contiguous int32 [B]; the widths are the decode kernel's
+    (:func:`supports`, not the latent); raises for anything else."""
+    global LAUNCHES_PARTIAL
+    b, hq, d = q.shape
+    s, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    _build.require_cuda("decode_attention_partial", q, k, v, n_valid)
+    if k.shape != (b, s, hkv, d) or v.shape[:3] != (b, s, hkv):
+        raise ValueError(f"decode_attention_partial: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not agree")
+    if not supports(d, dv, hq, hkv, q.dtype):
+        raise ValueError(f"decode_attention_partial: no kernel for D={d}, Dv={dv}, {hq} q "
+                         f"heads over {hkv} KV heads in {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("decode_attention_partial: q, k and v must share one type")
+    if n_valid.dtype != torch.int32 or n_valid.shape != (b,):
+        raise ValueError("decode_attention_partial: n_valid must be int32 [B]")
+    out = _partial_out(out, b, hq, dv, q.device)
+    if out.device != q.device:
+        raise ValueError(f"decode_attention_partial: out on {out.device}, q on {q.device}")
+    scale = scale if scale is not None else d ** -0.5
+    splits, split_len = split_plan(b, hkv, s, _build.n_sms(q.device.index))
+    ws = (torch.empty(splits * partial_numel(b, hq, dv), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
+    rc = _build.library().decode_attention_partial_launch(
+        _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), n_valid.data_ptr(),
+        out.data_ptr(), None if ws is None else ws.data_ptr(), b, s, hq, hkv, d, splits,
+        split_len, float(scale), _build.stream_of(q))
+    _build.check(rc, "decode_attention_partial")
+    LAUNCHES_PARTIAL += 1
+    return out
+
+
+def combine_partial_attention_cuda(accs: torch.Tensor, ms: torch.Tensor,
+                                   ls: torch.Tensor) -> torch.Tensor:
+    """Launch the merge on PyTorch's current stream: f32 triples stacked on
+    a leading part axis, ``accs`` [P, B, H, Dv] (unit column stride), ``ms``
+    and ``ls`` [P, B, H], each read at its own strides (views of a flat
+    exchange buffer pass as they are), into a fresh f32 [B, H, Dv]."""
+    global LAUNCHES_MERGE
+    p, b, h, dv = accs.shape
+    for t in (accs, ms, ls):
+        if not t.is_cuda or t.device != accs.device:
+            raise ValueError(f"combine_partial_attention: CUDA tensors on one device, got "
+                             f"{t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"combine_partial_attention: f32 partials, got {t.dtype}")
+    if ms.shape != (p, b, h) or ls.shape != (p, b, h) or (dv > 1 and accs.stride(3) != 1):
+        raise ValueError(f"combine_partial_attention: accs {tuple(accs.shape)} (strides "
+                         f"{accs.stride()}), ms {tuple(ms.shape)}, ls {tuple(ls.shape)}")
+    out = torch.empty((b, h, dv), dtype=torch.float32, device=accs.device)
+    rc = _build.library().decode_attention_merge_launch(
+        accs.data_ptr(), ms.data_ptr(), ls.data_ptr(), out.data_ptr(), p, b, h, dv,
+        *accs.stride()[:3], *ms.stride(), *ls.stride(), _build.stream_of(accs))
+    _build.check(rc, "combine_partial_attention")
+    LAUNCHES_MERGE += 1
+    return out
 
 
 def decode_attention_cuda(

@@ -115,11 +115,52 @@ def decode_attention(
     return fn(q.contiguous(), k, _v_of(v, k), lengths, scale=scale)
 
 
-#: the split decode's maths (decode_attention.py): one shard's unnormalised
-#: f32 partial (acc, m, l), and the LSE combine of partials stacked on a
-#: leading shard axis
-decode_attention_partial = _da.decode_attention_partial
-combine_partial_attention = _da.combine_partial_attention
+def decode_attention_partial(
+    q: torch.Tensor,  # [B, Hq, D]
+    k: torch.Tensor,  # [B, S_shard, Hkv, D]: a shard of the cache
+    v: torch.Tensor,  # [B, S_shard, Hkv, Dv]
+    valid: torch.Tensor,  # [B] counts of a valid prefix, or a [B, S_shard] mask
+    *,
+    scale: Optional[float] = None,
+    out: Optional[torch.Tensor] = None,
+    impl: str = "auto",
+):
+    """Flash-decode partial over one shard of the cache: (acc [B, Hq, Dv],
+    m [B, Hq], l [B, Hq]) in f32, unnormalised, for
+    :func:`combine_partial_attention` (the reference's
+    ``decode_attention_partial``). ``valid`` counts each row's valid prefix
+    (int, [B]: the partial-form kernel on the card, its plain version on the
+    CPU; the triple lands in the flat f32 buffer ``out`` when given, see
+    ``decode_attention.split_partial``), or masks any rows (bool [B,
+    S_shard]: the plain version only, which a CUDA dispatch refuses)."""
+    impl = _resolve(impl, q)
+    _check_no_grad(impl, q, k, v)
+    if valid.dtype == torch.bool:
+        if impl == "cuda":
+            raise ValueError("decode_attention_partial: the kernel takes counts of a valid "
+                             "prefix, not a mask")
+        if out is not None:
+            raise ValueError("decode_attention_partial: out= takes counts, not a mask")
+        return _da.decode_attention_partial(q, k, v, valid, scale=scale)
+    b, hq = q.shape[:2]
+    fn = (_da.decode_attention_partial_cuda if impl == "cuda"
+          else _da.decode_attention_partial_plain)
+    k = k.contiguous()
+    buf = fn(q.contiguous(), k, v.contiguous(), valid.to(torch.int32).contiguous(),
+             scale=scale, out=out)
+    return _da.split_partial(buf, b, hq, v.shape[-1])
+
+
+def combine_partial_attention(accs: torch.Tensor, ms: torch.Tensor, ls: torch.Tensor, *,
+                              impl: str = "auto") -> torch.Tensor:
+    """LSE-combine f32 flash-decode partials stacked on a leading shard axis
+    (accs [P, B, H, Dv], ms and ls [P, B, H]) into f32 [B, H, Dv]: the merge
+    kernel on the card (strided views as they are), its plain version on
+    the CPU."""
+    impl = _resolve(impl, accs)
+    if impl == "cuda":
+        return _da.combine_partial_attention_cuda(accs, ms, ls)
+    return _da.combine_partial_attention(accs, ms, ls)
 
 
 @hot_path

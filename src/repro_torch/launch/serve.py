@@ -28,10 +28,11 @@ the CPU with ``--device cpu``), and prints the fleet's spills, requeues,
 busy-time rate and one line per replica. ``--boost-after S`` ages waiting
 requests: one priority a full ``S`` seconds waited. ``--tp N`` serves one pool
 as N tensor-parallel ranks (``distributed/tp_pool.py``; the dense, vlm, moe,
-mla_moe, ssm, encdec and seamless families, bf16 or ``--quant``'d): N
-processes, each holding its shard of the params and of the pool (its KV
+mla_moe, ssm, encdec, seamless and hybrid families, bf16 or ``--quant``'d):
+N processes, each holding its shard of the params and of the pool (its KV
 heads, MLA's whole latent, its SSM heads' state, its self and cross K/V
-heads), on the first N cards, on the cards ``--tp-devices`` lists
+heads, its RG-LRU channels and its rows of a ring split along them), on
+the first N cards, on the cards ``--tp-devices`` lists
 (``cuda:0,cuda:0`` puts two ranks on one card) or, with ``--device cpu``,
 all on the CPU; rank 0 prints, with the KV bytes each rank reserves, the
 reduces the run made and, measured, a forward's. ``--quant wo|dyn``
@@ -81,6 +82,8 @@ carries stub encoder frames drawn from ``--seed`` (``attach_frames``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
       --smoke --device cpu --tp 2 --profile seamless_s2t --profile-mix greedy,beam
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+      --tp 2 --tp-devices cuda:0,cuda:0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
       --tp 2 --tp-devices cuda:0,cuda:0
 
 Reported per request: TTFT (arrival -> first token), TPOT (mean inter-
@@ -820,9 +823,9 @@ def main(argv=None):
                     help="cuda (default; raises when there is no card) or cpu")
     ap.add_argument("--tp", type=int, default=None,
                     help="serve one pool as this many tensor-parallel ranks (the dense, "
-                         "vlm, moe, mla_moe, ssm, encdec and seamless families): on the "
-                         "first that many cards, on --tp-devices, or all on the CPU with "
-                         "--device cpu")
+                         "vlm, moe, mla_moe, ssm, encdec, seamless and hybrid families): on "
+                         "the first that many cards, on --tp-devices, or all on the CPU "
+                         "with --device cpu")
     ap.add_argument("--quant", choices=["wo", "dyn"], default=None,
                     help="AutoQuant every linear with this one mode (int8 weight-only or "
                          "dynamic), the whole model before any tensor-parallel shard")

@@ -69,8 +69,18 @@ unchanged on the rank's heads (qk-norm's per-``head_dim`` scales
 replicated), and ``wo``'s partial outputs are reduced over the ranks
 (``layers.row_parallel``). MLA runs at a
 rank's query heads over the whole latent, as the reference's specs leave
-it (replicated): the latent cache is the same on every rank. Not ported:
-the sequence-parallel decode (``SP_MESH``; ROADMAP Queue 1, step 6).
+it (replicated): the latent cache is the same on every rank.
+
+The sequence-parallel decode (:func:`sp_decode`, the reference's
+``_sp_decode``) serves a cache split along its rows over a group: each rank
+writes the new token's K/V only where it owns the row, takes the
+flash-decode partial ``(acc, m, l)`` of every q head over its rows (the
+decode kernel's partial form), and the ranks exchange the partials in one
+reduce and merge them by their log-sum-exp (the merge kernel). The hybrid's
+ring takes it under tensor parallelism where ``S`` divides the ranks
+(``seq_split``: the layer cache holds the rank's rows ``[rank * S / tp,
+(rank + 1) * S / tp)``, a prefill writes only those, a decode step gathers
+the q heads whole first); its K/V projections are whole on every rank.
 """
 from __future__ import annotations
 
@@ -80,6 +90,7 @@ import torch
 
 from repro_torch.analysis.hotpath import hot_path
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -93,13 +104,24 @@ def write_prefill(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     """Write [B, T, ...] into [B, S, ...] at offset 0 and zero the rest of
     each row (the reference pads ``new`` to S). A ring (T > S) keeps the
     last S entries, token t at row t % S: every row is written."""
-    s, t = buf.shape[1], new.shape[1]
+    return write_prefill_rows(buf, new, 0, buf.shape[1])
+
+
+def write_prefill_rows(buf: torch.Tensor, new: torch.Tensor, row0: int, s: int) -> torch.Tensor:
+    """Rows ``[row0, row0 + S_loc)`` of :func:`write_prefill` into a cache of
+    ``s`` rows, written into buf [B, S_loc, ...] (a rank's rows of a ring
+    split along the sequence): a prompt of T <= s tokens puts token t at row
+    t and zeros past it; a longer one keeps its last s tokens, token t at
+    row t % s, so the rank's rows hold the tokens of its residues."""
+    s_loc, t = buf.shape[1], new.shape[1]
     if t > s:
-        slots = torch.arange(t - s, t, device=buf.device) % s
-        buf[:, slots] = new[:, t - s:].to(buf.dtype)
+        g = torch.arange(row0, row0 + s_loc, device=buf.device)
+        src = (t - s) + (g - (t - s)) % s  # the last s tokens' one at each row
+        buf.copy_(new[:, src].to(buf.dtype))
         return buf
-    buf[:, :t].copy_(new)
-    buf[:, t:].zero_()
+    n = min(max(t - row0, 0), s_loc)
+    buf[:, :n].copy_(new[:, row0:row0 + n])
+    buf[:, n:].zero_()
     return buf
 
 
@@ -167,6 +189,55 @@ def write_window(buf: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor,
 
 def valid_counts(lengths: torch.Tensor, cache_len: int) -> torch.Tensor:
     return torch.clamp(lengths, max=cache_len)
+
+
+# --------------------------------------------------------------------------
+# sequence-parallel decode
+# --------------------------------------------------------------------------
+
+def sp_decode(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor, q: torch.Tensor,
+              lengths: torch.Tensor, group, *, ring: Optional[int] = None, impl: str = "auto"):
+    """Flash decode over a cache split along its rows over ``group`` (the
+    reference's ``_sp_decode``): ``cache`` holds the rank's rows ``[rank *
+    S_loc, (rank + 1) * S_loc)`` of K/V [B, S_loc, Hkv, D]; ``k_new`` /
+    ``v_new`` [B, Hkv, D] the new token's, ``q`` [B, Hq, D] every q head.
+
+    1. The new row is written at ``lengths`` (``ring``: at ``lengths %
+       ring``, a ring of that many rows) on the rank that owns it; the
+       others write back the row they hold (no full-buffer ``where``).
+    2. Each rank takes the partial ``(acc, m, l)`` of every head over its
+       rows below ``lengths + 1`` (``ring``: ``min(lengths + 1, ring)``), a
+       valid prefix of them (``ops.decode_attention_partial``: the decode
+       kernel's partial form on the card), into its slot of a zeroed
+       [size, B * Hq * (Dv + 2)] f32 exchange buffer.
+    3. One reduce puts every rank's triple in every slot, and
+       ``ops.combine_partial_attention`` merges them by their log-sum-exp.
+
+    Returns (out [B, Hq, Dv] f32, cache) with the cache written in place."""
+    b, hq = q.shape[:2]
+    s_loc, dv = cache["k"].shape[1], cache["v"].shape[-1]
+    row0 = group.rank * s_loc
+    pos = lengths.long() % ring if ring is not None else lengths.long()
+    local = pos - row0
+    own = (local >= 0) & (local < s_loc)
+    at = torch.clamp(local, 0, s_loc - 1)
+    rows = torch.arange(b, device=q.device)
+    for name, new in (("k", k_new), ("v", v_new)):
+        buf = cache[name]
+        keep = own.reshape((b,) + (1,) * (new.dim() - 1))
+        buf[rows, at] = torch.where(keep, new.to(buf.dtype), buf[rows, at])
+    n_valid = lengths + 1 if ring is None else valid_counts(lengths + 1, ring)
+    n_local = torch.clamp(n_valid - row0, 0, s_loc)
+    ex = torch.zeros((group.size, _da.partial_numel(b, hq, dv)), dtype=torch.float32,
+                     device=q.device)
+    ops.decode_attention_partial(q, cache["k"], cache["v"], n_local, out=ex[group.rank],
+                                 impl=impl)
+    group.all_reduce(ex)
+    n = b * hq * dv
+    ml = ex[:, n:].view(group.size, b, hq, 2)
+    out = ops.combine_partial_attention(ex[:, :n].view(group.size, b, hq, dv), ml[..., 0],
+                                        ml[..., 1], impl=impl)
+    return out, cache
 
 
 # --------------------------------------------------------------------------
@@ -294,11 +365,15 @@ def attention(
     bidirectional: bool = False,
     t_new: Optional[torch.Tensor] = None,  # [B] chunk / window widths
     tp=None,
+    seq_split: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """``bidirectional`` (encoder stacks): no RoPE, and non-causal flash
     attention in train and prefill. Under ``cfg.qk_norm`` q and k are
     RMS-normalised per head (rows of ``head_dim``) before RoPE. ``tp``: the
-    group ``wo``'s rows are split over (its output is reduced over it)."""
+    group ``wo``'s rows are split over (its output is reduced over it).
+    ``seq_split``: ``cache`` holds the rank's rows of a ring of ``S_loc *
+    tp.size`` rows split along the sequence over ``tp`` (prefill writes only
+    those rows, decode runs :func:`sp_decode` over every q head, gathered)."""
     b, t, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if mode == "mixed" and (cache is None or "bt" not in cache):
@@ -327,9 +402,17 @@ def attention(
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
 
+    if seq_split and (tp is None or cache is None or mode not in ("prefill", "decode")):
+        raise ValueError("seq_split: a ring split along the sequence over a group serves "
+                         "prefill and decode")
     new_cache = None
     if mode in ("train", "prefill"):
-        if cache is not None:
+        if seq_split:
+            s_loc = cache["k"].shape[1]
+            ring, row0 = s_loc * tp.size, tp.rank * s_loc
+            new_cache = {"k": write_prefill_rows(cache["k"], k, row0, ring),
+                         "v": write_prefill_rows(cache["v"], v, row0, ring)}
+        elif cache is not None:
             new_cache = {"k": write_prefill(cache["k"], k), "v": write_prefill(cache["v"], v)}
         out = ops.flash_attention(
             q, k, v, q_positions=positions, k_positions=positions,
@@ -359,6 +442,12 @@ def attention(
             q, new_cache["k"], new_cache["v"], q_positions=positions, k_positions=kpos,
             causal=True, k_valid=kpos < n_valid[:, None], impl=impl,
         )
+    elif seq_split:  # decode over the rank's ring rows, every q head gathered
+        s_loc = cache["k"].shape[1]
+        q_all = L.gather_last(q[:, 0].reshape(b, hq * dh), tp).reshape(b, hq * tp.size, dh)
+        out, new_cache = sp_decode(cache, k[:, 0], v[:, 0], q_all, lengths, tp,
+                                   ring=s_loc * tp.size, impl=impl)
+        out = out[:, tp.rank * hq:(tp.rank + 1) * hq].to(q.dtype)[:, None]
     else:  # decode
         s = cache["k"].shape[1]
         idx = lengths % s

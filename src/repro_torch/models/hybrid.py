@@ -23,6 +23,22 @@ reference does.
 Each residual add runs in the next norm's kernel (``layers.add_rmsnorm``),
 as in ``transformer.py``: a forward launches RMSNorm once without a
 prologue and 2 x n_layers times with the add.
+
+Under tensor parallelism (``tp``, a rank's group; ``distributed/tp_pool.py``)
+a rank's config holds its ``lru_width / tp`` channels and its q heads, and
+its params the matching shard: a recurrent block's ``proj_x`` /
+``proj_gate`` columns, conv, decay and gate columns (with their biases) at
+its channels, ``proj_out``'s rows; an attention block's ``wq`` columns and
+``wo`` rows, with ``wk`` / ``wv`` whole (one KV head). A recurrent block
+gathers the post-conv input whole for the gates (one exact reduce of the
+zero-padded [B, T, lru_width]) and reduces ``proj_out``'s output; an
+attention block reduces ``wo``'s, the FFN ``w2``'s, and the embedding and
+the logits are vocab-split. A ring splits along its rows where ``S =
+min(max_len, window)`` divides ``tp`` (the layer cache ``{"seq_shard":
+{"k", "v"}}`` holds the rank's rows, ``attention(seq_split=True)``), else it
+is whole on every rank. A forward reduces 3 a recurrent layer, 2 an
+attention layer (4 in a decode step over a split ring: the q heads'
+gather and the partials' exchange) and 2 for the vocabulary.
 """
 from __future__ import annotations
 
@@ -88,11 +104,14 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _rg_lru(p, x: torch.Tensor, h0: Optional[torch.Tensor],
-            impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, T, W] (post-conv). Returns (h [B, T, W] f32, h_final [B, W])."""
+            impl: str = "auto", tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, T, W] (post-conv). Returns (h [B, T, W] f32, h_final [B, W]).
+    Under ``tp`` W is the rank's channels: the gates read x gathered whole
+    and give the rank's columns."""
     xf = x.float()
-    r = torch.sigmoid(L.dense(p["gate_a"], x, impl).float())
-    i = torch.sigmoid(L.dense(p["gate_x"], x, impl).float())
+    xg = L.gather_last(x, tp)
+    r = torch.sigmoid(L.dense(p["gate_a"], xg, impl).float())
+    i = torch.sigmoid(L.dense(p["gate_x"], xg, impl).float())
     log_a = -RG_LRU_C * F.softplus(p["lam"])[None, None] * r  # [B, T, W] <= 0
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
@@ -104,17 +123,18 @@ def _rg_lru(p, x: torch.Tensor, h0: Optional[torch.Tensor],
 
 
 def recurrent_block_forward(cfg: ModelConfig, p, x: torch.Tensor, *, cache: Optional[dict],
-                            mode: str, impl: str = "auto"):
+                            mode: str, impl: str = "auto", tp=None):
     """The recurrent block: a GELU (tanh) gate branch beside the conv and
     RG-LRU branch, their product projected back to d_model. The conv tail
     continues from the cache in decode only; train and prefill start from
-    zeros. Returns (out, new cache of new tensors, or None)."""
+    zeros. ``tp``: the rank's channels, ``proj_out``'s output reduced.
+    Returns (out, new cache of new tensors, or None)."""
     gate = F.gelu(L.dense(p["proj_gate"], x, impl), approximate="tanh")
     xb = L.dense(p["proj_x"], x, impl)
     tail = cache["conv"] if (cache is not None and mode == "decode") else None
     xc, new_tail = _causal_conv(xb, p["conv_w"], p["conv_b"], tail)
-    h, h_final = _rg_lru(p, xc, cache["state"] if mode == "decode" else None, impl)
-    out = L.dense(p["proj_out"], h.to(x.dtype) * gate, impl)
+    h, h_final = _rg_lru(p, xc, cache["state"] if mode == "decode" else None, impl, tp)
+    out = L.row_parallel(p["proj_out"], h.to(x.dtype) * gate, impl, tp)
     new_cache = None
     if cache is not None:
         new_cache = {"state": h_final, "conv": new_tail.to(cache["conv"].dtype)}
@@ -145,13 +165,23 @@ def init(cfg: ModelConfig, gen: torch.Generator, device):
     return p
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, tp=None):
     """Per layer a K/V ring (attention) or the state and conv tail
-    (recurrent), beside ``lengths``."""
+    (recurrent), beside ``lengths``. Under ``tp`` (a rank's group) a ring of
+    ``S = min(max_len, window)`` rows that divide ``tp.size`` is split along
+    them: ``{"seq_shard": {"k", "v"}}`` of the rank's ``S / tp.size`` rows
+    (``sharding.cache_specs_tp``'s sequence fallback); any other ring is
+    whole on every rank (without a window: a cache of ``max_len`` rows, the
+    same way)."""
     hy = cfg.hybrid
+    s = min(max_len, hy.window) if hy.window else max_len
+    split = tp is not None and tp.size > 1 and s % tp.size == 0
     layers = []
     for i in range(cfg.n_layers):
-        if hy.block_kind(i) == "attention":
+        if hy.block_kind(i) == "attention" and split:
+            layers.append({"seq_shard": A.init_attention_cache(cfg, batch, s // tp.size,
+                                                               device)})
+        elif hy.block_kind(i) == "attention":
             layers.append(A.init_attention_cache(cfg, batch, max_len, device,
                                                  window=hy.window))
         else:
@@ -161,10 +191,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
 
 
 def forward(cfg: ModelConfig, params, batch: dict, *, cache: Optional[dict] = None,
-            mode: str = "train", impl: str = "auto"):
+            mode: str = "train", impl: str = "auto", tp=None):
     """Returns (logits [B, T, V] f32, new_cache, aux dict). The rings are
     written in place; the recurrent layers' entries of ``new_cache`` are new
-    tensors. Prefill takes ``prompt_lengths`` as the new lengths."""
+    tensors. Prefill takes ``prompt_lengths`` as the new lengths. ``tp`` (a
+    rank's group) runs the rank's shard; the logits are then its vocab
+    slice (the engine's ``tp_*`` steps gather them)."""
     if mode not in MODES:
         raise NotImplementedError(f"mode {mode!r}: the hybrid runs {MODES}")
     hy = cfg.hybrid
@@ -178,7 +210,7 @@ def forward(cfg: ModelConfig, params, batch: dict, *, cache: Optional[dict] = No
         lengths = cache["lengths"]
         positions = lengths[:, None] + steps
 
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, tp, cfg.vocab_size)
     # each residual add runs in the next norm's kernel: the block's output
     # in the ffn_norm's, the FFN's in the next layer's norm (or the final)
     norms = [lp["norm"] for lp in params["layers"]] + [params["final_norm"]]
@@ -187,13 +219,17 @@ def forward(cfg: ModelConfig, params, batch: dict, *, cache: Optional[dict] = No
     for i, lp in enumerate(params["layers"]):
         lc = cache["layers"][i] if cache is not None else None
         if hy.block_kind(i) == "attention":
+            split = lc is not None and "seq_shard" in lc
             out, nlc = A.attention(cfg, lp["attn"], h, positions=positions, lengths=lengths,
-                                   cache=lc, mode=mode, window=hy.window, impl=impl)
+                                   cache=lc["seq_shard"] if split else lc, mode=mode,
+                                   window=hy.window, impl=impl, tp=tp, seq_split=split)
+            if split:
+                nlc = {"seq_shard": nlc}
         else:
             out, nlc = recurrent_block_forward(cfg, lp["rec"], h, cache=lc, mode=mode,
-                                               impl=impl)
+                                               impl=impl, tp=tp)
         x, h = L.add_rmsnorm(lp["ffn_norm"], x, out, cfg.rmsnorm_eps, impl=impl)
-        x, h = L.add_rmsnorm(norms[i + 1], x, L.ffn(lp["ffn"], h, impl), cfg.rmsnorm_eps,
+        x, h = L.add_rmsnorm(norms[i + 1], x, L.ffn(lp["ffn"], h, impl, tp), cfg.rmsnorm_eps,
                              impl=impl)
         new_layers.append(nlc)
     logits = L.unembed(params["embed"], h)

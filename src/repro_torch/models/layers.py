@@ -112,6 +112,20 @@ def gather_vocab(logits: torch.Tensor, tp=None, vocab: Optional[int] = None) -> 
     return tp.all_reduce(out)
 
 
+def gather_last(x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The ranks' slices [..., n] of a column-split activation put whole,
+    [..., n * size] in ``x``'s type: each rank writes its slice into a
+    zero-filled buffer and the reduce sums them, exactly (a hybrid rank's
+    post-conv channels for the RG-LRU gates, its q heads for a split ring's
+    decode). ``x`` itself without a group or with one rank."""
+    if tp is None or tp.size == 1:
+        return x
+    n = x.shape[-1]
+    out = torch.zeros(x.shape[:-1] + (n * tp.size,), dtype=x.dtype, device=x.device)
+    out[..., tp.rank * n:(tp.rank + 1) * n] = x
+    return tp.all_reduce(out)
+
+
 def add_f32_table(p) -> None:
     """Keep an f32 copy of a non-f32 tied table beside it (``table_f32``),
     so the f32 unembed reads it instead of converting the table on every

@@ -5,8 +5,9 @@ encoder-decoder, Seamless, HSTU, SSM and hybrid families).
 
 A tensor-parallel rank's ``Model`` carries its group (``tp``, see
 ``distributed/tp_pool.py``): its config has the rank's widths, and its
-forward reduces over the group (the dense, vlm, moe, mla_moe, ssm, encdec
-and seamless families)."""
+forward reduces over the group (the dense, vlm, moe, mla_moe, ssm, encdec,
+seamless and hybrid families); a hybrid rank's caches also take the group,
+which decides whether its rings split along their rows."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -32,7 +33,8 @@ class Model:
         return self.module.init(self.config, gen, device)
 
     def init_cache(self, batch: int, max_len: int, device) -> Any:
-        return self.module.init_cache(self.config, batch, max_len, device)
+        kw = {} if self.tp is None or self.config.hybrid is None else {"tp": self.tp}
+        return self.module.init_cache(self.config, batch, max_len, device, **kw)
 
     def forward(
         self,

@@ -221,9 +221,9 @@ def test_tp_refuses_other_families_by_name(arch):
 @pytest.mark.parametrize("arch", sorted(a for a, c in CONFIGS.items()
                                         if c.family in tp_pool.FAMILIES))
 def test_tp_serves_the_transformer_families(arch):
-    """Every dense, vlm, moe, mla_moe, ssm, encdec and seamless config
-    splits at TP = 2, published and smoke widths alike (whisper-base's odd
-    vocabulary stays whole)."""
+    """Every dense, vlm, moe, mla_moe, ssm, encdec, seamless and hybrid
+    config splits at TP = 2, published and smoke widths alike (whisper-base's
+    odd vocabulary stays whole)."""
     tp_pool.check_supported(CONFIGS[arch], 2)
     tp_pool.check_supported(get_smoke_config(arch), 2)
 

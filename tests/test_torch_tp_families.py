@@ -508,10 +508,11 @@ def test_launcher_serves_the_families_at_tp2(capfd, arch, extra):
     assert f"{reduces_per_forward(cfg, quant)} a forward" in out
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "hstu"])
+@pytest.mark.parametrize("arch", ["hstu"])
 def test_launcher_refuses_the_other_families_by_name(arch):
-    """``serve --tp 2`` refuses the hybrid and hstu families before any rank
-    starts, naming the ROADMAP item (the ssm, encdec and seamless families
-    serve: ``tests/test_torch_tp_ssm_encdec.py``)."""
+    """``serve --tp 2`` refuses the hstu family before any rank starts,
+    naming the ROADMAP item (the ssm, encdec and seamless families serve:
+    ``tests/test_torch_tp_ssm_encdec.py``; the hybrid:
+    ``tests/test_torch_tp_hybrid.py``)."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, step 6"):
         serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--tp", "2"])
