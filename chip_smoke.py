@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero and prints no result). They are listed
 by number; they run in this order: 1-4, 7b, then 7f (tp) beside 4b-7 and
-8-10, the tp kernel records, then 12-13 (moe, mla: a process of their own)
+8-10, the tp kernel records, 7g (tp fleet, with the card to itself), then
+12-13 (moe, mla: a process of their own)
 beside 7d, 7e, 7c, 11, 16 and 18, the MLA and hybrid kernel records, 14,
 15, 17. Served steps keep the host busy and the card mostly idle, so the
 work beside overlaps well; the phases that run beside another (``BESIDE``,
@@ -261,6 +262,26 @@ under that load. Every kernel record is timed with the card to itself.
              ``python3 chip_smoke.py tp`` runs device, build and this phase
              alone, with no result lines (``tp FAMILY ...``: only those
              TP_FAMILIES and their records);
+7g. tp fleet — full-width llama3.2-1b (bf16, seeded weights) served by a
+             DP x TP fleet: ``ReplicaRouter(tp=2)`` of 2 replicas, each a
+             TP = 2 pool on the group (cuda:0, cuda:0), run by two
+             ``torch.distributed`` processes under gloo, process r rank r of
+             both replicas, each replica with its own process group and
+             shared slots, both on the rank's one shard. Rank 0 first serves
+             phase 4f's ``x2`` and ``x2 chunked`` arms again on the whole
+             model, recorded (their tokens and host counters 4f's); then
+             each arm through the fleet, teacher-forced to the recording:
+             placements, spills, requeues and each replica's steps,
+             prefills, chunks and preemptions 4f's on both processes,
+             launches exact against the replicas' summed forwards and the
+             same on both, each replica's reduces ``reduces_per_forward`` a
+             forward, KV a rank <= 0.6x a replica's and params the specs'
+             bytes, |dlogit| within TP_DLOGIT_BOUND, which the contiguous
+             arm with the decode kernel one key short breaks. It runs with
+             the card to itself after the tp join (beside the tp ranks'
+             MoE and MLA models the card ran out of memory). Printed,
+             labelled as 7f's: wall, tok/s, the aggregate over
+             ``busy_max_s`` and each replica's reduces and their host ms;
 8. hstu    — full-width HSTU (14 layers, d 512, 8 heads, band 1024 from
              layer 3, bf16, seeded weights) scores 8 user histories from
              ``hstu_user_histories(seed=0)``, right-padded with ``lengths``:
@@ -2692,12 +2713,20 @@ def phase_router(cfg, model, params, pad_to, single):
     replica's line printed. Then the two-phase step's contract
     (``sync_contract``), the host time of two replicas' ``step_begin``
     against one replica's ``step()`` (``begin_host_ms``), and the starvation
-    trace with and without aging (``starvation``)."""
+    trace with and without aging (``starvation``). Returns, for the tp fleet
+    arm, each FLEET_ARMS router arm's tokens, host counters (``fleet_host``)
+    and KV bytes, by the fleet's arm name."""
+    fleet = {}
     for arm, (n, temp, top_p, geometry, want, rule) in ROUTER_ARMS.items():
         tag = f"router/{arm}"
-        m, toks, _ = serve_once(model, params, cfg, pad_to, policy="continuous",
-                                int8_mode=None, tag=tag, temperature=temp, top_p=top_p,
-                                replicas=n, **geometry)
+        with kept_routers() as routers:
+            m, toks, _ = serve_once(model, params, cfg, pad_to, policy="continuous",
+                                    int8_mode=None, tag=tag, temperature=temp, top_p=top_p,
+                                    replicas=n, **geometry)
+        for fleet_arm, router_arm in FLEET_ARMS.items():
+            if router_arm == arm:
+                fleet[fleet_arm] = dict(tokens=toks, host=fleet_host(routers[-1]),
+                                        kv_reserved_bytes=m["kv_reserved_bytes"])
         check(m["replicas"] == n and len(m["per_replica"]) == n, f"{tag}: not {n} replicas")
         check(m["requeues"] == m.get("n_preemptions", 0),
               f"{tag}: {m['requeues']} requeues for {m.get('n_preemptions', 0)} preemptions")
@@ -2723,6 +2752,7 @@ def phase_router(cfg, model, params, pad_to, single):
     sync_contract(cfg, model, params, pad_to)
     begin_host_ms(cfg, model, params, pad_to)
     starvation(cfg, model, params)
+    return fleet
 
 
 def sync_contract(cfg, model, params, pad_to):
@@ -4220,7 +4250,8 @@ def forcing(rec):
     through the scheduler module's own name, and LayerSkip's
     ``draft_window``, which a TP rank's ``tp_draft_window`` calls too), the
     engine's four forwards (their live lanes and rows), the
-    scheduler (to read its slots) and ``moe.moe_ffn`` (each layer's routing,
+    scheduler (to read the slots of the pool that steps or admits: a
+    router's replicas take turns) and ``moe.moe_ffn`` (each layer's routing,
     recomputed from its input)."""
     import torch
 
@@ -4284,12 +4315,21 @@ def forcing(rec):
 
     real_sched = serve.Scheduler
 
-    class Seen(real_sched):
+    class Seen(real_sched):  # ``rec.sched``: the pool whose draws come (a router's replica)
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             rec.sched = self
 
+        def step_begin(self):
+            rec.sched = self
+            return super().step_begin()
+
+        def step_finish(self, pending):
+            rec.sched = self
+            return super().step_finish(pending)
+
         def _admit_one(self, req, now):
+            rec.sched = self
             rec.admitting = req.rid
             try:
                 return super()._admit_one(req, now)
@@ -7863,6 +7903,208 @@ def check_tp_family(family, ranks, pad_to):
     return bad
 
 
+# ---------------------------------------------------------------- tp fleet
+#: the tp fleet arm: 2 replicas, each a TP = 2 pool, on the tp phase's two
+#: gloo ranks' card; process r is rank r of both replicas (every replica's
+#: group the one TP_DEVICES pair, whole), the router's arms it is forced to
+FLEET_REPLICAS = 2
+FLEET_ARMS = {"contiguous": "x2", "chunked": "x2 chunked"}
+FLEET_COUNTERS = ("n_decode_steps", "n_prefills", "n_chunks", "n_preemptions")
+
+
+@contextlib.contextmanager
+def kept_routers():
+    """The ``ReplicaRouter``s made within (``serve._run_router``'s), kept
+    in a list for their host state."""
+    from repro_torch.core import router as router_mod
+
+    real, kept = router_mod.ReplicaRouter, []
+
+    class Kept(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            kept.append(self)
+
+    router_mod.ReplicaRouter = Kept
+    try:
+        yield kept
+    finally:
+        router_mod.ReplicaRouter = real
+
+
+def fleet_host(router):
+    """A fleet's host counters: placements, spills, requeues and each
+    replica's steps, prefills, chunks and preemptions."""
+    return {"placements": dict(router.placements), "spills": router.n_spills,
+            "requeues": router.n_requeues,
+            "replicas": [{k: getattr(s, k) for k in FLEET_COUNTERS} for s in router.replicas]}
+
+
+def tp_fleet_rank(group, pad_to, want):
+    """One process of the tp fleet arm (``tp_pool.spawn``; both on cuda:0,
+    gloo), rank ``group.rank`` of both replicas. Rank 0 first serves each
+    router arm of FLEET_ARMS again on the whole model, recorded
+    (``Forced``), while rank 1 waits. Then each process serves each arm
+    through ``ReplicaRouter(tp=2)`` (``serve_once``: exact launches a rank
+    against the replicas' summed forwards, no leaked block), teacher-forced
+    to the recording (rank 0 forces and compares; its tokens reach rank 1
+    through each replica's broadcast), the contiguous arm also with the
+    decode kernel one key short on both ranks. ``want``: arm -> the router
+    arm's tokens and host counters. Returns the rank's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.kv_cache import cache_bytes
+    from repro_torch.distributed import tp_pool
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank0 = group.rank == 0
+    dev = group.device
+    cfg, model, params = serve.build_model(ARCH, smoke=False, seed=SEED, device=dev)
+    out = {"rank": group.rank, "arms": {}, "recorded": {}, "whole_param_bytes": cache_bytes(params),
+           "spec_param_bytes": tp_spec_bytes(cfg, params, TP_RANKS)}
+    recs = {}
+    if rank0:
+        for arm, router_arm in FLEET_ARMS.items():
+            rec = Forced("record")
+            tag = f"tp fleet {arm} router/{router_arm} recorded"
+            with forcing(rec), kept_routers() as routers:
+                _, toks, _ = serve_once(model, params, cfg, pad_to, policy="continuous",
+                                        int8_mode=None, tag=tag, replicas=FLEET_REPLICAS,
+                                        **TP_ARMS[arm])
+            recs[arm] = rec
+            out["recorded"][arm] = (toks == want[arm]["tokens"], fleet_host(routers[-1]))
+    dist.barrier()
+    devices = [TP_DEVICES] * FLEET_REPLICAS
+    warm = tp_pool.TPContext(model, params, group)
+    for geometry in TP_ARMS.values():
+        serve.warmup(warm.model, warm.params, slots=SLOTS, pad_to=pad_to, max_new_cap=MAX_NEW,
+                     device=dev, tp=warm, **geometry)
+    del warm
+    torch.cuda.empty_cache()
+    for arm, geometry in TP_ARMS.items():
+        res = out["arms"].setdefault(arm, {})
+        for run in (("forced", "control") if arm == "contiguous" else ("forced",)):
+            tag = f"tp fleet {arm} rank {group.rank} {run}"
+            rec = Forced("steps", recs[arm]) if rank0 else None
+            with (forcing(rec) if rec is not None else contextlib.nullcontext()), \
+                    (one_key_short(da, "decode_attention_cuda", 3) if run == "control"
+                     else contextlib.nullcontext()), kept_routers() as routers:
+                m, toks, counts = serve_once(model, params, cfg, pad_to, policy="continuous",
+                                             int8_mode=None, tag=tag, tp=TP_RANKS, group=group,
+                                             replicas=FLEET_REPLICAS, devices=devices,
+                                             **geometry)
+            router = routers[-1]
+            r = dict(host=fleet_host(router), counts=counts, tokens=toks == want[arm]["tokens"],
+                     slots=[s.tp.group.slots is not None for s in router.replicas],
+                     shared=router.replicas[0].tp.params is router.replicas[1].tp.params,
+                     **{k: m[k] for k in (
+                         "tokens_per_s", "ttft_p50_ms", "tpot_p50_ms", "wall_s", "busy_max_s",
+                         "aggregate_tokens_per_s", "kv_reserved_bytes",
+                         "kv_reserved_per_device_bytes", "param_bytes_per_device", "backend",
+                         "per_replica")})
+            if rec is not None:
+                r["dlogit"] = rec.summary(tag)[1]
+            res[run] = r
+            del router, routers  # its shard and pools
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def phase_tp_fleet(pad_to, want):
+    """Full-width llama3.2-1b (bf16, seeded weights) served by a DP x TP
+    fleet of FLEET_REPLICAS replicas at TP = 2 (``tp_fleet_rank``): two
+    ``torch.distributed`` processes on the one card, each rank r of both
+    replicas. Each run teacher-forced to the router arm's draws
+    (FLEET_ARMS) within TP_DLOGIT_BOUND, which the contiguous arm with the
+    decode kernel one key short breaks; every run's placements, spills,
+    requeues and each replica's steps, prefills, chunks and preemptions the
+    router arm's (``want``: arm -> its tokens and ``fleet_host``), on both
+    processes; each rank's launches exact (``serve_once``) and the same on
+    both; each replica's reduces ``reduces_per_forward`` a forward of its
+    own, through slots of its own; a rank's KV and params half a replica's
+    (KV at most 0.6x, params the serving specs' bytes), both replicas on
+    the rank's one shard. Prints wall, tok/s, the aggregate over
+    ``busy_max_s`` and each replica's reduces (TP_LABEL)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tp_pool
+
+    t0 = time.perf_counter()
+    with expandable_segments():
+        ranks = tp_pool.spawn(tp_fleet_rank, TP_RANKS, pad_to, want, devices=list(TP_DEVICES))
+    r0 = ranks[0]
+    per_fwd = reduces_per_forward(get_config(ARCH))
+    label = f"{FLEET_REPLICAS} replicas x TP = {TP_RANKS}, {tp_label()}"
+    for arm, router_arm in FLEET_ARMS.items():
+        same, host = r0["recorded"][arm]
+        check(same and host == want[arm]["host"],
+              f"tp fleet {arm}: rank 0's recording of router/{router_arm} is not its run "
+              f"(tokens the same: {same}; host {host}, the router arm's {want[arm]['host']})")
+        for r in ranks:
+            for run, res in r["arms"][arm].items():
+                tag = f"tp fleet {arm} rank {r['rank']} {run}"
+                check(res["host"] == want[arm]["host"], f"{tag}: host counters {res['host']}, "
+                      f"router/{router_arm}'s {want[arm]['host']}")
+                check(res["tokens"], f"{tag}: the forced run's tokens are not "
+                      f"router/{router_arm}'s")
+                check(res["counts"] == r0["arms"][arm][run]["counts"],
+                      f"{tag}: launches differ from rank 0's")
+                check(res["backend"] == "gloo" and all(res["slots"]) and res["shared"],
+                      f"{tag}: backend {res['backend']}, slots {res['slots']}, one shard "
+                      f"{res['shared']}")
+                whole = res["kv_reserved_bytes"] // FLEET_REPLICAS  # a replica, counted once
+                check(res["kv_reserved_bytes"] == want[arm]["kv_reserved_bytes"]
+                      and res["kv_reserved_per_device_bytes"] / whole <= 0.6,
+                      f"{tag}: KV {res['kv_reserved_per_device_bytes']} B a rank of {whole} B "
+                      f"a replica; the router arm's pools {want[arm]['kv_reserved_bytes']} B")
+                check(res["param_bytes_per_device"] == r0["spec_param_bytes"],
+                      f"{tag}: {res['param_bytes_per_device']} B of params a rank, the serving "
+                      f"specs give {r0['spec_param_bytes']} B")
+                for e in res["per_replica"]:
+                    n_fwd = e["prefills"] + e["decode_steps"]
+                    check(e["reduces"] == per_fwd * n_fwd,
+                          f"{tag}: replica {e['replica']} reduced {e['reduces']} times over "
+                          f"{n_fwd} forwards, reduces_per_forward gives {per_fwd} a forward")
+        first = r0["arms"][arm]["forced"]
+        whole = first["kv_reserved_bytes"] // FLEET_REPLICAS
+        print(f"[tp fleet {arm}] {label} | placements, spills {want[arm]['host']['spills']}, "
+              f"requeues {want[arm]['host']['requeues']}, each replica's counters "
+              f"{want[arm]['host']['replicas']} as router/{router_arm}'s on both processes, "
+              f"every run | KV reserved a rank {first['kv_reserved_per_device_bytes']} B of "
+              f"{whole} B a replica ({first['kv_reserved_per_device_bytes'] / whole:.4f}x) | "
+              f"params a rank {first['param_bytes_per_device']} B of {r0['whole_param_bytes']} "
+              f"B ({first['param_bytes_per_device'] / r0['whole_param_bytes']:.4f}x: the specs' "
+              f"bytes; both replicas on one shard) | launches a rank {first['counts']}",
+              flush=True)
+        for run, res in r0["arms"][arm].items():
+            reps = "; ".join(
+                f"replica {e['replica']} ({e['device']}): {e['prefills'] + e['decode_steps']} "
+                f"forwards, {e['reduces']} reduces, {e['reduce_s'] * 1e3:.1f} ms host in them, "
+                f"busy {e['busy_s']:.3f} s" for e in res["per_replica"])
+            print(f"[tp fleet {arm} {run}] {label} | wall {res['wall_s']:.3f} s | "
+                  f"{res['tokens_per_s']:.1f} tok/s | aggregate "
+                  f"{res['aggregate_tokens_per_s']:.1f} tok/s over busy max "
+                  f"{res['busy_max_s']:.3f} s | ttft p50 {res['ttft_p50_ms']:.2f} ms | tpot p50 "
+                  f"{res['tpot_p50_ms']:.3f} ms | rank 0: {reps} | max |dlogit| "
+                  f"{res['dlogit']:.6f} (bound {TP_DLOGIT_BOUND})", flush=True)
+            if run == "control":
+                check(res["dlogit"] > TP_DLOGIT_BOUND, f"tp fleet {arm} control: a decode "
+                      f"kernel one key short stayed within the bound ({res['dlogit']} <= "
+                      f"{TP_DLOGIT_BOUND})")
+            else:
+                check(res["dlogit"] <= TP_DLOGIT_BOUND, f"tp fleet {arm}: max |dlogit| "
+                      f"{res['dlogit']} against router/{router_arm}, bound {TP_DLOGIT_BOUND}")
+    print(f"[tp fleet] the ranks {r0['seconds']:.1f} s | phase {time.perf_counter() - t0:.1f} s | "
+          f"max_memory_allocated a process {[r['peak_bytes'] for r in ranks]} B", flush=True)
+    return r0
+
+
 def tp_kernel_records(pad_to, r0):
     """The attention kernels at a rank's shapes of full-width llama3.2-1b at
     TP = 2 (16 q heads over 4 KV heads of 64): flash at the served prefill,
@@ -8606,9 +8848,9 @@ def main() -> None:
                              runs["continuous"][1])
         timed("prefix", phase_prefix, cfg, model, params)
         t0 = time.perf_counter()
-        phase_router(cfg, model, params, pad_to, {"serve": runs["continuous"][1],
-                                                  "sampled": sampled_toks,
-                                                  "paged": paged_toks["paged"]})
+        fleet_want = phase_router(cfg, model, params, pad_to, {"serve": runs["continuous"][1],
+                                                               "sampled": sampled_toks,
+                                                               "paged": paged_toks["paged"]})
         print(f"[router] phase {time.perf_counter() - t0:.1f} s", flush=True)
         timed("parity", phase_parity, model, params, pad_to, trace[:2], runs["continuous"][1])
         timed("profile", phase_profile, model, params, pad_to, trace,
@@ -8618,6 +8860,10 @@ def main() -> None:
         ssm_counts, ssm_f32_counts = timed("ssm", phase_ssm, pad_to)
         seamless_counts, _ = timed("seamless", phase_seamless)
         records += timed("tp kernel records", tp_kernel_records, pad_to, tp.join())
+        # the DP x TP fleet's two processes serve with the card to themselves:
+        # beside the tp ranks' MoE and MLA models the card ran out of memory
+        TP_BESIDE["on"] = False
+        timed("tp fleet", phase_tp_fleet, pad_to, fleet_want)
         # the moe and mla phases serve in a process of their own beside the
         # BESIDE["moe, mla"] phases; their kernel records wait for the join
         side = Beside("moe, mla", side_moe, pad_to, process=True)

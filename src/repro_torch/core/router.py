@@ -1,8 +1,7 @@
 """ReplicaRouter: data-parallel scheduler pools behind one shared queue — the
-port of ``repro/core/router.py``. The DP x TP fleet (``tp > 1``: each
+port of ``repro/core/router.py``, with its DP x TP fleet (``tp > 1``: each
 replica a tensor-parallel pool on its own device group,
-``sharding.replica_devices(group_size=tp)``) is refused by name: ROADMAP
-Queue 1, step 6.
+``sharding.replica_devices(group_size=tp)``).
 
 The router owns N ``Scheduler`` pools of one geometry (contiguous or paged,
 chunked or not) and places each arrived request on one of them:
@@ -32,6 +31,16 @@ and step time, and ``busy_max_s`` the busiest: with one card per replica it
 would bound the fleet's wall. On one shared card a replica's finish also
 waits for the kernels queued before its own, so there it emulates such a
 fleet and measures none.
+
+The DP x TP fleet runs SPMD on the ``tp`` processes of ``tp_pool.spawn``:
+process r holds rank r of every replica (``Scheduler(tp=TPContext)``, its
+collectives on a group of the replica's own, ``tp_pool.replica_group``) and
+the host state of all of them, and runs this same loop. The router's clock
+is rank 0's (``TPGroup.shared_clock``), as each replica's is, so every
+process places every request alike and all enter the same collectives in
+the same order. A TP step waits on its collectives, so a round's begins
+overlap nothing there; ``busy_s`` a replica then includes the wait on its
+other ranks.
 """
 from __future__ import annotations
 
@@ -74,7 +83,15 @@ class ReplicaRouter:
     every replica on ``cuda:0`` with the one params object otherwise; it
     raises without a card (no fallback). An explicit list gives each
     replica its device (the tests pass ``["cpu"] * n``). All replicas share
-    ``base_key``: the tokens' independence of placement depends on it."""
+    ``base_key``: the tokens' independence of placement depends on it.
+
+    ``tp > 1`` makes each replica a tensor-parallel pool of ``tp`` ranks;
+    this process is rank ``group.rank`` of every one (``group``: its
+    ``TPGroup`` from ``tp_pool.spawn``, of ``tp`` ranks), and ``model`` /
+    ``params`` are the whole model's. ``devices`` is then one ``tp``-sized
+    tuple a replica (``"auto"``: ``sharding.replica_devices(replicas,
+    group_size=tp)`` over the cards, whole groups round-robin); replicas on
+    one group share this rank's shard."""
 
     def __init__(
         self,
@@ -97,41 +114,61 @@ class ReplicaRouter:
         clock=time.perf_counter,
         devices: Any = "auto",
         tp: Optional[int] = None,
+        group: Optional[tp_pool.TPGroup] = None,
     ):
         if replicas < 1:
             raise ValueError(f"need at least one replica, got {replicas}")
-        if tp is not None and tp > 1:
-            raise ValueError(f"tensor-parallel replicas (tp > 1): {tp_pool.ROADMAP_ITEM}")
+        self.tp = tp if tp is not None and tp > 1 else None
         if isinstance(devices, str) and devices == "auto":
             if not torch.cuda.is_available():
                 raise RuntimeError(
                     "ReplicaRouter(devices='auto'): no CUDA device is available (pass "
                     "devices=['cpu'] * replicas to serve on the CPU)")
-            n_cards = torch.cuda.device_count()
-            devices = (_replica_devices(replicas) if n_cards > 1
-                       else [torch.device("cuda", 0)] * replicas)
+            if self.tp is not None:  # whole groups; raises without one tp-sized group
+                devices = sharding.replica_devices(replicas, group_size=self.tp)
+            elif torch.cuda.device_count() > 1:
+                devices = _replica_devices(replicas)
+            else:
+                devices = [torch.device("cuda", 0)] * replicas
         if len(devices) != replicas:
             raise ValueError(f"{replicas} replicas need {replicas} devices, got {len(devices)}")
-        devices = [torch.device(d) for d in devices]
         base_key = prng.PRNGKey(0) if base_key is None else base_key
-        self.clock = clock
         # aging happens at the SHARED queue (a replica's own queue holds
         # only preemption replays between rounds), so the router owns it
         self.priority_boost_after = priority_boost_after
         self.n_priority_boosts = 0
-        self.replicas: List[Scheduler] = [
-            Scheduler(
-                model, _place_replica(params, dev), slots=slots, pad_to=pad_to,
-                max_new_cap=max_new_cap, device=dev, eos_id=eos_id, paged=paged,
-                block_size=block_size, num_blocks=num_blocks, chunked=chunked,
-                prefill_budget=prefill_budget,
-                # each replica's own trie: its cached blocks live in its pool
-                prefix_cache=prefix_cache,
-                base_key=base_key,  # shared: tokens must not depend on placement
-                clock=clock, replica_id=i,
-            )
-            for i, dev in enumerate(devices)
-        ]
+        geometry = dict(
+            slots=slots, pad_to=pad_to, max_new_cap=max_new_cap, eos_id=eos_id, paged=paged,
+            block_size=block_size, num_blocks=num_blocks, chunked=chunked,
+            prefill_budget=prefill_budget,
+            # each replica's own trie: its cached blocks live in its pool
+            prefix_cache=prefix_cache,
+            base_key=base_key,  # shared: tokens must not depend on placement
+            clock=clock)
+        self.replicas: List[Scheduler] = []
+        if self.tp is None:
+            self.devices = [torch.device(d) for d in devices]
+            self.clock = clock
+            self.replicas = [
+                Scheduler(model, _place_replica(params, dev), device=dev, replica_id=i,
+                          **geometry)
+                for i, dev in enumerate(self.devices)]
+        else:
+            tp_pool.check_supported(model.config, self.tp)  # before any group forms
+            if group is None or group.size != self.tp:
+                raise ValueError(f"tp={self.tp} replicas need this rank's TPGroup of "
+                                 f"{self.tp} ranks, got {group}")
+            self.devices = [tuple(torch.device(d) for d in g) for g in devices]
+            # every process places on rank 0's clock; each replica's scheduler
+            # wraps the raw clock in its own group's broadcast
+            self.clock = group.shared_clock(clock)
+            shards: Dict[tuple, tp_pool.TPContext] = {}
+            for i, devs in enumerate(self.devices):
+                g = tp_pool.replica_group(group, devs, i)
+                ctx = shards[devs].on_group(g) if devs in shards else tp_pool.TPContext(
+                    model, params, g)
+                shards.setdefault(devs, ctx)
+                self.replicas.append(Scheduler(model, None, tp=ctx, replica_id=i, **geometry))
         self.waiting: Deque[ServeRequest] = deque()
         self.finished: List[ServeRequest] = []
         # rid -> every replica that admitted it (a replay after a preemption
@@ -263,7 +300,9 @@ class ReplicaRouter:
 
     @property
     def reserved_bytes(self) -> int:
-        return sum(s.pool.reserved_bytes for s in self.replicas)
+        """The fleet's KV pools, a TP replica's counted once whole."""
+        return sum(s.pool.reserved_bytes if s.tp is None else s.tp.whole_bytes(s.pool.cache)
+                   for s in self.replicas)
 
     @property
     def n_prefix_lookups(self) -> int:
@@ -325,10 +364,11 @@ class ReplicaRouter:
         for path in self.placements.values():
             served[path[-1]] += 1
         out = []
-        for s in self.replicas:
+        for s, dev in zip(self.replicas, self.devices):
             e: Dict[str, Any] = {
                 "replica": s.replica_id,
-                "device": str(s.device),
+                # a TP replica's group, one device a rank
+                "device": str(dev) if self.tp is None else ",".join(map(str, dev)),
                 "n_requests": served[s.replica_id],
                 "decode_steps": s.n_decode_steps,
                 "prefills": s.n_prefills,

@@ -40,6 +40,14 @@ broadcasts every token the scheduler commits and every clock reading it
 acts on, so admissions, preemptions, block tables and the prefix cache
 agree and the ranks enter the same collectives in the same order.
 
+A DP x TP fleet (``core/router.py``, ``ReplicaRouter(tp=...)``) runs on
+the same ``tp`` processes: process r is rank r of every replica, and every
+process runs the one router loop on rank 0's clock, so all of them place
+alike and enter the same collectives in the same order. Each replica's
+collectives are its own (:func:`replica_group`: a process group and shared
+slots a replica), and replicas on one device group share the rank's shard
+(:meth:`TPContext.on_group`).
+
 A collective waits on the host (through the slots or gloo), so a TP step
 syncs: the no-sync contract of ``Scheduler.step_begin`` holds for
 single-device steps only, and a TP step is not captured as a CUDA graph.
@@ -70,6 +78,7 @@ where the reference falls back to the sequence axis or replicates.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import os
@@ -162,17 +171,21 @@ class TPGroup:
     """One rank's handle on its tensor-parallel group: ``rank`` of ``size``
     on ``device``, and the group's two collectives, through ``slots`` (a
     ``SharedSlots``) when the ranks have them and the tensor fits, else
-    through the process group. A group of one rank (``size == 1``) needs no
-    process group: its collectives return their input. Counts each
-    ``all_reduce`` and its host seconds (``n_reduces``, ``reduce_s``) and
-    each ``broadcast`` (``n_broadcasts``)."""
+    through the process group ``pg`` (None: the default one). A group of one
+    rank (``size == 1``) needs no process group: its collectives return
+    their input. Counts each ``all_reduce`` and its host seconds
+    (``n_reduces``, ``reduce_s``) and each ``broadcast`` (``n_broadcasts``).
+    ``store`` is the path of the file store the ranks met through, beside
+    which a replica's group keeps its own slots (``replica_group``)."""
 
     def __init__(self, rank: int, size: int, device, backend: Optional[str] = None,
-                 slots: Optional[SharedSlots] = None):
+                 slots: Optional[SharedSlots] = None, pg=None, store: Optional[str] = None):
         self.rank, self.size = rank, size
         self.device = torch.device(device)
         self.backend = backend
         self.slots = slots
+        self.pg = pg
+        self.store = store
         self.n_reduces = 0
         self.reduce_s = 0.0
         self.n_broadcasts = 0
@@ -187,13 +200,13 @@ class TPGroup:
         if self._in_slots(x):
             self.slots.all_reduce(x, op)
         else:
-            dist.all_reduce(x, op=op)
+            dist.all_reduce(x, op=op, group=self.pg)
 
     def _broadcast(self, x: torch.Tensor, src: int) -> None:
         if self._in_slots(x):
             self.slots.broadcast(x, src)
-        else:
-            dist.broadcast(x, src)
+        else:  # a replica's group holds every rank in order: its ranks are global
+            dist.broadcast(x, src, group=self.pg)
 
     def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
         """``x`` reduced over the ranks by ``op`` (a sum), in place; returns
@@ -284,15 +297,49 @@ def make_tp_group(tp: int, devices: Optional[Sequence[Any]] = None, *, rank: int
         if init_method is None:
             raise ValueError("a group of more than one rank needs an init_method")
         dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=tp)
-    slots = None
-    if (tp > 1 and backend == "gloo" and init_method is not None
-            and init_method.startswith("file://") and platform.machine() == "x86_64"):
-        # the ranks of a file store share its host: slots beside the store
-        slots = SharedSlots(init_method[len("file://"):] + ".slots", rank, tp)
-        if rank == 0:
-            slots.published[:] = 0
-        dist.barrier()
-    return TPGroup(rank, tp, devs[rank], backend, slots)
+    store = None
+    if tp > 1 and init_method is not None and init_method.startswith("file://"):
+        store = init_method[len("file://"):]
+    slots = _slots(store, ".slots", rank, tp, backend)
+    return TPGroup(rank, tp, devs[rank], backend, slots, store=store)
+
+
+def _slots(store: Optional[str], suffix: str, rank: int, size: int, backend: str,
+           pg=None) -> Optional[SharedSlots]:
+    """The ranks' shared slots at ``<store><suffix>``, every rank's count
+    zeroed before any uses them; None unless gloo ranks met through a file
+    store on an x86-64 host (they share it)."""
+    if store is None or backend != "gloo" or platform.machine() != "x86_64":
+        return None
+    slots = SharedSlots(store + suffix, rank, size)
+    if rank == 0:
+        slots.published[:] = 0
+    dist.barrier(group=pg)
+    return slots
+
+
+def replica_group(group: TPGroup, devices: Sequence[Any], replica: int) -> TPGroup:
+    """This rank's handle on replica ``replica``'s group in a DP x TP fleet
+    (``core/router.py``): rank ``group.rank`` of ``group.size`` on
+    ``devices[group.rank]`` (``devices``: the replica's ``tp``-sized tuple
+    from ``sharding.replica_devices``), with collectives of its own: a
+    process group of every rank (``dist.new_group``, under
+    :func:`backend_for` ``devices``' backend) and, for gloo ranks of a file
+    store, slots beside the store (``<store>.slots.r<replica>``). So its
+    ``n_reduces`` and ``reduce_s`` are the replica's, and its collectives
+    never meet another replica's. Every rank calls it for every replica, in
+    the same order."""
+    devs = [torch.device(d) for d in devices]
+    if len(devs) != group.size:
+        raise ValueError(f"replica {replica}: a group of tp={group.size} ranks needs "
+                         f"{group.size} devices, got {len(devs)}")
+    backend = backend_for(devs)
+    if group.size == 1:
+        return TPGroup(0, 1, devs[0], backend)
+    pg = dist.new_group(list(range(group.size)), backend=backend)
+    slots = _slots(group.store, f".slots.r{replica}", group.rank, group.size, backend, pg)
+    return TPGroup(group.rank, group.size, devs[group.rank], backend, slots, pg=pg,
+                   store=group.store)
 
 
 def _rank_main(rank: int, fn, tp: int, devices, init_method: str, results, args) -> None:
@@ -444,6 +491,17 @@ class TPContext:
         index = functools.partial(sharding.tp_rank_index, cfg, rank=group.rank, size=group.size)
         shard = sharding.shard_tree(params, specs, group.rank, group.size, index=index)
         self.params = kv_cache._map(lambda t: t.to(self.device), shard)
+
+    def on_group(self, group: TPGroup) -> "TPContext":
+        """This rank's shard served through ``group`` instead (another
+        replica's group on the same device): the params are shared, not cut
+        again."""
+        if (group.rank, group.size, group.device) != (self.rank, self.size, self.device):
+            raise ValueError(f"{group} is not this shard's rank and device ({self.group})")
+        other = copy.copy(self)
+        other.group = group
+        other.model = dataclasses.replace(self.model, tp=group)
+        return other
 
     def executables(self) -> types.SimpleNamespace:
         """The TP step family with the single-device call signatures."""

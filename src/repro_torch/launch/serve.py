@@ -25,7 +25,11 @@ block at admission and prefills only the suffix, with the cold tokens;
 this geometry behind one shared queue (``core/router.py``), every replica
 on the one card (or round-robin over the cards when there are several; on
 the CPU with ``--device cpu``), and prints the fleet's spills, requeues,
-busy-time rate and one line per replica. ``--boost-after S`` ages waiting
+busy-time rate and one line per replica; with ``--tp N`` every replica is
+a tensor-parallel pool of N ranks (a DP x TP fleet: N processes, each rank r
+of every replica; ``--tp-devices`` names one group of N devices, which the
+replicas wrap onto whole), and the fleet prints the KV bytes a device
+reserves and each replica's reduces. ``--boost-after S`` ages waiting
 requests: one priority a full ``S`` seconds waited. ``--tp N`` serves one pool
 as N tensor-parallel ranks (``distributed/tp_pool.py``; the dense, vlm, moe,
 mla_moe, ssm, encdec, seamless and hybrid families, bf16 or ``--quant``'d):
@@ -77,6 +81,10 @@ carries stub encoder frames drawn from ``--seed`` (``attach_frames``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --tp 2 --tp-devices cuda:0,cuda:0 --paged --chunked --num-blocks 48 \
       --prefill-budget 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --smoke --device cpu --tp 2 --replicas 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --tp 2 --tp-devices cuda:0,cuda:0 --replicas 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
       --n-layers 3 --tp 2 --tp-devices cuda:0,cuda:0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
@@ -459,7 +467,7 @@ def run_scheduler(
     chunked: bool = False, prefill_budget: Optional[int] = None,
     prefix_cache: bool = False, priority_boost_after: Optional[float] = None,
     seed: int = 0, replicas: Optional[int] = None, devices="auto",
-    return_requests: bool = False, tp=None,
+    return_requests: bool = False, tp=None, group=None,
 ):
     """Serve one trace under the serve key ``PRNGKey(seed)``; returns
     metrics (plus the scheduler's counters). Paged runs report the bytes
@@ -478,23 +486,27 @@ def run_scheduler(
     pool, every rank calling with the same trace: the metrics are the same
     on every rank, and add ``kv_reserved_per_device_bytes`` (the largest
     rank's pool; ``kv_reserved_bytes`` is the whole pool's), the backend, the
-    reduces the run made and their host seconds."""
-    if tp is not None:
-        if replicas is not None:
-            raise ValueError(f"tensor-parallel replicas: {tp_pool.ROADMAP_ITEM}")
-        device = tp.device
-    device = torch.device(device)
+    reduces the run made and their host seconds. With ``replicas``, ``tp``
+    is the reference's degree instead (an int): a DP x TP fleet whose every
+    replica is a tensor-parallel pool of ``tp`` ranks, this process rank
+    ``group.rank`` of each (``group``: its ``TPGroup``; ``model`` and
+    ``params`` the whole model's; ``_run_router``)."""
     if replicas is not None:
+        device = torch.device(device)
         if isinstance(devices, str) and devices == "auto" and device.type != "cuda":
-            devices = [device] * replicas
+            devices = ([device] * replicas if tp is None or tp <= 1
+                       else [(device,) * tp] * replicas)
         return _run_router(
             model, params, requests, replicas=replicas, devices=devices, slots=slots,
             pad_to=pad_to, max_new_cap=max_new_cap, eos_id=eos_id, policy=policy,
             paged=paged, block_size=block_size, num_blocks=num_blocks, chunked=chunked,
             prefill_budget=prefill_budget, prefix_cache=prefix_cache,
-            priority_boost_after=priority_boost_after, seed=seed,
+            priority_boost_after=priority_boost_after, seed=seed, tp=tp, group=group,
             return_requests=return_requests,
         )
+    if tp is not None:
+        device = tp.device
+    device = torch.device(device)
     sched = Scheduler(
         model, params, slots=slots, pad_to=pad_to, max_new_cap=max_new_cap,
         device=None if tp is not None else device, eos_id=eos_id, policy=policy, paged=paged,
@@ -596,14 +608,20 @@ def _run_router(
     pad_to: int, max_new_cap: int, eos_id: Optional[int], policy: str, paged: bool,
     block_size: int, num_blocks: Optional[int], chunked: bool,
     prefill_budget: Optional[int], prefix_cache: bool,
-    priority_boost_after: Optional[float], seed: int, return_requests: bool = False,
+    priority_boost_after: Optional[float], seed: int, tp: Optional[int] = None,
+    group=None, return_requests: bool = False,
 ):
     """``run_scheduler`` through a ``ReplicaRouter``: one shared queue over
     N pools (core/router.py). ``tokens_per_s`` is the wall rate of the
     replicas sharing this host (and, on one card, its stream);
     ``aggregate_tokens_per_s`` is the tokens over the busiest replica's own
     seconds (``busy_max_s``), the rate a fleet with a card a replica would
-    serve at, emulated, not measured."""
+    serve at, emulated, not measured. A DP x TP fleet (``tp > 1``, this
+    rank's ``group``) adds ``tp``, the backend, the largest replica's KV and
+    param bytes a rank (``kv_reserved_per_device_bytes``,
+    ``param_bytes_per_device``; ``kv_reserved_bytes`` stays the fleet's
+    pools counted whole) and each replica's reduces and their host seconds
+    (``per_replica``)."""
     from repro_torch.core.router import ReplicaRouter
 
     if policy != "continuous":
@@ -613,8 +631,10 @@ def _run_router(
         max_new_cap=max_new_cap, eos_id=eos_id, paged=paged, block_size=block_size,
         num_blocks=num_blocks, chunked=chunked, prefill_budget=prefill_budget,
         prefix_cache=prefix_cache, priority_boost_after=priority_boost_after,
-        base_key=prng.PRNGKey(seed),
+        base_key=prng.PRNGKey(seed), tp=tp, group=group,
     )
+    groups = [s.tp.group for s in router.replicas] if router.tp is not None else []
+    reduces0 = [(g.n_reduces, g.reduce_s) for g in groups]
     cards = {s.device for s in router.replicas}
     for dev in cards:
         _sync(dev)
@@ -643,10 +663,22 @@ def _run_router(
         per_replica=router.replica_report(done),
         device=",".join(sorted(str(d) for d in cards)),
     )
+    if groups:
+        # each a collective on its replica's group, every rank in one order
+        m.update(
+            tp=router.tp, backend=",".join(sorted({g.backend for g in groups})),
+            kv_reserved_per_device_bytes=max(
+                tp_pool.max_per_device_bytes(s.pool.cache, s.tp.group) for s in router.replicas),
+            param_bytes_per_device=max(
+                tp_pool.max_per_device_bytes(s.tp.params, s.tp.group) for s in router.replicas),
+        )
+        for e, g, (n0, s0) in zip(m["per_replica"], groups, reduces0):
+            e.update(backend=g.backend, reduces=g.n_reduces - n0, reduce_s=g.reduce_s - s0)
     if paged:
         bo = [s.mean_block_occupancy for s in router.replicas if s.block_occupancy_trace]
         pool0 = router.replicas[0].pool
-        token_bytes = pool0.reserved_bytes / max(pool0.num_blocks * pool0.block_size, 1)
+        token_bytes = router.reserved_bytes / max(
+            len(router.replicas) * pool0.num_blocks * pool0.block_size, 1)
         m.update(
             n_preemptions=router.n_preemptions,
             mean_block_occupancy=float(np.mean(bo)) if bo else 0.0,
@@ -812,8 +844,9 @@ def main(argv=None):
     ap.add_argument("--replicas", type=int, default=None,
                     help="data-parallel replica pools behind one shared queue "
                          "(core/router.py), each of --batch-slots slots; on the one card "
-                         "(round-robin over several), on the CPU with --device cpu "
-                         "(default: one scheduler, no router)")
+                         "(round-robin over several), on the CPU with --device cpu; with "
+                         "--tp, each replica a tensor-parallel pool (default: one "
+                         "scheduler, no router)")
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the random weights, the trace and the serve key")
@@ -831,7 +864,7 @@ def main(argv=None):
                          "dynamic), the whole model before any tensor-parallel shard")
     ap.add_argument("--tp-devices", default=None, metavar="DEVS",
                     help="comma list of the ranks' devices, e.g. cuda:0,cuda:0 (two ranks on "
-                         "one card)")
+                         "one card); with --replicas, one group that the replicas wrap onto")
     args = ap.parse_args(argv)
     if args.chunked and not args.paged:
         ap.error("--chunked requires --paged (chunks append into KV blocks)")
@@ -841,8 +874,6 @@ def main(argv=None):
     if args.mix_classes and (args.profile_mix or args.shared_prefix):
         ap.error("--mix-classes is its own trace generator; drop --profile-mix / "
                  "--shared-prefix")
-    if args.tp is not None and args.replicas is not None:
-        ap.error(f"--tp with --replicas: {tp_pool.ROADMAP_ITEM}")
     if args.tp is None:
         return _serve(args)
     # refused before any rank starts (the ROADMAP item named)
@@ -859,9 +890,27 @@ def _serve_rank(group, args):
     return _serve(args, group)
 
 
+def fleet_devices(args) -> Optional[list]:
+    """A DP x TP fleet's device groups, one ``--tp``-sized tuple a replica:
+    ``--tp-devices`` is one group (``cuda:0,cuda:0``: two ranks on one
+    card), which the replicas wrap onto whole, as
+    ``sharding.replica_devices`` wraps them; on the CPU every rank is
+    there; else None (the router's ``auto``: whole groups of the cards)."""
+    from repro_torch.distributed import sharding
+
+    if args.tp_devices:
+        one = args.tp_devices.split(",")
+    elif torch.device(args.device).type != "cuda":
+        one = [args.device] * args.tp
+    else:
+        return None
+    return sharding.replica_devices(args.replicas, one, group_size=args.tp)
+
+
 def _serve(args, group=None):
     """Build, warm and serve per ``args``; with ``group`` as that rank of a
-    tensor-parallel pool, rank 0 printing. Returns the metrics."""
+    tensor-parallel pool (with ``--replicas``: of every replica of a DP x TP
+    fleet), rank 0 printing. Returns the metrics."""
     device = group.device if group is not None else resolve_device(args.device)
     cfg, model, params = build_model(args.arch, smoke=args.smoke, seed=args.seed,
                                      device=device, n_layers=args.n_layers)
@@ -871,9 +920,10 @@ def _serve(args, group=None):
         with torch.inference_mode():
             params = quantization.quantize_params(params, args.quant)
     tp = None
-    if group is not None:
+    if group is not None:  # a fleet's router cuts its replicas' shards from the whole
         tp = tp_pool.TPContext(model, params, group)
-        model, params = tp.model, tp.params
+        if args.replicas is None:
+            model, params = tp.model, tp.params
     prof = data_mod.PAPER_PROFILES[args.profile]
     mask_offset = None
     if cfg.vlm is not None:  # a VLM's contrastive requests draw image tokens
@@ -926,11 +976,15 @@ def _serve(args, group=None):
         if not args.paged:
             raise
         raise SystemExit(f"--paged: {e}") from e
+    run_kw = dict(tp=tp)
+    if tp is not None and args.replicas is not None:
+        tp = None  # the warm-up's shard goes: the router cuts each replica's own
+        run_kw = dict(tp=args.tp, group=group, devices=fleet_devices(args) or "auto")
     m = run_scheduler(
         model, params, reqs, slots=args.batch_slots, pad_to=pad_to,
         max_new_cap=args.max_new, device=device, eos_id=args.eos_id,
         policy=args.policy, priority_boost_after=args.boost_after, seed=args.seed,
-        replicas=args.replicas, tp=tp, **geometry,
+        replicas=args.replicas, **run_kw, **geometry,
     )
     if group is not None and group.rank != 0:
         return m
@@ -979,7 +1033,7 @@ def _serve(args, group=None):
                   f"tpot p50={row['tpot_p50_ms']:.1f}ms p99={row['tpot_p99_ms']:.1f}ms")
     if args.boost_after is not None:
         print(f"[serve/{mode}] priority boosts={m['priority_boosts']}")
-    if tp is not None:
+    if "tp" in m and args.replicas is None:
         print(f"[serve/{mode}] tp={m['tp']} on {args.tp_devices or device} ({m['backend']}) | "
               f"kv reserved/rank={m['kv_reserved_per_device_bytes'] / 1e6:.1f}MB of "
               f"{m['kv_reserved_bytes'] / 1e6:.1f}MB "
@@ -989,6 +1043,11 @@ def _serve(args, group=None):
               f"forwards" + ("" if "spec_steps" in m else
                              f", {m['reduces'] / m['forwards']:g} a forward"))
     if args.replicas is not None:
+        if "tp" in m:  # the reference's line, with the rank's params and backend
+            print(f"[serve/{mode}] tp={m['tp']} | kv reserved/device="
+                  f"{m['kv_reserved_per_device_bytes'] / 1e6:.1f}MB (pool "
+                  f"{m['kv_reserved_bytes'] / 1e6:.1f}MB logical) | params/device="
+                  f"{m['param_bytes_per_device'] / 1e6:.1f}MB | {m['backend']}")
         print(f"[serve/{mode}] spills={m['spills']} | requeues={m['requeues']} | "
               f"steps max={m['steps_max']} | aggregate={m['aggregate_tokens_per_s']:.1f} "
               f"tok/s over busy max={m['busy_max_s']:.2f}s (a card a replica, emulated; "
@@ -998,7 +1057,9 @@ def _serve(args, group=None):
                   f"steps={e['decode_steps']} | prefills={e['prefills']} | "
                   f"preempt={e['preemptions']} | busy={e['busy_s']:.2f}s | "
                   f"occ={e['mean_slot_occupancy']:.2f} | ttft p50={e['ttft_p50_ms']:.0f}ms | "
-                  f"tpot p50={e['tpot_p50_ms']:.1f}ms")
+                  f"tpot p50={e['tpot_p50_ms']:.1f}ms"
+                  + (f" | on {e['device']} | reduces={e['reduces']} "
+                     f"({e['reduce_s'] * 1e3:.1f} ms host)" if "reduces" in e else ""))
     return m
 
 

@@ -499,7 +499,7 @@ def test_serve_main_replicas_on_cpu_prints_fleet_lines(capsys):
 
 def test_no_card_no_fallback(pair):
     """Without a card ``devices='auto'`` and ``--replicas`` raise unless the
-    CPU is asked for; a tensor-parallel fleet is refused by name."""
+    CPU is asked for, a tensor-parallel fleet's too."""
     if torch.cuda.is_available():
         pytest.skip("this host has a card; the refusal is for hosts without one")
     _, _, model, params = pair
@@ -508,8 +508,8 @@ def test_no_card_no_fallback(pair):
         router.ReplicaRouter(model, params, replicas=2, **geo)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "llama3.2-1b", "--smoke", "--replicas", "2"])
-    with pytest.raises(ValueError, match="ROADMAP Queue 1, step 6"):
-        router.ReplicaRouter(model, params, replicas=2, tp=2, devices=["cpu"] * 2, **geo)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        router.ReplicaRouter(model, params, replicas=2, tp=2, **geo)
     with pytest.raises(ValueError):
         router.ReplicaRouter(model, params, replicas=0, devices=[], **geo)
     with pytest.raises(ValueError):

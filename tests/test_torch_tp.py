@@ -410,15 +410,6 @@ def test_shared_slots_give_gloos_results(slot_ranks, case):
             assert got == want
 
 
-def test_router_refuses_tp_by_its_roadmap_item():
-    from repro_torch.core.router import ReplicaRouter
-
-    model, params = _plain_pair()
-    with pytest.raises(ValueError, match="ROADMAP Queue 1, step 6"):
-        ReplicaRouter(model, params, replicas=1, slots=2, pad_to=8, max_new_cap=4,
-                      devices=["cpu"], tp=2)
-
-
 def test_tp_steps_are_hot_paths():
     from repro_torch.analysis.hotpath import HOT_PATHS
 
