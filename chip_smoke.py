@@ -7,8 +7,9 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero and prints no result). They are listed
 by number; they run in this order: 1-4, 7b, then 7f (tp) beside 4b-7 and
-8-10, the tp kernel records, 7g (tp fleet, with the card to itself), then
-12-13 (moe, mla: a process of their own)
+8-10, the tp kernel records, 7g (tp fleet) and 7h (ep) with the card to
+themselves, the ep kernel records, then 12-13 (moe, mla: a process of their
+own)
 beside 7d, 7e, 7c, 11, 16 and 18, the MLA and hybrid kernel records, 14,
 15, 17. Served steps keep the host busy and the card mostly idle, so the
 work beside overlaps well; the phases that run beside another (``BESIDE``,
@@ -282,6 +283,33 @@ under that load. Every kernel record is timed with the card to itself.
              MoE and MLA models the card ran out of memory). Printed,
              labelled as 7f's: wall, tok/s, the aggregate over
              ``busy_max_s`` and each replica's reduces and their host ms;
+7h. ep — expert parallelism (``moe.moe_ffn_ep``) at EP = 2: two
+             ``torch.distributed`` processes on cuda:0 under gloo, one
+             ``tp_pool.ep_group`` of both, each rank with 2 x 256 tokens of
+             its own. Full-width MoE layers of qwen3-moe-30b-a3b (bf16 and
+             f32) and deepseek-v2-236b (bf16), seeded, forward and backward
+             of ``sum(out * ct) + aux`` on the plain path: the output, the
+             aux, the rank's expert gradients, its x gradient and the
+             router's and shared experts' (summed over the ranks) within
+             their type's tolerance of ``moe_ffn_ep_plain`` (every rank in
+             one process on the whole experts, one rank at a time), the
+             same forward with the two sources' chunks swapped before the
+             experts (``sources_swapped``) outside it, 2 exchanges forward
+             and 2 backward. Then qwen3-moe-30b-a3b cut to 4 layers at
+             dropless capacity (E / k), its experts split over the ranks:
+             a train forward with no gradient on the kernels, launches
+             exactly ``_want_counts``' (flash 4) on both ranks, 8
+             exchanges and 4 aux reduces, finite logits within
+             EP_DLOGIT_BOUND of the one-device forward on the rank's batch
+             and the control above it. Printed, labelled as 7f's: the
+             drops, a layer's exchange bytes and host ms, its experts' bmm
+             by CUDA events beside their bound, its forward at EP = 2 and
+             at TP = 2 (``moe_ffn(tp=)``, one reduce), the model's
+             exchanges one by one, the file system of the shared slots.
+             Its kernel records: flash and RMSNorm add at the model's
+             shapes, launches from rank 0's run. ``python3 chip_smoke.py
+             ep`` runs device, build and this phase alone, with no result
+             lines;
 8. hstu    — full-width HSTU (14 layers, d 512, 8 heads, band 1024 from
              layer 3, bf16, seeded weights) scores 8 user histories from
              ``hstu_user_histories(seed=0)``, right-padded with ``lengths``:
@@ -4302,8 +4330,8 @@ def forcing(rec):
 
     real_moe = M.moe_ffn
 
-    def moe_spy(cfg, p, x, impl="auto", tp=None):
-        out = real_moe(cfg, p, x, impl, tp)
+    def moe_spy(cfg, p, x, impl="auto", tp=None, ep=None):
+        out = real_moe(cfg, p, x, impl, tp, ep)
         if rec.lanes is not None:
             n = x.shape[0] * x.shape[1]
             probs, _, ids = M.route(cfg, p, x.reshape(n, -1))
@@ -5598,11 +5626,11 @@ def routing_log(log):
 
     real = M.moe_ffn
 
-    def spy(cfg, p, x, impl="auto", tp=None):
+    def spy(cfg, p, x, impl="auto", tp=None, ep=None):
         n = x.shape[0] * x.shape[1]
         ids = M.route(cfg, p, x.reshape(n, -1))[2]
         log.append(ids.reshape(x.shape[0], x.shape[1], -1).sort(-1).values)
-        return real(cfg, p, x, impl, tp)
+        return real(cfg, p, x, impl, tp, ep)
 
     M.moe_ffn = spy
     try:
@@ -8105,6 +8133,435 @@ def phase_tp_fleet(pad_to, want):
     return r0
 
 
+# ---------------------------------------------------------------- ep
+#: the ep arm: expert parallelism (``moe.moe_ffn_ep``) over EP_RANKS gloo
+#: ranks on the one card (the TP_DEVICES pair), each with EP_TOKENS tokens
+#: of its own
+EP_RANKS = 2
+EP_TOKENS = (2, 256)
+#: the full-width MoE layers held forward and backward against the plain
+#: version: arm -> (arch, dtype)
+EP_LAYERS = {"qwen3-moe": ("qwen3-moe-30b-a3b", "bfloat16"),
+             "deepseek-v2": ("deepseek-v2-236b", "bfloat16"),
+             "qwen3-moe f32": ("qwen3-moe-30b-a3b", "float32")}
+#: the model arm: qwen3-moe-30b-a3b cut to this depth, dropless
+EP_MODEL, EP_MODEL_LAYERS = "qwen3-moe-30b-a3b", 4
+#: the model arm's max |dlogit| against the one-device forward, set between
+#: its sound reading and the sources-swapped control's
+EP_DLOGIT_BOUND = 1.0
+#: the layer arms' timed forwards a rank (EP and TP = 2)
+EP_TIMED = 5
+
+
+@contextlib.contextmanager
+def sources_swapped():
+    """The control: every dispatch exchange of ``moe_ffn_ep`` (the first of
+    each layer's two) hands the experts the two sources' chunks swapped, so
+    each token's experts read the other rank's tokens; the outputs go back
+    by the exchange's own order."""
+    from repro_torch.distributed import tp_pool
+
+    real, calls = tp_pool.all_to_all, [0]
+
+    def swapped(x, group):
+        y = real(x, group)
+        calls[0] += 1
+        if calls[0] % 2:
+            y = y.reshape(group.size, -1, *y.shape[1:]).flip(0).reshape(y.shape)
+        return y
+
+    tp_pool.all_to_all = swapped
+    try:
+        yield
+    finally:
+        tp_pool.all_to_all = real
+
+
+@contextlib.contextmanager
+def exchange_log():
+    """Records each ``tp_pool.all_to_all`` made within: its host ms."""
+    from repro_torch.distributed import tp_pool
+
+    real, log = tp_pool.all_to_all, []
+
+    def logged(x, group):
+        t0 = time.perf_counter()
+        y = real(x, group)
+        log.append(round((time.perf_counter() - t0) * 1e3, 3))
+        return y
+
+    tp_pool.all_to_all = logged
+    try:
+        yield log
+    finally:
+        tp_pool.all_to_all = real
+
+
+def fs_type(path: str) -> str:
+    """The type of the file system ``path`` lies on (``/proc/mounts``' longest
+    mount point above it)."""
+    best, kind = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt = parts[1]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) and len(mnt) > len(best):
+                best, kind = mnt, parts[2]
+    return kind
+
+
+def _outside(got, want, dtype_name: str):
+    """(max |got - want| in f32, whether any element is outside atol + rtol
+    * |want| of the type or not finite)."""
+    import torch
+
+    g, w = got.detach().float(), want.detach().float()
+    atol, rtol = TOL[dtype_name]
+    diff = (g - w).abs()
+    bad = bool((diff > atol + rtol * w.abs()).any()) or not bool(torch.isfinite(g).all())
+    return float(diff.max()), bad
+
+
+def _walls_ms(fn, n: int = EP_TIMED):
+    """The median host-clock ms of ``n`` calls of ``fn``, each ended by a
+    synchronize (a call that exchanges waits on the host anyway)."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def ep_layer(arch, dtype, group, ep):
+    """One full-width MoE layer of ``arch`` in ``dtype`` (seeded, the same
+    whole layer on both ranks) at EP = 2 on this rank, each rank with its
+    own EP_TOKENS: the forward and the backward of ``sum(out * ct) + aux``
+    (``impl="torch"``: no kernel has a backward), held against the plain
+    version on every rank's tokens (``moe_ffn_ep_plain``, whole experts:
+    the output, the aux, the rank's expert gradients, its x gradient, and
+    the router's and the shared experts' summed over the ranks); the same
+    forward with the sources swapped (``sources_swapped``); the drops, the
+    exchanges' bytes and host ms, the experts' bmm alone by CUDA events,
+    and the same layer at TP = 2 (``moe_ffn(tp=)``, one reduce; rank 0's
+    tokens on both ranks) timed beside."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe as M
+
+    dev = group.device
+    cfg = get_config(arch).replace(dtype=dtype)
+    m, d = cfg.moe, cfg.d_model
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 35)
+    with torch.no_grad():
+        whole = M.init_moe(gen, cfg, dev)
+        xs = [_rand(gen, (*EP_TOKENS, d), dt, dev) for _ in range(EP_RANKS)]
+        cts = [_rand(gen, (*EP_TOKENS, d), torch.float32, dev) for _ in range(EP_RANKS)]
+    mine = sharding.shard_tree(whole, sharding.ep_param_specs(cfg, whole, EP_RANKS), ep.rank,
+                               EP_RANKS)
+
+    def live(tree):  # leaves of their own on the same storage
+        return sharding.map_with_path(lambda _, t: t.detach().requires_grad_(True), tree)
+
+    out = {"arch": arch, "dtype": dtype,
+           "cap": M.expert_capacity(xs[0].shape[0] * xs[0].shape[1], cfg)}
+    p, x = live(mine), xs[ep.rank].clone().requires_grad_(True)
+    c0 = (ep.n_exchanges, ep.exchange_bytes, ep.exchange_s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, aux = M.moe_ffn(cfg, p, x, impl="torch", ep=ep)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    c1 = (ep.n_exchanges, ep.exchange_bytes, ep.exchange_s)
+    (torch.sum(y.float() * cts[ep.rank]) + aux).backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out.update(fwd_ms=(t1 - t0) * 1e3, bwd_ms=(t2 - t1) * 1e3,
+               fwd_exchanges=c1[0] - c0[0], fwd_bytes=c1[1] - c0[1],
+               fwd_exchange_ms=(c1[2] - c0[2]) * 1e3, bwd_exchanges=ep.n_exchanges - c1[0],
+               bwd_exchange_ms=(ep.exchange_s - c1[2]) * 1e3)
+    _, _, plan = M.ep_dispatch(cfg, mine, xs[ep.rank].reshape(-1, d))
+    out["dropped"] = int((~plan.keep).sum())
+    out["assignments"] = int(plan.keep.numel())
+
+    def whole_leaves(tree):  # the leaves every rank holds whole
+        leaves = {"router": tree["router"]["w"]}
+        for w in ("w1", "w3", "w2") if "shared" in tree else ():
+            leaves[f"shared {w}"] = tree["shared"][w]["w"]
+        return leaves
+
+    # the ranks' shares of the whole leaves' gradients, summed
+    summed = {k: group.all_reduce(t.grad.detach().clone()) for k, t in whole_leaves(p).items()}
+    # the plain version (every rank in this process, on the whole experts),
+    # one rank at a time: its whole layer's gradients are the arm's largest
+    # tensors (deepseek-v2's 7.5 GB of experts, twice over as they add up)
+    el = m.n_experts // EP_RANKS
+    blk = slice(ep.rank * el, (ep.rank + 1) * el)
+    for turn in range(EP_RANKS):
+        if turn == ep.rank:
+            pw = live(whole)
+            xw = [t.clone().requires_grad_(True) for t in xs]
+            outs, paux = M.moe_ffn_ep_plain(cfg, pw, xw, EP_RANKS, impl="torch")
+            sum(torch.sum(o.float() * c) + paux for o, c in zip(outs, cts)).backward()
+            errs = {"out": _outside(y, outs[ep.rank], dtype),
+                    "aux": _outside(aux.reshape(1), paux.reshape(1), dtype),
+                    "x grad": _outside(x.grad, xw[ep.rank].grad, dtype)}
+            for w in ("w1", "w3", "w2"):
+                errs[f"{w} grad"] = _outside(p[w].grad, pw[w].grad[blk], dtype)
+            for k, t in whole_leaves(pw).items():
+                errs[f"{k} grad"] = _outside(summed[k], t.grad, dtype)
+            del pw, xw, outs, paux
+            torch.cuda.empty_cache()
+        dist.barrier()
+    out["errs"] = errs
+
+    with torch.no_grad():
+        with sources_swapped():
+            yc, _ = M.moe_ffn(cfg, mine, xs[ep.rank], impl="torch", ep=ep)
+        out["control"] = _outside(yc, y.detach(), dtype)
+        del p, x, y, aux, yc
+        torch.cuda.empty_cache()
+        x_send, _, _ = M.ep_dispatch(cfg, mine, xs[ep.rank].reshape(-1, d))
+        x_recv = ep.all_to_all(x_send)
+        out["bmm_ms"] = cuda_ms(lambda: M.ep_experts(mine, x_recv, EP_RANKS), samples=10,
+                                inner=5)
+        rows = x_recv.shape[0]
+        out["bmm_bytes"] = (3 * el * d * m.d_ff_expert + 2 * rows * d) * x_recv.element_size()
+        out["bmm_flops"] = rows * 3 * 2 * d * m.d_ff_expert
+        c0 = (ep.n_exchanges, ep.exchange_s)
+        out["ep_ms"] = _walls_ms(lambda: M.moe_ffn(cfg, mine, xs[ep.rank], impl="torch", ep=ep))
+        out["ep_exchange_ms"] = (ep.exchange_s - c0[1]) * 1e3 / (ep.n_exchanges - c0[0])
+        del mine, x_send, x_recv
+        tp_whole = {"moe": whole}
+        ptp = sharding.shard_tree(tp_whole, sharding.tp_param_specs(cfg, tp_whole, EP_RANKS),
+                                  group.rank, EP_RANKS)["moe"]
+        del whole, tp_whole
+        torch.cuda.empty_cache()
+        r0, s0 = group.n_reduces, group.reduce_s
+        out["tp_ms"] = _walls_ms(lambda: M.moe_ffn(cfg, ptp, xs[0], impl="torch", tp=group))
+        out["tp_reduces"] = (group.n_reduces - r0) / EP_TIMED
+        out["tp_reduce_ms"] = (group.reduce_s - s0) * 1e3 / EP_TIMED
+    del ptp
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_model(group, ep):
+    """qwen3-moe-30b-a3b at full width cut to EP_MODEL_LAYERS, dropless
+    (capacity E / k), its experts split over the EP group and each rank with
+    a batch of its own: the train forward with no gradient on the kernels
+    (``impl="auto"``), its launch counters set to 0 just before and read
+    just after, and its exchanges and reduces counted; against the
+    one-device forward of the whole model on the same batch (max
+    |dlogit|), and the sources-swapped control's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+
+    dev = group.device
+    cfg0, _, params = serve.build_model(EP_MODEL, smoke=False, seed=SEED, device=dev,
+                                        n_layers=EP_MODEL_LAYERS)
+    cfg = cfg0.replace(moe=dataclasses.replace(
+        cfg0.moe, capacity_factor=cfg0.moe.n_experts / cfg0.moe.top_k))
+    one = get_model(cfg)
+    mine = sharding.shard_tree(params, sharding.ep_param_specs(cfg, params, EP_RANKS),
+                               ep.rank, EP_RANKS)
+    model = dataclasses.replace(one, ep=ep)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40 + ep.rank)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, EP_TOKENS, generator=gen, device=dev)}
+    with torch.no_grad():
+        want = one.forward(params, batch, impl="auto")[0]
+        del params
+        torch.cuda.empty_cache()
+        n0, r0, s0, b0 = ep.n_exchanges, group.n_reduces, ep.exchange_s, ep.exchange_bytes
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with exchange_log() as log:
+            got = model.forward(mine, batch, impl="auto")[0]
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = _read_counts()
+        out = dict(counts=counts, want=_want_counts(cfg, 1, flash_attention=EP_MODEL_LAYERS),
+                   exchanges=ep.n_exchanges - n0, reduces=group.n_reduces - r0,
+                   exchange_ms=(ep.exchange_s - s0) * 1e3, wall_ms=wall, each_ms=log,
+                   exchange_bytes=ep.exchange_bytes - b0,
+                   n_moe=sum(1 for i in range(cfg.n_layers) if i >= cfg.moe.first_dense_layers),
+                   finite=bool(torch.isfinite(got).all()),
+                   dlogit=float((got - want).abs().max()),
+                   logit_scale=float(want.abs().max()))
+        with sources_swapped():
+            ctrl = model.forward(mine, batch, impl="auto")[0]
+        out["control"] = float((ctrl - want).abs().max())
+    return out
+
+
+def ep_rank(group):
+    """One rank of the ep arm (``tp_pool.spawn``; both on cuda:0, gloo): its
+    EP group (``tp_pool.ep_group``: both ranks, the whole group its own
+    ``whole``), each of EP_LAYERS (``ep_layer``) and the model
+    (``ep_model``). Returns the rank's numbers."""
+    import torch
+
+    from repro_torch.distributed import tp_pool
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ep = tp_pool.ep_group(group, EP_RANKS)
+    out = {"rank": group.rank, "slots": ep.slots is not None, "backend": ep.backend,
+           "layers": {}, "store_fs": fs_type(os.path.dirname(os.path.realpath(group.store)))}
+    for arm, (arch, dtype) in EP_LAYERS.items():
+        out["layers"][arm] = ep_layer(arch, dtype, group, ep)
+    out["model"] = ep_model(group, ep)
+    out["seconds"] = time.perf_counter() - t0
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def phase_ep():
+    """Expert parallelism at EP = 2 (``ep_rank``): two ``torch.distributed``
+    processes on the one card under gloo, each rank with EP_TOKENS of its
+    own. Each of EP_LAYERS, forward and backward: the output, aux and every
+    gradient within its type's tolerance of the plain version, and the
+    sources-swapped control outside it. The model arm: launches exactly
+    ``_want_counts``' (flash a layer) on both ranks, 2 exchanges a MoE layer
+    and one aux reduce, finite logits within EP_DLOGIT_BOUND of the
+    one-device forward's, and the control above it. Prints the drops, a
+    layer's exchanges (bytes and host ms), its experts' bmm beside their
+    bound, and its forward at EP = 2 and at TP = 2 (TP_LABEL). Returns
+    rank 0's numbers."""
+    from repro_torch.distributed import tp_pool
+
+    t0 = time.perf_counter()
+    with expandable_segments():
+        ranks = tp_pool.spawn(ep_rank, EP_RANKS, devices=list(TP_DEVICES))
+    label = tp_label()
+    for r in ranks:
+        check(r["backend"] == "gloo" and r["slots"], f"ep rank {r['rank']}: backend "
+              f"{r['backend']}, shared slots {r['slots']}")
+        for arm, res in r["layers"].items():
+            tag = f"ep {arm} rank {r['rank']}"
+            bad = {k: v for k, v in res["errs"].items() if v[1]}
+            check(not bad, f"{tag}: outside the {res['dtype']} tolerance of the plain version: "
+                  f"{bad}")
+            check(res["control"][1], f"{tag} control: the sources swapped stayed within the "
+                  f"{res['dtype']} tolerance (max |diff| {res['control'][0]})")
+            check(res["fwd_exchanges"] == 2 and res["bwd_exchanges"] == 2,
+                  f"{tag}: {res['fwd_exchanges']} exchanges forward and "
+                  f"{res['bwd_exchanges']} backward, not 2 and 2")
+            errs = ", ".join(f"{k} {v[0]:.3e}" for k, v in res["errs"].items())
+            print(f"[ep {arm}] rank {r['rank']} | {res['arch']} layer, {res['dtype']}, "
+                  f"{EP_TOKENS[0]} x {EP_TOKENS[1]} tokens a rank, capacity {res['cap']} an "
+                  f"expert a source | dropped {res['dropped']} of {res['assignments']} "
+                  f"assignments | max |err| against the plain version: {errs} (tolerance "
+                  f"{TOL[res['dtype']]}) | sources swapped {res['control'][0]:.3e} (outside)",
+                  flush=True)
+        for arm, res in r["layers"].items():
+            bound_ms, by = bound(res["bmm_bytes"], res["bmm_flops"],
+                                 BF16_FLOPS_PER_S if res["dtype"] == "bfloat16"
+                                 else F32_FLOPS_PER_S)
+            print(f"[ep {arm}] rank {r['rank']} | {label} | forward {res['fwd_ms']:.3f} ms, "
+                  f"backward {res['bwd_ms']:.3f} ms (the first, graph and all) | an exchange "
+                  f"{res['fwd_bytes'] // 2} B each way, {res['fwd_exchange_ms'] / 2:.3f} ms "
+                  f"host (backward {res['bwd_exchange_ms'] / 2:.3f}) | experts' bmm "
+                  f"{res['bmm_ms']:.4f} ms (bound {bound_ms:.4f} ms, {by}) | a forward, median "
+                  f"of {EP_TIMED}: EP = 2 {res['ep_ms']:.3f} ms ({res['ep_exchange_ms']:.3f} "
+                  f"ms host an exchange) / TP = 2 (moe_ffn(tp=)) {res['tp_ms']:.3f} ms "
+                  f"({res['tp_reduces']:.0f} reduce, {res['tp_reduce_ms']:.3f} ms host)",
+                  flush=True)
+        mo = r["model"]
+        tag = f"ep model rank {r['rank']}"
+        check(mo["counts"] == mo["want"], f"{tag}: launches {mo['counts']}, want {mo['want']}")
+        check(mo["exchanges"] == 2 * mo["n_moe"] and mo["reduces"] == mo["n_moe"],
+              f"{tag}: {mo['exchanges']} exchanges and {mo['reduces']} reduces over "
+              f"{mo['n_moe']} MoE layers, want 2 and 1 a layer")
+        check(mo["finite"] and mo["dlogit"] <= EP_DLOGIT_BOUND,
+              f"{tag}: max |dlogit| {mo['dlogit']} against the one-device forward (bound "
+              f"{EP_DLOGIT_BOUND}; finite {mo['finite']})")
+        check(mo["control"] > EP_DLOGIT_BOUND, f"{tag} control: the sources swapped stayed "
+              f"within the bound ({mo['control']} <= {EP_DLOGIT_BOUND})")
+        launched = {k: v for k, v in mo["counts"].items() if v}
+        print(f"[ep model] rank {r['rank']} | {EP_MODEL} {EP_MODEL_LAYERS} layers, dropless, "
+              f"{EP_TOKENS[0]} x {EP_TOKENS[1]} tokens a rank, train forward on the kernels "
+              f"| launches {launched} (exact) | {mo['exchanges']} exchanges, "
+              f"{mo['exchange_bytes'] // mo['exchanges']} B each way each (dropless "
+              f"capacity), {mo['exchange_ms']:.3f} ms host ({mo['each_ms']} each), "
+              f"{mo['reduces']} aux reduces | wall {mo['wall_ms']:.3f} ms ({label}) | max "
+              f"|dlogit| against the one-device "
+              f"forward {mo['dlogit']:.6f} (logits up to {mo['logit_scale']:.3f}; bound "
+              f"{EP_DLOGIT_BOUND}) | sources swapped {mo['control']:.6f}", flush=True)
+    print(f"[ep] the shared slots' file on {ranks[0]['store_fs']} | the ranks "
+          f"{ranks[0]['seconds']:.1f} s | phase {time.perf_counter() - t0:.1f} s "
+          f"| max_memory_allocated a process {[r['peak_bytes'] for r in ranks]} B", flush=True)
+    return ranks[0]
+
+
+def ep_kernel_records(r0):
+    """The kernels at the ep model's shapes as kernel records, launches from
+    rank 0's run: flash at its prefill (q [2, 256, 32, 128], k/v 4 heads,
+    causal) and RMSNorm add at [2, 256, 2048], against their plain versions,
+    timed beside their bound and the library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    cfg = get_config(EP_MODEL)
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 36)
+    b, t = EP_TOKENS
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = hq // hkv
+    q = _rand(gen, (b, t, hq, dh), bf, dev)
+    k, v = (_rand(gen, (b, t, hkv, dh), bf, dev) for _ in range(2))
+    pos = int_positions(b, t, dev)
+    kw = dict(q_positions=pos, k_positions=pos, causal=True)
+    counts = r0["model"]["counts"]
+    recs = []
+    kernel_record(recs, f"q[{b},{t},{hq},{dh}] kv[{b},{t},{hkv},{dh}] bf16 causal ({EP_MODEL} "
+                  f"prefill at EP = {EP_RANKS}, a rank's own tokens)",
+                  lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                  lambda: fa.flash_attention_plain(q, k, v, **kw),
+                  lambda qt=q.transpose(1, 2), ke=per_head(k, g), ve=per_head(v, g):
+                  F.scaled_dot_product_attention(qt, ke, ve, is_causal=True),
+                  max_err(fa.flash_attention_cuda(q, k, v, **kw),
+                          fa.flash_attention_plain(q, k, v, **kw), "bfloat16"),
+                  (2 * q.numel() + 2 * k.numel()) * 2 + 2 * b * t * 4,
+                  b * t * (t + 1) // 2 * hq * 4 * dh, counts["flash_attention"], **FLASH_SRC)
+    x = _rand(gen, (b, t, cfg.d_model), bf, dev) * 3
+    r = _rand(gen, (b, t, cfg.d_model), bf, dev)
+    w = (1 + 0.1 * _rand(gen, (cfg.d_model,), torch.float32, dev)).to(bf)
+    work = rmsnorm_work("add", x.numel(), cfg.d_model)
+    kernel_record(recs, f"add x[{b},{t},{cfg.d_model}] bf16 ({EP_MODEL} at EP = {EP_RANKS})",
+                  lambda: rn.add_rmsnorm_cuda(x, r, w)[1],
+                  lambda: rn.add_rmsnorm_plain(x, r, w)[1], None,
+                  max_err(rn.add_rmsnorm_cuda(x, r, w)[1], rn.add_rmsnorm_plain(x, r, w)[1],
+                          "bfloat16"),
+                  work["bytes"], work["flops"], counts["rmsnorm/add"], name="rmsnorm",
+                  prologue="add", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+                  replaces="src/repro/kernels/rmsnorm.py:25", peak=work["peak"])
+    finish_records(recs)
+    for rec in recs:
+        check(rec["launches"] > 0, f"{rec['name']} {rec['shape']}: not launched on the ep path")
+    return recs
+
+
 def tp_kernel_records(pad_to, r0):
     """The attention kernels at a rank's shapes of full-width llama3.2-1b at
     TP = 2 (16 q heads over 4 KV heads of 64): flash at the served prefill,
@@ -8824,6 +9281,16 @@ def main() -> None:
             fail("the tp phase failed")
         print("[tp] the tp phase alone passed", flush=True)
         return
+    if sys.argv[1:2] == ["ep"]:  # the ep arm alone: no result lines
+        try:
+            phase_device()
+            phase_build()
+            ep_kernel_records(phase_ep())
+        except Exception:
+            traceback.print_exc()
+            fail("the ep arm failed")
+        print("[ep] the ep arm alone passed", flush=True)
+        return
     try:
         gpu = timed("device", phase_device)
         timed("build", phase_build)
@@ -8864,6 +9331,8 @@ def main() -> None:
         # beside the tp ranks' MoE and MLA models the card ran out of memory
         TP_BESIDE["on"] = False
         timed("tp fleet", phase_tp_fleet, pad_to, fleet_want)
+        # expert parallelism's two processes, the card to themselves too
+        records += timed("ep kernel records", ep_kernel_records, timed("ep", phase_ep))
         # the moe and mla phases serve in a process of their own beside the
         # BESIDE["moe, mla"] phases; their kernel records wait for the join
         side = Beside("moe, mla", side_moe, pad_to, process=True)

@@ -30,7 +30,9 @@ fallback: the hybrid's one-head ring, split along its rows where they
 divide the ranks and whole on every rank where they do not; MLA's
 ``latent`` matches no KV leaf and stays whole), and :func:`shard_tree`
 cuts each rank's slice, the counterpart of ``device_put`` under a
-``NamedSharding``.
+``NamedSharding``. Expert parallelism (``moe.moe_ffn_ep``) cuts every MoE
+layer's routed experts into contiguous blocks on the expert axis and keeps
+every other leaf whole (:func:`ep_param_specs`, the reference's ``pspec``).
 """
 from __future__ import annotations
 
@@ -402,6 +404,31 @@ def tp_param_specs(cfg: ModelConfig, params_like: Any, tp: int) -> Any:
         return rule(path)
 
     return map_with_path(fix, params_like)
+
+
+#: a MoE layer's routed experts ([E, d, f] / [E, f, d]); its shared experts
+#: (``shared/w1`` ...) and router stay whole under expert parallelism
+_EXPERTS = re.compile(r"(^|moe/)(w1|w3|w2)$")
+
+
+def ep_param_specs(cfg: ModelConfig, params_like: Any, ep: int) -> Any:
+    """The expert-parallel spec tree of a MoE layer's params or a whole
+    model's at ``ep`` ranks, the reference's ``moe_ffn_ep`` layout
+    (``pspec``): every MoE layer's ``w1``, ``w3`` and ``w2`` split on the
+    expert axis into contiguous blocks (``("model", None, None)``; rank r
+    holds experts ``[r * E / ep, (r + 1) * E / ep)``), every other leaf
+    (the router, the shared experts, attention, the dense layers) whole on
+    every rank. Raises when ``moe.n_experts`` does not split over ``ep``."""
+    m = cfg.moe
+    if m is None:
+        raise ValueError(f"{cfg.name}: expert parallelism needs a MoE config")
+    if m.n_experts % ep:
+        raise ValueError(f"moe.n_experts = {m.n_experts} does not split over ep = {ep}")
+
+    def spec(path, leaf):
+        return ("model", None, None) if _EXPERTS.search(path) else ()
+
+    return map_with_path(spec, params_like)
 
 
 def ssm_rank_columns(cfg: ModelConfig, rank: int, size: int) -> Tuple[torch.Tensor,

@@ -29,7 +29,8 @@ two collectives the model uses) and a :class:`TPContext`:
 
 Collectives are ``all_reduce`` (sum, and max for an AutoQuant'd ``dyn``
 row-parallel linear's activation scale) and ``broadcast``, which gloo
-offers on CUDA tensors; ``TPGroup`` counts the reduces. The backend
+offers on CUDA tensors, and expert parallelism's ``all_to_all``;
+``TPGroup`` counts the reduces and the exchanges. The backend
 follows one rule: ``gloo`` when the ranks run on the CPU or share a card
 (NCCL refuses two ranks on one device), ``nccl`` when each rank has a card
 of its own. Gloo ranks that meet through a file store share a host, and
@@ -47,6 +48,15 @@ alike and enter the same collectives in the same order. Each replica's
 collectives are its own (:func:`replica_group`: a process group and shared
 slots a replica), and replicas on one device group share the rank's shard
 (:meth:`TPContext.on_group`).
+
+Expert parallelism (the reference's ``moe_ffn_ep``, ``models/moe.py``)
+runs on the same spawned processes: :func:`ep_group` gives each rank its
+group in a ``(data, ep)`` layout of them, whose tiled
+:meth:`TPGroup.all_to_all` exchanges a MoE layer's tokens (staged through
+host memory: gloo has no all-to-all for CUDA tensors). :func:`all_to_all`
+and :func:`group_mean` (the aux loss's mean over the whole layout) are the
+port's first collectives that autograd passes through; the TP pool's run
+under no gradient.
 
 A collective waits on the host (through the slots or gloo), so a TP step
 syncs: the no-sync contract of ``Scheduler.step_begin`` holds for
@@ -166,29 +176,58 @@ class SharedSlots:
         if self.rank != src:
             x.copy_(self._slot(parity, src, x))
 
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The tiled exchange of ``x`` [size, rows, width] (row block r for
+        rank r): a host tensor of x's shape whose block r is rank r's block
+        ``self.rank``. In rounds of at most SLOT_BYTES a rank, each round a
+        run of rows of every block (at least one row: the caller checks that
+        a row of every block fits)."""
+        size, rows, width = x.shape
+        per_round = SLOT_BYTES // (size * width * x.element_size())
+        out = torch.empty(x.shape, dtype=x.dtype)
+        for a in range(0, rows, per_round):
+            part = x[:, a:a + per_round]
+            self.seq += 1
+            parity = self.seq % 2
+            self._slot(parity, self.rank, part).copy_(part)
+            self._meet()
+            for r in range(size):
+                out[r, a:a + part.shape[1]] = self._slot(parity, r, part)[self.rank]
+        return out
+
 
 class TPGroup:
     """One rank's handle on its tensor-parallel group: ``rank`` of ``size``
-    on ``device``, and the group's two collectives, through ``slots`` (a
+    on ``device``, and the group's collectives, through ``slots`` (a
     ``SharedSlots``) when the ranks have them and the tensor fits, else
     through the process group ``pg`` (None: the default one). A group of one
     rank (``size == 1``) needs no process group: its collectives return
     their input. Counts each ``all_reduce`` and its host seconds
-    (``n_reduces``, ``reduce_s``) and each ``broadcast`` (``n_broadcasts``).
-    ``store`` is the path of the file store the ranks met through, beside
-    which a replica's group keeps its own slots (``replica_group``)."""
+    (``n_reduces``, ``reduce_s``), each ``broadcast`` (``n_broadcasts``) and
+    each ``all_to_all``, the bytes it sent and its host seconds
+    (``n_exchanges``, ``exchange_bytes``, ``exchange_s``). ``store`` is the
+    path of the file store the ranks met through, beside which a replica's
+    or an expert-parallel group keeps its own slots (``replica_group``,
+    ``ep_group``). ``whole``: the group of every rank of an expert-parallel
+    layout, over which a MoE layer averages its aux loss (``ep_group``;
+    None: this group)."""
 
     def __init__(self, rank: int, size: int, device, backend: Optional[str] = None,
-                 slots: Optional[SharedSlots] = None, pg=None, store: Optional[str] = None):
+                 slots: Optional[SharedSlots] = None, pg=None, store: Optional[str] = None,
+                 whole: Optional["TPGroup"] = None):
         self.rank, self.size = rank, size
         self.device = torch.device(device)
         self.backend = backend
         self.slots = slots
         self.pg = pg
         self.store = store
+        self.whole = self if whole is None else whole
         self.n_reduces = 0
         self.reduce_s = 0.0
         self.n_broadcasts = 0
+        self.n_exchanges = 0
+        self.exchange_bytes = 0
+        self.exchange_s = 0.0
 
     def __repr__(self) -> str:
         return f"TPGroup(rank={self.rank}, size={self.size}, device={self.device})"
@@ -231,6 +270,37 @@ class TPGroup:
         self._broadcast(x, src)
         self.n_broadcasts += 1
         return x
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The tiled all-to-all along dim 0 (``jax.lax.all_to_all(x, axis,
+        0, 0, tiled=True)``): chunk j of this rank's ``x`` (``x.shape[0] /
+        size`` rows) goes to rank j, and the result, a new tensor of x's
+        shape on x's device, holds the chunks the ranks sent this one, in
+        rank order. Gloo has no all-to-all for CUDA tensors, so the exchange
+        is staged through host memory either way: through the shared slots
+        where the ranks have them, in rounds of at most SLOT_BYTES a rank
+        when it is larger (each round a run of rows of every chunk: the
+        same copies, no socket round trips); else through gloo's
+        ``all_to_all_single`` on a host copy."""
+        if self.size == 1:
+            return x
+        if x.shape[0] % self.size:
+            raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} does not split into "
+                             f"{self.size} chunks")
+        t = time.perf_counter()
+        chunks = x.reshape(self.size, x.shape[0] // self.size, -1)
+        row_bytes = chunks.shape[2] * chunks.element_size()
+        if self.slots is not None and self.size * row_bytes <= SLOT_BYTES:
+            out = self.slots.all_to_all(chunks)
+        else:
+            host = chunks.cpu().contiguous()
+            out = torch.empty_like(host)
+            dist.all_to_all_single(out, host, group=self.pg)
+        out = out.to(x.device).reshape(x.shape)
+        self.exchange_s += time.perf_counter() - t
+        self.n_exchanges += 1
+        self.exchange_bytes += x.numel() * x.element_size()
+        return out
 
     def _host_scalar(self, value, dtype) -> torch.Tensor:
         # gloo takes host tensors; nccl only device ones
@@ -340,6 +410,78 @@ def replica_group(group: TPGroup, devices: Sequence[Any], replica: int) -> TPGro
     slots = _slots(group.store, f".slots.r{replica}", group.rank, group.size, backend, pg)
     return TPGroup(group.rank, group.size, devs[group.rank], backend, slots, pg=pg,
                    store=group.store)
+
+
+def ep_group(group: TPGroup, ep: int) -> TPGroup:
+    """This rank's handle on its expert-parallel group in a ``(data, ep)``
+    layout of ``group``'s ranks (the reference's ``("data", "model")`` mesh
+    under ``EP_MESH``, ``data = group.size / ep``): rank r sits in data row
+    ``r // ep`` at expert index ``r % ep``, and its group is the row's
+    ``ep`` ranks, with a process group (``dist.new_group``, ``group``'s
+    backend) and, for gloo ranks of a file store, slots of its own beside
+    the store (``<store>.slots.ep<ep>.<row>``). Its ``whole`` is ``group``,
+    over which a MoE layer averages its aux loss. Every rank calls it for a
+    layout once, in the same order. Raises for a layout that does not tile
+    ``group`` and for a group on ``cuda`` on a host without a card: the
+    CPU runs only when asked for."""
+    if ep < 1 or group.size % ep:
+        raise ValueError(f"ep = {ep} does not divide the group's {group.size} ranks")
+    if group.device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"an expert-parallel group on {group.device}, but CUDA is not "
+                           "available (ask for the CPU with devices=['cpu', ...])")
+    if ep == 1:
+        return TPGroup(0, 1, group.device, group.backend, whole=group)
+    row = group.rank // ep
+    pg = None
+    for r in range(group.size // ep):  # every rank makes every row's group
+        made = dist.new_group(list(range(r * ep, (r + 1) * ep)), backend=group.backend)
+        if r == row:
+            pg = made
+    slots = _slots(group.store, f".slots.ep{ep}.{row}", group.rank % ep, ep, group.backend, pg)
+    return TPGroup(group.rank % ep, ep, group.device, group.backend, slots, pg=pg,
+                   store=group.store, whole=group)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``TPGroup.all_to_all`` under autograd. The tiled exchange is its own
+    inverse permutation (chunk j of rank i lands as chunk i of rank j), so
+    its backward is the same exchange of the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_to_all(grad.contiguous()), None
+
+
+class _Mean(torch.autograd.Function):
+    """The mean of a scalar over a group's ranks (``jax.lax.pmean``), every
+    rank holding the result. Its adjoint is the mean of the ranks'
+    incoming gradients: each rank's copy of the mean feeds its own loss."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_reduce(x.detach().reshape(1).clone())[0] / group.size
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = ctx.group.all_reduce(grad.detach().reshape(1).clone())[0] / ctx.group.size
+        return g, None
+
+
+def all_to_all(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    """``group.all_to_all(x)``, differentiable (``_AllToAll``)."""
+    return x if group.size == 1 else _AllToAll.apply(x, group)
+
+
+def group_mean(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    """A scalar ``x``'s mean over ``group``'s ranks, differentiable
+    (``_Mean``)."""
+    return x if group.size == 1 else _Mean.apply(x, group)
 
 
 def _rank_main(rank: int, fn, tp: int, devices, init_method: str, results, args) -> None:

@@ -7,7 +7,11 @@ A tensor-parallel rank's ``Model`` carries its group (``tp``, see
 ``distributed/tp_pool.py``): its config has the rank's widths, and its
 forward reduces over the group (the dense, vlm, moe, mla_moe, ssm, encdec,
 seamless and hybrid families); a hybrid rank's caches also take the group,
-which decides whether its rings split along their rows."""
+which decides whether its rings split along their rows. A ``Model`` bound
+to an expert-parallel group (``ep``, ``distributed/tp_pool.ep_group``; the
+``moe`` and ``mla_moe`` families) runs every MoE layer through
+``moe.moe_ffn_ep`` on its params' block of experts
+(``sharding.ep_param_specs``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -17,6 +21,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, hstu, hybrid, seamless, ssm, transformer, vlm
+
+#: the families whose MoE layers run under expert parallelism
+EP_FAMILIES = ("moe", "mla_moe")
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "mla_moe": transformer, "vlm": vlm,
              "encdec": encdec, "seamless": seamless, "hstu": hstu, "ssm": ssm,
@@ -28,6 +35,7 @@ class Model:
     config: ModelConfig
     module: Any
     tp: Any = None  # a rank's TPGroup; None on one device
+    ep: Any = None  # a rank's expert-parallel group (tp_pool.ep_group)
 
     def init(self, gen: torch.Generator, device) -> Any:
         return self.module.init(self.config, gen, device)
@@ -46,6 +54,12 @@ class Model:
         impl: str = "auto",
     ) -> Tuple[torch.Tensor, Optional[Any], Dict[str, torch.Tensor]]:
         kw = {} if self.tp is None else {"tp": self.tp}
+        if self.ep is not None:
+            if self.config.family not in EP_FAMILIES:
+                raise NotImplementedError(
+                    f"expert parallelism runs the {', '.join(EP_FAMILIES)} families, not "
+                    f"{self.config.family!r}")
+            kw["ep"] = self.ep
         return self.module.forward(self.config, params, batch, cache=cache, mode=mode,
                                    impl=impl, **kw)
 

@@ -77,12 +77,13 @@ def init_layer(gen, cfg: ModelConfig, layer: int, device):
 def _layer_body(cfg: ModelConfig, p, x: torch.Tensor, h: torch.Tensor, *,
                 positions: torch.Tensor, lengths: Optional[torch.Tensor],
                 cache: Optional[dict], mode: str, impl: str,
-                t_new: Optional[torch.Tensor] = None, tp=None):
+                t_new: Optional[torch.Tensor] = None, tp=None, ep=None):
     """One layer from ``x`` and ``h = attn_norm(x)``: returns (x plus the
     attention's output, the FFN's residual delta, the new cache, the MoE
     aux loss or None). The attention's residual add runs in the ffn_norm's
     kernel; under ``tp`` each sublayer returns its output reduced over the
-    ranks."""
+    ranks; under ``ep`` a MoE layer exchanges its tokens with the group's
+    ranks (``moe.moe_ffn_ep``)."""
     kw = dict(positions=positions, lengths=lengths, cache=cache, mode=mode, impl=impl,
               t_new=t_new, tp=tp)
     if cfg.mla is not None:
@@ -91,7 +92,7 @@ def _layer_body(cfg: ModelConfig, p, x: torch.Tensor, h: torch.Tensor, *,
         attn_out, new_cache = A.attention(cfg, p["attn"], h, window=cfg.sliding_window, **kw)
     x, h = L.add_rmsnorm(p["ffn_norm"], x, attn_out, cfg.rmsnorm_eps, impl=impl)
     if "moe" in p:
-        delta, aux = M.moe_ffn(cfg, p["moe"], h, impl, tp)
+        delta, aux = M.moe_ffn(cfg, p["moe"], h, impl, tp, ep)
         return x, delta, new_cache, aux
     return x, L.ffn(p["ffn"], h, impl, tp), new_cache, None
 
@@ -167,6 +168,7 @@ def forward(
     n_layers: Optional[int] = None,
     advance: Optional[torch.Tensor] = None,
     tp=None,
+    ep=None,
 ) -> Tuple[torch.Tensor, Optional[dict], dict]:
     """Returns (logits [B,T,V] f32, new_cache, aux dict). Cache buffers are
     updated in place; ``new_cache`` carries the same layer tensors and a
@@ -188,7 +190,12 @@ def forward(
     length bump in decode mode (a frozen draft slot advances 0). ``extend``
     mode (contiguous caches only) writes a window of T tokens per slot at
     ``lengths`` and advances each slot by T. ``tp`` (a rank's group) runs
-    the rank's shard and returns its vocab slice of the logits."""
+    the rank's shard and returns its vocab slice of the logits. ``ep`` (a
+    rank's expert-parallel group, ``tp_pool.ep_group``) runs every MoE layer
+    through ``moe.moe_ffn_ep`` on the rank's tokens and its block of experts
+    (``sharding.ep_param_specs``), as the reference's ``EP_MESH`` reaches
+    every ``moe_ffn``; in a remat'd train forward the recomputed layers
+    exchange again, in the same order on every rank."""
     check_supported(cfg)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; the stack runs {MODES}")
@@ -234,7 +241,7 @@ def forward(
             lc = dict(lc, **shared)
         body = _layer_body_remat if cfg.remat and mode == "train" else _layer_body
         x, delta, nlc, aux = body(cfg, lp, x, h, positions=positions, lengths=lengths,
-                                  cache=lc, mode=mode, impl=impl, t_new=t_new, tp=tp)
+                                  cache=lc, mode=mode, impl=impl, t_new=t_new, tp=tp, ep=ep)
         if aux is not None:
             aux_total = aux_total + aux
         if bt is not None and nlc is not None:
